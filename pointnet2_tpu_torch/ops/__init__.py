@@ -1,0 +1,77 @@
+"""Point-set operators: public API with dispatch by device.
+
+Each operator on the eval path has a plain PyTorch version in ``ops.core``
+and a CUDA kernel in ``ops.cuda``. ``impl`` picks between them:
+
+- ``None`` (default): the kernel for a CUDA tensor, the plain version for a
+  CPU tensor;
+- ``"torch"``: the plain version on either device, for comparisons;
+- ``"cuda"``: the kernel, which raises on a CPU tensor.
+
+There is no fallback: a kernel that fails to build or launch raises.
+``group_points`` and ``interpolation_weights`` have no kernel (the JAX
+package leaves them to XLA as well).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pointnet2_tpu_torch.ops import core, cuda
+from pointnet2_tpu_torch.ops.core import gather_points, group_points, interpolation_weights
+
+IMPLS = (None, "torch", "cuda")
+
+__all__ = [
+    "fps_centroids",
+    "ball_query",
+    "knn",
+    "three_nn",
+    "three_interpolate",
+    "gather_points",
+    "group_points",
+    "interpolation_weights",
+]
+
+
+def _use_kernel(impl: str | None, t: torch.Tensor) -> bool:
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}, expected one of {IMPLS}")
+    if impl == "cuda" and not t.is_cuda:
+        raise ValueError("impl='cuda' needs CUDA tensors")
+    return impl == "cuda" or (impl is None and t.is_cuda)
+
+
+def fps_centroids(xyz, npoint: int, impl: str | None = None):
+    """FPS indices and centroids: (B, N, 3) -> ((B, npoint) int32, (B, npoint, 3))."""
+    if _use_kernel(impl, xyz):
+        return cuda.fps_centroids(xyz, npoint)
+    return core.fps_centroids(xyz, npoint)
+
+
+def ball_query(xyz1, xyz2, radius: float, nsample: int, impl: str | None = None):
+    """First ``nsample`` in-ball points in dataset order: idx (B, M, nsample), cnt (B, M)."""
+    if _use_kernel(impl, xyz1):
+        return cuda.ball_query(xyz1, xyz2, radius, nsample)
+    return core.ball_query(xyz1, xyz2, radius, nsample)
+
+
+def knn(xyz1, xyz2, k: int, impl: str | None = None):
+    """k exact nearest neighbours, squared distances ascending: (dist2, idx)."""
+    if _use_kernel(impl, xyz1):
+        return cuda.knn(xyz1, xyz2, k)
+    return core.knn(xyz1, xyz2, k)
+
+
+def three_nn(xyz1, xyz2, impl: str | None = None):
+    """3-NN of each xyz1 point among xyz2, squared distances: (dist2, idx)."""
+    if _use_kernel(impl, xyz1):
+        return cuda.three_nn(xyz1, xyz2)
+    return core.three_nn(xyz1, xyz2)
+
+
+def three_interpolate(points, idx, weight, impl: str | None = None):
+    """Inverse-distance blend of three rows: (B, M, C), (B, N, 3) x2 -> (B, N, C)."""
+    if _use_kernel(impl, points):
+        return cuda.three_interpolate(points, idx, weight)
+    return core.three_interpolate(points, idx, weight)

@@ -1,0 +1,129 @@
+"""The port stands alone: no JAX and nothing of pointnet2_tpu, and no silent CPU path.
+
+These tests import neither JAX nor the JAX package themselves.
+"""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from pointnet2_tpu_torch import ops
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "pointnet2_tpu_torch"
+
+
+def _port_modules():
+    mods = []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_importing_the_port_loads_no_jax():
+    mods = _port_modules() + ["chip_smoke"]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pointnet2_tpu'))\n"
+        "print(len(bad), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    run = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert len(mods) >= 15
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|pointnet2_tpu)(?:\.|\s|$)", re.MULTILINE
+)
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")) + ["chip_smoke.py"],
+)
+def test_source_has_no_jax_or_reference_import(path):
+    text = (ROOT / path).read_text()
+    assert not _FORBIDDEN.search(text), path
+
+
+def test_the_scan_catches_forbidden_imports():
+    for line in ("import jax", "from jax import numpy", "import pointnet2_tpu.ops",
+                 "from pointnet2_tpu import ops", "  import flax.linen"):
+        assert _FORBIDDEN.search(line), line
+    for line in ("import pointnet2_tpu_torch", "from pointnet2_tpu_torch.ops import core"):
+        assert not _FORBIDDEN.search(line), line
+
+
+@pytest.mark.parametrize("op", ["fps_centroids", "ball_query", "knn", "three_nn", "three_interpolate"])
+def test_impl_cuda_on_a_cpu_tensor_raises(op):
+    xyz = torch.rand(1, 32, 3)
+    args = {
+        "fps_centroids": (xyz, 8),
+        "ball_query": (xyz, xyz[:, :8].contiguous(), 0.5, 4),
+        "knn": (xyz, xyz, 3),
+        "three_nn": (xyz, xyz),
+        "three_interpolate": (torch.rand(1, 8, 4), torch.zeros(1, 32, 3, dtype=torch.int32), torch.rand(1, 32, 3)),
+    }[op]
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(ops, op)(*args, impl="cuda")
+
+
+@pytest.mark.parametrize("name", ["fps_centroids", "ball_query", "knn", "three_interpolate"])
+def test_kernel_wrappers_refuse_cpu_tensors(name):
+    """Called directly, a wrapper never runs a plain version in the kernel's place."""
+    from pointnet2_tpu_torch.ops import cuda
+
+    xyz = torch.rand(1, 32, 3)
+    args = {
+        "fps_centroids": (xyz, 8),
+        "ball_query": (xyz, xyz, 0.5, 4),
+        "knn": (xyz, xyz, 3),
+        "three_interpolate": (torch.rand(1, 8, 4), torch.zeros(1, 32, 3, dtype=torch.int32), torch.rand(1, 32, 3)),
+    }[name]
+    before = dict(cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(cuda, name)(*args)
+    assert dict(cuda.LAUNCHES) == before
+
+
+def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    run = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+    assert run.returncode != 0
+    assert '"ok"' not in run.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """In a directory with chip_smoke.py and nothing else of the repo, it cannot run."""
+    (tmp_path / "chip_smoke.py").write_text((ROOT / "chip_smoke.py").read_text())
+    run = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True, text=True, timeout=300,
+        env={"PATH": "/usr/bin:/bin", "HOME": str(tmp_path)},
+    )
+    assert run.returncode != 0
+    assert '"ok"' not in run.stdout
+
+
+def test_build_names_its_flags_and_library_by_source_hash():
+    from pointnet2_tpu_torch.ops.cuda import build
+
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS and "-fmad=false" in build.NVCC_FLAGS
+    paths = {name: build.library_path(name) for name in build.SOURCES}
+    assert len(set(paths.values())) == len(build.SOURCES)
+    for name, path in paths.items():
+        assert (build.CSRC_DIR / f"{name}.cu").exists()
+        assert path.parent == build.BUILD_DIR and path.suffix == ".so"
+    assert build.BUILD_DIR == PORT / "build"
