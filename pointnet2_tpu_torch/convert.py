@@ -11,6 +11,7 @@ port's ``PointNet2SemSeg`` by name:
   layout under the dotted path.
 
 Every leaf is consumed exactly once: a missing or a leftover leaf raises.
+``to_flax_variables`` is the inverse, from a ``state_dict`` back to the tree.
 ``init_variables`` builds a tree in the same flax layout from a seed, so a run
 needs neither JAX nor a checkpoint.
 """
@@ -88,6 +89,25 @@ def from_flax_variables(variables: Mapping) -> dict[str, torch.Tensor]:
     use_color = np.shape(params["sa1"]["w0"])[0] == 6
     num_classes = np.shape(params["fc2"]["kernel"])[1]
     return state_dict_from_flax(variables, _template(use_color, num_classes))
+
+
+def to_flax_variables(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The flax variable tree (numpy leaves) of a ``PointNet2SemSeg`` state_dict.
+
+    The inverse of ``from_flax_variables``: every key once, ``weight``
+    transposed back into ``kernel``.
+    """
+    tree: dict = {}
+    for key, tensor in state_dict.items():
+        path, transposed = _flax_key(key)
+        arr = tensor.detach().cpu().numpy()
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        if path[-1] in node:
+            raise KeyError(f"{key} maps onto {'/'.join(path)} twice")
+        node[path[-1]] = np.array(arr.T if transposed else arr)
+    return tree
 
 
 def init_variables(cfg: Config, num_classes: int = 9, seed: int = 0) -> dict:

@@ -26,7 +26,7 @@ def resolve_device(device: Optional[str | torch.device]) -> torch.device:
     """``None`` means CUDA, which must be present; anything else is taken as given."""
     if device is None:
         if not torch.cuda.is_available():
-            raise RuntimeError("Predictor runs on CUDA by default and no CUDA device is available; pass device='cpu' to run on the CPU")
+            raise RuntimeError("the port runs on CUDA by default and no CUDA device is available; pass device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
 
@@ -35,6 +35,18 @@ def full_float32() -> None:
     """Keep float32 matmuls and convolutions in float32 (TF32 off)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@torch.no_grad()
+def chunked_logits(model: PointNet2SemSeg, x: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The eval forward of ``model`` over ``x (B, N, 3+C)`` in chunks of ``chunk`` clouds.
+
+    A chunk size that is 0, not below B, or does not divide B runs the batch whole.
+    """
+    b = x.shape[0]
+    if chunk and 0 < chunk < b and b % chunk == 0:
+        return torch.cat([model(c) for c in x.split(chunk)])
+    return model(x)
 
 
 class Predictor:
@@ -61,15 +73,10 @@ class Predictor:
         model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()
 
-    @torch.no_grad()
     def infer_logits(self, points: np.ndarray | torch.Tensor) -> torch.Tensor:
         """(B, N, 3+C) float32 -> (B, N, num_classes) logits on the Predictor's device."""
         x = torch.as_tensor(points, dtype=torch.float32).to(self.device)
-        b = x.shape[0]
-        chunk = self.infer_chunk
-        if chunk and 0 < chunk < b and b % chunk == 0:
-            return torch.cat([self.model(c) for c in x.split(chunk)])
-        return self.model(x)
+        return chunked_logits(self.model, x, self.infer_chunk)
 
     def predict_step(self, points: np.ndarray | torch.Tensor) -> torch.Tensor:
         """(B, N, 3+C) float32 -> (B, N) int32 labels."""

@@ -1,7 +1,7 @@
 """Point-set operators: public API with dispatch by device.
 
-Each operator on the eval path has a plain PyTorch version in ``ops.core``
-and a CUDA kernel in ``ops.cuda``. ``impl`` picks between them:
+Each operator on the eval and train paths has a plain PyTorch version in
+``ops.core`` and a CUDA kernel in ``ops.cuda``. ``impl`` picks between them:
 
 - ``None`` (default): the kernel for a CUDA tensor, the plain version for a
   CPU tensor;
@@ -10,14 +10,18 @@ and a CUDA kernel in ``ops.cuda``. ``impl`` picks between them:
 
 There is no fallback: a kernel that fails to build or launch raises.
 ``group_points`` and ``interpolation_weights`` have no kernel (the JAX
-package leaves them to XLA as well).
+package leaves them to XLA as well). ``three_interpolate`` is differentiable
+through its own backward (``three_interpolate_grad``, by the same ``impl``),
+``fps_centroids`` gives ``xyz`` the gather's gradient, and
+``project_group_leaf`` has the zero-input-gradient backward; see
+``ops.autograd``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from pointnet2_tpu_torch.ops import core, cuda
+from pointnet2_tpu_torch.ops import autograd, core, cuda
 from pointnet2_tpu_torch.ops.core import gather_points, group_points, interpolation_weights
 
 IMPLS = (None, "torch", "cuda")
@@ -28,6 +32,8 @@ __all__ = [
     "knn",
     "three_nn",
     "three_interpolate",
+    "three_interpolate_grad",
+    "project_group_leaf",
     "gather_points",
     "group_points",
     "interpolation_weights",
@@ -44,7 +50,10 @@ def _use_kernel(impl: str | None, t: torch.Tensor) -> bool:
 
 def fps_centroids(xyz, npoint: int, impl: str | None = None):
     """FPS indices and centroids: (B, N, 3) -> ((B, npoint) int32, (B, npoint, 3))."""
-    if _use_kernel(impl, xyz):
+    use_kernel = _use_kernel(impl, xyz)
+    if xyz.requires_grad and torch.is_grad_enabled():
+        return autograd.FpsCentroids.apply(xyz, npoint, use_kernel)
+    if use_kernel:
         return cuda.fps_centroids(xyz, npoint)
     return core.fps_centroids(xyz, npoint)
 
@@ -72,6 +81,16 @@ def three_nn(xyz1, xyz2, impl: str | None = None):
 
 def three_interpolate(points, idx, weight, impl: str | None = None):
     """Inverse-distance blend of three rows: (B, M, C), (B, N, 3) x2 -> (B, N, C)."""
-    if _use_kernel(impl, points):
-        return cuda.three_interpolate(points, idx, weight)
-    return core.three_interpolate(points, idx, weight)
+    return autograd.ThreeInterpolate.apply(points, idx, weight, _use_kernel(impl, points))
+
+
+def three_interpolate_grad(g, idx, weight, m: int, impl: str | None = None):
+    """The ``points`` cotangent of ``three_interpolate``: g (B, N, C) -> (B, m, C)."""
+    if _use_kernel(impl, g):
+        return cuda.three_interpolate_grad(g, idx, weight, m)
+    return core.three_interpolate_grad(g, idx, weight, m)
+
+
+def project_group_leaf(inputs, w, b, idx):
+    """``group_points(inputs @ w + b, idx)`` for an input cloud that needs no gradient."""
+    return autograd.ProjectGroupLeaf.apply(inputs, w, b, idx)

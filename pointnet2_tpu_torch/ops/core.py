@@ -148,11 +148,47 @@ def interpolation_weights(dist2: Tensor) -> Tensor:
     return inv / inv.sum(dim=-1, keepdim=True)
 
 
+def _floating(t: Tensor) -> Tensor:
+    """float32 and float64 pass (float64 is what ``gradcheck`` feeds); anything else becomes float32."""
+    return t if t.dtype in (torch.float32, torch.float64) else t.float()
+
+
 def three_interpolate(points: Tensor, idx: Tensor, weight: Tensor) -> Tensor:
     """points (B, M, C), idx/weight (B, N, 3) -> (B, N, C), float32.
 
     ``w0*p[i0] + w1*p[i1] + w2*p[i2]``, summed left to right, as the kernel does.
     """
-    g = group_points(points.float(), idx)  # (B, N, 3, C)
-    w = weight.float()[..., None]
+    g = group_points(_floating(points), idx)  # (B, N, 3, C)
+    w = _floating(weight)[..., None]
     return g[:, :, 0] * w[:, :, 0] + g[:, :, 1] * w[:, :, 1] + g[:, :, 2] * w[:, :, 2]
+
+
+def three_interpolate_grad(g: Tensor, idx: Tensor, weight: Tensor, m: int) -> Tensor:
+    """The cotangent of ``three_interpolate``'s ``points``: g (B, N, C) -> (B, M, C).
+
+    ``dpoints[m, c]`` is the sum of ``weight[q, j] * g[q, c]`` over the pairs
+    (q, j) with ``idx[q, j] == m`` (ThreeInterpolateGrad): three ``index_add_``
+    calls, one per neighbour slot j, in that order.
+    """
+    g = _floating(g)
+    w = _floating(weight).to(g.dtype)
+    b, _, c = g.shape
+    out = torch.zeros((b, m, c), dtype=g.dtype, device=g.device)
+    flat = out.view(b * m, c)
+    rows = idx.long() + torch.arange(b, device=g.device)[:, None, None] * m  # (B, N, 3)
+    for j in range(3):
+        flat.index_add_(0, rows[:, :, j].reshape(-1), (g * w[:, :, j, None]).reshape(-1, c))
+    return out
+
+
+def three_interpolate_weight_grad(g: Tensor, points: Tensor, idx: Tensor) -> Tensor:
+    """The cotangent of ``three_interpolate``'s ``weight``: (B, N, 3).
+
+    The dot of ``g[q]`` with each of the three gathered rows.
+    """
+    return (group_points(_floating(points), idx) * _floating(g)[:, :, None, :]).sum(-1)
+
+
+def project_group_leaf(inputs: Tensor, w: Tensor, b: Tensor, idx: Tensor) -> Tensor:
+    """``group_points(inputs @ w + b, idx)``: (B, N, cin), (cin, f0), (f0,), (B, M, K) -> (B, M, K, f0)."""
+    return group_points(inputs @ w + b, idx)

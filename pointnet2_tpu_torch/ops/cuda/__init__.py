@@ -9,7 +9,7 @@ plain versions instead.
 from pointnet2_tpu_torch.ops.cuda.ballquery import ball_query
 from pointnet2_tpu_torch.ops.cuda.common import LAUNCHES, reset_launches
 from pointnet2_tpu_torch.ops.cuda.fps import fps_centroids
-from pointnet2_tpu_torch.ops.cuda.interpolate import three_interpolate
+from pointnet2_tpu_torch.ops.cuda.interpolate import three_interpolate, three_interpolate_grad
 from pointnet2_tpu_torch.ops.cuda.knn import knn, three_nn
 
 __all__ = [
@@ -20,4 +20,5 @@ __all__ = [
     "knn",
     "three_nn",
     "three_interpolate",
+    "three_interpolate_grad",
 ]

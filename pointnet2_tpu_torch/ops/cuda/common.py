@@ -20,6 +20,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+LONG = ctypes.c_longlong
 FLOAT = ctypes.c_float
 
 # (source, symbol) -> the ctypes function, with its argtypes set.
@@ -30,10 +31,13 @@ def reset_launches() -> None:
     LAUNCHES.clear()
 
 
-def require(t: torch.Tensor, what: str, dtype: torch.dtype, shape: tuple) -> None:
+def require(
+    t: torch.Tensor, what: str, dtype: torch.dtype, shape: tuple, contiguous: bool = True
+) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and ``shape``.
 
-    ``shape`` may hold None for a dimension that is not fixed.
+    ``shape`` may hold None for a dimension that is not fixed. With
+    ``contiguous=False`` the layout is the caller's to settle.
     """
     if not isinstance(t, torch.Tensor) or not t.is_cuda:
         raise ValueError(f"{what} must be a CUDA tensor for the kernel")
@@ -43,7 +47,7 @@ def require(t: torch.Tensor, what: str, dtype: torch.dtype, shape: tuple) -> Non
         want is not None and got != want for got, want in zip(t.shape, shape)
     ):
         raise ValueError(f"{what} must have shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
 
 

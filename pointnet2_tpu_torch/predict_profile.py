@@ -37,6 +37,7 @@ PORT_KERNELS = {
     "ball_query": "ball_query_kernel",
     "knn": "knn_kernel",
     "three_interpolate": "three_interpolate_kernel",
+    "three_interpolate_grad": "three_interpolate_grad_kernel",
 }
 
 
@@ -52,15 +53,47 @@ def _category(name: str) -> str:
         if symbol in name:
             return kernel
     lowered = name.lower()
+    if "multi_tensor" in lowered or "adam" in lowered:
+        return "optimizer"
     if "gemm" in lowered or "sgemm" in lowered or "cutlass" in lowered or "matmul" in lowered:
         return "matmul"
-    if "index" in lowered or "gather" in lowered:
-        return "gather"
+    if "index" in lowered or "gather" in lowered or "scatter" in lowered:
+        return "gather_scatter"
     if "reduce" in lowered or "max" in lowered:
         return "reduce"
     if "cat" in lowered:
         return "concat"
     return "elementwise_and_other"
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
+def summarise(prof, wall_ms: float) -> dict:
+    """Device time of a profiled window by category, its busy share, and the 20 largest entries."""
+    by_category: dict[str, float] = {}
+    top = []
+    for ev in prof.key_averages():
+        us = _device_us(ev)
+        if us <= 0 or ev.device_type != DeviceType.CUDA or ev.key.startswith("Optimizer."):
+            continue  # host-side ops and the optimizer's own span carry their kernels' time too: count kernels only
+        cat = _category(ev.key)
+        by_category[cat] = by_category.get(cat, 0.0) + us / 1e3
+        top.append((us / 1e3, ev.count, ev.key[:120]))
+    top.sort(reverse=True)
+    device_ms = sum(by_category.values())
+    return {
+        "wall_ms": wall_ms,
+        "device_ms": device_ms,
+        "device_busy_share": device_ms / wall_ms,
+        "device_ms_by_category": dict(sorted(by_category.items(), key=lambda kv: -kv[1])),
+        "top": [{"ms": ms, "calls": n, "name": name} for ms, n, name in top[:20]],
+        "card": card_line(),
+    }
 
 
 def main(argv=None) -> int:
@@ -91,30 +124,11 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    by_category: dict[str, float] = {}
-    top = []
-    for ev in prof.key_averages():
-        us = _device_us(ev)
-        if us <= 0 or ev.device_type != DeviceType.CUDA:
-            continue  # host-side ops carry their kernels' time too: count kernels only
-        cat = _category(ev.key)
-        by_category[cat] = by_category.get(cat, 0.0) + us / 1e3
-        top.append((us / 1e3, ev.count, ev.key[:120]))
-    top.sort(reverse=True)
-    device_ms = sum(by_category.values())
     result = {
         "requests": REQUESTS,
         "batch": BATCH,
-        "wall_ms": wall_ms,
         "wall_ms_per_request": wall_ms / REQUESTS,
-        "device_ms": device_ms,
-        "device_busy_share": device_ms / wall_ms,
-        "device_ms_by_category": dict(sorted(by_category.items(), key=lambda kv: -kv[1])),
-        "top": [{"ms": ms, "calls": n, "name": name} for ms, n, name in top[:20]],
-        "card": subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True, timeout=60,
-        ).stdout.strip(),
+        **summarise(prof, wall_ms),
     }
     text = json.dumps(result, indent=1)
     print(text)

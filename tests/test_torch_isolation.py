@@ -39,7 +39,9 @@ def test_importing_the_port_loads_no_jax():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300
     )
     assert run.returncode == 0, run.stdout + run.stderr
-    assert len(mods) >= 15
+    assert len(mods) >= 21
+    assert {"pointnet2_tpu_torch.train.trainer", "pointnet2_tpu_torch.utils.metrics",
+            "pointnet2_tpu_torch.ops.autograd", "pointnet2_tpu_torch.train_profile"} <= set(mods)
 
 
 _FORBIDDEN = re.compile(
@@ -64,7 +66,9 @@ def test_the_scan_catches_forbidden_imports():
         assert not _FORBIDDEN.search(line), line
 
 
-@pytest.mark.parametrize("op", ["fps_centroids", "ball_query", "knn", "three_nn", "three_interpolate"])
+@pytest.mark.parametrize(
+    "op", ["fps_centroids", "ball_query", "knn", "three_nn", "three_interpolate", "three_interpolate_grad"]
+)
 def test_impl_cuda_on_a_cpu_tensor_raises(op):
     xyz = torch.rand(1, 32, 3)
     args = {
@@ -73,12 +77,17 @@ def test_impl_cuda_on_a_cpu_tensor_raises(op):
         "knn": (xyz, xyz, 3),
         "three_nn": (xyz, xyz),
         "three_interpolate": (torch.rand(1, 8, 4), torch.zeros(1, 32, 3, dtype=torch.int32), torch.rand(1, 32, 3)),
+        "three_interpolate_grad": (
+            torch.rand(1, 32, 4), torch.zeros(1, 32, 3, dtype=torch.int32), torch.rand(1, 32, 3), 8,
+        ),
     }[op]
     with pytest.raises(ValueError, match="CUDA"):
         getattr(ops, op)(*args, impl="cuda")
 
 
-@pytest.mark.parametrize("name", ["fps_centroids", "ball_query", "knn", "three_interpolate"])
+@pytest.mark.parametrize(
+    "name", ["fps_centroids", "ball_query", "knn", "three_interpolate", "three_interpolate_grad"]
+)
 def test_kernel_wrappers_refuse_cpu_tensors(name):
     """Called directly, a wrapper never runs a plain version in the kernel's place."""
     from pointnet2_tpu_torch.ops import cuda
@@ -89,11 +98,39 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
         "ball_query": (xyz, xyz, 0.5, 4),
         "knn": (xyz, xyz, 3),
         "three_interpolate": (torch.rand(1, 8, 4), torch.zeros(1, 32, 3, dtype=torch.int32), torch.rand(1, 32, 3)),
+        "three_interpolate_grad": (
+            torch.rand(1, 32, 4), torch.zeros(1, 32, 3, dtype=torch.int32), torch.rand(1, 32, 3), 8,
+        ),
     }[name]
     before = dict(cuda.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA"):
         getattr(cuda, name)(*args)
     assert dict(cuda.LAUNCHES) == before
+
+
+def test_trainer_without_cuda_raises_unless_given_the_cpu(monkeypatch):
+    from pointnet2_tpu_torch.config import Config
+    from pointnet2_tpu_torch.train import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = Config(num_point=64, batch_size=2, l1_npoint=16, l2_npoint=8, l3_npoint=4, l4_npoint=2,
+                   l1_nsample=4, l2_nsample=4, l3_nsample=4, l4_nsample=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(small)
+    assert Trainer(small, device="cpu").device.type == "cpu"
+
+
+def test_the_three_interpolate_backward_on_the_kernel_path_has_no_plain_fallback():
+    """With use_kernel the Function calls the CUDA wrappers, which refuse a CPU tensor."""
+    from pointnet2_tpu_torch.ops.autograd import ThreeInterpolate
+
+    args = (torch.rand(1, 8, 4, requires_grad=True), torch.zeros(1, 32, 3, dtype=torch.int32), torch.rand(1, 32, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        ThreeInterpolate.apply(*args, True)
+    out = ThreeInterpolate.apply(*args, False)
+    out.grad_fn.use_kernel = True  # the backward alone on the kernel path
+    with pytest.raises(ValueError, match="CUDA"):
+        out.sum().backward()
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):

@@ -12,9 +12,17 @@ Inputs are seeded numpy arrays fed to both sides. Tolerances:
 - three_interpolate: rtol=1e-6, atol=1e-6 against the Pallas kernel (a
   float32 matmul over a sparse weight block) and the XLA gather form, which
   sum the three products in another order;
-- interpolation_weights: rtol=1e-6 against XLA and the oracle.
+- interpolation_weights: rtol=1e-6 against XLA and the oracle;
+- three_interpolate_grad (the ``points`` cotangent) and the weight cotangent:
+  rtol=1e-5, atol=1e-5 against the Pallas backward kernel in interpret mode
+  (a float32 matmul over a dense W^T block) and against ``jax.vjp`` of the XLA
+  gather form: a coarse row sums a few dozen addends, in another order on
+  each side;
+- project_group_leaf and the fps_centroids input gradient: rtol=1e-5,
+  atol=1e-5 against ``jax.grad``; the leaf's input gradient is exactly zero.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +31,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from pointnet2_tpu.ops import core as jcore
 from pointnet2_tpu.ops import reference
+from pointnet2_tpu import ops as jops
 from pointnet2_tpu.ops.pallas import (
     ball_query_pallas,
     fps_centroids_pallas,
@@ -30,8 +39,11 @@ from pointnet2_tpu.ops.pallas import (
     three_interpolate_pallas,
     three_nn_pallas,
 )
+from pointnet2_tpu.ops.pallas.interpolate import _ti_bwd
 from pointnet2_tpu_torch import ops
 from pointnet2_tpu_torch.ops import core
+
+GRAD_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 def _cloud(rng, b, n, scale=2.0):
@@ -277,6 +289,112 @@ def test_interpolation_weights_match_xla_with_duplicate_points(rng):
     np.testing.assert_allclose(got, reference.interpolation_weights_np(dist), rtol=1e-6)
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got.sum(-1), 1.0, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Gradients: three_interpolate, project_group_leaf, fps_centroids
+# ---------------------------------------------------------------------------
+
+
+# Padding on every axis of the Pallas kernel: N, M and C off the multiples of 128.
+GRAD_SHAPES = [(2, 37, 200, 70), (1, 130, 300, 7), (2, 16, 64, 129)]
+
+
+@pytest.mark.parametrize("b,m,n,c", GRAD_SHAPES)
+def test_three_interpolate_grad_matches_pallas_bwd_and_xla_vjp(rng, b, m, n, c):
+    points, idx, weight = _interp_inputs(rng, b, m, n, c)
+    g = rng.randn(b, n, c).astype(np.float32)
+    got = core.three_interpolate_grad(_t(g), _t(idx), _t(weight), m).numpy()
+    assert got.shape == (b, m, c) and got.dtype == np.float32
+    with pltpu.force_tpu_interpret_mode():
+        pallas = np.asarray(_ti_bwd(jnp.asarray(g), jnp.asarray(idx), jnp.asarray(weight), m, "highest", 128))
+    _, vjp = jax.vjp(lambda p: jcore.three_interpolate(p, idx, weight), jnp.asarray(points))
+    np.testing.assert_allclose(got, pallas, **GRAD_TOL)
+    np.testing.assert_allclose(got, np.asarray(vjp(jnp.asarray(g))[0]), **GRAD_TOL)
+    assert torch.equal(ops.three_interpolate_grad(_t(g), _t(idx), _t(weight), m), torch.from_numpy(got))
+
+
+def test_three_interpolate_grad_with_duplicate_indices_and_zero_weights():
+    """One query naming a row twice adds both weights; a zero weight adds nothing; unnamed rows stay 0."""
+    g = torch.tensor([[[1.0, 2.0], [3.0, 4.0]]])
+    idx = torch.tensor([[[1, 1, 2], [2, 0, 0]]], dtype=torch.int32)
+    weight = torch.tensor([[[0.25, 0.5, 0.25], [1.0, 0.0, 0.0]]])
+    got = core.three_interpolate_grad(g, idx, weight, 4)
+    want = torch.tensor([[[0.0, 0.0], [0.75, 1.5], [3.25, 4.5], [0.0, 0.0]]])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,m,n,c", GRAD_SHAPES[:2])
+def test_three_interpolate_function_gradients_match_pallas_grad(rng, b, m, n, c):
+    points, idx, weight = _interp_inputs(rng, b, m, n, c)
+    cot = rng.randn(b, n, c).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want_p, want_w = jax.grad(
+            lambda p, w: jnp.sum(three_interpolate_pallas(p, idx, w) * cot), argnums=(0, 1)
+        )(jnp.asarray(points), jnp.asarray(weight))
+    p, w = _t(points).requires_grad_(), _t(weight).requires_grad_()
+    out = ops.three_interpolate(p, _t(idx), w)
+    # The cotangent arrives as a slice of a wider tensor, as it does behind the skip concat.
+    wide = torch.cat([_t(cot), torch.zeros(b, n, 5)], dim=-1)[..., :c]
+    assert not wide.is_contiguous()
+    got_p, got_w = torch.autograd.grad(out, (p, w), wide)
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), **GRAD_TOL)
+    np.testing.assert_allclose(got_w.numpy(), np.asarray(want_w), rtol=1e-5, atol=1e-4)
+    # Without a weight that asks for it, no weight cotangent is made.
+    (only_p,) = torch.autograd.grad(ops.three_interpolate(p, _t(idx), _t(weight)), (p,), _t(cot))
+    np.testing.assert_allclose(only_p.numpy(), got_p.numpy(), rtol=0, atol=0)
+
+
+def test_three_interpolate_gradcheck_float64(rng):
+    points, idx, weight = _interp_inputs(rng, 2, 9, 14, 3)
+    p = _t(points).double().requires_grad_()
+    w = _t(weight).double().requires_grad_()
+    assert torch.autograd.gradcheck(lambda a, b: ops.three_interpolate(a, _t(idx), b), (p, w), eps=1e-6, atol=1e-6)
+    assert torch.autograd.gradcheck(lambda a, b: core.three_interpolate(a, _t(idx), b), (p, w), eps=1e-6, atol=1e-6)
+
+
+def _leaf_inputs(rng, b=2, n=100, m=20, k=8, cin=6, f0=16):
+    inputs = rng.randn(b, n, cin).astype(np.float32)
+    w = (rng.randn(cin, f0) * 0.3).astype(np.float32)
+    bias = (rng.randn(f0) * 0.1).astype(np.float32)
+    idx = rng.randint(0, n, (b, m, k)).astype(np.int32)
+    cot = rng.randn(b, m, k, f0).astype(np.float32)
+    return inputs, w, bias, idx, cot
+
+
+def test_project_group_leaf_forward_and_gradients_match_jax(rng):
+    inputs, w, bias, idx, cot = _leaf_inputs(rng)
+    with jax.default_matmul_precision("highest"):
+        want = jcore.project_group_leaf(inputs, w, bias, idx)
+        want_w, want_b = jax.grad(
+            lambda w_, b_: jnp.sum(jcore.project_group_leaf(jnp.asarray(inputs), w_, b_, idx) * cot),
+            argnums=(0, 1),
+        )(jnp.asarray(w), jnp.asarray(bias))
+    x, wt, bt = _t(inputs).requires_grad_(), _t(w).requires_grad_(), _t(bias).requires_grad_()
+    out = ops.project_group_leaf(x, wt, bt, _t(idx))
+    assert torch.equal(out, core.group_points(x @ wt + bt, _t(idx)))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), **GRAD_TOL)
+    gx, gw, gb = torch.autograd.grad(out, (x, wt, bt), _t(cot))
+    assert gx.shape == x.shape and not gx.any()  # exactly zero, by construction
+    np.testing.assert_allclose(gw.numpy(), np.asarray(want_w), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(gb.numpy(), np.asarray(want_b), rtol=1e-5, atol=1e-4)
+    # The same parameter gradients as autograd through project-then-group.
+    ref_w, ref_b = torch.autograd.grad(core.group_points(x @ wt + bt, _t(idx)), (wt, bt), _t(cot))
+    np.testing.assert_allclose(gw.numpy(), ref_w.numpy(), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(gb.numpy(), ref_b.numpy(), rtol=1e-5, atol=1e-4)
+
+
+def test_fps_centroids_input_gradient_matches_jax(rng):
+    xyz = _cloud(rng, 2, 80)
+    cot = rng.randn(2, 16, 3).astype(np.float32)
+    want = jax.grad(lambda x: jnp.sum(jops.fps_centroids(x, 16, impl="xla")[1] * cot))(jnp.asarray(xyz))
+    x = _t(xyz).requires_grad_()
+    idx, cent = ops.fps_centroids(x, 16)
+    assert not idx.requires_grad and cent.requires_grad
+    (got,) = torch.autograd.grad(cent, (x,), _t(cot))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=0)
+    # A cloud that asks for no gradient takes the plain call: nothing is recorded.
+    assert not ops.fps_centroids(_t(xyz), 16)[1].requires_grad
 
 
 # ---------------------------------------------------------------------------
