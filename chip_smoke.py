@@ -52,10 +52,35 @@ non-zero and prints no result):
    run). Then an ``accum_steps=4`` Trainer with hoisted geometry takes 2
    steps: FPS, ball query and 3-NN 4 times a step, the two interpolate
    kernels 16 times.
+5. Calibrated windows (``bq_window=3072``, ``fp_window=512``, the production
+   widths; they engage at SA1 and FP4): the four windowed kernels (the
+   windowed ball query, the same with window columns, the window gather, the
+   windowed kNN) equal their plain versions on the sorted inputs the
+   calibrated ops make, at the B=8 chunk and the B=16 batch (the windowed ball
+   query of the train forward at B=16 only), timed beside their bounds
+   (9 operations a pair of the M x w scan; the gather's bytes, with
+   ``index_select`` of the same rows as its library call) and beside the whole
+   calibrated op and the exact op it stands in for (``op_ms``,
+   ``exact_op_ms``). The whole ops equal on the kernel and the plain path,
+   ``ok`` included, with a window that fits and one too small (256 at SA1
+   must give ``ok`` False). Then a windowed ``Predictor`` answers the 3
+   requests through ``predict_step_checked`` (every ``ok`` True; per chunk
+   the fused grouping's two kernels and the windowed kNN once, ball query and
+   3-NN 3 times, FPS and three_interpolate 4 times; labels equal to the
+   no-window path's on >= 99.99 % of points, logits within 1e-4; a
+   ``bq_window=256`` request gives ``ok`` False), and a windowed ``Trainer``
+   takes 1 + 3 Adam steps (``window_ok`` every step; per step the windowed
+   ball query and kNN once, the exact ones 3 times), with the no-window
+   Trainer timed in turns on the same batches; one dropout-free windowed step
+   against the no-window step (loss within 1e-5 relative, gradients within
+   1e-3 of their max abs); and the windows ``auto`` would pick
+   (``calibrate_model_windows``) on the smoke clouds.
 
-Output: one JSON line a kernel and shape, one for the predict run, one for
-the train run, the ``nvidia-smi`` line, one ``{"kernels": [...]}`` line, and last
-``{"ok": true, "device": {...}}``.
+Output: one JSON line a kernel and shape, one for each driven path (predict,
+train, predict_windows, train_windows), the ``nvidia-smi`` line, one
+``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
+Each path's launch counts are reset just before it and read just after;
+the ``kernels`` line sums them.
 """
 
 from __future__ import annotations
@@ -75,6 +100,8 @@ import torch.nn.functional as F
 from pointnet2_tpu_torch import convert, ops
 from pointnet2_tpu_torch.config import Config
 from pointnet2_tpu_torch.infer import Predictor, full_float32
+from pointnet2_tpu_torch.models.pointnet2_seg import SA_MLPS
+from pointnet2_tpu_torch.ops.calibrate import calibrate_model_windows
 from pointnet2_tpu_torch.ops import core, cuda
 from pointnet2_tpu_torch.ops.cuda import build
 from pointnet2_tpu_torch.train import Trainer
@@ -106,9 +133,22 @@ KERNELS = {
     "three_interpolate_grad": (
         "pointnet2_tpu_torch/csrc/interpolate.cu", "pointnet2_tpu/ops/pallas/interpolate.py:112",
     ),
+    "ball_query_sliced": ("pointnet2_tpu_torch/csrc/ballquery.cu", "pointnet2_tpu/ops/pallas/ballquery.py:247"),
+    "ball_query_sliced_pos": ("pointnet2_tpu_torch/csrc/wingather.cu", "pointnet2_tpu/ops/pallas/wingather.py:54"),
+    "window_gather": ("pointnet2_tpu_torch/csrc/wingather.cu", "pointnet2_tpu/ops/pallas/wingather.py:98"),
+    "knn_sliced": ("pointnet2_tpu_torch/csrc/knn.cu", "pointnet2_tpu/ops/pallas/knn.py:133"),
 }
 GEOMETRY_KERNELS = ("fps_centroids", "ball_query", "knn")
 INTERPOLATE_KERNELS = ("three_interpolate", "three_interpolate_grad")
+# The production windows (bench.py's Trainer(bq_window=3072) and its fp_window=512
+# opt-in): at semantic.json's widths they engage at SA1 (8192 points) and FP4
+# (1024 coarse points) and fall back to the exact kernels at the other levels.
+BQ_WINDOW = 3072
+FP_WINDOW = 512
+SMALL_BQ_WINDOW = 256  # too small for SA1: ok must be False
+SMALL_FP_WINDOW = 128
+WINDOW_TRAIN_STEPS = 3
+WINDOW_LOGIT_TOL = 1e-4
 
 
 def emit(obj: dict) -> None:
@@ -196,12 +236,11 @@ class Report:
         self.rows.append(row)
         emit(row)
 
-    def kernels_line(self, predict: dict, train: dict) -> dict:
-        """``launches`` is the sum over the two driven paths (the predict
-        requests and the 5 full-batch train steps), each also given apart.
-        The times are sums over every shape the kernel was held at, those of
-        the B=8 chunk and those of the B=16 train batch; ``ms_by_batch`` and
-        ``plain_ms_by_batch`` give the two apart."""
+    def kernels_line(self, paths: dict) -> dict:
+        """``launches`` is the sum over the driven paths (``paths``: path name ->
+        launch counts, each path's counts reset just before it and read just
+        after), each also given apart. The times are sums over every shape the
+        kernel was held at; ``ms_by_batch`` and the others give the batches apart."""
         out = []
         for name, (source, replaces) in KERNELS.items():
             rows = [r for r in self.rows if r["kernel"] == name]
@@ -212,9 +251,8 @@ class Report:
                 "route": "cuda",
                 "source": source,
                 "replaces": replaces,
-                "launches": predict.get(name, 0) + train.get(name, 0),
-                "launches_predict": predict.get(name, 0),
-                "launches_train": train.get(name, 0),
+                "launches": sum(launches.get(name, 0) for launches in paths.values()),
+                "launches_by_path": {path: launches.get(name, 0) for path, launches in paths.items()},
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": sum(r["kernel_ms"] for r in rows),
                 "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -366,15 +404,145 @@ def grad_kernel_phase(levels: list, seed: int, report: Report) -> None:
             )
 
 
+def window_kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> None:
+    """The four calibrated-window kernels at the shapes a batch of ``b`` gives
+    them, each against its plain version on the same sorted inputs, and the
+    whole calibrated ops (sorts, window starts, certificate) on the kernel
+    path against the plain path, with a window that fits and one too small.
+
+    Row 7, the windowed ball query of the train forward, runs at the train
+    batch (b = 16) only; rows 8 and 9 (the fused eval grouping) and row 10
+    (FP4's windowed 3-NN) at both batches.
+    """
+    dev = torch.device(DEVICE)
+    x = torch.from_numpy(clouds(b, cfg, seed)).to(dev)
+    xyz = x[..., :3].contiguous()
+    sa1, n = cfg.sa_layers[0], cfg.num_point
+    m, ns, r = sa1.npoint, sa1.nsample, sa1.radius
+    _, cent = ops.fps_centroids(xyz, m, impl="cuda")
+    w = core.round_up(BQ_WINDOW, core.LANES)
+    perm, xs, _, qs, lo, ok = core.ball_query_window_plan(xyz, cent, r, w)
+    if not bool(ok):
+        raise AssertionError(f"bq_window={BQ_WINDOW} does not certify SA1 on the smoke clouds")
+    tiles = lo.shape[1]
+    pairs = b * m * w  # the m x w scan of every cloud
+    bq_bytes = b * n * 16 + b * m * 12 + b * tiles * 4  # sorted cloud and indices, sorted queries, starts
+
+    def check_op(name, run, plain, windows, want_ok):
+        """The whole calibrated op on both paths: equal outputs and ok."""
+        for window in windows:
+            got, want = run(window), plain(window)
+            if not all((g is None and h is None) or torch.equal(g, h) for g, h in zip(got, want)):
+                raise AssertionError(f"{name} at window {window}: the kernel path and the plain path disagree")
+            if want_ok.get(window) is not None and bool(got[-1]) != want_ok[window]:
+                raise AssertionError(f"{name} at window {window}: ok {bool(got[-1])}, want {want_ok[window]}")
+
+    if b == BATCH:
+        got = cuda.ball_query_tiles(xs, perm, qs, lo, r, ns, w)
+        want = core.ball_query_tiles(xs, perm, qs, lo, r, ns, w)
+        report.add(
+            "ball_query_sliced", b, f"N={n} M={m} r={r} nsample={ns} w={w}",
+            lambda: cuda.ball_query_tiles(xs, perm, qs, lo, r, ns, w),
+            lambda: core.ball_query_tiles(xs, perm, qs, lo, r, ns, w),
+            nbytes=bq_bytes + b * m * (ns + 1) * 4,
+            nops=9 * pairs,
+            err=0.0,
+            match=all(torch.equal(g, h) for g, h in zip(got, want)),
+            extra={
+                "op_ms": lambda: ops.ball_query_calibrated(xyz, cent, r, ns, BQ_WINDOW, impl="cuda"),
+                "exact_op_ms": lambda: ops.ball_query(xyz, cent, r, ns, impl="cuda"),
+            },
+        )
+        check_op(
+            "ball_query_calibrated",
+            lambda win: ops.ball_query_calibrated(xyz, cent, r, ns, win, impl="cuda"),
+            lambda win: ops.ball_query_calibrated(xyz, cent, r, ns, win, impl="torch"),
+            (BQ_WINDOW, SMALL_BQ_WINDOW), {BQ_WINDOW: True, SMALL_BQ_WINDOW: False},
+        )
+
+    got = cuda.ball_query_tiles_pos(xs, perm, qs, lo, r, ns, w)
+    want = core.ball_query_tiles_pos(xs, perm, qs, lo, r, ns, w)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w0 = torch.randn((cfg.point_dim, SA_MLPS[0][0]), generator=gen, device=dev) * 0.5
+    b0 = torch.randn((SA_MLPS[0][0],), generator=gen, device=dev) * 0.1
+    report.add(
+        "ball_query_sliced_pos", b, f"N={n} M={m} r={r} nsample={ns} w={w}",
+        lambda: cuda.ball_query_tiles_pos(xs, perm, qs, lo, r, ns, w),
+        lambda: core.ball_query_tiles_pos(xs, perm, qs, lo, r, ns, w),
+        nbytes=bq_bytes + b * m * (2 * ns + 1) * 4,
+        nops=9 * pairs,
+        err=0.0,
+        match=all(torch.equal(g, h) for g, h in zip(got, want)),
+        extra={
+            "op_ms": lambda: ops.project_group_calibrated(x, w0, b0, xyz, cent, r, ns, BQ_WINDOW, impl="cuda"),
+            "exact_op_ms": lambda: ops.project_group_leaf(
+                x, w0, b0, ops.ball_query(xyz, cent, r, ns, impl="cuda")[0]
+            ),
+        },
+    )
+    check_op(
+        "project_group_calibrated",
+        lambda win: ops.project_group_calibrated(x, w0, b0, xyz, cent, r, ns, win, impl="cuda"),
+        lambda win: ops.project_group_calibrated(x, w0, b0, xyz, cent, r, ns, win, impl="torch"),
+        (BQ_WINDOW, SMALL_BQ_WINDOW), {BQ_WINDOW: True, SMALL_BQ_WINDOW: False},
+    )
+
+    pos = got[1]
+    zp_s = ops.gather_points(x, perm) @ w0 + b0  # the projected sorted cloud, as the fused op makes it
+    c = zp_s.shape[-1]
+    rows = (lo.long().repeat_interleave(m // tiles, dim=1)[:, :, None] + pos.long()
+            + torch.arange(b, device=dev)[:, None, None] * n).reshape(-1)
+    flat = zp_s.reshape(b * n, c)
+    out = cuda.window_gather(zp_s, lo, pos)
+    report.add(
+        "window_gather", b, f"N={n} M={m} K={ns} C={c}",
+        lambda: cuda.window_gather(zp_s, lo, pos),
+        lambda: core.window_gather(zp_s, lo, pos),
+        nbytes=b * n * c * 4 + b * tiles * 4 + b * m * ns * 4 + b * m * ns * c * 4,
+        nops=0,
+        err=max_abs(out, core.window_gather(zp_s, lo, pos)),
+        match=torch.equal(out, core.window_gather(zp_s, lo, pos))
+        and torch.equal(out.reshape(-1, c), torch.index_select(flat, 0, rows)),
+        library=lambda: torch.index_select(flat, 0, rows),
+    )
+
+    # FP4: the dense cloud's 3-NN among SA1's centroids.
+    wf = core.round_up(FP_WINDOW, core.LANES)
+    fperm, fxs, _, fqs, flo = core.knn_window_plan(cent, xyz, wf)
+    got = cuda.knn_tiles(fxs, fperm, fqs, flo, 3, wf)
+    want = core.knn_tiles(fxs, fperm, fqs, flo, 3, wf)
+    report.add(
+        "knn_sliced", b, f"Nq={n} M={m} k=3 w={wf}",
+        lambda: cuda.knn_tiles(fxs, fperm, fqs, flo, 3, wf),
+        lambda: core.knn_tiles(fxs, fperm, fqs, flo, 3, wf),
+        nbytes=b * m * 16 + b * fqs.shape[1] * 12 + b * flo.shape[1] * 4 + b * fqs.shape[1] * 3 * 8,
+        nops=9 * b * fqs.shape[1] * wf,
+        err=max_abs(got[0], want[0]),
+        match=torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+        extra={
+            "op_ms": lambda: ops.three_nn_calibrated(xyz, cent, FP_WINDOW, impl="cuda"),
+            "exact_op_ms": lambda: ops.three_nn(xyz, cent, impl="cuda"),
+        },
+    )
+    check_op(
+        "three_nn_calibrated",
+        lambda win: ops.three_nn_calibrated(xyz, cent, win, impl="cuda"),
+        lambda win: ops.three_nn_calibrated(xyz, cent, win, impl="torch"),
+        (FP_WINDOW, SMALL_FP_WINDOW), {FP_WINDOW: True},
+    )
+
+
 def _expect_launches(launches: dict, want: dict, what: str) -> None:
+    """Every kernel launched exactly as often as ``want`` says (0 where it has no entry)."""
     got = {name: launches.get(name, 0) for name in KERNELS}
+    want = {name: want.get(name, 0) for name in KERNELS}
     if got != want:
         raise AssertionError(f"{what}: launches {got}, want {want}")
 
 
-def _one_step(cfg: Config, impl, batch: dict, seed: int):
+def _one_step(cfg: Config, impl, batch: dict, seed: int, **windows):
     """Loss and parameter gradients of one dropout-free step from seeded weights."""
-    trainer = Trainer(cfg, ops_impl=impl, dropout_rate=0.0, device=DEVICE)
+    trainer = Trainer(cfg, ops_impl=impl, dropout_rate=0.0, device=DEVICE, **windows)
     trainer.init_state(seed)
     loss = trainer.train_step(batch)["loss"]
     grads = {name: p.grad.clone() for name, p in trainer.model.named_parameters()}
@@ -403,7 +571,10 @@ def train_phase(cfg: Config, seed: int, card: str) -> dict:
         losses.append(float(metrics["loss"]))
     launches = dict(cuda.LAUNCHES)
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    _expect_launches(launches, {name: 4 * TRAIN_STEPS for name in KERNELS}, f"{TRAIN_STEPS} train steps")
+    _expect_launches(
+        launches, {name: 4 * TRAIN_STEPS for name in (*GEOMETRY_KERNELS, *INTERPOLATE_KERNELS)},
+        f"{TRAIN_STEPS} train steps",
+    )
     if not all(np.isfinite(losses)):
         raise AssertionError(f"train losses not finite: {losses}")
     if metrics["confusion"].shape != (9, 9) or int(metrics["confusion"].sum()) != BATCH * cfg.num_point:
@@ -487,8 +658,7 @@ def predict_phase(cfg: Config, requests: int, batch: int, seed: int, card: str) 
 
     chunks = requests * (batch // CHUNK)
     _expect_launches(
-        launches,
-        {name: 0 if name == "three_interpolate_grad" else 4 * chunks for name in KERNELS},
+        launches, {name: 4 * chunks for name in (*GEOMETRY_KERNELS, "three_interpolate")},
         f"{chunks} predict chunks",
     )
 
@@ -524,6 +694,157 @@ def predict_phase(cfg: Config, requests: int, batch: int, seed: int, card: str) 
     return launches
 
 
+def predict_windows_phase(cfg: Config, requests: int, batch: int, seed: int, card: str) -> dict:
+    """The calibrated-window predict path: ``Predictor(bq_window, fp_window)``
+    through ``predict_step_checked``, against the no-window kernel path on the
+    same requests, timed in turns; and a too-small window that must say so."""
+    sd = convert.from_flax_variables(convert.init_variables(cfg, num_classes=9, seed=seed))
+    windowed = Predictor(cfg, sd, infer_chunk=CHUNK, device=DEVICE, bq_window=BQ_WINDOW, fp_window=FP_WINDOW)
+    exact = Predictor(cfg, sd, infer_chunk=CHUNK, device=DEVICE)
+    inputs = [clouds(batch, cfg, seed + 1 + i) for i in range(requests)]
+    windowed.predict_step_checked(inputs[0])  # warm-up
+    exact.predict_step(inputs[0])
+    torch.cuda.synchronize()
+
+    cuda.reset_launches()
+    labels, oks, times = [], [], []
+    for x in inputs:
+        t0 = time.perf_counter()
+        got, ok = windowed.predict_step_checked(x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        labels.append(got)
+        oks.append(ok)
+    launches = dict(cuda.LAUNCHES)
+    chunks = requests * (batch // CHUNK)
+    _expect_launches(
+        launches,
+        {"fps_centroids": 4 * chunks, "three_interpolate": 4 * chunks, "ball_query": 3 * chunks, "knn": 3 * chunks,
+         "ball_query_sliced_pos": chunks, "window_gather": chunks, "knn_sliced": chunks},
+        f"{chunks} windowed predict chunks",
+    )
+    if not all(oks):
+        raise AssertionError(f"window certificates of the smoke requests: {oks}")
+
+    exact_times = []
+    agree = []
+    for x, got in zip(inputs, labels):
+        t0 = time.perf_counter()
+        want = exact.predict_step(x)
+        torch.cuda.synchronize()
+        exact_times.append((time.perf_counter() - t0) * 1e3)
+        agree.append(float((got == want).float().mean()))
+    logits = windowed.infer_logits(inputs[0])
+    logit_err = max_abs(logits, exact.infer_logits(inputs[0]))
+    if not torch.isfinite(logits).all() or min(agree) < 0.9999 or logit_err > WINDOW_LOGIT_TOL:
+        raise AssertionError(f"windowed vs exact path: label agreement {agree}, max abs logit diff {logit_err}")
+    small = Predictor(cfg, sd, infer_chunk=CHUNK, device=DEVICE, bq_window=SMALL_BQ_WINDOW)
+    if small.predict_step_checked(inputs[0])[1]:
+        raise AssertionError(f"bq_window={SMALL_BQ_WINDOW} certified SA1 on the smoke clouds")
+
+    median, exact_median = statistics.median(times), statistics.median(exact_times)
+    emit({
+        "phase": "predict_windows",
+        "bq_window": BQ_WINDOW,
+        "fp_window": FP_WINDOW,
+        "requests": requests,
+        "batch": batch,
+        "ms_per_request": times,
+        "median_ms": median,
+        "points_per_s": batch * cfg.num_point / (median / 1e3),
+        "exact_ms_per_request": exact_times,
+        "exact_median_ms": exact_median,
+        "window_ok": oks,
+        "launches": launches,
+        "label_agreement": agree,
+        "max_abs_logit_diff": logit_err,
+        "card": card,
+    })
+    return launches
+
+
+def train_windows_phase(cfg: Config, seed: int, card: str) -> dict:
+    """The calibrated-window train path: ``Trainer(bq_window, fp_window)``, one
+    warm-up and 3 Adam steps beside the no-window Trainer on the same batches,
+    then one dropout-free step against the no-window step, and the windows
+    that ``auto`` would pick on these clouds."""
+    batches = [train_batch(cfg, BATCH, seed + 300 + i) for i in range(1 + WINDOW_TRAIN_STEPS)]
+    windowed = Trainer(cfg, device=DEVICE, bq_window=BQ_WINDOW, fp_window=FP_WINDOW)
+    exact = Trainer(cfg, device=DEVICE)
+    for trainer in (windowed, exact):
+        trainer.init_state(seed)
+        trainer.train_step(batches[0], generator=torch.Generator(device=DEVICE).manual_seed(seed))
+    torch.cuda.synchronize()
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    times, exact_times, oks, step_launches = [], [], [], []
+    for batch in batches[1:]:
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        metrics = windowed.train_step(batch, generator=gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        step_launches.append(dict(cuda.LAUNCHES))
+        oks.append(bool(metrics["window_ok"]))
+        if not np.isfinite(float(metrics["loss"])):
+            raise AssertionError("windowed train loss not finite")
+        t0 = time.perf_counter()
+        exact.train_step(batch, generator=gen)
+        torch.cuda.synchronize()
+        exact_times.append((time.perf_counter() - t0) * 1e3)
+    # Train mode groups through the windowed ball query (row 7) and the raw
+    # gather: SA1 engages the window, SA2-4 (clouds of 1024 and fewer) take the
+    # exact kernel; FP4 engages the 3-NN window, FP1-3 take the exact kernel.
+    for launches in step_launches:
+        _expect_launches(
+            launches,
+            {"fps_centroids": 4, "ball_query_sliced": 1, "ball_query": 3, "knn_sliced": 1, "knn": 3,
+             "three_interpolate": 4, "three_interpolate_grad": 4},
+            "one windowed train step",
+        )
+    if not all(oks):
+        raise AssertionError(f"window_ok of the windowed train steps: {oks}")
+    launches = {name: sum(step.get(name, 0) for step in step_launches) for name in KERNELS}
+    del windowed, exact
+
+    loss, grads = _one_step(cfg, None, batches[0], seed, bq_window=BQ_WINDOW, fp_window=FP_WINDOW)
+    exact_loss, exact_grads = _one_step(cfg, None, batches[0], seed)
+    worst = max(
+        max_abs(grads[name], ref) / max(float(ref.abs().max()), 1e-30)
+        for name, ref in exact_grads.items() if float(ref.abs().max()) > 1e-6
+    )
+    if abs(loss - exact_loss) > 1e-5 * abs(exact_loss) or worst > STEP_GRAD_TOL:
+        raise AssertionError(
+            f"windowed vs exact step: loss {loss} vs {exact_loss}, worst gradient error {worst} of max abs"
+        )
+    del grads, exact_grads
+
+    sample = iter(clouds(BATCH, cfg, seed + 400 + i) for i in range(2))
+    auto = calibrate_model_windows(
+        [(spec.npoint, spec.radius) for spec in cfg.sa_layers], cfg.num_point, lambda: next(sample),
+        num_batches=2, device=DEVICE,
+    )
+    median, exact_median = statistics.median(times), statistics.median(exact_times)
+    emit({
+        "phase": "train_windows",
+        "bq_window": BQ_WINDOW,
+        "fp_window": FP_WINDOW,
+        "steps": WINDOW_TRAIN_STEPS,
+        "batch": BATCH,
+        "ms_per_step": times,
+        "median_ms": median,
+        "points_per_s": BATCH * cfg.num_point / (median / 1e3),
+        "exact_ms_per_step": exact_times,
+        "exact_median_ms": exact_median,
+        "window_ok": oks,
+        "launches": launches,
+        "windowed_vs_exact": {"loss": loss, "exact_loss": exact_loss, "worst_grad_err_of_max_abs": worst},
+        "auto_windows": {"bq_window": auto[0], "fp_window": auto[1]},
+        "card": card,
+    })
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None, help="also write every record here as JSON")
@@ -549,10 +870,17 @@ def main(argv=None) -> int:
     kernel_phase(cfg, SEED, report, CHUNK)
     train_levels = kernel_phase(cfg, SEED + 100, report, BATCH)
     grad_kernel_phase(train_levels, SEED, report)
-    predict_launches = predict_phase(cfg, REQUESTS, BATCH, SEED, card)
+    window_kernel_phase(cfg, SEED, report, CHUNK)
+    window_kernel_phase(cfg, SEED + 100, report, BATCH)
     torch.cuda.empty_cache()
-    train_launches = train_phase(cfg, SEED, card)
-    kernels = report.kernels_line(predict_launches, train_launches)
+    paths = {"predict": predict_phase(cfg, REQUESTS, BATCH, SEED, card)}
+    torch.cuda.empty_cache()
+    paths["train"] = train_phase(cfg, SEED, card)
+    torch.cuda.empty_cache()
+    paths["predict_windows"] = predict_windows_phase(cfg, REQUESTS, BATCH, SEED, card)
+    torch.cuda.empty_cache()
+    paths["train_windows"] = train_windows_phase(cfg, SEED, card)
+    kernels = report.kernels_line(paths)
 
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -20,8 +20,13 @@
 // `__popc` of the lanes below each hit gives its slot, so the hits append in
 // order without shared memory or a sort. The ragged edge is masked by index
 // (no padded coordinates), and the pad value is kept in a register.
+//
+// `pn2_ball_query_tiles` is the calibrated-window variant (the kernel in
+// window_bq.cuh, which says what it replaces and how it works).
 
 #include <cuda_runtime.h>
+
+#include "window_bq.cuh"
 
 namespace {
 
@@ -91,7 +96,27 @@ int pn2_ball_query(const float* xyz1, const float* xyz2, int b, int n, int m,
   return (int)cudaGetLastError();
 }
 
+// The windowed ball query over x-sorted query tiles: xs (b, n, 3) f32 and
+// perm (b, n) i32 the sorted cloud and its original indices, qs (b, m, 3) f32
+// the sorted queries, lo (b, m / tm) i32 each tile's window start, w the
+// window (lo + w <= n, w * 16 bytes of shared memory), nsample <= 32 ->
+// idx (b, m, nsample) i32, cnt (b, m) i32, in sorted query order.
+int pn2_ball_query_tiles(const float* xs, const int* perm, const float* qs,
+                         const int* lo, int b, int n, int m, int tm, int w,
+                         float r2, int nsample, int* idx, int* cnt, int device,
+                         void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)pn2_window::launch_ball_query_tiles<false>(
+      xs, perm, qs, lo, b, n, m, tm, w, r2, nsample, idx, nullptr, cnt,
+      (cudaStream_t)stream);
+}
+
 const char* pn2_ball_query_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+const char* pn2_ball_query_tiles_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -5,7 +5,9 @@ Counterpart of ``Trainer._infer_logits_ok`` and ``Trainer._predict_step``
 the batch in chunks of ``infer_chunk`` clouds (the grouped tensors' working
 set stays at the chunk's size; eval BatchNorm uses moving statistics, so the
 chunks are independent and the result is the same), and the argmax as int32
-labels.
+labels. With calibrated windows (``bq_window``, ``fp_window``),
+``predict_step_checked`` also returns whether every window certificate of
+the request held (``_predict_step_checked``, ``:555-563``).
 
 The Predictor runs on CUDA unless it is given another device, and raises if
 CUDA is absent; it never falls back to the CPU.
@@ -13,13 +15,13 @@ CUDA is absent; it never falls back to the CPU.
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import List, Mapping, Optional
 
 import numpy as np
 import torch
 
 from pointnet2_tpu_torch.config import Config
-from pointnet2_tpu_torch.models.pointnet2_seg import PointNet2SemSeg
+from pointnet2_tpu_torch.models.pointnet2_seg import PointNet2SemSeg, Window
 
 
 def resolve_device(device: Optional[str | torch.device]) -> torch.device:
@@ -38,15 +40,26 @@ def full_float32() -> None:
 
 
 @torch.no_grad()
-def chunked_logits(model: PointNet2SemSeg, x: torch.Tensor, chunk: int) -> torch.Tensor:
+def chunked_logits(
+    model: PointNet2SemSeg, x: torch.Tensor, chunk: int, certificates: Optional[List] = None
+) -> torch.Tensor:
     """The eval forward of ``model`` over ``x (B, N, 3+C)`` in chunks of ``chunk`` clouds.
 
-    A chunk size that is 0, not below B, or does not divide B runs the batch whole.
+    A chunk size that is 0, not below B, or does not divide B runs the batch
+    whole. ``certificates`` receives every chunk's window certificates.
     """
     b = x.shape[0]
     if chunk and 0 < chunk < b and b % chunk == 0:
-        return torch.cat([model(c) for c in x.split(chunk)])
-    return model(x)
+        return torch.cat([model(c, certificates=certificates) for c in x.split(chunk)])
+    return model(x, certificates=certificates)
+
+
+def all_ok(certificates: List, device: torch.device) -> torch.Tensor:
+    """The AND of ``(name, ok)`` certificates as a 0-d bool tensor on ``device``
+    (True when there are none), taken on the device without a host read."""
+    if not certificates:
+        return torch.ones((), dtype=torch.bool, device=device)
+    return torch.stack([ok for _, ok in certificates]).all()
 
 
 class Predictor:
@@ -54,6 +67,7 @@ class Predictor:
 
     ``impl`` is passed to every point-set operator: None runs the CUDA
     kernels on a CUDA device, "torch" the plain versions (for comparisons).
+    ``bq_window``/``fp_window`` are the model's calibrated windows.
     """
 
     def __init__(
@@ -64,20 +78,36 @@ class Predictor:
         infer_chunk: int = 8,
         device: Optional[str | torch.device] = None,
         impl: Optional[str] = None,
+        bq_window: Window = None,
+        fp_window: Window = None,
     ):
         full_float32()
         self.cfg = cfg
         self.device = resolve_device(device)
         self.infer_chunk = infer_chunk
-        model = PointNet2SemSeg(cfg, num_classes, bool(cfg.use_color), ops_impl=impl)
+        model = PointNet2SemSeg(
+            cfg, num_classes, bool(cfg.use_color), ops_impl=impl,
+            bq_window=bq_window, fp_window=fp_window,
+        )
         model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()
 
-    def infer_logits(self, points: np.ndarray | torch.Tensor) -> torch.Tensor:
+    def infer_logits(
+        self, points: np.ndarray | torch.Tensor, certificates: Optional[List] = None
+    ) -> torch.Tensor:
         """(B, N, 3+C) float32 -> (B, N, num_classes) logits on the Predictor's device."""
         x = torch.as_tensor(points, dtype=torch.float32).to(self.device)
-        return chunked_logits(self.model, x, self.infer_chunk)
+        return chunked_logits(self.model, x, self.infer_chunk, certificates)
 
     def predict_step(self, points: np.ndarray | torch.Tensor) -> torch.Tensor:
         """(B, N, 3+C) float32 -> (B, N) int32 labels."""
         return self.infer_logits(points).argmax(dim=-1).to(torch.int32)
+
+    def predict_step_checked(self, points: np.ndarray | torch.Tensor) -> tuple[torch.Tensor, bool]:
+        """``predict_step`` and whether every window certificate of every chunk
+        held (True without windows). False means a window left out candidates
+        on this request and the labels may differ from the exact path's: the
+        caller should recalibrate. One host read a request."""
+        certificates: List = []
+        labels = self.infer_logits(points, certificates).argmax(dim=-1).to(torch.int32)
+        return labels, bool(all_ok(certificates, self.device))

@@ -9,7 +9,9 @@ Counterpart of ``pointnet2_tpu/models/pointnet2_seg.py``:
 
 Module names follow the flax tree (``sa1``, ``fp4``, ``fc1_bn``, ...), so
 ``convert.from_flax_variables`` maps one onto the other by name. The forward
-follows ``self.training``. ``precompute_geometry`` (``:204-289``) computes
+follows ``self.training``. ``bq_window`` and ``fp_window`` (``:71-96``,
+``:181-189``) turn on the calibrated x-windows, one width for every level or
+one per level. ``precompute_geometry`` (``:204-289``) computes
 the parameter-free neighbour structure of a batch ahead of the forward;
 ``weighted_ce_sum``/``weighted_ce_loss`` (``:411-441``) are the weighted cross
 entropy divided by the number of non-zero weights.
@@ -17,7 +19,7 @@ entropy divided by the number of non-zero weights.
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -25,7 +27,10 @@ from torch import nn
 from pointnet2_tpu_torch import ops
 from pointnet2_tpu_torch.config import Config
 from pointnet2_tpu_torch.nn.layers import BatchNorm, Momentum
-from pointnet2_tpu_torch.nn.pointnet import FeaturePropagation, SetAbstraction
+from pointnet2_tpu_torch.nn.pointnet import Certificates, FeaturePropagation, SetAbstraction
+
+# One width shared by every level, or one per level (None keeps a level exact).
+Window = Union[int, Sequence[Optional[int]], None]
 
 SA_MLPS = ([32, 32, 64], [64, 64, 128], [128, 128, 256], [256, 256, 512])
 FP_MLPS = ([256, 256], [256, 256], [256, 128], [128, 128, 128])
@@ -39,6 +44,11 @@ class PointNet2SemSeg(nn.Module):
     gradient is exactly zero. Set it False where the cloud itself is
     differentiated. ``dropout_rate`` is the head's (0.5 in the reference;
     0.0 switches it off, for comparisons).
+
+    ``bq_window`` (SA levels) and ``fp_window`` (FP levels) are the calibrated
+    x-windows: an int for every level, or a 4-sequence of int or None. A level
+    whose cloud is not larger than its window runs the exact operator; every
+    level with a window reports a certificate (``forward``'s ``certificates``).
     """
 
     def __init__(
@@ -49,6 +59,8 @@ class PointNet2SemSeg(nn.Module):
         ops_impl: Optional[str] = None,
         input_is_leaf: bool = True,
         dropout_rate: float = 0.5,
+        bq_window: Window = None,
+        fp_window: Window = None,
     ):
         super().__init__()
         cfg = config or Config()
@@ -65,13 +77,17 @@ class PointNet2SemSeg(nn.Module):
                 SetAbstraction(
                     spec.npoint, spec.radius, spec.nsample, mlp, widths[i], ops_impl,
                     leaf_inputs=(i == 0) and input_is_leaf,
+                    bq_window=level_window(bq_window, i),
                 ),
             )
         coarse = widths[-1]
         for i, mlp in enumerate(FP_MLPS):
             lvl = 3 - i  # target level: 3, 2, 1, 0
             self.add_module(
-                f"fp{i + 1}", FeaturePropagation(coarse + widths[lvl], mlp, ops_impl)
+                f"fp{i + 1}",
+                FeaturePropagation(
+                    coarse + widths[lvl], mlp, ops_impl, fp_window=level_window(fp_window, i)
+                ),
             )
             coarse = mlp[-1]
         self.fc1 = nn.Linear(coarse, 128)
@@ -84,16 +100,19 @@ class PointNet2SemSeg(nn.Module):
         bn_momentum: Optional[Momentum] = None,
         geometry: Optional[Mapping[str, tuple]] = None,
         generator: Optional[torch.Generator] = None,
+        certificates: Optional[Certificates] = None,
     ) -> torch.Tensor:
         """``bn_momentum`` is needed in train mode; ``geometry`` is what
         ``precompute_geometry`` returned for this batch; ``generator`` draws the
-        dropout mask (default: one the model keeps on the input's device, seeded with 0)."""
+        dropout mask (default: one the model keeps on the input's device, seeded with 0).
+        ``certificates``, a list, receives ``(name, ok)`` from every windowed
+        level, SA1..SA4 then FP1..FP4 (none when ``geometry`` is given)."""
         xyzs = [point_cloud[..., :3].contiguous()]
         feats = [point_cloud[..., 3:6] if self.use_color else None]
         for i in range(4):
             new_xyz, new_points, _ = getattr(self, f"sa{i + 1}")(
                 xyzs[-1], feats[-1], bn_momentum,
-                None if geometry is None else geometry["sa"][i],
+                None if geometry is None else geometry["sa"][i], certificates,
             )
             xyzs.append(new_xyz)
             feats.append(new_points)
@@ -101,7 +120,7 @@ class PointNet2SemSeg(nn.Module):
             lvl = 3 - i
             feats[lvl] = getattr(self, f"fp{i + 1}")(
                 xyzs[lvl], xyzs[lvl + 1], feats[lvl], feats[lvl + 1], bn_momentum,
-                None if geometry is None else geometry["fp"][i],
+                None if geometry is None else geometry["fp"][i], certificates,
             )
         net = torch.relu(self.fc1_bn(self.fc1(feats[0]), bn_momentum))
         if self.training and self.dropout_rate > 0.0:
@@ -118,34 +137,58 @@ class PointNet2SemSeg(nn.Module):
         return torch.where(keep, x / (1.0 - self.dropout_rate), torch.zeros((), device=x.device))
 
 
+def level_window(window: Window, i: int) -> Optional[int]:
+    """Level ``i``'s width from one shared int or a per-level sequence."""
+    if window is None or isinstance(window, int):
+        return window
+    return window[i]
+
+
 @torch.no_grad()
 def precompute_geometry(
-    point_cloud: torch.Tensor, config: Optional[Config] = None, ops_impl: Optional[str] = None
-) -> dict:
+    point_cloud: torch.Tensor,
+    config: Optional[Config] = None,
+    ops_impl: Optional[str] = None,
+    bq_window: Window = None,
+    fp_window: Window = None,
+) -> tuple[dict, torch.Tensor]:
     """The neighbour structure of ``PointNet2SemSeg`` for a batch, computed once.
 
     FPS centroids, ball-query groups and the FP levels' 3-NN depend on the
     coordinates alone, never on parameters, so a gradient-accumulation step
     computes them once at full batch width and hands each microbatch its
-    slice (``model(x, geometry=...)``). Returns ``{"sa": ({"new_xyz", "idx"},
-    ...), "fp": ({"dist2", "idx"}, ...)}``, every leaf with a leading batch
-    axis. The calibrated windows and their certificates are not ported, so
-    unlike the JAX function this returns no ``ok``.
+    slice (``model(x, geometry=...)``). Returns ``(geometry, ok)``:
+    ``{"sa": ({"new_xyz", "idx"}, ...), "fp": ({"dist2", "idx"}, ...)}``, every
+    leaf with a leading batch axis, and the AND of the windowed levels'
+    certificates, a 0-d bool tensor on the device (True without windows).
     """
     cfg = config or Config()
     xyzs = [point_cloud[..., :3].contiguous()]
+    ok = torch.ones((), dtype=torch.bool, device=point_cloud.device)
     sa = []
-    for spec in cfg.sa_layers:
+    for i, spec in enumerate(cfg.sa_layers):
         _, new_xyz = ops.fps_centroids(xyzs[-1], spec.npoint, impl=ops_impl)
-        idx, _ = ops.ball_query(xyzs[-1], new_xyz, spec.radius, spec.nsample, impl=ops_impl)
+        window = level_window(bq_window, i)
+        if window is None:
+            idx, _ = ops.ball_query(xyzs[-1], new_xyz, spec.radius, spec.nsample, impl=ops_impl)
+        else:
+            idx, _, level_ok = ops.ball_query_calibrated(
+                xyzs[-1], new_xyz, spec.radius, spec.nsample, window, impl=ops_impl
+            )
+            ok = ok & level_ok
         sa.append({"new_xyz": new_xyz, "idx": idx})
         xyzs.append(new_xyz)
     fp = []
     for i in range(len(FP_MLPS)):
         lvl = 3 - i
-        dist2, idx = ops.three_nn(xyzs[lvl], xyzs[lvl + 1], impl=ops_impl)
+        window = level_window(fp_window, i)
+        if window is None:
+            dist2, idx = ops.three_nn(xyzs[lvl], xyzs[lvl + 1], impl=ops_impl)
+        else:
+            dist2, idx, level_ok = ops.three_nn_calibrated(xyzs[lvl], xyzs[lvl + 1], window, impl=ops_impl)
+            ok = ok & level_ok
         fp.append({"dist2": dist2, "idx": idx})
-    return {"sa": tuple(sa), "fp": tuple(fp)}
+    return {"sa": tuple(sa), "fp": tuple(fp)}, ok
 
 
 def weighted_ce_sum(

@@ -20,19 +20,29 @@ Both take ``geometry``, the neighbour structure computed beforehand
 (``models.precompute_geometry``), in place of their own FPS, ball query or
 3-NN. The index searches run under ``no_grad``: no parameter reaches them.
 
-Other pooling modes, kNN grouping, ``group_all``, calibrated windows and MSG
-are not ported yet.
+Calibrated windows (``:174-193``, ``:272-326``, ``:551-574``): with
+``bq_window`` the ball query, and with ``fp_window`` the 3-NN, run through
+``ops.*_calibrated``; the eval forward without gradients groups SA features
+through ``ops.project_group_calibrated`` and keeps the per-centroid work in
+x-sorted query order, un-permuting only the pooled output. Each windowed
+level appends ``("bq_window_ok", ok)`` or ``("fp_window_ok", ok)`` to the
+``certificates`` list it is given, where flax sows them.
+
+Other pooling modes, kNN grouping, ``group_all`` and MSG are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence
+from typing import List, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from pointnet2_tpu_torch import ops
 from pointnet2_tpu_torch.nn.layers import BatchNorm, Momentum, SharedMLP
+
+# What a windowed level appends for the caller: (name, 0-d bool tensor).
+Certificates = List[Tuple[str, torch.Tensor]]
 
 
 class SetAbstraction(nn.Module):
@@ -52,6 +62,7 @@ class SetAbstraction(nn.Module):
         in_features: int,
         ops_impl: Optional[str] = None,
         leaf_inputs: bool = False,
+        bq_window: Optional[int] = None,
     ):
         super().__init__()
         self.npoint = npoint
@@ -59,6 +70,7 @@ class SetAbstraction(nn.Module):
         self.nsample = nsample
         self.ops_impl = ops_impl
         self.leaf_inputs = leaf_inputs
+        self.bq_window = bq_window
         f0 = mlp[0]
         self.w0 = nn.Parameter(torch.empty(3 + in_features, f0))
         self.b0 = nn.Parameter(torch.zeros(f0))
@@ -71,14 +83,20 @@ class SetAbstraction(nn.Module):
         points: Optional[torch.Tensor],
         bn_momentum: Optional[Momentum] = None,
         geometry: Optional[Mapping[str, torch.Tensor]] = None,
+        certificates: Optional[Certificates] = None,
     ):
         inputs = xyz if points is None else torch.cat([xyz, points], dim=-1)
         if geometry is not None:
             new_xyz, idx = geometry["new_xyz"], geometry["idx"]
         else:
             _, new_xyz = ops.fps_centroids(xyz, self.npoint, impl=self.ops_impl)
+            # Fused windowed grouping: eval only (train-mode BatchNorm's batch
+            # statistics would sum in another order over permuted rows), and
+            # only without autograd (the gather kernel has no backward).
+            if self.bq_window is not None and not self.training and not torch.is_grad_enabled():
+                return self._fused_window(xyz, inputs, new_xyz, bn_momentum, certificates)
             with torch.no_grad():
-                idx, _ = ops.ball_query(xyz, new_xyz, self.radius, self.nsample, impl=self.ops_impl)
+                idx = self._ball_query(xyz, new_xyz, certificates)
         if self.leaf_inputs and self.training:
             # (x - c) @ w0[:3] in place of x @ w0[:3] - c @ w0[:3]: equal up to
             # float32 reassociation, and nothing is scattered back into the cloud.
@@ -99,14 +117,47 @@ class SetAbstraction(nn.Module):
         h = self.mlp_rest(h, bn_momentum)
         return new_xyz, h.amax(dim=2), idx
 
+    def _ball_query(self, xyz, new_xyz, certificates: Optional[Certificates]) -> torch.Tensor:
+        if self.bq_window is None:
+            return ops.ball_query(xyz, new_xyz, self.radius, self.nsample, impl=self.ops_impl)[0]
+        idx, _, ok = ops.ball_query_calibrated(
+            xyz, new_xyz, self.radius, self.nsample, self.bq_window, impl=self.ops_impl
+        )
+        if certificates is not None:
+            certificates.append(("bq_window_ok", ok))
+        return idx
+
+    def _fused_window(self, xyz, inputs, new_xyz, bn_momentum, certificates: Optional[Certificates]):
+        """The eval forward through ``ops.project_group_calibrated``: the grouped
+        rows come in x-sorted query order (when ``qperm`` is not None), every
+        per-centroid op below is row-independent in eval, and only the pooled
+        output is put back in the original order."""
+        grouped, idx, _, qperm, inv_q, ok = ops.project_group_calibrated(
+            inputs, self.w0, self.b0, xyz, new_xyz, self.radius, self.nsample,
+            self.bq_window, impl=self.ops_impl,
+        )
+        if certificates is not None:
+            certificates.append(("bq_window_ok", ok))
+        centers = new_xyz if qperm is None else ops.gather_points(new_xyz, qperm)
+        h = grouped - (centers @ self.w0[:3])[:, :, None, :]
+        h = torch.relu(self.bn0(h, bn_momentum))
+        new_points = self.mlp_rest(h, bn_momentum).amax(dim=2)
+        if inv_q is not None:
+            new_points = ops.gather_points(new_points, inv_q)
+        return new_xyz, new_points, idx
+
 
 class FeaturePropagation(nn.Module):
     """Interpolate (B, M, C2) coarse features onto (B, N, 3) dense points,
     concatenate the (B, N, C1) skip features, and apply a shared MLP."""
 
-    def __init__(self, in_features: int, mlp: Sequence[int], ops_impl: Optional[str] = None):
+    def __init__(
+        self, in_features: int, mlp: Sequence[int], ops_impl: Optional[str] = None,
+        fp_window: Optional[int] = None,
+    ):
         super().__init__()
         self.ops_impl = ops_impl
+        self.fp_window = fp_window
         self.mlp = SharedMLP(in_features, mlp)
 
     def forward(
@@ -117,9 +168,15 @@ class FeaturePropagation(nn.Module):
         points2: torch.Tensor,
         bn_momentum: Optional[Momentum] = None,
         geometry: Optional[Mapping[str, torch.Tensor]] = None,
+        certificates: Optional[Certificates] = None,
     ):
         if geometry is not None:
             dist2, idx = geometry["dist2"], geometry["idx"]
+        elif self.fp_window is not None:
+            with torch.no_grad():
+                dist2, idx, ok = ops.three_nn_calibrated(xyz1, xyz2, self.fp_window, impl=self.ops_impl)
+            if certificates is not None:
+                certificates.append(("fp_window_ok", ok))
         else:
             with torch.no_grad():
                 dist2, idx = ops.three_nn(xyz1, xyz2, impl=self.ops_impl)

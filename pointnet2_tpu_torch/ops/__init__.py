@@ -15,6 +15,13 @@ through its own backward (``three_interpolate_grad``, by the same ``impl``),
 ``fps_centroids`` gives ``xyz`` the gather's gradient, and
 ``project_group_leaf`` has the zero-input-gradient backward; see
 ``ops.autograd``.
+
+The calibrated-window operators (``*_calibrated``, ``ops/__init__.py:114-219``
+of the JAX package) return a 0-d bool ``ok`` on the device beside their
+outputs, and never fall back on their own when it is False. Unlike the JAX
+package's XLA path, which ignores the window off the TPU, the plain versions
+compute the windowed function and its real certificate, on any device.
+``calibrate`` picks the windows from sample clouds.
 """
 
 from __future__ import annotations
@@ -34,6 +41,10 @@ __all__ = [
     "three_interpolate",
     "three_interpolate_grad",
     "project_group_leaf",
+    "ball_query_calibrated",
+    "project_group_calibrated",
+    "knn_calibrated",
+    "three_nn_calibrated",
     "gather_points",
     "group_points",
     "interpolation_weights",
@@ -94,3 +105,39 @@ def three_interpolate_grad(g, idx, weight, m: int, impl: str | None = None):
 def project_group_leaf(inputs, w, b, idx):
     """``group_points(inputs @ w + b, idx)`` for an input cloud that needs no gradient."""
     return autograd.ProjectGroupLeaf.apply(inputs, w, b, idx)
+
+
+def ball_query_calibrated(xyz1, xyz2, radius: float, nsample: int, window: int, impl: str | None = None):
+    """Ball query through calibrated x-windows: ``(idx, cnt, ok)``; with ``ok``
+    True the outputs equal ``ball_query``'s. See ``core.ball_query_sliced``."""
+    if _use_kernel(impl, xyz1):
+        return cuda.ball_query_sliced(xyz1, xyz2, radius, nsample, window)
+    return core.ball_query_sliced(xyz1, xyz2, radius, nsample, window)
+
+
+def project_group_calibrated(
+    inputs, w0, b0, xyz, new_xyz, radius: float, nsample: int, window: int, impl: str | None = None
+):
+    """``group_points(inputs @ w0 + b0, ball_query(...))`` through calibrated
+    x-windows: ``(grouped, idx, cnt, qperm, inv_q, ok)``. When ``qperm`` is not
+    None, ``grouped`` alone is in x-sorted query order. See
+    ``core.project_group_sliced``. The kernel path gives ``w0``/``b0`` no
+    gradient through the gather: it is for the eval forward."""
+    if _use_kernel(impl, xyz):
+        return cuda.project_group_sliced(inputs, w0, b0, xyz, new_xyz, radius, nsample, window)
+    return core.project_group_sliced(inputs, w0, b0, xyz, new_xyz, radius, nsample, window)
+
+
+def knn_calibrated(xyz1, xyz2, k: int, window: int, impl: str | None = None):
+    """kNN through calibrated x-windows: ``(dist2, idx, ok)``; with ``ok`` True
+    equal to ``knn``. See ``core.knn_sliced``."""
+    if _use_kernel(impl, xyz1):
+        return cuda.knn_sliced(xyz1, xyz2, k, window)
+    return core.knn_sliced(xyz1, xyz2, k, window)
+
+
+def three_nn_calibrated(xyz1, xyz2, window: int, impl: str | None = None):
+    """3-NN of each xyz1 point among xyz2 through calibrated x-windows: ``(dist2, idx, ok)``."""
+    if _use_kernel(impl, xyz1):
+        return cuda.three_nn_sliced(xyz1, xyz2, window)
+    return core.three_nn_sliced(xyz1, xyz2, window)

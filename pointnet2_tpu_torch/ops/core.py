@@ -84,6 +84,21 @@ def fps_centroids(xyz: Tensor, npoint: int) -> tuple[Tensor, Tensor]:
 # ---------------------------------------------------------------------------
 
 
+def _first_k(keys: Tensor, sentinel: int, nsample: int) -> tuple[Tensor, Tensor]:
+    """The ``nsample`` smallest keys of each row, ascending, keys equal to
+    ``sentinel`` counting as absent; absent slots repeat the first key, or 0
+    when there is none. Returns (selected keys, count of present ones)."""
+    k = min(nsample, keys.shape[-1])
+    sel = torch.topk(keys, k, dim=-1, largest=False, sorted=True).values
+    if k < nsample:
+        pad = torch.full((*sel.shape[:-1], nsample - k), sentinel, dtype=sel.dtype, device=sel.device)
+        sel = torch.cat([sel, pad], dim=-1)
+    valid = sel < sentinel
+    first = sel[..., :1]
+    first = torch.where(first < sentinel, first, 0)
+    return torch.where(valid, sel, first), valid.sum(-1)
+
+
 def ball_query(
     xyz1: Tensor, xyz2: Tensor, radius: float, nsample: int
 ) -> tuple[Tensor, Tensor]:
@@ -99,17 +114,8 @@ def ball_query(
     d2 = _pairwise_dist2(xyz2.float(), xyz1.float())
     in_ball = d2 < squared_radius(radius)
     iota = torch.arange(n, device=xyz1.device).expand(b, m, n)
-    keys = torch.where(in_ball, iota, n)
-    k = min(nsample, n)
-    sel = torch.topk(keys, k, dim=-1, largest=False, sorted=True).values
-    if k < nsample:
-        pad = torch.full((b, m, nsample - k), n, dtype=sel.dtype, device=sel.device)
-        sel = torch.cat([sel, pad], dim=-1)
-    valid = sel < n
-    first = sel[..., :1]
-    first = torch.where(first < n, first, 0)
-    idx = torch.where(valid, sel, first)
-    return idx.to(torch.int32), valid.sum(-1).to(torch.int32)
+    idx, cnt = _first_k(torch.where(in_ball, iota, n), n, nsample)
+    return idx.to(torch.int32), cnt.to(torch.int32)
 
 
 def group_points(points: Tensor, idx: Tensor) -> Tensor:
@@ -192,3 +198,316 @@ def three_interpolate_weight_grad(g: Tensor, points: Tensor, idx: Tensor) -> Ten
 def project_group_leaf(inputs: Tensor, w: Tensor, b: Tensor, idx: Tensor) -> Tensor:
     """``group_points(inputs @ w + b, idx)``: (B, N, cin), (cin, f0), (f0,), (B, M, K) -> (B, M, K, f0)."""
     return group_points(inputs @ w + b, idx)
+
+
+# ---------------------------------------------------------------------------
+# Calibrated x-windows (pointnet2_tpu/ops/pallas/ballquery.py:287-410,
+# wingather.py:133-298, knn.py:173-320)
+#
+# The cloud and the queries are sorted by x (a stable sort, as jnp.argsort).
+# Each tile of 128 sorted queries looks only at a ``w``-column slice of the
+# sorted cloud, and a 0-d bool ``ok`` certifies, on the device, that the slice
+# held every candidate: then the outputs equal the exact operator's bit for
+# bit. A too-small window gives ``ok`` False and the windowed outputs; the
+# caller decides. Each function below takes the kernels it runs as arguments:
+# the plain versions by default, the CUDA ones from ``ops.cuda``.
+# ---------------------------------------------------------------------------
+
+LANES = 128  # the query tile, and the alignment of every window start
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _x_sort(xyz: Tensor) -> Tensor:
+    """The stable ascending order of the x coordinates: (B, N) int64."""
+    return torch.argsort(xyz[..., 0], dim=1, stable=True)
+
+
+def _take_rows(t: Tensor, order: Tensor) -> Tensor:
+    """``t[b, order[b]]`` along axis 1, for (B, N) or (B, N, C) tensors."""
+    if t.dim() == 2:
+        return t.gather(1, order)
+    return t.gather(1, order[..., None].expand(-1, -1, t.shape[-1]))
+
+
+def _bq_window_starts(xs_x: Tensor, qs_x: Tensor, radius: float, tm: int, w: int):
+    """Window start of each query tile and the certificate of the ball query.
+
+    ``lo`` is the first sorted column at or right of the tile's leftmost
+    ``x - r``, floored to a 128-multiple and clipped so that the window stays
+    in the cloud; ``ok = max(hi - lo) <= w`` with ``hi`` the column after the
+    rightmost ``x + r``. Returns ``(lo (B, T) int64, ok)``.
+    """
+    n = xs_x.shape[1]
+    b, m = qs_x.shape
+    tiles = qs_x.reshape(b, m // tm, tm)
+    r = float(np.float32(radius))
+    lo = torch.searchsorted(xs_x, (tiles.amin(-1) - r).contiguous(), side="left")
+    hi = torch.searchsorted(xs_x, (tiles.amax(-1) + r).contiguous(), side="left")
+    lo = torch.div(lo.clamp(0, max(n - w, 0)), LANES, rounding_mode="floor") * LANES
+    return lo, (hi - lo).amax() <= w
+
+
+def _tile_windows(xs: Tensor, perm: Tensor, lo: Tensor, w: int):
+    """Columns ``[lo, lo + w)`` of the sorted cloud for every tile:
+    coordinates (B, T, w, 3) and original indices (B, T, w)."""
+    b, t = lo.shape
+    cols = (lo.long()[:, :, None] + torch.arange(w, device=lo.device)).reshape(b, t * w)
+    return _take_rows(xs, cols).reshape(b, t, w, 3), _take_rows(perm.long(), cols).reshape(b, t, w)
+
+
+def _bq_tile_keys(xs, perm, qs, lo, radius, w, with_pos):
+    """In-ball keys of each sorted query over its tile's window, (B, M, w)
+    int64, and the sentinel that marks a column out of the ball. A key is the
+    column's original index (times ``w`` plus the column with ``with_pos``).
+    """
+    n = xs.shape[1]
+    b, m, _ = qs.shape
+    t = lo.shape[1]
+    win, orig = _tile_windows(xs, perm, lo, w)
+    q = qs.reshape(b, t, m // t, 3)
+    in_ball = _dist2(q[:, :, :, None, :], win[:, :, None, :, :]) < squared_radius(radius)
+    if with_pos:
+        keys = orig[:, :, None, :] * w + torch.arange(w, device=qs.device)
+        sentinel = n * w
+    else:
+        keys, sentinel = orig[:, :, None, :], n
+    return torch.where(in_ball, keys, sentinel).reshape(b, m, w), sentinel
+
+
+def ball_query_tiles(xs, perm, qs, lo, radius: float, nsample: int, w: int):
+    """The windowed ball query over sorted tiles (the work of
+    ``_ball_query_sliced_kernel``, ballquery.py:247).
+
+    xs (B, N, 3) the x-sorted cloud, perm (B, N) each sorted column's original
+    index, qs (B, M, 3) the sorted queries in tiles of M/T, lo (B, T) each
+    tile's window start. Per query, the ``nsample`` smallest original indices
+    among the in-ball columns of ``[lo, lo + w)``, padded with the first (0 if
+    none), and ``min(#in-ball, nsample)``: idx (B, M, nsample), cnt (B, M)
+    int32, in sorted query order.
+    """
+    sel, cnt = _first_k(*_bq_tile_keys(xs, perm, qs, lo, radius, w, with_pos=False), nsample)
+    return sel.to(torch.int32), cnt.to(torch.int32)
+
+
+def ball_query_tiles_pos(xs, perm, qs, lo, radius: float, nsample: int, w: int):
+    """``ball_query_tiles`` that also returns each pick's window column (the
+    work of ``_bq_sliced_pos_kernel``, wingather.py:54): idx, pos, cnt.
+
+    The keys are ``orig * w + column``; columns are unique, so the smallest
+    keys are the smallest original indices, and ``key % w`` is the column.
+    """
+    sel, cnt = _first_k(*_bq_tile_keys(xs, perm, qs, lo, radius, w, with_pos=True), nsample)
+    return (
+        torch.div(sel, w, rounding_mode="floor").to(torch.int32),
+        (sel % w).to(torch.int32),
+        cnt.to(torch.int32),
+    )
+
+
+def window_gather(zp_s: Tensor, lo: Tensor, pos: Tensor) -> Tensor:
+    """``out[b, q, s] = zp_s[b, lo[b, tile(q)] + pos[b, q, s]]`` (the work of
+    ``_window_gather_kernel``, wingather.py:98): (B, N, C), (B, T), (B, M, K)
+    -> (B, M, K, C), M/T queries a tile."""
+    t = lo.shape[1]
+    m = pos.shape[1]
+    rows = lo.long().repeat_interleave(m // t, dim=1)[:, :, None] + pos.long()
+    return group_points(zp_s, rows)
+
+
+def _bq_falls_back(n: int, m: int, w: int) -> bool:
+    """The static condition under which a windowed ball query runs exact:
+    the window covers the cloud, or the queries do not fill whole tiles."""
+    return w >= n or m % min(LANES, m) != 0
+
+
+def ball_query_sliced(
+    xyz1: Tensor, xyz2: Tensor, radius: float, nsample: int, window: int,
+    exact=ball_query, tiles=ball_query_tiles,
+) -> tuple[Tensor, Tensor, Tensor]:
+    """Ball query through calibrated x-windows: ``(idx, cnt, ok)``, in the
+    original query order; with ``ok`` True equal to ``ball_query``.
+
+    ``window`` is rounded up to a 128-multiple. Where it covers the cloud or
+    M is not a multiple of the tile, ``exact`` runs and ``ok`` is True.
+    """
+    b, n, _ = xyz1.shape
+    m = xyz2.shape[1]
+    w = round_up(window, LANES)
+    if _bq_falls_back(n, m, w):
+        idx, cnt = exact(xyz1, xyz2, radius, nsample)
+        return idx, cnt, torch.ones((), dtype=torch.bool, device=xyz1.device)
+    perm, xs, qperm, qs, lo, ok = ball_query_window_plan(xyz1, xyz2, radius, w)
+    idx_s, cnt_s = tiles(xs, perm, qs, lo, radius, nsample, w)
+    inv = torch.argsort(qperm, dim=1)
+    return _take_rows(idx_s, inv), _take_rows(cnt_s, inv), ok
+
+
+def ball_query_window_plan(xyz1: Tensor, xyz2: Tensor, radius: float, w: int):
+    """What the windowed ball query hands its kernel: ``(perm, xs, qperm, qs,
+    lo, ok)``, the cloud's stable x order (int32) and the sorted cloud, the
+    queries' order and the sorted queries, each tile's window start (int32)
+    and the certificate."""
+    x1, x2 = xyz1.float(), xyz2.float()
+    perm = _x_sort(x1)
+    xs = _take_rows(x1, perm)
+    qperm = _x_sort(x2)
+    qs = _take_rows(x2, qperm)
+    lo, ok = _bq_window_starts(xs[..., 0].contiguous(), qs[..., 0], radius, min(LANES, x2.shape[1]), w)
+    return perm.to(torch.int32), xs, qperm, qs, lo.to(torch.int32), ok
+
+
+def pick_wblk(n: int, w: int) -> int | None:
+    """The smallest 128-multiple block width >= w that divides n, or None
+    (wingather.py:119-129)."""
+    for cand in range(round_up(w, LANES), n + 1, LANES):
+        if n % cand == 0:
+            return cand
+    return None
+
+
+def project_group_sliced(
+    inputs: Tensor, w0: Tensor, b0: Tensor, xyz: Tensor, new_xyz: Tensor,
+    radius: float, nsample: int, window: int,
+    exact=ball_query, tiles=ball_query_tiles_pos, gather=window_gather,
+):
+    """``group_points(inputs @ w0 + b0, ball_query(xyz, new_xyz))`` through
+    calibrated x-windows: ``(grouped, idx, cnt, qperm, inv_q, ok)``.
+
+    On the windowed path ``grouped`` (B, M, K, f0) is in x-sorted query order,
+    ``qperm``/``inv_q`` (B, M) are the query sort and its inverse; idx and cnt
+    are in the original order. The sorted cloud is projected, so the gather
+    reads rows in sorted order. On the static fallback (``exact`` ball query
+    and a plain gather) everything is in the original order, ``qperm`` and
+    ``inv_q`` are None and ``ok`` is True.
+    """
+    b, n, _ = xyz.shape
+    m = new_xyz.shape[1]
+    w = round_up(window, LANES)
+    # The ball query's fallback, or no block width that divides n. The CUDA
+    # gather reads rows where they lie and needs no blocks; the condition is
+    # kept so that the port and the JAX package take the exact path, and give
+    # ``qperm`` None, at the same shapes.
+    if _bq_falls_back(n, m, w) or pick_wblk(n, w) is None:
+        idx, cnt = exact(xyz, new_xyz, radius, nsample)
+        grouped = group_points(inputs @ w0 + b0, idx)
+        return grouped, idx, cnt, None, None, torch.ones((), dtype=torch.bool, device=xyz.device)
+    x1, x2 = xyz.float(), new_xyz.float()
+    perm = _x_sort(x1)
+    # One row gather for the coordinates and the features.
+    cat_s = _take_rows(torch.cat([x1, inputs.float()], dim=-1), perm)
+    xs, sorted_inputs = cat_s[..., :3].contiguous(), cat_s[..., 3:]
+    qperm = _x_sort(x2)
+    qs = _take_rows(x2, qperm)
+    lo, ok = _bq_window_starts(xs[..., 0].contiguous(), qs[..., 0], radius, min(LANES, m), w)
+    lo = lo.to(torch.int32)
+    idx_s, pos_s, cnt_s = tiles(xs, perm.to(torch.int32), qs, lo, radius, nsample, w)
+    zp_s = sorted_inputs @ w0 + b0  # (B, N, f0), in sorted order
+    grouped_s = gather(zp_s, lo, pos_s)
+    inv_q = torch.argsort(qperm, dim=1)
+    return grouped_s, _take_rows(idx_s, inv_q), _take_rows(cnt_s, inv_q), qperm, inv_q, ok
+
+
+def knn_tiles(xs, perm, qs, lo, k: int, w: int) -> tuple[Tensor, Tensor]:
+    """The windowed kNN over sorted tiles (the work of ``_knn_sliced_kernel``,
+    knn.py:133).
+
+    xs (B, M, 3) the x-sorted dataset, perm (B, M) original indices, qs
+    (B, Nq, 3) sorted queries in tiles of 128, lo (B, T) window starts, which
+    may reach past M: those columns are padding, at distance +inf. Per query,
+    k picks in ascending (distance, original index) order, as k passes of
+    "take the minimum, then the lowest original index at that distance, and
+    remove it" (with fewer than k finite columns, the remaining picks are
+    +inf at the lowest original index of the window). dist2 (B, Nq, k)
+    float32 and idx (B, Nq, k) int32, in sorted query order.
+    """
+    b, m, _ = xs.shape
+    nq = qs.shape[1]
+    t = lo.shape[1]
+    pad = round_up(m, LANES) - m
+    xs_p = torch.cat([xs.float(), xs.new_full((b, pad, 3), 1e30)], dim=1)
+    perm_p = torch.cat([perm.long(), perm.new_full((b, pad), m).long()], dim=1)
+    win, orig = _tile_windows(xs_p, perm_p, lo, w)
+    q = qs.reshape(b, t, nq // t, 3)
+    orig = orig[:, :, None, :]  # (B, T, 1, w)
+    d2 = _dist2(q[:, :, :, None, :], win[:, :, None, :, :])  # (B, T, TQ, w)
+    d2 = torch.where(orig < m, d2, float("inf"))
+    dists, idxs = [], []
+    for _ in range(k):
+        dmin = d2.amin(-1, keepdim=True)
+        imin = torch.where(d2 == dmin, orig, m).amin(-1, keepdim=True)
+        dists.append(dmin)
+        idxs.append(imin)
+        d2 = torch.where(orig == imin, float("inf"), d2)
+    dist = torch.cat(dists, -1).reshape(b, nq, k)
+    return dist, torch.cat(idxs, -1).reshape(b, nq, k).to(torch.int32)
+
+
+def knn_sliced(
+    xyz1: Tensor, xyz2: Tensor, k: int, window: int, exact=knn, tiles=knn_tiles,
+) -> tuple[Tensor, Tensor, Tensor]:
+    """k exact nearest neighbours through calibrated x-windows: ``(dist2, idx, ok)``.
+
+    xyz1 (B, M, 3) dataset, xyz2 (B, Nq, 3) queries. Each tile of 128 sorted
+    queries takes the ``w`` columns centred on its span (start rounded to the
+    nearest 128-multiple, clipped to the padded dataset); the query count is
+    padded to whole tiles with the last sorted query. ``ok`` holds when every
+    query's k-th distance is below the squared x-gap to the nearest column
+    left out on either side; then the result equals ``knn``. Where ``w >= M``
+    or ``Nq < 128``, ``exact`` runs and ``ok`` is True.
+    """
+    b, m, _ = xyz1.shape
+    nq = xyz2.shape[1]
+    w = round_up(window, LANES)
+    if w >= m or nq < LANES:
+        dist, idx = exact(xyz1, xyz2, k)
+        return dist, idx, torch.ones((), dtype=torch.bool, device=xyz1.device)
+    perm, xs, qperm, qs, lo = knn_window_plan(xyz1, xyz2, w)
+    dist_s, idx_s = tiles(xs, perm, qs, lo, k, w)
+
+    # Every column left out lies at least the x-gap away on its side. (A
+    # Python inf, not a tensor made from one: that would be a copy to the
+    # device, which waits for the stream.)
+    xsx = xs[..., 0].contiguous()
+    qx = qs[..., 0].reshape(b, -1, LANES)
+    lo = lo.long()
+    xl = xsx.gather(1, (lo - 1).clamp(0, m - 1))[..., None]
+    xr = xsx.gather(1, (lo + w).clamp(0, m - 1))[..., None]
+    bl = torch.where((lo > 0)[..., None], torch.square((qx - xl).clamp_min(0.0)), float("inf"))
+    br = torch.where((lo + w < m)[..., None], torch.square((xr - qx).clamp_min(0.0)), float("inf"))
+    ok = (dist_s[..., k - 1].reshape(qx.shape) < torch.minimum(bl, br)).all()
+    inv = torch.argsort(qperm, dim=1)
+    return _take_rows(dist_s[:, :nq], inv), _take_rows(idx_s[:, :nq], inv), ok
+
+
+def knn_window_plan(xyz1: Tensor, xyz2: Tensor, w: int):
+    """What the windowed kNN hands its kernel: ``(perm, xs, qperm, qs, lo)``,
+    the dataset's stable x order (int32) and the sorted dataset, the queries'
+    order and the sorted queries padded to whole tiles with the last one, and
+    each tile's window start (int32): centred on the tile's span, rounded to
+    the nearest 128-multiple, clipped to the padded dataset."""
+    x1, x2 = xyz1.float(), xyz2.float()
+    b, m, _ = x1.shape
+    nq = x2.shape[1]
+    perm = _x_sort(x1)
+    xs = _take_rows(x1, perm)
+    xsx = xs[..., 0].contiguous()
+    qperm = _x_sort(x2)
+    qs = _take_rows(x2, qperm)
+    nq_pad = round_up(nq, LANES)
+    if nq_pad != nq:  # padded rows repeat the last sorted query: a real query's result
+        qs = torch.cat([qs, qs[:, -1:].expand(b, nq_pad - nq, 3)], dim=1)
+    qx = qs[..., 0].reshape(b, nq_pad // LANES, LANES)
+    lo_l = torch.searchsorted(xsx, qx.amin(-1).contiguous(), side="left")
+    lo_r = torch.searchsorted(xsx, qx.amax(-1).contiguous(), side="left")
+    mid = torch.div(lo_l + lo_r, 2, rounding_mode="floor")
+    lo = torch.div(mid - w // 2 + LANES // 2, LANES, rounding_mode="floor") * LANES
+    lo = lo.clamp(0, max(round_up(m, LANES) - w, 0))
+    return perm.to(torch.int32), xs, qperm, qs.contiguous(), lo.to(torch.int32)
+
+
+def three_nn_sliced(xyz1: Tensor, xyz2: Tensor, window: int):
+    """Windowed exact 3-NN of each xyz1 point among xyz2: ``(dist2, idx, ok)``."""
+    return knn_sliced(xyz2, xyz1, 3, window)

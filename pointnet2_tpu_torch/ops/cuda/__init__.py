@@ -3,22 +3,36 @@
 Sources are in ``pointnet2_tpu_torch/csrc/``; ``build`` compiles them with
 ``nvcc`` on first use. Each wrapper takes CUDA tensors only and counts its
 launches in ``LAUNCHES``; ``pointnet2_tpu_torch.ops`` routes CPU tensors to the
-plain versions instead.
+plain versions instead. The calibrated-window ops (``*_sliced``) run their
+sorts and certificates in PyTorch around two kernels each.
 """
 
-from pointnet2_tpu_torch.ops.cuda.ballquery import ball_query
+from pointnet2_tpu_torch.ops.cuda.ballquery import ball_query, ball_query_sliced, ball_query_tiles
 from pointnet2_tpu_torch.ops.cuda.common import LAUNCHES, reset_launches
 from pointnet2_tpu_torch.ops.cuda.fps import fps_centroids
 from pointnet2_tpu_torch.ops.cuda.interpolate import three_interpolate, three_interpolate_grad
-from pointnet2_tpu_torch.ops.cuda.knn import knn, three_nn
+from pointnet2_tpu_torch.ops.cuda.knn import knn, knn_sliced, knn_tiles, three_nn, three_nn_sliced
+from pointnet2_tpu_torch.ops.cuda.wingather import (
+    ball_query_tiles_pos,
+    project_group_sliced,
+    window_gather,
+)
 
 __all__ = [
     "LAUNCHES",
     "reset_launches",
     "fps_centroids",
     "ball_query",
+    "ball_query_tiles",
+    "ball_query_sliced",
+    "ball_query_tiles_pos",
+    "window_gather",
+    "project_group_sliced",
     "knn",
+    "knn_tiles",
+    "knn_sliced",
     "three_nn",
+    "three_nn_sliced",
     "three_interpolate",
     "three_interpolate_grad",
 ]

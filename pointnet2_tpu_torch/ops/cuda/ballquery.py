@@ -1,17 +1,28 @@
-"""Wrapper of ``csrc/ballquery.cu``: the exact radius ball query.
+"""Wrappers of ``csrc/ballquery.cu``: the exact and the windowed radius ball query.
 
-Replaces ``pointnet2_tpu/ops/pallas/ballquery.py:42`` (``_ball_query_kernel``).
-The plain version is ``ops.core.ball_query``.
+- ``ball_query`` replaces ``pointnet2_tpu/ops/pallas/ballquery.py:42``
+  (``_ball_query_kernel``); its plain version is ``ops.core.ball_query``.
+- ``ball_query_tiles`` replaces ``ballquery.py:247``
+  (``_ball_query_sliced_kernel``); its plain version is
+  ``ops.core.ball_query_tiles``. ``ball_query_sliced`` is the whole calibrated
+  op (sorts, window starts and certificate in PyTorch, as the JAX wrapper
+  leaves them to XLA) with the two kernels.
 """
 
 from __future__ import annotations
 
 import torch
 
+from pointnet2_tpu_torch.ops import core
 from pointnet2_tpu_torch.ops.core import squared_radius
 from pointnet2_tpu_torch.ops.cuda.common import (
-    FLOAT, INT, PTR, launch, require, require_int32_range, stream_of,
+    FLOAT, INT, PTR, launch, require, require_cuda, require_int32_range, stream_of,
 )
+
+# The window's four columns (x, y, z, original index) sit in a block's shared memory.
+MAX_SHARED_BYTES = 232448  # H100: 227 KB of dynamic shared memory a block
+MAX_WINDOW = MAX_SHARED_BYTES // 16
+MAX_TILE_NSAMPLE = 32  # one slot a lane of a warp
 
 
 def ball_query(
@@ -39,3 +50,51 @@ def ball_query(
         idx.data_ptr(), cnt.data_ptr(), device, stream,
     )
     return idx, cnt
+
+
+def check_tiles(xs, perm, qs, lo, nsample: int, w: int) -> tuple[int, int, int, int]:
+    """Checks shared by the two windowed ball-query kernels; returns (b, n, m, tm)."""
+    require(xs, "xs", torch.float32, (None, None, 3))
+    b, n, _ = xs.shape
+    require(perm, "perm", torch.int32, (b, n))
+    require(qs, "qs", torch.float32, (b, None, 3))
+    m = qs.shape[1]
+    require(lo, "lo", torch.int32, (b, None))
+    t = lo.shape[1]
+    if b == 0 or t == 0 or m % t or b > 65535:
+        raise ValueError(f"{m} sorted queries do not fill {t} tiles of {b} clouds")
+    if not 0 < nsample <= MAX_TILE_NSAMPLE:
+        raise ValueError(f"the windowed ball query takes 1 <= nsample <= {MAX_TILE_NSAMPLE}, got {nsample}")
+    if not 0 < w <= min(n, MAX_WINDOW) or w % 32:
+        raise ValueError(f"window {w} must be a multiple of 32 in (0, min(N={n}, {MAX_WINDOW})]")
+    require_int32_range("ball_query_tiles", b, m, nsample)
+    require_int32_range("ball_query_tiles", b, n, 3)
+    return b, n, m, m // t
+
+
+def ball_query_tiles(xs, perm, qs, lo, radius: float, nsample: int, w: int):
+    """The windowed ball query over sorted tiles; see ``ops.core.ball_query_tiles``.
+
+    ``lo + w`` must not pass N (the calibrated op clips it so); the kernel
+    reads the window where it lies. Returns idx (B, M, nsample), cnt (B, M)
+    int32 in sorted query order.
+    """
+    b, n, m, tm = check_tiles(xs, perm, qs, lo, nsample, w)
+    idx = torch.empty((b, m, nsample), dtype=torch.int32, device=xs.device)
+    cnt = torch.empty((b, m), dtype=torch.int32, device=xs.device)
+    device, stream = stream_of(xs)
+    launch(
+        "ball_query_sliced", "ballquery", "pn2_ball_query_tiles",
+        [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, FLOAT, INT, PTR, PTR, INT, PTR],
+        xs.data_ptr(), perm.data_ptr(), qs.data_ptr(), lo.data_ptr(), b, n, m, tm, w,
+        squared_radius(radius), nsample, idx.data_ptr(), cnt.data_ptr(), device, stream,
+    )
+    return idx, cnt
+
+
+def ball_query_sliced(xyz1, xyz2, radius: float, nsample: int, window: int):
+    """``ops.core.ball_query_sliced`` with the two CUDA kernels: ``(idx, cnt, ok)``."""
+    require_cuda(xyz1, xyz2)
+    return core.ball_query_sliced(
+        xyz1, xyz2, radius, nsample, window, exact=ball_query, tiles=ball_query_tiles
+    )

@@ -25,7 +25,7 @@ PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 
-SOURCES = ("fps", "ballquery", "knn", "interpolate")
+SOURCES = ("fps", "ballquery", "knn", "interpolate", "wingather")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -52,8 +52,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    """Where the library of ``csrc/<name>.cu`` lives, keyed by source and flags."""
+    """Where the library of ``csrc/<name>.cu`` lives, keyed by its source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
     digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libpn2_{name}_{digest.hexdigest()[:16]}.so"
 

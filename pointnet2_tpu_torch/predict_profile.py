@@ -1,14 +1,17 @@
 """Where the predict path's time goes on the GPU: a torch.profiler breakdown.
 
-    python -m pointnet2_tpu_torch.predict_profile [--out FILE]
+    python -m pointnet2_tpu_torch.predict_profile [--bq_window W] [--fp_window W] [--out FILE]
 
 Builds the same ``Predictor`` as ``chip_smoke.py`` (full ``semantic.json``
-width, weights from ``convert.init_variables(seed=0)``), answers one
-warm-up request, then profiles 3 requests of 16 clouds with CPU and CUDA
+width, weights from ``convert.init_variables(seed=0)``; with the calibrated
+windows given, through ``predict_step_checked``), answers one warm-up
+request, then profiles 3 requests of 16 clouds with CPU and CUDA
 activities. Prints one JSON object: the wall time of the window, the device
 time summed over kernels (busy share = device time / wall time), the device
 time of each of the port's kernels, of matrix products, and of everything
-else, and the 20 largest device-time entries. Runs on CUDA only.
+else, the 20 largest device-time entries, the 15 host-side operators
+with the most host time of their own, and the calls of the CUDA runtime that
+make the host wait for the device (``host_waits``). Runs on CUDA only.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ from pointnet2_tpu_torch.config import Config
 from pointnet2_tpu_torch.infer import Predictor
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+# CUDA runtime calls after which the host has waited for the device.
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "cudaMemcpy")
 REQUESTS = 3
 BATCH = 16
 PORT_KERNELS = {
@@ -38,6 +43,10 @@ PORT_KERNELS = {
     "knn": "knn_kernel",
     "three_interpolate": "three_interpolate_kernel",
     "three_interpolate_grad": "three_interpolate_grad_kernel",
+    "ball_query_sliced": "ball_query_tiles_kernel<false>",
+    "ball_query_sliced_pos": "ball_query_tiles_kernel<true>",
+    "window_gather": "window_gather_kernel",
+    "knn_sliced": "knn_tiles_kernel",
 }
 
 
@@ -77,7 +86,13 @@ def summarise(prof, wall_ms: float) -> dict:
     """Device time of a profiled window by category, its busy share, and the 20 largest entries."""
     by_category: dict[str, float] = {}
     top = []
+    host = []
+    waits = {}
     for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CPU and ev.key.startswith("aten::"):
+            host.append((ev.self_cpu_time_total / 1e3, ev.count, ev.key))
+        if ev.device_type == DeviceType.CPU and ev.key in HOST_WAITS:
+            waits[ev.key] = ev.count
         us = _device_us(ev)
         if us <= 0 or ev.device_type != DeviceType.CUDA or ev.key.startswith("Optimizer."):
             continue  # host-side ops and the optimizer's own span carry their kernels' time too: count kernels only
@@ -85,6 +100,7 @@ def summarise(prof, wall_ms: float) -> dict:
         by_category[cat] = by_category.get(cat, 0.0) + us / 1e3
         top.append((us / 1e3, ev.count, ev.key[:120]))
     top.sort(reverse=True)
+    host.sort(reverse=True)
     device_ms = sum(by_category.values())
     return {
         "wall_ms": wall_ms,
@@ -92,6 +108,8 @@ def summarise(prof, wall_ms: float) -> dict:
         "device_busy_share": device_ms / wall_ms,
         "device_ms_by_category": dict(sorted(by_category.items(), key=lambda kv: -kv[1])),
         "top": [{"ms": ms, "calls": n, "name": name} for ms, n, name in top[:20]],
+        "top_host": [{"self_cpu_ms": ms, "calls": n, "name": name} for ms, n, name in host[:15]],
+        "host_waits": waits,
         "card": card_line(),
     }
 
@@ -99,6 +117,8 @@ def summarise(prof, wall_ms: float) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None)
+    ap.add_argument("--bq_window", type=int, default=None, help="calibrated ball-query window")
+    ap.add_argument("--fp_window", type=int, default=None, help="calibrated 3-NN window")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("predict_profile: needs a CUDA device", file=sys.stderr)
@@ -106,7 +126,8 @@ def main(argv=None) -> int:
 
     cfg = Config.from_json(ROOT / "semantic.json")
     sd = convert.from_flax_variables(convert.init_variables(cfg, num_classes=9, seed=0))
-    predictor = Predictor(cfg, sd, infer_chunk=8)
+    predictor = Predictor(cfg, sd, infer_chunk=8, bq_window=args.bq_window, fp_window=args.fp_window)
+    step = predictor.predict_step_checked if args.bq_window or args.fp_window else predictor.predict_step
     rng = np.random.RandomState(1)
     inputs = []
     for _ in range(REQUESTS + 1):
@@ -114,19 +135,21 @@ def main(argv=None) -> int:
         x[..., :3] = rng.rand(BATCH, cfg.num_point, 3) * [8.0, 8.0, 4.9]
         x[..., 3:] = rng.rand(BATCH, cfg.num_point, cfg.point_dim - 3)
         inputs.append(x)
-    predictor.predict_step(inputs[0])
+    step(inputs[0])
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for x in inputs[1:]:
-            predictor.predict_step(x)
+            step(x)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
     result = {
         "requests": REQUESTS,
         "batch": BATCH,
+        "bq_window": args.bq_window,
+        "fp_window": args.fp_window,
         "wall_ms_per_request": wall_ms / REQUESTS,
         **summarise(prof, wall_ms),
     }

@@ -18,7 +18,11 @@ Counterpart of ``pointnet2_tpu/train/trainer.py``:
   ``hoist_geometry`` FPS, ball query and 3-NN run once on the whole batch
   (``:370-480``);
 - ``eval_step`` is the chunked eval forward of ``infer`` plus loss and counts
-  (``:528-548``).
+  (``:528-548``);
+- with calibrated windows (``bq_window``, ``fp_window``) every step and eval
+  step also reports ``window_ok``, the AND of the step's certificates;
+  ``predict_step_checked`` and ``check_bq_window`` run the eval forward and
+  return the certificates' verdict (``:555-585``).
 
 The step leaves every metric on the device and reads nothing back: the
 caller decides when to synchronise.
@@ -34,9 +38,10 @@ import torch
 
 from pointnet2_tpu_torch import convert
 from pointnet2_tpu_torch.config import Config
-from pointnet2_tpu_torch.infer import chunked_logits, full_float32, resolve_device
+from pointnet2_tpu_torch.infer import all_ok, chunked_logits, full_float32, resolve_device
 from pointnet2_tpu_torch.models.pointnet2_seg import (
     PointNet2SemSeg,
+    Window,
     precompute_geometry,
     weighted_ce_loss,
     weighted_ce_sum,
@@ -47,12 +52,24 @@ from pointnet2_tpu_torch.utils.metrics import confusion_matrix
 # means "off", and the ROADMAP item that will bring each.
 _NOT_PORTED = {
     "arch": ("ssg", "queue 1 item 9 (MSG)"),
-    "bq_window": (None, "queue 1 item 7 (calibrated windows)"),
-    "fp_window": (None, "queue 1 item 7 (calibrated windows)"),
     "infer_dtype": ("float32", "queue 1 item 8 (precision modes)"),
     "train_dtype": ("float32", "queue 1 item 8 (precision modes)"),
     "bf16_min_width": (None, "queue 1 item 8 (precision modes)"),
 }
+
+
+def norm_window(name: str, window) -> Window:
+    """An int, None, or a sequence of int/None (made a tuple); anything else,
+    the command-line word ``auto`` above all, raises: resolve it with
+    ``ops.calibrate.calibrate_model_windows`` first."""
+    if window is None or isinstance(window, int):
+        return window
+    if isinstance(window, (list, tuple)) and all(w is None or isinstance(w, int) for w in window):
+        return tuple(window)
+    raise TypeError(
+        f"{name} must be an int, None, or a sequence of int/None (got {window!r}); "
+        "'auto' is resolved with pointnet2_tpu_torch.ops.calibrate.calibrate_model_windows first"
+    )
 
 
 def _staircase(cfg: Config, step: int) -> np.float32:
@@ -91,7 +108,8 @@ class Trainer:
     versions of the operators. ``ops_impl`` goes to every point-set operator
     (None: the kernels on a CUDA device; "torch": the plain versions).
     ``dropout_rate`` is the head's; 0.0 makes a step deterministic for
-    comparisons.
+    comparisons. ``bq_window``/``fp_window`` are the model's calibrated
+    windows (an int or a per-level 4-sequence).
     """
 
     def __init__(
@@ -105,6 +123,8 @@ class Trainer:
         device: Optional[str | torch.device] = None,
         infer_chunk: int = 8,
         dropout_rate: float = 0.5,
+        bq_window: Window = None,
+        fp_window: Window = None,
         **not_ported,
     ):
         for name, value in not_ported.items():
@@ -125,6 +145,8 @@ class Trainer:
             raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
         full_float32()
         self.cfg = cfg
+        self.bq_window = norm_window("bq_window", bq_window)
+        self.fp_window = norm_window("fp_window", fp_window)
         self.num_classes = num_classes
         self.ops_impl = ops_impl
         self.accum_steps = accum_steps
@@ -135,7 +157,8 @@ class Trainer:
         self.lr_schedule = learning_rate_schedule(cfg)
         self.bn_schedule = bn_momentum_schedule(cfg)
         self.model = PointNet2SemSeg(
-            cfg, num_classes, bool(cfg.use_color), ops_impl=ops_impl, dropout_rate=dropout_rate
+            cfg, num_classes, bool(cfg.use_color), ops_impl=ops_impl, dropout_rate=dropout_rate,
+            bq_window=self.bq_window, fp_window=self.fp_window,
         ).to(self.device)
         self.optimizer = self._new_optimizer()
         self.step = 0
@@ -161,6 +184,10 @@ class Trainer:
         self.optimizer = self._new_optimizer()
         self.step = 0
 
+    @property
+    def windows_on(self) -> bool:
+        return self.bq_window is not None or self.fp_window is not None
+
     # -- steps ------------------------------------------------------------
 
     def _to_device(self, batch: Mapping) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -175,17 +202,23 @@ class Trainer:
 
         ``generator`` draws the dropout masks (default: the model's own).
         Returns ``loss``, ``accuracy`` and ``confusion`` as tensors on the
-        device, and the step's ``learning_rate`` and ``bn_decay`` as floats.
+        device, and the step's ``learning_rate`` and ``bn_decay`` as floats;
+        with windows also ``window_ok``, a 0-d bool tensor on the device.
         """
         points, labels, weights = self._to_device(batch)
         lr = self.lr_schedule(self.step)
         bn_momentum = self.bn_schedule(self.step)
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
+        certificates: list = []
         if self.accum_steps > 1:
-            metrics, bn_momentum = self._accumulate(points, labels, weights, bn_momentum, generator)
+            metrics, bn_momentum = self._accumulate(
+                points, labels, weights, bn_momentum, generator, certificates
+            )
         else:
-            logits = self.model(points, bn_momentum=bn_momentum, generator=generator)
+            logits = self.model(
+                points, bn_momentum=bn_momentum, generator=generator, certificates=certificates
+            )
             loss = weighted_ce_loss(logits, labels, weights)
             loss.backward()
             preds = logits.detach().argmax(dim=-1)
@@ -200,12 +233,15 @@ class Trainer:
         self.step += 1
         metrics["learning_rate"] = lr
         metrics["bn_decay"] = bn_momentum
+        if self.windows_on:
+            metrics["window_ok"] = all_ok(certificates, self.device)
         return metrics
 
-    def _accumulate(self, points, labels, weights, bn_momentum, generator):
+    def _accumulate(self, points, labels, weights, bn_momentum, generator, certificates):
         """Forward and backward over the strided microbatches; leaves the
         normalised gradient sum in ``.grad``. Returns the metrics and the
-        momentum each microbatch's BatchNorm was given."""
+        momentum each microbatch's BatchNorm was given; the window
+        certificates go to ``certificates`` (the hoisted geometry's as one)."""
         g = self.accum_steps
         b, n = labels.shape
         if b % g:
@@ -216,7 +252,10 @@ class Trainer:
             bn_momentum = float(np.power(np.float32(bn_momentum), np.float32(1.0 / g)))
         geometry = None
         if self.hoist_geometry:
-            geometry = precompute_geometry(points, self.cfg, self.ops_impl)
+            geometry, geometry_ok = precompute_geometry(
+                points, self.cfg, self.ops_impl, self.bq_window, self.fp_window
+            )
+            certificates.append(("geometry_ok", geometry_ok))
         ce_sum = torch.zeros((), device=self.device)
         nonzero_sum = torch.zeros((), device=self.device)
         correct = torch.zeros((), device=self.device)
@@ -231,7 +270,8 @@ class Trainer:
                     for part, levels in geometry.items()
                 }
             logits = self.model(
-                points[j::g], bn_momentum=bn_momentum, geometry=micro_geometry, generator=generator
+                points[j::g], bn_momentum=bn_momentum, geometry=micro_geometry, generator=generator,
+                certificates=certificates,
             )
             ce, nonzero = weighted_ce_sum(logits, labels[j::g], weights[j::g])
             ce.backward()  # adds into .grad: the sum over microbatches
@@ -252,16 +292,40 @@ class Trainer:
         return metrics, bn_momentum
 
     def eval_step(self, batch: Mapping) -> dict:
-        """Eval-mode forward in chunks of ``infer_chunk`` clouds: loss, accuracy, confusion, preds."""
+        """Eval-mode forward in chunks of ``infer_chunk`` clouds: loss, accuracy,
+        confusion, preds, and with windows ``window_ok``."""
         points, labels, weights = self._to_device(batch)
-        logits = chunked_logits(self.model.eval(), points, self.infer_chunk)
+        certificates: list = []
+        logits = chunked_logits(self.model.eval(), points, self.infer_chunk, certificates)
         preds = logits.argmax(dim=-1)
-        return {
+        metrics = {
             "loss": weighted_ce_loss(logits, labels, weights),
             "accuracy": (preds == labels).float().mean(),
             "confusion": confusion_matrix(labels, preds, self.num_classes),
             "preds": preds,
         }
+        if self.windows_on:
+            metrics["window_ok"] = all_ok(certificates, self.device)
+        return metrics
+
+    def predict_step_checked(self, points) -> tuple[torch.Tensor, torch.Tensor]:
+        """Eval-mode labels (B, N) int32 and the AND of every chunk's window
+        certificates, a 0-d bool tensor on the device: False means a window
+        left out candidates on this batch and the caller should recalibrate."""
+        x = torch.as_tensor(points).to(self.device, self.model.fc2.weight.dtype)
+        certificates: list = []
+        logits = chunked_logits(self.model.eval(), x, self.infer_chunk, certificates)
+        return logits.argmax(dim=-1).to(torch.int32), all_ok(certificates, self.device)
+
+    def check_bq_window(self, points) -> bool:
+        """Whether every window certificate (ball query and 3-NN) holds on this
+        batch, from one eval forward of the whole batch; True without windows."""
+        if not self.windows_on:
+            return True
+        x = torch.as_tensor(points).to(self.device, self.model.fc2.weight.dtype)
+        certificates: list = []
+        chunked_logits(self.model.eval(), x, 0, certificates)
+        return bool(all_ok(certificates, self.device))
 
 
 # -- checkpointing ---------------------------------------------------------

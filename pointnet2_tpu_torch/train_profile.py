@@ -1,6 +1,6 @@
 """Where the train step's time goes on the GPU: a torch.profiler breakdown.
 
-    python -m pointnet2_tpu_torch.train_profile [--accum G] [--out FILE]
+    python -m pointnet2_tpu_torch.train_profile [--accum G] [--bq_window W] [--fp_window W] [--out FILE]
 
 Builds the same ``Trainer`` as ``chip_smoke.py``'s train phase (full
 ``semantic.json`` width, Adam, weights from ``convert.init_variables(seed=0)``,
@@ -9,7 +9,9 @@ steps, then profiles 3 steps with CPU and CUDA activities. Prints one JSON
 object: the wall time of the window and per step, the device time summed
 over kernels (busy share = device time / wall time), the device time of each
 of the port's kernels, of matrix products, of the optimizer and of
-everything else, and the 20 largest device-time entries. Runs on CUDA only.
+everything else, the 20 largest device-time entries and the 15 host-side
+operators with the most host time of their own. The calibrated windows, when
+given, go to the Trainer. Runs on CUDA only.
 """
 
 from __future__ import annotations
@@ -48,6 +50,8 @@ def train_batch(cfg: Config, batch: int, seed: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--accum", type=int, default=1, help="accum_steps of the Trainer")
+    ap.add_argument("--bq_window", type=int, default=None, help="calibrated ball-query window")
+    ap.add_argument("--fp_window", type=int, default=None, help="calibrated 3-NN window")
     ap.add_argument("--out", type=pathlib.Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -55,7 +59,7 @@ def main(argv=None) -> int:
         return 1
 
     cfg = Config.from_json(ROOT / "semantic.json")
-    trainer = Trainer(cfg, accum_steps=args.accum)
+    trainer = Trainer(cfg, accum_steps=args.accum, bq_window=args.bq_window, fp_window=args.fp_window)
     trainer.init_state(seed=0)
     batches = [train_batch(cfg, BATCH, 1 + i) for i in range(WARMUP + STEPS)]
     for batch in batches[:WARMUP]:
@@ -74,6 +78,8 @@ def main(argv=None) -> int:
         "steps": STEPS,
         "batch": BATCH,
         "accum_steps": args.accum,
+        "bq_window": args.bq_window,
+        "fp_window": args.fp_window,
         "wall_ms_per_step": wall_ms / STEPS,
         "last_loss": float(metrics["loss"]),
         "peak_memory_mb": torch.cuda.max_memory_allocated() / 2**20,

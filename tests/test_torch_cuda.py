@@ -7,7 +7,10 @@ on a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -p no:cacheprovider
 
-Tolerances: FPS, ball query and kNN equal bit for bit; three_interpolate
+Tolerances: FPS, ball query and kNN equal bit for bit, and so do the four
+calibrated-window kernels (the windowed ball query, with and without window
+columns, the window gather and the windowed kNN) and their ``ok``;
+three_interpolate
 within rtol=1e-6, atol=1e-6 (it is exact by construction; the tolerance is
 the one ``chip_smoke.py`` holds it to); three_interpolate_grad within
 rtol=1e-5, atol=1e-5 (it sums a row's few dozen addends with float atomics,
@@ -243,3 +246,129 @@ def test_wrappers_check_their_inputs(cuda_device):
         cuda.fps_centroids(xyz.double(), 8)
     with pytest.raises(ValueError, match="k"):
         cuda.knn(xyz, xyz, 17)
+
+
+# -- calibrated windows ----------------------------------------------------------
+
+
+def _box(seed, b, n, scale=(8.0, 1.0, 1.0)):
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy((rng.rand(b, n, 3) * scale).astype(np.float32)).to("cuda")
+
+
+def _sorted_tiles(xyz, queries, tm):
+    """What the calibrated ops hand a tile kernel: the sorted cloud, its
+    original indices, the sorted queries, and window starts on 128-multiples."""
+    perm = torch.argsort(xyz[..., 0], dim=1, stable=True)
+    xs = core._take_rows(xyz, perm)
+    qs = core._take_rows(queries, torch.argsort(queries[..., 0], dim=1, stable=True))
+    return xs, perm.to(torch.int32), qs
+
+
+@pytest.mark.parametrize(
+    "b,n,m,radius,nsample,window",
+    [(2, 1024, 256, 0.3, 8, 512), (1, 2048, 512, 0.05, 32, 640), (2, 8192, 1024, 0.5, 32, 3072),
+     (1, 4096, 128, 3.0, 32, 3072),  # every column in the ball: counts far above nsample
+     (1, 8192, 1024, 0.5, 32, 7168),  # 112 KB of shared memory: the opt-in above 48 KB
+     (2, 512, 64, 0.2, 5, 256)],  # one tile of 64 queries, nsample off the powers of two
+)
+def test_ball_query_tiles_kernels(cuda_device, b, n, m, radius, nsample, window):
+    xyz = _box(20, b, n)
+    queries = xyz[:, :: n // m][:, :m].contiguous()
+    xs, perm, qs = _sorted_tiles(xyz, queries, min(128, m))
+    t = max(m // 128, 1)
+    lo = torch.randint(0, (n - window) // 128 + 1, (b, t), device=cuda_device, dtype=torch.int32) * 128
+    got = cuda.ball_query_tiles(xs, perm, qs, lo, radius, nsample, window)
+    want = core.ball_query_tiles(xs, perm, qs, lo, radius, nsample, window)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    got_pos = cuda.ball_query_tiles_pos(xs, perm, qs, lo, radius, nsample, window)
+    want_pos = core.ball_query_tiles_pos(xs, perm, qs, lo, radius, nsample, window)
+    assert all(torch.equal(g, w) for g, w in zip(got_pos, want_pos))
+    assert torch.equal(got_pos[0], got[0]) and torch.equal(got_pos[2], got[1])
+
+
+@pytest.mark.parametrize("b,n,m,k,c", [(2, 8192, 1024, 32, 32), (1, 512, 128, 8, 7), (2, 1024, 256, 4, 64)])
+def test_window_gather_kernel(cuda_device, b, n, m, k, c):
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    zp = torch.randn((b, n, c), generator=gen, device=cuda_device)
+    t = max(m // 128, 1)
+    w = 256
+    lo = torch.randint(0, (n - w) // 128 + 1, (b, t), device=cuda_device, dtype=torch.int32) * 128
+    pos = torch.randint(0, w, (b, m, k), device=cuda_device, dtype=torch.int32)
+    assert torch.equal(cuda.window_gather(zp, lo, pos), core.window_gather(zp, lo, pos))
+    # A view whose rows are not 16-byte aligned takes the scalar path.
+    wide = torch.randn((b, n, c + 1), generator=gen, device=cuda_device)[..., 1:].contiguous()
+    assert torch.equal(cuda.window_gather(wide, lo, pos), core.window_gather(wide, lo, pos))
+
+
+@pytest.mark.parametrize(
+    "b,m,nq,k,window",
+    [(2, 1024, 8192, 3, 512), (1, 512, 1024, 4, 384), (2, 130, 256, 5, 128), (1, 1000, 640, 16, 256)],
+)
+def test_knn_tiles_kernel(cuda_device, b, m, nq, k, window):
+    refs = _box(22, b, m)
+    refs[:, ::5, 0] = refs[:, 1:2, 0]  # repeated x: ties within the window order
+    refs[:, 7::9] = refs[:, 6::9][:, : refs[:, 7::9].shape[1]]  # repeated points: distance ties
+    xs, perm, qs = _sorted_tiles(refs, _box(23, b, nq), 128)
+    mpad = (m + 127) // 128 * 128
+    lo = torch.randint(0, (mpad - window) // 128 + 1, (b, nq // 128), device=cuda_device, dtype=torch.int32) * 128
+    got = cuda.knn_tiles(xs, perm, qs, lo, k, window)
+    want = core.knn_tiles(xs, perm, qs, lo, k, window)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("window", [3072, 256])
+def test_calibrated_ops_on_the_kernel_path(cuda_device, window):
+    """The whole calibrated ops, kernels against plain versions, ``ok`` included,
+    at the SA1 and FP4 shapes of a chunk; 256 is too small for SA1."""
+    xyz = _box(24, 2, 8192, scale=(8.0, 8.0, 4.9))
+    _, cent = ops.fps_centroids(xyz, 1024)
+    got = ops.ball_query_calibrated(xyz, cent, 0.5, 32, window, impl="cuda")
+    want = ops.ball_query_calibrated(xyz, cent, 0.5, 32, window, impl="torch")
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert bool(got[2]) == (window == 3072)
+    inputs = torch.cat([xyz, torch.rand_like(xyz)], -1)
+    w0, b0 = torch.randn(6, 32, device=cuda_device), torch.randn(32, device=cuda_device)
+    got = ops.project_group_calibrated(inputs, w0, b0, xyz, cent, 0.5, 32, window, impl="cuda")
+    want = ops.project_group_calibrated(inputs, w0, b0, xyz, cent, 0.5, 32, window, impl="torch")
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    fp_window = 512 if window == 3072 else 128
+    got = ops.three_nn_calibrated(xyz, cent, fp_window, impl="cuda")
+    want = ops.three_nn_calibrated(xyz, cent, fp_window, impl="torch")
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    if bool(got[2]):
+        assert all(torch.equal(g, w) for g, w in zip(got[:2], ops.three_nn(xyz, cent, impl="cuda")))
+
+
+def test_windowed_model_launch_counts(cuda_device):
+    """Eval without gradients: the fused grouping at the level whose cloud is
+    wider than the window, the exact kernels where it falls back statically."""
+    from pointnet2_tpu_torch.config import Config
+    from pointnet2_tpu_torch.models import PointNet2SemSeg
+
+    cfg = Config(num_point=2048, l1_npoint=512, l2_npoint=128, l3_npoint=32, l4_npoint=16)
+    model = PointNet2SemSeg(cfg, bq_window=1024, fp_window=256).to(cuda_device).eval()
+    x = torch.cat([_box(25, 2, 2048, scale=(8.0, 8.0, 4.9)), torch.rand(2, 2048, 3, device=cuda_device)], -1)
+    certificates = []
+    cuda.reset_launches()
+    with torch.no_grad():
+        model(x, certificates=certificates)
+    assert dict(cuda.LAUNCHES) == {
+        "fps_centroids": 4, "ball_query_sliced_pos": 1, "window_gather": 1, "ball_query": 3,
+        "knn_sliced": 1, "knn": 3, "three_interpolate": 4,
+    }
+    assert len(certificates) == 8
+
+
+def test_windowed_wrappers_check_their_inputs(cuda_device):
+    xyz = _box(26, 1, 1024)
+    xs, perm, qs = _sorted_tiles(xyz, xyz[:, :256].contiguous(), 128)
+    lo = torch.zeros((1, 2), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="nsample"):
+        cuda.ball_query_tiles(xs, perm, qs, lo, 0.1, 33, 256)
+    with pytest.raises(ValueError, match="window"):
+        cuda.ball_query_tiles(xs, perm, qs, lo, 0.1, 8, 2048)
+    with pytest.raises(ValueError, match="int32"):
+        cuda.ball_query_tiles(xs, perm.long(), qs, lo, 0.1, 8, 256)
+    with pytest.raises(ValueError, match="k"):
+        cuda.knn_tiles(xs, perm, qs, lo, 17, 256)

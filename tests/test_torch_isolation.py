@@ -39,9 +39,10 @@ def test_importing_the_port_loads_no_jax():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300
     )
     assert run.returncode == 0, run.stdout + run.stderr
-    assert len(mods) >= 21
+    assert len(mods) >= 23
     assert {"pointnet2_tpu_torch.train.trainer", "pointnet2_tpu_torch.utils.metrics",
-            "pointnet2_tpu_torch.ops.autograd", "pointnet2_tpu_torch.train_profile"} <= set(mods)
+            "pointnet2_tpu_torch.ops.autograd", "pointnet2_tpu_torch.train_profile",
+            "pointnet2_tpu_torch.ops.calibrate", "pointnet2_tpu_torch.ops.cuda.wingather"} <= set(mods)
 
 
 _FORBIDDEN = re.compile(
@@ -67,11 +68,19 @@ def test_the_scan_catches_forbidden_imports():
 
 
 @pytest.mark.parametrize(
-    "op", ["fps_centroids", "ball_query", "knn", "three_nn", "three_interpolate", "three_interpolate_grad"]
+    "op", ["fps_centroids", "ball_query", "knn", "three_nn", "three_interpolate", "three_interpolate_grad",
+           "ball_query_calibrated", "project_group_calibrated", "knn_calibrated", "three_nn_calibrated"]
 )
 def test_impl_cuda_on_a_cpu_tensor_raises(op):
     xyz = torch.rand(1, 32, 3)
+    big = torch.rand(1, 512, 3)
     args = {
+        "ball_query_calibrated": (big, big[:, :128].contiguous(), 0.1, 4, 128),
+        "project_group_calibrated": (
+            torch.rand(1, 512, 6), torch.rand(6, 4), torch.rand(4), big, big[:, :128].contiguous(), 0.1, 4, 128,
+        ),
+        "knn_calibrated": (big, big, 3, 128),
+        "three_nn_calibrated": (big, big, 128),
         "fps_centroids": (xyz, 8),
         "ball_query": (xyz, xyz[:, :8].contiguous(), 0.5, 4),
         "knn": (xyz, xyz, 3),
@@ -86,14 +95,30 @@ def test_impl_cuda_on_a_cpu_tensor_raises(op):
 
 
 @pytest.mark.parametrize(
-    "name", ["fps_centroids", "ball_query", "knn", "three_interpolate", "three_interpolate_grad"]
+    "name", ["fps_centroids", "ball_query", "knn", "three_interpolate", "three_interpolate_grad",
+             "ball_query_tiles", "ball_query_tiles_pos", "window_gather", "knn_tiles",
+             "ball_query_sliced", "project_group_sliced", "knn_sliced", "three_nn_sliced"]
 )
 def test_kernel_wrappers_refuse_cpu_tensors(name):
-    """Called directly, a wrapper never runs a plain version in the kernel's place."""
+    """Called directly, a wrapper never runs a plain version in the kernel's place,
+    the windowed ones on the static fallback and on the windowed path alike."""
     from pointnet2_tpu_torch.ops import cuda
 
     xyz = torch.rand(1, 32, 3)
+    big = torch.rand(1, 512, 3)
+    perm = torch.arange(512, dtype=torch.int32)[None]
+    lo = torch.zeros(1, 1, dtype=torch.int32)
     args = {
+        "ball_query_tiles": (big, perm, big[:, :128].contiguous(), lo, 0.1, 4, 128),
+        "ball_query_tiles_pos": (big, perm, big[:, :128].contiguous(), lo, 0.1, 4, 128),
+        "window_gather": (torch.rand(1, 512, 8), lo, torch.zeros(1, 128, 4, dtype=torch.int32)),
+        "knn_tiles": (big, perm, big[:, :128].contiguous(), lo, 3, 128),
+        "ball_query_sliced": (big, big[:, :128].contiguous(), 0.1, 4, 128),
+        "project_group_sliced": (
+            torch.rand(1, 512, 6), torch.rand(6, 4), torch.rand(4), big, big[:, :128].contiguous(), 0.1, 4, 128,
+        ),
+        "knn_sliced": (big, big, 3, 128),
+        "three_nn_sliced": (big, big, 128),
         "fps_centroids": (xyz, 8),
         "ball_query": (xyz, xyz, 0.5, 4),
         "knn": (xyz, xyz, 3),

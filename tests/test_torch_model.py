@@ -320,7 +320,7 @@ def test_train_logits_match_jax(monkeypatch):
         port(torch.from_numpy(x))
     # Both sides get the float32 neighbour structure, as a float32 run computes
     # it (the JAX 3-NN keeps its distances in float32 whatever its input).
-    geometry = precompute_geometry(torch.from_numpy(x), cfg)
+    geometry, _ = precompute_geometry(torch.from_numpy(x), cfg)
     geometry64 = {
         part: tuple({k: v.double() if v.is_floating_point() else v for k, v in level.items()} for level in levels)
         for part, levels in geometry.items()
@@ -378,7 +378,8 @@ def test_precompute_geometry_matches_jax_and_the_inline_forward():
     want, ok = jax_precompute_geometry(
         jnp.asarray(x), config=JaxConfig(**{**SMALL, "num_point": 256}), ops_impl="xla"
     )
-    got = precompute_geometry(torch.from_numpy(x), cfg)
+    got, got_ok = precompute_geometry(torch.from_numpy(x), cfg)
+    assert got_ok.dtype == torch.bool and got_ok.shape == () and bool(got_ok)
     assert bool(ok) and set(got) == {"sa", "fp"} and len(got["sa"]) == len(got["fp"]) == 4
     for level, ref in zip(got["sa"], want["sa"]):
         np.testing.assert_array_equal(level["new_xyz"].numpy(), np.asarray(ref["new_xyz"]))

@@ -434,7 +434,9 @@ def test_accum_rejects_a_batch_it_does_not_divide():
 
 @pytest.mark.parametrize(
     "option",
-    [{"arch": "msg"}, {"bq_window": 3072}, {"fp_window": (None, None, None, 256)},
+    # The windows are ported: beside them, the precision modes still raise.
+    [{"arch": "msg"}, {"bq_window": 3072, "infer_dtype": "bfloat16"},
+     {"fp_window": (None, None, None, 256), "train_dtype": "bfloat16"},
      {"infer_dtype": "bfloat16"}, {"train_dtype": "bfloat16"}, {"bf16_min_width": 128}],
 )
 def test_unported_options_raise(option):
@@ -444,6 +446,7 @@ def test_unported_options_raise(option):
 
 def test_unported_options_at_their_off_value_and_unknown_ones():
     Trainer(Config(**SMALL), device="cpu", arch="ssg", bq_window=None, train_dtype="float32")
+    Trainer(Config(**SMALL), device="cpu", bq_window=3072, fp_window=(None, None, None, 256))
     with pytest.raises(TypeError):
         Trainer(Config(**SMALL), device="cpu", window=3)
     with pytest.raises(ValueError, match="optimizer"):
