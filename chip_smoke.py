@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one NVIDIA GPU: kernels, parity, the predict and the train path.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: kernels, parity, the predict, train and op paths.
 
     python3 chip_smoke.py [--out FILE]
 
@@ -75,9 +75,27 @@ non-zero and prints no result):
    against the no-window step (loss within 1e-5 relative, gradients within
    1e-3 of their max abs); and the windows ``auto`` would pick
    (``calibrate_model_windows``) on the smoke clouds.
+6. Op surface: the index-only FPS (``farthest_point_sample``) at the four SA
+   shapes of both batches, equal to its plain version and to the fused
+   kernel's indices; the round-1 windowed ball query (``ops.ball_query(
+   impl="windowed")``, default window ``max(2 * nsample, N // 4)``) at
+   SA1-SA3 of both batches, on a clustered cloud whose band's tiles fall back,
+   on 2 clouds of 65536 points (a 16384-column window, past shared memory)
+   and with nsample = 64: the kernel equal to its plain version on the op's
+   sorted inputs, the whole op equal to the plain windowed op and to the
+   exact kernel, run under ``torch.cuda.set_sync_debug_mode("error")`` (no
+   host read decides the fallback), the tiles that fit counted on the host
+   from the plan; both kernels timed beside their bounds, their plain
+   versions timed with 3 single calls (the plain FPS takes some 200 ms a
+   call). Then ``tools.parity`` on the card (46 checks of every kernel
+   against the NumPy oracles; zero failures), and the op-level path: one run
+   of ``tools.stage_bench``'s composites (the SA sample-and-group through
+   ``ops.farthest_point_sample`` with either ball query, the gather, the FP
+   interpolation), which must launch its five kernels.
 
 Output: one JSON line a kernel and shape, one for each driven path (predict,
-train, predict_windows, train_windows), the ``nvidia-smi`` line, one
+train, predict_windows, train_windows, op_surface; the parity sweep's lines
+and the stage bench's lines inside the last), the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
 Each path's launch counts are reset just before it and read just after;
 the ``kernels`` line sums them.
@@ -89,7 +107,6 @@ import argparse
 import json
 import pathlib
 import statistics
-import subprocess
 import sys
 import time
 
@@ -104,12 +121,12 @@ from pointnet2_tpu_torch.models.pointnet2_seg import SA_MLPS
 from pointnet2_tpu_torch.ops.calibrate import calibrate_model_windows
 from pointnet2_tpu_torch.ops import core, cuda
 from pointnet2_tpu_torch.ops.cuda import build
+from pointnet2_tpu_torch.tools import op_bench, parity, stage_bench
 from pointnet2_tpu_torch.train import Trainer
 from pointnet2_tpu_torch.train_profile import train_batch
+from pointnet2_tpu_torch.utils.bench import bound, card_line, cuda_ms
 
 ROOT = pathlib.Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
-F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, published
 CHUNK = 8  # Trainer.infer_chunk / Predictor default: the batch a kernel sees
 REQUESTS = 3
 BATCH = 16  # semantic.json's batch_size
@@ -137,6 +154,10 @@ KERNELS = {
     "ball_query_sliced_pos": ("pointnet2_tpu_torch/csrc/wingather.cu", "pointnet2_tpu/ops/pallas/wingather.py:54"),
     "window_gather": ("pointnet2_tpu_torch/csrc/wingather.cu", "pointnet2_tpu/ops/pallas/wingather.py:98"),
     "knn_sliced": ("pointnet2_tpu_torch/csrc/knn.cu", "pointnet2_tpu/ops/pallas/knn.py:133"),
+    "farthest_point_sample": ("pointnet2_tpu_torch/csrc/fps.cu", "pointnet2_tpu/ops/pallas/fps.py:40"),
+    "ball_query_windowed": (
+        "pointnet2_tpu_torch/csrc/window_bq.cuh", "pointnet2_tpu/ops/pallas/ballquery.py:80",
+    ),
 }
 GEOMETRY_KERNELS = ("fps_centroids", "ball_query", "knn")
 INTERPOLATE_KERNELS = ("three_interpolate", "three_interpolate_grad")
@@ -149,18 +170,15 @@ SMALL_BQ_WINDOW = 256  # too small for SA1: ok must be False
 SMALL_FP_WINDOW = 128
 WINDOW_TRAIN_STEPS = 3
 WINDOW_LOGIT_TOL = 1e-4
+# The plain versions of the op-surface rows run a few times only: the plain FPS
+# takes some 200 ms a call at SA1.
+FEW = dict(reps=3, inner=1, warmup=1)
+# Past a block's shared memory: N // 4 = 16384 columns > the 14528 that fit.
+WIDE_N, WIDE_M, WIDE_B = 65536, 1024, 2
 
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def clouds(batch: int, cfg: Config, seed: int) -> np.ndarray:
@@ -170,32 +188,6 @@ def clouds(batch: int, cfg: Config, seed: int) -> np.ndarray:
     x[..., :3] = rng.rand(batch, cfg.num_point, 3) * [8.0, 8.0, 4.9]
     x[..., 3:] = rng.rand(batch, cfg.num_point, cfg.point_dim - 3)
     return x
-
-
-def cuda_ms(fn, reps: int = 10, inner: int = 5, warmup: int = 2) -> float:
-    """Time of one call: CUDA events around ``inner`` calls in a row, divided by
-    ``inner``; the median of ``reps`` such runs. A call whose kernel is shorter
-    than its host-side launch measures the launch."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
-
-
-def bound(nbytes: float, nops: float) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -209,8 +201,10 @@ class Report:
         self.card = card
         self.rows: list[dict] = []
 
-    def add(self, kernel, batch, shape, run, plain, nbytes, nops, err, match, library=None, extra=None):
-        """``extra``: further calls to time beside the kernel, by the key each gets in the row."""
+    def add(self, kernel, batch, shape, run, plain, nbytes, nops, err, match, library=None, extra=None,
+            info=None, plain_timing=None):
+        """``extra``: further calls to time beside the kernel, by the key each gets in the row;
+        ``info``: further fields of the row; ``plain_timing``: ``cuda_ms`` arguments for the plain version."""
         if not match:
             raise AssertionError(f"{kernel} at {shape} disagrees with its plain version (max abs err {err})")
         bound_ms, bound_by = bound(nbytes, nops)
@@ -222,7 +216,7 @@ class Report:
             "shape": f"B={batch} {shape}",
             "kernel_ms": kernel_ms,
             "launches": cuda.LAUNCHES[kernel] - before,  # the timed calls really ran the kernel
-            "plain_ms": cuda_ms(plain),
+            "plain_ms": cuda_ms(plain, **(plain_timing or {})),
             "library_ms": None if library is None else cuda_ms(library),
             "bound_ms": bound_ms,
             "bound_by": bound_by,
@@ -232,6 +226,7 @@ class Report:
             "match": match,
             "card": self.card,
             **{key: cuda_ms(fn) for key, fn in (extra or {}).items()},
+            **(info or {}),
         }
         self.rows.append(row)
         emit(row)
@@ -530,6 +525,127 @@ def window_kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> None:
         lambda win: ops.three_nn_calibrated(xyz, cent, win, impl="torch"),
         (FP_WINDOW, SMALL_FP_WINDOW), {FP_WINDOW: True},
     )
+
+
+def no_host_read(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: any
+    synchronising PyTorch call in it (``.item()``, ``.cpu()``, ``bool()`` of a
+    device tensor, ...) raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def clustered(b: int, cfg: Config, seed: int) -> torch.Tensor:
+    """Smoke clouds with half their points in a 2 cm band of x: the query tiles
+    over the band hold far more candidates than the window."""
+    xyz = torch.from_numpy(np.ascontiguousarray(clouds(b, cfg, seed)[..., :3])).to(DEVICE)
+    half = cfg.num_point // 2
+    xyz[:, :half, 0] = 4.0 + 0.02 * xyz[:, :half, 0] / 8.0
+    return xyz.contiguous()
+
+
+def windowed_rows(report: Report, label: str, xyz, cent, radius: float, nsample: int) -> None:
+    """The round-1 windowed ball query with its default window on one input:
+    the kernel against its plain version on the op's sorted inputs, the whole
+    op (run without a host read) against the plain windowed op and the exact
+    kernel, all bit for bit; the tiles that fit, counted on the host from the
+    plan's ``lo``/``hi``."""
+    b, n = xyz.shape[:2]
+    m = cent.shape[1]
+    plan, w, fits, pairs = op_bench.windowed_plan(xyz, cent, radius, nsample)
+    got = cuda.ball_query_window_tiles(xyz, *plan, radius, nsample, w)
+    want = core.ball_query_window_tiles(xyz, *plan, radius, nsample, w)
+    op = no_host_read(lambda: ops.ball_query(xyz, cent, radius, nsample, impl="windowed"))
+    plain_op = core.ball_query_windowed(xyz, cent, radius, nsample)
+    exact = ops.ball_query(xyz, cent, radius, nsample, impl="cuda")
+    match = all(torch.equal(g, h) for g, h in zip(got, want)) and all(
+        torch.equal(g, h) and torch.equal(g, e) for g, h, e in zip(op, plain_op, exact)
+    )
+    report.add(
+        "ball_query_windowed", b, f"{label} N={n} M={m} r={radius} nsample={nsample} w={w}",
+        lambda: cuda.ball_query_window_tiles(xyz, *plan, radius, nsample, w),
+        lambda: core.ball_query_window_tiles(xyz, *plan, radius, nsample, w),
+        *op_bench.work_ball_query_windowed(b, n, m, fits.shape[1], nsample, pairs),
+        err=0.0, match=match, plain_timing=FEW,
+        extra={
+            "op_ms": lambda: ops.ball_query(xyz, cent, radius, nsample, impl="windowed"),
+            "exact_op_ms": lambda: ops.ball_query(xyz, cent, radius, nsample, impl="cuda"),
+        },
+        info={"cloud": label, "tiles_fit": int(fits.sum()), "tiles": fits.numel(), "no_host_read": True},
+    )
+
+
+def op_surface_kernel_phase(cfg: Config, levels: list, report: Report) -> None:
+    """The two kernels of the op surface on the levels ``kernel_phase`` made
+    for a batch: the index-only FPS at the four SA shapes, equal to its plain
+    version and to the fused kernel's indices; the round-1 windowed ball query
+    at SA1-SA3 (SA4's 64 points take the exact kernel statically)."""
+    b = levels[0].shape[0]
+    for spec, src in zip(cfg.sa_layers, levels):
+        n, npoint = src.shape[1], spec.npoint
+        idx = ops.farthest_point_sample(src, npoint, impl="cuda")
+        match = torch.equal(idx, ops.farthest_point_sample(src, npoint, impl="torch")) and torch.equal(
+            idx, ops.fps_centroids(src, npoint, impl="cuda")[0]
+        )
+        report.add(
+            "farthest_point_sample", b, f"N={n} npoint={npoint}",
+            lambda: ops.farthest_point_sample(src, npoint, impl="cuda"),
+            lambda: ops.farthest_point_sample(src, npoint, impl="torch"),
+            *op_bench.work_fps(b, n, npoint, rows=False), err=0.0, match=match, plain_timing=FEW,
+        )
+    for spec, src, cent in zip(cfg.sa_layers[:3], levels, levels[1:]):
+        windowed_rows(report, "smoke clouds", src, cent, spec.radius, spec.nsample)
+
+
+def windowed_stress_phase(cfg: Config, seed: int, report: Report) -> None:
+    """The round-1 windowed ball query where the smoke clouds do not take it:
+    a clustered cloud (tiles over the band fall back), a cloud of 65536
+    points (its default window, 16384 columns, is read from device memory),
+    and nsample = 64 (the sorted list in the output row)."""
+    sa1 = cfg.sa_layers[0]
+    xyz = clustered(BATCH, cfg, seed + 500)
+    cent = ops.fps_centroids(xyz, sa1.npoint, impl="cuda")[1].contiguous()
+    windowed_rows(report, "clustered", xyz, cent, sa1.radius, sa1.nsample)
+    rng = np.random.RandomState(seed + 501)
+    wide = torch.from_numpy((rng.rand(WIDE_B, WIDE_N, 3) * [8.0, 8.0, 4.9]).astype(np.float32)).to(DEVICE)
+    queries = wide[:, rng.choice(WIDE_N, WIDE_M, replace=False)].contiguous()
+    windowed_rows(report, "past shared memory", wide, queries, sa1.radius, sa1.nsample)
+    xyz = torch.from_numpy(np.ascontiguousarray(clouds(CHUNK, cfg, seed)[..., :3])).to(DEVICE)
+    cent = ops.fps_centroids(xyz, sa1.npoint, impl="cuda")[1].contiguous()
+    windowed_rows(report, "nsample=64", xyz, cent, sa1.radius, 64)
+
+
+def op_surface_phase(card: str) -> dict:
+    """The port's op-level path. First ``tools.parity`` on the card: every
+    kernel, the two FPS entries and the round-1 windowed ball query among
+    them, against the NumPy oracles, with zero failures (its launches are
+    comparisons and count nowhere). Then, launch counts reset just before
+    and read just after, one run of ``tools.stage_bench``: the SA composite
+    through ``ops.farthest_point_sample`` with the exact and the windowed
+    ball query, the gather, the FP composite; the five kernels it drives
+    must have run, and no other."""
+    t0 = time.perf_counter()
+    if parity.main([]) != 0:
+        raise AssertionError("the parity sweep reported failures")
+    parity_s = time.perf_counter() - t0
+    cuda.reset_launches()
+    stages = stage_bench.run(torch.device(DEVICE), small=False)
+    launches = dict(cuda.LAUNCHES)
+    driven = ("farthest_point_sample", "ball_query", "ball_query_windowed", "knn", "three_interpolate")
+    if not all(launches.get(name) for name in driven) or set(launches) - set(driven):
+        raise AssertionError(f"the op surface launched {launches}, want each of {driven} and no other")
+    emit({
+        "phase": "op_surface",
+        "parity_seconds": parity_s,
+        "stage_ms": {row["shape"]: row["ms"] for row in stages},
+        "launches": launches,
+        "card": card,
+    })
+    return launches
 
 
 def _expect_launches(launches: dict, want: dict, what: str) -> None:
@@ -867,11 +983,15 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas, "torch": torch.__version__, "cuda": torch.version.cuda})
 
     report = Report(card)
-    kernel_phase(cfg, SEED, report, CHUNK)
+    chunk_levels = kernel_phase(cfg, SEED, report, CHUNK)
     train_levels = kernel_phase(cfg, SEED + 100, report, BATCH)
     grad_kernel_phase(train_levels, SEED, report)
     window_kernel_phase(cfg, SEED, report, CHUNK)
     window_kernel_phase(cfg, SEED + 100, report, BATCH)
+    op_surface_kernel_phase(cfg, chunk_levels, report)
+    op_surface_kernel_phase(cfg, train_levels, report)
+    windowed_stress_phase(cfg, SEED, report)
+    del chunk_levels, train_levels
     torch.cuda.empty_cache()
     paths = {"predict": predict_phase(cfg, REQUESTS, BATCH, SEED, card)}
     torch.cuda.empty_cache()
@@ -880,6 +1000,8 @@ def main(argv=None) -> int:
     paths["predict_windows"] = predict_windows_phase(cfg, REQUESTS, BATCH, SEED, card)
     torch.cuda.empty_cache()
     paths["train_windows"] = train_windows_phase(cfg, SEED, card)
+    torch.cuda.empty_cache()
+    paths["op_surface"] = op_surface_phase(card)
     kernels = report.kernels_line(paths)
 
     if args.out is not None:

@@ -5,7 +5,8 @@ The package mirrors the JAX package's layout and imports nothing of it:
 - ``config``    own copy of the ``semantic.json`` schema (``Config``).
 - ``ops``       point-set operators: plain PyTorch versions (``ops.core``) and
                 hand-written CUDA kernels for ``sm_90a`` (``ops.cuda``, sources
-                in ``csrc/``), dispatched by the tensor's device.
+                in ``csrc/``), dispatched by the tensor's device; the NumPy
+                oracles (``ops.reference``).
 - ``nn``        BatchNorm, SharedMLP, SetAbstraction, FeaturePropagation.
 - ``models``    the PointNet++ SSG segmentation network, its precomputed
                 geometry and its loss.
@@ -13,7 +14,10 @@ The package mirrors the JAX package's layout and imports nothing of it:
 - ``infer``     ``Predictor``: the chunked eval forward and argmax labels.
 - ``train``     ``Trainer``: the train step (forward, backward, Adam or
                 momentum SGD), gradient accumulation, eval step, checkpoints.
-- ``utils``     the device confusion matrix.
+- ``utils``     the device confusion matrix; the CUDA-event timer and the
+                bound of a kernel's work (``utils.bench``).
+- ``tools``     the parity sweep against the NumPy oracles, the op bench and
+                the stage bench (``python -m pointnet2_tpu_torch.tools.<name>``).
 
 Everything is float32; TF32 is switched off by ``Predictor`` and ``Trainer``.
 """

@@ -21,23 +21,17 @@
 // order without shared memory or a sort. The ragged edge is masked by index
 // (no padded coordinates), and the pad value is kept in a register.
 //
-// `pn2_ball_query_tiles` is the calibrated-window variant (the kernel in
-// window_bq.cuh, which says what it replaces and how it works).
+// The per-query scan is `pn2_window::exact_scan` (window_bq.cuh), which the
+// round-1 windowed kernel's fallback runs too. `pn2_ball_query_tiles` (the
+// calibrated-window variant) and `pn2_ball_query_windowed` (the round-1
+// windowed ball query) are the kernels of window_bq.cuh, which says what they
+// replace and how they work.
 
 #include <cuda_runtime.h>
 
 #include "window_bq.cuh"
 
 namespace {
-
-__device__ __forceinline__ float dist2(float x, float y, float z,
-                                       float x1, float y1, float z1) {
-  const float dx = __fsub_rn(x, x1);
-  const float dy = __fsub_rn(y, y1);
-  const float dz = __fsub_rn(z, z1);
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                   __fmul_rn(dz, dz));
-}
 
 __global__ void ball_query_kernel(const float* __restrict__ xyz1,
                                   const float* __restrict__ xyz2, int b, int n,
@@ -48,32 +42,9 @@ __global__ void ball_query_kernel(const float* __restrict__ xyz1,
   const int lane = threadIdx.x & 31;
   if (q >= (long long)b * m) return;  // the whole warp leaves together
 
-  const float* data = xyz1 + (size_t)(q / m) * n * 3;
-  const float qx = xyz2[q * 3 + 0];
-  const float qy = xyz2[q * 3 + 1];
-  const float qz = xyz2[q * 3 + 2];
-  int* out = idx + q * nsample;
-
-  int count = 0;  // hits so far, the same in every lane
-  int first = 0;
-  for (int base = 0; base < n && count < nsample; base += 32) {
-    const int j = base + lane;
-    bool in = false;
-    if (j < n) {
-      in = dist2(qx, qy, qz, data[j * 3 + 0], data[j * 3 + 1], data[j * 3 + 2]) < r2;
-    }
-    const unsigned mask = __ballot_sync(0xffffffffu, in);
-    if (mask != 0u) {
-      if (count == 0) first = base + __ffs(mask) - 1;
-      if (in) {
-        const int slot = count + __popc(mask & ((1u << lane) - 1u));
-        if (slot < nsample) out[slot] = j;
-      }
-      count += __popc(mask);
-    }
-  }
-  const int c = count < nsample ? count : nsample;
-  for (int s = c + lane; s < nsample; s += 32) out[s] = first;
+  const int c = pn2_window::exact_scan(xyz1 + (size_t)(q / m) * n * 3, n, xyz2[q * 3 + 0],
+                                       xyz2[q * 3 + 1], xyz2[q * 3 + 2], r2, nsample, lane,
+                                       idx + q * nsample);
   if (lane == 0) cnt[q] = c;
 }
 
@@ -110,6 +81,29 @@ int pn2_ball_query_tiles(const float* xs, const int* perm, const float* qs,
   return (int)pn2_window::launch_ball_query_tiles<false>(
       xs, perm, qs, lo, b, n, m, tm, w, r2, nsample, idx, nullptr, cnt,
       (cudaStream_t)stream);
+}
+
+// The round-1 windowed ball query over x-sorted query tiles: xyz1 (b, n, 3)
+// f32 the unsorted cloud, xs (b, n, 3) f32 and perm (b, n) i32 the sorted cloud
+// and its original indices, qs (b, m, 3) f32 the sorted queries in tiles of
+// tm, lo and hi (b, m / tm) i32 each tile's window start and the column after
+// its last candidate, w the window (any width; more than kMaxSharedWindow
+// columns are read from device memory), any nsample -> idx (b, m, nsample)
+// i32, cnt (b, m) i32, in sorted query order. A tile with hi - lo > w scans
+// the unsorted cloud exactly.
+int pn2_ball_query_windowed(const float* xyz1, const float* xs, const int* perm,
+                            const float* qs, const int* lo, const int* hi, int b, int n,
+                            int m, int tm, int w, float r2, int nsample, int* idx,
+                            int* cnt, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)pn2_window::launch_ball_query_windowed(xyz1, xs, perm, qs, lo, hi, b, n, m,
+                                                     tm, w, r2, nsample, idx, cnt,
+                                                     (cudaStream_t)stream);
+}
+
+const char* pn2_ball_query_windowed_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
 }
 
 const char* pn2_ball_query_error_string(int code) {

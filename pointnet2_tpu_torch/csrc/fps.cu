@@ -1,7 +1,12 @@
-// Farthest point sampling that also emits the chosen rows (fps_centroids).
+// Farthest point sampling, with the chosen rows (fps_centroids) or without
+// them (farthest_point_sample): one kernel, the rows a template parameter.
 //
 // Replaces: pointnet2_tpu/ops/pallas/fps.py:89 `_fps_fused_kernel`
-//           (reached through `fps_centroids_pallas`, fps.py:168-215).
+//           (reached through `fps_centroids_pallas`, fps.py:168-215), entry
+//           `pn2_fps_centroids`;
+//           pointnet2_tpu/ops/pallas/fps.py:40 `_fps_kernel` (reached through
+//           `farthest_point_sample_pallas`, fps.py:252-283), entry
+//           `pn2_farthest_point_sample`. Both give the same indices bit for bit.
 //
 // Semantics: slot 0 is index 0. Each of the npoint-1 steps folds the squared
 // distance to the last chosen point, (x-x1)^2+(y-y1)^2+(z-z1)^2 in float32 and
@@ -54,9 +59,10 @@ __device__ __forceinline__ void warp_argmax(float& v, int& i) {
   }
 }
 
-__global__ void fps_centroids_kernel(const float* __restrict__ xyz, int n,
-                                     int npoint, int* __restrict__ idx,
-                                     float* __restrict__ out_xyz) {
+// kRows: also copy each chosen row to out_xyz (unused, may be null, without).
+template <bool kRows>
+__global__ void fps_kernel(const float* __restrict__ xyz, int n, int npoint,
+                           int* __restrict__ idx, float* __restrict__ out_xyz) {
   extern __shared__ float min_d[];  // n floats
   __shared__ float warp_val[32];
   __shared__ int warp_idx[32];
@@ -64,7 +70,7 @@ __global__ void fps_centroids_kernel(const float* __restrict__ xyz, int n,
 
   const float* pts = xyz + (size_t)blockIdx.x * n * 3;
   int* idx_b = idx + (size_t)blockIdx.x * npoint;
-  float* out_b = out_xyz + (size_t)blockIdx.x * npoint * 3;
+  float* out_b = kRows ? out_xyz + (size_t)blockIdx.x * npoint * 3 : nullptr;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -73,9 +79,11 @@ __global__ void fps_centroids_kernel(const float* __restrict__ xyz, int n,
   for (int i = tid; i < n; i += blockDim.x) min_d[i] = 1e38f;
   if (tid == 0) {
     idx_b[0] = 0;
-    out_b[0] = pts[0];
-    out_b[1] = pts[1];
-    out_b[2] = pts[2];
+    if (kRows) {
+      out_b[0] = pts[0];
+      out_b[1] = pts[1];
+      out_b[2] = pts[2];
+    }
   }
 
   int old = 0;
@@ -86,8 +94,11 @@ __global__ void fps_centroids_kernel(const float* __restrict__ xyz, int n,
     // Every min_d >= 0, so -1 loses to any point a thread owns.
     float best = -1.0f;
     int best_i = n;
-    for (int i = tid; i < n; i += blockDim.x) {
-      const float d = dist2(pts[i * 3 + 0], pts[i * 3 + 1], pts[i * 3 + 2], x1, y1, z1);
+    // A walking pointer: left to itself, the compiler may rebuild the 64-bit
+    // address of point i from the block's offset in every iteration.
+    const float* p = pts + 3 * tid;
+    for (int i = tid; i < n; i += blockDim.x, p += 3 * blockDim.x) {
+      const float d = dist2(p[0], p[1], p[2], x1, y1, z1);
       const float m = fminf(min_d[i], d);
       min_d[i] = m;
       if (m > best) {
@@ -108,14 +119,31 @@ __global__ void fps_centroids_kernel(const float* __restrict__ xyz, int n,
       if (lane == 0) {
         chosen = best_i;
         idx_b[j] = best_i;
-        out_b[j * 3 + 0] = pts[best_i * 3 + 0];
-        out_b[j * 3 + 1] = pts[best_i * 3 + 1];
-        out_b[j * 3 + 2] = pts[best_i * 3 + 2];
+        if (kRows) {
+          out_b[j * 3 + 0] = pts[best_i * 3 + 0];
+          out_b[j * 3 + 1] = pts[best_i * 3 + 1];
+          out_b[j * 3 + 2] = pts[best_i * 3 + 2];
+        }
       }
     }
     __syncthreads();
     old = chosen;
   }
+}
+
+template <bool kRows>
+cudaError_t launch_fps(const float* xyz, int b, int n, int npoint, int* idx,
+                       float* out_xyz, int threads, int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const size_t smem = (size_t)n * sizeof(float);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(fps_kernel<kRows>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  fps_kernel<kRows><<<b, threads, smem, stream>>>(xyz, n, npoint, idx, out_xyz);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -126,20 +154,22 @@ extern "C" {
 // Returns cudaGetLastError() after the launch.
 int pn2_fps_centroids(const float* xyz, int b, int n, int npoint, int* idx,
                       float* out_xyz, int threads, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = (size_t)n * sizeof(float);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(fps_centroids_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  fps_centroids_kernel<<<b, threads, smem, (cudaStream_t)stream>>>(xyz, n, npoint, idx,
-                                                                    out_xyz);
-  return (int)cudaGetLastError();
+  return (int)launch_fps<true>(xyz, b, n, npoint, idx, out_xyz, threads, device,
+                               (cudaStream_t)stream);
+}
+
+// xyz (b, n, 3) f32 -> idx (b, npoint) i32. Returns cudaGetLastError().
+int pn2_farthest_point_sample(const float* xyz, int b, int n, int npoint, int* idx,
+                              int threads, int device, void* stream) {
+  return (int)launch_fps<false>(xyz, b, n, npoint, idx, nullptr, threads, device,
+                                (cudaStream_t)stream);
 }
 
 const char* pn2_fps_centroids_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+const char* pn2_farthest_point_sample_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 

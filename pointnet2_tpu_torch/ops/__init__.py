@@ -9,8 +9,12 @@ Each operator on the eval and train paths has a plain PyTorch version in
 - ``"cuda"``: the kernel, which raises on a CPU tensor.
 
 There is no fallback: a kernel that fails to build or launch raises.
-``group_points`` and ``interpolation_weights`` have no kernel (the JAX
-package leaves them to XLA as well). ``three_interpolate`` is differentiable
+``ball_query`` also takes ``impl="windowed"``: the round-1 windowed ball
+query (x-sorted windows, each tile falling back to the exact scan on its own),
+its kernel on a CUDA tensor and its plain version on a CPU tensor.
+``group_points``, ``interpolation_weights``, ``prob_sample`` and the
+full-row ``selection_sort``/``select_top_k`` have no kernel (the JAX package
+leaves them to XLA as well). ``three_interpolate`` is differentiable
 through its own backward (``three_interpolate_grad``, by the same ``impl``),
 ``fps_centroids`` gives ``xyz`` the gather's gradient, and
 ``project_group_leaf`` has the zero-input-gradient backward; see
@@ -29,12 +33,21 @@ from __future__ import annotations
 import torch
 
 from pointnet2_tpu_torch.ops import autograd, core, cuda
-from pointnet2_tpu_torch.ops.core import gather_points, group_points, interpolation_weights
+from pointnet2_tpu_torch.ops.core import (
+    gather_points,
+    group_points,
+    interpolation_weights,
+    prob_sample,
+    select_top_k,
+    selection_sort,
+)
 
 IMPLS = (None, "torch", "cuda")
 
 __all__ = [
+    "farthest_point_sample",
     "fps_centroids",
+    "prob_sample",
     "ball_query",
     "knn",
     "three_nn",
@@ -48,6 +61,8 @@ __all__ = [
     "gather_points",
     "group_points",
     "interpolation_weights",
+    "selection_sort",
+    "select_top_k",
 ]
 
 
@@ -57,6 +72,13 @@ def _use_kernel(impl: str | None, t: torch.Tensor) -> bool:
     if impl == "cuda" and not t.is_cuda:
         raise ValueError("impl='cuda' needs CUDA tensors")
     return impl == "cuda" or (impl is None and t.is_cuda)
+
+
+def farthest_point_sample(xyz, npoint: int, impl: str | None = None):
+    """FPS indices alone: (B, N, 3) -> (B, npoint) int32."""
+    if _use_kernel(impl, xyz):
+        return cuda.farthest_point_sample(xyz, npoint)
+    return core.farthest_point_sample(xyz, npoint)
 
 
 def fps_centroids(xyz, npoint: int, impl: str | None = None):
@@ -70,7 +92,15 @@ def fps_centroids(xyz, npoint: int, impl: str | None = None):
 
 
 def ball_query(xyz1, xyz2, radius: float, nsample: int, impl: str | None = None):
-    """First ``nsample`` in-ball points in dataset order: idx (B, M, nsample), cnt (B, M)."""
+    """First ``nsample`` in-ball points in dataset order: idx (B, M, nsample), cnt (B, M).
+
+    ``impl="windowed"`` takes the round-1 windowed ball query with its default
+    window (``core.ball_query_windowed``): the same outputs bit for bit.
+    """
+    if impl == "windowed":
+        if xyz1.is_cuda:
+            return cuda.ball_query_windowed(xyz1, xyz2, radius, nsample)
+        return core.ball_query_windowed(xyz1, xyz2, radius, nsample)
     if _use_kernel(impl, xyz1):
         return cuda.ball_query(xyz1, xyz2, radius, nsample)
     return core.ball_query(xyz1, xyz2, radius, nsample)

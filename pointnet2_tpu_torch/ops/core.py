@@ -79,6 +79,15 @@ def fps_centroids(xyz: Tensor, npoint: int) -> tuple[Tensor, Tensor]:
     return idx, gather_points(xyz, idx)
 
 
+def prob_sample(cdf: Tensor, uniforms: Tensor) -> Tensor:
+    """Inverse-CDF categorical sampling: cdf (B, N) an unnormalised inclusive
+    cumsum, uniforms (B, M) in [0, 1) -> (B, M) int32, the left insertion point
+    of ``uniforms * cdf[:, -1]`` clamped to N - 1."""
+    q = uniforms * cdf[:, -1:]
+    idx = torch.searchsorted(cdf.contiguous(), q.contiguous(), side="left")
+    return idx.clamp_max(cdf.shape[-1] - 1).to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # Grouping
 # ---------------------------------------------------------------------------
@@ -136,6 +145,33 @@ def knn(xyz1: Tensor, xyz2: Tensor, k: int) -> tuple[Tensor, Tensor]:
     d2 = _pairwise_dist2(xyz2.float(), xyz1.float())
     dist, order = torch.sort(d2, dim=-1, stable=True)
     return dist[..., :k].contiguous(), order[..., :k].to(torch.int32)
+
+
+def selection_sort(dist: Tensor, k: int) -> tuple[Tensor, Tensor]:
+    """The reference's in-place SelectionSort over full rows (tf_grouping.cu:93-136).
+
+    dist (B, M, N) -> (idx int32, dist float32), both (B, M, N): positions
+    0..k-1 hold the k smallest values ascending (a strict ``<`` scan, so ties
+    keep the first occurrence), positions k..N-1 the rest in the order the
+    swaps leave behind. Step s swaps position s with the first minimum of
+    positions s..N-1.
+    """
+    b, m, n = dist.shape
+    vals = dist.float().clone()
+    idxs = torch.arange(n, dtype=torch.int32, device=dist.device).expand(b, m, n).clone()
+    for s in range(min(k, n)):
+        mn = torch.argmin(vals[..., s:], dim=-1, keepdim=True) + s  # first minimum
+        for t in (vals, idxs):
+            at_s, at_mn = t[..., s : s + 1].clone(), t.gather(-1, mn)
+            t.scatter_(-1, mn, at_s)
+            t[..., s : s + 1] = at_mn
+    return idxs, vals
+
+
+def select_top_k(k: int, dist: Tensor) -> tuple[Tensor, Tensor]:
+    """``selection_sort(dist, k)`` with the reference wrapper's argument order
+    (tf_grouping.py:31-43): full rows; callers slice ``[..., :k]``."""
+    return selection_sort(dist, k)
 
 
 def three_nn(xyz1: Tensor, xyz2: Tensor) -> tuple[Tensor, Tensor]:
@@ -232,13 +268,14 @@ def _take_rows(t: Tensor, order: Tensor) -> Tensor:
     return t.gather(1, order[..., None].expand(-1, -1, t.shape[-1]))
 
 
-def _bq_window_starts(xs_x: Tensor, qs_x: Tensor, radius: float, tm: int, w: int):
-    """Window start of each query tile and the certificate of the ball query.
+def _bq_window_bounds(xs_x: Tensor, qs_x: Tensor, radius: float, tm: int, w: int):
+    """Window start of each query tile and the end of its candidates.
 
     ``lo`` is the first sorted column at or right of the tile's leftmost
-    ``x - r``, floored to a 128-multiple and clipped so that the window stays
-    in the cloud; ``ok = max(hi - lo) <= w`` with ``hi`` the column after the
-    rightmost ``x + r``. Returns ``(lo (B, T) int64, ok)``.
+    ``x - r``, clipped so that the window stays in the cloud and floored to a
+    128-multiple; ``hi`` is the first column at or right of the rightmost
+    ``x + r``. The window ``[lo, lo + w)`` holds every candidate of the tile
+    when ``hi - lo <= w``. Returns ``(lo, hi)``, (B, T) int64.
     """
     n = xs_x.shape[1]
     b, m = qs_x.shape
@@ -247,6 +284,13 @@ def _bq_window_starts(xs_x: Tensor, qs_x: Tensor, radius: float, tm: int, w: int
     lo = torch.searchsorted(xs_x, (tiles.amin(-1) - r).contiguous(), side="left")
     hi = torch.searchsorted(xs_x, (tiles.amax(-1) + r).contiguous(), side="left")
     lo = torch.div(lo.clamp(0, max(n - w, 0)), LANES, rounding_mode="floor") * LANES
+    return lo, hi
+
+
+def _bq_window_starts(xs_x: Tensor, qs_x: Tensor, radius: float, tm: int, w: int):
+    """Window start of each query tile and the certificate of the ball query,
+    ``ok = max(hi - lo) <= w``: ``(lo (B, T) int64, ok)``."""
+    lo, hi = _bq_window_bounds(xs_x, qs_x, radius, tm, w)
     return lo, (hi - lo).amax() <= w
 
 
@@ -317,7 +361,7 @@ def window_gather(zp_s: Tensor, lo: Tensor, pos: Tensor) -> Tensor:
     return group_points(zp_s, rows)
 
 
-def _bq_falls_back(n: int, m: int, w: int) -> bool:
+def bq_falls_back(n: int, m: int, w: int) -> bool:
     """The static condition under which a windowed ball query runs exact:
     the window covers the cloud, or the queries do not fill whole tiles."""
     return w >= n or m % min(LANES, m) != 0
@@ -336,7 +380,7 @@ def ball_query_sliced(
     b, n, _ = xyz1.shape
     m = xyz2.shape[1]
     w = round_up(window, LANES)
-    if _bq_falls_back(n, m, w):
+    if bq_falls_back(n, m, w):
         idx, cnt = exact(xyz1, xyz2, radius, nsample)
         return idx, cnt, torch.ones((), dtype=torch.bool, device=xyz1.device)
     perm, xs, qperm, qs, lo, ok = ball_query_window_plan(xyz1, xyz2, radius, w)
@@ -350,13 +394,68 @@ def ball_query_window_plan(xyz1: Tensor, xyz2: Tensor, radius: float, w: int):
     lo, ok)``, the cloud's stable x order (int32) and the sorted cloud, the
     queries' order and the sorted queries, each tile's window start (int32)
     and the certificate."""
+    perm, xs, qperm, qs, lo, hi = ball_query_window_bounds(xyz1, xyz2, radius, w)
+    return perm, xs, qperm, qs, lo, (hi - lo).amax() <= w
+
+
+def ball_query_window_bounds(xyz1: Tensor, xyz2: Tensor, radius: float, w: int):
+    """``ball_query_window_plan`` with each tile's ``hi`` (int32) in place of
+    the certificate: ``(perm, xs, qperm, qs, lo, hi)``."""
     x1, x2 = xyz1.float(), xyz2.float()
     perm = _x_sort(x1)
     xs = _take_rows(x1, perm)
     qperm = _x_sort(x2)
     qs = _take_rows(x2, qperm)
-    lo, ok = _bq_window_starts(xs[..., 0].contiguous(), qs[..., 0], radius, min(LANES, x2.shape[1]), w)
-    return perm.to(torch.int32), xs, qperm, qs, lo.to(torch.int32), ok
+    lo, hi = _bq_window_bounds(xs[..., 0].contiguous(), qs[..., 0], radius, min(LANES, x2.shape[1]), w)
+    return perm.to(torch.int32), xs, qperm, qs, lo.to(torch.int32), hi.to(torch.int32)
+
+
+def ball_query_window_tiles(xyz1, xs, perm, qs, lo, hi, radius: float, nsample: int, w: int):
+    """The round-1 windowed ball query over sorted tiles (the work of
+    ``_ball_query_window_kernel``, ballquery.py:80, with its fallback).
+
+    A tile whose candidates fit its window (``hi - lo <= w``) takes
+    ``ball_query_tiles``' picks from ``[lo, lo + w)``; any other tile takes
+    the exact ball query of its queries over the unsorted cloud ``xyz1``.
+    Either way the result is the exact ball query. idx (B, M, nsample), cnt
+    (B, M) int32, in sorted query order.
+    """
+    b, m, _ = qs.shape
+    t = lo.shape[1]
+    win_idx, win_cnt = ball_query_tiles(xs, perm, qs, lo, radius, nsample, w)
+    full_idx, full_cnt = ball_query(xyz1, qs, radius, nsample)
+    fits = ((hi - lo) <= w)[:, :, None].expand(b, t, m // t).reshape(b, m)
+    return torch.where(fits[..., None], win_idx, full_idx), torch.where(fits, win_cnt, full_cnt)
+
+
+def default_bq_window(n: int, nsample: int) -> int:
+    """The round-1 window when none is given: ``max(2 * nsample, N // 4)``."""
+    return max(2 * nsample, n // 4)
+
+
+def ball_query_windowed(
+    xyz1: Tensor, xyz2: Tensor, radius: float, nsample: int, window: int | None = None,
+    exact=ball_query, tiles=ball_query_window_tiles,
+) -> tuple[Tensor, Tensor]:
+    """The exact ball query through x-sorted windows (``ball_query_windowed``,
+    ballquery.py:131-244): idx (B, M, nsample), cnt (B, M), bit-identical to
+    ``ball_query``.
+
+    The window, ``window`` or ``default_bq_window``, is rounded up to a
+    128-multiple. Where it covers the cloud or M is not a multiple of the
+    tile (``min(128, M)``), ``exact`` runs. Otherwise every tile whose
+    candidates do not fit its window falls back on its own, inside ``tiles``:
+    no certificate leaves the device.
+    """
+    n = xyz1.shape[1]
+    m = xyz2.shape[1]
+    w = round_up(window or default_bq_window(n, nsample), LANES)
+    if bq_falls_back(n, m, w):
+        return exact(xyz1, xyz2, radius, nsample)
+    perm, xs, qperm, qs, lo, hi = ball_query_window_bounds(xyz1, xyz2, radius, w)
+    idx_s, cnt_s = tiles(xyz1.float(), xs, perm, qs, lo, hi, radius, nsample, w)
+    inv = torch.argsort(qperm, dim=1)
+    return _take_rows(idx_s, inv), _take_rows(cnt_s, inv)
 
 
 def pick_wblk(n: int, w: int) -> int | None:
@@ -390,7 +489,7 @@ def project_group_sliced(
     # gather reads rows where they lie and needs no blocks; the condition is
     # kept so that the port and the JAX package take the exact path, and give
     # ``qperm`` None, at the same shapes.
-    if _bq_falls_back(n, m, w) or pick_wblk(n, w) is None:
+    if bq_falls_back(n, m, w) or pick_wblk(n, w) is None:
         idx, cnt = exact(xyz, new_xyz, radius, nsample)
         grouped = group_points(inputs @ w0 + b0, idx)
         return grouped, idx, cnt, None, None, torch.ones((), dtype=torch.bool, device=xyz.device)

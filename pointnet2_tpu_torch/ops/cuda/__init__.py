@@ -4,12 +4,20 @@ Sources are in ``pointnet2_tpu_torch/csrc/``; ``build`` compiles them with
 ``nvcc`` on first use. Each wrapper takes CUDA tensors only and counts its
 launches in ``LAUNCHES``; ``pointnet2_tpu_torch.ops`` routes CPU tensors to the
 plain versions instead. The calibrated-window ops (``*_sliced``) run their
-sorts and certificates in PyTorch around two kernels each.
+sorts and certificates in PyTorch around two kernels each; the round-1
+windowed ball query (``ball_query_windowed``) its sorts and window bounds,
+with each tile's fallback inside its kernel.
 """
 
-from pointnet2_tpu_torch.ops.cuda.ballquery import ball_query, ball_query_sliced, ball_query_tiles
+from pointnet2_tpu_torch.ops.cuda.ballquery import (
+    ball_query,
+    ball_query_sliced,
+    ball_query_tiles,
+    ball_query_window_tiles,
+    ball_query_windowed,
+)
 from pointnet2_tpu_torch.ops.cuda.common import LAUNCHES, reset_launches
-from pointnet2_tpu_torch.ops.cuda.fps import fps_centroids
+from pointnet2_tpu_torch.ops.cuda.fps import farthest_point_sample, fps_centroids
 from pointnet2_tpu_torch.ops.cuda.interpolate import three_interpolate, three_interpolate_grad
 from pointnet2_tpu_torch.ops.cuda.knn import knn, knn_sliced, knn_tiles, three_nn, three_nn_sliced
 from pointnet2_tpu_torch.ops.cuda.wingather import (
@@ -21,8 +29,11 @@ from pointnet2_tpu_torch.ops.cuda.wingather import (
 __all__ = [
     "LAUNCHES",
     "reset_launches",
+    "farthest_point_sample",
     "fps_centroids",
     "ball_query",
+    "ball_query_window_tiles",
+    "ball_query_windowed",
     "ball_query_tiles",
     "ball_query_sliced",
     "ball_query_tiles_pos",

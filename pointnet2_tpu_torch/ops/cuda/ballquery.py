@@ -7,6 +7,12 @@
   ``ops.core.ball_query_tiles``. ``ball_query_sliced`` is the whole calibrated
   op (sorts, window starts and certificate in PyTorch, as the JAX wrapper
   leaves them to XLA) with the two kernels.
+- ``ball_query_window_tiles`` replaces ``ballquery.py:80``
+  (``_ball_query_window_kernel``) and its wrapper's fallback, tile by tile;
+  its plain version is ``ops.core.ball_query_window_tiles``.
+  ``ball_query_windowed`` is the whole round-1 op (sorts and window bounds in
+  PyTorch, no host read) with the kernel, or the exact kernel on the static
+  fallback.
 """
 
 from __future__ import annotations
@@ -19,10 +25,12 @@ from pointnet2_tpu_torch.ops.cuda.common import (
     FLOAT, INT, PTR, launch, require, require_cuda, require_int32_range, stream_of,
 )
 
-# The window's four columns (x, y, z, original index) sit in a block's shared memory.
+# The window's four columns (x, y, z, original index) sit in a block's shared
+# memory (csrc/window_bq.cuh kMaxSharedWindow); the round-1 kernel reads a
+# wider window from device memory, the calibrated ones refuse it.
 MAX_SHARED_BYTES = 232448  # H100: 227 KB of dynamic shared memory a block
 MAX_WINDOW = MAX_SHARED_BYTES // 16
-MAX_TILE_NSAMPLE = 32  # one slot a lane of a warp
+MAX_TILE_NSAMPLE = 32  # one slot a lane of a warp; the round-1 kernel takes more
 
 
 def ball_query(
@@ -97,4 +105,45 @@ def ball_query_sliced(xyz1, xyz2, radius: float, nsample: int, window: int):
     require_cuda(xyz1, xyz2)
     return core.ball_query_sliced(
         xyz1, xyz2, radius, nsample, window, exact=ball_query, tiles=ball_query_tiles
+    )
+
+
+def ball_query_window_tiles(xyz1, xs, perm, qs, lo, hi, radius: float, nsample: int, w: int):
+    """The round-1 windowed ball query over sorted tiles, each tile with
+    ``hi - lo > w`` scanning the unsorted cloud ``xyz1`` exactly; see
+    ``ops.core.ball_query_window_tiles``. Any ``nsample`` and any window width.
+    Returns idx (B, M, nsample), cnt (B, M) int32 in sorted query order.
+    """
+    require(xyz1, "xyz1", torch.float32, (None, None, 3))
+    b, n, _ = xyz1.shape
+    require(xs, "xs", torch.float32, (b, n, 3))
+    require(perm, "perm", torch.int32, (b, n))
+    require(qs, "qs", torch.float32, (b, None, 3))
+    m = qs.shape[1]
+    require(lo, "lo", torch.int32, (b, None))
+    t = lo.shape[1]
+    require(hi, "hi", torch.int32, (b, t))
+    if b == 0 or n == 0 or t == 0 or m % t:
+        raise ValueError(f"{m} sorted queries do not fill {t} tiles of {b} clouds of {n} points")
+    if nsample <= 0 or w <= 0:
+        raise ValueError(f"the windowed ball query needs nsample > 0 and a window > 0, got {nsample}, {w}")
+    require_int32_range("ball_query_windowed", b, m, nsample)
+    require_int32_range("ball_query_windowed", b, n, 3)
+    idx = torch.empty((b, m, nsample), dtype=torch.int32, device=xs.device)
+    cnt = torch.empty((b, m), dtype=torch.int32, device=xs.device)
+    device, stream = stream_of(xs)
+    launch(
+        "ball_query_windowed", "ballquery", "pn2_ball_query_windowed",
+        [PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, FLOAT, INT, PTR, PTR, INT, PTR],
+        xyz1.data_ptr(), xs.data_ptr(), perm.data_ptr(), qs.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        b, n, m, m // t, w, squared_radius(radius), nsample, idx.data_ptr(), cnt.data_ptr(), device, stream,
+    )
+    return idx, cnt
+
+
+def ball_query_windowed(xyz1, xyz2, radius: float, nsample: int, window: int | None = None):
+    """``ops.core.ball_query_windowed`` with the CUDA kernels: idx, cnt."""
+    require_cuda(xyz1, xyz2)
+    return core.ball_query_windowed(
+        xyz1, xyz2, radius, nsample, window, exact=ball_query, tiles=ball_query_window_tiles
     )

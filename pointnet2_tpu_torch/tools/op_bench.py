@@ -1,0 +1,197 @@
+"""Op-level timing of the port's kernels at the model's shapes, on the card.
+
+    python -m pointnet2_tpu_torch.tools.op_bench [--device cpu] [--small]
+
+The counterpart of the JAX repo's ``tools/op_bench.py``. At the four SA
+levels of ``semantic.json`` (clouds as ``bench.py`` makes them: xyz uniform
+in 8 x 8 x 4.9 m, each level the FPS centroids of the one before, as the
+model makes them) it times FPS (the index-only and the fused entry), the
+ball query (exact, and the round-1 windowed one with its default window),
+and at the four FP levels the 3-NN and a kNN with k=8, all at B=16
+(``semantic.json``'s batch). One JSON line per op and shape:
+
+- ``kernel_ms``: the kernel alone (``utils.bench.cuda_ms``: CUDA events,
+  median of 10 runs of 5 calls); for the windowed ball query the kernel on
+  the op's sorted inputs, with ``op_ms`` the whole op (sorts, window bounds,
+  un-permutation) and ``exact_op_ms`` the exact kernel beside it;
+- ``plain_ms``: the plain PyTorch version on the card (median of 3 single
+  calls: the plain FPS takes some 200 ms a call);
+- ``library_ms``: one PyTorch call computing the same function, or null
+  where there is none (there is none for any of these ops);
+- ``bound_ms`` and ``bound_by``: the least time for the work of these inputs
+  (``work_*`` below; ``utils.bench.bound``);
+- ``launches``: launches of the kernel in one call, counted before the timed ones.
+
+This is the yardstick the redesign of a kernel is read against. With
+``--device cpu`` each op runs once on its plain version (``--small``: two
+clouds of 1024 points) and no time is measured: the records carry null times.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+import torch
+
+from pointnet2_tpu_torch import ops
+from pointnet2_tpu_torch.ops import core, cuda
+from pointnet2_tpu_torch.utils.bench import bound, card_line, cuda_ms, require_device
+
+# semantic.json's SA levels: (npoint, radius, nsample); FP levels follow.
+SA = [(1024, 0.5, 32), (256, 1.0, 32), (64, 2.0, 32), (16, 4.0, 32)]
+SMALL_SA = [(256, 0.5, 16), (64, 1.0, 16), (16, 2.0, 16), (8, 4.0, 16)]
+KNN_K = 8
+BATCH, SMALL_BATCH = 16, 2
+
+
+def work_fps(b: int, n: int, npoint: int, rows: bool) -> tuple[float, float]:
+    """(bytes, operations) of FPS: the cloud read once, the indices (and the
+    rows) written once; 10 operations a point and step."""
+    return b * n * 12 + b * npoint * (16 if rows else 4), 10 * b * (npoint - 1) * n
+
+
+def scanned_pairs(idx: torch.Tensor, cnt: torch.Tensor, n: int, nsample: int) -> torch.Tensor:
+    """Pairs the exact scan of each query needs on this data: up to its
+    nsample-th hit, or all N. (B, M) int64."""
+    return torch.where(cnt == nsample, idx[..., -1].long() + 1, n)
+
+
+def work_ball_query(b, n, m, nsample, pairs: int) -> tuple[float, float]:
+    """(bytes, operations) of the exact ball query: cloud and queries read,
+    idx and cnt written; 9 operations a scanned pair."""
+    return b * n * 12 + b * m * 12 + b * m * (nsample + 1) * 4, 9 * pairs
+
+
+def windowed_plan(xyz, cent, radius, nsample):
+    """The round-1 windowed ball query's inputs and what its data asks of the
+    kernel: ``(plan, w, fits, pairs)``. ``plan`` is ``(xs, perm, qs, lo,
+    hi)``; ``fits`` (B, T) bool says which tiles fit their window; ``pairs``
+    counts the (query, column) pairs the kernel scans: w for each query of a
+    fitting tile, the exact scan's pairs for each query of another. Read on
+    the host, outside any timed or checked call."""
+    n, m = xyz.shape[1], cent.shape[1]
+    w = core.round_up(core.default_bq_window(n, nsample), core.LANES)
+    perm, xs, qperm, qs, lo, hi = core.ball_query_window_bounds(xyz, cent, radius, w)
+    fits = (hi - lo) <= w
+    tm = m // lo.shape[1]
+    q_fits = fits[:, :, None].expand(-1, -1, tm).reshape(fits.shape[0], m)
+    idx, cnt = ops.ball_query(xyz, qs, radius, nsample, impl="torch")
+    exact = scanned_pairs(idx, cnt, n, nsample)
+    pairs = int(torch.where(q_fits, w, exact).sum())
+    return (xs, perm, qs, lo, hi), w, fits, pairs
+
+
+def work_ball_query_windowed(b, n, m, tiles, nsample, pairs: int) -> tuple[float, float]:
+    """(bytes, operations) of the round-1 kernel: the unsorted and the sorted
+    cloud, the original indices, the sorted queries and two ints a tile read,
+    idx and cnt written; 9 operations a scanned pair."""
+    return b * n * 28 + b * m * 12 + b * tiles * 8 + b * m * (nsample + 1) * 4, 9 * pairs
+
+
+def work_knn(b, nq, m, k) -> tuple[float, float]:
+    """(bytes, operations) of an exact kNN: 9 operations a (query, point) pair."""
+    return b * m * 12 + b * nq * 12 + b * nq * k * 8, 9 * b * nq * m
+
+
+def levels(batch: int, num_point: int, sa, device, seed: int = 0) -> list[torch.Tensor]:
+    """The five levels' coordinates of a batch: bench.py's clouds, then the
+    FPS centroids of each level (the plain FPS on the CPU, the kernel on the card)."""
+    rng = np.random.RandomState(seed)
+    xyz = torch.from_numpy((rng.rand(batch, num_point, 3) * [8.0, 8.0, 4.9]).astype(np.float32)).to(device)
+    out = [xyz]
+    for npoint, _, _ in sa:
+        out.append(ops.fps_centroids(out[-1], npoint)[1].contiguous())
+    return out
+
+
+def _record(op, shape, card, kernel, run, plain, nbytes, nops, timed, **extra):
+    """One line: times where ``timed``, else nulls; launches of ``kernel`` in one call."""
+    bound_ms, bound_by = bound(nbytes, nops)
+    row = {"op": op, "shape": shape, "kernel": kernel, "bound_ms": bound_ms, "bound_by": bound_by,
+           "bytes": nbytes, "ops": nops, "library_ms": None, "card": card}
+    if timed:
+        before = cuda.LAUNCHES[kernel]
+        run()
+        row["launches"] = cuda.LAUNCHES[kernel] - before
+        row["kernel_ms"] = cuda_ms(run)
+        row["plain_ms"] = cuda_ms(plain, reps=3, inner=1, warmup=1)
+        row.update({key: cuda_ms(fn) for key, fn in extra.items()})
+    else:
+        run(), plain()
+        row.update({"kernel_ms": None, "launches": None, "plain_ms": None, **{key: None for key in extra}})
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def run(device: torch.device, small: bool) -> list[dict]:
+    timed = device.type == "cuda"
+    card = card_line() if timed else "cpu (not measured)"
+    sa = SMALL_SA if small else SA
+    lv = levels(SMALL_BATCH if small else BATCH, 1024 if small else 8192, sa, device)
+    rows = []
+    for i, (npoint, radius, nsample) in enumerate(sa):
+        src, cent = lv[i], lv[i + 1]
+        b, n = src.shape[:2]
+        m = npoint
+        for name, fn, rows_out in (("farthest_point_sample", ops.farthest_point_sample, False),
+                                   ("fps_centroids", ops.fps_centroids, True)):
+            rows.append(_record(
+                name, f"B={b} N={n} npoint={m}", card, name,
+                lambda fn=fn: fn(src, m), lambda fn=fn: fn(src, m, impl="torch"),
+                *work_fps(b, n, m, rows_out), timed,
+            ))
+        idx, cnt = ops.ball_query(src, cent, radius, nsample, impl="torch")
+        pairs = int(scanned_pairs(idx, cnt, n, nsample).sum())
+        rows.append(_record(
+            "ball_query", f"B={b} N={n} M={m} r={radius} nsample={nsample}", card, "ball_query",
+            lambda: ops.ball_query(src, cent, radius, nsample),
+            lambda: ops.ball_query(src, cent, radius, nsample, impl="torch"),
+            *work_ball_query(b, n, m, nsample, pairs), timed,
+        ))
+        w = core.round_up(core.default_bq_window(n, nsample), core.LANES)
+        if core.bq_falls_back(n, m, w):
+            continue  # the windowed op runs the exact kernel here
+        plan, w, fits, pairs = windowed_plan(src, cent, radius, nsample)
+        kernel = cuda.ball_query_window_tiles if timed else core.ball_query_window_tiles
+        rows.append(_record(
+            "ball_query_windowed",
+            f"B={b} N={n} M={m} r={radius} nsample={nsample} w={w} tiles_fit={int(fits.sum())}/{fits.numel()}",
+            card, "ball_query_windowed",
+            lambda: kernel(src, *plan, radius, nsample, w),
+            lambda: core.ball_query_window_tiles(src, *plan, radius, nsample, w),
+            *work_ball_query_windowed(b, n, m, fits.shape[1], nsample, pairs), timed,
+            op_ms=lambda: ops.ball_query(src, cent, radius, nsample, impl="windowed"),
+            exact_op_ms=lambda: ops.ball_query(src, cent, radius, nsample),
+        ))
+    for lvl in range(len(sa) - 1, -1, -1):
+        dense, coarse = lv[lvl], lv[lvl + 1]
+        b, nq, m = dense.shape[0], dense.shape[1], coarse.shape[1]
+        rows.append(_record(
+            "three_nn", f"B={b} Nq={nq} M={m} k=3", card, "knn",
+            lambda: ops.three_nn(dense, coarse), lambda: ops.three_nn(dense, coarse, impl="torch"),
+            *work_knn(b, nq, m, 3), timed,
+        ))
+        k = min(KNN_K, m)
+        rows.append(_record(
+            "knn", f"B={b} Nq={nq} M={m} k={k}", card, "knn",
+            lambda: ops.knn(coarse, dense, k), lambda: ops.knn(coarse, dense, k, impl="torch"),
+            *work_knn(b, nq, m, k), timed,
+        ))
+    return rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    ap.add_argument("--small", action="store_true", help="small shapes")
+    args = ap.parse_args(argv)
+    device = require_device(args.device)
+    run(device, args.small)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -372,3 +372,80 @@ def test_windowed_wrappers_check_their_inputs(cuda_device):
         cuda.ball_query_tiles(xs, perm.long(), qs, lo, 0.1, 8, 256)
     with pytest.raises(ValueError, match="k"):
         cuda.knn_tiles(xs, perm, qs, lo, 17, 256)
+
+
+# -- the op surface: index-only FPS and the round-1 windowed ball query -----------
+
+
+@pytest.mark.parametrize("b,n,m", [(2, 128, 16), (1, 200, 32), (3, 1000, 100), (16, 8192, 1024), (1, 1, 1)])
+def test_farthest_point_sample_kernel(cuda_device, b, n, m):
+    """Equal to the plain version and to the fused kernel's indices."""
+    xyz = _cloud(30, b, n)
+    idx = ops.farthest_point_sample(xyz, m, impl="cuda")
+    assert idx.dtype == torch.int32 and idx.shape == (b, m)
+    assert torch.equal(idx, ops.farthest_point_sample(xyz, m, impl="torch"))
+    assert torch.equal(idx, ops.fps_centroids(xyz, m, impl="cuda")[0])
+
+
+def _clustered(seed, b, n, band=0.02):
+    """Half the points in a thin band of x: the tiles over the band do not fit a window."""
+    xyz = _box(seed, b, n, scale=(8.0, 8.0, 4.9))
+    xyz[:, : n // 2, 0] = 4.0 + band * xyz[:, : n // 2, 0] / 8.0
+    return xyz.contiguous()
+
+
+@pytest.mark.parametrize(
+    "b,n,m,radius,nsample,window,cloud",
+    [(2, 8192, 1024, 0.5, 32, None, "box"),  # SA1: the default window 2048, tiles fit and fall back
+     (2, 1024, 256, 1.0, 32, None, "box"),  # SA2
+     (2, 256, 64, 2.0, 32, None, "box"),  # SA3: one tile of 64 queries
+     (2, 8192, 1024, 0.5, 32, None, "clustered"),  # the band's tiles fall back
+     (1, 65536, 1024, 0.3, 32, None, "box"),  # window 16384: past shared memory, read from L2
+     (2, 8192, 1024, 0.8, 64, 3072, "box"),  # nsample past one warp: the list in the output row
+     (1, 1000, 256, 0.4, 8, 256, "box"),  # N off the 128-multiples
+     (1, 4096, 128, 3.0, 40, 1024, "box"),  # every column in the ball
+     (2, 100, 37, 0.5, 16, None, "box")],  # M off the tile: the exact kernel, statically
+)
+def test_ball_query_windowed_kernel(cuda_device, b, n, m, radius, nsample, window, cloud):
+    """Equal to the plain windowed version and to the exact kernel, bit for bit."""
+    xyz = _clustered(31, b, n) if cloud == "clustered" else _box(31, b, n, scale=(8.0, 8.0, 4.9))
+    queries = xyz[:, torch.randperm(n, generator=torch.Generator().manual_seed(32))[:m].to(cuda_device)]
+    queries = queries.contiguous()
+    got = cuda.ball_query_windowed(xyz, queries, radius, nsample, window)
+    want = core.ball_query_windowed(xyz, queries, radius, nsample, window)
+    exact = ops.ball_query(xyz, queries, radius, nsample, impl="cuda")
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, e) for g, e in zip(got, exact))
+
+
+def test_ball_query_windowed_kernel_takes_both_branches_without_a_host_read(cuda_device):
+    """Fitting and falling-back tiles in one call, under sync debug mode "error"."""
+    xyz = _clustered(33, 2, 8192)
+    queries = xyz[:, ::8].contiguous()
+    w = core.round_up(core.default_bq_window(8192, 32), core.LANES)
+    *_, lo, hi = core.ball_query_window_bounds(xyz, queries, 0.5, w)
+    fits = (hi - lo) <= w
+    assert bool(fits.any()) and not bool(fits.all())
+    cuda.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ops.ball_query(xyz, queries, 0.5, 32, impl="windowed")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert dict(cuda.LAUNCHES) == {"ball_query_windowed": 1}
+    assert all(torch.equal(g, e) for g, e in zip(got, ops.ball_query(xyz, queries, 0.5, 32, impl="torch")))
+
+
+def test_op_surface_wrappers_check_their_inputs(cuda_device):
+    xyz = _cloud(34, 1, 256)
+    with pytest.raises(ValueError, match="npoint"):
+        cuda.farthest_point_sample(xyz, 257)
+    with pytest.raises(ValueError, match="float32"):
+        cuda.farthest_point_sample(xyz.double(), 8)
+    w = 128
+    perm, xs, _, qs, lo, hi = core.ball_query_window_bounds(xyz, xyz[:, :128].contiguous(), 0.2, w)
+    with pytest.raises(ValueError, match="int32"):
+        cuda.ball_query_window_tiles(xyz, xs, perm.long(), qs, lo, hi, 0.2, 8, w)
+    with pytest.raises(ValueError, match="hi"):
+        cuda.ball_query_window_tiles(xyz, xs, perm, qs, lo, hi[:, :0], 0.2, 8, w)

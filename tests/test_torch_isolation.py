@@ -42,7 +42,10 @@ def test_importing_the_port_loads_no_jax():
     assert len(mods) >= 23
     assert {"pointnet2_tpu_torch.train.trainer", "pointnet2_tpu_torch.utils.metrics",
             "pointnet2_tpu_torch.ops.autograd", "pointnet2_tpu_torch.train_profile",
-            "pointnet2_tpu_torch.ops.calibrate", "pointnet2_tpu_torch.ops.cuda.wingather"} <= set(mods)
+            "pointnet2_tpu_torch.ops.calibrate", "pointnet2_tpu_torch.ops.cuda.wingather",
+            "pointnet2_tpu_torch.ops.reference", "pointnet2_tpu_torch.utils.bench",
+            "pointnet2_tpu_torch.tools.parity", "pointnet2_tpu_torch.tools.op_bench",
+            "pointnet2_tpu_torch.tools.stage_bench"} <= set(mods)
 
 
 _FORBIDDEN = re.compile(
@@ -69,7 +72,8 @@ def test_the_scan_catches_forbidden_imports():
 
 @pytest.mark.parametrize(
     "op", ["fps_centroids", "ball_query", "knn", "three_nn", "three_interpolate", "three_interpolate_grad",
-           "ball_query_calibrated", "project_group_calibrated", "knn_calibrated", "three_nn_calibrated"]
+           "ball_query_calibrated", "project_group_calibrated", "knn_calibrated", "three_nn_calibrated",
+           "farthest_point_sample"]
 )
 def test_impl_cuda_on_a_cpu_tensor_raises(op):
     xyz = torch.rand(1, 32, 3)
@@ -82,6 +86,7 @@ def test_impl_cuda_on_a_cpu_tensor_raises(op):
         "knn_calibrated": (big, big, 3, 128),
         "three_nn_calibrated": (big, big, 128),
         "fps_centroids": (xyz, 8),
+        "farthest_point_sample": (xyz, 8),
         "ball_query": (xyz, xyz[:, :8].contiguous(), 0.5, 4),
         "knn": (xyz, xyz, 3),
         "three_nn": (xyz, xyz),
@@ -97,7 +102,8 @@ def test_impl_cuda_on_a_cpu_tensor_raises(op):
 @pytest.mark.parametrize(
     "name", ["fps_centroids", "ball_query", "knn", "three_interpolate", "three_interpolate_grad",
              "ball_query_tiles", "ball_query_tiles_pos", "window_gather", "knn_tiles",
-             "ball_query_sliced", "project_group_sliced", "knn_sliced", "three_nn_sliced"]
+             "ball_query_sliced", "project_group_sliced", "knn_sliced", "three_nn_sliced",
+             "farthest_point_sample", "ball_query_window_tiles", "ball_query_windowed"]
 )
 def test_kernel_wrappers_refuse_cpu_tensors(name):
     """Called directly, a wrapper never runs a plain version in the kernel's place,
@@ -120,6 +126,9 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
         "knn_sliced": (big, big, 3, 128),
         "three_nn_sliced": (big, big, 128),
         "fps_centroids": (xyz, 8),
+        "farthest_point_sample": (xyz, 8),
+        "ball_query_window_tiles": (big, big, perm, big[:, :128].contiguous(), lo, lo, 0.1, 4, 128),
+        "ball_query_windowed": (big, big[:, :128].contiguous(), 0.1, 4),
         "ball_query": (xyz, xyz, 0.5, 4),
         "knn": (xyz, xyz, 3),
         "three_interpolate": (torch.rand(1, 8, 4), torch.zeros(1, 32, 3, dtype=torch.int32), torch.rand(1, 32, 3)),

@@ -67,6 +67,21 @@ jax.config.update("jax_enable_compilation_cache", False)
 # two do.
 torch.set_num_threads(2)
 
+# Pallas's TPU interpret mode runs each kernel step through ordered
+# io_callbacks, which get their operands as jax.Arrays on CPU device 0 and
+# dispatch JAX computations of their own there (iterating an index array,
+# advancing the simulated clocks). When the test's thread has meanwhile queued
+# eager work on device 0 behind the kernel, the callback's computation waits
+# behind work that waits on the callback, and the process hangs for good: the
+# eager Pallas-path model tests of tests/test_wingather.py did so in loaded
+# runs and when a few ran at once, and a small script with one ordered
+# callback that iterates its operand hangs the same way. With the tests'
+# uncommitted arrays on device 1, device 0 is left to the callbacks and none
+# of these hung. Every pytest-xdist worker imports this module while
+# collecting, before any test runs.
+if len(jax.devices()) > 1:
+    jax.config.update("jax_default_device", jax.devices()[1])
+
 
 
 @contextlib.contextmanager
