@@ -120,7 +120,9 @@ from pointnet2_tpu_torch.infer import Predictor, full_float32
 from pointnet2_tpu_torch.models.pointnet2_seg import SA_MLPS
 from pointnet2_tpu_torch.ops.calibrate import calibrate_model_windows
 from pointnet2_tpu_torch.ops import core, cuda
+from pointnet2_tpu_torch.ops.cuda import ballquery as cuda_ballquery
 from pointnet2_tpu_torch.ops.cuda import build
+from pointnet2_tpu_torch.ops.cuda import fps as cuda_fps
 from pointnet2_tpu_torch.tools import op_bench, parity, stage_bench
 from pointnet2_tpu_torch.train import Trainer
 from pointnet2_tpu_torch.train_profile import train_batch
@@ -284,6 +286,7 @@ def kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> list:
             nops=10 * b * (spec.npoint - 1) * n,
             err=max_abs(cent, p_cent),
             match=torch.equal(idx, p_idx) and torch.equal(cent, p_cent),
+            info={"plan": cuda_fps.planned_route(src, spec.npoint)},
         )
         m, ns, r = spec.npoint, spec.nsample, spec.radius
         bq, cnt = ops.ball_query(src, cent, r, ns, impl="cuda")
@@ -298,6 +301,7 @@ def kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> list:
             nops=9 * scanned,
             err=0.0,
             match=torch.equal(bq, p_bq) and torch.equal(cnt, p_cnt),
+            info={"plan": cuda_ballquery.plan(b, n, m, cuda_ballquery.num_sms(src.device.index))},
         )
         levels.append(cent)
 
@@ -596,6 +600,7 @@ def op_surface_kernel_phase(cfg: Config, levels: list, report: Report) -> None:
             lambda: ops.farthest_point_sample(src, npoint, impl="cuda"),
             lambda: ops.farthest_point_sample(src, npoint, impl="torch"),
             *op_bench.work_fps(b, n, npoint, rows=False), err=0.0, match=match, plain_timing=FEW,
+            info={"plan": cuda_fps.planned_route(src, npoint, rows=False)},
         )
     for spec, src, cent in zip(cfg.sa_layers[:3], levels, levels[1:]):
         windowed_rows(report, "smoke clouds", src, cent, spec.radius, spec.nsample)

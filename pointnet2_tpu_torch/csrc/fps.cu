@@ -13,23 +13,64 @@
 // in that order, into a running minimum that starts at 1e38, and picks the
 // first index of its maximum. The chosen rows are copied out bit for bit.
 //
-// What bounds it on the H100: neither bytes nor operations. The steps form a
-// serial chain of npoint-1 dependent block-wide argmax reductions, and a
-// batch of B clouds fills only B of the 132 SMs. The bound from the work
-// (about 10 operations per point and step) is microseconds; the chain of
-// barriers is milliseconds.
+// What bounds it on the H100: neither bytes nor operations but a chain of
+// npoint-1 dependent exchanges between the blocks of a cluster. The work
+// (about 10 operations a point and step) is some 10 us at SA1 for B=8 and 20
+// us for B=16; each step has to see the whole cloud's argmax before the next
+// can start, so the least time is npoint-1 times one exchange.
+// `pn2_fps_barrier_chain` runs that chain alone, the same layout and
+// exchange with no work (`tools/op_bench.py` reports it beside each FPS row
+// as `chain_ms`). On an H100 (700 W) at SA1, clusters of 8 blocks of 128
+// threads, it takes 0.24-0.28 ms for the 1023 steps (0.23-0.27 us a step)
+// against 0.51-0.57 ms for the kernel and 0.010-0.020 ms of operations: the
+// kernel runs at about twice its chain bound (PERF.md). A cluster barrier
+// (`cluster.sync()`) in place of the exchange below took 0.45-0.85 ms alone.
 //
-// Design: one thread block per cloud. The running minimum lives in shared
-// memory (4 bytes a point, 32 KB at N = 8192) and never goes to device
-// memory; the coordinates are read through L1, where they stay after the
-// first step. Each step is a strided scan (strict `>` keeps a thread's first
-// index on ties), a warp-shuffle argmax on (value, -index), and one more
-// shuffle reduction over the warps' winners. A cluster or multi-block design
-// that shortens the chain is later work.
+// Design: one thread block cluster of C blocks per cloud (C from the plan in
+// ops/cuda/fps.py: the largest power of two up to 16 for which all B clusters
+// are resident at once and each block keeps >= 1024 points), so a batch of B
+// clouds runs on B x C SMs instead of B. Block r owns the points
+// [r * slice, (r + 1) * slice), slice = ceil(N / C); warp w of it the 32 *
+// PPT from w * 32 * PPT on, lane l of that the PPT from l * PPT on, so lanes,
+// warps and blocks run in index order. Each thread holds its PPT points and
+// their running minimum in registers (PPT a template parameter, staged once
+// from device memory): a step's scan touches no memory. A step is:
+// - the scan, and a tree argmax over the thread's points that keeps the
+//   lower index on ties and carries the coordinates;
+// - a warp argmax: `redux.sync` max of the value's bit pattern + 1 (monotonic
+//   for the non-negative minima), then the lowest lane that holds it
+//   (`__ballot_sync`), whose point has the least index; its coordinates and
+//   index by shuffles;
+// - the exchange: lanes 0..C-1 of each warp store that record into the
+//   step's slot of the warp in every block of the cluster with `st.async`,
+//   which counts its bytes on the receiving block's barrier (an mbarrier
+//   expecting C x W records a step); every warp waits on its own block's
+//   barrier. No cluster-wide barrier: a block waits only for the records it
+//   needs. With C = 1 the records go to shared memory behind one
+//   `__syncthreads`;
+// - every warp reduces the C x W records itself (one a lane up to 32: the
+//   same max and lowest lane; slots run in index order) and takes the
+//   winner's coordinates by shuffles: no load waits on the exchange.
+// The slots and the barriers are double-buffered by step parity. A block
+// writes parity p again two steps later, and that needs the records of the
+// step between, which no block sends before it has read parity p. Only one
+// thread writes the output, and no fence or barrier waits for its stores.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Record {
+  unsigned key;  // bit pattern of the running minimum + 1; 0 for no point
+  unsigned index;
+};
+constexpr int kRecordBytes = (int)(sizeof(Record) + sizeof(float4));
+constexpr int kBarrierBytes = 16;  // two mbarriers, one a parity
 
 __device__ __forceinline__ float dist2(float x, float y, float z,
                                        float x1, float y1, float z1) {
@@ -42,127 +83,402 @@ __device__ __forceinline__ float dist2(float x, float y, float z,
                    __fmul_rn(dz, dz));
 }
 
-// Larger value wins; on equal values the smaller index wins.
-__device__ __forceinline__ void argmax_merge(float& v, int& i, float v2, int i2) {
-  if (v2 > v || (v2 == v && i2 < i)) {
-    v = v2;
-    i = i2;
+// The largest block for PPT points a thread (4 registers a point): 64
+// registers a thread at 1024 threads, 128 at 512.
+#define PN2_FPS_MAX_THREADS(ppt) ((ppt) <= 4 ? 1024 : 512)
+
+// Two barriers, then [2][records] (key, index) pairs and [2][records] coordinates.
+size_t smem_bytes(int cluster, int threads) {
+  return kBarrierBytes + 2 * (size_t)cluster * (threads / 32) * kRecordBytes;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// The same shared-memory address in block `rank` of the cluster.
+__device__ __forceinline__ unsigned map_rank(unsigned addr, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+// One arrival, and tx more bytes to come, for the barrier's current phase.
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned tx) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(tx)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0u;
+}
+
+// Until the phase of this parity has completed; acquires what the remote
+// blocks stored with it. A phase that never completes (a fault in the
+// exchange) traps after some seconds rather than hanging the card.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(bar, parity)) {
+    if (clock64() - start > (1ll << 32)) __trap();  // some 2 s at the H100's clocks
   }
 }
 
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float v2 = __shfl_down_sync(0xffffffffu, v, off);
-    const int i2 = __shfl_down_sync(0xffffffffu, i, off);
-    argmax_merge(v, i, v2, i2);
-  }
+// A record into the shared memory of a block of the cluster, its bytes
+// counted on that block's barrier.
+__device__ __forceinline__ void st_async(unsigned key_addr, unsigned pos_addr, unsigned bar,
+                                         unsigned key, unsigned index, float x, float y,
+                                         float z) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.u32 [%0], {%1, %2}, [%3];" ::"r"(
+          key_addr),
+      "r"(key), "r"(index), "r"(bar)
+      : "memory");
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];" ::"r"(pos_addr),
+      "f"(x), "f"(y), "f"(z), "f"(0.0f), "r"(bar)
+      : "memory");
 }
+
+// The cluster's records of one step: where they lie and how they get there.
+struct Exchange {
+  Record* keys;   // [2][records]
+  float4* pos;    // [2][records]
+  unsigned bars;  // two barriers
+  int c, records, slot;
+  unsigned tx;  // bytes a block receives a step
+
+  __device__ Exchange(unsigned char* smem, const cg::cluster_group& cluster) {
+    c = (int)cluster.num_blocks();
+    const int warps = blockDim.x >> 5;
+    records = c * warps;
+    slot = (int)cluster.block_rank() * warps + (threadIdx.x >> 5);
+    bars = smem_u32(smem);
+    keys = reinterpret_cast<Record*>(smem + kBarrierBytes);
+    pos = reinterpret_cast<float4*>(keys + 2 * records);
+    tx = (unsigned)(records * kRecordBytes);
+  }
+
+  // Before the first step: the barriers of steps 1 and 2 (parities 1 and 0)
+  // set, and every block of the cluster running, before any record is sent.
+  __device__ void start(const cg::cluster_group& cluster, int npoint) {
+    if (c == 1) return;
+    if (threadIdx.x == 0) {
+      mbar_init(bars, 1);
+      mbar_init(bars + 8, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      mbar_expect(bars + 8, tx);
+      if (npoint > 2) mbar_expect(bars, tx);
+    }
+    cluster.sync();
+  }
+
+  // The warp's record of step j to every block (lanes 0..C-1 send one each);
+  // returns when this block holds all records of step j.
+  __device__ void send_and_wait(int j, int npoint, int lane, unsigned key, unsigned index, float x,
+                                float y, float z) {
+    const int par = j & 1;
+    const int at = par * records + slot;
+    if (c == 1) {
+      if (lane == 0) {
+        keys[at] = Record{key, index};
+        pos[at] = make_float4(x, y, z, 0.0f);
+      }
+      __syncthreads();
+      return;
+    }
+    const unsigned bar = bars + 8 * par;
+    if (lane < c) {
+      st_async(map_rank(smem_u32(keys + at), lane), map_rank(smem_u32(pos + at), lane),
+               map_rank(bar, lane), key, index, x, y, z);
+    }
+    mbar_wait(bar, (unsigned)((j - 1) >> 1) & 1u);  // step j is use (j - 1) / 2 of its barrier
+    // The phase of step j + 2 on this barrier: no record of it can come
+    // before this block has sent its records of step j + 1.
+    if (threadIdx.x == 0 && j + 2 < npoint) mbar_expect(bar, tx);
+  }
+
+  // No block leaves while a record sent to it may be in flight.
+  __device__ void finish(const cg::cluster_group& cluster) {
+    if (c > 1) cluster.sync();
+  }
+};
 
 // kRows: also copy each chosen row to out_xyz (unused, may be null, without).
-template <bool kRows>
-__global__ void fps_kernel(const float* __restrict__ xyz, int n, int npoint,
-                           int* __restrict__ idx, float* __restrict__ out_xyz) {
-  extern __shared__ float min_d[];  // n floats
-  __shared__ float warp_val[32];
-  __shared__ int warp_idx[32];
-  __shared__ int chosen;
+// Grid: b x C blocks in clusters of C, threads a multiple of 32, threads *
+// kPPT >= slice = ceil(n / C).
+template <bool kRows, int kPPT>
+__global__ void __launch_bounds__(PN2_FPS_MAX_THREADS(kPPT))
+    fps_kernel(const float* __restrict__ xyz, int n, int npoint, int slice,
+               int* __restrict__ idx, float* __restrict__ out_xyz) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const cg::cluster_group cluster = cg::this_cluster();
+  Exchange ex(smem, cluster);
+  const int cloud = blockIdx.x / ex.c;
+  const int lane = threadIdx.x & 31;
+  const float* pts = xyz + (size_t)cloud * n * 3;
+  int* idx_b = idx + (size_t)cloud * npoint;
+  float* out_b = kRows ? out_xyz + (size_t)cloud * npoint * 3 : nullptr;
+  const bool writer = cluster.block_rank() == 0 && threadIdx.x == 0;
 
-  const float* pts = xyz + (size_t)blockIdx.x * n * 3;
-  int* idx_b = idx + (size_t)blockIdx.x * npoint;
-  float* out_b = kRows ? out_xyz + (size_t)blockIdx.x * npoint * 3 : nullptr;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-
-  for (int i = tid; i < n; i += blockDim.x) min_d[i] = 1e38f;
-  if (tid == 0) {
+  // This thread's points: base + k, k < kPPT; past the slice or n they hold
+  // -1, which no running minimum (>= 0) loses to.
+  const int local = (threadIdx.x >> 5) * 32 * kPPT + lane * kPPT;  // in the block's slice
+  const int base = (int)cluster.block_rank() * slice + local;
+  float px[kPPT], py[kPPT], pz[kPPT], md[kPPT];
+#pragma unroll
+  for (int k = 0; k < kPPT; ++k) {
+    const int i = base + k;
+    const bool in = local + k < slice && i < n;
+    px[k] = in ? pts[i * 3 + 0] : 0.0f;
+    py[k] = in ? pts[i * 3 + 1] : 0.0f;
+    pz[k] = in ? pts[i * 3 + 2] : 0.0f;
+    md[k] = in ? 1e38f : -1.0f;
+  }
+  float x1 = pts[0], y1 = pts[1], z1 = pts[2];
+  ex.start(cluster, npoint);
+  if (writer) {
     idx_b[0] = 0;
     if (kRows) {
-      out_b[0] = pts[0];
-      out_b[1] = pts[1];
-      out_b[2] = pts[2];
+      out_b[0] = x1;
+      out_b[1] = y1;
+      out_b[2] = z1;
     }
   }
 
-  int old = 0;
   for (int j = 1; j < npoint; ++j) {
-    const float x1 = pts[old * 3 + 0];
-    const float y1 = pts[old * 3 + 1];
-    const float z1 = pts[old * 3 + 2];
-    // Every min_d >= 0, so -1 loses to any point a thread owns.
-    float best = -1.0f;
-    int best_i = n;
-    // A walking pointer: left to itself, the compiler may rebuild the 64-bit
-    // address of point i from the block's offset in every iteration.
-    const float* p = pts + 3 * tid;
-    for (int i = tid; i < n; i += blockDim.x, p += 3 * blockDim.x) {
-      const float d = dist2(p[0], p[1], p[2], x1, y1, z1);
-      const float m = fminf(min_d[i], d);
-      min_d[i] = m;
-      if (m > best) {
-        best = m;
-        best_i = i;
-      }
+    float v[kPPT], bx[kPPT], by[kPPT], bz[kPPT];
+    int bk[kPPT];
+#pragma unroll
+    for (int k = 0; k < kPPT; ++k) {
+      md[k] = fminf(md[k], dist2(px[k], py[k], pz[k], x1, y1, z1));
+      v[k] = md[k];
+      bx[k] = px[k];
+      by[k] = py[k];
+      bz[k] = pz[k];
+      bk[k] = k;
     }
-    warp_argmax(best, best_i);
-    if (lane == 0) {
-      warp_val[warp] = best;
-      warp_idx[warp] = best_i;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      best = lane < nwarps ? warp_val[lane] : -1.0f;
-      best_i = lane < nwarps ? warp_idx[lane] : n;
-      warp_argmax(best, best_i);
-      if (lane == 0) {
-        chosen = best_i;
-        idx_b[j] = best_i;
-        if (kRows) {
-          out_b[j * 3 + 0] = pts[best_i * 3 + 0];
-          out_b[j * 3 + 1] = pts[best_i * 3 + 1];
-          out_b[j * 3 + 2] = pts[best_i * 3 + 2];
+    // Tree argmax over neighbours, so the left one always holds the lower
+    // indices: the right one wins only when strictly larger.
+#pragma unroll
+    for (int w = 1; w < kPPT; w *= 2) {
+#pragma unroll
+      for (int k = 0; k + w < kPPT; k += 2 * w) {
+        if (v[k + w] > v[k]) {
+          v[k] = v[k + w];
+          bx[k] = bx[k + w];
+          by[k] = by[k + w];
+          bz[k] = bz[k + w];
+          bk[k] = bk[k + w];
         }
       }
     }
-    __syncthreads();
-    old = chosen;
+    // Warp argmax: the largest key; the lowest lane holding it has the least index.
+    const unsigned key = v[0] >= 0.0f ? __float_as_uint(v[0]) + 1u : 0u;
+    const unsigned wkey = __reduce_max_sync(kFull, key);
+    const int src = __ffs(__ballot_sync(kFull, key == wkey)) - 1;
+    const float wx = __shfl_sync(kFull, bx[0], src);
+    const float wy = __shfl_sync(kFull, by[0], src);
+    const float wz = __shfl_sync(kFull, bz[0], src);
+    const unsigned wi = (unsigned)__shfl_sync(kFull, base + bk[0], src);
+
+    ex.send_and_wait(j, npoint, lane, wkey, wi, wx, wy, wz);
+
+    // Every warp reduces the cluster's records; slots run in index order.
+    const Record* kr = ex.keys + (j & 1) * ex.records;
+    const float4* pr = ex.pos + (j & 1) * ex.records;
+    Record r;
+    float4 p;
+    if (ex.records <= 32) {
+      r = lane < ex.records ? kr[lane] : Record{0u, 0u};
+      p = lane < ex.records ? pr[lane] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const unsigned gkey = __reduce_max_sync(kFull, r.key);
+      const int win = __ffs(__ballot_sync(kFull, r.key == gkey)) - 1;
+      r.index = (unsigned)__shfl_sync(kFull, (int)r.index, win);
+      p.x = __shfl_sync(kFull, p.x, win);
+      p.y = __shfl_sync(kFull, p.y, win);
+      p.z = __shfl_sync(kFull, p.z, win);
+    } else {
+      unsigned k2 = 0u;
+      int s2 = lane;
+      for (int s = lane; s < ex.records; s += 32) {
+        const unsigned k = kr[s].key;
+        if (k > k2) {
+          k2 = k;
+          s2 = s;
+        }
+      }
+      const unsigned gkey = __reduce_max_sync(kFull, k2);
+      const unsigned gs = __reduce_min_sync(kFull, k2 == gkey ? (unsigned)s2 : 0xffffffffu);
+      r = kr[gs];
+      p = pr[gs];
+    }
+    x1 = p.x;
+    y1 = p.y;
+    z1 = p.z;
+    if (writer) {
+      idx_b[j] = (int)r.index;
+      if (kRows) {
+        out_b[j * 3 + 0] = x1;
+        out_b[j * 3 + 1] = y1;
+        out_b[j * 3 + 2] = z1;
+      }
+    }
   }
+  ex.finish(cluster);
+}
+
+// The chain alone: npoint-1 exchange steps of the same layout, no work.
+__global__ void barrier_chain_kernel(int npoint) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const cg::cluster_group cluster = cg::this_cluster();
+  Exchange ex(smem, cluster);
+  ex.start(cluster, npoint);
+  for (int j = 1; j < npoint; ++j) {
+    ex.send_and_wait(j, npoint, threadIdx.x & 31, 0u, 0u, 0.0f, 0.0f, 0.0f);
+  }
+  ex.finish(cluster);
+}
+
+cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int b, int cluster,
+                                  int threads, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)b * cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem_bytes(cluster, threads);
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of 16 (past the portable 8) need the kernel's leave, once a device.
+template <auto kKernel>
+cudaError_t allow(int device) {
+  static unsigned done = 0u;  // a bit a device, for this kernel
+  const unsigned bit = device < 32 ? 1u << device : 0u;
+  if (bit && (done & bit)) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kKernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess) done |= bit;
+  return err;
+}
+
+bool valid_plan(int cluster, int threads, int ppt) {
+  return (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8 || cluster == 16) &&
+         threads >= 32 && threads % 32 == 0 && threads <= PN2_FPS_MAX_THREADS(ppt);
 }
 
 template <bool kRows>
-cudaError_t launch_fps(const float* xyz, int b, int n, int npoint, int* idx,
-                       float* out_xyz, int threads, int device, cudaStream_t stream) {
+cudaError_t launch_fps(const float* xyz, int b, int n, int npoint, int* idx, float* out_xyz,
+                       int cluster, int threads, int ppt, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const size_t smem = (size_t)n * sizeof(float);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(fps_kernel<kRows>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
+  const int slice = (n + cluster - 1) / cluster;
+  if (!valid_plan(cluster, threads, ppt) || threads * ppt < slice) return cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(&attr, b, cluster, threads, stream);
+#define PN2_FPS_CASE(P)                                                                     \
+  case P:                                                                                   \
+    err = allow<fps_kernel<kRows, P>>(device);                                              \
+    if (err != cudaSuccess) return err;                                                     \
+    err = cudaLaunchKernelEx(&cfg, fps_kernel<kRows, P>, xyz, n, npoint, slice, idx, out_xyz); \
+    break;
+  switch (ppt) {
+    PN2_FPS_CASE(1)
+    PN2_FPS_CASE(2)
+    PN2_FPS_CASE(4)
+    PN2_FPS_CASE(8)
+    PN2_FPS_CASE(16)
+    default:
+      return cudaErrorInvalidValue;
   }
-  fps_kernel<kRows><<<b, threads, smem, stream>>>(xyz, n, npoint, idx, out_xyz);
+#undef PN2_FPS_CASE
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <bool kRows, int kPPT>
+cudaError_t active_clusters(int cluster, int threads, int device, int* out) {
+  cudaError_t err = allow<fps_kernel<kRows, kPPT>>(device);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(&attr, 1, cluster, threads, nullptr);
+  return cudaOccupancyMaxActiveClusters(out, fps_kernel<kRows, kPPT>, &cfg);
 }
 
 }  // namespace
 
 extern "C" {
 
-// xyz (b, n, 3) f32 -> idx (b, npoint) i32, out_xyz (b, npoint, 3) f32.
+// xyz (b, n, 3) f32 -> idx (b, npoint) i32, out_xyz (b, npoint, 3) f32, in
+// clusters of `cluster` blocks of `threads` threads holding `ppt` points
+// each (threads * ppt >= ceil(n / cluster); ops/cuda/fps.py `plan`).
 // Returns cudaGetLastError() after the launch.
-int pn2_fps_centroids(const float* xyz, int b, int n, int npoint, int* idx,
-                      float* out_xyz, int threads, int device, void* stream) {
-  return (int)launch_fps<true>(xyz, b, n, npoint, idx, out_xyz, threads, device,
+int pn2_fps_centroids(const float* xyz, int b, int n, int npoint, int* idx, float* out_xyz,
+                      int cluster, int threads, int ppt, int device, void* stream) {
+  return (int)launch_fps<true>(xyz, b, n, npoint, idx, out_xyz, cluster, threads, ppt, device,
                                (cudaStream_t)stream);
 }
 
 // xyz (b, n, 3) f32 -> idx (b, npoint) i32. Returns cudaGetLastError().
 int pn2_farthest_point_sample(const float* xyz, int b, int n, int npoint, int* idx,
-                              int threads, int device, void* stream) {
-  return (int)launch_fps<false>(xyz, b, n, npoint, idx, nullptr, threads, device,
+                              int cluster, int threads, int ppt, int device, void* stream) {
+  return (int)launch_fps<false>(xyz, b, n, npoint, idx, nullptr, cluster, threads, ppt, device,
                                 (cudaStream_t)stream);
+}
+
+// How many clusters of this shape the device holds at once, into *out.
+int pn2_fps_active_clusters(int rows, int cluster, int threads, int ppt, int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!valid_plan(cluster, threads, ppt)) return (int)cudaErrorInvalidValue;
+#define PN2_FPS_CASE(P)                                                              \
+  case P:                                                                            \
+    return (int)(rows ? active_clusters<true, P>(cluster, threads, device, out)      \
+                      : active_clusters<false, P>(cluster, threads, device, out));
+  switch (ppt) {
+    PN2_FPS_CASE(1)
+    PN2_FPS_CASE(2)
+    PN2_FPS_CASE(4)
+    PN2_FPS_CASE(8)
+    PN2_FPS_CASE(16)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef PN2_FPS_CASE
+}
+
+// npoint-1 empty exchange steps of b clusters of this shape: the FPS chain's
+// latency bound, for timing only. Returns cudaGetLastError().
+int pn2_fps_barrier_chain(int b, int npoint, int cluster, int threads, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!valid_plan(cluster, threads, 1)) return (int)cudaErrorInvalidValue;
+  err = allow<barrier_chain_kernel>(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(&attr, b, cluster, threads, (cudaStream_t)stream);
+  err = cudaLaunchKernelEx(&cfg, barrier_chain_kernel, npoint);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 const char* pn2_fps_centroids_error_string(int code) {
@@ -170,6 +486,14 @@ const char* pn2_fps_centroids_error_string(int code) {
 }
 
 const char* pn2_farthest_point_sample_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+const char* pn2_fps_active_clusters_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+const char* pn2_fps_barrier_chain_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -2,6 +2,9 @@
 
 - ``ball_query`` replaces ``pointnet2_tpu/ops/pallas/ballquery.py:42``
   (``_ball_query_kernel``); its plain version is ``ops.core.ball_query``.
+  A block of warps (``QUERIES_PER_WARP`` queries each) stages the cloud in
+  shared memory, tile by tile; ``plan`` picks the warps and the tile from the
+  shape and the card's SM count, and the wrapper takes ``route=`` to force one.
 - ``ball_query_tiles`` replaces ``ballquery.py:247``
   (``_ball_query_sliced_kernel``); its plain version is
   ``ops.core.ball_query_tiles``. ``ball_query_sliced`` is the whole calibrated
@@ -16,6 +19,8 @@
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -32,13 +37,59 @@ MAX_SHARED_BYTES = 232448  # H100: 227 KB of dynamic shared memory a block
 MAX_WINDOW = MAX_SHARED_BYTES // 16
 MAX_TILE_NSAMPLE = 32  # one slot a lane of a warp; the round-1 kernel takes more
 
+# The exact kernel (csrc/ballquery.cu): kQ queries a warp, at most 16 warps a
+# block, the cloud staged in tiles of up to 4096 points (48 KB), two buffers.
+QUERIES_PER_WARP = 4
+MAX_WARPS = 16
+TILE_POINTS = 4096
+
+
+def plan(b: int, n: int, m: int, num_sms: int) -> tuple[int, int]:
+    """``(warps, tile)`` of the exact kernel for ``b`` clouds of ``n`` points
+    and ``m`` queries each on a card of ``num_sms`` SMs.
+
+    The largest block of up to ``MAX_WARPS`` warps that still leaves a block
+    for every other SM: each block stages the cloud once, so fewer, larger
+    blocks read it fewer times (on the H100 at SA1, B=8, 128 blocks of 16
+    warps ran faster than 256 of 8). The tile is the cloud up to
+    ``TILE_POINTS`` points, in one buffer when it holds the cloud and two
+    otherwise. Raises ``ValueError`` for a shape no route takes.
+    """
+    if b <= 0 or n <= 0 or m <= 0 or num_sms <= 0:
+        raise ValueError(f"the ball query needs B, N, M > 0, got B={b}, N={n}, M={m}")
+    warps = MAX_WARPS
+    while warps > 1 and 2 * b * -(-m // (warps * QUERIES_PER_WARP)) < num_sms:
+        warps //= 2
+    if b * -(-m // (warps * QUERIES_PER_WARP)) >= 2**31:
+        raise ValueError(f"the ball query's grid of {b} clouds x {m} queries is too large")
+    return warps, min(TILE_POINTS, (n + 31) // 32 * 32)
+
+
+def shared_bytes(n: int, tile: int) -> int:
+    """The exact kernel's dynamic shared memory: one or two tiles of (x, y, z)."""
+    return (1 if n <= tile else 2) * tile * 12
+
+
+def check_plan(n: int, route: tuple[int, int]) -> tuple[int, int]:
+    """A forced ``(warps, tile)``; raises unless the kernel takes it."""
+    warps, tile = route
+    if not 1 <= warps <= MAX_WARPS or tile < 32 or tile % 32 or shared_bytes(n, tile) > MAX_SHARED_BYTES:
+        raise ValueError(f"not a ball query route: {route}")
+    return warps, tile
+
+
+@functools.cache
+def num_sms(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
 
 def ball_query(
-    xyz1: torch.Tensor, xyz2: torch.Tensor, radius: float, nsample: int
+    xyz1: torch.Tensor, xyz2: torch.Tensor, radius: float, nsample: int, route=None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """xyz1 (B, N, 3) dataset, xyz2 (B, M, 3) queries, float32 CUDA.
 
-    Returns idx (B, M, nsample) int32 and cnt (B, M) int32.
+    Returns idx (B, M, nsample) int32 and cnt (B, M) int32. ``route``: a
+    forced ``(warps, tile)``, else ``plan``'s.
     """
     require(xyz1, "xyz1", torch.float32, (None, None, 3))
     b, n, _ = xyz1.shape
@@ -48,13 +99,16 @@ def ball_query(
         raise ValueError(f"ball_query needs non-empty inputs, got {tuple(xyz1.shape)}, {tuple(xyz2.shape)}, nsample={nsample}")
     require_int32_range("ball_query", b, n, 3)
     require_int32_range("ball_query", b, m, nsample)
+    if route is None:
+        route = plan(b, n, m, num_sms(xyz1.device.index))
+    warps, tile = check_plan(n, route)
     idx = torch.empty((b, m, nsample), dtype=torch.int32, device=xyz1.device)
     cnt = torch.empty((b, m), dtype=torch.int32, device=xyz1.device)
     device, stream = stream_of(xyz1)
     launch(
         "ball_query", "ballquery", "pn2_ball_query",
-        [PTR, PTR, INT, INT, INT, FLOAT, INT, PTR, PTR, INT, PTR],
-        xyz1.data_ptr(), xyz2.data_ptr(), b, n, m, squared_radius(radius), nsample,
+        [PTR, PTR, INT, INT, INT, FLOAT, INT, INT, INT, PTR, PTR, INT, PTR],
+        xyz1.data_ptr(), xyz2.data_ptr(), b, n, m, squared_radius(radius), nsample, warps, tile,
         idx.data_ptr(), cnt.data_ptr(), device, stream,
     )
     return idx, cnt

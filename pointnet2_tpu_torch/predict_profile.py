@@ -31,34 +31,17 @@ from torch.profiler import ProfilerActivity, profile
 from pointnet2_tpu_torch import convert
 from pointnet2_tpu_torch.config import Config
 from pointnet2_tpu_torch.infer import Predictor
+from pointnet2_tpu_torch.utils.bench import KERNEL_SYMBOLS, event_device_us
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # CUDA runtime calls after which the host has waited for the device.
 HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "cudaMemcpy")
 REQUESTS = 3
 BATCH = 16
-PORT_KERNELS = {
-    "fps_centroids": "fps_centroids_kernel",
-    "ball_query": "ball_query_kernel",
-    "knn": "knn_kernel",
-    "three_interpolate": "three_interpolate_kernel",
-    "three_interpolate_grad": "three_interpolate_grad_kernel",
-    "ball_query_sliced": "ball_query_tiles_kernel<false>",
-    "ball_query_sliced_pos": "ball_query_tiles_kernel<true>",
-    "window_gather": "window_gather_kernel",
-    "knn_sliced": "knn_tiles_kernel",
-}
-
-
-def _device_us(event) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(event, attr):
-            return float(getattr(event, attr))
-    return 0.0
 
 
 def _category(name: str) -> str:
-    for kernel, symbol in PORT_KERNELS.items():
+    for kernel, symbol in KERNEL_SYMBOLS.items():
         if symbol in name:
             return kernel
     lowered = name.lower()
@@ -93,7 +76,7 @@ def summarise(prof, wall_ms: float) -> dict:
             host.append((ev.self_cpu_time_total / 1e3, ev.count, ev.key))
         if ev.device_type == DeviceType.CPU and ev.key in HOST_WAITS:
             waits[ev.key] = ev.count
-        us = _device_us(ev)
+        us = event_device_us(ev)
         if us <= 0 or ev.device_type != DeviceType.CUDA or ev.key.startswith("Optimizer."):
             continue  # host-side ops and the optimizer's own span carry their kernels' time too: count kernels only
         cat = _category(ev.key)

@@ -14,6 +14,15 @@ and at the four FP levels the 3-NN and a kNN with k=8, all at B=16
   median of 10 runs of 5 calls); for the windowed ball query the kernel on
   the op's sorted inputs, with ``op_ms`` the whole op (sorts, window bounds,
   un-permutation) and ``exact_op_ms`` the exact kernel beside it;
+- ``device_ms``: the same call's kernel time on the device alone
+  (``utils.bench.device_ms``: the profiler's kernel durations over 20
+  calls). Where a launch's host side outlasts its kernel (the small
+  levels), ``kernel_ms`` is the host's enqueue rate and this the kernel;
+- ``plan``: the launch shape the wrapper's plan picked (FPS: cluster,
+  threads, points a thread; exact ball query: warps a block, tile points),
+  and for FPS ``chain_ms``, the device time of the same number of empty
+  cluster-barrier steps in the same layout (``ops.cuda.fps.barrier_chain``):
+  the chain's latency bound beside the operation bound;
 - ``plain_ms``: the plain PyTorch version on the card (median of 3 single
   calls: the plain FPS takes some 200 ms a call);
 - ``library_ms``: one PyTorch call computing the same function, or null
@@ -38,7 +47,9 @@ import torch
 
 from pointnet2_tpu_torch import ops
 from pointnet2_tpu_torch.ops import core, cuda
-from pointnet2_tpu_torch.utils.bench import bound, card_line, cuda_ms, require_device
+from pointnet2_tpu_torch.ops.cuda import ballquery as cuda_ballquery
+from pointnet2_tpu_torch.ops.cuda import fps as cuda_fps
+from pointnet2_tpu_torch.utils.bench import bound, card_line, cuda_ms, device_ms, require_device
 
 # semantic.json's SA levels: (npoint, radius, nsample); FP levels follow.
 SA = [(1024, 0.5, 32), (256, 1.0, 32), (64, 2.0, 32), (16, 4.0, 32)]
@@ -107,21 +118,26 @@ def levels(batch: int, num_point: int, sa, device, seed: int = 0) -> list[torch.
     return out
 
 
-def _record(op, shape, card, kernel, run, plain, nbytes, nops, timed, **extra):
-    """One line: times where ``timed``, else nulls; launches of ``kernel`` in one call."""
+def _record(op, shape, card, kernel, run, plain, nbytes, nops, timed, plan=None, chain=None, **extra):
+    """One line: times where ``timed``, else nulls; launches of ``kernel`` in
+    one call. ``chain``: the FPS call's empty barrier chain, timed on the device."""
     bound_ms, bound_by = bound(nbytes, nops)
-    row = {"op": op, "shape": shape, "kernel": kernel, "bound_ms": bound_ms, "bound_by": bound_by,
-           "bytes": nbytes, "ops": nops, "library_ms": None, "card": card}
+    row = {"op": op, "shape": shape, "kernel": kernel, "plan": plan, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes": nbytes, "ops": nops, "library_ms": None, "card": card}
     if timed:
         before = cuda.LAUNCHES[kernel]
         run()
         row["launches"] = cuda.LAUNCHES[kernel] - before
         row["kernel_ms"] = cuda_ms(run)
+        row["device_ms"] = device_ms(run, kernel)
+        if chain is not None:
+            row["chain_ms"] = device_ms(chain, "fps_barrier_chain")
         row["plain_ms"] = cuda_ms(plain, reps=3, inner=1, warmup=1)
         row.update({key: cuda_ms(fn) for key, fn in extra.items()})
     else:
         run(), plain()
-        row.update({"kernel_ms": None, "launches": None, "plain_ms": None, **{key: None for key in extra}})
+        row.update({"kernel_ms": None, "device_ms": None, "launches": None, "plain_ms": None,
+                    **({"chain_ms": None} if chain is not None else {}), **{key: None for key in extra}})
     print(json.dumps(row), flush=True)
     return row
 
@@ -138,10 +154,12 @@ def run(device: torch.device, small: bool) -> list[dict]:
         m = npoint
         for name, fn, rows_out in (("farthest_point_sample", ops.farthest_point_sample, False),
                                    ("fps_centroids", ops.fps_centroids, True)):
+            route = cuda_fps.planned_route(src, m, rows_out) if timed else None
             rows.append(_record(
                 name, f"B={b} N={n} npoint={m}", card, name,
                 lambda fn=fn: fn(src, m), lambda fn=fn: fn(src, m, impl="torch"),
-                *work_fps(b, n, m, rows_out), timed,
+                *work_fps(b, n, m, rows_out), timed, plan=route,
+                chain=lambda route=route: cuda_fps.barrier_chain(b, m, route, src.device.index),
             ))
         idx, cnt = ops.ball_query(src, cent, radius, nsample, impl="torch")
         pairs = int(scanned_pairs(idx, cnt, n, nsample).sum())
@@ -150,6 +168,7 @@ def run(device: torch.device, small: bool) -> list[dict]:
             lambda: ops.ball_query(src, cent, radius, nsample),
             lambda: ops.ball_query(src, cent, radius, nsample, impl="torch"),
             *work_ball_query(b, n, m, nsample, pairs), timed,
+            plan=cuda_ballquery.plan(b, n, m, cuda_ballquery.num_sms(src.device.index)) if timed else None,
         ))
         w = core.round_up(core.default_bq_window(n, nsample), core.LANES)
         if core.bq_falls_back(n, m, w):

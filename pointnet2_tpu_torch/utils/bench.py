@@ -8,6 +8,10 @@ early). On the card a kernel's time is CUDA events around a run of launches:
   after ``warmup`` calls, of the device time between two events divided by
   ``inner``. A call whose kernel is shorter than its host-side launch
   measures the launch;
+- ``device_ms``: the device time of one call's launches of one kernel,
+  summed from ``torch.profiler``'s kernel durations. Where the host's side
+  of a launch takes longer than the kernel (the small levels), ``cuda_ms``
+  measures the host's enqueue rate and this the kernel;
 - ``bound``: the least time the card could take for the same work, the
   larger of the bytes it must move over the memory rate and its operations
   over the float32 rate (no tensor cores), the H100 SXM's published peaks at
@@ -28,6 +32,22 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, published
 
+# LAUNCHES key -> a part of the kernel's name as the profiler shows it.
+KERNEL_SYMBOLS = {
+    "fps_centroids": "fps_kernel<true",
+    "farthest_point_sample": "fps_kernel<false",
+    "fps_barrier_chain": "barrier_chain_kernel",
+    "ball_query": "ball_query_kernel(",
+    "knn": "knn_kernel<",
+    "three_interpolate": "three_interpolate_kernel",
+    "three_interpolate_grad": "three_interpolate_grad_kernel",
+    "ball_query_sliced": "ball_query_tiles_kernel<false>",
+    "ball_query_sliced_pos": "ball_query_tiles_kernel<true>",
+    "window_gather": "window_gather_kernel",
+    "knn_sliced": "knn_tiles_kernel",
+    "ball_query_windowed": "ball_query_windowed_kernel",
+}
+
 
 def cuda_ms(fn, reps: int = 10, inner: int = 5, warmup: int = 2) -> float:
     """Device time of one call of ``fn``, in ms (see the module docstring)."""
@@ -47,6 +67,42 @@ def cuda_ms(fn, reps: int = 10, inner: int = 5, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def event_device_us(event) -> float:
+    """A profiler event's own device time in us (the attribute's name differs by version)."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(event, attr):
+            return float(getattr(event, attr))
+    return 0.0
+
+
+def device_ms(fn, kernel: str, calls: int = 20, warmup: int = 2, tries: int = 3) -> float:
+    """Device time of ``kernel``'s launches (``KERNEL_SYMBOLS``) in one call
+    of ``fn``, in ms: the profiler's kernel durations over ``calls`` calls.
+    A profiling session that records none of them (the card's tracer has
+    dropped a whole session now and then) is run again, ``tries`` in all."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("device_ms times on a CUDA device, and there is none")
+    symbol = KERNEL_SYMBOLS[kernel]
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(
+            event_device_us(ev) for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and symbol in ev.key
+        )
+        if us > 0.0:
+            return us / 1e3 / calls
+    raise RuntimeError(f"the profiler saw no device time for {kernel} ({symbol!r}) in {tries} sessions")
 
 
 def bound(nbytes: float, nops: float) -> tuple[float, str]:

@@ -24,6 +24,8 @@ import torch
 
 from pointnet2_tpu_torch import ops
 from pointnet2_tpu_torch.ops import core, cuda
+from pointnet2_tpu_torch.ops.cuda import ballquery as cuda_bq
+from pointnet2_tpu_torch.ops.cuda import fps as cuda_fps
 
 pytestmark = pytest.mark.cuda
 
@@ -449,3 +451,147 @@ def test_op_surface_wrappers_check_their_inputs(cuda_device):
         cuda.ball_query_window_tiles(xyz, xs, perm.long(), qs, lo, hi, 0.2, 8, w)
     with pytest.raises(ValueError, match="hi"):
         cuda.ball_query_window_tiles(xyz, xs, perm, qs, lo, hi[:, :0], 0.2, 8, w)
+
+
+# -- the redesigned FPS (a cluster per cloud) and exact ball query (a shared-memory cloud)
+
+
+def _fps_both(xyz, npoint, route=None):
+    """Both FPS entries on ``route`` against the plain version, bit for bit."""
+    idx, cent = cuda.fps_centroids(xyz, npoint, route=route)
+    want_idx, want_cent = core.fps_centroids(xyz, npoint)
+    assert torch.equal(idx, want_idx) and torch.equal(cent, want_cent)
+    assert torch.equal(cuda.farthest_point_sample(xyz, npoint, route=route), want_idx)
+
+
+def _lattice(b, shape=(16, 16, 32)):
+    """Integer coordinates: many distances tie, across threads, warps and blocks."""
+    g = torch.stack(torch.meshgrid(*(torch.arange(float(s)) for s in shape), indexing="ij"), -1)
+    return g.reshape(1, -1, 3).repeat(b, 1, 1).contiguous().to("cuda")
+
+
+# Every (cluster, threads, ppt) the plan picks for 8192 points, and more.
+FPS_ROUTES_8192 = [(16, 128, 4), (8, 128, 8), (4, 256, 8), (2, 512, 8), (1, 512, 16),
+                   (16, 256, 2), (8, 1024, 1), (4, 512, 4), (2, 1024, 4)]
+
+
+@pytest.mark.parametrize("route", FPS_ROUTES_8192)
+def test_fps_kernel_routes_on_a_lattice(cuda_device, route):
+    """First index of the max where ties cross thread, warp, block and cluster edges."""
+    _fps_both(_lattice(2), 300, route)
+
+
+@pytest.mark.parametrize("route", FPS_ROUTES_8192)
+def test_fps_kernel_routes_with_duplicated_points(cuda_device, route):
+    xyz = _cloud(40, 2, 8192)
+    xyz[:, 4096:] = xyz[:, :4096].flip(1)
+    _fps_both(xyz.contiguous(), 300, route)
+
+
+@pytest.mark.parametrize(
+    "n", [127, 128, 129, 255, 256, 257, 511, 512, 513, 1023, 1024, 1025, 2047, 2048, 2049, 4095, 4096,
+          4097, 8191, 8192, 8193, 16383, 16384, 16385, 65535, 65536, 65537],
+)
+def test_fps_kernel_at_the_plan_boundaries(cuda_device, n):
+    """N just below, at and above each change of cluster size or points a thread."""
+    _fps_both(_cloud(41, 2, n), min(n, 200))
+
+
+def test_fps_kernel_at_max_points(cuda_device):
+    xyz = _cloud(42, 1, cuda_fps.MAX_POINTS, scale=8.0)
+    route = cuda_fps.planned_route(xyz, 64)
+    assert route[0] * route[1] * route[2] >= cuda_fps.MAX_POINTS
+    _fps_both(xyz, 64)
+    with pytest.raises(ValueError, match="at most"):
+        cuda.fps_centroids(_cloud(42, 1, cuda_fps.MAX_POINTS + 1), 8)
+
+
+@pytest.mark.parametrize("b", [1, 3, 300])
+def test_fps_kernel_batches(cuda_device, b):
+    """B = 1, and more clouds than the card holds clusters at once (waves)."""
+    xyz = _cloud(43, b, 2048)
+    _fps_both(xyz, 64)
+    _fps_both(xyz, 64, (16, 128, 1))
+    if b == 300:
+        assert cuda_fps.resident_clusters(cuda_device.index or 0, True, 16, 128, 1) < b
+
+
+@pytest.mark.parametrize("n,route", [(1000, None), (1000, (4, 256, 1)), (64, None), (4096, (16, 128, 2))])
+def test_fps_kernel_npoint_equals_n(cuda_device, n, route):
+    _fps_both(_cloud(44, 2, n), n, route)
+
+
+def test_fps_plan_takes_the_cards_answers(cuda_device):
+    """At the model's shapes every cluster the plan weighs is resident at least once,
+    and the route it picks keeps all B clusters resident."""
+    dev = cuda_device.index or 0
+    for b, n in [(8, 8192), (16, 8192), (16, 1024), (16, 256), (16, 64)]:
+        cands = cuda_fps.candidates(n)
+        resident = {c: cuda_fps.resident_clusters(dev, True, c, t, p) for c, (t, p) in cands.items()}
+        assert all(v > 0 for v in resident.values()), resident
+        c, t, p = cuda_fps.plan(b, n, resident)
+        assert resident[c] >= b and (c, t, p) == cuda_fps.planned_route(_cloud(0, b, n), 16)
+
+
+def _ball_both(xyz1, xyz2, radius, nsample, route=None):
+    idx, cnt = cuda.ball_query(xyz1, xyz2, radius, nsample, route=route)
+    want_idx, want_cnt = core.ball_query(xyz1, xyz2, radius, nsample)
+    assert torch.equal(cnt, want_cnt) and torch.equal(idx, want_idx)
+    return cnt
+
+
+# Every (warps, tile) the plan picks at the model's shapes, and tiles far smaller
+# than the cloud (many refills of the two buffers).
+BALL_ROUTES = [None, (16, 4096), (8, 4096), (4, 1024), (2, 1024), (1, 256), (1, 64), (16, 32), (3, 96)]
+
+
+@pytest.mark.parametrize("route", BALL_ROUTES)
+def test_ball_query_kernel_routes(cuda_device, route):
+    xyz1 = _cloud(50, 2, 8192, scale=4.0)
+    xyz2 = xyz1[:, ::8].contiguous()
+    _ball_both(xyz1, xyz2, 0.25, 32, route)
+
+
+@pytest.mark.parametrize("route", [None, (16, 4096), (4, 1024), (1, 64)])
+def test_ball_query_kernel_dense_balls_stop_early(cuda_device, route):
+    """Every point in every ball: each query is full within its first strip."""
+    xyz1 = _cloud(51, 2, 8192, scale=1.0)
+    xyz2 = _cloud(52, 2, 256, scale=1.0)
+    cnt = _ball_both(xyz1, xyz2, 2.0, 32, route)
+    assert bool((cnt == 32).all())
+
+
+@pytest.mark.parametrize("route", [None, (16, 4096), (2, 64)])
+def test_ball_query_kernel_empty_balls(cuda_device, route):
+    xyz1 = _cloud(53, 2, 5000, scale=1.0)
+    xyz2 = _cloud(54, 2, 100, scale=1.0) + 10.0
+    xyz2[:, ::2] -= 10.0  # half the queries inside the cloud, half far away
+    cnt = _ball_both(xyz1, xyz2.contiguous(), 0.05, 16, route)
+    assert bool((cnt[:, 1::2] == 0).all())
+
+
+@pytest.mark.parametrize("route", [None, (8, 4096), (1, 512)])
+def test_ball_query_kernel_nsample_64(cuda_device, route):
+    xyz1 = _cloud(55, 2, 8192, scale=2.0)
+    _ball_both(xyz1, xyz1[:, ::16].contiguous(), 0.4, 64, route)
+
+
+@pytest.mark.parametrize("n", [4097, 9192, 12305, 3 * 4096])
+def test_ball_query_kernel_past_one_tile(cuda_device, n):
+    """N larger than one staged tile and not a multiple of it (and one that is)."""
+    xyz1 = _cloud(56, 2, n, scale=3.0)
+    _ball_both(xyz1, xyz1[:, ::7].contiguous(), 0.3, 32)
+
+
+@pytest.mark.parametrize("b,m,route", [(3, 37, None), (3, 37, (16, 4096)), (1, 65, (16, 4096)), (5, 1, None)])
+def test_ball_query_kernel_queries_off_the_block(cuda_device, b, m, route):
+    """B x M not a multiple of the block's queries: the last block runs part full."""
+    _ball_both(_cloud(57, b, 3000), _cloud(58, b, m), 0.3, 16, route)
+
+
+def test_ball_query_plan_at_the_model_shapes(cuda_device):
+    sms = cuda_bq.num_sms(cuda_device.index or 0)
+    assert sms == torch.cuda.get_device_properties(0).multi_processor_count
+    for b, n, m in [(8, 8192, 1024), (16, 8192, 1024), (16, 1024, 256), (16, 64, 16)]:
+        warps, tile = cuda_bq.plan(b, n, m, sms)
+        assert cuda_bq.shared_bytes(n, tile) <= cuda_bq.MAX_SHARED_BYTES

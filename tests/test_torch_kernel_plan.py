@@ -1,0 +1,132 @@
+"""The launch plans of the FPS and exact ball-query kernels, on the CPU.
+
+``ops.cuda.fps.plan`` and ``ops.cuda.ballquery.plan`` are plain Python: they
+take the card's answers (resident clusters of each size, the SM count) as
+arguments, so every route they can pick is checked here without a card; the
+card tests in ``tests/test_torch_cuda.py`` hold each route's kernel against
+its plain version.
+"""
+
+import itertools
+
+import pytest
+
+from pointnet2_tpu_torch.ops.cuda import ballquery as bq
+from pointnet2_tpu_torch.ops.cuda import fps
+
+# What an H100 SXM answers for the routes of 8192 points (132 SMs in GPCs
+# that take 58 clusters of 16 and 124 of 8) and two cards that hold fewer clusters.
+RESIDENT = {
+    "h100": {16: 58, 8: 124, 4: 124, 2: 132, 1: 1056},
+    "no_16": {16: 0, 8: 16, 4: 32, 2: 64, 1: 256},
+    "small": {16: 1, 8: 2, 4: 4, 2: 8, 1: 16},
+}
+GRID_N = sorted(n for n in {*range(1, 600, 37), *(2**k + d for k in range(5, 18) for d in (-1, 0, 1)),
+                            *range(1000, fps.MAX_POINTS + 1, 4093)} if n <= fps.MAX_POINTS)
+
+
+def test_fps_candidates_cover_every_n():
+    """Every route the plan weighs holds N, in blocks the kernel takes."""
+    for n in GRID_N:
+        cands = fps.candidates(n)
+        assert cands, n
+        for c, (threads, ppt) in cands.items():
+            assert c in fps.CLUSTERS and c <= 16 and c & (c - 1) == 0
+            assert ppt in fps.PPTS and threads % 32 == 0 and 32 <= threads <= fps.max_threads(ppt)
+            s = fps.slice_points(n, c)
+            assert c * s >= n > (c - 1) * s and threads * ppt >= s
+            assert threads * ppt < s + 32 * ppt  # no warp of the block holds nothing but padding
+            assert fps.check_plan(n, (c, threads, ppt)) == (c, threads, ppt)
+            assert c == 1 or n >= c * fps.MIN_BLOCK_POINTS
+
+
+@pytest.mark.parametrize("card", sorted(RESIDENT))
+def test_fps_plan_keeps_all_clusters_resident(card):
+    resident = RESIDENT[card]
+    for n, b in itertools.product(GRID_N, (1, 2, 8, 16, 33, 200)):
+        cands = fps.candidates(n)
+        if not any(resident[k] for k in cands):  # past 65536 points only a cluster of 16 holds a cloud
+            with pytest.raises(ValueError, match="no FPS route"):
+                fps.plan(b, n, resident)
+            continue
+        c, threads, ppt = fps.plan(b, n, resident)
+        assert cands[c] == (threads, ppt) and c & (c - 1) == 0 and c <= 16
+        fitting = [k for k in cands if 0 < resident[k] and resident[k] >= b]
+        if fitting:
+            # The largest cluster that keeps all B clusters resident at once.
+            assert c == max(fitting) and resident[c] >= b
+        else:
+            # No route runs in one wave: the fewest waves, the larger cluster among equals.
+            waves = {k: -(-b // resident[k]) for k in cands if resident[k] > 0}
+            assert -(-b // resident[c]) == min(waves.values())
+            assert c == max(k for k, w in waves.items() if w == waves[c])
+
+
+def test_fps_plan_at_the_model_shapes():
+    """The routes an H100 takes for a B=8 predict chunk and a B=16 train batch."""
+    h100 = RESIDENT["h100"]
+    assert fps.plan(8, 8192, h100) == (8, 128, 8)
+    assert fps.plan(16, 8192, h100) == (8, 128, 8)
+    assert fps.plan(16, 8192, {**h100, 8: 15}) == (4, 256, 8)
+    assert fps.plan(16, 1024, h100) == (1, 128, 8)
+    assert fps.plan(16, 256, h100) == (1, 128, 2)
+    assert fps.plan(16, 64, h100) == (1, 64, 1)
+    assert fps.plan(1, fps.MAX_POINTS, h100) == (16, 512, 16)
+
+
+@pytest.mark.parametrize(
+    "b,n,resident",
+    [(0, 100, RESIDENT["h100"]), (1, 0, RESIDENT["h100"]), (1, fps.MAX_POINTS + 1, RESIDENT["h100"]),
+     (1, fps.MAX_POINTS, RESIDENT["no_16"]), (4, 8192, {c: 0 for c in fps.CLUSTERS})],
+)
+def test_fps_plan_refuses_what_no_route_takes(b, n, resident):
+    with pytest.raises(ValueError):
+        fps.plan(b, n, resident)
+
+
+@pytest.mark.parametrize(
+    "n,route",
+    [(8192, (8, 128, 4)), (8192, (16, 32, 8)), (8193, (8, 128, 8)), (100, (3, 128, 1)), (100, (1, 100, 1)), (100, (1, 1024, 8)),
+     (100, (1, 128, 32)), (100, (32, 32, 1))],
+)
+def test_fps_check_plan_refuses_bad_routes(n, route):
+    with pytest.raises(ValueError):
+        fps.check_plan(n, route)
+
+
+def test_ball_query_plan_fits_shared_memory():
+    for b, n, m, sms in itertools.product((1, 2, 8, 16, 300), GRID_N[::3], (1, 37, 256, 1024, 4096), (1, 132)):
+        warps, tile = bq.plan(b, n, m, sms)
+        assert 1 <= warps <= bq.MAX_WARPS and warps & (warps - 1) == 0
+        assert tile % 32 == 0 and 32 <= tile <= bq.TILE_POINTS
+        assert tile >= n or tile == bq.TILE_POINTS
+        assert bq.shared_bytes(n, tile) <= min(2 * bq.TILE_POINTS * 12, bq.MAX_SHARED_BYTES)
+        assert bq.check_plan(n, (warps, tile)) == (warps, tile)
+        blocks = b * -(-m // (warps * bq.QUERIES_PER_WARP))
+        # The largest block that still leaves a block for every other SM, where one can.
+        assert 2 * blocks >= sms or warps == 1
+        assert warps == bq.MAX_WARPS or 2 * b * -(-m // (2 * warps * bq.QUERIES_PER_WARP)) < sms
+
+
+def test_ball_query_plan_at_the_model_shapes():
+    assert bq.plan(8, 8192, 1024, 132) == (16, 4096)
+    assert bq.plan(16, 8192, 1024, 132) == (16, 4096)
+    assert bq.plan(16, 1024, 256, 132) == (8, 1024)
+    assert bq.plan(16, 64, 16, 132) == (1, 64)
+    assert bq.shared_bytes(8192, 4096) == 2 * 4096 * 12
+    assert bq.shared_bytes(1024, 1024) == 1024 * 12
+
+
+@pytest.mark.parametrize("b,n,m", [(0, 10, 10), (1, 0, 10), (1, 10, 0), (2**24, 10, 2**14)])
+def test_ball_query_plan_refuses_what_no_route_takes(b, n, m):
+    with pytest.raises(ValueError):
+        bq.plan(b, n, m, 132)
+
+
+@pytest.mark.parametrize(
+    "n,route", [(8192, (0, 128)), (8192, (17, 128)), (8192, (4, 16)), (8192, (4, 100)), (40000, (4, 9728))],
+)
+def test_ball_query_check_plan_refuses_bad_routes(n, route):
+    """Warps past 16, tiles off the 32-multiples, two buffers past shared memory."""
+    with pytest.raises(ValueError):
+        bq.check_plan(n, route)
