@@ -1,4 +1,4 @@
-// Exact k nearest neighbours (k <= 16), ascending, ties to the lowest index.
+// Exact k nearest neighbours, ascending, ties to the lowest index.
 //
 // Replaces: pointnet2_tpu/ops/pallas/knn.py:39 `_knn_kernel`
 //           (reached through `knn_pallas`, knn.py:71-125, and
@@ -7,19 +7,40 @@
 // Semantics: for every query, the k smallest float32 difference-form squared
 // distances (dx*dx + dy*dy + dz*dz, in that order) to the reference points,
 // in ascending order; equal distances keep the lower reference index first,
-// as a stable sort of the distance row does.
+// as a stable sort of the distance row does. Any 1 <= k <= m.
 //
 // What bounds it on the H100: operations, about 9 a (query, reference) pair:
 // every pair is needed. The TPU kernel makes k full-width argmin passes over a
 // (tile, M) distance block; here each pair is looked at once.
 //
-// Design: one thread per query, 256 queries of one cloud a block. The
-// references go through shared memory in 1024-point tiles, read by all the
-// threads of a warp at the same address (a broadcast). Each thread keeps its
-// sorted top-k in registers (k is a template parameter, so the arrays do not
-// spill to local memory) and inserts with strict `<`, so a later index never
-// passes an equal distance. Threads past the last query still help load the
-// tiles and take part in the barriers.
+// Design, k <= 16 (`knn_kernel<K>`, the register route): S lanes of a warp
+// share one query (S a power of two up to 32, from the plan in
+// ops/cuda/knn.py): lane s takes references s, s+S, s+2S, ... and keeps its
+// own sorted top-k in registers (K is a template parameter, so the arrays do
+// not spill), ordered lexicographically by (distance, index). Then log2(S)
+// butterfly steps (`__shfl_xor_sync` of the k pairs) merge the lanes' lists,
+// each keeping the first k: the order is total, so every lane of the query
+// ends with the same list, which is the stable sort's first k. One thread a
+// query over the whole cloud left most of the card idle at the FP levels
+// (FP4 at B=8: 256 blocks of 256 threads, each thread one dependent chain of
+// 1024 references); splitting the scan gives the card enough warps to hide
+// the chain. The block stages the cloud once into shared memory with 4-byte
+// `cp.async`, laid out as (x, y, z, pad) so a lane reads a reference with one
+// 16-byte load, in tiles of up to 1024 points into two buffers (the next tile
+// loads while this one is scanned); the S lanes of a query read S
+// neighbouring references, and the warp's other queries read the same ones
+// (a broadcast). The cheap filter `d <= k-th distance` runs on every pair,
+// the lexicographic insert only on the few that pass.
+//
+// Design, k > 16 (`knn_kernel_list`, the list route): one warp a query, the
+// sorted list of k (distance, index) pairs in shared memory (8 bytes a pair,
+// so a block of W warps needs W * k * 8 bytes: k <= 29056 with one warp). The
+// warp reads the cloud 32 references at a time in index order, filters them
+// against the list's current k-th pair with one `__ballot_sync`, and inserts
+// the survivors one by one in lane order: the warp counts the pairs before the
+// new one (its slot), shifts the tail up one slot, 32 slots at a time from the
+// top, and writes it. A survivor is checked again against the k-th pair
+// before its insert, since an earlier one may have pushed it out.
 //
 // ---------------------------------------------------------------------------
 // pn2_knn_tiles: kNN through calibrated x-windows.
@@ -38,193 +59,361 @@
 // What bounds it on the H100: operations, about 9 a (query, column) pair of
 // the scan. The TPU kernel makes k full-width passes over a (128, w) block.
 //
-// Design: one block of 128 threads per (cloud, tile), one thread per query;
-// the window sits in dynamic shared memory (x, y, z, original index; 16
-// bytes a column) and every thread reads the same column at once (a
-// broadcast). The sorted top-k lives in registers and compares (distance,
-// original index) lexicographically: the window is in x order, not index
-// order, so the strict `<` of the kernel above would not break ties right.
+// Design: one block of 128 threads per (cloud, tile). The window sits in
+// dynamic shared memory (x, y, z, original index; 16 bytes a column,
+// window_bq.cuh's `stage_window`) when it fits beside the lists, else it is
+// read where it lies, through L1 and L2. For k <= 16 one thread a query
+// reads every column (a broadcast) into a sorted top-k in registers; for
+// k > 16 each warp takes 32 of the tile's queries in turn, with the list
+// route above. Both compare (distance, original index) lexicographically:
+// the window is in x order, not index order.
 
 #include <climits>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "window_bq.cuh"
+
 namespace {
 
-constexpr int kTile = 1024;
-constexpr int kThreads = 256;
+using pn2_window::dist2;
+using pn2_window::kFull;
 
-__device__ __forceinline__ float dist2(float x, float y, float z,
-                                       float x1, float y1, float z1) {
-  const float dx = __fsub_rn(x, x1);
-  const float dy = __fsub_rn(y, y1);
-  const float dz = __fsub_rn(z, z1);
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                   __fmul_rn(dz, dz));
+constexpr int kMaxRegisterK = 16;
+constexpr int kThreads = 256;  // the register route's largest block
+constexpr int kMaxListWarps = 8;
+constexpr int kMaxShared = 232448;  // H100: 227 KB of dynamic shared memory a block
+constexpr int kTileQueries = 128;
+
+__device__ __forceinline__ bool before(float d, int i, float bd, int bi) {
+  return d < bd || (d == bd && i < bi);
 }
 
+// Insert (d, j) into the sorted (bd, bi) if it sorts before the last pair.
 template <int K>
-__global__ void knn_kernel(const float* __restrict__ refs,
-                           const float* __restrict__ queries, int m, int nq,
-                           float* __restrict__ dist, int* __restrict__ idx) {
-  __shared__ float sx[kTile];
-  __shared__ float sy[kTile];
-  __shared__ float sz[kTile];
-
-  const int bi = blockIdx.y;
-  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = qi < nq;
-  const float* r = refs + (size_t)bi * m * 3;
-  const size_t qrow = (size_t)bi * nq + qi;
-
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (active) {
-    qx = queries[qrow * 3 + 0];
-    qy = queries[qrow * 3 + 1];
-    qz = queries[qrow * 3 + 2];
+__device__ __forceinline__ void insert(float (&bd)[K], int (&bi)[K], float d, int j) {
+  if (!before(d, j, bd[K - 1], bi[K - 1])) return;
+  // Walk down from the last slot: slot s takes slot s-1's pair when (d, j)
+  // sorts before it, else (d, j) itself if (d, j) sorts before slot s.
+#pragma unroll
+  for (int s = K - 1; s >= 0; --s) {
+    if (s > 0 && before(d, j, bd[s - 1], bi[s - 1])) {
+      bd[s] = bd[s - 1];
+      bi[s] = bi[s - 1];
+    } else if (before(d, j, bd[s], bi[s])) {
+      bd[s] = d;
+      bi[s] = j;
+    }
   }
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Points [t * tile, t * tile + len) of the cloud into buf as (x, y, z, pad),
+// every thread a share of the words.
+__device__ __forceinline__ void stage(float4* buf, const float* __restrict__ pts, int t,
+                                      int tile, int len) {
+  const float* src = pts + (size_t)t * tile * 3;
+  float* dst = reinterpret_cast<float*>(buf);
+  for (int i = threadIdx.x; i < len * 3; i += blockDim.x) {
+    const int p = i / 3;
+    cp_async4(dst + 4 * p + (i - 3 * p), src + i);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Grid: b * blocks_per_cloud blocks of `threads`, 2^lanes_log2 lanes a query;
+// dynamic shared memory min(2, tiles) * tile * 16 bytes.
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+    knn_kernel(const float* __restrict__ refs, const float* __restrict__ queries, int m,
+               int nq, int lanes_log2, int tile, int blocks_per_cloud,
+               float* __restrict__ dist, int* __restrict__ idx) {
+  extern __shared__ __align__(16) float4 tiles[];
+  const int cloud = blockIdx.x / blocks_per_cloud;
+  const int lanes = 1 << lanes_log2;
+  const int sub = threadIdx.x & (lanes - 1);
+  const int qi = (blockIdx.x - cloud * blocks_per_cloud) * (blockDim.x >> lanes_log2) +
+                 (threadIdx.x >> lanes_log2);
+  const bool active = qi < nq;
+  // A lane past the last query scans the last one: it must take part in the shuffles.
+  const float* q = queries + ((size_t)cloud * nq + (active ? qi : nq - 1)) * 3;
+  const float qx = q[0], qy = q[1], qz = q[2];
+  const float* pts = refs + (size_t)cloud * m * 3;
+
   float bd[K];
-  int bidx[K];
+  int bi[K];
 #pragma unroll
   for (int s = 0; s < K; ++s) {
     bd[s] = INFINITY;
-    bidx[s] = 0;
+    bi[s] = INT_MAX;
   }
 
-  for (int t0 = 0; t0 < m; t0 += kTile) {
-    const int tn = min(kTile, m - t0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = threadIdx.x; i < tn; i += blockDim.x) {
-      sx[i] = r[(size_t)(t0 + i) * 3 + 0];
-      sy[i] = r[(size_t)(t0 + i) * 3 + 1];
-      sz[i] = r[(size_t)(t0 + i) * 3 + 2];
+  const int ntiles = (m + tile - 1) / tile;
+  stage(tiles, pts, 0, tile, min(tile, m));
+  if (ntiles > 1) stage(tiles + tile, pts, 1, tile, min(tile, m - tile));
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) {
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    if (!active) continue;
-    for (int i = 0; i < tn; ++i) {
-      const float d = dist2(qx, qy, qz, sx[i], sy[i], sz[i]);
-      if (d < bd[K - 1]) {
-        const int j = t0 + i;
-        // Walk down from the last slot: slot s takes slot s-1's entry when d
-        // sorts before it, else d itself if d sorts before slot s.
+    const float4* buf = tiles + (t & 1) * tile;
+    const int len = min(tile, m - t * tile);
+    const int offset = t * tile;
+#pragma unroll 4
+    for (int i = sub; i < len; i += lanes) {
+      const float4 p = buf[i];
+      const float d = dist2(qx, qy, qz, p.x, p.y, p.z);
+      if (d <= bd[K - 1]) insert<K>(bd, bi, d, offset + i);
+    }
+    __syncthreads();  // every warp is past this buffer
+    if (t + 2 < ntiles) stage(tiles + (t & 1) * tile, pts, t + 2, tile, min(tile, m - (t + 2) * tile));
+  }
+
+  // Butterfly merge of the query's lanes: after the step of `off`, lanes that
+  // differ only in bits below 2 * off hold the same list.
+  for (int off = 1; off < lanes; off <<= 1) {
+    float od[K];
+    int oi[K];
 #pragma unroll
-        for (int s = K - 1; s >= 0; --s) {
-          if (s > 0 && d < bd[s - 1]) {
-            bd[s] = bd[s - 1];
-            bidx[s] = bidx[s - 1];
-          } else if (d < bd[s]) {
-            bd[s] = d;
-            bidx[s] = j;
-          }
-        }
+    for (int s = 0; s < K; ++s) {
+      od[s] = __shfl_xor_sync(kFull, bd[s], off);
+      oi[s] = __shfl_xor_sync(kFull, bi[s], off);
+    }
+#pragma unroll
+    for (int s = 0; s < K; ++s) insert<K>(bd, bi, od[s], oi[s]);
+  }
+  if (active) {
+    const size_t row = ((size_t)cloud * nq + qi) * K;
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      if ((s & (lanes - 1)) == sub) {
+        dist[row + s] = bd[s];
+        idx[row + s] = bi[s];
       }
     }
   }
-  if (active) {
-#pragma unroll
-    for (int s = 0; s < K; ++s) {
-      dist[qrow * K + s] = bd[s];
-      idx[qrow * K + s] = bidx[s];
+}
+
+// The cloud's rows read where they lie; a reference's original index is its own.
+struct RowColumns {
+  const float* xyz;
+  __device__ __forceinline__ void get(int j, float& cx, float& cy, float& cz, int& o) const {
+    cx = xyz[3 * j + 0];
+    cy = xyz[3 * j + 1];
+    cz = xyz[3 * j + 2];
+    o = j;
+  }
+};
+
+// One warp, one query: the k smallest (distance, original index) pairs of
+// columns [0, len) in the sorted list (ld, li) of shared memory, which only
+// this warp touches. Returns the lowest original index among the columns.
+template <class Columns>
+__device__ int scan_knn_list(const Columns& cols, int len, float qx, float qy, float qz, int k,
+                         int lane, float* ld, int* li) {
+  for (int s = lane; s < k; s += 32) {
+    ld[s] = INFINITY;
+    li[s] = INT_MAX;
+  }
+  __syncwarp();
+  int lowest = INT_MAX;
+  for (int base = 0; base < len; base += 32) {
+    const int j = base + lane;
+    float d = INFINITY;
+    int o = INT_MAX;
+    if (j < len) {
+      float cx, cy, cz;
+      cols.get(j, cx, cy, cz, o);
+      d = dist2(qx, qy, qz, cx, cy, cz);
+      lowest = min(lowest, o);
     }
+    unsigned pass = __ballot_sync(kFull, j < len && before(d, o, ld[k - 1], li[k - 1]));
+    while (pass != 0u) {
+      const int src = __ffs(pass) - 1;
+      pass &= pass - 1u;
+      const float vd = __shfl_sync(kFull, d, src);
+      const int vo = __shfl_sync(kFull, o, src);
+      if (!before(vd, vo, ld[k - 1], li[k - 1])) continue;  // pushed out since the ballot
+      int below = 0;
+      for (int s = lane; s < k; s += 32) below += before(ld[s], li[s], vd, vo);
+      const int at = __reduce_add_sync(kFull, below);
+      // Slots at .. k-2 move up one (the last pair drops out), from the top down.
+      for (int hi_s = k - 1; hi_s > at; hi_s -= 32) {
+        const int s = hi_s - lane;
+        const bool moves = s > at;
+        float md = 0.f;
+        int mi = 0;
+        if (moves) {
+          md = ld[s - 1];
+          mi = li[s - 1];
+        }
+        __syncwarp();
+        if (moves) {
+          ld[s] = md;
+          li[s] = mi;
+        }
+        __syncwarp();
+      }
+      if (lane == 0) {
+        ld[at] = vd;
+        li[at] = vo;
+      }
+      __syncwarp();
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) lowest = min(lowest, __shfl_xor_sync(kFull, lowest, off));
+  return lowest;
+}
+
+// Grid: b * ceil(nq / warps) blocks of `warps` warps, one query a warp;
+// dynamic shared memory warps * k * 8 bytes.
+__global__ void knn_kernel_list(const float* __restrict__ refs, const float* __restrict__ queries,
+                                int m, int nq, int k, int blocks_per_cloud,
+                                float* __restrict__ dist, int* __restrict__ idx) {
+  extern __shared__ __align__(16) float lists[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int cloud = blockIdx.x / blocks_per_cloud;
+  const int qi = (blockIdx.x - cloud * blocks_per_cloud) * (blockDim.x >> 5) + warp;
+  if (qi >= nq) return;  // the whole warp
+  float* ld = lists + (size_t)warp * k * 2;
+  int* li = reinterpret_cast<int*>(ld + k);
+  const size_t row = (size_t)cloud * nq + qi;
+  const float* q = queries + row * 3;
+  scan_knn_list(RowColumns{refs + (size_t)cloud * m * 3}, m, q[0], q[1], q[2], k, lane, ld, li);
+  for (int s = lane; s < k; s += 32) {
+    dist[row * k + s] = ld[s];
+    idx[row * k + s] = li[s];
   }
 }
 
 template <int K>
 cudaError_t launch(const float* refs, const float* queries, int b, int m, int nq,
-                   float* dist, int* idx, cudaStream_t stream) {
-  const dim3 grid((nq + kThreads - 1) / kThreads, b);
-  knn_kernel<K><<<grid, kThreads, 0, stream>>>(refs, queries, m, nq, dist, idx);
+                   int lanes_log2, int threads, float* dist, int* idx, cudaStream_t stream) {
+  const int per_block = threads >> lanes_log2;
+  const int blocks_per_cloud = (nq + per_block - 1) / per_block;
+  const int tile = min(1024, (m + 31) / 32 * 32);
+  const size_t smem = (size_t)(m > tile ? 2 : 1) * tile * sizeof(float4);
+  knn_kernel<K><<<b * blocks_per_cloud, threads, smem, stream>>>(
+      refs, queries, m, nq, lanes_log2, tile, blocks_per_cloud, dist, idx);
   return cudaGetLastError();
 }
 
-constexpr int kTileQueries = 128;
-
-__device__ __forceinline__ bool before(float d, int o, float bd, int bo) {
-  return d < bd || (d == bd && o < bo);
+cudaError_t launch_list(const float* refs, const float* queries, int b, int m, int nq, int k,
+                        int threads, float* dist, int* idx, cudaStream_t stream) {
+  const int warps = threads >> 5;
+  const size_t smem = (size_t)warps * k * 8;
+  if (smem > (size_t)kMaxShared) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        knn_kernel_list, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int blocks_per_cloud = (nq + warps - 1) / warps;
+  knn_kernel_list<<<b * blocks_per_cloud, threads, smem, stream>>>(refs, queries, m, nq, k,
+                                                                  blocks_per_cloud, dist, idx);
+  return cudaGetLastError();
 }
 
-// Grid (tiles, b), kTileQueries threads, 16 * w bytes of dynamic shared memory.
-// xs (b, m, 3), perm (b, m) sorted; qs (b, nq, 3) sorted, nq = 128 * tiles;
-// lo (b, tiles); dist/idx (b, nq, K) in sorted query order.
+// Grid (tiles, b), kTileQueries threads, 16 * w bytes of dynamic shared memory
+// when `staged`. xs (b, m, 3), perm (b, m) sorted; qs (b, nq, 3) sorted,
+// nq = 128 * tiles; lo (b, tiles); dist/idx (b, nq, K) in sorted query order.
+// K = 0: the list route, k pairs of 8 bytes a warp after the window.
 template <int K>
 __global__ void knn_tiles_kernel(const float* __restrict__ xs,
                                  const int* __restrict__ perm,
                                  const float* __restrict__ qs,
                                  const int* __restrict__ lo, int m, int nq,
-                                 int w, float* __restrict__ dist,
+                                 int w, int k, bool staged, float* __restrict__ dist,
                                  int* __restrict__ idx) {
-  extern __shared__ float smem[];
-  float* sx = smem;
-  float* sy = sx + w;
-  float* sz = sy + w;
-  int* so = reinterpret_cast<int*>(sz + w);
-
+  extern __shared__ __align__(16) float window_smem[];
+  float* smem = window_smem;
   const int tile = blockIdx.x;
   const int b = blockIdx.y;
   const int start = lo[b * gridDim.x + tile];
-  for (int i = threadIdx.x; i < w; i += blockDim.x) {
-    const int j = start + i;
-    if (j < m) {
-      const size_t row = (size_t)b * m + j;
-      sx[i] = xs[row * 3 + 0];
-      sy[i] = xs[row * 3 + 1];
-      sz[i] = xs[row * 3 + 2];
-      so[i] = perm[row];
-    } else {
-      so[i] = m;  // padding
-    }
-  }
-  __syncthreads();
+  const int len = max(0, min(w, m - start));  // the window's columns inside the dataset
+  const pn2_window::GlobalColumns window{xs + ((size_t)b * m + start) * 3,
+                                         perm + (size_t)b * m + start};
+  pn2_window::SharedColumns shared{};
+  if (staged) shared = pn2_window::stage_window(smem, w, len, window.xyz, window.orig);
 
-  const size_t q = (size_t)b * nq + (size_t)tile * kTileQueries + threadIdx.x;
-  const float qx = qs[q * 3 + 0];
-  const float qy = qs[q * 3 + 1];
-  const float qz = qs[q * 3 + 2];
-  float bd[K];
-  int bo[K];
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    bd[s] = INFINITY;
-    bo[s] = INT_MAX;
-  }
-  int lowest = m;  // the lowest original index in the window
-  for (int i = 0; i < w; ++i) {
-    const int o = so[i];
-    if (o >= m) continue;
-    lowest = min(lowest, o);
-    const float d = dist2(qx, qy, qz, sx[i], sy[i], sz[i]);
-    if (before(d, o, bd[K - 1], bo[K - 1])) {
-#pragma unroll
-      for (int s = K - 1; s >= 0; --s) {
-        if (s > 0 && before(d, o, bd[s - 1], bo[s - 1])) {
-          bd[s] = bd[s - 1];
-          bo[s] = bo[s - 1];
-        } else if (before(d, o, bd[s], bo[s])) {
-          bd[s] = d;
-          bo[s] = o;
-        }
+  if constexpr (K == 0) {
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    float* ld = smem + (staged ? 4 * w : 0) + (size_t)warp * k * 2;
+    int* li = reinterpret_cast<int*>(ld + k);
+    for (int qi = warp; qi < kTileQueries; qi += blockDim.x >> 5) {
+      const size_t q = (size_t)b * nq + (size_t)tile * kTileQueries + qi;
+      const float qx = qs[q * 3 + 0], qy = qs[q * 3 + 1], qz = qs[q * 3 + 2];
+      const int lowest = staged ? scan_knn_list(shared, len, qx, qy, qz, k, lane, ld, li)
+                                : scan_knn_list(window, len, qx, qy, qz, k, lane, ld, li);
+      for (int s = lane; s < k; s += 32) {
+        dist[q * k + s] = ld[s];
+        idx[q * k + s] = ld[s] == INFINITY ? min(lowest, m) : li[s];
       }
+      __syncwarp();  // the list is read out before the next query resets it
     }
-  }
+  } else {
+    const size_t q = (size_t)b * nq + (size_t)tile * kTileQueries + threadIdx.x;
+    const float qx = qs[q * 3 + 0];
+    const float qy = qs[q * 3 + 1];
+    const float qz = qs[q * 3 + 2];
+    float bd[K];
+    int bo[K];
 #pragma unroll
-  for (int s = 0; s < K; ++s) {
-    dist[q * K + s] = bd[s];
-    idx[q * K + s] = bd[s] == INFINITY ? lowest : bo[s];
+    for (int s = 0; s < K; ++s) {
+      bd[s] = INFINITY;
+      bo[s] = INT_MAX;
+    }
+    int lowest = m;  // the lowest original index in the window
+    for (int i = 0; i < len; ++i) {
+      float cx, cy, cz;
+      int o;
+      if (staged) {
+        shared.get(i, cx, cy, cz, o);
+      } else {
+        window.get(i, cx, cy, cz, o);
+      }
+      lowest = min(lowest, o);
+      insert<K>(bd, bo, dist2(qx, qy, qz, cx, cy, cz), o);
+    }
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      dist[q * K + s] = bd[s];
+      idx[q * K + s] = bd[s] == INFINITY ? lowest : bo[s];
+    }
   }
 }
 
 template <int K>
 cudaError_t launch_tiles(const float* xs, const int* perm, const float* qs,
-                         const int* lo, int b, int m, int nq, int w,
+                         const int* lo, int b, int m, int nq, int w, int k,
                          float* dist, int* idx, cudaStream_t stream) {
-  const size_t smem = (size_t)w * 16;
+  // The list route: up to 4 warps, as many as have room for their lists.
+  const int warps = K == 0 ? max(1, min(kTileQueries / 32, kMaxShared / (k * 8))) : 0;
+  const size_t lists = (size_t)warps * k * 8;
+  if (lists > (size_t)kMaxShared) return cudaErrorInvalidValue;
+  const bool staged = (size_t)w * 16 + lists <= (size_t)kMaxShared;
+  const size_t smem = (staged ? (size_t)w * 16 : 0) + lists;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         knn_tiles_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(nq / kTileQueries, b);
-  knn_tiles_kernel<K><<<grid, kTileQueries, smem, stream>>>(xs, perm, qs, lo, m, nq, w, dist, idx);
+  knn_tiles_kernel<K><<<grid, K == 0 ? warps * 32 : kTileQueries, smem, stream>>>(
+      xs, perm, qs, lo, m, nq, w, k, staged, dist, idx);
   return cudaGetLastError();
 }
 
@@ -233,16 +422,25 @@ cudaError_t launch_tiles(const float* xs, const int* perm, const float* qs,
 extern "C" {
 
 // refs (b, m, 3), queries (b, nq, 3) f32 -> dist (b, nq, k) f32, idx (b, nq, k) i32.
-// 1 <= k <= 16. Returns cudaGetLastError() after the launch.
+// 1 <= k <= m. k <= 16: the register route, 2^lanes_log2 lanes a query in
+// blocks of `threads` (ops/cuda/knn.py `plan`); k > 16: the list route, one
+// warp a query in blocks of `threads`, threads / 32 * k * 8 bytes of shared
+// memory. Returns cudaGetLastError() after the launch.
 int pn2_knn(const float* refs, const float* queries, int b, int m, int nq, int k,
-            float* dist, int* idx, int device, void* stream) {
+            int lanes_log2, int threads, float* dist, int* idx, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (k < 1 || k > m || threads < 32 || threads % 32) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (k > kMaxRegisterK) {
+    if (threads > 32 * kMaxListWarps) return (int)cudaErrorInvalidValue;
+    return (int)launch_list(refs, queries, b, m, nq, k, threads, dist, idx, s);
+  }
+  if (lanes_log2 < 0 || lanes_log2 > 5 || threads > kThreads) return (int)cudaErrorInvalidValue;
   switch (k) {
 #define PN2_KNN_CASE(K) \
   case K:               \
-    return (int)launch<K>(refs, queries, b, m, nq, dist, idx, s);
+    return (int)launch<K>(refs, queries, b, m, nq, lanes_log2, threads, dist, idx, s);
     PN2_KNN_CASE(1) PN2_KNN_CASE(2) PN2_KNN_CASE(3) PN2_KNN_CASE(4)
     PN2_KNN_CASE(5) PN2_KNN_CASE(6) PN2_KNN_CASE(7) PN2_KNN_CASE(8)
     PN2_KNN_CASE(9) PN2_KNN_CASE(10) PN2_KNN_CASE(11) PN2_KNN_CASE(12)
@@ -256,18 +454,22 @@ int pn2_knn(const float* refs, const float* queries, int b, int m, int nq, int k
 // The windowed kNN over x-sorted query tiles: xs (b, m, 3) f32 and perm
 // (b, m) i32 the sorted dataset and its original indices, qs (b, nq, 3) f32
 // the sorted queries with nq a multiple of 128, lo (b, nq / 128) i32 each
-// tile's window start, w the window (w * 16 bytes of shared memory),
-// 1 <= k <= 16 -> dist (b, nq, k) f32, idx (b, nq, k) i32, sorted query order.
+// tile's window start, w the window (staged in shared memory when it fits
+// beside the lists, else read from device memory), 1 <= k -> dist (b, nq, k)
+// f32, idx (b, nq, k) i32, sorted query order. k > 16 needs k * 8 bytes of
+// shared memory a warp (k <= 29056).
 int pn2_knn_tiles(const float* xs, const int* perm, const float* qs, const int* lo,
                   int b, int m, int nq, int w, int k, float* dist, int* idx,
                   int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (k) {
+  if (k < 1) return (int)cudaErrorInvalidValue;
+  switch (k > kMaxRegisterK ? 0 : k) {
 #define PN2_KNN_TILES_CASE(K) \
   case K:                     \
-    return (int)launch_tiles<K>(xs, perm, qs, lo, b, m, nq, w, dist, idx, s);
+    return (int)launch_tiles<K>(xs, perm, qs, lo, b, m, nq, w, k, dist, idx, s);
+    PN2_KNN_TILES_CASE(0)
     PN2_KNN_TILES_CASE(1) PN2_KNN_TILES_CASE(2) PN2_KNN_TILES_CASE(3) PN2_KNN_TILES_CASE(4)
     PN2_KNN_TILES_CASE(5) PN2_KNN_TILES_CASE(6) PN2_KNN_TILES_CASE(7) PN2_KNN_TILES_CASE(8)
     PN2_KNN_TILES_CASE(9) PN2_KNN_TILES_CASE(10) PN2_KNN_TILES_CASE(11) PN2_KNN_TILES_CASE(12)

@@ -41,8 +41,9 @@
 // sorted list of the nsample smallest original indices. For nsample <= 32
 // the warp holds the list one slot a lane: the slots below the new key stay,
 // the rest shift up one lane (`__shfl_up_sync`), and the key takes the free
-// lane. For a larger nsample the list lives in the query's own output row and
-// the warp shifts it 32 slots at a time. Original indices are unique, so no
+// lane. For a larger nsample the list lives in the query's own output row
+// (and the picks' columns in the position row) and the warp shifts it 32
+// slots at a time. Original indices are unique, so no
 // removal is needed. The exact scan walks the cloud in dataset order and
 // appends the hits (the slot of a hit is the count so far plus the `__popc`
 // of the hits in lower lanes), stopping at nsample hits.
@@ -142,11 +143,12 @@ __device__ __forceinline__ void scan_slots(const Columns& cols, int len, float q
 }
 
 // The same scan for any nsample: the sorted list is the query's output row
-// `list` (device memory that only this warp touches). Returns the number of
+// `list` (device memory that only this warp touches), and with kWithPos each
+// pick's column rides along in `pos`, shifted with it. Returns the number of
 // in-ball columns; list[0 .. min(count, nsample)) holds the picks.
-template <class Columns>
+template <class Columns, bool kWithPos = false>
 __device__ int scan_list(const Columns& cols, int len, float qx, float qy, float qz,
-                         float r2, int nsample, int lane, int* list) {
+                         float r2, int nsample, int lane, int* list, int* pos = nullptr) {
   int count = 0;
   for (int base = 0; base < len; base += 32) {
     const int j = base + lane;
@@ -172,13 +174,22 @@ __device__ int scan_list(const Columns& cols, int len, float qx, float qy, float
         for (int hi_s = top; hi_s > at; hi_s -= 32) {
           const int s = hi_s - lane;
           const bool moves = s > at;
-          int moved = 0;
-          if (moves) moved = list[s - 1];
+          int moved = 0, moved_col = 0;
+          if (moves) {
+            moved = list[s - 1];
+            if (kWithPos) moved_col = pos[s - 1];
+          }
           __syncwarp();
-          if (moves) list[s] = moved;
+          if (moves) {
+            list[s] = moved;
+            if (kWithPos) pos[s] = moved_col;
+          }
           __syncwarp();
         }
-        if (lane == 0) list[at] = v;
+        if (lane == 0) {
+          list[at] = v;
+          if (kWithPos) pos[at] = base + src_lane;
+        }
         __syncwarp();
       }
       ++count;
@@ -235,15 +246,17 @@ __device__ __forceinline__ SharedColumns stage_window(float* smem, int w, int le
   return SharedColumns{sx, sy, sz, so};
 }
 
-// Grid (tiles, b), kBqThreads threads, 16 * w bytes of dynamic shared memory.
-// xs (b, n, 3), perm (b, n), qs (b, m, 3) sorted; lo (b, tiles);
-// idx/pos (b, m, nsample), cnt (b, m) in sorted query order.
-template <bool kWithPos>
+// Grid (tiles, b), kBqThreads threads, 16 * w bytes of dynamic shared memory
+// when `staged` (w <= kMaxSharedWindow), else none: the window is read where
+// it lies. xs (b, n, 3), perm (b, n), qs (b, m, 3) sorted; lo (b, tiles) with
+// lo + w <= n; idx/pos (b, m, nsample), cnt (b, m) in sorted query order.
+// kSlots: nsample <= 32, the list in registers; else in the output rows.
+template <bool kWithPos, bool kSlots>
 __global__ void ball_query_tiles_kernel(const float* __restrict__ xs,
                                         const int* __restrict__ perm,
                                         const float* __restrict__ qs,
                                         const int* __restrict__ lo, int n,
-                                        int m, int tm, int w, float r2,
+                                        int m, int tm, int w, bool staged, float r2,
                                         int nsample, int* __restrict__ idx,
                                         int* __restrict__ pos,
                                         int* __restrict__ cnt) {
@@ -251,22 +264,46 @@ __global__ void ball_query_tiles_kernel(const float* __restrict__ xs,
   const int tile = blockIdx.x;
   const int b = blockIdx.y;
   const int start = lo[b * gridDim.x + tile];
-  const SharedColumns cols = stage_window(smem, w, w, xs + ((size_t)b * n + start) * 3,
-                                          perm + (size_t)b * n + start);
+  const GlobalColumns window{xs + ((size_t)b * n + start) * 3, perm + (size_t)b * n + start};
+  SharedColumns shared{};
+  if (staged) shared = stage_window(smem, w, w, window.xyz, window.orig);
 
   const int lane = threadIdx.x & 31;
   for (int qi = threadIdx.x >> 5; qi < tm; qi += blockDim.x >> 5) {
     const size_t q = (size_t)b * m + (size_t)tile * tm + qi;
-    int key, col, count;
-    scan_slots(cols, w, qs[q * 3 + 0], qs[q * 3 + 1], qs[q * 3 + 2], r2, nsample, lane,
-               key, col, count);
-    const int c = count < nsample ? count : nsample;
-    const int first_key = __shfl_sync(kFull, key, 0);
-    const int first_col = __shfl_sync(kFull, col, 0);
-    if (lane < nsample) {
-      const bool used = lane < c;
-      idx[q * nsample + lane] = used ? key : (c > 0 ? first_key : 0);
-      if (kWithPos) pos[q * nsample + lane] = used ? col : (c > 0 ? first_col : 0);
+    const float qx = qs[q * 3 + 0];
+    const float qy = qs[q * 3 + 1];
+    const float qz = qs[q * 3 + 2];
+    int c;
+    if constexpr (kSlots) {
+      int key, col, count;
+      if (staged) {
+        scan_slots(shared, w, qx, qy, qz, r2, nsample, lane, key, col, count);
+      } else {
+        scan_slots(window, w, qx, qy, qz, r2, nsample, lane, key, col, count);
+      }
+      c = count < nsample ? count : nsample;
+      const int first_key = __shfl_sync(kFull, key, 0);
+      const int first_col = __shfl_sync(kFull, col, 0);
+      if (lane < nsample) {
+        const bool used = lane < c;
+        idx[q * nsample + lane] = used ? key : (c > 0 ? first_key : 0);
+        if (kWithPos) pos[q * nsample + lane] = used ? col : (c > 0 ? first_col : 0);
+      }
+    } else {
+      int* out = idx + q * nsample;
+      int* out_pos = kWithPos ? pos + q * nsample : nullptr;
+      const int count =
+          staged ? scan_list<SharedColumns, kWithPos>(shared, w, qx, qy, qz, r2, nsample, lane, out, out_pos)
+                 : scan_list<GlobalColumns, kWithPos>(window, w, qx, qy, qz, r2, nsample, lane, out, out_pos);
+      c = count < nsample ? count : nsample;
+      const int first = c > 0 ? out[0] : 0;
+      const int first_col = kWithPos && c > 0 ? out_pos[0] : 0;
+      __syncwarp();
+      for (int s = c + lane; s < nsample; s += 32) {
+        out[s] = first;
+        if (kWithPos) out_pos[s] = first_col;
+      }
     }
     if (lane == 0) cnt[q] = c;
   }
@@ -278,16 +315,18 @@ cudaError_t launch_ball_query_tiles(const float* xs, const int* perm,
                                     int n, int m, int tm, int w, float r2,
                                     int nsample, int* idx, int* pos, int* cnt,
                                     cudaStream_t stream) {
-  const size_t smem = (size_t)w * 16;
+  const bool staged = w <= kMaxSharedWindow;
+  const size_t smem = staged ? (size_t)w * 16 : 0;
+  auto* kernel = nsample <= kMaxSlots ? &ball_query_tiles_kernel<kWithPos, true>
+                                      : &ball_query_tiles_kernel<kWithPos, false>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ball_query_tiles_kernel<kWithPos>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(m / tm, b);
-  ball_query_tiles_kernel<kWithPos><<<grid, kBqThreads, smem, stream>>>(
-      xs, perm, qs, lo, n, m, tm, w, r2, nsample, idx, pos, cnt);
+  kernel<<<grid, kBqThreads, smem, stream>>>(xs, perm, qs, lo, n, m, tm, w, staged, r2,
+                                            nsample, idx, pos, cnt);
   return cudaGetLastError();
 }
 

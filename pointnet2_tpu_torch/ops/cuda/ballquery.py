@@ -31,11 +31,10 @@ from pointnet2_tpu_torch.ops.cuda.common import (
 )
 
 # The window's four columns (x, y, z, original index) sit in a block's shared
-# memory (csrc/window_bq.cuh kMaxSharedWindow); the round-1 kernel reads a
-# wider window from device memory, the calibrated ones refuse it.
+# memory up to csrc/window_bq.cuh's kMaxSharedWindow (14528 columns); every
+# windowed kernel reads a wider window from device memory. Any nsample: up to
+# 32 one slot a lane of a warp, past it the sorted list in the output row.
 MAX_SHARED_BYTES = 232448  # H100: 227 KB of dynamic shared memory a block
-MAX_WINDOW = MAX_SHARED_BYTES // 16
-MAX_TILE_NSAMPLE = 32  # one slot a lane of a warp; the round-1 kernel takes more
 
 # The exact kernel (csrc/ballquery.cu): kQ queries a warp, at most 16 warps a
 # block, the cloud staged in tiles of up to 4096 points (48 KB), two buffers.
@@ -125,10 +124,10 @@ def check_tiles(xs, perm, qs, lo, nsample: int, w: int) -> tuple[int, int, int, 
     t = lo.shape[1]
     if b == 0 or t == 0 or m % t or b > 65535:
         raise ValueError(f"{m} sorted queries do not fill {t} tiles of {b} clouds")
-    if not 0 < nsample <= MAX_TILE_NSAMPLE:
-        raise ValueError(f"the windowed ball query takes 1 <= nsample <= {MAX_TILE_NSAMPLE}, got {nsample}")
-    if not 0 < w <= min(n, MAX_WINDOW) or w % 32:
-        raise ValueError(f"window {w} must be a multiple of 32 in (0, min(N={n}, {MAX_WINDOW})]")
+    if nsample <= 0:
+        raise ValueError(f"the windowed ball query needs nsample > 0, got {nsample}")
+    if not 0 < w <= n or w % 32:
+        raise ValueError(f"window {w} must be a multiple of 32 in (0, N={n}]")
     require_int32_range("ball_query_tiles", b, m, nsample)
     require_int32_range("ball_query_tiles", b, n, 3)
     return b, n, m, m // t
