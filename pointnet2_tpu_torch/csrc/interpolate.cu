@@ -1,23 +1,39 @@
-// three_interpolate forward: out[q, c] = w0*p[i0, c] + w1*p[i1, c] + w2*p[i2, c].
+// three_interpolate forward: out[q, c] = w0*p[i0, c] + w1*p[i1, c] + w2*p[i2, c],
+// optionally followed in the same output row by the row's skip features.
 //
 // Replaces: pointnet2_tpu/ops/pallas/interpolate.py:48 `_ti_kernel`
 //           (reached through `_ti_fwd`, interpolate.py:68-109, and
-//           `three_interpolate_pallas`, interpolate.py:187-192).
+//           `three_interpolate_pallas`, interpolate.py:187-192), and the
+//           feature-propagation concat after it (pointnet2_tpu/nn/pointnet.py
+//           FeaturePropagation: `concatenate([interpolated, points1], -1)`).
 //
 // Semantics: the inverse-distance blend of three gathered feature rows per
 // query, accumulated in float32 in the order j = 0, 1, 2 with a rounding
 // after every product and sum (no FMA), as the plain PyTorch version does.
+// With a skip source (b, n, c1), read through its batch and row strides, the
+// output is (b, n, c + c1): the blend in channels [0, c), the skip row copied
+// into [c, c + c1), which is torch.cat([blend, skip], -1) bit for bit.
 //
 // What bounds it on the H100: bytes. Each output element costs 5 flops and 4
 // bytes written, far below the card's 20 flops a byte; the (B, N, C) output
 // is most of the traffic, and the (B, M, C) feature rows, read three times a
-// query, stay in the 50 MB L2.
+// query, stay in the 50 MB L2. Writing the skip into the same rows saves the
+// concat its own read and write of the blend (at FP4, B=8: 33.5 MB each).
 //
-// Design: a gather-blend, one thread per output element, consecutive threads
-// on consecutive channels, so the writes and the row reads are coalesced and
-// a warp reads each query's three indices and weights at one address. The TPU
-// kernel instead builds a dense (tile, M) weight block and multiplies it on
-// the MXU, because Mosaic has no vector gather; on this card that would do
+// Design: a group of G lanes (a power of two from 4 to 32, from the plan in
+// ops/cuda/interpolate.py) takes one output row. Lanes 0-2 of the group read
+// the row's three indices and weights once and the group shares them by
+// shuffle; there is one integer division a row (its cloud), none an element.
+// The lanes walk the channels with 16-byte loads of the three source rows
+// where those rows are 16-byte aligned (C a multiple of 4), and with 16-byte
+// stores where the output rows are too (C + C1 a multiple of 4); else with
+// 4-byte ones: FP4's output row of 128 + 3 floats takes vector loads and
+// scalar stores. The skip row is copied after the blend, 16 bytes at a time
+// where it and its place in the output are aligned. The design before this
+// one ran a thread an element, with three integer divisions by runtime
+// divisors and the six index and weight loads again for every element. The
+// TPU kernel instead builds a dense (tile, M) weight block and multiplies it
+// on the MXU, because Mosaic has no vector gather; on this card that would do
 // M/3 times the work for nothing.
 //
 // ---------------------------------------------------------------------------
@@ -56,22 +72,79 @@
 
 namespace {
 
+__device__ __forceinline__ float blend(float w0, float a, float w1, float b, float w2, float c) {
+  float acc = __fmul_rn(w0, a);
+  acc = __fadd_rn(acc, __fmul_rn(w1, b));
+  return __fadd_rn(acc, __fmul_rn(w2, c));
+}
+
+// kMode 0: 4-byte loads and stores; 1: 16-byte loads of the source rows,
+// 4-byte stores; 2: 16-byte loads and stores. Grid: ceil(rows / (threads / G))
+// blocks of `threads`, G = 2^group_log2 lanes a row; out rows out_stride apart.
+template <int kMode>
 __global__ void three_interpolate_kernel(const float* __restrict__ points,
                                          const int* __restrict__ idx,
                                          const float* __restrict__ weight, int m,
-                                         int n, int c, int total,
-                                         float* __restrict__ out) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int ch = t % c;
-  const int q = t / c;  // b * n + row
-  const float* p = points + (size_t)(q / n) * m * c + ch;
-  const int* iq = idx + (size_t)q * 3;
-  const float* wq = weight + (size_t)q * 3;
-  float acc = __fmul_rn(wq[0], p[(size_t)iq[0] * c]);
-  acc = __fadd_rn(acc, __fmul_rn(wq[1], p[(size_t)iq[1] * c]));
-  acc = __fadd_rn(acc, __fmul_rn(wq[2], p[(size_t)iq[2] * c]));
-  out[t] = acc;
+                                         int n, int c, int rows, int group_log2,
+                                         float* __restrict__ out, int out_stride,
+                                         const float* __restrict__ skip,
+                                         long long skip_stride_b, long long skip_stride_n,
+                                         int c1, bool skip_vec) {
+  const int group = 1 << group_log2;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (group - 1);
+  const int row = blockIdx.x * (blockDim.x >> group_log2) + (threadIdx.x >> group_log2);
+  const int r = row < rows ? row : rows - 1;  // every lane takes part in the shuffles
+  int iv = 0;
+  float wv = 0.f;
+  if (sub < 3) {
+    iv = idx[(size_t)r * 3 + sub];
+    wv = weight[(size_t)r * 3 + sub];
+  }
+  const int lead = lane - sub;
+  const int i0 = __shfl_sync(0xffffffffu, iv, lead);
+  const int i1 = __shfl_sync(0xffffffffu, iv, lead + 1);
+  const int i2 = __shfl_sync(0xffffffffu, iv, lead + 2);
+  const float w0 = __shfl_sync(0xffffffffu, wv, lead);
+  const float w1 = __shfl_sync(0xffffffffu, wv, lead + 1);
+  const float w2 = __shfl_sync(0xffffffffu, wv, lead + 2);
+  if (row >= rows) return;
+  const int bi = r / n;
+  const float* pb = points + (size_t)bi * m * c;
+  const float* p0 = pb + (size_t)i0 * c;
+  const float* p1 = pb + (size_t)i1 * c;
+  const float* p2 = pb + (size_t)i2 * c;
+  float* o = out + (size_t)r * out_stride;
+  if constexpr (kMode == 0) {
+    for (int ch = sub; ch < c; ch += group) o[ch] = blend(w0, p0[ch], w1, p1[ch], w2, p2[ch]);
+  } else {
+    for (int ch = 4 * sub; ch < c; ch += 4 * group) {
+      const float4 a = *reinterpret_cast<const float4*>(p0 + ch);
+      const float4 b = *reinterpret_cast<const float4*>(p1 + ch);
+      const float4 d = *reinterpret_cast<const float4*>(p2 + ch);
+      const float4 v = make_float4(blend(w0, a.x, w1, b.x, w2, d.x), blend(w0, a.y, w1, b.y, w2, d.y),
+                                   blend(w0, a.z, w1, b.z, w2, d.z), blend(w0, a.w, w1, b.w, w2, d.w));
+      if constexpr (kMode == 2) {
+        *reinterpret_cast<float4*>(o + ch) = v;
+      } else {
+        o[ch] = v.x;
+        o[ch + 1] = v.y;
+        o[ch + 2] = v.z;
+        o[ch + 3] = v.w;
+      }
+    }
+  }
+  if (skip != nullptr) {
+    const float* s = skip + bi * skip_stride_b + (long long)(r - bi * n) * skip_stride_n;
+    float* os = o + c;
+    if (skip_vec) {
+      for (int ch = 4 * sub; ch < c1; ch += 4 * group) {
+        *reinterpret_cast<float4*>(os + ch) = *reinterpret_cast<const float4*>(s + ch);
+      }
+    } else {
+      for (int ch = sub; ch < c1; ch += group) os[ch] = s[ch];
+    }
+  }
 }
 
 __global__ void three_interpolate_grad_kernel(const float* __restrict__ g,
@@ -101,18 +174,40 @@ __global__ void three_interpolate_grad_kernel(const float* __restrict__ g,
 
 extern "C" {
 
-// points (b, m, c), idx (b, n, 3) i32, weight (b, n, 3) f32 -> out (b, n, c) f32.
-// b * n * c must fit in an int. Returns cudaGetLastError() after the launch.
+// points (b, m, c), idx (b, n, 3) i32, weight (b, n, 3) f32 -> out (b, n, c + c1)
+// f32, rows out_stride = c + c1 floats apart: the blend in [0, c) and, when
+// skip is not null, the skip rows (b, n, c1) f32, their channels adjacent,
+// batch and row strides in elements, in [c, c + c1). mode: 0 scalar, 1
+// 16-byte loads (points 16-byte aligned, c % 4 == 0), 2 16-byte loads and
+// stores (out 16-byte aligned and out_stride % 4 == 0 too); skip_vec: the
+// skip is copied 16 bytes at a time (mode 2, skip aligned, its strides and c1
+// multiples of 4). 2^group_log2 lanes a row, blocks of `threads`.
+// Returns cudaGetLastError() after the launch.
 int pn2_three_interpolate(const float* points, const int* idx, const float* weight,
-                          int b, int m, int n, int c, float* out, int device,
-                          void* stream) {
+                          int b, int m, int n, int c, float* out, int out_stride,
+                          const float* skip, long long skip_stride_b, long long skip_stride_n,
+                          int c1, int mode, int skip_vec, int group_log2, int threads,
+                          int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int threads = 256;
-  const int total = b * n * c;
-  const int blocks = (int)(((long long)total + threads - 1) / threads);
-  three_interpolate_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      points, idx, weight, m, n, c, total, out);
+  if (group_log2 < 2 || group_log2 > 5 || threads < 32 || threads > 1024 || threads % 32 ||
+      mode < 0 || mode > 2 || (skip_vec && mode != 2)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int rows = b * n;
+  const int per_block = threads >> group_log2;
+  const int blocks = (rows + per_block - 1) / per_block;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (mode) {
+#define PN2_TI_CASE(M)                                                                 \
+  case M:                                                                              \
+    three_interpolate_kernel<M><<<blocks, threads, 0, s>>>(                            \
+        points, idx, weight, m, n, c, rows, group_log2, out, out_stride, skip,         \
+        skip_stride_b, skip_stride_n, c1, skip_vec != 0);                              \
+    break;
+    PN2_TI_CASE(0) PN2_TI_CASE(1) PN2_TI_CASE(2)
+#undef PN2_TI_CASE
+  }
   return (int)cudaGetLastError();
 }
 

@@ -13,8 +13,9 @@ train:
   needs no scatter into the cloud; the eval forward takes
   ``ops.project_group_leaf``.
 - ``FeaturePropagation`` is the exact path (``:538-597``): ``three_nn``,
-  ``interpolation_weights`` of the detached distances, ``three_interpolate``,
-  the skip concat, and a ``SharedMLP``.
+  ``interpolation_weights`` of the detached distances, ``three_interpolate``
+  with the skip concat (one kernel writes both on the kernel path;
+  ``torch.cat`` after the plain version), and a ``SharedMLP``.
 
 Both take ``geometry``, the neighbour structure computed beforehand
 (``models.precompute_geometry``), in place of their own FPS, ball query or
@@ -182,7 +183,7 @@ class FeaturePropagation(nn.Module):
                 dist2, idx = ops.three_nn(xyz1, xyz2, impl=self.ops_impl)
         # Distances are geometry, not parameters: no gradient goes back through them.
         weight = ops.interpolation_weights(dist2.detach())
-        interpolated = ops.three_interpolate(points2, idx, weight, impl=self.ops_impl)
-        if points1 is not None:
-            interpolated = torch.cat([interpolated, points1], dim=-1)
+        # With skip features, the interpolation and the concat in one op:
+        # on the kernel path one kernel writes both halves of each row.
+        interpolated = ops.three_interpolate(points2, idx, weight, impl=self.ops_impl, skip=points1)
         return self.mlp(interpolated, bn_momentum)

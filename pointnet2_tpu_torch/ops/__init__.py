@@ -120,9 +120,15 @@ def three_nn(xyz1, xyz2, impl: str | None = None):
     return core.three_nn(xyz1, xyz2)
 
 
-def three_interpolate(points, idx, weight, impl: str | None = None):
-    """Inverse-distance blend of three rows: (B, M, C), (B, N, 3) x2 -> (B, N, C)."""
-    return autograd.ThreeInterpolate.apply(points, idx, weight, _use_kernel(impl, points))
+def three_interpolate(points, idx, weight, impl: str | None = None, *, skip=None):
+    """Inverse-distance blend of three rows: (B, M, C), (B, N, 3) x2 -> (B, N, C).
+
+    ``skip`` (B, N, C1), the feature-propagation module's own keyword: the
+    result is ``torch.cat([blend, skip], -1)``, (B, N, C + C1), which the
+    kernel writes in one pass; the skip gets the matching slice of the
+    gradient.
+    """
+    return autograd.ThreeInterpolate.apply(points, idx, weight, _use_kernel(impl, points), skip)
 
 
 def three_interpolate_grad(g, idx, weight, m: int, impl: str | None = None):

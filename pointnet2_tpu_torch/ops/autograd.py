@@ -6,7 +6,11 @@ Counterparts of the JAX package's ``custom_vjp``s:
   forward and backward are the two kernels of ``csrc/interpolate.cu`` on a
   CUDA tensor, or their plain versions; ``idx`` gets no gradient, and the
   weight cotangent is computed only when it is asked for (the model detaches
-  the distances, so on the train step it never is).
+  the distances, so on the train step it never is). With ``skip`` the forward
+  also writes the skip features after the blend (the FP concat); the
+  backward hands the blend's channels of the cotangent, a slice read in
+  place, to the backward kernel and returns the skip's channels, a view, as
+  the skip's gradient.
 - ``FpsCentroids`` (``pointnet2_tpu/ops/pallas/fps.py:218-249``): the kernel's
   centroids are a copy with no autograd path; the backward re-attaches the
   gather's VJP, a scatter-add of the centroid cotangent into
@@ -30,26 +34,32 @@ from pointnet2_tpu_torch.ops import core, cuda
 
 class ThreeInterpolate(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, points, idx, weight, use_kernel: bool):
+    def forward(ctx, points, idx, weight, use_kernel: bool, skip=None):
         ctx.use_kernel = use_kernel
         ctx.save_for_backward(points, idx, weight)
         if use_kernel:
-            return cuda.three_interpolate(points, idx, weight)
-        return core.three_interpolate(points, idx, weight)
+            return cuda.three_interpolate(points, idx, weight, skip)
+        if skip is None:
+            return core.three_interpolate(points, idx, weight)
+        return core.three_interpolate_concat(points, idx, weight, skip)
 
     @staticmethod
     def backward(ctx, g):
         points, idx, weight = ctx.saved_tensors
-        dpoints = dweight = None
+        c = points.shape[2]
+        g_points = g[..., :c]  # the whole of g without a skip
+        dpoints = dweight = dskip = None
         if ctx.needs_input_grad[0]:
             m = points.shape[1]
             if ctx.use_kernel:
-                dpoints = cuda.three_interpolate_grad(g, idx, weight, m)
+                dpoints = cuda.three_interpolate_grad(g_points, idx, weight, m)
             else:
-                dpoints = core.three_interpolate_grad(g, idx, weight, m)
+                dpoints = core.three_interpolate_grad(g_points, idx, weight, m)
         if ctx.needs_input_grad[2]:
-            dweight = core.three_interpolate_weight_grad(g, points, idx)
-        return dpoints, None, dweight, None
+            dweight = core.three_interpolate_weight_grad(g_points, points, idx)
+        if len(ctx.needs_input_grad) > 4 and ctx.needs_input_grad[4]:
+            dskip = g[..., c:]
+        return dpoints, None, dweight, None, dskip
 
 
 class FpsCentroids(torch.autograd.Function):

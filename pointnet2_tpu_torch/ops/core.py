@@ -205,6 +205,15 @@ def three_interpolate(points: Tensor, idx: Tensor, weight: Tensor) -> Tensor:
     return g[:, :, 0] * w[:, :, 0] + g[:, :, 1] * w[:, :, 1] + g[:, :, 2] * w[:, :, 2]
 
 
+def three_interpolate_concat(points: Tensor, idx: Tensor, weight: Tensor, skip: Tensor) -> Tensor:
+    """``three_interpolate`` followed by the skip features: (B, N, C + C1).
+
+    The feature-propagation concat, ``torch.cat([interpolated, skip], -1)``,
+    which the kernel writes in the same pass.
+    """
+    return torch.cat([three_interpolate(points, idx, weight), _floating(skip)], dim=-1)
+
+
 def three_interpolate_grad(g: Tensor, idx: Tensor, weight: Tensor, m: int) -> Tensor:
     """The cotangent of ``three_interpolate``'s ``points``: g (B, N, C) -> (B, M, C).
 

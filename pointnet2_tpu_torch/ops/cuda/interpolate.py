@@ -1,7 +1,10 @@
 """Wrappers of ``csrc/interpolate.cu``: three_interpolate, forward and backward.
 
 ``three_interpolate`` replaces ``pointnet2_tpu/ops/pallas/interpolate.py:48``
-(``_ti_kernel``); its plain version is ``ops.core.three_interpolate``.
+(``_ti_kernel``); its plain version is ``ops.core.three_interpolate``, or,
+with ``skip``, ``ops.core.three_interpolate_concat``: the feature-propagation
+concat written by the same kernel. ``plan`` picks the lanes a row and the
+vector width from the shape and the alignment of the rows.
 ``three_interpolate_grad`` replaces ``interpolate.py:112`` (``_ti_bwd_kernel``);
 its plain version is ``ops.core.three_interpolate_grad``. The two are joined
 into one differentiable operator in ``ops.autograd``.
@@ -15,29 +18,83 @@ from pointnet2_tpu_torch.ops.cuda.common import (
     INT, LONG, PTR, launch, require, require_int32_range, stream_of,
 )
 
+THREADS = 256  # the forward's block
+SCALAR, VECTOR_LOADS, VECTOR = 0, 1, 2  # the forward's modes (csrc/interpolate.cu kMode)
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    return t.data_ptr() % 16 == 0
+
+
+def plan(c: int, c1: int, points_aligned: bool, skip_vec_ok: bool) -> tuple[int, int, bool]:
+    """``(mode, group, skip_vec)`` of the forward for C interpolated and C1
+    skip channels (C1 = 0 without a skip).
+
+    16-byte loads of the source rows where they are aligned (C a multiple of
+    4, ``points`` 16-byte aligned), 16-byte stores where the output rows are
+    too (C + C1 a multiple of 4), and the skip copied 16 bytes at a time where
+    ``skip_vec_ok`` (the skip's rows aligned, C1 a multiple of 4) and the
+    stores are. A row takes the fewest lanes (a power of two from 4 to 32)
+    that cover its channels in one pass, at most 32.
+    """
+    if c <= 0 or c1 < 0:
+        raise ValueError(f"three_interpolate needs C > 0 and C1 >= 0, got {c}, {c1}")
+    mode = SCALAR
+    if c % 4 == 0 and points_aligned:
+        mode = VECTOR if (c + c1) % 4 == 0 else VECTOR_LOADS
+    width = 1 if mode == SCALAR else 4
+    group = 4
+    while group < 32 and group * width < max(c, c1):
+        group *= 2
+    return mode, group, mode == VECTOR and c1 > 0 and skip_vec_ok
+
+
+def planned_route(points: torch.Tensor, skip: torch.Tensor | None = None) -> tuple[int, int, bool]:
+    """The ``(mode, group, skip_vec)`` the wrapper launches ``points`` and ``skip`` with."""
+    c1 = 0 if skip is None else skip.shape[2]
+    skip_vec_ok = (
+        skip is not None and _aligned(skip) and c1 % 4 == 0 and skip.stride(0) % 4 == 0 and skip.stride(1) % 4 == 0
+    )
+    return plan(points.shape[2], c1, _aligned(points), skip_vec_ok)
+
 
 def three_interpolate(
-    points: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor
+    points: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor, skip: torch.Tensor | None = None
 ) -> torch.Tensor:
     """points (B, M, C) float32, idx (B, N, 3) int32, weight (B, N, 3) float32 -> (B, N, C).
 
-    The indices are not range-checked here (that would cost a pass and a
-    sync); they come from ``three_nn``, which only returns indices below M.
+    With ``skip`` (B, N, C1) float32, returns (B, N, C + C1): the blend, then
+    the skip features, as ``torch.cat([blend, skip], -1)``. The skip is read
+    through its batch and row strides (FP4's is a channel slice of the input
+    cloud); one whose channels are not adjacent is copied to a contiguous
+    tensor here, explicitly. The indices are not range-checked here (that
+    would cost a pass and a sync); they come from ``three_nn``, which only
+    returns indices below M.
     """
     require(points, "points", torch.float32, (None, None, None))
     b, m, c = points.shape
     require(idx, "idx", torch.int32, (b, None, 3))
     n = idx.shape[1]
     require(weight, "weight", torch.float32, (b, n, 3))
+    c1 = 0
+    if skip is not None:
+        require(skip, "skip", torch.float32, (b, n, None), contiguous=False)
+        if skip.stride(2) != 1 or skip.stride(0) < 0 or skip.stride(1) < 0:
+            skip = skip.contiguous()
+        c1 = skip.shape[2]
     if b == 0 or m == 0 or n == 0 or c == 0:
         raise ValueError(f"three_interpolate needs non-empty inputs, got {tuple(points.shape)}, {tuple(idx.shape)}")
-    require_int32_range("three_interpolate", b, n, c)
-    out = torch.empty((b, n, c), dtype=torch.float32, device=points.device)
+    require_int32_range("three_interpolate", b, n, c + c1)
+    require_int32_range("three_interpolate", b, m, c)
+    mode, group, skip_vec = planned_route(points, skip)
+    out = torch.empty((b, n, c + c1), dtype=torch.float32, device=points.device)
     device, stream = stream_of(points)
     launch(
         "three_interpolate", "interpolate", "pn2_three_interpolate",
-        [PTR, PTR, PTR, INT, INT, INT, INT, PTR, INT, PTR],
-        points.data_ptr(), idx.data_ptr(), weight.data_ptr(), b, m, n, c, out.data_ptr(),
+        [PTR, PTR, PTR, INT, INT, INT, INT, PTR, INT, PTR, LONG, LONG, INT, INT, INT, INT, INT, INT, PTR],
+        points.data_ptr(), idx.data_ptr(), weight.data_ptr(), b, m, n, c, out.data_ptr(), c + c1,
+        None if skip is None else skip.data_ptr(), 0 if skip is None else skip.stride(0),
+        0 if skip is None else skip.stride(1), c1, mode, int(skip_vec), group.bit_length() - 1, THREADS,
         device, stream,
     )
     return out
