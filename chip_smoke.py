@@ -104,6 +104,7 @@ the ``kernels`` line sums them.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import pathlib
 import statistics
@@ -123,10 +124,14 @@ from pointnet2_tpu_torch.ops import core, cuda
 from pointnet2_tpu_torch.ops.cuda import ballquery as cuda_ballquery
 from pointnet2_tpu_torch.ops.cuda import build
 from pointnet2_tpu_torch.ops.cuda import fps as cuda_fps
+from pointnet2_tpu_torch.ops.cuda import interpolate as cuda_interp
 from pointnet2_tpu_torch.tools import op_bench, parity, stage_bench
 from pointnet2_tpu_torch.train import Trainer
 from pointnet2_tpu_torch.train_profile import train_batch
-from pointnet2_tpu_torch.utils.bench import bound, card_line, cuda_ms
+from pointnet2_tpu_torch.utils.bench import bound, card_line, cuda_ms, device_ms
+
+# The package's ``knn`` is the wrapper function; the module is reached by name.
+cuda_knn = importlib.import_module("pointnet2_tpu_torch.ops.cuda.knn")
 
 ROOT = pathlib.Path(__file__).resolve().parent
 CHUNK = 8  # Trainer.infer_chunk / Predictor default: the batch a kernel sees
@@ -306,38 +311,54 @@ def kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> list:
         levels.append(cent)
 
     gen = torch.Generator(device=dev).manual_seed(seed)
-    for i, c in enumerate(FP_CHANNELS):
+    for i, (c, c1) in enumerate(zip(FP_CHANNELS, FP_SKIP_CHANNELS)):
         lvl = 3 - i
         dense, coarse = levels[lvl], levels[lvl + 1]
         nq, m = dense.shape[1], coarse.shape[1]
         d2, nn_idx = ops.three_nn(dense, coarse, impl="cuda")
         p_d2, p_idx = ops.three_nn(dense, coarse, impl="torch")
+        route = cuda_knn.plan(b, nq, m, 3, cuda_ballquery.num_sms(dense.device.index))
         report.add(
             "knn", b, f"Nq={nq} M={m} k=3",
             lambda: ops.three_nn(dense, coarse, impl="cuda"),
             lambda: ops.three_nn(dense, coarse, impl="torch"),
-            nbytes=b * m * 12 + b * nq * 12 + b * nq * 3 * 8,
-            nops=9 * b * nq * m,
+            *op_bench.work_knn(b, nq, m, 3),
             err=max_abs(d2, p_d2),
             match=torch.equal(nn_idx, p_idx) and torch.equal(d2, p_d2),
+            info={"plan": route, "device_ms": device_ms(lambda: ops.three_nn(dense, coarse, impl="cuda"), "knn")},
         )
+        # The FP concat as the model writes it: FP4's skip is the input cloud's
+        # colours (a view of row stride 6), the others the SA level's features.
+        skip = x[..., 3:6] if c1 == 3 else torch.randn((b, nq, c1), generator=gen, device=dev)
         weight = ops.interpolation_weights(d2)
         points = torch.randn((b, m, c), generator=gen, device=dev)
-        out = ops.three_interpolate(points, nn_idx, weight, impl="cuda")
-        ref = ops.three_interpolate(points, nn_idx, weight, impl="torch")
+        out = ops.three_interpolate(points, nn_idx, weight, impl="cuda", skip=skip)
+        ref = ops.three_interpolate(points, nn_idx, weight, impl="torch", skip=skip)
+        bare = ops.three_interpolate(points, nn_idx, weight, impl="cuda")
         flat_idx = (nn_idx.long() + torch.arange(b, device=dev)[:, None, None] * m).reshape(-1, 3)
         flat_points, flat_w = points.reshape(b * m, c), weight.reshape(-1, 3)
+        mode, group, skip_vec = cuda_interp.planned_route(points, skip)
         report.add(
-            "three_interpolate", b, f"M={m} C={c} N={nq}",
-            lambda: ops.three_interpolate(points, nn_idx, weight, impl="cuda"),
-            lambda: ops.three_interpolate(points, nn_idx, weight, impl="torch"),
-            nbytes=b * m * c * 4 + b * nq * 3 * 8 + b * nq * c * 4,
+            "three_interpolate", b, f"M={m} C={c} N={nq} skip={c1}",
+            lambda: ops.three_interpolate(points, nn_idx, weight, impl="cuda", skip=skip),
+            lambda: ops.three_interpolate(points, nn_idx, weight, impl="torch", skip=skip),
+            # points, idx/weight and the skip read once, the concatenated rows written once
+            nbytes=b * m * c * 4 + b * nq * 3 * 8 + b * nq * c1 * 4 + b * nq * (c + c1) * 4,
             nops=5 * b * nq * c,
-            err=max_abs(out, ref),
-            match=torch.allclose(out, ref, rtol=1e-6, atol=1e-6),
-            library=lambda: F.embedding_bag(
+            err=max(max_abs(out, ref), max_abs(bare, ref[..., :c])),
+            match=torch.allclose(out, ref, rtol=1e-6, atol=1e-6) and torch.equal(out[..., c:], ref[..., c:])
+            and torch.allclose(bare, ref[..., :c], rtol=1e-6, atol=1e-6),
+            library=lambda: torch.cat([F.embedding_bag(
                 flat_idx, flat_points, mode="sum", per_sample_weights=flat_w
-            ),
+            ).view(b, nq, c), skip], -1),
+            extra={
+                # The path before the fused kernel: the kernel without the skip, then torch.cat.
+                "no_skip_ms": lambda: ops.three_interpolate(points, nn_idx, weight, impl="cuda"),
+                "concat_ms": lambda: torch.cat([bare, skip], -1),
+            },
+            info={"plan": {"mode": mode, "group": group, "skip_vec": skip_vec},
+                  "device_ms": device_ms(
+                      lambda: ops.three_interpolate(points, nn_idx, weight, impl="cuda", skip=skip), "three_interpolate")},
         )
     return levels
 
@@ -529,6 +550,90 @@ def window_kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> None:
         lambda win: ops.three_nn_calibrated(xyz, cent, win, impl="torch"),
         (FP_WINDOW, SMALL_FP_WINDOW), {FP_WINDOW: True},
     )
+
+
+def repaired_phase(cfg: Config, seed: int, report: Report) -> None:
+    """The limits this port once refused, each kernel against its plain version
+    on the card, bit for bit: kNN past k = 16 (the list route) on the
+    roadmap's input (64 references, 8 queries) and at FP4's shape; the two
+    calibrated windowed ball-query kernels with nsample = 64 (the sorted list
+    in the output row) on the roadmap's input (1024 / 128 points, radius 0.2,
+    window 512) and at SA1's shape, and with a window past a block's shared
+    memory (16384 columns at N = 32768, read from device memory); the
+    windowed kNN with k = 32 at FP4's shape and with the wide window. The
+    whole calibrated ops are held on both paths too. These rows carry the
+    batches 1 and 2, apart from the model's 8 and 16."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed + 600)
+    sms = cuda_ballquery.num_sms(dev.index or 0)
+
+    def knn_row(label, refs, queries, k):
+        b, m, nq = refs.shape[0], refs.shape[1], queries.shape[1]
+        got, want = cuda.knn(refs, queries, k), core.knn(refs, queries, k)
+        report.add(
+            "knn", b, f"{label} Nq={nq} M={m} k={k}",
+            lambda: cuda.knn(refs, queries, k), lambda: core.knn(refs, queries, k),
+            *op_bench.work_knn(b, nq, m, k), err=max_abs(got[0], want[0]),
+            match=torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            info={"plan": cuda_knn.plan(b, nq, m, k, sms), "case": "repaired"},
+        )
+
+    def bq_rows(label, xyz, cent, r, ns, w):
+        b, n, m = xyz.shape[0], xyz.shape[1], cent.shape[1]
+        perm, xs, _, qs, lo, _ = core.ball_query_window_plan(xyz, cent, r, w)
+        pairs, base = b * m * w, b * n * 16 + b * m * 12 + b * lo.shape[1] * 4
+        for name, fn, plain, out_ints in (
+            ("ball_query_sliced", cuda.ball_query_tiles, core.ball_query_tiles, ns + 1),
+            ("ball_query_sliced_pos", cuda.ball_query_tiles_pos, core.ball_query_tiles_pos, 2 * ns + 1),
+        ):
+            got, want = fn(xs, perm, qs, lo, r, ns, w), plain(xs, perm, qs, lo, r, ns, w)
+            report.add(
+                name, b, f"{label} N={n} M={m} r={r} nsample={ns} w={w}",
+                lambda fn=fn: fn(xs, perm, qs, lo, r, ns, w), lambda plain=plain: plain(xs, perm, qs, lo, r, ns, w),
+                nbytes=base + b * m * out_ints * 4, nops=9 * pairs, err=0.0,
+                match=all(torch.equal(g, h) for g, h in zip(got, want)),
+                info={"case": "repaired", "max_count": int(got[-1].max()), "staged": w <= 232448 // 16},
+            )
+        got = ops.ball_query_calibrated(xyz, cent, r, ns, w, impl="cuda")
+        want = ops.ball_query_calibrated(xyz, cent, r, ns, w, impl="torch")
+        if not all(torch.equal(g, h) for g, h in zip(got, want)):
+            raise AssertionError(f"ball_query_calibrated {label}: the kernel path and the plain path disagree")
+
+    def knn_tiles_row(label, refs, queries, k, w):
+        b, m = refs.shape[:2]
+        fperm, fxs, _, fqs, flo = core.knn_window_plan(refs, queries, w)
+        got, want = cuda.knn_tiles(fxs, fperm, fqs, flo, k, w), core.knn_tiles(fxs, fperm, fqs, flo, k, w)
+        nq = fqs.shape[1]
+        report.add(
+            "knn_sliced", b, f"{label} Nq={nq} M={m} k={k} w={w}",
+            lambda: cuda.knn_tiles(fxs, fperm, fqs, flo, k, w), lambda: core.knn_tiles(fxs, fperm, fqs, flo, k, w),
+            nbytes=b * m * 16 + b * nq * 12 + b * flo.shape[1] * 4 + b * nq * k * 8, nops=9 * b * nq * w,
+            err=max_abs(got[0], want[0]), match=torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            info={"case": "repaired"},
+        )
+        got = ops.knn_calibrated(refs, queries, k, w, impl="cuda")
+        want = ops.knn_calibrated(refs, queries, k, w, impl="torch")
+        if not all(torch.equal(g, h) for g, h in zip(got, want)):
+            raise AssertionError(f"knn_calibrated {label}: the kernel path and the plain path disagree")
+
+    small1 = torch.rand((1, 64, 3), generator=gen, device=dev)
+    small2 = torch.rand((1, 8, 3), generator=gen, device=dev)
+    knn_row("roadmap input", small1, small2, 32)
+    x = torch.from_numpy(clouds(2, cfg, seed + 600)).to(dev)
+    xyz = x[..., :3].contiguous()
+    sa1 = cfg.sa_layers[0]
+    cent = ops.fps_centroids(xyz, sa1.npoint, impl="cuda")[1].contiguous()
+    knn_row("FP4 shape", cent, xyz, 32)
+    bq1 = torch.rand((1, 1024, 3), generator=gen, device=dev)
+    bq2 = torch.rand((1, 128, 3), generator=gen, device=dev)
+    bq_rows("roadmap input", bq1, bq2, 0.2, 64, 512)
+    bq_rows("SA1 shape", xyz, cent, sa1.radius, 64, core.round_up(BQ_WINDOW, core.LANES))
+    wide = torch.rand((1, 32768, 3), generator=gen, device=dev) * torch.tensor([8.0, 1.0, 1.0], device=dev)
+    wide_q = wide[:, ::32].contiguous()
+    for ns in (32, 64):
+        bq_rows("window past shared memory", wide, wide_q, 0.2, ns, 16384)
+    knn_tiles_row("FP4 shape", cent, xyz, 32, core.round_up(FP_WINDOW, core.LANES))
+    knn_tiles_row("window past shared memory", wide, wide_q, 3, 16384)
 
 
 def no_host_read(fn):
@@ -996,6 +1101,7 @@ def main(argv=None) -> int:
     op_surface_kernel_phase(cfg, chunk_levels, report)
     op_surface_kernel_phase(cfg, train_levels, report)
     windowed_stress_phase(cfg, SEED, report)
+    repaired_phase(cfg, SEED, report)
     del chunk_levels, train_levels
     torch.cuda.empty_cache()
     paths = {"predict": predict_phase(cfg, REQUESTS, BATCH, SEED, card)}

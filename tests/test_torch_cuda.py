@@ -18,6 +18,8 @@ in an order that changes from run to run, and so does ``index_add_``, the
 plain version's sum on the card).
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +28,10 @@ from pointnet2_tpu_torch import ops
 from pointnet2_tpu_torch.ops import core, cuda
 from pointnet2_tpu_torch.ops.cuda import ballquery as cuda_bq
 from pointnet2_tpu_torch.ops.cuda import fps as cuda_fps
+from pointnet2_tpu_torch.ops.cuda import interpolate as cuda_interp
+
+# The package's ``knn`` is the wrapper function; the module is reached by name.
+cuda_knn = importlib.import_module("pointnet2_tpu_torch.ops.cuda.knn")
 
 pytestmark = pytest.mark.cuda
 
@@ -246,8 +252,13 @@ def test_wrappers_check_their_inputs(cuda_device):
         cuda.ball_query(xyz, xyz[:, ::2], 0.5, 4)
     with pytest.raises(ValueError, match="float32"):
         cuda.fps_centroids(xyz.double(), 8)
+    # k > 16 takes the list route: the answer, not a refusal; k past M is refused.
+    for k in (17, 32):
+        dist, idx = cuda.knn(xyz, xyz, k)
+        want_dist, want_idx = core.knn(xyz, xyz, k)
+        assert torch.equal(idx, want_idx) and torch.equal(dist, want_dist)
     with pytest.raises(ValueError, match="k"):
-        cuda.knn(xyz, xyz, 17)
+        cuda.knn(xyz, xyz, 65)
 
 
 # -- calibrated windows ----------------------------------------------------------
@@ -366,14 +377,16 @@ def test_windowed_wrappers_check_their_inputs(cuda_device):
     xyz = _box(26, 1, 1024)
     xs, perm, qs = _sorted_tiles(xyz, xyz[:, :256].contiguous(), 128)
     lo = torch.zeros((1, 2), dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match="nsample"):
-        cuda.ball_query_tiles(xs, perm, qs, lo, 0.1, 33, 256)
+    # nsample > 32 keeps the sorted list in the output row: the answer, not a refusal.
+    got = cuda.ball_query_tiles(xs, perm, qs, lo, 0.1, 33, 256)
+    assert all(torch.equal(g, w) for g, w in zip(got, core.ball_query_tiles(xs, perm, qs, lo, 0.1, 33, 256)))
     with pytest.raises(ValueError, match="window"):
-        cuda.ball_query_tiles(xs, perm, qs, lo, 0.1, 8, 2048)
+        cuda.ball_query_tiles(xs, perm, qs, lo, 0.1, 8, 2048)  # wider than the cloud
     with pytest.raises(ValueError, match="int32"):
         cuda.ball_query_tiles(xs, perm.long(), qs, lo, 0.1, 8, 256)
-    with pytest.raises(ValueError, match="k"):
-        cuda.knn_tiles(xs, perm, qs, lo, 17, 256)
+    # k > 16 takes the list route.
+    got = cuda.knn_tiles(xs, perm, qs, lo, 17, 256)
+    assert all(torch.equal(g, w) for g, w in zip(got, core.knn_tiles(xs, perm, qs, lo, 17, 256)))
 
 
 # -- the op surface: index-only FPS and the round-1 windowed ball query -----------
@@ -595,3 +608,250 @@ def test_ball_query_plan_at_the_model_shapes(cuda_device):
     for b, n, m in [(8, 8192, 1024), (16, 8192, 1024), (16, 1024, 256), (16, 64, 16)]:
         warps, tile = cuda_bq.plan(b, n, m, sms)
         assert cuda_bq.shared_bytes(n, tile) <= cuda_bq.MAX_SHARED_BYTES
+
+
+# -- the refusals repaired: kNN for any k, the windowed ball query for any nsample and window
+
+
+@pytest.mark.parametrize("k", [17, 32, 64])
+def test_knn_kernel_past_16(cuda_device, k):
+    """The roadmap's input (1 x 64 references, 8 queries), and the FP4 shape."""
+    torch.manual_seed(0)
+    xyz1 = torch.rand(1, 64, 3, device=cuda_device)
+    xyz2 = torch.rand(1, 8, 3, device=cuda_device)
+    dist, idx = ops.knn(xyz1, xyz2, k)
+    want_dist, want_idx = ops.knn(xyz1, xyz2, k, impl="torch")
+    assert torch.equal(idx, want_idx) and torch.equal(dist, want_dist)
+    refs, queries = _cloud(60, 2, 1024), _cloud(61, 2, 8192)
+    dist, idx = ops.knn(refs, queries, k)
+    want_dist, want_idx = ops.knn(refs, queries, k, impl="torch")
+    assert torch.equal(idx, want_idx) and torch.equal(dist, want_dist)
+
+
+def test_knn_kernel_k_equals_m(cuda_device):
+    """k = M = 1024: every reference enters every list."""
+    refs, queries = _cloud(62, 1, 1024), _cloud(63, 1, 64)
+    dist, idx = cuda.knn(refs, queries, 1024)
+    want_dist, want_idx = core.knn(refs, queries, 1024)
+    assert torch.equal(idx, want_idx) and torch.equal(dist, want_dist)
+
+
+def test_knn_kernel_refuses_only_what_the_card_cannot_hold(cuda_device):
+    assert cuda_knn.MAX_K >= 1024
+    big = _cloud(64, 1, cuda_knn.MAX_K + 1)
+    with pytest.raises(ValueError, match="k"):
+        cuda.knn(big, big[:, :4].contiguous(), cuda_knn.MAX_K + 1)
+
+
+@pytest.mark.parametrize("nsample", [33, 64])
+def test_calibrated_ball_query_past_32_samples(cuda_device, nsample):
+    """The roadmap's input: (1, 1024, 3) / (1, 128, 3), radius 0.2, window 512,
+    and a denser one whose balls hold more than nsample points."""
+    torch.manual_seed(0)
+    xyz1 = torch.rand(1, 1024, 3, device=cuda_device)
+    xyz2 = torch.rand(1, 128, 3, device=cuda_device)
+    for radius in (0.2, 0.45):
+        got = ops.ball_query_calibrated(xyz1, xyz2, radius, nsample, 512)
+        want = ops.ball_query_calibrated(xyz1, xyz2, radius, nsample, 512, impl="torch")
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    inputs = torch.cat([xyz1, torch.rand_like(xyz1)], -1)
+    w0, b0 = torch.randn(6, 16, device=cuda_device), torch.randn(16, device=cuda_device)
+    got = ops.project_group_calibrated(inputs, w0, b0, xyz1, xyz2, 0.45, nsample, 512)
+    want = ops.project_group_calibrated(inputs, w0, b0, xyz1, xyz2, 0.45, nsample, 512, impl="torch")
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("b,n,m,radius,nsample,window", [
+    (2, 8192, 1024, 0.5, 64, 3072), (1, 4096, 128, 3.0, 40, 3072), (2, 1024, 256, 0.3, 33, 512),
+])
+def test_ball_query_tiles_kernels_past_32_samples(cuda_device, b, n, m, radius, nsample, window):
+    xyz = _box(65, b, n)
+    queries = xyz[:, :: n // m][:, :m].contiguous()
+    xs, perm, qs = _sorted_tiles(xyz, queries, min(128, m))
+    lo = torch.randint(0, (n - window) // 128 + 1, (b, m // 128), device=cuda_device, dtype=torch.int32) * 128
+    got = cuda.ball_query_tiles(xs, perm, qs, lo, radius, nsample, window)
+    assert all(torch.equal(g, w) for g, w in zip(got, core.ball_query_tiles(xs, perm, qs, lo, radius, nsample, window)))
+    got_pos = cuda.ball_query_tiles_pos(xs, perm, qs, lo, radius, nsample, window)
+    want_pos = core.ball_query_tiles_pos(xs, perm, qs, lo, radius, nsample, window)
+    assert all(torch.equal(g, w) for g, w in zip(got_pos, want_pos))
+
+
+@pytest.mark.parametrize("nsample", [32, 64])
+def test_calibrated_ball_query_window_past_shared_memory(cuda_device, nsample):
+    """window = 16384 at N = 32768: past the 14528 columns a block's shared memory holds."""
+    torch.manual_seed(0)
+    xyz1 = torch.rand(1, 32768, 3, device=cuda_device) * torch.tensor([8.0, 1.0, 1.0], device=cuda_device)
+    xyz2 = xyz1[:, ::32].contiguous()
+    got = ops.ball_query_calibrated(xyz1, xyz2, 0.2, nsample, 16384)
+    want = ops.ball_query_calibrated(xyz1, xyz2, 0.2, nsample, 16384, impl="torch")
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    xs, perm, qs = _sorted_tiles(xyz1, xyz2, 128)
+    lo = torch.randint(0, (32768 - 16384) // 128 + 1, (1, 8), device=cuda_device, dtype=torch.int32) * 128
+    got = cuda.ball_query_tiles_pos(xs, perm, qs, lo, 0.2, nsample, 16384)
+    assert all(torch.equal(g, w) for g, w in zip(got, core.ball_query_tiles_pos(xs, perm, qs, lo, 0.2, nsample, 16384)))
+
+
+@pytest.mark.parametrize("k,window", [(17, 512), (32, 384), (3, 16384), (32, 16384)])
+def test_knn_tiles_kernel_any_k_and_window(cuda_device, k, window):
+    m = 32768 if window > 14528 else 1024
+    refs = _box(66, 1, m)
+    refs[:, 7::9] = refs[:, 6::9][:, : refs[:, 7::9].shape[1]]  # repeated points: distance ties
+    xs, perm, qs = _sorted_tiles(refs, _box(67, 1, 1024), 128)
+    lo = torch.randint(0, (m - window) // 128 + 1, (1, 8), device=cuda_device, dtype=torch.int32) * 128
+    got = cuda.knn_tiles(xs, perm, qs, lo, k, window)
+    want = core.knn_tiles(xs, perm, qs, lo, k, window)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    if window <= 512:
+        got = ops.knn_calibrated(refs, _box(67, 1, 1024), k, window)
+        want = ops.knn_calibrated(refs, _box(67, 1, 1024), k, window, impl="torch")
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# -- the redesigned exact kNN (row 3): S lanes a query, merged by butterfly
+
+
+def _knn_both(refs, queries, k, route=None):
+    dist, idx = cuda.knn(refs, queries, k, route=route)
+    want_dist, want_idx = core.knn(refs, queries, k)
+    assert torch.equal(idx, want_idx) and torch.equal(dist, want_dist)
+
+
+# Every (lanes, threads) the plan can pick for k <= 16, and part-full blocks.
+KNN_ROUTES = [(1, 256), (2, 256), (4, 256), (8, 256), (16, 256), (32, 256), (1, 64), (4, 32), (32, 32), (8, 96)]
+
+
+@pytest.mark.parametrize("route", KNN_ROUTES)
+@pytest.mark.parametrize("k", [1, 3, 16])
+def test_knn_kernel_routes_on_a_lattice(cuda_device, route, k):
+    """Integer coordinates and the cloud twice: distances tie within and across lanes."""
+    g = _lattice(1, (8, 8, 16))  # 1024 points
+    refs = torch.cat([g, g.flip(1)], 1).repeat(2, 1, 1).contiguous()  # 2048: two tiles
+    queries = (g[:, ::7] + 0.5).repeat(2, 1, 1).contiguous()
+    _knn_both(refs, queries, k, route)
+    _knn_both(refs[:, :1000].contiguous(), g[:, ::3].repeat(2, 1, 1).contiguous(), k, route)
+
+
+@pytest.mark.parametrize("route", KNN_ROUTES)
+@pytest.mark.parametrize("k", [1, 3, 16])
+def test_knn_kernel_routes_with_duplicated_points(cuda_device, route, k):
+    refs = _cloud(68, 2, 1024)
+    refs[:, 512:] = refs[:, :512].flip(1)
+    _knn_both(refs.contiguous(), _cloud(69, 2, 3000), k, route)
+
+
+@pytest.mark.parametrize("route", [(32, 32), (32, 128), (32, 256)])
+@pytest.mark.parametrize("k", [17, 32, 64])
+def test_knn_kernel_list_routes(cuda_device, route, k):
+    g = _lattice(1, (8, 8, 16))
+    refs = torch.cat([g, g.flip(1)], 1).repeat(2, 1, 1).contiguous()
+    _knn_both(refs, (g[:, ::9] + 0.5).repeat(2, 1, 1).contiguous(), k, route)
+    _knn_both(_cloud(70, 2, 1100), _cloud(71, 2, 77), k, route)
+
+
+@pytest.mark.parametrize("b", [8, 16])
+def test_knn_kernel_at_the_fp_shapes(cuda_device, b):
+    """The four FP levels' 3-NN on the planned route."""
+    for nq, m in [(64, 16), (256, 64), (1024, 256), (8192, 1024)]:
+        dense, coarse = _cloud(72, b, nq, scale=8.0), _cloud(73, b, m, scale=8.0)
+        dist, idx = ops.three_nn(dense, coarse)
+        want_dist, want_idx = ops.three_nn(dense, coarse, impl="torch")
+        assert torch.equal(idx, want_idx) and torch.equal(dist, want_dist)
+
+
+def test_knn_plan_at_the_model_shapes(cuda_device):
+    sms = cuda_bq.num_sms(cuda_device.index or 0)
+    for b, nq, m in [(8, 8192, 1024), (16, 8192, 1024), (16, 1024, 256), (16, 64, 16)]:
+        lanes, threads = cuda_knn.plan(b, nq, m, 3, sms)
+        assert cuda_knn.check_plan(3, (lanes, threads)) == (lanes, threads)
+        assert lanes == 1 or m // lanes >= cuda_knn.MIN_REFS_PER_LANE
+
+
+# -- the redesigned three_interpolate forward (row 4), the FP concat written by the kernel
+
+FP_SHAPES = [(16, 512, 64, 256), (64, 256, 256, 128), (256, 256, 1024, 64), (1024, 128, 8192, 3)]  # (M, C, N, C1)
+
+
+def _interp_inputs(b, m, c, n, seed=80):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    points = torch.randn((b, m, c), generator=gen, device="cuda")
+    dist, idx = ops.three_nn(_cloud(seed + 1, b, n, 8.0), _cloud(seed + 2, b, m, 8.0))
+    return points, idx, ops.interpolation_weights(dist), gen
+
+
+@pytest.mark.parametrize("b", [8, 16])
+@pytest.mark.parametrize("m,c,n,c1", FP_SHAPES)
+def test_three_interpolate_kernel_at_the_fp_shapes(cuda_device, b, m, c, n, c1):
+    """With the skip as the model gives it (FP4's: the colours, a view of row
+    stride 6 into the input cloud) and without."""
+    points, idx, weight, gen = _interp_inputs(b, m, c, n)
+    if c1 == 3:
+        skip = torch.rand((b, n, 6), generator=gen, device=cuda_device)[..., 3:6]
+        assert not skip.is_contiguous()
+    else:
+        skip = torch.randn((b, n, c1), generator=gen, device=cuda_device)
+    got = cuda.three_interpolate(points, idx, weight, skip)
+    want = core.three_interpolate_concat(points, idx, weight, skip)
+    assert got.shape == (b, n, c + c1) and torch.equal(got, want)
+    assert torch.equal(cuda.three_interpolate(points, idx, weight), core.three_interpolate(points, idx, weight))
+
+
+@pytest.mark.parametrize("c,c1,offset", [(7, 5, 0), (128, 4, 0), (128, 3, 0), (64, 64, 1), (8, 0, 1), (3, 0, 0)])
+def test_three_interpolate_kernel_aligned_and_unaligned_rows(cuda_device, c, c1, offset):
+    """Every mode the plan picks: scalar (C off the 4-multiples, or ``points``
+    off a 16-byte boundary), vector loads with scalar stores, vector both."""
+    b, m, n = 2, 50, 300
+    points, idx, weight, gen = _interp_inputs(b, m, c, n, seed=90)
+    if offset:
+        points = torch.randn((b * m * c + offset,), generator=gen, device=cuda_device)[offset:].view(b, m, c)
+        assert points.data_ptr() % 16
+    skip = torch.randn((b, n, c1 + 1), generator=gen, device=cuda_device)[..., 1:] if c1 else None
+    got = cuda.three_interpolate(points, idx, weight, skip)
+    want = core.three_interpolate(points, idx, weight) if skip is None else core.three_interpolate_concat(
+        points, idx, weight, skip)
+    assert torch.equal(got, want)
+
+
+def test_three_interpolate_kernel_copies_a_skip_it_cannot_stride(cuda_device):
+    points, idx, weight, gen = _interp_inputs(2, 64, 32, 256)
+    skip = torch.randn((2, 16, 256), generator=gen, device=cuda_device).transpose(1, 2)  # channels 256 apart
+    assert torch.equal(cuda.three_interpolate(points, idx, weight, skip),
+                       core.three_interpolate_concat(points, idx, weight, skip))
+
+
+def test_three_interpolate_plan_picks_the_vector_modes(cuda_device):
+    assert cuda_interp.plan(128, 3, True, False) == (cuda_interp.VECTOR_LOADS, 32, False)
+    assert cuda_interp.plan(512, 256, True, True) == (cuda_interp.VECTOR, 32, True)
+
+
+@pytest.mark.parametrize("c1", [3, 64])
+def test_fused_three_interpolate_function_on_the_kernel_path(cuda_device, c1):
+    """The skip's gradient is the cotangent's slice; the points' gradient reads it in place."""
+    points, idx, weight, gen = _interp_inputs(2, 256, 64, 1024)
+    p = points.clone().requires_grad_()
+    skip = torch.randn((2, 1024, c1 + 3), generator=gen, device=cuda_device)[..., 3:].requires_grad_()
+    g = torch.randn((2, 1024, 64 + c1), generator=gen, device=cuda_device)
+    got = torch.autograd.grad(ops.three_interpolate(p, idx, weight, skip=skip), (p, skip), g)
+    want = torch.autograd.grad(core.three_interpolate_concat(p, idx, weight, skip), (p, skip), g)
+    torch.testing.assert_close(got[0], want[0], **GRAD_TOL)
+    assert torch.equal(got[1], want[1])
+
+
+def test_feature_propagation_launches_no_concat(cuda_device):
+    """The FP module's fused op: one three_interpolate launch a level and the
+    same output as the plain path."""
+    from pointnet2_tpu_torch.nn.pointnet import FeaturePropagation
+
+    fp = FeaturePropagation(64 + 32, [48]).to(cuda_device).eval()
+    for p in fp.parameters():
+        torch.nn.init.normal_(p, std=0.1)
+    xyz1, xyz2 = _cloud(95, 2, 512, 8.0), _cloud(96, 2, 128, 8.0)
+    points1 = torch.randn(2, 512, 32, device=cuda_device)
+    points2 = torch.randn(2, 128, 64, device=cuda_device)
+    cuda.reset_launches()
+    with torch.no_grad():
+        got = fp(xyz1, xyz2, points1, points2)
+    assert dict(cuda.LAUNCHES) == {"knn": 1, "three_interpolate": 1}
+    fp.ops_impl = "torch"
+    with torch.no_grad():
+        want = fp(xyz1, xyz2, points1, points2)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)

@@ -1,18 +1,24 @@
-"""The launch plans of the FPS and exact ball-query kernels, on the CPU.
+"""The launch plans of the FPS, exact ball-query, kNN and three_interpolate kernels, on the CPU.
 
-``ops.cuda.fps.plan`` and ``ops.cuda.ballquery.plan`` are plain Python: they
-take the card's answers (resident clusters of each size, the SM count) as
+``ops.cuda.fps.plan``, ``ops.cuda.ballquery.plan``, ``ops.cuda.knn.plan`` and
+``ops.cuda.interpolate.plan`` are plain Python: they take the card's answers
+(resident clusters of each size, the SM count) or the rows' alignment as
 arguments, so every route they can pick is checked here without a card; the
 card tests in ``tests/test_torch_cuda.py`` hold each route's kernel against
 its plain version.
 """
 
+import importlib
 import itertools
 
 import pytest
 
 from pointnet2_tpu_torch.ops.cuda import ballquery as bq
 from pointnet2_tpu_torch.ops.cuda import fps
+from pointnet2_tpu_torch.ops.cuda import interpolate
+
+# The package's ``knn`` is the wrapper function; the module is reached by name.
+knn = importlib.import_module("pointnet2_tpu_torch.ops.cuda.knn")
 
 # What an H100 SXM answers for the routes of 8192 points (132 SMs in GPCs
 # that take 58 clusters of 16 and 124 of 8) and two cards that hold fewer clusters.
@@ -130,3 +136,90 @@ def test_ball_query_check_plan_refuses_bad_routes(n, route):
     """Warps past 16, tiles off the 32-multiples, two buffers past shared memory."""
     with pytest.raises(ValueError):
         bq.check_plan(n, route)
+
+
+# The FP levels of semantic.json: (dense queries, coarse references).
+FP_LEVELS = [(64, 16), (256, 64), (1024, 256), (8192, 1024)]
+KNN_GRID = sorted({*FP_LEVELS, (1, 1), (7, 3), (100, 40), (37, 1500), (8192, 8192), (65536, 64), (3, 100000)})
+
+
+@pytest.mark.parametrize("k", [1, 3, 16, 17, 64])
+def test_knn_plan_covers_the_grid(k):
+    for (nq, m), b, sms in itertools.product(KNN_GRID, (1, 2, 8, 16, 300), (1, 132)):
+        if k > m:
+            with pytest.raises(ValueError):
+                knn.plan(b, nq, m, k, sms)
+            continue
+        lanes, threads = knn.plan(b, nq, m, k, sms)
+        assert knn.check_plan(k, (lanes, threads)) == (lanes, threads)
+        assert lanes in (1, 2, 4, 8, 16, 32) and threads % 32 == 0 and 32 <= threads
+        if k > knn.MAX_REGISTER_K:
+            assert lanes == 32 and threads == 32 * knn.LIST_WARPS
+            continue
+        assert threads <= knn.MAX_THREADS and threads <= -(-nq * lanes // 32) * 32
+        # Every lane keeps its floor of references, and the lanes stop doubling
+        # once the launch fills the card.
+        assert lanes == 1 or m // lanes >= knn.MIN_REFS_PER_LANE
+        assert lanes == 1 or b * nq * (lanes // 2) < sms * knn.TARGET_THREADS_PER_SM
+        fills = b * nq * lanes >= sms * knn.TARGET_THREADS_PER_SM
+        assert fills or lanes == 32 or m // (2 * lanes) < knn.MIN_REFS_PER_LANE
+
+
+def test_knn_plan_at_the_model_shapes():
+    """The routes an H100 (132 SMs) takes at the four FP levels, B=8 and B=16."""
+    want = {
+        8: [(1, 64), (2, 256), (8, 256), (4, 256)],
+        16: [(1, 64), (2, 256), (8, 256), (2, 256)],
+    }
+    for b, routes in want.items():
+        assert [knn.plan(b, nq, m, 3, 132) for nq, m in FP_LEVELS] == routes
+    assert knn.plan(16, 8192, 1024, 32, 132) == (32, 128)
+    assert knn.plan(1, 64, 29056, 29056, 132) == (32, 32)
+
+
+@pytest.mark.parametrize(
+    "b,nq,m,k", [(0, 10, 10, 3), (1, 0, 10, 3), (1, 10, 0, 1), (1, 10, 5, 6), (1, 10, 40000, 29057), (2**24, 2**20, 64, 3)],
+)
+def test_knn_plan_refuses_what_no_route_takes(b, nq, m, k):
+    with pytest.raises(ValueError):
+        knn.plan(b, nq, m, k, 132)
+
+
+@pytest.mark.parametrize(
+    "k,route", [(3, (3, 256)), (3, (64, 256)), (3, (1, 512)), (3, (4, 100)), (3, (4, 0)), (17, (16, 128)),
+                (17, (32, 512)), (29056, (32, 64)), (1024, (32, 8 * 32 * 8))],
+)
+def test_knn_check_plan_refuses_bad_routes(k, route):
+    """Lanes off the powers of two, blocks past 256 threads (register route) or
+    8 warps (list route), a list route whose lists pass shared memory."""
+    with pytest.raises(ValueError):
+        knn.check_plan(k, route)
+
+
+def test_knn_limits():
+    assert knn.MAX_K == 29056 and knn.MAX_K >= 1024
+    assert knn.check_plan(1024, (32, 256)) == (32, 256)  # k = 1024 at M = 1024 in a full list block
+
+
+@pytest.mark.parametrize(
+    "c,c1,aligned,skip_ok,want",
+    [
+        (128, 3, True, False, (interpolate.VECTOR_LOADS, 32, False)),  # FP4: rows of 131 floats
+        (256, 64, True, True, (interpolate.VECTOR, 32, True)),  # FP3
+        (256, 128, True, True, (interpolate.VECTOR, 32, True)),  # FP2
+        (512, 256, True, True, (interpolate.VECTOR, 32, True)),  # FP1
+        (512, 0, True, False, (interpolate.VECTOR, 32, False)),  # no skip
+        (64, 64, False, True, (interpolate.SCALAR, 32, False)),  # points off a 16-byte boundary
+        (7, 5, True, False, (interpolate.SCALAR, 8, False)),
+        (8, 4, True, False, (interpolate.VECTOR, 4, False)),
+        (3, 0, True, False, (interpolate.SCALAR, 4, False)),
+        (16, 6, True, True, (interpolate.VECTOR_LOADS, 4, False)),
+    ],
+)
+def test_three_interpolate_plan(c, c1, aligned, skip_ok, want):
+    assert interpolate.plan(c, c1, aligned, skip_ok) == want
+
+
+def test_three_interpolate_plan_refuses_empty_rows():
+    with pytest.raises(ValueError):
+        interpolate.plan(0, 3, True, False)

@@ -153,6 +153,39 @@ def test_feature_propagation_matches_flax(skip):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def test_feature_propagation_with_a_strided_skip_matches_flax():
+    """The fused interpolation and concat with FP4's skip, the colour channels
+    of the input cloud (a view of row stride 6), forward and the gradients of
+    both feature inputs, against flax."""
+    rng = np.random.RandomState(10)
+    cloud = np.concatenate([_box(rng, 2, 128), rng.rand(2, 128, 3).astype(np.float32)], -1)
+    xyz1, points1 = np.ascontiguousarray(cloud[..., :3]), np.ascontiguousarray(cloud[..., 3:])
+    xyz2 = _box(rng, 2, 32)
+    points2 = rng.randn(2, 32, 16).astype(np.float32)
+    cot = rng.randn(2, 128, 24).astype(np.float32)
+    ref = JaxFP(mlp=[32, 24], ops_impl="xla")
+    variables = _randomize(
+        ref.init(jax.random.PRNGKey(0), xyz1, xyz2, points1, points2, train=False, bn_momentum=0.9), 11
+    )
+    with jax.default_matmul_precision("highest"):
+        want, (want_p1, want_p2) = jax.value_and_grad(
+            lambda a, b: jnp.sum(ref.apply(variables, xyz1, xyz2, a, b, train=False, bn_momentum=0.9) * cot),
+            argnums=(0, 1),
+        )(jnp.asarray(points1), jnp.asarray(points2))
+    port = _port(FeaturePropagation(16 + 3, [32, 24]), variables)
+    full = _t(cloud).requires_grad_()
+    p2 = _t(points2).requires_grad_()
+    skip = full[..., 3:]
+    assert not skip.is_contiguous()
+    out = port(_t(xyz1), _t(xyz2), skip, p2)
+    got = (out * _t(cot)).sum()
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
+    np.testing.assert_allclose(full.grad[..., 3:].numpy(), np.asarray(want_p1), **TOL)
+    assert not full.grad[..., :3].any()
+    np.testing.assert_allclose(p2.grad.numpy(), np.asarray(want_p2), **TOL)
+
+
 # ---------------------------------------------------------------------------
 # Train mode
 # ---------------------------------------------------------------------------

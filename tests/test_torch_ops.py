@@ -245,6 +245,23 @@ def test_knn_matches_pallas_interpret(rng):
     np.testing.assert_allclose(dist.numpy(), np.asarray(want_dist), rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("k", [17, 32, 64, 96])
+def test_knn_past_16_matches_oracle_and_pallas_interpret(rng, k):
+    """k past the kernel's register route, up to k = M: indices bit for bit
+    with the oracle and the Pallas kernel, distances with the oracle."""
+    refs = _cloud(rng, 1, 96)
+    refs[:, 48:] = refs[:, :48][:, ::-1]  # every point twice: distance ties
+    queries = _cloud(rng, 1, 8)
+    dist, idx = ops.knn(_t(refs), _t(queries), k)
+    want_dist, want_idx = reference.knn_np(refs, queries, k)
+    np.testing.assert_array_equal(idx.numpy(), want_idx)
+    np.testing.assert_array_equal(dist.numpy(), want_dist)
+    with pltpu.force_tpu_interpret_mode():
+        p_dist, p_idx = knn_pallas(refs, queries, k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(p_idx))
+    np.testing.assert_allclose(dist.numpy(), np.asarray(p_dist), rtol=1e-5, atol=1e-6)
+
+
 def test_knn_rejects_k_above_the_dataset():
     with pytest.raises(ValueError):
         ops.knn(torch.zeros(1, 2, 3), torch.zeros(1, 4, 3), 3)
@@ -351,6 +368,20 @@ def test_three_interpolate_gradcheck_float64(rng):
     w = _t(weight).double().requires_grad_()
     assert torch.autograd.gradcheck(lambda a, b: ops.three_interpolate(a, _t(idx), b), (p, w), eps=1e-6, atol=1e-6)
     assert torch.autograd.gradcheck(lambda a, b: core.three_interpolate(a, _t(idx), b), (p, w), eps=1e-6, atol=1e-6)
+
+
+def test_three_interpolate_skip_gradcheck_float64(rng):
+    """The fused FP concat: the skip's gradient is the cotangent's slice, the
+    points' and weights' come from the blend's channels alone."""
+    points, idx, weight = _interp_inputs(rng, 2, 9, 14, 3)
+    p = _t(points).double().requires_grad_()
+    w = _t(weight).double().requires_grad_()
+    skip = _t(rng.randn(2, 14, 7)).double()[..., 2:6].requires_grad_()  # a strided view, as FP4's colours
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: ops.three_interpolate(a, _t(idx), b, skip=c), (p, w, skip), eps=1e-6, atol=1e-6
+    )
+    out = ops.three_interpolate(p, _t(idx), w, skip=skip)
+    torch.testing.assert_close(out, torch.cat([core.three_interpolate(p, _t(idx), w), skip], -1), rtol=0, atol=0)
 
 
 def _leaf_inputs(rng, b=2, n=100, m=20, k=8, cin=6, f0=16):

@@ -60,6 +60,9 @@ BQ_CASES = [
     (2, 1024, 256, 0.3, 16, 256, "too small"),
     (2, 256, 128, 0.3, 8, 256, "fallback"),  # window >= n
     (1, 512, 200, 0.3, 8, 128, "fallback"),  # m not a multiple of the tile
+    # nsample past one slot a lane: balls of up to 100+ points in a window that fits
+    (1, 4096, 512, 0.4, 64, 2048, "fits"),
+    (1, 1024, 128, 0.45, 40, 512, "too small"),
 ]
 
 
@@ -124,6 +127,9 @@ KNN_CASES = [
     (1, 130, 128, 5, 128, "too small", "far right"),
     (2, 256, 512, 3, 256, "fallback", None),  # window >= m
     (1, 512, 100, 3, 128, "fallback", None),  # fewer than one tile of queries
+    # k past the kernel's register route
+    (1, 512, 1024, 17, 384, "fits", "duplicates"),
+    (1, 512, 512, 32, 128, "too small", None),
 ]
 
 
