@@ -87,7 +87,7 @@ non-zero and prints no result):
    host read decides the fallback), the tiles that fit counted on the host
    from the plan; both kernels timed beside their bounds, their plain
    versions timed with 3 single calls (the plain FPS takes some 200 ms a
-   call). Then ``tools.parity`` on the card (46 checks of every kernel
+   call). Then ``tools.parity`` on the card (48 checks of every kernel
    against the NumPy oracles; zero failures), and the op-level path: one run
    of ``tools.stage_bench``'s composites (the SA sample-and-group through
    ``ops.farthest_point_sample`` with either ball query, the gather, the FP
@@ -337,7 +337,7 @@ def kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> list:
         bare = ops.three_interpolate(points, nn_idx, weight, impl="cuda")
         flat_idx = (nn_idx.long() + torch.arange(b, device=dev)[:, None, None] * m).reshape(-1, 3)
         flat_points, flat_w = points.reshape(b * m, c), weight.reshape(-1, 3)
-        mode, group, skip_vec = cuda_interp.planned_route(points, skip)
+        vec, group, skip_vec = cuda_interp.planned_route(points, skip)
         report.add(
             "three_interpolate", b, f"M={m} C={c} N={nq} skip={c1}",
             lambda: ops.three_interpolate(points, nn_idx, weight, impl="cuda", skip=skip),
@@ -356,7 +356,7 @@ def kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> list:
                 "no_skip_ms": lambda: ops.three_interpolate(points, nn_idx, weight, impl="cuda"),
                 "concat_ms": lambda: torch.cat([bare, skip], -1),
             },
-            info={"plan": {"mode": mode, "group": group, "skip_vec": skip_vec},
+            info={"plan": {"vec": vec, "group": group, "skip_vec": skip_vec},
                   "device_ms": device_ms(
                       lambda: ops.three_interpolate(points, nn_idx, weight, impl="cuda", skip=skip), "three_interpolate")},
         )

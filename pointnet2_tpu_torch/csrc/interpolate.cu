@@ -24,12 +24,14 @@
 // ops/cuda/interpolate.py) takes one output row. Lanes 0-2 of the group read
 // the row's three indices and weights once and the group shares them by
 // shuffle; there is one integer division a row (its cloud), none an element.
-// The lanes walk the channels with 16-byte loads of the three source rows
-// where those rows are 16-byte aligned (C a multiple of 4), and with 16-byte
-// stores where the output rows are too (C + C1 a multiple of 4); else with
-// 4-byte ones: FP4's output row of 128 + 3 floats takes vector loads and
-// scalar stores. The skip row is copied after the blend, 16 bytes at a time
-// where it and its place in the output are aligned. The design before this
+// The lanes walk the channels with 16-byte loads and stores where the
+// source rows and the output rows are 16-byte aligned (C and C + C1
+// multiples of 4), else with 4-byte ones, consecutive lanes on consecutive
+// floats: FP4's output row of 128 + 3 floats takes the 4-byte path, which on
+// the H100 ran faster there (51 against 70 us at B=16, PERF.md) than 16-byte
+// loads with each lane storing its 4 floats apart. The skip row is copied
+// after the blend, 16 bytes at a time where it and its place in the output
+// are aligned. The design before this
 // one ran a thread an element, with three integer divisions by runtime
 // divisors and the six index and weight loads again for every element. The
 // TPU kernel instead builds a dense (tile, M) weight block and multiplies it
@@ -78,10 +80,10 @@ __device__ __forceinline__ float blend(float w0, float a, float w1, float b, flo
   return __fadd_rn(acc, __fmul_rn(w2, c));
 }
 
-// kMode 0: 4-byte loads and stores; 1: 16-byte loads of the source rows,
-// 4-byte stores; 2: 16-byte loads and stores. Grid: ceil(rows / (threads / G))
-// blocks of `threads`, G = 2^group_log2 lanes a row; out rows out_stride apart.
-template <int kMode>
+// kVec: 16-byte loads and stores, else 4-byte ones. Grid: ceil(rows /
+// (threads / G)) blocks of `threads`, G = 2^group_log2 lanes a row; out rows
+// out_stride apart.
+template <bool kVec>
 __global__ void three_interpolate_kernel(const float* __restrict__ points,
                                          const int* __restrict__ idx,
                                          const float* __restrict__ weight, int m,
@@ -115,24 +117,17 @@ __global__ void three_interpolate_kernel(const float* __restrict__ points,
   const float* p1 = pb + (size_t)i1 * c;
   const float* p2 = pb + (size_t)i2 * c;
   float* o = out + (size_t)r * out_stride;
-  if constexpr (kMode == 0) {
-    for (int ch = sub; ch < c; ch += group) o[ch] = blend(w0, p0[ch], w1, p1[ch], w2, p2[ch]);
-  } else {
+  if constexpr (kVec) {
     for (int ch = 4 * sub; ch < c; ch += 4 * group) {
       const float4 a = *reinterpret_cast<const float4*>(p0 + ch);
       const float4 b = *reinterpret_cast<const float4*>(p1 + ch);
       const float4 d = *reinterpret_cast<const float4*>(p2 + ch);
-      const float4 v = make_float4(blend(w0, a.x, w1, b.x, w2, d.x), blend(w0, a.y, w1, b.y, w2, d.y),
-                                   blend(w0, a.z, w1, b.z, w2, d.z), blend(w0, a.w, w1, b.w, w2, d.w));
-      if constexpr (kMode == 2) {
-        *reinterpret_cast<float4*>(o + ch) = v;
-      } else {
-        o[ch] = v.x;
-        o[ch + 1] = v.y;
-        o[ch + 2] = v.z;
-        o[ch + 3] = v.w;
-      }
+      *reinterpret_cast<float4*>(o + ch) =
+          make_float4(blend(w0, a.x, w1, b.x, w2, d.x), blend(w0, a.y, w1, b.y, w2, d.y),
+                      blend(w0, a.z, w1, b.z, w2, d.z), blend(w0, a.w, w1, b.w, w2, d.w));
     }
+  } else {
+    for (int ch = sub; ch < c; ch += group) o[ch] = blend(w0, p0[ch], w1, p1[ch], w2, p2[ch]);
   }
   if (skip != nullptr) {
     const float* s = skip + bi * skip_stride_b + (long long)(r - bi * n) * skip_stride_n;
@@ -177,36 +172,35 @@ extern "C" {
 // points (b, m, c), idx (b, n, 3) i32, weight (b, n, 3) f32 -> out (b, n, c + c1)
 // f32, rows out_stride = c + c1 floats apart: the blend in [0, c) and, when
 // skip is not null, the skip rows (b, n, c1) f32, their channels adjacent,
-// batch and row strides in elements, in [c, c + c1). mode: 0 scalar, 1
-// 16-byte loads (points 16-byte aligned, c % 4 == 0), 2 16-byte loads and
-// stores (out 16-byte aligned and out_stride % 4 == 0 too); skip_vec: the
-// skip is copied 16 bytes at a time (mode 2, skip aligned, its strides and c1
-// multiples of 4). 2^group_log2 lanes a row, blocks of `threads`.
+// batch and row strides in elements, in [c, c + c1). vec: 16-byte loads
+// and stores (points and out 16-byte aligned, c and out_stride multiples of
+// 4), else 4-byte ones; skip_vec: the skip is copied 16 bytes at a time (vec,
+// skip aligned, its strides and c1 multiples of 4). 2^group_log2 lanes a
+// row, blocks of `threads`.
 // Returns cudaGetLastError() after the launch.
 int pn2_three_interpolate(const float* points, const int* idx, const float* weight,
                           int b, int m, int n, int c, float* out, int out_stride,
                           const float* skip, long long skip_stride_b, long long skip_stride_n,
-                          int c1, int mode, int skip_vec, int group_log2, int threads,
+                          int c1, int vec, int skip_vec, int group_log2, int threads,
                           int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (group_log2 < 2 || group_log2 > 5 || threads < 32 || threads > 1024 || threads % 32 ||
-      mode < 0 || mode > 2 || (skip_vec && mode != 2)) {
+      (skip_vec && !vec)) {
     return (int)cudaErrorInvalidValue;
   }
   const int rows = b * n;
   const int per_block = threads >> group_log2;
   const int blocks = (rows + per_block - 1) / per_block;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (mode) {
-#define PN2_TI_CASE(M)                                                                 \
-  case M:                                                                              \
-    three_interpolate_kernel<M><<<blocks, threads, 0, s>>>(                            \
-        points, idx, weight, m, n, c, rows, group_log2, out, out_stride, skip,         \
-        skip_stride_b, skip_stride_n, c1, skip_vec != 0);                              \
-    break;
-    PN2_TI_CASE(0) PN2_TI_CASE(1) PN2_TI_CASE(2)
-#undef PN2_TI_CASE
+  if (vec) {
+    three_interpolate_kernel<true><<<blocks, threads, 0, s>>>(
+        points, idx, weight, m, n, c, rows, group_log2, out, out_stride, skip, skip_stride_b,
+        skip_stride_n, c1, skip_vec != 0);
+  } else {
+    three_interpolate_kernel<false><<<blocks, threads, 0, s>>>(
+        points, idx, weight, m, n, c, rows, group_log2, out, out_stride, skip, skip_stride_b,
+        skip_stride_n, c1, false);
   }
   return (int)cudaGetLastError();
 }

@@ -15,22 +15,35 @@
 //
 // Design, k <= 16 (`knn_kernel<K>`, the register route): S lanes of a warp
 // share one query (S a power of two up to 32, from the plan in
-// ops/cuda/knn.py): lane s takes references s, s+S, s+2S, ... and keeps its
-// own sorted top-k in registers (K is a template parameter, so the arrays do
-// not spill), ordered lexicographically by (distance, index). Then log2(S)
-// butterfly steps (`__shfl_xor_sync` of the k pairs) merge the lanes' lists,
-// each keeping the first k: the order is total, so every lane of the query
-// ends with the same list, which is the stable sort's first k. One thread a
-// query over the whole cloud left most of the card idle at the FP levels
-// (FP4 at B=8: 256 blocks of 256 threads, each thread one dependent chain of
-// 1024 references); splitting the scan gives the card enough warps to hide
-// the chain. The block stages the cloud once into shared memory with 4-byte
-// `cp.async`, laid out as (x, y, z, pad) so a lane reads a reference with one
-// 16-byte load, in tiles of up to 1024 points into two buffers (the next tile
-// loads while this one is scanned); the S lanes of a query read S
-// neighbouring references, and the warp's other queries read the same ones
-// (a broadcast). The cheap filter `d <= k-th distance` runs on every pair,
-// the lexicographic insert only on the few that pass.
+// ops/cuda/knn.py): lane s takes points s, s+S, s+2S, ... and keeps its own
+// sorted top-k in registers (K is a template parameter, so the arrays do not
+// spill). Keys are the distances' bit patterns, which order as the floats do
+// (d >= 0, then +inf, then NaN); a lane meets its points in index order, so
+// a plain `<` on the keys inserts in (distance, index) order, with one
+// compare a slot. Every 16 points the S lanes take the least of their k-th
+// keys by shuffle, a bound past which no point can be among the query's k
+// nearest, and skip what lies past it. At the end log2(S) butterfly steps
+// (`__shfl_xor_sync` of the k pairs) merge the lanes' lists, comparing
+// (key, index) in full, and keep the first k: the order is total, so every
+// lane of the query ends with the same list, the stable sort's first k.
+// The block stages the cloud once into shared memory with 4-byte `cp.async`
+// (tiles of up to 1024 points, two buffers: the next tile loads while this
+// one is scanned), laid out as three arrays (x, y, z) in which each lane's
+// points lie one after the other, so a lane reads 4 of its points with one
+// 16-byte load of each array; the warp's other queries read the same words
+// (a broadcast), and the runs of neighbouring lanes start in different bank
+// groups. The filter `key < bound` costs a compare and a branch a pair, the
+// insert runs only for the few that pass.
+//
+// On the H100 one lane a query was the fastest at FP4 (1024 points, 8192
+// queries a cloud, B=8 and 16), where the launch already has 2048 to 4096
+// warps, and 4 to 8 lanes at FP2 and FP3, where one lane a query leaves
+// most of the card idle (PERF.md): a lane that sees 1/S of the points takes
+// more inserts into its own top-k than one that sees all of them, so the
+// split pays only where the card would otherwise idle. The earlier design
+// (one thread a query, three 4-byte loads a point) ran at FP4 as fast as
+// this one; the 16-byte loads of 4 points are what keep the split lanes'
+// strided points from costing more loads than that.
 //
 // Design, k > 16 (`knn_kernel_list`, the list route): one warp a query, the
 // sorted list of k (distance, index) pairs in shared memory (8 bytes a pair,
@@ -84,14 +97,17 @@ constexpr int kThreads = 256;  // the register route's largest block
 constexpr int kMaxListWarps = 8;
 constexpr int kMaxShared = 232448;  // H100: 227 KB of dynamic shared memory a block
 constexpr int kTileQueries = 128;
+constexpr int kBatch = 16;  // references a lane scans between two refreshes of the query's bound
+constexpr unsigned kEmpty = 0xffffffffu;
 
-__device__ __forceinline__ bool before(float d, int i, float bd, int bi) {
+template <typename T>
+__device__ __forceinline__ bool before(T d, int i, T bd, int bi) {
   return d < bd || (d == bd && i < bi);
 }
 
 // Insert (d, j) into the sorted (bd, bi) if it sorts before the last pair.
-template <int K>
-__device__ __forceinline__ void insert(float (&bd)[K], int (&bi)[K], float d, int j) {
+template <int K, typename T>
+__device__ __forceinline__ void insert(T (&bd)[K], int (&bi)[K], T d, int j) {
   if (!before(d, j, bd[K - 1], bi[K - 1])) return;
   // Walk down from the last slot: slot s takes slot s-1's pair when (d, j)
   // sorts before it, else (d, j) itself if (d, j) sorts before slot s.
@@ -107,6 +123,26 @@ __device__ __forceinline__ void insert(float (&bd)[K], int (&bi)[K], float d, in
   }
 }
 
+// Insert (v, j) into the sorted (bk, bi), v known to sort before the last key
+// and j larger than every index held (a lane scans in index order), so the
+// plain `<` of the keys is the order by (key, index): two compares fewer a
+// slot than `insert`, on the path a warp takes most often.
+template <int K>
+__device__ __forceinline__ void insert_scanned(unsigned (&bk)[K], int (&bi)[K], unsigned v, int j) {
+  bool below[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) below[s] = s == K - 1 || v < bk[s];
+#pragma unroll
+  for (int s = K - 1; s > 0; --s) {
+    bk[s] = below[s - 1] ? bk[s - 1] : (below[s] ? v : bk[s]);
+    bi[s] = below[s - 1] ? bi[s - 1] : (below[s] ? j : bi[s]);
+  }
+  if (below[0]) {
+    bk[0] = v;
+    bi[0] = j;
+  }
+}
+
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
@@ -117,88 +153,151 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// Points [t * tile, t * tile + len) of the cloud into buf as (x, y, z, pad),
-// every thread a share of the words.
-__device__ __forceinline__ void stage(float4* buf, const float* __restrict__ pts, int t,
-                                      int tile, int len) {
+// The words a staged tile of `tile` points takes with `lanes` lanes a query:
+// three arrays (x, y, z), each `lanes` runs of `run` floats.
+__host__ __device__ __forceinline__ int run_floats(int tile, int lanes) {
+  // Each lane's run holds its points of the tile in order, rounded up to a
+  // 16-byte multiple whose count of 16-byte words is odd: the runs of 8
+  // neighbouring lanes then start in 8 different bank groups, so a 16-byte
+  // load of each lane's next 4 points is conflict-free.
+  const int r = ((tile + lanes - 1) / lanes + 3) / 4;
+  return 4 * (r | 1);
+}
+
+// Points [t * tile, t * tile + len) of the cloud into buf: point p goes to
+// lane p % lanes's run, at its place p / lanes, so that each lane reads its
+// points (p = lane, lane + lanes, ...) one after the other. Every thread
+// stages a share of the words.
+__device__ __forceinline__ void stage(float* buf, const float* __restrict__ pts, int t, int tile,
+                                      int len, int lanes_log2, int run) {
   const float* src = pts + (size_t)t * tile * 3;
-  float* dst = reinterpret_cast<float*>(buf);
+  const int array = run << lanes_log2;
+  const int mask = (1 << lanes_log2) - 1;
   for (int i = threadIdx.x; i < len * 3; i += blockDim.x) {
     const int p = i / 3;
-    cp_async4(dst + 4 * p + (i - 3 * p), src + i);
+    cp_async4(buf + (i - 3 * p) * array + (p & mask) * run + (p >> lanes_log2), src + i);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Grid: b * blocks_per_cloud blocks of `threads`, 2^lanes_log2 lanes a query;
-// dynamic shared memory min(2, tiles) * tile * 16 bytes.
+// Grid: b * blocks_per_cloud blocks of `threads`, 2^lanes_log2 lanes a
+// query, each lane every 2^lanes_log2-th point; dynamic shared memory
+// min(2, tiles) staged tiles (`run_floats`).
 template <int K>
 __global__ void __launch_bounds__(kThreads)
     knn_kernel(const float* __restrict__ refs, const float* __restrict__ queries, int m,
                int nq, int lanes_log2, int tile, int blocks_per_cloud,
                float* __restrict__ dist, int* __restrict__ idx) {
-  extern __shared__ __align__(16) float4 tiles[];
+  extern __shared__ __align__(16) float tiles[];
   const int cloud = blockIdx.x / blocks_per_cloud;
   const int lanes = 1 << lanes_log2;
   const int sub = threadIdx.x & (lanes - 1);
   const int qi = (blockIdx.x - cloud * blocks_per_cloud) * (blockDim.x >> lanes_log2) +
                  (threadIdx.x >> lanes_log2);
-  const bool active = qi < nq;
   // A lane past the last query scans the last one: it must take part in the shuffles.
-  const float* q = queries + ((size_t)cloud * nq + (active ? qi : nq - 1)) * 3;
+  const float* q = queries + ((size_t)cloud * nq + min(qi, nq - 1)) * 3;
   const float qx = q[0], qy = q[1], qz = q[2];
   const float* pts = refs + (size_t)cloud * m * 3;
 
-  float bd[K];
+  // Keys are the distances' bit patterns: for d >= 0, +inf and NaN the
+  // unsigned order is the float order (NaN last, as torch.sort puts it), and
+  // kEmpty sorts after every distance.
+  unsigned bk[K];
   int bi[K];
 #pragma unroll
   for (int s = 0; s < K; ++s) {
-    bd[s] = INFINITY;
+    bk[s] = kEmpty;
     bi[s] = INT_MAX;
   }
+  unsigned thr = kEmpty;         // a lane inserts a key below thr: below its k-th, not past the bound
+  unsigned past_bound = kEmpty;  // one more than the query's bound
 
   const int ntiles = (m + tile - 1) / tile;
-  stage(tiles, pts, 0, tile, min(tile, m));
-  if (ntiles > 1) stage(tiles + tile, pts, 1, tile, min(tile, m - tile));
-  for (int t = 0; t < ntiles; ++t) {
-    if (t + 1 < ntiles) {
+  const int run = run_floats(tile, lanes);
+  const int words = 3 * (run << lanes_log2);  // a staged tile
+  stage(tiles, pts, 0, tile, min(tile, m), lanes_log2, run);
+  if (ntiles > 1) stage(tiles + words, pts, 1, tile, min(tile, m - tile), lanes_log2, run);
+  for (int tt = 0; tt < ntiles; ++tt) {
+    if (tt + 1 < ntiles) {
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float4* buf = tiles + (t & 1) * tile;
-    const int len = min(tile, m - t * tile);
-    const int offset = t * tile;
-#pragma unroll 4
-    for (int i = sub; i < len; i += lanes) {
-      const float4 p = buf[i];
-      const float d = dist2(qx, qy, qz, p.x, p.y, p.z);
-      if (d <= bd[K - 1]) insert<K>(bd, bi, d, offset + i);
+    const int len = min(tile, m - tt * tile);
+    const int offset = tt * tile + sub;  // the index of this lane's round 0
+    const float* px = tiles + (tt & 1) * words + sub * run;
+    const float* py = px + (run << lanes_log2);
+    const float* pz = py + (run << lanes_log2);
+    // Round r gives every lane its point r (index r * lanes + lane); the
+    // query's bound is refreshed every kBatch rounds (the lanes of a warp
+    // run the same rounds).
+    const int rounds = (len + lanes - 1) >> lanes_log2;
+    const int full = len >> lanes_log2;  // rounds in which every lane has a point
+    for (int r0 = 0; r0 < rounds; r0 += kBatch) {
+      if (lanes > 1) {
+        // The query's bound: the least k-th key of its lanes. A point past it
+        // cannot be among the k nearest (that lane holds k keys below it), so
+        // a lane skips it even while its own list would take it.
+        unsigned bound = bk[K - 1];
+        for (int off = 1; off < lanes; off <<= 1) bound = min(bound, __shfl_xor_sync(kFull, bound, off));
+        past_bound = bound == kEmpty ? kEmpty : bound + 1;
+        thr = min(bk[K - 1], past_bound);
+      }
+      if (r0 + kBatch <= full) {
+#pragma unroll
+        for (int v = 0; v < kBatch; v += 4) {
+          const float4 x4 = *reinterpret_cast<const float4*>(px + r0 + v);
+          const float4 y4 = *reinterpret_cast<const float4*>(py + r0 + v);
+          const float4 z4 = *reinterpret_cast<const float4*>(pz + r0 + v);
+          const float xs[4] = {x4.x, x4.y, x4.z, x4.w};
+          const float ys[4] = {y4.x, y4.y, y4.z, y4.w};
+          const float zs[4] = {z4.x, z4.y, z4.z, z4.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const unsigned key = __float_as_uint(dist2(qx, qy, qz, xs[u], ys[u], zs[u]));
+            if (key < thr) {
+              insert_scanned<K>(bk, bi, key, offset + ((r0 + v + u) << lanes_log2));
+              thr = min(bk[K - 1], past_bound);
+            }
+          }
+        }
+      } else {
+        for (int r = r0; r < rounds && (r << lanes_log2) + sub < len; ++r) {
+          const unsigned key = __float_as_uint(dist2(qx, qy, qz, px[r], py[r], pz[r]));
+          if (key < thr) {
+            insert_scanned<K>(bk, bi, key, offset + (r << lanes_log2));
+            thr = min(bk[K - 1], past_bound);
+          }
+        }
+      }
     }
     __syncthreads();  // every warp is past this buffer
-    if (t + 2 < ntiles) stage(tiles + (t & 1) * tile, pts, t + 2, tile, min(tile, m - (t + 2) * tile));
+    if (tt + 2 < ntiles) {
+      stage(tiles + (tt & 1) * words, pts, tt + 2, tile, min(tile, m - (tt + 2) * tile), lanes_log2, run);
+    }
   }
 
   // Butterfly merge of the query's lanes: after the step of `off`, lanes that
-  // differ only in bits below 2 * off hold the same list.
+  // differ only in bits below 2 * off hold the same list. Lanes' indices
+  // interleave, so the merge compares (key, index) in full.
   for (int off = 1; off < lanes; off <<= 1) {
-    float od[K];
+    unsigned ok[K];
     int oi[K];
 #pragma unroll
     for (int s = 0; s < K; ++s) {
-      od[s] = __shfl_xor_sync(kFull, bd[s], off);
+      ok[s] = __shfl_xor_sync(kFull, bk[s], off);
       oi[s] = __shfl_xor_sync(kFull, bi[s], off);
     }
 #pragma unroll
-    for (int s = 0; s < K; ++s) insert<K>(bd, bi, od[s], oi[s]);
+    for (int s = 0; s < K; ++s) insert<K>(bk, bi, ok[s], oi[s]);
   }
-  if (active) {
+  if (qi < nq) {
     const size_t row = ((size_t)cloud * nq + qi) * K;
 #pragma unroll
     for (int s = 0; s < K; ++s) {
       if ((s & (lanes - 1)) == sub) {
-        dist[row + s] = bd[s];
+        dist[row + s] = __uint_as_float(bk[s]);
         idx[row + s] = bi[s];
       }
     }
@@ -304,7 +403,8 @@ cudaError_t launch(const float* refs, const float* queries, int b, int m, int nq
   const int per_block = threads >> lanes_log2;
   const int blocks_per_cloud = (nq + per_block - 1) / per_block;
   const int tile = min(1024, (m + 31) / 32 * 32);
-  const size_t smem = (size_t)(m > tile ? 2 : 1) * tile * sizeof(float4);
+  const size_t smem = (size_t)(m > tile ? 2 : 1) * 3 * (run_floats(tile, 1 << lanes_log2) << lanes_log2) *
+                      sizeof(float);
   knn_kernel<K><<<b * blocks_per_cloud, threads, smem, stream>>>(
       refs, queries, m, nq, lanes_log2, tile, blocks_per_cloud, dist, idx);
   return cudaGetLastError();

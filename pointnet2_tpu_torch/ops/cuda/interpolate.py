@@ -19,47 +19,58 @@ from pointnet2_tpu_torch.ops.cuda.common import (
 )
 
 THREADS = 256  # the forward's block
-SCALAR, VECTOR_LOADS, VECTOR = 0, 1, 2  # the forward's modes (csrc/interpolate.cu kMode)
 
 
 def _aligned(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0
 
 
-def plan(c: int, c1: int, points_aligned: bool, skip_vec_ok: bool) -> tuple[int, int, bool]:
-    """``(mode, group, skip_vec)`` of the forward for C interpolated and C1
+def plan(c: int, c1: int, points_aligned: bool, skip_vec_ok: bool) -> tuple[bool, int, bool]:
+    """``(vec, group, skip_vec)`` of the forward for C interpolated and C1
     skip channels (C1 = 0 without a skip).
 
-    16-byte loads of the source rows where they are aligned (C a multiple of
-    4, ``points`` 16-byte aligned), 16-byte stores where the output rows are
-    too (C + C1 a multiple of 4), and the skip copied 16 bytes at a time where
-    ``skip_vec_ok`` (the skip's rows aligned, C1 a multiple of 4) and the
-    stores are. A row takes the fewest lanes (a power of two from 4 to 32)
-    that cover its channels in one pass, at most 32.
+    16-byte loads and stores where the source and the output rows are 16-byte
+    aligned (``points`` aligned, C and C + C1 multiples of 4), else 4-byte
+    ones; the skip copied 16 bytes at a time where ``skip_vec_ok`` (the skip's
+    rows aligned, C1 a multiple of 4) and the rows are vector. A row takes the
+    fewest lanes (a power of two from 4 to 32) that cover its channels in one
+    pass, at most 32.
     """
     if c <= 0 or c1 < 0:
         raise ValueError(f"three_interpolate needs C > 0 and C1 >= 0, got {c}, {c1}")
-    mode = SCALAR
-    if c % 4 == 0 and points_aligned:
-        mode = VECTOR if (c + c1) % 4 == 0 else VECTOR_LOADS
-    width = 1 if mode == SCALAR else 4
+    vec = points_aligned and c % 4 == 0 and (c + c1) % 4 == 0
+    width = 4 if vec else 1
     group = 4
     while group < 32 and group * width < max(c, c1):
         group *= 2
-    return mode, group, mode == VECTOR and c1 > 0 and skip_vec_ok
+    return vec, group, vec and c1 > 0 and skip_vec_ok
 
 
-def planned_route(points: torch.Tensor, skip: torch.Tensor | None = None) -> tuple[int, int, bool]:
-    """The ``(mode, group, skip_vec)`` the wrapper launches ``points`` and ``skip`` with."""
-    c1 = 0 if skip is None else skip.shape[2]
-    skip_vec_ok = (
-        skip is not None and _aligned(skip) and c1 % 4 == 0 and skip.stride(0) % 4 == 0 and skip.stride(1) % 4 == 0
+def _skip_vec_ok(skip: torch.Tensor | None) -> bool:
+    return (
+        skip is not None and _aligned(skip) and skip.shape[2] % 4 == 0
+        and skip.stride(0) % 4 == 0 and skip.stride(1) % 4 == 0
     )
-    return plan(points.shape[2], c1, _aligned(points), skip_vec_ok)
+
+
+def planned_route(points: torch.Tensor, skip: torch.Tensor | None = None, route=None) -> tuple[bool, int, bool]:
+    """The ``(vec, group, skip_vec)`` the wrapper launches ``points`` and
+    ``skip`` with: ``plan``'s, or the forced ``route`` ``(vec, group)``, which
+    may take 4-byte accesses where the plan takes 16-byte ones but not the
+    other way round."""
+    c1 = 0 if skip is None else skip.shape[2]
+    planned = plan(points.shape[2], c1, _aligned(points), _skip_vec_ok(skip))
+    if route is None:
+        return planned
+    vec, group = route
+    if (vec and not planned[0]) or group not in (4, 8, 16, 32):
+        raise ValueError(f"not a three_interpolate route for these rows: {route} (the plan's {planned[:2]})")
+    return bool(vec), group, bool(vec) and planned[2]
 
 
 def three_interpolate(
-    points: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor, skip: torch.Tensor | None = None
+    points: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor, skip: torch.Tensor | None = None,
+    route=None,
 ) -> torch.Tensor:
     """points (B, M, C) float32, idx (B, N, 3) int32, weight (B, N, 3) float32 -> (B, N, C).
 
@@ -69,7 +80,8 @@ def three_interpolate(
     cloud); one whose channels are not adjacent is copied to a contiguous
     tensor here, explicitly. The indices are not range-checked here (that
     would cost a pass and a sync); they come from ``three_nn``, which only
-    returns indices below M.
+    returns indices below M. ``route``: a forced ``(vec, group)``, else
+    ``plan``'s.
     """
     require(points, "points", torch.float32, (None, None, None))
     b, m, c = points.shape
@@ -86,7 +98,7 @@ def three_interpolate(
         raise ValueError(f"three_interpolate needs non-empty inputs, got {tuple(points.shape)}, {tuple(idx.shape)}")
     require_int32_range("three_interpolate", b, n, c + c1)
     require_int32_range("three_interpolate", b, m, c)
-    mode, group, skip_vec = planned_route(points, skip)
+    vec, group, skip_vec = planned_route(points, skip, route)
     out = torch.empty((b, n, c + c1), dtype=torch.float32, device=points.device)
     device, stream = stream_of(points)
     launch(
@@ -94,7 +106,7 @@ def three_interpolate(
         [PTR, PTR, PTR, INT, INT, INT, INT, PTR, INT, PTR, LONG, LONG, INT, INT, INT, INT, INT, INT, PTR],
         points.data_ptr(), idx.data_ptr(), weight.data_ptr(), b, m, n, c, out.data_ptr(), c + c1,
         None if skip is None else skip.data_ptr(), 0 if skip is None else skip.stride(0),
-        0 if skip is None else skip.stride(1), c1, mode, int(skip_vec), group.bit_length() - 1, THREADS,
+        0 if skip is None else skip.stride(1), c1, int(vec), int(skip_vec), group.bit_length() - 1, THREADS,
         device, stream,
     )
     return out

@@ -32,12 +32,20 @@ MAX_K = MAX_SHARED_BYTES // 8  # the list route: k (distance, index) pairs a war
 MAX_THREADS = 256  # the register route's block
 LIST_WARPS = 4  # the list route's block, where the lists fit
 MAX_LIST_WARPS = 8
-# A lane scans at least this many references: below it the merge's log2(S)
-# rounds of k inserts cost more than the scan they split.
-MIN_REFS_PER_LANE = 32
-# The register route splits a query over more lanes until the launch has this
-# many threads an SM (48 of an SM's 64 warps), enough to hide the scan's chain.
-TARGET_THREADS_PER_SM = 1536
+# The register route splits a query over more lanes until the launch has
+# this many threads an SM (12 warps), as long as every lane keeps
+# MIN_REFS_PER_LANE points. Measured on the H100 (tools.op_bench's routes at
+# the four FP levels, B=8 and 16, PERF.md): more lanes only help while the
+# launch has fewer threads than that; past it each doubling costs, since a
+# lane's own top-k takes more inserts the fewer points it sees.
+TARGET_THREADS_PER_SM = 384
+MIN_REFS_PER_LANE = 16
+
+
+def block_threads(nq: int, lanes: int) -> int:
+    """The register route's block: up to 256 threads, no more than one
+    cloud's queries need."""
+    return min(MAX_THREADS, -(-nq * lanes // 32) * 32)
 
 
 def plan(b: int, nq: int, m: int, k: int, num_sms: int) -> tuple[int, int]:
@@ -46,7 +54,7 @@ def plan(b: int, nq: int, m: int, k: int, num_sms: int) -> tuple[int, int]:
 
     k <= 16: the fewest lanes a query (a power of two up to 32) that give the
     launch ``TARGET_THREADS_PER_SM`` threads an SM, as long as every lane
-    keeps ``MIN_REFS_PER_LANE`` references; blocks of up to 256 threads, no
+    keeps ``MIN_REFS_PER_LANE`` points; blocks of up to 256 threads, no
     larger than one cloud's queries need. k > 16: one warp a query (32
     lanes), ``LIST_WARPS`` warps a block or as many as have room for their
     lists. Raises ``ValueError`` for a shape no route takes.
@@ -58,13 +66,11 @@ def plan(b: int, nq: int, m: int, k: int, num_sms: int) -> tuple[int, int]:
     if k > MAX_REGISTER_K:
         lanes, threads = 32, 32 * min(LIST_WARPS, MAX_SHARED_BYTES // (k * 8))
     else:
-        cap = 1
-        while cap < 32 and m // (2 * cap) >= MIN_REFS_PER_LANE:
-            cap *= 2
         lanes = 1
-        while lanes < cap and b * nq * lanes < num_sms * TARGET_THREADS_PER_SM:
+        while (lanes < 32 and m // (2 * lanes) >= MIN_REFS_PER_LANE
+               and b * nq * lanes < num_sms * TARGET_THREADS_PER_SM):
             lanes *= 2
-        threads = min(MAX_THREADS, -(-nq * lanes // 32) * 32)
+        threads = block_threads(nq, lanes)
     if b * -(-nq // (threads // lanes)) >= 2**31:
         raise ValueError(f"the kNN grid of {b} clouds x {nq} queries is too large")
     return lanes, threads

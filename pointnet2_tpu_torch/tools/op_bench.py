@@ -1,14 +1,16 @@
 """Op-level timing of the port's kernels at the model's shapes, on the card.
 
-    python -m pointnet2_tpu_torch.tools.op_bench [--device cpu] [--small]
+    python -m pointnet2_tpu_torch.tools.op_bench [--device cpu] [--small] [--batch 8]
 
 The counterpart of the JAX repo's ``tools/op_bench.py``. At the four SA
 levels of ``semantic.json`` (clouds as ``bench.py`` makes them: xyz uniform
 in 8 x 8 x 4.9 m, each level the FPS centroids of the one before, as the
 model makes them) it times FPS (the index-only and the fused entry), the
 ball query (exact, and the round-1 windowed one with its default window),
-and at the four FP levels the 3-NN and a kNN with k=8, all at B=16
-(``semantic.json``'s batch). One JSON line per op and shape:
+and at the four FP levels the 3-NN, three_interpolate writing the FP concat
+(the skip as the model hands it over: FP4's is the input cloud's colours)
+and a kNN with k=8, all at B=16 (``semantic.json``'s batch; ``--batch 8``
+for the predict path's chunk). One JSON line per op and shape:
 
 - ``kernel_ms``: the kernel alone (``utils.bench.cuda_ms``: CUDA events,
   median of 10 runs of 5 calls); for the windowed ball query the kernel on
@@ -19,7 +21,13 @@ and at the four FP levels the 3-NN and a kNN with k=8, all at B=16
   calls). Where a launch's host side outlasts its kernel (the small
   levels), ``kernel_ms`` is the host's enqueue rate and this the kernel;
 - ``plan``: the launch shape the wrapper's plan picked (FPS: cluster,
-  threads, points a thread; exact ball query: warps a block, tile points),
+  threads, points a thread; exact ball query: warps a block, tile points;
+  3-NN: lanes a query, threads; three_interpolate: 16-byte accesses or not,
+  lanes a row, the skip's 16-byte copy), and for the 3-NN and three_interpolate
+  ``routes_device_ms``, the device time of every route of that shape
+  (3-NN: 1 to 32 lanes a query; three_interpolate: 4-byte accesses, and
+  16-byte ones where the rows allow), the yardstick of the plan's choice; three_interpolate's
+  ``unfused_ms`` is the kernel without the skip followed by ``torch.cat``;
   and for FPS ``chain_ms``, the device time of the same number of empty
   cluster-barrier steps in the same layout (``ops.cuda.fps.barrier_chain``):
   the chain's latency bound beside the operation bound;
@@ -39,6 +47,7 @@ clouds of 1024 points) and no time is measured: the records carry null times.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import sys
 
@@ -49,11 +58,19 @@ from pointnet2_tpu_torch import ops
 from pointnet2_tpu_torch.ops import core, cuda
 from pointnet2_tpu_torch.ops.cuda import ballquery as cuda_ballquery
 from pointnet2_tpu_torch.ops.cuda import fps as cuda_fps
+from pointnet2_tpu_torch.ops.cuda import interpolate as cuda_interp
 from pointnet2_tpu_torch.utils.bench import bound, card_line, cuda_ms, device_ms, require_device
+
+# The package's ``knn`` is the wrapper function; the module is reached by name.
+cuda_knn = importlib.import_module("pointnet2_tpu_torch.ops.cuda.knn")
 
 # semantic.json's SA levels: (npoint, radius, nsample); FP levels follow.
 SA = [(1024, 0.5, 32), (256, 1.0, 32), (64, 2.0, 32), (16, 4.0, 32)]
 SMALL_SA = [(256, 0.5, 16), (64, 1.0, 16), (16, 2.0, 16), (8, 4.0, 16)]
+# The FP levels' interpolated and skip channels, FP1 to FP4 (the skip of FP4
+# is the input cloud's colours, a view of row stride 6).
+FP = [(512, 256), (256, 128), (256, 64), (128, 3)]
+SMALL_FP = [(128, 64), (64, 32), (64, 16), (32, 3)]
 KNN_K = 8
 BATCH, SMALL_BATCH = 16, 2
 
@@ -107,6 +124,23 @@ def work_knn(b, nq, m, k) -> tuple[float, float]:
     return b * m * 12 + b * nq * 12 + b * nq * k * 8, 9 * b * nq * m
 
 
+def work_fp_interpolate(b, n, m, c, c1) -> tuple[float, float]:
+    """(bytes, operations) of three_interpolate writing the FP concat: the
+    features, indices, weights and skip read once, the concatenated rows
+    written once; 5 operations an interpolated element."""
+    return b * m * c * 4 + b * n * 3 * 8 + b * n * c1 * 4 + b * n * (c + c1) * 4, 5 * b * n * c
+
+
+def knn_routes(nq: int) -> list[tuple[int, int]]:
+    """Every register route of the kNN kernel at a shape: 1 to 32 lanes a
+    query, ``plan``'s block for each."""
+    return [(lanes, cuda_knn.block_threads(nq, lanes)) for lanes in (1, 2, 4, 8, 16, 32)]
+
+
+def route_key(route) -> str:
+    return "x".join(str(v) for v in route)
+
+
 def levels(batch: int, num_point: int, sa, device, seed: int = 0) -> list[torch.Tensor]:
     """The five levels' coordinates of a batch: bench.py's clouds, then the
     FPS centroids of each level (the plain FPS on the CPU, the kernel on the card)."""
@@ -118,9 +152,12 @@ def levels(batch: int, num_point: int, sa, device, seed: int = 0) -> list[torch.
     return out
 
 
-def _record(op, shape, card, kernel, run, plain, nbytes, nops, timed, plan=None, chain=None, **extra):
+def _record(op, shape, card, kernel, run, plain, nbytes, nops, timed, plan=None, chain=None,
+            routes_device_ms=None, **extra):
     """One line: times where ``timed``, else nulls; launches of ``kernel`` in
-    one call. ``chain``: the FPS call's empty barrier chain, timed on the device."""
+    one call. ``chain``: the FPS call's empty barrier chain, timed on the
+    device; ``routes_device_ms``: route name -> a function returning that
+    route's device time, each measured beside the plan's."""
     bound_ms, bound_by = bound(nbytes, nops)
     row = {"op": op, "shape": shape, "kernel": kernel, "plan": plan, "bound_ms": bound_ms,
            "bound_by": bound_by, "bytes": nbytes, "ops": nops, "library_ms": None, "card": card}
@@ -134,6 +171,8 @@ def _record(op, shape, card, kernel, run, plain, nbytes, nops, timed, plan=None,
             row["chain_ms"] = device_ms(chain, "fps_barrier_chain")
         row["plain_ms"] = cuda_ms(plain, reps=3, inner=1, warmup=1)
         row.update({key: cuda_ms(fn) for key, fn in extra.items()})
+        if routes_device_ms:
+            row["routes_device_ms"] = {name: fn() for name, fn in routes_device_ms.items()}
     else:
         run(), plain()
         row.update({"kernel_ms": None, "device_ms": None, "launches": None, "plain_ms": None,
@@ -142,11 +181,15 @@ def _record(op, shape, card, kernel, run, plain, nbytes, nops, timed, plan=None,
     return row
 
 
-def run(device: torch.device, small: bool) -> list[dict]:
+def run(device: torch.device, small: bool, batch: int = BATCH) -> list[dict]:
     timed = device.type == "cuda"
     card = card_line() if timed else "cpu (not measured)"
     sa = SMALL_SA if small else SA
-    lv = levels(SMALL_BATCH if small else BATCH, 1024 if small else 8192, sa, device)
+    lv = levels(SMALL_BATCH if small else batch, 1024 if small else 8192, sa, device)
+    colours = torch.from_numpy(
+        np.random.RandomState(1).rand(lv[0].shape[0], lv[0].shape[1], 3).astype(np.float32)
+    ).to(device)
+    cloud = torch.cat([lv[0], colours], -1)  # the model's input: FP4's skip is a view into it
     rows = []
     for i, (npoint, radius, nsample) in enumerate(sa):
         src, cent = lv[i], lv[i + 1]
@@ -185,13 +228,38 @@ def run(device: torch.device, small: bool) -> list[dict]:
             op_ms=lambda: ops.ball_query(src, cent, radius, nsample, impl="windowed"),
             exact_op_ms=lambda: ops.ball_query(src, cent, radius, nsample),
         ))
-    for lvl in range(len(sa) - 1, -1, -1):
+    gen = torch.Generator(device=device).manual_seed(2)
+    for lvl, (c, c1) in zip(range(len(sa) - 1, -1, -1), SMALL_FP if small else FP):
         dense, coarse = lv[lvl], lv[lvl + 1]
         b, nq, m = dense.shape[0], dense.shape[1], coarse.shape[1]
+        sms = cuda_ballquery.num_sms(dense.device.index) if timed else None
         rows.append(_record(
             "three_nn", f"B={b} Nq={nq} M={m} k=3", card, "knn",
             lambda: ops.three_nn(dense, coarse), lambda: ops.three_nn(dense, coarse, impl="torch"),
-            *work_knn(b, nq, m, 3), timed,
+            *work_knn(b, nq, m, 3), timed, plan=cuda_knn.plan(b, nq, m, 3, sms) if timed else None,
+            routes_device_ms={
+                route_key(r): (lambda r=r: device_ms(lambda: cuda.knn(coarse, dense, 3, route=r), "knn"))
+                for r in knn_routes(nq)
+            } if timed else {},
+        ))
+        # three_interpolate writing the FP concat, with the skip as the model hands it over.
+        d2, idx = ops.three_nn(dense, coarse)
+        weight = ops.interpolation_weights(d2)
+        points = torch.randn((b, m, c), generator=gen, device=device)
+        skip = cloud[..., 3:] if lvl == 0 else torch.randn((b, nq, c1), generator=gen, device=device)
+        widths = (False, True) if timed and cuda_interp.planned_route(points, skip)[0] else (False,)
+        rows.append(_record(
+            "three_interpolate_concat", f"B={b} M={m} C={c} N={nq} skip={c1}", card, "three_interpolate",
+            lambda: ops.three_interpolate(points, idx, weight, skip=skip),
+            lambda: ops.three_interpolate(points, idx, weight, impl="torch", skip=skip),
+            *work_fp_interpolate(b, nq, m, c, c1), timed,
+            plan=cuda_interp.planned_route(points, skip) if timed else None,
+            unfused_ms=lambda: torch.cat([ops.three_interpolate(points, idx, weight), skip], -1),
+            routes_device_ms={
+                f"vec={vec}": (lambda vec=vec: device_ms(
+                    lambda: cuda.three_interpolate(points, idx, weight, skip, route=(vec, 32)), "three_interpolate"))
+                for vec in widths
+            } if timed else {},
         ))
         k = min(KNN_K, m)
         rows.append(_record(
@@ -206,9 +274,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     ap.add_argument("--small", action="store_true", help="small shapes")
+    ap.add_argument("--batch", type=int, default=BATCH,
+                    help="clouds a call: 16, the train batch (the default), or 8, the predict chunk")
     args = ap.parse_args(argv)
     device = require_device(args.device)
-    run(device, args.small)
+    run(device, args.small, args.batch)
     return 0
 
 

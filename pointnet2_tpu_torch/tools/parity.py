@@ -216,6 +216,29 @@ def run(device: torch.device, shapes: dict) -> list[tuple[str, bool]]:
         f"ball_query_windowed nsample=64 n={n} m={m}",
         (np_(gi) == wi).all() and (np_(gc) == wc).all(),
     )
+
+    # kNN past the register route's k = 16 (one warp a query, its list in
+    # shared memory), on the same crowded cloud: many equal x, few equal distances.
+    q = xyz2[:, :128]
+    wd4, wi4 = reference.knn_np(xyz1, q, 32)
+    gd4, gi4 = ops.knn(t(xyz1), t(q), 32)
+    check(f"knn k=32 n={n} m={q.shape[1]}", (np_(gi4) == wi4).all() and (np_(gd4) == wd4).all())
+
+    # three_interpolate with the FP concat written by the same kernel, the skip
+    # a strided view as FP4's colours are.
+    n, m, c = shapes["ti"][0]
+    b = shapes["ti_b"]
+    pts = rng.randn(b, m, c).astype(np.float32)
+    cloud = t(rng.rand(b, n, 6).astype(np.float32))
+    wd, wi = ops.three_nn(cloud[..., :3].contiguous(), t((rng.rand(b, m, 3)).astype(np.float32)))
+    ww = ops.interpolation_weights(wd)
+    got = np_(ops.three_interpolate(t(pts), wi, ww, skip=cloud[..., 3:]))
+    want = reference.three_interpolate_np(pts, np_(wi), np_(ww))
+    rel = np.abs(got[..., :c] - want).max() / max(np.abs(want).max(), 1e-9)
+    check(
+        f"three_interpolate skip=3 n={n} m={m} c={c} (rel {rel:.1e})",
+        rel < 1e-5 and (got[..., c:] == np_(cloud[..., 3:])).all(),
+    )
     return results
 
 

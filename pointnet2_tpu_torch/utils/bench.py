@@ -38,7 +38,7 @@ KERNEL_SYMBOLS = {
     "farthest_point_sample": "fps_kernel<false",
     "fps_barrier_chain": "barrier_chain_kernel",
     "ball_query": "ball_query_kernel(",
-    "knn": "knn_kernel<",
+    "knn": "knn_kernel",  # knn_kernel<K> (k <= 16) and knn_kernel_list
     "three_interpolate": "three_interpolate_kernel",
     "three_interpolate_grad": "three_interpolate_grad_kernel",
     "ball_query_sliced": "ball_query_tiles_kernel<false>",

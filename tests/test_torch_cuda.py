@@ -761,8 +761,9 @@ def test_knn_kernel_at_the_fp_shapes(cuda_device, b):
 def test_knn_plan_at_the_model_shapes(cuda_device):
     sms = cuda_bq.num_sms(cuda_device.index or 0)
     for b, nq, m in [(8, 8192, 1024), (16, 8192, 1024), (16, 1024, 256), (16, 64, 16)]:
-        lanes, threads = cuda_knn.plan(b, nq, m, 3, sms)
-        assert cuda_knn.check_plan(3, (lanes, threads)) == (lanes, threads)
+        route = cuda_knn.plan(b, nq, m, 3, sms)
+        assert cuda_knn.check_plan(3, route) == route
+        lanes = route[0]
         assert lanes == 1 or m // lanes >= cuda_knn.MIN_REFS_PER_LANE
 
 
@@ -797,18 +798,24 @@ def test_three_interpolate_kernel_at_the_fp_shapes(cuda_device, b, m, c, n, c1):
 
 @pytest.mark.parametrize("c,c1,offset", [(7, 5, 0), (128, 4, 0), (128, 3, 0), (64, 64, 1), (8, 0, 1), (3, 0, 0)])
 def test_three_interpolate_kernel_aligned_and_unaligned_rows(cuda_device, c, c1, offset):
-    """Every mode the plan picks: scalar (C off the 4-multiples, or ``points``
-    off a 16-byte boundary), vector loads with scalar stores, vector both."""
+    """Both widths the plan picks: 4-byte accesses (C or C + C1 off the
+    4-multiples, or ``points`` off a 16-byte boundary) and 16-byte ones, the
+    skip copied 4 bytes at a time (its rows unaligned); and every forced route."""
     b, m, n = 2, 50, 300
     points, idx, weight, gen = _interp_inputs(b, m, c, n, seed=90)
     if offset:
         points = torch.randn((b * m * c + offset,), generator=gen, device=cuda_device)[offset:].view(b, m, c)
         assert points.data_ptr() % 16
     skip = torch.randn((b, n, c1 + 1), generator=gen, device=cuda_device)[..., 1:] if c1 else None
-    got = cuda.three_interpolate(points, idx, weight, skip)
     want = core.three_interpolate(points, idx, weight) if skip is None else core.three_interpolate_concat(
         points, idx, weight, skip)
-    assert torch.equal(got, want)
+    assert torch.equal(cuda.three_interpolate(points, idx, weight, skip), want)
+    vec = cuda_interp.planned_route(points, skip)[0]
+    for route in [(False, g) for g in (4, 8, 16, 32)] + ([(True, 4), (True, 32)] if vec else []):
+        assert torch.equal(cuda.three_interpolate(points, idx, weight, skip, route=route), want)
+    if not vec:
+        with pytest.raises(ValueError, match="route"):
+            cuda.three_interpolate(points, idx, weight, skip, route=(True, 32))
 
 
 def test_three_interpolate_kernel_copies_a_skip_it_cannot_stride(cuda_device):
@@ -818,9 +825,13 @@ def test_three_interpolate_kernel_copies_a_skip_it_cannot_stride(cuda_device):
                        core.three_interpolate_concat(points, idx, weight, skip))
 
 
-def test_three_interpolate_plan_picks_the_vector_modes(cuda_device):
-    assert cuda_interp.plan(128, 3, True, False) == (cuda_interp.VECTOR_LOADS, 32, False)
-    assert cuda_interp.plan(512, 256, True, True) == (cuda_interp.VECTOR, 32, True)
+def test_three_interpolate_plan_at_the_fp_shapes(cuda_device):
+    """What the wrapper launches with the skips the model hands over."""
+    points, idx, weight, gen = _interp_inputs(2, 64, 128, 256)
+    colours = torch.rand((2, 256, 6), generator=gen, device=cuda_device)[..., 3:6]
+    assert cuda_interp.planned_route(points, colours) == (False, 32, False)
+    wide = torch.randn((2, 64, 512), generator=gen, device=cuda_device)
+    assert cuda_interp.planned_route(wide, torch.randn((2, 256, 256), device=cuda_device)) == (True, 32, True)
 
 
 @pytest.mark.parametrize("c1", [3, 64])

@@ -157,8 +157,8 @@ def test_knn_plan_covers_the_grid(k):
             assert lanes == 32 and threads == 32 * knn.LIST_WARPS
             continue
         assert threads <= knn.MAX_THREADS and threads <= -(-nq * lanes // 32) * 32
-        # Every lane keeps its floor of references, and the lanes stop doubling
-        # once the launch fills the card.
+        # Every lane keeps its floor of points, and the lanes stop doubling once
+        # the launch has its threads an SM.
         assert lanes == 1 or m // lanes >= knn.MIN_REFS_PER_LANE
         assert lanes == 1 or b * nq * (lanes // 2) < sms * knn.TARGET_THREADS_PER_SM
         fills = b * nq * lanes >= sms * knn.TARGET_THREADS_PER_SM
@@ -168,8 +168,8 @@ def test_knn_plan_covers_the_grid(k):
 def test_knn_plan_at_the_model_shapes():
     """The routes an H100 (132 SMs) takes at the four FP levels, B=8 and B=16."""
     want = {
-        8: [(1, 64), (2, 256), (8, 256), (4, 256)],
-        16: [(1, 64), (2, 256), (8, 256), (2, 256)],
+        8: [(1, 64), (4, 256), (8, 256), (1, 256)],
+        16: [(1, 64), (4, 256), (4, 256), (1, 256)],
     }
     for b, routes in want.items():
         assert [knn.plan(b, nq, m, 3, 132) for nq, m in FP_LEVELS] == routes
@@ -204,16 +204,17 @@ def test_knn_limits():
 @pytest.mark.parametrize(
     "c,c1,aligned,skip_ok,want",
     [
-        (128, 3, True, False, (interpolate.VECTOR_LOADS, 32, False)),  # FP4: rows of 131 floats
-        (256, 64, True, True, (interpolate.VECTOR, 32, True)),  # FP3
-        (256, 128, True, True, (interpolate.VECTOR, 32, True)),  # FP2
-        (512, 256, True, True, (interpolate.VECTOR, 32, True)),  # FP1
-        (512, 0, True, False, (interpolate.VECTOR, 32, False)),  # no skip
-        (64, 64, False, True, (interpolate.SCALAR, 32, False)),  # points off a 16-byte boundary
-        (7, 5, True, False, (interpolate.SCALAR, 8, False)),
-        (8, 4, True, False, (interpolate.VECTOR, 4, False)),
-        (3, 0, True, False, (interpolate.SCALAR, 4, False)),
-        (16, 6, True, True, (interpolate.VECTOR_LOADS, 4, False)),
+        (128, 3, True, False, (False, 32, False)),  # FP4: rows of 131 floats, 4-byte accesses
+        (256, 64, True, True, (True, 32, True)),  # FP3
+        (256, 128, True, True, (True, 32, True)),  # FP2
+        (512, 256, True, True, (True, 32, True)),  # FP1
+        (512, 0, True, False, (True, 32, False)),  # no skip
+        (64, 64, False, True, (False, 32, False)),  # points off a 16-byte boundary
+        (7, 5, True, False, (False, 8, False)),
+        (8, 4, True, False, (True, 4, False)),
+        (3, 0, True, False, (False, 4, False)),
+        (16, 6, True, True, (False, 16, False)),
+        (16, 4, True, False, (True, 4, False)),  # a skip whose rows are not aligned: copied 4 bytes at a time
     ],
 )
 def test_three_interpolate_plan(c, c1, aligned, skip_ok, want):

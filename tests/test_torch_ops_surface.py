@@ -238,13 +238,14 @@ def test_parity_sweep_passes_on_the_cpu(capsys):
     assert parity.main(["--device", "cpu", "--small"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     summary = json.loads(lines[-1])
-    assert summary["failures"] == [] and summary["checks"] == len(lines) - 1 == 33
+    assert summary["failures"] == [] and summary["checks"] == len(lines) - 1 == 35
     names = [line.split(None, 1)[1] for line in lines[:-1]]
     assert all(line.startswith("PASS") for line in lines[:-1])
     for prefix in ("fps n=", "fps_centroids n=", "ball_query n=", "ball_query_windowed n=",
                    "ball_query_sliced n=", "project_group_sliced n=", "three_nn n", "three_nn_sliced n",
                    "knn k=8", "three_interpolate n=", "three_interpolate_bwd n=", "ball_query nonmultiple",
-                   "knn nonmultiple", "ball_query_windowed clustered", "ball_query_windowed nsample=64"):
+                   "knn nonmultiple", "ball_query_windowed clustered", "ball_query_windowed nsample=64",
+                   "knn k=32", "three_interpolate skip=3"):
         assert any(name.startswith(prefix) for name in names), prefix
 
 
@@ -269,6 +270,7 @@ def test_op_bench_on_the_cpu_measures_nothing(capsys):
     rows = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
     assert {row["op"] for row in rows} == {
         "farthest_point_sample", "fps_centroids", "ball_query", "ball_query_windowed", "three_nn", "knn",
+        "three_interpolate_concat",
     }
     for row in rows:
         assert row["kernel_ms"] is None and row["plain_ms"] is None and row["library_ms"] is None
