@@ -153,8 +153,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// The words a staged tile of `tile` points takes with `lanes` lanes a query:
-// three arrays (x, y, z), each `lanes` runs of `run` floats.
+// The floats of one lane's run in a staged tile of `tile` points with
+// `lanes` lanes a query; the tile is three arrays (x, y, z) of `lanes` runs.
 __host__ __device__ __forceinline__ int run_floats(int tile, int lanes) {
   // Each lane's run holds its points of the tile in order, rounded up to a
   // 16-byte multiple whose count of 16-byte words is odd: the runs of 8

@@ -12,6 +12,8 @@ into one differentiable operator in ``ops.autograd``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from pointnet2_tpu_torch.ops.cuda.common import (
@@ -25,6 +27,7 @@ def _aligned(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0
 
 
+@functools.cache
 def plan(c: int, c1: int, points_aligned: bool, skip_vec_ok: bool) -> tuple[bool, int, bool]:
     """``(vec, group, skip_vec)`` of the forward for C interpolated and C1
     skip channels (C1 = 0 without a skip).

@@ -42,6 +42,9 @@ TARGET_THREADS_PER_SM = 384
 MIN_REFS_PER_LANE = 16
 
 
+_planned: dict[tuple, tuple[int, int]] = {}  # (device, b, nq, m, k) -> plan
+
+
 def block_threads(nq: int, lanes: int) -> int:
     """The register route's block: up to 256 threads, no more than one
     cloud's queries need."""
@@ -100,11 +103,19 @@ def knn(xyz1: torch.Tensor, xyz2: torch.Tensor, k: int, route=None) -> tuple[tor
     nq = xyz2.shape[1]
     if not 0 < k <= min(m, MAX_K) or b == 0 or nq == 0:
         raise ValueError(f"knn kernel needs 0 < k <= min(M, {MAX_K}) and non-empty inputs, got k={k}, M={m}, B={b}, Nq={nq}")
-    require_int32_range("knn", b, nq, k)
-    require_int32_range("knn", b, m, 3)
     if route is None:
-        route = plan(b, nq, m, k, num_sms(xyz1.device.index))
-    lanes, threads = check_plan(k, route)
+        # The plan of a shape is made once a process: it is on the host's path of every call.
+        key = (xyz1.device.index, b, nq, m, k)
+        route = _planned.get(key)
+        if route is None:
+            require_int32_range("knn", b, nq, k)
+            require_int32_range("knn", b, m, 3)
+            route = _planned[key] = plan(b, nq, m, k, num_sms(xyz1.device.index))
+        lanes, threads = route
+    else:
+        require_int32_range("knn", b, nq, k)
+        require_int32_range("knn", b, m, 3)
+        lanes, threads = check_plan(k, route)
     dist = torch.empty((b, nq, k), dtype=torch.float32, device=xyz1.device)
     idx = torch.empty((b, nq, k), dtype=torch.int32, device=xyz1.device)
     device, stream = stream_of(xyz1)
