@@ -337,7 +337,7 @@ def kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> list:
         bare = ops.three_interpolate(points, nn_idx, weight, impl="cuda")
         flat_idx = (nn_idx.long() + torch.arange(b, device=dev)[:, None, None] * m).reshape(-1, 3)
         flat_points, flat_w = points.reshape(b * m, c), weight.reshape(-1, 3)
-        vec, group, skip_vec = cuda_interp.planned_route(points, skip)
+        vec, skip_vec = cuda_interp.planned_route(points, skip)
         report.add(
             "three_interpolate", b, f"M={m} C={c} N={nq} skip={c1}",
             lambda: ops.three_interpolate(points, nn_idx, weight, impl="cuda", skip=skip),
@@ -356,7 +356,7 @@ def kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> list:
                 "no_skip_ms": lambda: ops.three_interpolate(points, nn_idx, weight, impl="cuda"),
                 "concat_ms": lambda: torch.cat([bare, skip], -1),
             },
-            info={"plan": {"vec": vec, "group": group, "skip_vec": skip_vec},
+            info={"plan": {"vec": vec, "skip_vec": skip_vec},
                   "device_ms": device_ms(
                       lambda: ops.three_interpolate(points, nn_idx, weight, impl="cuda", skip=skip), "three_interpolate")},
         )

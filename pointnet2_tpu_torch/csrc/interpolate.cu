@@ -20,23 +20,19 @@
 // query, stay in the 50 MB L2. Writing the skip into the same rows saves the
 // concat its own read and write of the blend (at FP4, B=8: 33.5 MB each).
 //
-// Design: a group of G lanes (a power of two from 4 to 32, from the plan in
-// ops/cuda/interpolate.py) takes one output row. Lanes 0-2 of the group read
-// the row's three indices and weights once and the group shares them by
-// shuffle; there is one integer division a row (its cloud), none an element.
-// The lanes walk the channels with 16-byte loads and stores where the
-// source rows and the output rows are 16-byte aligned (C and C + C1
-// multiples of 4), else with 4-byte ones, consecutive lanes on consecutive
-// floats: FP4's output row of 128 + 3 floats takes the 4-byte path, which on
-// the H100 ran faster there (51 against 70 us at B=16, PERF.md) than 16-byte
-// loads with each lane storing its 4 floats apart. The skip row is copied
-// after the blend, 16 bytes at a time where it and its place in the output
-// are aligned. The design before this
-// one ran a thread an element, with three integer divisions by runtime
-// divisors and the six index and weight loads again for every element. The
-// TPU kernel instead builds a dense (tile, M) weight block and multiplies it
-// on the MXU, because Mosaic has no vector gather; on this card that would do
-// M/3 times the work for nothing.
+// Design: one warp takes one output row. Lanes 0-2 read the row's three
+// indices and weights once and the warp shares them by shuffle; there is one
+// integer division a row (its cloud), none an element. The lanes walk the
+// channels with 16-byte loads and stores where the source rows and the output
+// rows are 16-byte aligned (C and C + C1 multiples of 4), else with 4-byte
+// ones, consecutive lanes on consecutive floats: FP4's output row of 128 + 3
+// floats takes the 4-byte path, which on the H100 ran faster there (51
+// against 70 us at B=16, PERF.md) than 16-byte loads with each lane storing
+// its 4 floats apart. The skip row is copied after the blend, 16 bytes at a
+// time where it and its place in the output are aligned. The TPU kernel
+// instead builds a dense (tile, M) weight block and multiplies it on the MXU,
+// because Mosaic has no vector gather; on this card that would do M/3 times
+// the work for nothing.
 //
 // ---------------------------------------------------------------------------
 // three_interpolate backward (second entry, pn2_three_interpolate_grad):
@@ -81,44 +77,39 @@ __device__ __forceinline__ float blend(float w0, float a, float w1, float b, flo
 }
 
 // kVec: 16-byte loads and stores, else 4-byte ones. Grid: ceil(rows /
-// (threads / G)) blocks of `threads`, G = 2^group_log2 lanes a row; out rows
-// out_stride apart.
+// (threads / 32)) blocks of `threads`, a warp a row; out rows out_stride apart.
 template <bool kVec>
 __global__ void three_interpolate_kernel(const float* __restrict__ points,
                                          const int* __restrict__ idx,
                                          const float* __restrict__ weight, int m,
-                                         int n, int c, int rows, int group_log2,
+                                         int n, int c, int rows,
                                          float* __restrict__ out, int out_stride,
                                          const float* __restrict__ skip,
                                          long long skip_stride_b, long long skip_stride_n,
                                          int c1, bool skip_vec) {
-  const int group = 1 << group_log2;
   const int lane = threadIdx.x & 31;
-  const int sub = lane & (group - 1);
-  const int row = blockIdx.x * (blockDim.x >> group_log2) + (threadIdx.x >> group_log2);
-  const int r = row < rows ? row : rows - 1;  // every lane takes part in the shuffles
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= rows) return;  // a whole warp: the shuffles below see all 32 lanes
   int iv = 0;
   float wv = 0.f;
-  if (sub < 3) {
-    iv = idx[(size_t)r * 3 + sub];
-    wv = weight[(size_t)r * 3 + sub];
+  if (lane < 3) {
+    iv = idx[(size_t)row * 3 + lane];
+    wv = weight[(size_t)row * 3 + lane];
   }
-  const int lead = lane - sub;
-  const int i0 = __shfl_sync(0xffffffffu, iv, lead);
-  const int i1 = __shfl_sync(0xffffffffu, iv, lead + 1);
-  const int i2 = __shfl_sync(0xffffffffu, iv, lead + 2);
-  const float w0 = __shfl_sync(0xffffffffu, wv, lead);
-  const float w1 = __shfl_sync(0xffffffffu, wv, lead + 1);
-  const float w2 = __shfl_sync(0xffffffffu, wv, lead + 2);
-  if (row >= rows) return;
-  const int bi = r / n;
+  const int i0 = __shfl_sync(0xffffffffu, iv, 0);
+  const int i1 = __shfl_sync(0xffffffffu, iv, 1);
+  const int i2 = __shfl_sync(0xffffffffu, iv, 2);
+  const float w0 = __shfl_sync(0xffffffffu, wv, 0);
+  const float w1 = __shfl_sync(0xffffffffu, wv, 1);
+  const float w2 = __shfl_sync(0xffffffffu, wv, 2);
+  const int bi = row / n;
   const float* pb = points + (size_t)bi * m * c;
   const float* p0 = pb + (size_t)i0 * c;
   const float* p1 = pb + (size_t)i1 * c;
   const float* p2 = pb + (size_t)i2 * c;
-  float* o = out + (size_t)r * out_stride;
+  float* o = out + (size_t)row * out_stride;
   if constexpr (kVec) {
-    for (int ch = 4 * sub; ch < c; ch += 4 * group) {
+    for (int ch = 4 * lane; ch < c; ch += 128) {
       const float4 a = *reinterpret_cast<const float4*>(p0 + ch);
       const float4 b = *reinterpret_cast<const float4*>(p1 + ch);
       const float4 d = *reinterpret_cast<const float4*>(p2 + ch);
@@ -127,17 +118,17 @@ __global__ void three_interpolate_kernel(const float* __restrict__ points,
                       blend(w0, a.z, w1, b.z, w2, d.z), blend(w0, a.w, w1, b.w, w2, d.w));
     }
   } else {
-    for (int ch = sub; ch < c; ch += group) o[ch] = blend(w0, p0[ch], w1, p1[ch], w2, p2[ch]);
+    for (int ch = lane; ch < c; ch += 32) o[ch] = blend(w0, p0[ch], w1, p1[ch], w2, p2[ch]);
   }
   if (skip != nullptr) {
-    const float* s = skip + bi * skip_stride_b + (long long)(r - bi * n) * skip_stride_n;
+    const float* s = skip + bi * skip_stride_b + (long long)(row - bi * n) * skip_stride_n;
     float* os = o + c;
     if (skip_vec) {
-      for (int ch = 4 * sub; ch < c1; ch += 4 * group) {
+      for (int ch = 4 * lane; ch < c1; ch += 128) {
         *reinterpret_cast<float4*>(os + ch) = *reinterpret_cast<const float4*>(s + ch);
       }
     } else {
-      for (int ch = sub; ch < c1; ch += group) os[ch] = s[ch];
+      for (int ch = lane; ch < c1; ch += 32) os[ch] = s[ch];
     }
   }
 }
@@ -175,32 +166,31 @@ extern "C" {
 // batch and row strides in elements, in [c, c + c1). vec: 16-byte loads
 // and stores (points and out 16-byte aligned, c and out_stride multiples of
 // 4), else 4-byte ones; skip_vec: the skip is copied 16 bytes at a time (vec,
-// skip aligned, its strides and c1 multiples of 4). 2^group_log2 lanes a
-// row, blocks of `threads`.
+// skip aligned, its strides and c1 multiples of 4). A warp a row, blocks of
+// `threads`.
 // Returns cudaGetLastError() after the launch.
 int pn2_three_interpolate(const float* points, const int* idx, const float* weight,
                           int b, int m, int n, int c, float* out, int out_stride,
                           const float* skip, long long skip_stride_b, long long skip_stride_n,
-                          int c1, int vec, int skip_vec, int group_log2, int threads,
-                          int device, void* stream) {
+                          int c1, int vec, int skip_vec, int threads, int device,
+                          void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (group_log2 < 2 || group_log2 > 5 || threads < 32 || threads > 1024 || threads % 32 ||
-      (skip_vec && !vec)) {
+  if (threads < 32 || threads > 1024 || threads % 32 || (skip_vec && !vec)) {
     return (int)cudaErrorInvalidValue;
   }
   const int rows = b * n;
-  const int per_block = threads >> group_log2;
+  const int per_block = threads >> 5;
   const int blocks = (rows + per_block - 1) / per_block;
   cudaStream_t s = (cudaStream_t)stream;
   if (vec) {
     three_interpolate_kernel<true><<<blocks, threads, 0, s>>>(
-        points, idx, weight, m, n, c, rows, group_log2, out, out_stride, skip, skip_stride_b,
-        skip_stride_n, c1, skip_vec != 0);
+        points, idx, weight, m, n, c, rows, out, out_stride, skip, skip_stride_b, skip_stride_n,
+        c1, skip_vec != 0);
   } else {
     three_interpolate_kernel<false><<<blocks, threads, 0, s>>>(
-        points, idx, weight, m, n, c, rows, group_log2, out, out_stride, skip, skip_stride_b,
-        skip_stride_n, c1, false);
+        points, idx, weight, m, n, c, rows, out, out_stride, skip, skip_stride_b, skip_stride_n,
+        c1, false);
   }
   return (int)cudaGetLastError();
 }

@@ -17,6 +17,7 @@ it. Each wrapper takes ``route=`` to force one.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -104,29 +105,31 @@ def check_plan(n: int, route: tuple[int, int, int]) -> tuple[int, int, int]:
     return c, threads, ppt
 
 
-_resident: dict[tuple, int] = {}
-_planned: dict[tuple, tuple[int, int, int]] = {}  # (device, rows, b, n) -> plan
-
-
+@functools.cache
 def resident_clusters(device: int, rows: bool, cluster: int, threads: int, ppt: int) -> int:
     """The card's answer (``cudaOccupancyMaxActiveClusters``), once a shape."""
-    key = (device, rows, cluster, threads, ppt)
-    if key not in _resident:
-        lib = build.load("fps")
-        fn = lib.pn2_fps_active_clusters
-        fn.argtypes = [INT, INT, INT, INT, INT, ctypes.POINTER(ctypes.c_int)]
-        fn.restype = ctypes.c_int
-        out = ctypes.c_int(0)
-        build.check(lib, "pn2_fps_active_clusters_error_string",
-                    fn(int(rows), cluster, threads, ppt, device, ctypes.byref(out)), "fps occupancy")
-        _resident[key] = out.value
-    return _resident[key]
+    lib = build.load("fps")
+    fn = lib.pn2_fps_active_clusters
+    fn.argtypes = [INT, INT, INT, INT, INT, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    build.check(lib, "pn2_fps_active_clusters_error_string",
+                fn(int(rows), cluster, threads, ppt, device, ctypes.byref(out)), "fps occupancy")
+    return out.value
+
+
+@functools.cache
+def device_plan(device: int, rows: bool, b: int, n: int) -> tuple[int, int, int]:
+    """``plan`` with the card's answers, made once a shape a process: it is on
+    the host's path of every call."""
+    resident = {
+        c: resident_clusters(device, rows, c, threads, ppt) for c, (threads, ppt) in candidates(n).items()
+    }
+    return plan(b, n, resident)
 
 
 def _route(xyz: torch.Tensor, npoint: int, rows: bool, what: str, route) -> tuple[int, int, int, int, int]:
-    """Checks shared by both entries; returns (b, n, cluster, threads, ppt).
-    The plan of a shape is made once a process: it is on the host's path of
-    every call."""
+    """Checks shared by both entries; returns (b, n, cluster, threads, ppt)."""
     require(xyz, "xyz", torch.float32, (None, None, 3))
     b, n, _ = xyz.shape
     if not 0 < npoint <= n or b == 0:
@@ -135,14 +138,7 @@ def _route(xyz: torch.Tensor, npoint: int, rows: bool, what: str, route) -> tupl
         raise ValueError(f"{what} kernel takes at most {MAX_POINTS} points, got {n}")
     if route is not None:
         return (b, n, *check_plan(n, route))
-    key = (xyz.device.index, rows, b, n)
-    if key not in _planned:
-        resident = {
-            c: resident_clusters(key[0], rows, c, threads, ppt)
-            for c, (threads, ppt) in candidates(n).items()
-        }
-        _planned[key] = plan(b, n, resident)
-    return (b, n, *_planned[key])
+    return (b, n, *device_plan(xyz.device.index, rows, b, n))
 
 
 def planned_route(xyz: torch.Tensor, npoint: int, rows: bool = True) -> tuple[int, int, int]:

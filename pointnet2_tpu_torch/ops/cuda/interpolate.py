@@ -3,7 +3,7 @@
 ``three_interpolate`` replaces ``pointnet2_tpu/ops/pallas/interpolate.py:48``
 (``_ti_kernel``); its plain version is ``ops.core.three_interpolate``, or,
 with ``skip``, ``ops.core.three_interpolate_concat``: the feature-propagation
-concat written by the same kernel. ``plan`` picks the lanes a row and the
+concat written by the same kernel, a warp an output row. ``plan`` picks the
 vector width from the shape and the alignment of the rows.
 ``three_interpolate_grad`` replaces ``interpolate.py:112`` (``_ti_bwd_kernel``);
 its plain version is ``ops.core.three_interpolate_grad``. The two are joined
@@ -28,25 +28,19 @@ def _aligned(t: torch.Tensor) -> bool:
 
 
 @functools.cache
-def plan(c: int, c1: int, points_aligned: bool, skip_vec_ok: bool) -> tuple[bool, int, bool]:
-    """``(vec, group, skip_vec)`` of the forward for C interpolated and C1
-    skip channels (C1 = 0 without a skip).
+def plan(c: int, c1: int, points_aligned: bool, skip_vec_ok: bool) -> tuple[bool, bool]:
+    """``(vec, skip_vec)`` of the forward for C interpolated and C1 skip
+    channels (C1 = 0 without a skip).
 
     16-byte loads and stores where the source and the output rows are 16-byte
     aligned (``points`` aligned, C and C + C1 multiples of 4), else 4-byte
     ones; the skip copied 16 bytes at a time where ``skip_vec_ok`` (the skip's
-    rows aligned, C1 a multiple of 4) and the rows are vector. A row takes the
-    fewest lanes (a power of two from 4 to 32) that cover its channels in one
-    pass, at most 32.
+    rows aligned, C1 a multiple of 4) and the rows are vector.
     """
     if c <= 0 or c1 < 0:
         raise ValueError(f"three_interpolate needs C > 0 and C1 >= 0, got {c}, {c1}")
     vec = points_aligned and c % 4 == 0 and (c + c1) % 4 == 0
-    width = 4 if vec else 1
-    group = 4
-    while group < 32 and group * width < max(c, c1):
-        group *= 2
-    return vec, group, vec and c1 > 0 and skip_vec_ok
+    return vec, vec and c1 > 0 and skip_vec_ok
 
 
 def _skip_vec_ok(skip: torch.Tensor | None) -> bool:
@@ -56,19 +50,17 @@ def _skip_vec_ok(skip: torch.Tensor | None) -> bool:
     )
 
 
-def planned_route(points: torch.Tensor, skip: torch.Tensor | None = None, route=None) -> tuple[bool, int, bool]:
-    """The ``(vec, group, skip_vec)`` the wrapper launches ``points`` and
-    ``skip`` with: ``plan``'s, or the forced ``route`` ``(vec, group)``, which
-    may take 4-byte accesses where the plan takes 16-byte ones but not the
-    other way round."""
+def planned_route(points: torch.Tensor, skip: torch.Tensor | None = None, route=None) -> tuple[bool, bool]:
+    """The ``(vec, skip_vec)`` the wrapper launches ``points`` and ``skip``
+    with: ``plan``'s, or the forced ``route`` ``vec``, which may take 4-byte
+    accesses where the plan takes 16-byte ones but not the other way round."""
     c1 = 0 if skip is None else skip.shape[2]
     planned = plan(points.shape[2], c1, _aligned(points), _skip_vec_ok(skip))
     if route is None:
         return planned
-    vec, group = route
-    if (vec and not planned[0]) or group not in (4, 8, 16, 32):
-        raise ValueError(f"not a three_interpolate route for these rows: {route} (the plan's {planned[:2]})")
-    return bool(vec), group, bool(vec) and planned[2]
+    if route and not planned[0]:
+        raise ValueError(f"not a three_interpolate route for these rows: vec={route} (the plan's {planned[0]})")
+    return bool(route), bool(route) and planned[1]
 
 
 def three_interpolate(
@@ -83,8 +75,8 @@ def three_interpolate(
     cloud); one whose channels are not adjacent is copied to a contiguous
     tensor here, explicitly. The indices are not range-checked here (that
     would cost a pass and a sync); they come from ``three_nn``, which only
-    returns indices below M. ``route``: a forced ``(vec, group)``, else
-    ``plan``'s.
+    returns indices below M. ``route``: a forced ``vec`` (16-byte accesses
+    or not), else ``plan``'s.
     """
     require(points, "points", torch.float32, (None, None, None))
     b, m, c = points.shape
@@ -101,15 +93,15 @@ def three_interpolate(
         raise ValueError(f"three_interpolate needs non-empty inputs, got {tuple(points.shape)}, {tuple(idx.shape)}")
     require_int32_range("three_interpolate", b, n, c + c1)
     require_int32_range("three_interpolate", b, m, c)
-    vec, group, skip_vec = planned_route(points, skip, route)
+    vec, skip_vec = planned_route(points, skip, route)
     out = torch.empty((b, n, c + c1), dtype=torch.float32, device=points.device)
     device, stream = stream_of(points)
     launch(
         "three_interpolate", "interpolate", "pn2_three_interpolate",
-        [PTR, PTR, PTR, INT, INT, INT, INT, PTR, INT, PTR, LONG, LONG, INT, INT, INT, INT, INT, INT, PTR],
+        [PTR, PTR, PTR, INT, INT, INT, INT, PTR, INT, PTR, LONG, LONG, INT, INT, INT, INT, INT, PTR],
         points.data_ptr(), idx.data_ptr(), weight.data_ptr(), b, m, n, c, out.data_ptr(), c + c1,
         None if skip is None else skip.data_ptr(), 0 if skip is None else skip.stride(0),
-        0 if skip is None else skip.stride(1), c1, int(vec), int(skip_vec), group.bit_length() - 1, THREADS,
+        0 if skip is None else skip.stride(1), c1, int(vec), int(skip_vec), THREADS,
         device, stream,
     )
     return out

@@ -4,8 +4,8 @@
   its plain version is ``ops.core.knn``. For k <= 16 (the register route) S
   lanes share a query, each keeping a top-k of every S-th reference in
   registers, merged by butterfly shuffles; ``plan`` picks S and the block
-  from the shape and the card's SM count, and the wrapper takes ``route=``
-  to force one. For k > 16 (the list route) one warp a query keeps its sorted
+  from the shape and the card's SM count (once a shape a process), and the
+  wrapper takes ``route=`` to force one. For k > 16 (the list route) one warp a query keeps its sorted
   list in shared memory.
 - ``knn_tiles`` replaces ``knn.py:133`` (``_knn_sliced_kernel``); its plain
   version is ``ops.core.knn_tiles``. ``knn_sliced`` and ``three_nn_sliced``
@@ -18,6 +18,8 @@ wider than shared memory holds beside the lists is read from device memory).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -42,15 +44,20 @@ TARGET_THREADS_PER_SM = 384
 MIN_REFS_PER_LANE = 16
 
 
-_planned: dict[tuple, tuple[int, int]] = {}  # (device, b, nq, m, k) -> plan
-
-
 def block_threads(nq: int, lanes: int) -> int:
     """The register route's block: up to 256 threads, no more than one
     cloud's queries need."""
     return min(MAX_THREADS, -(-nq * lanes // 32) * 32)
 
 
+def check_grid(b: int, nq: int, lanes: int, threads: int) -> None:
+    """Raises unless the launch's ``b * ceil(nq / (threads / lanes))`` blocks
+    fit the kernel's int."""
+    if b * -(-nq // (threads // lanes)) >= 2**31:
+        raise ValueError(f"the kNN grid of {b} clouds x {nq} queries is too large")
+
+
+@functools.cache
 def plan(b: int, nq: int, m: int, k: int, num_sms: int) -> tuple[int, int]:
     """``(lanes, threads)`` of the kNN kernel for ``b`` clouds of ``m``
     references and ``nq`` queries each, on a card of ``num_sms`` SMs.
@@ -60,10 +67,13 @@ def plan(b: int, nq: int, m: int, k: int, num_sms: int) -> tuple[int, int]:
     keeps ``MIN_REFS_PER_LANE`` points; blocks of up to 256 threads, no
     larger than one cloud's queries need. k > 16: one warp a query (32
     lanes), ``LIST_WARPS`` warps a block or as many as have room for their
-    lists. Raises ``ValueError`` for a shape no route takes.
+    lists. Raises ``ValueError`` for a shape no route takes. Cached: it is
+    on the host's path of every call.
     """
     if b <= 0 or nq <= 0 or m <= 0 or num_sms <= 0 or not 0 < k <= m:
         raise ValueError(f"kNN needs B, Nq > 0 and 0 < k <= M, got B={b}, Nq={nq}, M={m}, k={k}")
+    require_int32_range("knn", b, nq, k)
+    require_int32_range("knn", b, m, 3)
     if k > MAX_K:
         raise ValueError(f"the kNN kernel takes k <= {MAX_K} (a warp's list in shared memory), got {k}")
     if k > MAX_REGISTER_K:
@@ -74,13 +84,13 @@ def plan(b: int, nq: int, m: int, k: int, num_sms: int) -> tuple[int, int]:
                and b * nq * lanes < num_sms * TARGET_THREADS_PER_SM):
             lanes *= 2
         threads = block_threads(nq, lanes)
-    if b * -(-nq // (threads // lanes)) >= 2**31:
-        raise ValueError(f"the kNN grid of {b} clouds x {nq} queries is too large")
+    check_grid(b, nq, lanes, threads)
     return lanes, threads
 
 
-def check_plan(k: int, route: tuple[int, int]) -> tuple[int, int]:
-    """A forced ``(lanes, threads)``; raises unless the kernel takes it for ``k``."""
+def check_plan(b: int, nq: int, k: int, route: tuple[int, int]) -> tuple[int, int]:
+    """A forced ``(lanes, threads)``; raises unless the kernel takes it for
+    ``k`` and its grid for ``b`` clouds of ``nq`` queries."""
     lanes, threads = route
     if threads % 32 or threads < 32 or lanes not in (1, 2, 4, 8, 16, 32):
         raise ValueError(f"not a kNN route: {route}")
@@ -88,6 +98,7 @@ def check_plan(k: int, route: tuple[int, int]) -> tuple[int, int]:
         raise ValueError(f"not a kNN route for k={k}: {route}")
     if k > MAX_REGISTER_K and (lanes != 32 or threads > 32 * MAX_LIST_WARPS or threads // 32 * k * 8 > MAX_SHARED_BYTES):
         raise ValueError(f"not a kNN list route for k={k}: {route}")
+    check_grid(b, nq, lanes, threads)
     return lanes, threads
 
 
@@ -104,18 +115,11 @@ def knn(xyz1: torch.Tensor, xyz2: torch.Tensor, k: int, route=None) -> tuple[tor
     if not 0 < k <= min(m, MAX_K) or b == 0 or nq == 0:
         raise ValueError(f"knn kernel needs 0 < k <= min(M, {MAX_K}) and non-empty inputs, got k={k}, M={m}, B={b}, Nq={nq}")
     if route is None:
-        # The plan of a shape is made once a process: it is on the host's path of every call.
-        key = (xyz1.device.index, b, nq, m, k)
-        route = _planned.get(key)
-        if route is None:
-            require_int32_range("knn", b, nq, k)
-            require_int32_range("knn", b, m, 3)
-            route = _planned[key] = plan(b, nq, m, k, num_sms(xyz1.device.index))
-        lanes, threads = route
+        lanes, threads = plan(b, nq, m, k, num_sms(xyz1.device.index))
     else:
         require_int32_range("knn", b, nq, k)
         require_int32_range("knn", b, m, 3)
-        lanes, threads = check_plan(k, route)
+        lanes, threads = check_plan(b, nq, k, route)
     dist = torch.empty((b, nq, k), dtype=torch.float32, device=xyz1.device)
     idx = torch.empty((b, nq, k), dtype=torch.int32, device=xyz1.device)
     device, stream = stream_of(xyz1)

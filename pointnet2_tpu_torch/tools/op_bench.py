@@ -23,7 +23,7 @@ for the predict path's chunk). One JSON line per op and shape:
 - ``plan``: the launch shape the wrapper's plan picked (FPS: cluster,
   threads, points a thread; exact ball query: warps a block, tile points;
   3-NN: lanes a query, threads; three_interpolate: 16-byte accesses or not,
-  lanes a row, the skip's 16-byte copy), and for the 3-NN and three_interpolate
+  the skip's 16-byte copy), and for the 3-NN and three_interpolate
   ``routes_device_ms``, the device time of every route of that shape
   (3-NN: 1 to 32 lanes a query; three_interpolate: 4-byte accesses, and
   16-byte ones where the rows allow), the yardstick of the plan's choice; three_interpolate's
@@ -257,7 +257,7 @@ def run(device: torch.device, small: bool, batch: int = BATCH) -> list[dict]:
             unfused_ms=lambda: torch.cat([ops.three_interpolate(points, idx, weight), skip], -1),
             routes_device_ms={
                 f"vec={vec}": (lambda vec=vec: device_ms(
-                    lambda: cuda.three_interpolate(points, idx, weight, skip, route=(vec, 32)), "three_interpolate"))
+                    lambda: cuda.three_interpolate(points, idx, weight, skip, route=vec), "three_interpolate"))
                 for vec in widths
             } if timed else {},
         ))

@@ -41,8 +41,8 @@ KERNEL_SYMBOLS = {
     "knn": "knn_kernel",  # knn_kernel<K> (k <= 16) and knn_kernel_list
     "three_interpolate": "three_interpolate_kernel",
     "three_interpolate_grad": "three_interpolate_grad_kernel",
-    "ball_query_sliced": "ball_query_tiles_kernel<false>",
-    "ball_query_sliced_pos": "ball_query_tiles_kernel<true>",
+    "ball_query_sliced": "ball_query_tiles_kernel<false,",  # <kWithPos, kSlots>
+    "ball_query_sliced_pos": "ball_query_tiles_kernel<true,",
     "window_gather": "window_gather_kernel",
     "knn_sliced": "knn_tiles_kernel",
     "ball_query_windowed": "ball_query_windowed_kernel",

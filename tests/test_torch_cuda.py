@@ -762,7 +762,7 @@ def test_knn_plan_at_the_model_shapes(cuda_device):
     sms = cuda_bq.num_sms(cuda_device.index or 0)
     for b, nq, m in [(8, 8192, 1024), (16, 8192, 1024), (16, 1024, 256), (16, 64, 16)]:
         route = cuda_knn.plan(b, nq, m, 3, sms)
-        assert cuda_knn.check_plan(3, route) == route
+        assert cuda_knn.check_plan(b, nq, 3, route) == route
         lanes = route[0]
         assert lanes == 1 or m // lanes >= cuda_knn.MIN_REFS_PER_LANE
 
@@ -811,11 +811,11 @@ def test_three_interpolate_kernel_aligned_and_unaligned_rows(cuda_device, c, c1,
         points, idx, weight, skip)
     assert torch.equal(cuda.three_interpolate(points, idx, weight, skip), want)
     vec = cuda_interp.planned_route(points, skip)[0]
-    for route in [(False, g) for g in (4, 8, 16, 32)] + ([(True, 4), (True, 32)] if vec else []):
+    for route in (False, True) if vec else (False,):
         assert torch.equal(cuda.three_interpolate(points, idx, weight, skip, route=route), want)
     if not vec:
         with pytest.raises(ValueError, match="route"):
-            cuda.three_interpolate(points, idx, weight, skip, route=(True, 32))
+            cuda.three_interpolate(points, idx, weight, skip, route=True)
 
 
 def test_three_interpolate_kernel_copies_a_skip_it_cannot_stride(cuda_device):
@@ -829,9 +829,9 @@ def test_three_interpolate_plan_at_the_fp_shapes(cuda_device):
     """What the wrapper launches with the skips the model hands over."""
     points, idx, weight, gen = _interp_inputs(2, 64, 128, 256)
     colours = torch.rand((2, 256, 6), generator=gen, device=cuda_device)[..., 3:6]
-    assert cuda_interp.planned_route(points, colours) == (False, 32, False)
+    assert cuda_interp.planned_route(points, colours) == (False, False)
     wide = torch.randn((2, 64, 512), generator=gen, device=cuda_device)
-    assert cuda_interp.planned_route(wide, torch.randn((2, 256, 256), device=cuda_device)) == (True, 32, True)
+    assert cuda_interp.planned_route(wide, torch.randn((2, 256, 256), device=cuda_device)) == (True, True)
 
 
 @pytest.mark.parametrize("c1", [3, 64])

@@ -151,7 +151,7 @@ def test_knn_plan_covers_the_grid(k):
                 knn.plan(b, nq, m, k, sms)
             continue
         lanes, threads = knn.plan(b, nq, m, k, sms)
-        assert knn.check_plan(k, (lanes, threads)) == (lanes, threads)
+        assert knn.check_plan(b, nq, k, (lanes, threads)) == (lanes, threads)
         assert lanes in (1, 2, 4, 8, 16, 32) and threads % 32 == 0 and 32 <= threads
         if k > knn.MAX_REGISTER_K:
             assert lanes == 32 and threads == 32 * knn.LIST_WARPS
@@ -193,28 +193,38 @@ def test_knn_check_plan_refuses_bad_routes(k, route):
     """Lanes off the powers of two, blocks past 256 threads (register route) or
     8 warps (list route), a list route whose lists pass shared memory."""
     with pytest.raises(ValueError):
-        knn.check_plan(k, route)
+        knn.check_plan(2, 1024, k, route)
+
+
+@pytest.mark.parametrize("k,route,b", [(3, (1, 32), 2**16), (64, (32, 256), 2**14)])
+def test_knn_check_plan_refuses_a_grid_past_int(k, route, b):
+    """A forced route is held to the grid limit the plan keeps: ``b`` clouds
+    of 2**20 queries, 32 or 8 queries a block, make 2**31 blocks; half as
+    many clouds launch."""
+    with pytest.raises(ValueError, match="grid"):
+        knn.check_plan(b, 2**20, k, route)
+    assert knn.check_plan(b // 2, 2**20, k, route) == route
 
 
 def test_knn_limits():
     assert knn.MAX_K == 29056 and knn.MAX_K >= 1024
-    assert knn.check_plan(1024, (32, 256)) == (32, 256)  # k = 1024 at M = 1024 in a full list block
+    assert knn.check_plan(1, 1024, 1024, (32, 256)) == (32, 256)  # k = 1024 at M = 1024 in a full list block
 
 
 @pytest.mark.parametrize(
     "c,c1,aligned,skip_ok,want",
     [
-        (128, 3, True, False, (False, 32, False)),  # FP4: rows of 131 floats, 4-byte accesses
-        (256, 64, True, True, (True, 32, True)),  # FP3
-        (256, 128, True, True, (True, 32, True)),  # FP2
-        (512, 256, True, True, (True, 32, True)),  # FP1
-        (512, 0, True, False, (True, 32, False)),  # no skip
-        (64, 64, False, True, (False, 32, False)),  # points off a 16-byte boundary
-        (7, 5, True, False, (False, 8, False)),
-        (8, 4, True, False, (True, 4, False)),
-        (3, 0, True, False, (False, 4, False)),
-        (16, 6, True, True, (False, 16, False)),
-        (16, 4, True, False, (True, 4, False)),  # a skip whose rows are not aligned: copied 4 bytes at a time
+        (128, 3, True, False, (False, False)),  # FP4: rows of 131 floats, 4-byte accesses
+        (256, 64, True, True, (True, True)),  # FP3
+        (256, 128, True, True, (True, True)),  # FP2
+        (512, 256, True, True, (True, True)),  # FP1
+        (512, 0, True, False, (True, False)),  # no skip
+        (64, 64, False, True, (False, False)),  # points off a 16-byte boundary
+        (7, 5, True, False, (False, False)),
+        (8, 4, True, False, (True, False)),
+        (3, 0, True, False, (False, False)),
+        (16, 6, True, True, (False, False)),
+        (16, 4, True, False, (True, False)),  # a skip whose rows are not aligned: copied 4 bytes at a time
     ],
 )
 def test_three_interpolate_plan(c, c1, aligned, skip_ok, want):
