@@ -21,18 +21,23 @@ non-zero and prints no result):
    ``library_ms`` is one PyTorch call computing the same function, where
    there is one (``embedding_bag`` for three_interpolate); the port never
    calls it. ``three_interpolate_grad``, the backward kernel of the train
-   step, runs at the four shapes a batch of 16 gives it, on real 3-NN indices
-   and weights and on seeded cotangents laid out as the train step hands them
-   over: the first C channels of the skip concat's wider cotangent, read in
-   place through its strides (``contiguous_g_ms`` is the same call on a
-   contiguous copy). It sums with float atomics in an order
-   that changes from run to run (and so does ``index_add_``, its plain
-   version's sum on the card), so it is held to rtol=1e-5, atol=1e-5: a row
-   sums 12 to 24 addends of magnitude below 1 on average, a few times that at
-   most, and reordering those moves a float32 sum by a few 1e-7 a term.
-   Its library call is the backward of ``embedding_bag`` with respect to the
-   rows. The differentiable ``ops.three_interpolate`` as a whole (both
-   kernels) is held against autograd through the plain forward.
+   step, runs at the four shapes a batch gives it (B=16, the train step's,
+   and B=8), on real 3-NN indices and weights and on seeded cotangents laid
+   out as the train step hands them over: the first C channels of the skip
+   concat's wider cotangent, read in place through its strides
+   (``contiguous_g_ms`` is the same call on a contiguous copy). It sums each
+   element in its plain version's order (slot j, then the queries
+   ascending), so it must equal the plain version bit for bit: run on the
+   CPU, where ``index_add_`` sums serially, and on the card under PyTorch's
+   deterministic algorithms, which keep that order for rows of more than 32
+   floats (all four shapes); and it must give the same bits on a second run
+   and on the contiguous copy. Its library call is the
+   backward of ``embedding_bag`` with respect to the rows, which sums in its
+   own order: held to the plain version within rtol=1e-5, atol=1e-5 (a row
+   sums 12 to 24 addends of magnitude below 1 on average). The
+   differentiable ``ops.three_interpolate`` as a whole (both kernels) equals
+   the plain Function bit for bit, and autograd through the plain forward
+   (which sums query by query) within the same tolerance.
 3. Predict: a ``Predictor`` at full ``semantic.json`` width with seeded
    weights (``convert.init_variables``) answers 3 requests of 16 clouds of
    8192 points (after one warm-up request). The launch counts, reset just before,
@@ -45,10 +50,13 @@ non-zero and prints no result):
    and the launch counts, reset after the warm-up, must show each of the five
    kernels exactly 4 times a step. From the same weights and the same batch,
    with dropout off, one step of the kernel path is held against one step of
-   the plain path (``ops_impl="torch"``) on the card: the loss within 1e-5
+   the plain path (``ops_impl="torch"``) on the card, both under PyTorch's
+   deterministic algorithms: a second kernel-path step must give the same
+   gradients bit for bit, and against the plain path the loss within 1e-5
    relative, every parameter gradient within 1e-3 of that gradient's max abs
-   (the forward is the same bit for bit; the backward's scatter sums, in the
-   kernel and in PyTorch's own ``index_put_``, take another order on every
+   (the forward and the backward's scatters sum in the same order on both
+   paths; cuBLAS's products need not, at the paths' own shapes; the worst
+   error is recorded, and whether the paths were equal bit for bit in this
    run). Then an ``accum_steps=4`` Trainer with hoisted geometry takes 2
    steps: FPS, ball query and 3-NN 4 times a step, the two interpolate
    kernels 16 times.
@@ -56,9 +64,11 @@ non-zero and prints no result):
    widths; they engage at SA1 and FP4): the four windowed kernels (the
    windowed ball query, the same with window columns, the window gather, the
    windowed kNN) equal their plain versions on the sorted inputs the
-   calibrated ops make, at the B=8 chunk and the B=16 batch (the windowed ball
-   query of the train forward at B=16 only), timed beside their bounds
-   (9 operations a pair of the M x w scan; the gather's bytes, with
+   calibrated ops make, at the B=8 chunk and the B=16 batch, on the route
+   their plan picks (the windowed ball query's ``(split, warps)`` is in its
+   record), timed beside their bounds (9 operations a pair the data needs:
+   for the ball query the columns of each query's x-span,
+   ``ops.core.ball_query_tile_spans``; the gather's bytes, with
    ``index_select`` of the same rows as its library call) and beside the whole
    calibrated op and the exact op it stands in for (``op_ms``,
    ``exact_op_ms``). The whole ops equal on the kernel and the plain path,
@@ -72,8 +82,9 @@ non-zero and prints no result):
    takes 1 + 3 Adam steps (``window_ok`` every step; per step the windowed
    ball query and kNN once, the exact ones 3 times), with the no-window
    Trainer timed in turns on the same batches; one dropout-free windowed step
-   against the no-window step (loss within 1e-5 relative, gradients within
-   1e-3 of their max abs); and the windows ``auto`` would pick
+   against the no-window step under deterministic algorithms (loss within
+   1e-5 relative, gradients within 1e-3 of their max abs; the worst error and
+   bit equality recorded); and the windows ``auto`` would pick
    (``calibrate_model_windows``) on the smoke clouds.
 6. Op surface: the index-only FPS (``farthest_point_sample``) at the four SA
    shapes of both batches, equal to its plain version and to the fused
@@ -128,7 +139,7 @@ from pointnet2_tpu_torch.ops.cuda import interpolate as cuda_interp
 from pointnet2_tpu_torch.tools import op_bench, parity, stage_bench
 from pointnet2_tpu_torch.train import Trainer
 from pointnet2_tpu_torch.train_profile import train_batch
-from pointnet2_tpu_torch.utils.bench import bound, card_line, cuda_ms, device_ms
+from pointnet2_tpu_torch.utils.bench import bound, card_line, cuda_ms, deterministic_algorithms, device_ms
 
 # The package's ``knn`` is the wrapper function; the module is reached by name.
 cuda_knn = importlib.import_module("pointnet2_tpu_torch.ops.cuda.knn")
@@ -144,7 +155,9 @@ FP_SKIP_CHANNELS = (256, 128, 64, 3)  # the skip features each is concatenated w
 TRAIN_STEPS = 5
 ACCUM = 4
 ACCUM_STEPS = 2
-GRAD_TOL = dict(rtol=1e-5, atol=1e-5)  # three_interpolate_grad against its plain version
+# three_interpolate_grad's plain version against sums in another order: the
+# library call's, and autograd's through the plain forward (query by query).
+ORDER_TOL = dict(rtol=1e-5, atol=1e-5)
 STEP_GRAD_TOL = 1e-3  # kernel-path against plain-path parameter gradients, of each one's max abs
 
 KERNELS = {
@@ -364,9 +377,9 @@ def kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> list:
 
 
 def grad_kernel_phase(levels: list, seed: int, report: Report) -> None:
-    """three_interpolate_grad at the four shapes of a batch-16 train step, on
-    the levels ``kernel_phase`` made (whose 3-NN it held against the plain
-    version), and the whole Function."""
+    """three_interpolate_grad at the four shapes a train step of the levels'
+    batch gives it, on the levels ``kernel_phase`` made (whose 3-NN it held
+    against the plain version), and the whole Function."""
     dev = torch.device(DEVICE)
     b = levels[0].shape[0]
     gen = torch.Generator(device=dev).manual_seed(seed + 100)
@@ -383,9 +396,19 @@ def grad_kernel_phase(levels: list, seed: int, report: Report) -> None:
             raise AssertionError("the cotangent slice should not be contiguous")
         g_copy = g.contiguous()
         out = ops.three_interpolate_grad(g, idx, weight, m, impl="cuda")
-        if not torch.allclose(out, ops.three_interpolate_grad(g_copy, idx, weight, m, impl="cuda"), **GRAD_TOL):
-            raise AssertionError(f"three_interpolate_grad at N={n}: the strided and the contiguous cotangent disagree")
-        ref = ops.three_interpolate_grad(g, idx, weight, m, impl="torch")
+        for again in (ops.three_interpolate_grad(g, idx, weight, m, impl="cuda"),
+                      ops.three_interpolate_grad(g_copy, idx, weight, m, impl="cuda")):
+            if not torch.equal(out, again):
+                raise AssertionError(f"three_interpolate_grad at N={n}: a second run or the contiguous cotangent "
+                                     f"gave other bits (max abs {max_abs(out, again)})")
+        # The plain version in its fixed order: on the CPU (serial sums), and on
+        # the card under deterministic algorithms (the same order for these
+        # rows of more than 32 floats), which the train-step comparison uses.
+        ref = ops.three_interpolate_grad(g.cpu(), idx.cpu(), weight.cpu(), m, impl="torch").to(dev)
+        with deterministic_algorithms():
+            if not torch.equal(ops.three_interpolate_grad(g, idx, weight, m, impl="torch"), ref):
+                raise AssertionError(f"three_interpolate_grad's plain version at N={n}: the card's "
+                                     "deterministic sums and the CPU's differ")
         torch.cuda.synchronize()
         if out.shape != (b, m, c) or not torch.isfinite(out).all():
             raise AssertionError(f"three_interpolate_grad: bad output {tuple(out.shape)}")
@@ -396,30 +419,34 @@ def grad_kernel_phase(levels: list, seed: int, report: Report) -> None:
         bag = F.embedding_bag(flat_idx, flat_points, mode="sum", per_sample_weights=weight.reshape(-1, 3))
         flat_g = g.reshape(-1, c)
         lib = torch.autograd.grad(bag, flat_points, flat_g, retain_graph=True)[0].view(b, m, c)
-        if not torch.allclose(lib, ref, **GRAD_TOL):
+        if not torch.allclose(lib, ref, **ORDER_TOL):
             raise AssertionError("embedding_bag's backward disagrees with the plain three_interpolate_grad")
         report.add(
             "three_interpolate_grad", b, f"N={n} C={c} M={m} g_row_stride={c + skip}",
             lambda: ops.three_interpolate_grad(g, idx, weight, m, impl="cuda"),
             lambda: ops.three_interpolate_grad(g, idx, weight, m, impl="torch"),
-            # g and idx/weight read once; dpoints written twice (the zero fill, then the sums).
-            nbytes=b * n * c * 4 + b * n * 3 * 8 + 2 * b * m * c * 4,
+            # g and idx/weight read once, dpoints written once: the op's least traffic.
+            nbytes=b * n * c * 4 + b * n * 3 * 8 + b * m * c * 4,
             nops=6 * b * n * c,
             err=max_abs(out, ref),
-            match=torch.allclose(out, ref, **GRAD_TOL),
+            match=torch.equal(out, ref),
             library=lambda: torch.autograd.grad(bag, flat_points, flat_g, retain_graph=True),
             extra={"contiguous_g_ms": lambda: ops.three_interpolate_grad(g_copy, idx, weight, m, impl="cuda")},
         )
 
         # Both kernels behind autograd, on a cotangent that is a slice of a wider
-        # tensor, against autograd through the plain forward.
+        # tensor, against the plain Function and autograd through the plain forward.
         points = torch.randn((b, m, c), generator=gen, device=dev, requires_grad=True)
         w = weight.clone().requires_grad_()
         got = torch.autograd.grad(ops.three_interpolate(points, idx, w, impl="cuda"), (points, w), g)
+        with deterministic_algorithms():
+            plain = torch.autograd.grad(ops.three_interpolate(points, idx, w, impl="torch"), (points, w), g)
         want = torch.autograd.grad(core.three_interpolate(points, idx, w), (points, w), g)
-        if not torch.allclose(got[0], want[0], **GRAD_TOL) or not torch.allclose(got[1], want[1], rtol=1e-5, atol=1e-4):
+        if not (torch.equal(got[0], plain[0]) and torch.allclose(got[0], want[0], **ORDER_TOL)
+                and torch.allclose(got[1], want[1], rtol=1e-5, atol=1e-4)):
             raise AssertionError(
-                f"three_interpolate Function at N={n}: d points off by {max_abs(got[0], want[0])}, "
+                f"three_interpolate Function at N={n}: d points off the plain Function by "
+                f"{max_abs(got[0], plain[0])}, off autograd by {max_abs(got[0], want[0])}, "
                 f"d weight by {max_abs(got[1], want[1])}"
             )
 
@@ -430,9 +457,9 @@ def window_kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> None:
     whole calibrated ops (sorts, window starts, certificate) on the kernel
     path against the plain path, with a window that fits and one too small.
 
-    Row 7, the windowed ball query of the train forward, runs at the train
-    batch (b = 16) only; rows 8 and 9 (the fused eval grouping) and row 10
-    (FP4's windowed 3-NN) at both batches.
+    Every row runs at both batches: row 7 (the windowed ball query of the
+    train forward), rows 8 and 9 (the fused eval grouping), row 10 (FP4's
+    windowed 3-NN).
     """
     dev = torch.device(DEVICE)
     x = torch.from_numpy(clouds(b, cfg, seed)).to(dev)
@@ -445,8 +472,11 @@ def window_kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> None:
     if not bool(ok):
         raise AssertionError(f"bq_window={BQ_WINDOW} does not certify SA1 on the smoke clouds")
     tiles = lo.shape[1]
-    pairs = b * m * w  # the m x w scan of every cloud
+    first, last = core.ball_query_tile_spans(xs, qs, lo, r, w)
+    pairs = int((last - first).sum())  # the columns of each query's x-span: all that can hit
     bq_bytes = b * n * 16 + b * m * 12 + b * tiles * 4  # sorted cloud and indices, sorted queries, starts
+    route = list(cuda_ballquery.tiles_route(xs, m, m // tiles, w))
+    bq_info = {"route": route, "pairs": pairs, "window_pairs": b * m * w}
 
     def check_op(name, run, plain, windows, want_ok):
         """The whole calibrated op on both paths: equal outputs and ok."""
@@ -457,28 +487,28 @@ def window_kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> None:
             if want_ok.get(window) is not None and bool(got[-1]) != want_ok[window]:
                 raise AssertionError(f"{name} at window {window}: ok {bool(got[-1])}, want {want_ok[window]}")
 
-    if b == BATCH:
-        got = cuda.ball_query_tiles(xs, perm, qs, lo, r, ns, w)
-        want = core.ball_query_tiles(xs, perm, qs, lo, r, ns, w)
-        report.add(
-            "ball_query_sliced", b, f"N={n} M={m} r={r} nsample={ns} w={w}",
-            lambda: cuda.ball_query_tiles(xs, perm, qs, lo, r, ns, w),
-            lambda: core.ball_query_tiles(xs, perm, qs, lo, r, ns, w),
-            nbytes=bq_bytes + b * m * (ns + 1) * 4,
-            nops=9 * pairs,
-            err=0.0,
-            match=all(torch.equal(g, h) for g, h in zip(got, want)),
-            extra={
-                "op_ms": lambda: ops.ball_query_calibrated(xyz, cent, r, ns, BQ_WINDOW, impl="cuda"),
-                "exact_op_ms": lambda: ops.ball_query(xyz, cent, r, ns, impl="cuda"),
-            },
-        )
-        check_op(
-            "ball_query_calibrated",
-            lambda win: ops.ball_query_calibrated(xyz, cent, r, ns, win, impl="cuda"),
-            lambda win: ops.ball_query_calibrated(xyz, cent, r, ns, win, impl="torch"),
-            (BQ_WINDOW, SMALL_BQ_WINDOW), {BQ_WINDOW: True, SMALL_BQ_WINDOW: False},
-        )
+    got = cuda.ball_query_tiles(xs, perm, qs, lo, r, ns, w)
+    want = core.ball_query_tiles(xs, perm, qs, lo, r, ns, w)
+    report.add(
+        "ball_query_sliced", b, f"N={n} M={m} r={r} nsample={ns} w={w}",
+        lambda: cuda.ball_query_tiles(xs, perm, qs, lo, r, ns, w),
+        lambda: core.ball_query_tiles(xs, perm, qs, lo, r, ns, w),
+        nbytes=bq_bytes + b * m * (ns + 1) * 4,
+        nops=9 * pairs,
+        err=0.0,
+        match=all(torch.equal(g, h) for g, h in zip(got, want)),
+        extra={
+            "op_ms": lambda: ops.ball_query_calibrated(xyz, cent, r, ns, BQ_WINDOW, impl="cuda"),
+            "exact_op_ms": lambda: ops.ball_query(xyz, cent, r, ns, impl="cuda"),
+        },
+        info=bq_info,
+    )
+    check_op(
+        "ball_query_calibrated",
+        lambda win: ops.ball_query_calibrated(xyz, cent, r, ns, win, impl="cuda"),
+        lambda win: ops.ball_query_calibrated(xyz, cent, r, ns, win, impl="torch"),
+        (BQ_WINDOW, SMALL_BQ_WINDOW), {BQ_WINDOW: True, SMALL_BQ_WINDOW: False},
+    )
 
     got = cuda.ball_query_tiles_pos(xs, perm, qs, lo, r, ns, w)
     want = core.ball_query_tiles_pos(xs, perm, qs, lo, r, ns, w)
@@ -499,6 +529,7 @@ def window_kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> None:
                 x, w0, b0, ops.ball_query(xyz, cent, r, ns, impl="cuda")[0]
             ),
         },
+        info=bq_info,
     )
     check_op(
         "project_group_calibrated",
@@ -581,7 +612,9 @@ def repaired_phase(cfg: Config, seed: int, report: Report) -> None:
     def bq_rows(label, xyz, cent, r, ns, w):
         b, n, m = xyz.shape[0], xyz.shape[1], cent.shape[1]
         perm, xs, _, qs, lo, _ = core.ball_query_window_plan(xyz, cent, r, w)
-        pairs, base = b * m * w, b * n * 16 + b * m * 12 + b * lo.shape[1] * 4
+        first, last = core.ball_query_tile_spans(xs, qs, lo, r, w)
+        pairs, base = int((last - first).sum()), b * n * 16 + b * m * 12 + b * lo.shape[1] * 4
+        route = list(cuda_ballquery.tiles_route(xs, m, m // lo.shape[1], w))
         for name, fn, plain, out_ints in (
             ("ball_query_sliced", cuda.ball_query_tiles, core.ball_query_tiles, ns + 1),
             ("ball_query_sliced_pos", cuda.ball_query_tiles_pos, core.ball_query_tiles_pos, 2 * ns + 1),
@@ -592,7 +625,8 @@ def repaired_phase(cfg: Config, seed: int, report: Report) -> None:
                 lambda fn=fn: fn(xs, perm, qs, lo, r, ns, w), lambda plain=plain: plain(xs, perm, qs, lo, r, ns, w),
                 nbytes=base + b * m * out_ints * 4, nops=9 * pairs, err=0.0,
                 match=all(torch.equal(g, h) for g, h in zip(got, want)),
-                info={"case": "repaired", "max_count": int(got[-1].max()), "staged": w <= 232448 // 16},
+                info={"case": "repaired", "max_count": int(got[-1].max()), "staged": w <= 232448 // 16,
+                      "route": route},
             )
         got = ops.ball_query_calibrated(xyz, cent, r, ns, w, impl="cuda")
         want = ops.ball_query_calibrated(xyz, cent, r, ns, w, impl="torch")
@@ -767,13 +801,31 @@ def _expect_launches(launches: dict, want: dict, what: str) -> None:
 
 
 def _one_step(cfg: Config, impl, batch: dict, seed: int, **windows):
-    """Loss and parameter gradients of one dropout-free step from seeded weights."""
-    trainer = Trainer(cfg, ops_impl=impl, dropout_rate=0.0, device=DEVICE, **windows)
-    trainer.init_state(seed)
-    loss = trainer.train_step(batch)["loss"]
-    grads = {name: p.grad.clone() for name, p in trainer.model.named_parameters()}
-    torch.cuda.synchronize()
+    """Loss and parameter gradients of one dropout-free step from seeded
+    weights, under PyTorch's deterministic algorithms (for the comparisons
+    of two paths; the timed steps run without them)."""
+    with deterministic_algorithms():
+        trainer = Trainer(cfg, ops_impl=impl, dropout_rate=0.0, device=DEVICE, **windows)
+        trainer.init_state(seed)
+        loss = trainer.train_step(batch)["loss"]
+        grads = {name: p.grad.clone() for name, p in trainer.model.named_parameters()}
+        torch.cuda.synchronize()
     return float(loss), grads
+
+
+def _compare_steps(what: str, step: tuple, ref_step: tuple) -> dict:
+    """One step's loss and gradients against another's: within 1e-5 of the
+    loss and ``STEP_GRAD_TOL`` of each gradient's max abs, or raise. Returns
+    the worst error and whether every gradient was equal bit for bit."""
+    (loss, grads), (ref_loss, ref_grads) = step, ref_step
+    worst = max(
+        max_abs(grads[name], ref) / max(float(ref.abs().max()), 1e-30)
+        for name, ref in ref_grads.items() if float(ref.abs().max()) > 1e-6
+    )
+    if abs(loss - ref_loss) > 1e-5 * abs(ref_loss) or worst > STEP_GRAD_TOL:
+        raise AssertionError(f"{what}: loss {loss} vs {ref_loss}, worst gradient error {worst} of max abs")
+    equal = all(torch.equal(grads[name], ref) for name, ref in ref_grads.items())
+    return {"loss": loss, "ref_loss": ref_loss, "worst_grad_err_of_max_abs": worst, "bit_equal": equal}
 
 
 def train_phase(cfg: Config, seed: int, card: str) -> dict:
@@ -810,17 +862,12 @@ def train_phase(cfg: Config, seed: int, card: str) -> dict:
         raise AssertionError(f"moving statistics that did not move: {unmoved}; step {trainer.step}")
     del trainer
 
-    loss, grads = _one_step(cfg, None, batches[0], seed)
-    plain_loss, plain_grads = _one_step(cfg, "torch", batches[0], seed)
-    worst = max(
-        max_abs(grads[name], ref) / max(float(ref.abs().max()), 1e-30)
-        for name, ref in plain_grads.items() if float(ref.abs().max()) > 1e-6
-    )
-    if abs(loss - plain_loss) > 1e-5 * abs(plain_loss) or worst > STEP_GRAD_TOL:
-        raise AssertionError(
-            f"kernel path vs plain path: loss {loss} vs {plain_loss}, worst gradient error {worst} of max abs"
-        )
-    del grads, plain_grads
+    step = _one_step(cfg, None, batches[0], seed)
+    again = _one_step(cfg, None, batches[0], seed)
+    if again[0] != step[0] or not all(torch.equal(g, step[1][k]) for k, g in again[1].items()):
+        raise AssertionError("two kernel-path steps from the same weights and batch gave other gradients")
+    kernel_vs_plain = _compare_steps("kernel path vs plain path", step, _one_step(cfg, "torch", batches[0], seed))
+    del step, again
 
     accum = Trainer(cfg, accum_steps=ACCUM, device=DEVICE)
     accum.init_state(seed)
@@ -857,7 +904,7 @@ def train_phase(cfg: Config, seed: int, card: str) -> dict:
         "losses": losses,
         "launches": launches,
         "peak_memory_mb": peak_mb,
-        "kernel_vs_plain": {"loss": loss, "plain_loss": plain_loss, "worst_grad_err_of_max_abs": worst},
+        "kernel_vs_plain": kernel_vs_plain,
         "accum": {"accum_steps": ACCUM, "steps": ACCUM_STEPS, "ms_per_step": accum_times,
                   "losses": accum_losses, "launches": accum_launches},
         "card": card,
@@ -1033,17 +1080,11 @@ def train_windows_phase(cfg: Config, seed: int, card: str) -> dict:
     launches = {name: sum(step.get(name, 0) for step in step_launches) for name in KERNELS}
     del windowed, exact
 
-    loss, grads = _one_step(cfg, None, batches[0], seed, bq_window=BQ_WINDOW, fp_window=FP_WINDOW)
-    exact_loss, exact_grads = _one_step(cfg, None, batches[0], seed)
-    worst = max(
-        max_abs(grads[name], ref) / max(float(ref.abs().max()), 1e-30)
-        for name, ref in exact_grads.items() if float(ref.abs().max()) > 1e-6
+    windowed_vs_exact = _compare_steps(
+        "windowed vs exact step",
+        _one_step(cfg, None, batches[0], seed, bq_window=BQ_WINDOW, fp_window=FP_WINDOW),
+        _one_step(cfg, None, batches[0], seed),
     )
-    if abs(loss - exact_loss) > 1e-5 * abs(exact_loss) or worst > STEP_GRAD_TOL:
-        raise AssertionError(
-            f"windowed vs exact step: loss {loss} vs {exact_loss}, worst gradient error {worst} of max abs"
-        )
-    del grads, exact_grads
 
     sample = iter(clouds(BATCH, cfg, seed + 400 + i) for i in range(2))
     auto = calibrate_model_windows(
@@ -1064,7 +1105,7 @@ def train_windows_phase(cfg: Config, seed: int, card: str) -> dict:
         "exact_median_ms": exact_median,
         "window_ok": oks,
         "launches": launches,
-        "windowed_vs_exact": {"loss": loss, "exact_loss": exact_loss, "worst_grad_err_of_max_abs": worst},
+        "windowed_vs_exact": windowed_vs_exact,
         "auto_windows": {"bq_window": auto[0], "fp_window": auto[1]},
         "card": card,
     })
@@ -1095,6 +1136,7 @@ def main(argv=None) -> int:
     report = Report(card)
     chunk_levels = kernel_phase(cfg, SEED, report, CHUNK)
     train_levels = kernel_phase(cfg, SEED + 100, report, BATCH)
+    grad_kernel_phase(chunk_levels, SEED, report)
     grad_kernel_phase(train_levels, SEED, report)
     window_kernel_phase(cfg, SEED, report, CHUNK)
     window_kernel_phase(cfg, SEED + 100, report, BATCH)

@@ -43,29 +43,55 @@
 //           (launched by `_ti_bwd`, interpolate.py:137-184, from the
 //           custom_vjp at interpolate.py:187-218).
 //
-// What bounds it on the H100: bytes. The (B, N, C) cotangent is read once
-// (67 MB at FP4, batch 16), the (B, M, C) result is an eighth to a quarter of
-// that and stays in L2 while it is summed; 2 flops a product.
+// Semantics: each element is summed in one fixed order, that of the plain
+// version (ops.core.three_interpolate_grad, three index_add_ calls): slot
+// j = 0, 1, 2, and within a slot the queries in ascending order, from +0.0,
+// each product rounded before its add (`__fmul_rn`, `__fadd_rn`). So the
+// result equals the plain version bit for bit wherever that sums serially:
+// on the CPU, and on the card under torch.use_deterministic_algorithms for
+// rows wider than 32 floats (for narrower rows PyTorch's deterministic
+// index_add_ adds each call's sum of a row's addends to the row instead).
+// Two runs give the same bits. A row no pair names is +0.0. An index outside
+// [0, M) adds nothing (the plain version raises on one).
 //
-// Design: a scatter-add with float atomics. The result is zero-filled on the
-// stream (part of the call), then one thread per element of g, consecutive
-// threads on consecutive channels, reads its g once (through g's own batch
-// and row strides: autograd hands over a channel slice of the concat's
-// cotangent, which is read in place, not copied) and issues three
-// `atomicAdd(float)` into the three rows its query names. A warp's 32 atomics
-// go to 32 consecutive floats of one row, which the L2 takes as one
-// transaction. The TPU kernel has no vector scatter, so it builds a dense
-// (tile, N) block of W^T with three compare-selects and multiplies it on the
-// MXU; here that would do N/3 times the work. The alternative, a counting
-// sort of idx into per-row lists summed in a fixed order, is deterministic
-// but needs three more passes; this one was chosen because it is one short
-// kernel whose only cost is the order: the addends of an element (about
-// 3*N/M of them, 12 to 24 on the train path) are summed in the order the
-// atomics arrive, which changes from run to run, so the result is held to
-// its plain version within a tolerance, not bit for bit. Products are
-// rounded before they are added (`__fmul_rn`; an atomic cannot fuse).
-// An index outside [0, M) adds nothing (the plain version raises on one).
+// What bounds it on the H100: bytes. The (B, N, C) cotangent is read once
+// (67 MB at FP4, batch 16), the (B, M, C) result written once; 2 flops a
+// product. The index below moves a few bytes a pair (0.4 M pairs at FP4).
+//
+// Design: gather by destination row instead of scattering by source, in
+// three kernels. The first zeroes a counter a destination row (b * M + idx).
+// The second gives each of the 3 * B * N pairs a slot of its row by an
+// integer atomic (the counts do not depend on the order) and, up to kSlots =
+// 64 a row, leaves the pair's key j * N + q in the row's bucket; the slots'
+// order changes from run to run, but keys are unique in a row. The third
+// takes one warp a destination row and 128-channel chunk: it sorts the
+// bucket's keys in the lanes (a bitonic sort of 32, or of two 32s and a
+// merge), which puts them in (j, q) order, then walks them, loading the g
+// rows of 8 keys ahead of their ordered adds (enough loads in flight to cover
+// L2's latency), 4 channels a lane: 16-byte loads of g and stores of dpoints
+// where both are aligned (C, g's strides and pointers multiples of 4 floats),
+// else 4-byte accesses 32 floats apart; g is read through its batch and row
+// strides (autograd hands over a channel slice of the FP concat's cotangent,
+// read in place). A row of more than 64 keys (none at the model's shapes:
+// 12 to 24 on average, 51 at most measured at FP4) scans its cloud's pairs
+// for slot 0, 1, 2 in query order instead, which is the order of the sum.
+// Every row is written with plain stores; one no pair names is +0.0. A g row
+// is read once for each of its up to three destination rows: at FP4 that is
+// about 200 MB out of L2, which bounds this design near 40 us at B=16 where
+// the op's bytes allow 23. The index is built in the backward rather than in
+// the forward's ThreeInterpolate: the eval path, which never takes the
+// backward, pays nothing for it. Measured on the H100 (PERF.md): a block a
+// cloud building a packed index (counts, scan, fill in shared memory) took
+// 34 us at FP4 (16 blocks); a bucket a (row, slot j) cut the fill from 17 to
+// 14 us there but slowed the sum from 50 to 61; one warp a row over all its
+// channels left the small levels latency-bound. The TPU kernel has no vector
+// scatter, so it builds a dense (tile, N) block of W^T with three
+// compare-selects and multiplies it on the MXU; here that would do N/3 times
+// the work. The design
+// before this one scattered with float atomics into a zero-filled result,
+// whose last bits followed the atomics' order.
 
+#include <climits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -133,26 +159,193 @@ __global__ void three_interpolate_kernel(const float* __restrict__ points,
   }
 }
 
-__global__ void three_interpolate_grad_kernel(const float* __restrict__ g,
-                                              long long g_stride_b,
-                                              long long g_stride_n,
-                                              const int* __restrict__ idx,
-                                              const float* __restrict__ weight,
-                                              int m, int n, int c, int total,
-                                              float* __restrict__ dpoints) {
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kGradThreads = 256;  // the backward's blocks; the sum's: 8 warps
+constexpr int kSlots = 64;         // keys a row's bucket holds: two a lane
+constexpr int kChunk = 128;        // channels a warp of the sum takes: 4 a lane
+constexpr int kSumUnroll = 8;      // keys a warp of the sum loads ahead of their ordered adds
+
+// Row counters zeroed: count[0, len).
+__global__ void three_interpolate_grad_zero_kernel(int* __restrict__ count, int len) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < len; i += gridDim.x * blockDim.x) count[i] = 0;
+}
+
+// Pair t = (b * n + q) * 3 + j takes a slot of its row b * m + idx[t] (an
+// integer atomic: the row's count does not depend on the order) and, while
+// the bucket has room, leaves its key j * n + q there. A pair naming no row
+// of [0, m) is left out.
+__global__ void three_interpolate_grad_fill_kernel(const int* __restrict__ idx, int m, int n,
+                                                   int pairs, int* __restrict__ count,
+                                                   int* __restrict__ bucket) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int ch = t % c;
-  const int q = t / c;  // b * n + row
-  const int bi = q / n;
-  float* d = dpoints + (size_t)bi * m * c + ch;
-  const int* iq = idx + (size_t)q * 3;
-  const float* wq = weight + (size_t)q * 3;
-  const float gv = g[bi * g_stride_b + (q - bi * n) * g_stride_n + ch];
+  if (t >= pairs) return;
+  const int row = idx[t];
+  if ((unsigned)row >= (unsigned)m) return;
+  const int bq = t / 3;
+  const int b = bq / n;
+  const int q = bq - b * n;
+  const size_t r = (size_t)b * m + row;
+  const int slot = atomicAdd(count + r, 1);
+  if (slot < kSlots) bucket[r * kSlots + slot] = (t - 3 * bq) * n + q;
+}
+
+// Bitonic sort across the warp, ascending (descending with kDown): lane s
+// ends with the s-th key.
+template <bool kDown = false>
+__device__ __forceinline__ int warp_sort(int key, int lane) {
 #pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const int row = iq[j];
-    if ((unsigned)row < (unsigned)m) atomicAdd(d + (size_t)row * c, __fmul_rn(wq[j], gv));
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int d = k >> 1; d > 0; d >>= 1) {
+      const int other = __shfl_xor_sync(kFull, key, d);
+      const bool keep_min = (((lane & k) == 0) == ((lane & d) == 0)) != kDown;
+      key = keep_min ? min(key, other) : max(key, other);
+    }
+  }
+  return key;
+}
+
+// A bitonic sequence across the warp, sorted ascending.
+__device__ __forceinline__ int warp_merge(int key, int lane) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    const int other = __shfl_xor_sync(kFull, key, d);
+    key = (lane & d) == 0 ? min(key, other) : max(key, other);
+  }
+  return key;
+}
+
+// Adds w_t * g[q_t] for the keys t < len that the lanes hold (lane t: the
+// weight wv and the offset gv of g's row), in lane order, into the lane's
+// kChunk / 32 channels from ch0. Lanes past len hold weight 0 and offset 0:
+// their rows are loaded (g's first row of the cloud) but never added.
+template <bool kVec>
+__device__ __forceinline__ void add_rows(float (&acc)[kChunk / 32], const float* gb, float wv,
+                                         long long gv, int len, int ch0, int c, int lane) {
+  constexpr int kPerLane = kChunk / 32;
+  for (int t0 = 0; t0 < len; t0 += kSumUnroll) {
+    float ws[kSumUnroll];
+    float v[kSumUnroll][kPerLane];
+#pragma unroll
+    for (int u = 0; u < kSumUnroll; ++u) {
+      const int src = (t0 + u) & 31;
+      ws[u] = __shfl_sync(kFull, wv, src);
+      const float* gr = gb + __shfl_sync(kFull, gv, src);
+      if constexpr (kVec) {
+        const int ch = ch0 + kPerLane * lane;
+        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (ch < c) x = *reinterpret_cast<const float4*>(gr + ch);
+        v[u][0] = x.x;
+        v[u][1] = x.y;
+        v[u][2] = x.z;
+        v[u][3] = x.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < kPerLane; ++i) {
+          const int ch = ch0 + lane + 32 * i;
+          v[u][i] = ch < c ? gr[ch] : 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSumUnroll; ++u) {
+      if (t0 + u < len) {
+#pragma unroll
+        for (int i = 0; i < kPerLane; ++i) acc[i] = __fadd_rn(acc[i], __fmul_rn(ws[u], v[u][i]));
+      }
+    }
+  }
+}
+
+// One warp a destination row r = b * m + row and a chunk of kChunk channels
+// from ch0 (chunks warps a row). Up to kSlots keys: the bucket's, sorted in
+// the lanes (two a lane). More: the cloud's pairs scanned in (j, q) order,
+// which is the order of the sum, so nothing is sorted. kVec: 16-byte loads of
+// g and stores of dpoints.
+template <bool kVec>
+__global__ void three_interpolate_grad_sum_kernel(const float* __restrict__ g, long long g_stride_b,
+                                                  long long g_stride_n, const int* __restrict__ idx,
+                                                  const float* __restrict__ weight,
+                                                  const int* __restrict__ count_of,
+                                                  const int* __restrict__ bucket, int m, int n, int c,
+                                                  int rows, int chunks, float* __restrict__ dpoints) {
+  constexpr int kPerLane = kChunk / 32;
+  const int lane = threadIdx.x & 31;
+  const long long w = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (w >= (long long)rows * chunks) return;  // a whole warp: the shuffles below see all 32 lanes
+  const int r = (int)(w / chunks);
+  const int ch0 = (int)(w - (long long)r * chunks) * kChunk;
+  const int b = r / m;
+  const int row = r - b * m;
+  const int count = count_of[r];
+  const float* gb = g + b * g_stride_b;
+  const float* wb = weight + (size_t)b * n * 3;
+  float acc[kPerLane];
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i) acc[i] = 0.f;
+  if (count <= kSlots) {
+    const int* keys = bucket + (size_t)r * kSlots;
+    int lo = lane < count ? keys[lane] : INT_MAX;
+    int hi = 32 + lane < count ? keys[32 + lane] : INT_MAX;
+    if (count > 32) {  // sort both halves, the second descending, then merge the bitonic 64
+      lo = warp_sort(lo, lane);
+      hi = warp_sort<true>(hi, lane);
+      const int a = min(lo, hi);
+      hi = warp_merge(max(lo, hi), lane);
+      lo = warp_merge(a, lane);
+    } else {
+      lo = warp_sort(lo, lane);
+    }
+    for (int half = 0; half < 2 && 32 * half < count; ++half) {
+      const int len = min(32, count - 32 * half);
+      float wv = 0.f;
+      long long gv = 0;
+      if (lane < len) {
+        const int k = half ? hi : lo;
+        const int j = k >= 2 * n ? 2 : (k >= n ? 1 : 0);
+        const int q = k - j * n;
+        wv = wb[q * 3 + j];
+        gv = q * g_stride_n;
+      }
+      add_rows<kVec>(acc, gb, wv, gv, len, ch0, c, lane);
+    }
+  } else {
+    const int* ib = idx + (size_t)b * n * 3;
+    for (int j = 0; j < 3; ++j) {
+      for (int q0 = 0; q0 < n; q0 += 32) {
+        const int q = q0 + lane;
+        const bool hit = q < n && ib[q * 3 + j] == row;
+        const unsigned mask = __ballot_sync(kFull, hit);
+        if (mask == 0u) continue;
+        // The hits, in lane (query) order, gathered into the low lanes: lane t
+        // takes the t-th hit.
+        const int len = __popc(mask);
+        float wv = hit ? wb[q * 3 + j] : 0.f;
+        long long gv = hit ? q * g_stride_n : 0;
+        int from = 0, rank = 0;
+        for (unsigned bits = mask; bits; bits &= bits - 1u, ++rank) {
+          if (rank == lane) from = __ffs(bits) - 1;
+        }
+        wv = __shfl_sync(kFull, wv, from);
+        gv = __shfl_sync(kFull, gv, from);
+        if (lane >= len) {
+          wv = 0.f;
+          gv = 0;
+        }
+        add_rows<kVec>(acc, gb, wv, gv, len, ch0, c, lane);
+      }
+    }
+  }
+  float* out = dpoints + (size_t)r * c;
+  if constexpr (kVec) {
+    const int ch = ch0 + kPerLane * lane;
+    if (ch < c) *reinterpret_cast<float4*>(out + ch) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) {
+      const int ch = ch0 + lane + 32 * i;
+      if (ch < c) out[ch] = acc[i];
+    }
   }
 }
 
@@ -196,24 +389,39 @@ int pn2_three_interpolate(const float* points, const int* idx, const float* weig
 }
 
 // g (b, n, c) f32, idx (b, n, 3) i32, weight (b, n, 3) f32 -> dpoints (b, m, c) f32,
-// which is zero-filled here, on the same stream, before the atomics.
-// g's channels lie next to each other; its batch and row strides, in
-// elements, are g_stride_b and g_stride_n (n * c and c when it is contiguous),
-// so a cotangent that is a channel slice of a wider tensor is read where it
-// lies. b * n * c must fit in an int. Returns the first CUDA error, or 0.
+// every element written. g's channels lie next to each other; its batch and
+// row strides, in elements, are g_stride_b and g_stride_n (n * c and c when
+// it is contiguous), so a cotangent that is a channel slice of a wider tensor
+// is read where it lies. scratch holds b * m * (1 + kSlots) ints (each row's
+// count and its bucket of keys). vec: 16-byte loads of g and stores of
+// dpoints (both 16-byte aligned, c and the strides multiples of 4). 3 * b * n
+// and b * m * c must fit in an int. Returns the first CUDA error, or 0.
 int pn2_three_interpolate_grad(const float* g, long long g_stride_b, long long g_stride_n,
                                const int* idx, const float* weight,
-                               int b, int m, int n, int c, float* dpoints, int device,
-                               void* stream) {
+                               int b, int m, int n, int c, float* dpoints, int* scratch, int vec,
+                               int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(dpoints, 0, (size_t)b * m * c * sizeof(float), (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = 256;
-  const int total = b * n * c;
-  const int blocks = (int)(((long long)total + threads - 1) / threads);
-  three_interpolate_grad_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      g, g_stride_b, g_stride_n, idx, weight, m, n, c, total, dpoints);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int rows = b * m;
+  const int pairs = 3 * b * n;
+  int* count = scratch;
+  int* bucket = scratch + rows;
+  const int zero_blocks = min((rows + kGradThreads - 1) / kGradThreads, 4096);
+  three_interpolate_grad_zero_kernel<<<zero_blocks, kGradThreads, 0, s>>>(count, rows);
+  three_interpolate_grad_fill_kernel<<<(pairs + kGradThreads - 1) / kGradThreads, kGradThreads, 0, s>>>(
+      idx, m, n, pairs, count, bucket);
+  const int chunks = (c + kChunk - 1) / kChunk;
+  const long long warps = (long long)rows * chunks;
+  const long long blocks = (warps + (kGradThreads >> 5) - 1) / (kGradThreads >> 5);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (vec) {
+    three_interpolate_grad_sum_kernel<true><<<(unsigned)blocks, kGradThreads, 0, s>>>(
+        g, g_stride_b, g_stride_n, idx, weight, count, bucket, m, n, c, rows, chunks, dpoints);
+  } else {
+    three_interpolate_grad_sum_kernel<false><<<(unsigned)blocks, kGradThreads, 0, s>>>(
+        g, g_stride_b, g_stride_n, idx, weight, count, bucket, m, n, c, rows, chunks, dpoints);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -26,27 +26,42 @@
 // a lax.cond over all tiles at once; here each block decides for its own
 // tile, and nothing goes back to the host.
 //
-// What bounds it on the H100: operations, about 9 a (query, column) pair of
-// the m x w scan (of the pairs up to the nsample-th hit in a tile that falls
-// back); the window is read from device memory once a tile. The TPU kernel
-// extracts the picks with nsample full-width min passes over a (tm, w) key
-// block; here each pair is looked at once.
+// What bounds it on the H100: operations, about 9 a (query, column) pair
+// scanned; the window is read from device memory once a block. The TPU
+// kernel extracts the picks with nsample full-width min passes over a
+// (tm, w) key block; here each pair is looked at once, and only the pairs
+// that can hit.
 //
-// Design: one block per (cloud, tile). The window goes to dynamic shared
-// memory as four arrays (x, y, z, original index; 16 bytes a column, 48 KB
-// at w = 3072); a window wider than shared memory holds (kMaxSharedWindow
-// columns) is read where it lies, through L1 and L2. One warp per query: it
-// walks the window in 32-column strips, `__ballot_sync` gives the strip's
-// in-ball lanes, `__popc` counts them, and each hit is inserted into a
-// sorted list of the nsample smallest original indices. For nsample <= 32
-// the warp holds the list one slot a lane: the slots below the new key stay,
-// the rest shift up one lane (`__shfl_up_sync`), and the key takes the free
-// lane. For a larger nsample the list lives in the query's own output row
-// (and the picks' columns in the position row) and the warp shifts it 32
-// slots at a time. Original indices are unique, so no
-// removal is needed. The exact scan walks the cloud in dataset order and
-// appends the hits (the slot of a hit is the count so far plus the `__popc`
-// of the hits in lower lanes), stopping at nsample hits.
+// Design of the tiles kernel (rows 7 and 8), for the card: each tile's
+// queries are split over `split` blocks of `warps` warps (the plan in
+// ops/cuda/ballquery.py fills the card: at SA1 8 blocks a tile at B=8 and 4
+// at B=16, where one block a tile left 64 or 128 blocks on 132 SMs). The
+// window is sorted by x, and a column whose rounded dx^2 alone reaches r2 is
+// never in the ball (adding the rounded dy^2 and dz^2 cannot lower the sum):
+// such columns form the two ends of the window. So each warp finds, by a
+// search of 32 probes a round, the span of columns its block's queries can
+// hit (the first query's left end to the last query's right end); the block
+// stages only that span in shared memory as 16-byte (x, y, z, original
+// index) quads, one 16-byte load a column; and each query scans only its own
+// span, found the same way (at SA1 about a third of the 3072 columns). The
+// count, the picks and their columns are those of the whole window. A window
+// wider than shared memory holds (kMaxSharedWindow columns) is read where it
+// lies, with the same spans.
+//
+// Design common to the scans: one warp per query: it walks its columns in
+// 32-column strips, `__ballot_sync` gives the strip's in-ball lanes, `__popc`
+// counts them, and each hit is inserted into a sorted list of the nsample
+// smallest original indices. For nsample <= 32 the warp holds the list one
+// slot a lane: the slots below the new key stay, the rest shift up one lane
+// (`__shfl_up_sync`), and the key takes the free lane. For a larger nsample
+// the list lives in the query's own output row (and the picks' columns in the
+// position row) and the warp shifts it 32 slots at a time. Original indices
+// are unique, so no removal is needed. The round-1 windowed kernel (row 11,
+// not redesigned) keeps one block per (cloud, tile) of kBqThreads threads, a
+// window staged as four arrays (x, y, z, original index; 16 bytes a column)
+// and the whole window a query. The exact scan walks the cloud in dataset
+// order and appends the hits (the slot of a hit is the count so far plus the
+// `__popc` of the hits in lower lanes), stopping at nsample hits.
 
 #pragma once
 
@@ -56,7 +71,7 @@
 namespace pn2_window {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kBqThreads = 512;  // 16 warps, 8 queries each in a tile of 128
+constexpr int kBqThreads = 512;  // the round-1 kernel: 16 warps, 8 queries each in a tile of 128
 constexpr int kMaxSlots = 32;    // one slot a lane
 // The widest window that fits a block's 227 KB of dynamic shared memory.
 constexpr int kMaxSharedWindow = 232448 / 16;
@@ -89,6 +104,7 @@ struct SharedColumns {
 struct GlobalColumns {
   const float* xyz;
   const int* orig;
+  __device__ __forceinline__ float xat(int j) const { return xyz[3 * j]; }
   __device__ __forceinline__ void get(int j, float& cx, float& cy, float& cz,
                                       int& o) const {
     cx = xyz[3 * j + 0];
@@ -98,23 +114,98 @@ struct GlobalColumns {
   }
 };
 
-// One warp, one query, `len` columns; nsample <= 32. On return lane s < nsample
-// holds the s-th smallest in-ball original index in `key` (INT_MAX past the
-// hits) and its column in `col`; `count` is the number of in-ball columns, the
-// same in every lane.
+// Window columns [first, first + len) staged in shared memory as 16-byte
+// (x, y, z, original index) quads: one 16-byte load a column. Takes the
+// window column j, as the other two do.
+struct SharedQuads {
+  const float4* quad;
+  int first;
+  __device__ __forceinline__ float xat(int j) const { return quad[j - first].x; }
+  __device__ __forceinline__ void get(int j, float& cx, float& cy, float& cz,
+                                      int& o) const {
+    const float4 v = quad[j - first];
+    cx = v.x;
+    cy = v.y;
+    cz = v.z;
+    o = __float_as_int(v.w);
+  }
+};
+
+// Along x-sorted columns the x difference dx = fl(qx - cx) falls as cx
+// grows, and fl(dx * dx) grows with |dx|; the rounded dy^2 and dz^2 it is
+// added to are not negative, so a column with fl(dx * dx) >= r2 is never in
+// the ball. Such columns lie left of the query (dx > 0) on a prefix of the
+// window and right of it (dx < 0) on a suffix.
+__device__ __forceinline__ bool far_left(float qx, float cx, float r2) {
+  const float dx = __fsub_rn(qx, cx);
+  return dx > 0.f && __fmul_rn(dx, dx) >= r2;
+}
+
+__device__ __forceinline__ bool not_far_right(float qx, float cx, float r2) {
+  const float dx = __fsub_rn(qx, cx);
+  return !(dx < 0.f && __fmul_rn(dx, dx) >= r2);
+}
+
+// One round of a warp's search for the first column in [begin, end) at which
+// the predicate (far_left if kLeft, else not_far_right: true on a prefix of
+// the columns) is false: 32 probes narrow the range to one step between two
+// probes; a range of 32 columns or fewer is probed whole. The search is over
+// when begin == end, and the answer is begin.
+template <bool kLeft, class Columns>
+__device__ __forceinline__ void x_round(const Columns& cols, int& begin, int& end, float qx,
+                                        float r2, int lane) {
+  const int len = end - begin;
+  const int step = len > 32 ? (len + 31) >> 5 : 1;
+  const int j = begin + lane * step;
+  bool p = false;
+  if (j < end) {
+    const float cx = cols.xat(j);
+    p = kLeft ? far_left(qx, cx, r2) : not_far_right(qx, cx, r2);
+  }
+  const int k = __popc(__ballot_sync(kFull, p));
+  if (step == 1) {
+    begin += k;
+    end = begin;
+  } else if (k == 0) {
+    end = begin;
+  } else {
+    end = min(end, begin + k * step);
+    begin += (k - 1) * step + 1;
+  }
+}
+
+// The columns of [begin, end) that queries with x in [qx_first, qx_last) can
+// hit: from qx_first's first column not far left to qx_last's first column
+// far right. One warp, the two searches in step (a window of 3072 columns
+// takes three rounds), the same answer in every lane.
 template <class Columns>
-__device__ __forceinline__ void scan_slots(const Columns& cols, int len, float qx,
+__device__ __forceinline__ int2 x_span(const Columns& cols, int begin, int end, float qx_first,
+                                       float qx_last, float r2, int lane) {
+  int lb = begin, le = end, rb = begin, re = end;
+  while (le > lb || re > rb) {
+    if (le > lb) x_round<true>(cols, lb, le, qx_first, r2, lane);
+    if (re > rb) x_round<false>(cols, rb, re, qx_last, r2, lane);
+  }
+  return make_int2(lb, max(lb, rb));
+}
+
+// One warp, one query, columns [begin, end); nsample <= 32. On return lane
+// s < nsample holds the s-th smallest in-ball original index in `key` (INT_MAX
+// past the hits) and its column in `col`; `count` is the number of in-ball
+// columns, the same in every lane.
+template <class Columns>
+__device__ __forceinline__ void scan_slots(const Columns& cols, int begin, int end, float qx,
                                            float qy, float qz, float r2, int nsample,
                                            int lane, int& key, int& col, int& count) {
   const bool holds_slot = lane < nsample;
   key = INT_MAX;
   col = 0;
   count = 0;
-  for (int base = 0; base < len; base += 32) {
+  for (int base = begin; base < end; base += 32) {
     const int j = base + lane;
     bool in = false;
     int orig = 0;
-    if (j < len) {
+    if (j < end) {
       float cx, cy, cz;
       cols.get(j, cx, cy, cz, orig);
       in = dist2(qx, qy, qz, cx, cy, cz) < r2;
@@ -144,17 +235,18 @@ __device__ __forceinline__ void scan_slots(const Columns& cols, int len, float q
 
 // The same scan for any nsample: the sorted list is the query's output row
 // `list` (device memory that only this warp touches), and with kWithPos each
-// pick's column rides along in `pos`, shifted with it. Returns the number of
-// in-ball columns; list[0 .. min(count, nsample)) holds the picks.
+// pick's column rides along in `pos`, shifted with it. Columns [begin, end).
+// Returns the number of in-ball columns; list[0 .. min(count, nsample)) holds
+// the picks.
 template <class Columns, bool kWithPos = false>
-__device__ int scan_list(const Columns& cols, int len, float qx, float qy, float qz,
+__device__ int scan_list(const Columns& cols, int begin, int end, float qx, float qy, float qz,
                          float r2, int nsample, int lane, int* list, int* pos = nullptr) {
   int count = 0;
-  for (int base = 0; base < len; base += 32) {
+  for (int base = begin; base < end; base += 32) {
     const int j = base + lane;
     bool in = false;
     int orig = 0;
-    if (j < len) {
+    if (j < end) {
       float cx, cy, cz;
       cols.get(j, cx, cy, cz, orig);
       in = dist2(qx, qy, qz, cx, cy, cz) < r2;
@@ -246,41 +338,63 @@ __device__ __forceinline__ SharedColumns stage_window(float* smem, int w, int le
   return SharedColumns{sx, sy, sz, so};
 }
 
-// Grid (tiles, b), kBqThreads threads, 16 * w bytes of dynamic shared memory
-// when `staged` (w <= kMaxSharedWindow), else none: the window is read where
-// it lies. xs (b, n, 3), perm (b, n), qs (b, m, 3) sorted; lo (b, tiles) with
-// lo + w <= n; idx/pos (b, m, nsample), cnt (b, m) in sorted query order.
-// kSlots: nsample <= 32, the list in registers; else in the output rows.
+// Grid (tiles * split, b), `warps` warps a block, 16 * w bytes of dynamic
+// shared memory when `staged` (w <= kMaxSharedWindow), else none: the window
+// is read where it lies. xs (b, n, 3), perm (b, n), qs (b, m, 3) sorted; lo
+// (b, tiles) with lo + w <= n; idx/pos (b, m, nsample), cnt (b, m) in sorted
+// query order. Block (tile, part) takes the tm / split sorted queries
+// [part * tm / split, (part + 1) * tm / split) of the tile. kSlots: nsample
+// <= 32, the list in registers; else in the output rows.
 template <bool kWithPos, bool kSlots>
 __global__ void ball_query_tiles_kernel(const float* __restrict__ xs,
                                         const int* __restrict__ perm,
                                         const float* __restrict__ qs,
                                         const int* __restrict__ lo, int n,
-                                        int m, int tm, int w, bool staged, float r2,
+                                        int m, int tm, int w, int split, bool staged, float r2,
                                         int nsample, int* __restrict__ idx,
                                         int* __restrict__ pos,
                                         int* __restrict__ cnt) {
-  extern __shared__ float smem[];
-  const int tile = blockIdx.x;
+  extern __shared__ float4 quads[];
+  const int tile = blockIdx.x / split;
+  const int part = blockIdx.x - tile * split;
   const int b = blockIdx.y;
-  const int start = lo[b * gridDim.x + tile];
+  const int start = lo[b * (gridDim.x / split) + tile];
   const GlobalColumns window{xs + ((size_t)b * n + start) * 3, perm + (size_t)b * n + start};
-  SharedColumns shared{};
-  if (staged) shared = stage_window(smem, w, w, window.xyz, window.orig);
-
+  const int per_block = tm / split;
+  const size_t q0 = (size_t)b * m + (size_t)tile * tm + (size_t)part * per_block;
   const int lane = threadIdx.x & 31;
-  for (int qi = threadIdx.x >> 5; qi < tm; qi += blockDim.x >> 5) {
-    const size_t q = (size_t)b * m + (size_t)tile * tm + qi;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+
+  // The columns the block's queries can hit: from the first query's left
+  // boundary to the last query's right one (the queries are sorted by x, and
+  // both boundaries move right with the query). Every warp finds them itself:
+  // the block then needs no shared memory beside the window's w columns.
+  const int2 span = x_span(window, 0, w, qs[q0 * 3], qs[(q0 + per_block - 1) * 3], r2, lane);
+  const SharedQuads shared{quads, span.x};
+  if (staged) {
+    for (int j = span.x + threadIdx.x; j < span.y; j += blockDim.x) {
+      quads[j - span.x] = make_float4(window.xyz[3 * j], window.xyz[3 * j + 1], window.xyz[3 * j + 2],
+                                      __int_as_float(window.orig[j]));
+    }
+    __syncthreads();
+  }
+
+  for (int qi = warp; qi < per_block; qi += warps) {
+    const size_t q = q0 + qi;
     const float qx = qs[q * 3 + 0];
     const float qy = qs[q * 3 + 1];
     const float qz = qs[q * 3 + 2];
+    const int2 cols = staged ? x_span(shared, span.x, span.y, qx, qx, r2, lane)
+                             : x_span(window, span.x, span.y, qx, qx, r2, lane);
+    const int begin = cols.x, end = cols.y;
     int c;
     if constexpr (kSlots) {
       int key, col, count;
       if (staged) {
-        scan_slots(shared, w, qx, qy, qz, r2, nsample, lane, key, col, count);
+        scan_slots(shared, begin, end, qx, qy, qz, r2, nsample, lane, key, col, count);
       } else {
-        scan_slots(window, w, qx, qy, qz, r2, nsample, lane, key, col, count);
+        scan_slots(window, begin, end, qx, qy, qz, r2, nsample, lane, key, col, count);
       }
       c = count < nsample ? count : nsample;
       const int first_key = __shfl_sync(kFull, key, 0);
@@ -294,8 +408,8 @@ __global__ void ball_query_tiles_kernel(const float* __restrict__ xs,
       int* out = idx + q * nsample;
       int* out_pos = kWithPos ? pos + q * nsample : nullptr;
       const int count =
-          staged ? scan_list<SharedColumns, kWithPos>(shared, w, qx, qy, qz, r2, nsample, lane, out, out_pos)
-                 : scan_list<GlobalColumns, kWithPos>(window, w, qx, qy, qz, r2, nsample, lane, out, out_pos);
+          staged ? scan_list<SharedQuads, kWithPos>(shared, begin, end, qx, qy, qz, r2, nsample, lane, out, out_pos)
+                 : scan_list<GlobalColumns, kWithPos>(window, begin, end, qx, qy, qz, r2, nsample, lane, out, out_pos);
       c = count < nsample ? count : nsample;
       const int first = c > 0 ? out[0] : 0;
       const int first_col = kWithPos && c > 0 ? out_pos[0] : 0;
@@ -309,12 +423,16 @@ __global__ void ball_query_tiles_kernel(const float* __restrict__ xs,
   }
 }
 
+// split: blocks a tile (tm % split == 0); warps: warps a block (1 to 32).
 template <bool kWithPos>
 cudaError_t launch_ball_query_tiles(const float* xs, const int* perm,
                                     const float* qs, const int* lo, int b,
-                                    int n, int m, int tm, int w, float r2,
+                                    int n, int m, int tm, int w, int split, int warps, float r2,
                                     int nsample, int* idx, int* pos, int* cnt,
                                     cudaStream_t stream) {
+  if (split < 1 || tm % split || warps < 1 || warps > 32 || (long long)(m / tm) * split > 0x7fffffffLL) {
+    return cudaErrorInvalidValue;
+  }
   const bool staged = w <= kMaxSharedWindow;
   const size_t smem = staged ? (size_t)w * 16 : 0;
   auto* kernel = nsample <= kMaxSlots ? &ball_query_tiles_kernel<kWithPos, true>
@@ -324,9 +442,9 @@ cudaError_t launch_ball_query_tiles(const float* xs, const int* perm,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(m / tm, b);
-  kernel<<<grid, kBqThreads, smem, stream>>>(xs, perm, qs, lo, n, m, tm, w, staged, r2,
-                                            nsample, idx, pos, cnt);
+  const dim3 grid((m / tm) * split, b);
+  kernel<<<grid, warps * 32, smem, stream>>>(xs, perm, qs, lo, n, m, tm, w, split, staged, r2,
+                                             nsample, idx, pos, cnt);
   return cudaGetLastError();
 }
 
@@ -370,16 +488,16 @@ __global__ void ball_query_windowed_kernel(const float* __restrict__ xyz1,
     } else if constexpr (kSlots) {
       int key, col, count;
       if (in_smem) {
-        scan_slots(shared, len, qx, qy, qz, r2, nsample, lane, key, col, count);
+        scan_slots(shared, 0, len, qx, qy, qz, r2, nsample, lane, key, col, count);
       } else {
-        scan_slots(window, len, qx, qy, qz, r2, nsample, lane, key, col, count);
+        scan_slots(window, 0, len, qx, qy, qz, r2, nsample, lane, key, col, count);
       }
       c = count < nsample ? count : nsample;
       const int first = __shfl_sync(kFull, key, 0);
       if (lane < nsample) out[lane] = lane < c ? key : (c > 0 ? first : 0);
     } else {
-      const int count = in_smem ? scan_list(shared, len, qx, qy, qz, r2, nsample, lane, out)
-                                : scan_list(window, len, qx, qy, qz, r2, nsample, lane, out);
+      const int count = in_smem ? scan_list(shared, 0, len, qx, qy, qz, r2, nsample, lane, out)
+                                : scan_list(window, 0, len, qx, qy, qz, r2, nsample, lane, out);
       c = count < nsample ? count : nsample;
       const int first = c > 0 ? out[0] : 0;
       __syncwarp();

@@ -87,12 +87,12 @@ extern "C" {
 // (ballquery.cu), plus pos (b, m, nsample) i32, each pick's window column.
 int pn2_ball_query_tiles_pos(const float* xs, const int* perm, const float* qs,
                              const int* lo, int b, int n, int m, int tm, int w,
-                             float r2, int nsample, int* idx, int* pos,
+                             int split, int warps, float r2, int nsample, int* idx, int* pos,
                              int* cnt, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   return (int)pn2_window::launch_ball_query_tiles<true>(
-      xs, perm, qs, lo, b, n, m, tm, w, r2, nsample, idx, pos, cnt,
+      xs, perm, qs, lo, b, n, m, tm, w, split, warps, r2, nsample, idx, pos, cnt,
       (cudaStream_t)stream);
 }
 

@@ -330,6 +330,30 @@ def _bq_tile_keys(xs, perm, qs, lo, radius, w, with_pos):
     return torch.where(in_ball, keys, sentinel).reshape(b, m, w), sentinel
 
 
+def ball_query_tile_spans(xs: Tensor, qs: Tensor, lo: Tensor, radius: float, w: int) -> tuple[Tensor, Tensor]:
+    """Each sorted query's window columns ``[first, last)`` that can be in its
+    ball, as the CUDA tiles kernel finds them (``csrc/window_bq.cuh``).
+
+    Along the x-sorted window ``dx = fl(qx - cx)`` falls as ``cx`` grows and
+    ``fl(dx * dx)`` grows with ``|dx|``; the rounded ``dy^2`` and ``dz^2``
+    added to it are not negative, so a column with ``fl(dx * dx) >= r2`` is
+    never in the ball. ``first`` counts such columns left of the query
+    (``dx > 0``, a prefix of the window) and ``last`` is where those right of
+    it (``dx < 0``, a suffix) begin; ``last >= first``. The in-ball columns of
+    ``[lo, lo + w)`` all lie in ``[lo + first, lo + last)``. Returns (B, M)
+    int64, window-relative, in sorted query order.
+    """
+    b, t = lo.shape
+    m = qs.shape[1]
+    cols = (lo.long()[:, :, None] + torch.arange(w, device=lo.device)).reshape(b, t * w)
+    wx = xs[..., 0].gather(1, cols).reshape(b, t, 1, w)
+    dx = qs[..., 0].reshape(b, t, m // t, 1) - wx
+    far = dx * dx >= squared_radius(radius)
+    first = ((dx > 0) & far).sum(-1).reshape(b, m)
+    last = w - ((dx < 0) & far).sum(-1).reshape(b, m)
+    return first, torch.maximum(first, last)
+
+
 def ball_query_tiles(xs, perm, qs, lo, radius: float, nsample: int, w: int):
     """The windowed ball query over sorted tiles (the work of
     ``_ball_query_sliced_kernel``, ballquery.py:247).

@@ -7,9 +7,11 @@
   shape and the card's SM count, and the wrapper takes ``route=`` to force one.
 - ``ball_query_tiles`` replaces ``ballquery.py:247``
   (``_ball_query_sliced_kernel``); its plain version is
-  ``ops.core.ball_query_tiles``. ``ball_query_sliced`` is the whole calibrated
-  op (sorts, window starts and certificate in PyTorch, as the JAX wrapper
-  leaves them to XLA) with the two kernels.
+  ``ops.core.ball_query_tiles``. ``tiles_plan`` splits each tile's queries
+  over blocks so that the card fills, and the wrapper takes ``route=`` to
+  force a split. ``ball_query_sliced`` is the whole calibrated op (sorts,
+  window starts and certificate in PyTorch, as the JAX wrapper leaves them to
+  XLA) with the two kernels.
 - ``ball_query_window_tiles`` replaces ``ballquery.py:80``
   (``_ball_query_window_kernel``) and its wrapper's fallback, tile by tile;
   its plain version is ``ops.core.ball_query_window_tiles``.
@@ -77,6 +79,56 @@ def check_plan(n: int, route: tuple[int, int]) -> tuple[int, int]:
     return warps, tile
 
 
+# The windowed ball query over sorted tiles (csrc/window_bq.cuh): a block
+# takes tm / split sorted queries of a tile, one warp a query at a time.
+TILES_MAX_WARPS = 16
+TILES_WARPS_PER_SM = 32  # the warps in flight on each SM the split aims at
+TILES_MIN_QUERIES = 8  # the fewest queries a block of a split tile takes
+SM_SHARED_BYTES = 233472  # H100: 228 KB of shared memory an SM, 1 KB of it kept a block
+
+
+@functools.cache
+def tiles_plan(b: int, m: int, tm: int, w: int, num_sms: int) -> tuple[int, int]:
+    """``(split, warps)`` of the windowed ball query for ``b`` clouds of ``m``
+    sorted queries in tiles of ``tm``, a ``w``-column window, on a card of
+    ``num_sms`` SMs: each tile's queries go to ``split`` blocks of ``warps``
+    warps.
+
+    One block a tile leaves most of the card idle (64 blocks at SA1, B=8), so
+    the plan doubles the split, from 1, until the blocks' warps would give
+    each SM ``TILES_WARPS_PER_SM`` (counting only the blocks an SM holds at
+    once: its shared memory takes ``SM_SHARED_BYTES // (16 w + 1024)`` staged
+    windows), or until a block would take fewer than ``TILES_MIN_QUERIES``
+    queries; ``warps`` is one a query up to ``TILES_MAX_WARPS``. Each block
+    stages only the columns its queries can reach, so a larger split stages
+    more columns in all: the plan stops at the first split that fills the
+    card. Raises ``ValueError`` for a shape no route takes.
+    """
+    if b <= 0 or tm <= 0 or m <= 0 or m % tm or w <= 0 or num_sms <= 0:
+        raise ValueError(f"the windowed ball query needs whole tiles, got B={b}, M={m}, tm={tm}, w={w}")
+    tiles = m // tm
+    staged = w * 16 <= MAX_SHARED_BYTES
+    split = 1
+    while True:
+        warps = min(TILES_MAX_WARPS, tm // split)
+        held = min(SM_SHARED_BYTES // (16 * w + 1024) if staged else 32, 64 // warps)
+        in_flight = min(b * tiles * split, held * num_sms) * warps
+        halves = tm % (2 * split) == 0 and tm // (2 * split) >= TILES_MIN_QUERIES
+        if in_flight >= TILES_WARPS_PER_SM * num_sms or not halves:
+            return check_tiles_plan(m, tm, (split, warps))
+        split *= 2
+
+
+def check_tiles_plan(m: int, tm: int, route: tuple[int, int]) -> tuple[int, int]:
+    """A forced ``(split, warps)`` of the windowed ball query; raises unless
+    the kernel takes it: ``split`` dividing the tile, 1 to 32 warps, a grid of
+    fewer than 2**31 blocks a cloud."""
+    split, warps = route
+    if split < 1 or tm % split or not 1 <= warps <= 32 or (m // tm) * split >= 2**31:
+        raise ValueError(f"not a windowed ball query route for tiles of {tm}: {route}")
+    return split, warps
+
+
 @functools.cache
 def num_sms(device: int) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -133,21 +185,32 @@ def check_tiles(xs, perm, qs, lo, nsample: int, w: int) -> tuple[int, int, int, 
     return b, n, m, m // t
 
 
-def ball_query_tiles(xs, perm, qs, lo, radius: float, nsample: int, w: int):
+def tiles_route(xs, m: int, tm: int, w: int, route=None) -> tuple[int, int]:
+    """The ``(split, warps)`` a tiles wrapper launches with: ``tiles_plan``'s
+    for ``xs``'s card, or the forced ``route``."""
+    b = xs.shape[0]
+    if route is None:
+        return tiles_plan(b, m, tm, w, num_sms(xs.device.index))
+    return check_tiles_plan(m, tm, tuple(route))
+
+
+def ball_query_tiles(xs, perm, qs, lo, radius: float, nsample: int, w: int, route=None):
     """The windowed ball query over sorted tiles; see ``ops.core.ball_query_tiles``.
 
     ``lo + w`` must not pass N (the calibrated op clips it so); the kernel
-    reads the window where it lies. Returns idx (B, M, nsample), cnt (B, M)
-    int32 in sorted query order.
+    reads the window where it lies. ``route``: a forced ``(split, warps)``,
+    else ``tiles_plan``'s. Returns idx (B, M, nsample), cnt (B, M) int32 in
+    sorted query order.
     """
     b, n, m, tm = check_tiles(xs, perm, qs, lo, nsample, w)
+    split, warps = tiles_route(xs, m, tm, w, route)
     idx = torch.empty((b, m, nsample), dtype=torch.int32, device=xs.device)
     cnt = torch.empty((b, m), dtype=torch.int32, device=xs.device)
     device, stream = stream_of(xs)
     launch(
         "ball_query_sliced", "ballquery", "pn2_ball_query_tiles",
-        [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, FLOAT, INT, PTR, PTR, INT, PTR],
-        xs.data_ptr(), perm.data_ptr(), qs.data_ptr(), lo.data_ptr(), b, n, m, tm, w,
+        [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, FLOAT, INT, PTR, PTR, INT, PTR],
+        xs.data_ptr(), perm.data_ptr(), qs.data_ptr(), lo.data_ptr(), b, n, m, tm, w, split, warps,
         squared_radius(radius), nsample, idx.data_ptr(), cnt.data_ptr(), device, stream,
     )
     return idx, cnt

@@ -6,8 +6,10 @@ with ``skip``, ``ops.core.three_interpolate_concat``: the feature-propagation
 concat written by the same kernel, a warp an output row. ``plan`` picks the
 vector width from the shape and the alignment of the rows.
 ``three_interpolate_grad`` replaces ``interpolate.py:112`` (``_ti_bwd_kernel``);
-its plain version is ``ops.core.three_interpolate_grad``. The two are joined
-into one differentiable operator in ``ops.autograd``.
+its plain version is ``ops.core.three_interpolate_grad``, whose order of
+summation it keeps, so the two agree bit for bit where PyTorch sums
+serially. The two are joined into one differentiable operator in
+``ops.autograd``.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from pointnet2_tpu_torch.ops.cuda.common import (
 )
 
 THREADS = 256  # the forward's block
+GRAD_SLOTS = 64  # keys a destination row's bucket holds (csrc/interpolate.cu kSlots)
 
 
 def _aligned(t: torch.Tensor) -> bool:
@@ -107,6 +110,13 @@ def three_interpolate(
     return out
 
 
+def grad_vec(g: torch.Tensor, c: int) -> bool:
+    """Whether the backward reads ``g`` and writes ``dpoints`` 16 bytes at a
+    time: C and g's batch and row strides multiples of 4, g 16-byte aligned
+    (FP1-FP3's cotangent slices are; FP4's rows of 131 floats are not)."""
+    return c % 4 == 0 and _aligned(g) and g.stride(0) % 4 == 0 and g.stride(1) % 4 == 0
+
+
 def three_interpolate_grad(
     g: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor, m: int
 ) -> torch.Tensor:
@@ -118,8 +128,10 @@ def three_interpolate_grad(
     long as its channels lie next to each other; any other layout (a
     transposed or an expanded cotangent) is copied to a contiguous tensor
     here, explicitly. ``idx`` and ``weight`` are the forward's own tensors and
-    must be contiguous already. The kernel sums with float atomics, so the
-    last bits of the result vary from run to run.
+    must be contiguous already. Each element is summed in the plain version's
+    order (slot j, then the queries ascending), so the result is the same on
+    every run; the pairs' keys, bucketed by destination row, live in
+    ``scratch``.
     """
     require(g, "g", torch.float32, (None, None, None), contiguous=False)
     b, n, c = g.shape
@@ -131,12 +143,14 @@ def three_interpolate_grad(
         raise ValueError(f"three_interpolate_grad needs non-empty inputs, got {tuple(g.shape)}, m={m}")
     require_int32_range("three_interpolate_grad", b, n, c)
     require_int32_range("three_interpolate_grad", b, m, c)
+    require_int32_range("three_interpolate_grad", b, n, 3)
     out = torch.empty((b, m, c), dtype=torch.float32, device=g.device)
+    scratch = torch.empty(b * m * (1 + GRAD_SLOTS), dtype=torch.int32, device=g.device)
     device, stream = stream_of(g)
     launch(
         "three_interpolate_grad", "interpolate", "pn2_three_interpolate_grad",
-        [PTR, LONG, LONG, PTR, PTR, INT, INT, INT, INT, PTR, INT, PTR],
+        [PTR, LONG, LONG, PTR, PTR, INT, INT, INT, INT, PTR, PTR, INT, INT, PTR],
         g.data_ptr(), g.stride(0), g.stride(1), idx.data_ptr(), weight.data_ptr(), b, m, n, c, out.data_ptr(),
-        device, stream,
+        scratch.data_ptr(), int(grad_vec(g, c)), device, stream,
     )
     return out

@@ -18,24 +18,26 @@ import torch
 
 from pointnet2_tpu_torch.ops import core
 from pointnet2_tpu_torch.ops.core import squared_radius
-from pointnet2_tpu_torch.ops.cuda.ballquery import ball_query, check_tiles
+from pointnet2_tpu_torch.ops.cuda.ballquery import ball_query, check_tiles, tiles_route
 from pointnet2_tpu_torch.ops.cuda.common import (
     FLOAT, INT, PTR, launch, require, require_cuda, require_int32_range, stream_of,
 )
 
 
-def ball_query_tiles_pos(xs, perm, qs, lo, radius: float, nsample: int, w: int):
+def ball_query_tiles_pos(xs, perm, qs, lo, radius: float, nsample: int, w: int, route=None):
     """``ops.cuda.ball_query_tiles`` that also returns each pick's window
-    column: idx, pos (B, M, nsample) and cnt (B, M) int32, sorted query order."""
+    column: idx, pos (B, M, nsample) and cnt (B, M) int32, sorted query order.
+    ``route``: a forced ``(split, warps)``, else ``tiles_plan``'s."""
     b, n, m, tm = check_tiles(xs, perm, qs, lo, nsample, w)
+    split, warps = tiles_route(xs, m, tm, w, route)
     idx = torch.empty((b, m, nsample), dtype=torch.int32, device=xs.device)
     pos = torch.empty((b, m, nsample), dtype=torch.int32, device=xs.device)
     cnt = torch.empty((b, m), dtype=torch.int32, device=xs.device)
     device, stream = stream_of(xs)
     launch(
         "ball_query_sliced_pos", "wingather", "pn2_ball_query_tiles_pos",
-        [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, FLOAT, INT, PTR, PTR, PTR, INT, PTR],
-        xs.data_ptr(), perm.data_ptr(), qs.data_ptr(), lo.data_ptr(), b, n, m, tm, w,
+        [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, FLOAT, INT, PTR, PTR, PTR, INT, PTR],
+        xs.data_ptr(), perm.data_ptr(), qs.data_ptr(), lo.data_ptr(), b, n, m, tm, w, split, warps,
         squared_radius(radius), nsample, idx.data_ptr(), pos.data_ptr(), cnt.data_ptr(),
         device, stream,
     )

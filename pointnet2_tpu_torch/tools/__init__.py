@@ -12,4 +12,9 @@
 Each runs on the card (``python -m pointnet2_tpu_torch.tools.<name>``) and
 refuses to run without one unless given ``--device cpu``, where it runs the
 plain versions (``--small`` for small shapes) and measures no time.
+
+- ``kernel_probe`` (no counterpart): the device time of three_interpolate's
+                  backward and the windowed ball queries by kernel name,
+                  through the op API only, so that one copy reads an older
+                  tree of the port beside a newer one; card only.
 """

@@ -6,10 +6,12 @@ The counterpart of the JAX repo's ``tools/op_bench.py``. At the four SA
 levels of ``semantic.json`` (clouds as ``bench.py`` makes them: xyz uniform
 in 8 x 8 x 4.9 m, each level the FPS centroids of the one before, as the
 model makes them) it times FPS (the index-only and the fused entry), the
-ball query (exact, and the round-1 windowed one with its default window),
-and at the four FP levels the 3-NN, three_interpolate writing the FP concat
-(the skip as the model hands it over: FP4's is the input cloud's colours)
-and a kNN with k=8, all at B=16 (``semantic.json``'s batch; ``--batch 8``
+ball query (exact, the calibrated windowed one's two kernels with the
+production window where it engages, and the round-1 windowed one with its
+default window), and at the four FP levels the 3-NN, three_interpolate
+writing the FP concat (the skip as the model hands it over: FP4's is the
+input cloud's colours), its backward on a cotangent strided as the train
+step's, and a kNN with k=8, all at B=16 (``semantic.json``'s batch; ``--batch 8``
 for the predict path's chunk). One JSON line per op and shape:
 
 - ``kernel_ms``: the kernel alone (``utils.bench.cuda_ms``: CUDA events,
@@ -23,10 +25,13 @@ for the predict path's chunk). One JSON line per op and shape:
 - ``plan``: the launch shape the wrapper's plan picked (FPS: cluster,
   threads, points a thread; exact ball query: warps a block, tile points;
   3-NN: lanes a query, threads; three_interpolate: 16-byte accesses or not,
-  the skip's 16-byte copy), and for the 3-NN and three_interpolate
-  ``routes_device_ms``, the device time of every route of that shape
-  (3-NN: 1 to 32 lanes a query; three_interpolate: 4-byte accesses, and
-  16-byte ones where the rows allow), the yardstick of the plan's choice; three_interpolate's
+  the skip's 16-byte copy; the windowed ball query over tiles: blocks a
+  tile, warps a block; the backward: 16-byte accesses or not), and for the
+  3-NN, three_interpolate and the windowed ball query ``routes_device_ms``,
+  the device time of every route of that shape (3-NN: 1 to 32 lanes a
+  query; three_interpolate: 4-byte accesses, and 16-byte ones where the rows
+  allow; the windowed ball query: ``tiles_routes``), the yardstick of the
+  plan's choice; three_interpolate's
   ``unfused_ms`` is the kernel without the skip followed by ``torch.cat``;
   and for FPS ``chain_ms``, the device time of the same number of empty
   cluster-barrier steps in the same layout (``ops.cuda.fps.barrier_chain``):
@@ -73,6 +78,10 @@ FP = [(512, 256), (256, 128), (256, 64), (128, 3)]
 SMALL_FP = [(128, 64), (64, 32), (64, 16), (32, 3)]
 KNN_K = 8
 BATCH, SMALL_BATCH = 16, 2
+# The calibrated ball query's production window (bench.py's bq_window): it
+# engages at SA1, where the cloud is wider; --small uses a window that
+# engages on its 1024 points.
+BQ_WINDOW, SMALL_BQ_WINDOW = 3072, 384
 
 
 def work_fps(b: int, n: int, npoint: int, rows: bool) -> tuple[float, float]:
@@ -117,6 +126,29 @@ def work_ball_query_windowed(b, n, m, tiles, nsample, pairs: int) -> tuple[float
     cloud, the original indices, the sorted queries and two ints a tile read,
     idx and cnt written; 9 operations a scanned pair."""
     return b * n * 28 + b * m * 12 + b * tiles * 8 + b * m * (nsample + 1) * 4, 9 * pairs
+
+
+def work_ball_query_tiles(b, n, m, tiles, nsample, outs: int, pairs: int) -> tuple[float, float]:
+    """(bytes, operations) of the windowed ball query over sorted tiles: the
+    sorted cloud with its original indices, the sorted queries and a start a
+    tile read, ``outs`` int rows of nsample (idx, and pos with positions) and
+    cnt written; 9 operations a pair of each query's x-span, the columns
+    that can hit (``ops.core.ball_query_tile_spans``)."""
+    return b * n * 16 + b * m * 12 + b * tiles * 4 + b * m * (outs * nsample + 1) * 4, 9 * pairs
+
+
+def tiles_routes(tm: int) -> list[tuple[int, int]]:
+    """The windowed ball query's routes at a tile of ``tm`` queries: split
+    1 to 32 with a warp a query up to 16, and 8-warp blocks at split 4 and 8."""
+    routes = [(s, min(cuda_ballquery.TILES_MAX_WARPS, tm // s)) for s in (1, 2, 4, 8, 16, 32) if tm % s == 0]
+    return routes + [(s, 8) for s in (4, 8) if tm % s == 0 and (s, 8) not in routes]
+
+
+def work_three_interpolate_grad(b, n, m, c) -> tuple[float, float]:
+    """(bytes, operations) of three_interpolate's backward: the cotangent,
+    indices and weights read once, the (B, M, C) result written once; 6
+    operations an element of the cotangent (its three products and sums)."""
+    return b * n * c * 4 + b * n * 3 * 8 + b * m * c * 4, 6 * b * n * c
 
 
 def work_knn(b, nq, m, k) -> tuple[float, float]:
@@ -213,9 +245,32 @@ def run(device: torch.device, small: bool, batch: int = BATCH) -> list[dict]:
             *work_ball_query(b, n, m, nsample, pairs), timed,
             plan=cuda_ballquery.plan(b, n, m, cuda_ballquery.num_sms(src.device.index)) if timed else None,
         ))
+        w = core.round_up(SMALL_BQ_WINDOW if small else BQ_WINDOW, core.LANES)
+        if not core.bq_falls_back(n, m, w):  # the calibrated windowed ball query engages here
+            perm, xs, _, qs, lo, _ = core.ball_query_window_plan(src, cent, radius, w)
+            first, last = core.ball_query_tile_spans(xs, qs, lo, radius, w)
+            pairs = int((last - first).sum())
+            tm = m // lo.shape[1]
+            for kernel, fn, plain, outs in (
+                ("ball_query_sliced", cuda.ball_query_tiles, core.ball_query_tiles, 1),
+                ("ball_query_sliced_pos", cuda.ball_query_tiles_pos, core.ball_query_tiles_pos, 2),
+            ):
+                run_fn = fn if timed else plain
+                rows.append(_record(
+                    kernel, f"B={b} N={n} M={m} r={radius} nsample={nsample} w={w}", card, kernel,
+                    lambda run_fn=run_fn: run_fn(xs, perm, qs, lo, radius, nsample, w),
+                    lambda plain=plain: plain(xs, perm, qs, lo, radius, nsample, w),
+                    *work_ball_query_tiles(b, n, m, lo.shape[1], nsample, outs, pairs), timed,
+                    plan=cuda_ballquery.tiles_route(xs, m, tm, w) if timed else None,
+                    routes_device_ms={
+                        route_key(r): (lambda r=r, fn=fn, kernel=kernel: device_ms(
+                            lambda: fn(xs, perm, qs, lo, radius, nsample, w, route=r), kernel))
+                        for r in tiles_routes(tm)
+                    } if timed else {},
+                ))
         w = core.round_up(core.default_bq_window(n, nsample), core.LANES)
         if core.bq_falls_back(n, m, w):
-            continue  # the windowed op runs the exact kernel here
+            continue  # the round-1 windowed op runs the exact kernel here
         plan, w, fits, pairs = windowed_plan(src, cent, radius, nsample)
         kernel = cuda.ball_query_window_tiles if timed else core.ball_query_window_tiles
         rows.append(_record(
@@ -260,6 +315,17 @@ def run(device: torch.device, small: bool, batch: int = BATCH) -> list[dict]:
                     lambda: cuda.three_interpolate(points, idx, weight, skip, route=vec), "three_interpolate"))
                 for vec in widths
             } if timed else {},
+        ))
+        # The backward, on a cotangent laid out as the train step hands it over:
+        # the first C channels of the FP concat's.
+        g = torch.randn((b, nq, c + c1), generator=gen, device=device)[..., :c]
+        rows.append(_record(
+            "three_interpolate_grad", f"B={b} M={m} C={c} N={nq} g_row_stride={c + c1}", card,
+            "three_interpolate_grad",
+            lambda: ops.three_interpolate_grad(g, idx, weight, m),
+            lambda: ops.three_interpolate_grad(g, idx, weight, m, impl="torch"),
+            *work_three_interpolate_grad(b, nq, m, c), timed,
+            plan=cuda_interp.grad_vec(g, c) if timed else None,
         ))
         k = min(KNN_K, m)
         rows.append(_record(

@@ -12,6 +12,10 @@ early). On the card a kernel's time is CUDA events around a run of launches:
   summed from ``torch.profiler``'s kernel durations. Where the host's side
   of a launch takes longer than the kernel (the small levels), ``cuda_ms``
   measures the host's enqueue rate and this the kernel;
+- ``deterministic_algorithms``: PyTorch's deterministic algorithms for the
+  checks that compare a kernel path with a plain path bit for bit (the
+  plain versions' scatters then sum in a fixed order on the card too); no
+  path that is timed or served runs under it;
 - ``bound``: the least time the card could take for the same work, the
   larger of the bytes it must move over the memory rate and its operations
   over the float32 rate (no tensor cores), the H100 SXM's published peaks at
@@ -24,6 +28,7 @@ without one.
 
 from __future__ import annotations
 
+import contextlib
 import statistics
 import subprocess
 
@@ -40,7 +45,8 @@ KERNEL_SYMBOLS = {
     "ball_query": "ball_query_kernel(",
     "knn": "knn_kernel",  # knn_kernel<K> (k <= 16) and knn_kernel_list
     "three_interpolate": "three_interpolate_kernel",
-    "three_interpolate_grad": "three_interpolate_grad_kernel",
+    # Every kernel of the backward: zero, fill and sum<kVec>.
+    "three_interpolate_grad": "three_interpolate_grad_",
     "ball_query_sliced": "ball_query_tiles_kernel<false,",  # <kWithPos, kSlots>
     "ball_query_sliced_pos": "ball_query_tiles_kernel<true,",
     "window_gather": "window_gather_kernel",
@@ -103,6 +109,23 @@ def device_ms(fn, kernel: str, calls: int = 20, warmup: int = 2, tries: int = 3)
         if us > 0.0:
             return us / 1e3 / calls
     raise RuntimeError(f"the profiler saw no device time for {kernel} ({symbol!r}) in {tries} sessions")
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` inside the
+    block, the previous setting restored after it. ``index_add_`` and
+    ``index_put_(accumulate=True)`` on the card then sum each element in the
+    order of their source rows, as on the CPU, where they run serially;
+    operations with no deterministic version (cuBLAS without a workspace
+    setting) warn instead of raising, and ``torch.empty`` fills its memory."""
+    enabled = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(enabled, warn_only=warn_only)
 
 
 def bound(nbytes: float, nops: float) -> tuple[float, str]:

@@ -50,6 +50,9 @@ def test_kernel_symbol_names_a_kernel_of_the_sources(key):
     symbol = KERNEL_SYMBOLS[key]
     kernels = _kernels()
     name, rest = re.fullmatch(r"(\w+)(.*)", symbol).groups()
+    if symbol.endswith("_"):  # a prefix: every kernel of an op that runs several
+        assert any(k.startswith(symbol) for k in kernels), f"{key}: no kernel starts with {symbol}"
+        return
     assert name in kernels, f"{key}: no kernel {name} in {CSRC}"
     params = kernels[name]
     if rest == "(":
@@ -65,3 +68,14 @@ def test_kernel_symbol_names_a_kernel_of_the_sources(key):
         for i, (arg, kind) in enumerate(zip(args, params)):
             partial = not closed and i == len(args) - 1
             assert (partial and not arg) or _literal_fits(arg, kind, partial), f"{key}: {arg!r} is no {kind}"
+
+
+def test_the_backward_symbol_names_all_its_kernels_and_no_other():
+    """three_interpolate_grad runs three kernels, all in its profile category;
+    the forward's symbol matches none of them."""
+    kernels = _kernels()
+    grad = sorted(k for k in kernels if k.startswith(KERNEL_SYMBOLS["three_interpolate_grad"]))
+    assert grad == [f"three_interpolate_grad_{part}_kernel" for part in ("fill", "sum", "zero")]
+    assert kernels["three_interpolate_grad_sum_kernel"] == ["bool"]
+    others = [s for key, s in KERNEL_SYMBOLS.items() if key != "three_interpolate_grad"]
+    assert not any(s in k for s in others for k in grad)

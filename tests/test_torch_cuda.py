@@ -12,10 +12,16 @@ calibrated-window kernels (the windowed ball query, with and without window
 columns, the window gather and the windowed kNN) and their ``ok``;
 three_interpolate
 within rtol=1e-6, atol=1e-6 (it is exact by construction; the tolerance is
-the one ``chip_smoke.py`` holds it to); three_interpolate_grad within
-rtol=1e-5, atol=1e-5 (it sums a row's few dozen addends with float atomics,
-in an order that changes from run to run, and so does ``index_add_``, the
-plain version's sum on the card).
+the one ``chip_smoke.py`` holds it to); three_interpolate_grad bit for bit,
+and the same on two runs: it sums each element in its plain version's order
+(slot j, then the queries ascending), which ``index_add_`` keeps on the CPU
+and, for rows wider than 32 floats, on the card under PyTorch's
+deterministic algorithms (``utils.bench.deterministic_algorithms``, which
+the plain side of those comparisons runs under). Autograd through the plain forward sums the same addends query by
+query instead, so that comparison keeps rtol=1e-5, atol=1e-5
+(``AUTOGRAD_ORDER_TOL``). The train step's kernel path against its plain
+path: both under deterministic algorithms, two kernel-path steps equal, each
+gradient within 1e-3 of its max abs of the plain path's.
 """
 
 import importlib
@@ -29,6 +35,7 @@ from pointnet2_tpu_torch.ops import core, cuda
 from pointnet2_tpu_torch.ops.cuda import ballquery as cuda_bq
 from pointnet2_tpu_torch.ops.cuda import fps as cuda_fps
 from pointnet2_tpu_torch.ops.cuda import interpolate as cuda_interp
+from pointnet2_tpu_torch.utils.bench import deterministic_algorithms
 
 # The package's ``knn`` is the wrapper function; the module is reached by name.
 cuda_knn = importlib.import_module("pointnet2_tpu_torch.ops.cuda.knn")
@@ -119,29 +126,46 @@ def test_three_interpolate_kernel(cuda_device, b, m, c, n):
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
-GRAD_TOL = dict(rtol=1e-5, atol=1e-5)
+# Autograd through the plain forward sums a row's addends query by query, not
+# slot by slot as the backward kernel and its plain version do.
+AUTOGRAD_ORDER_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-def _grad_inputs(b, m, c, n, device):
+def _grad_inputs(b, m, c, n, device, skip=0):
+    """A seeded cotangent (the first C channels of a (B, N, C + skip) tensor,
+    as the FP concat's backward hands it over, when ``skip``), the 3-NN
+    indices and weights of seeded clouds."""
     gen = torch.Generator(device=device).manual_seed(11)
-    g = torch.randn((b, n, c), generator=gen, device=device)
+    g = torch.randn((b, n, c + skip), generator=gen, device=device)[..., :c]
     dist, idx = ops.three_nn(_cloud(12, b, n), _cloud(13, b, m), impl="cuda")
     return g, idx, ops.interpolation_weights(dist)
 
 
+def _plain_grad(g, idx, weight, m):
+    """The plain backward in its fixed order: on the CPU, where ``index_add_``
+    sums serially (``tests/test_torch_grad_order.py``), and, for rows wider
+    than 32 floats, on the card under deterministic algorithms, which gives
+    the same bits (for narrower rows PyTorch's deterministic ``index_add_``
+    adds each call's sum of a row's addends to the row instead)."""
+    want = ops.three_interpolate_grad(g.cpu(), idx.cpu(), weight.cpu(), m, impl="torch").to(g.device)
+    if g.shape[2] > 32:
+        with deterministic_algorithms():
+            assert torch.equal(ops.three_interpolate_grad(g, idx, weight, m, impl="torch"), want)
+    return want
+
+
 @pytest.mark.parametrize(
-    "b,m,c,n",
-    [(16, 16, 512, 64), (16, 64, 256, 256), (16, 256, 256, 1024), (16, 1024, 128, 8192),  # the train step's
-     (2, 100, 7, 37), (1, 3, 33, 50)],  # C off the multiples of 32; M = 3: every query names every row
+    "b,m,c,n,skip",
+    [(16, 16, 512, 64, 256), (16, 64, 256, 256, 128), (16, 256, 256, 1024, 64), (16, 1024, 128, 8192, 3),
+     (16, 16, 512, 64, 0), (16, 1024, 128, 8192, 0),  # the train step's, strided as it hands them over, and not
+     (2, 100, 7, 37, 0), (1, 3, 33, 50, 0)],  # C off the multiples of 32; M = 3: every query names every row
 )
-def test_three_interpolate_grad_kernel(cuda_device, b, m, c, n):
-    g, idx, weight = _grad_inputs(b, m, c, n, cuda_device)
+def test_three_interpolate_grad_kernel(cuda_device, b, m, c, n, skip):
+    g, idx, weight = _grad_inputs(b, m, c, n, cuda_device, skip)
     got = ops.three_interpolate_grad(g, idx, weight, m, impl="cuda")
-    want = ops.three_interpolate_grad(g, idx, weight, m, impl="torch")
     assert got.shape == (b, m, c) and got.is_contiguous()
-    torch.testing.assert_close(got, want, **GRAD_TOL)
-    exact = ops.three_interpolate_grad(g.double(), idx, weight.double(), m, impl="torch")
-    torch.testing.assert_close(got.double(), exact, **GRAD_TOL)
+    assert torch.equal(got, _plain_grad(g, idx, weight, m))
+    assert torch.equal(got, ops.three_interpolate_grad(g, idx, weight, m, impl="cuda"))  # the same bits again
 
 
 def test_three_interpolate_grad_kernel_takes_a_non_contiguous_cotangent(cuda_device):
@@ -150,23 +174,21 @@ def test_three_interpolate_grad_kernel_takes_a_non_contiguous_cotangent(cuda_dev
     assert not wide.is_contiguous()
     got = cuda.three_interpolate_grad(wide, idx, weight, 64)
     want = cuda.three_interpolate_grad(g, idx, weight, 64)
-    torch.testing.assert_close(got, want, **GRAD_TOL)
+    assert torch.equal(got, want) and torch.equal(want, _plain_grad(g, idx, weight, 64))
     # Read in place through its strides: the second half of a concat, and a
     # slice along the batch and the rows; copied first: channels that do not
     # lie next to each other (a transpose, a broadcast).
     tail = torch.cat([torch.ones_like(g), g], dim=-1)[..., 40:]
-    torch.testing.assert_close(cuda.three_interpolate_grad(tail, idx, weight, 64), want, **GRAD_TOL)
+    assert torch.equal(cuda.three_interpolate_grad(tail, idx, weight, 64), want)
     padded = torch.zeros((4, 300, 40), device=cuda_device)
     padded[::2, 10:266] = g
-    torch.testing.assert_close(cuda.three_interpolate_grad(padded[::2, 10:266], idx, weight, 64), want, **GRAD_TOL)
+    assert torch.equal(cuda.three_interpolate_grad(padded[::2, 10:266], idx, weight, 64), want)
     moved = g.transpose(1, 2).contiguous().transpose(1, 2)
     assert moved.stride(2) != 1
-    torch.testing.assert_close(cuda.three_interpolate_grad(moved, idx, weight, 64), want, **GRAD_TOL)
+    assert torch.equal(cuda.three_interpolate_grad(moved, idx, weight, 64), want)
     ones = torch.ones((), device=cuda_device).expand(2, 256, 40)
-    torch.testing.assert_close(
-        cuda.three_interpolate_grad(ones, idx, weight, 64),
-        cuda.three_interpolate_grad(ones.contiguous(), idx, weight, 64), **GRAD_TOL,
-    )
+    assert torch.equal(cuda.three_interpolate_grad(ones, idx, weight, 64),
+                       cuda.three_interpolate_grad(ones.contiguous(), idx, weight, 64))
     with pytest.raises(ValueError, match="contiguous"):
         cuda.three_interpolate_grad(g, idx.transpose(1, 2).contiguous().transpose(1, 2), weight, 64)
     with pytest.raises(ValueError, match="float32"):
@@ -180,10 +202,30 @@ def test_three_interpolate_grad_kernel_duplicates_and_zero_weights(cuda_device):
     got = cuda.three_interpolate_grad(g, idx, weight, 4)
     want = torch.tensor([[[0.0, 0.0], [0.75, 1.5], [3.25, 4.5], [0.0, 0.0]]], device=cuda_device)
     assert torch.equal(got, want)  # sums of two exact binary fractions: any order gives the same
+    # At FP4's train shape: queries naming one row two or three times, zero
+    # weights (a -0.0 addend leaves a row +0.0), addends of mixed magnitudes,
+    # rows of up to a few hundred addends (the rank-count route past 32).
+    b, m, c, n = 16, 1024, 128, 8192
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    _, idx, weight = _grad_inputs(b, m, c, n, cuda_device)
+    wide = torch.randn((b, n, c + 3), generator=gen, device=cuda_device)
+    g = (wide * torch.pow(10.0, torch.randint(-6, 7, wide.shape, generator=gen, device=cuda_device).float()))[..., :c]
+    idx = idx.clone()
+    idx[:, ::7, 1] = idx[:, ::7, 0]
+    idx[:, ::11, 2] = idx[:, ::11, 0]
+    idx[:, ::13] = torch.randint(0, 4, (b, idx[:, ::13].shape[1], 3), generator=gen, device=cuda_device,
+                                 dtype=torch.int32)
+    weight = weight.clone()
+    weight[:, ::5, 2] = 0.0
+    got = cuda.three_interpolate_grad(g, idx, weight, m)
+    assert torch.equal(got, _plain_grad(g, idx, weight, m))
+    assert torch.equal(got, cuda.three_interpolate_grad(g, idx, weight, m))
+    assert int(torch.bincount(idx[0].flatten().long()).max()) > 32
 
 
 def test_three_interpolate_function_on_the_kernel_path(cuda_device):
-    """Forward and backward through the two kernels against autograd through the plain forward."""
+    """Forward and backward through the two kernels against the plain Function,
+    and against autograd through the plain forward."""
     gen = torch.Generator(device=cuda_device).manual_seed(14)
     points = torch.randn((4, 64, 96), generator=gen, device=cuda_device, requires_grad=True)
     g, idx, weight = _grad_inputs(4, 64, 96, 256, cuda_device)
@@ -192,8 +234,12 @@ def test_three_interpolate_function_on_the_kernel_path(cuda_device):
     out = ops.three_interpolate(points, idx, weight)
     got_p, got_w = torch.autograd.grad(out, (points, weight), g)
     assert cuda.LAUNCHES["three_interpolate"] == 1 and cuda.LAUNCHES["three_interpolate_grad"] == 1
+    with deterministic_algorithms():
+        plain_p, plain_w = torch.autograd.grad(ops.three_interpolate(points, idx, weight, impl="torch"),
+                                               (points, weight), g)
+    assert torch.equal(got_p, plain_p) and torch.equal(got_w, plain_w)
     want_p, want_w = torch.autograd.grad(core.three_interpolate(points, idx, weight), (points, weight), g)
-    torch.testing.assert_close(got_p, want_p, **GRAD_TOL)
+    torch.testing.assert_close(got_p, want_p, **AUTOGRAD_ORDER_TOL)
     torch.testing.assert_close(got_w, want_w, rtol=1e-5, atol=1e-4)
 
 
@@ -206,9 +252,12 @@ def test_fps_centroids_kernel_input_gradient(cuda_device):
 
 
 def test_small_train_step_kernel_path_against_plain_path(cuda_device):
-    """One Adam step, dropout off, from the same weights and batch: loss rtol
-    1e-5; each parameter gradient within 1e-3 of its max abs (atomics and
-    cuBLAS sum in other orders than the plain path's index_add_)."""
+    """One Adam step, dropout off, from the same weights and batch, both paths
+    under PyTorch's deterministic algorithms (the plain path's index_add_ and
+    both paths' index_put_ with accumulate then sum in a fixed order): two
+    kernel-path steps give the same gradients bit for bit; against the plain
+    path the loss within rtol 1e-5, each parameter gradient within 1e-3 of
+    its max abs (cuBLAS may sum in other orders on the two paths' shapes)."""
     from pointnet2_tpu_torch.config import Config
     from pointnet2_tpu_torch.train import Trainer
 
@@ -219,15 +268,18 @@ def test_small_train_step_kernel_path_against_plain_path(cuda_device):
     batch = {"points": points, "labels": rng.randint(0, 9, (4, 512)),
              "weights": (rng.rand(4, 512) * (rng.rand(4, 512) > 0.25)).astype(np.float32)}
     runs = {}
-    for impl in (None, "torch"):
-        trainer = Trainer(cfg, ops_impl=impl, dropout_rate=0.0)
-        trainer.init_state(seed=0)
-        cuda.reset_launches()
-        metrics = trainer.train_step(batch)
-        runs[impl] = (metrics, {k: p.grad.clone() for k, p in trainer.model.named_parameters()}, dict(cuda.LAUNCHES))
-    (got, got_grads, launches), (want, want_grads, plain_launches) = runs[None], runs["torch"]
+    with deterministic_algorithms():
+        for run, impl in (("kernel", None), ("again", None), ("plain", "torch")):
+            trainer = Trainer(cfg, ops_impl=impl, dropout_rate=0.0)
+            trainer.init_state(seed=0)
+            cuda.reset_launches()
+            metrics = trainer.train_step(batch)
+            runs[run] = (metrics, {k: p.grad.clone() for k, p in trainer.model.named_parameters()},
+                         dict(cuda.LAUNCHES))
+    (got, got_grads, launches), (want, want_grads, plain_launches) = runs["kernel"], runs["plain"]
     assert launches == {k: 4 for k in ("fps_centroids", "ball_query", "knn", "three_interpolate", "three_interpolate_grad")}
     assert not plain_launches
+    assert all(torch.equal(got_grads[k], g) for k, g in runs["again"][1].items())
     torch.testing.assert_close(got["loss"], want["loss"], rtol=1e-5, atol=0)
     for key, ref in want_grads.items():
         scale = float(ref.abs().max())
@@ -312,6 +364,55 @@ def test_window_gather_kernel(cuda_device, b, n, m, k, c):
     # A view whose rows are not 16-byte aligned takes the scalar path.
     wide = torch.randn((b, n, c + 1), generator=gen, device=cuda_device)[..., 1:].contiguous()
     assert torch.equal(cuda.window_gather(wide, lo, pos), core.window_gather(wide, lo, pos))
+
+
+# Forced (split, warps) routes of the windowed ball query: one block a tile
+# (the design before the split), the plan's at SA1, one query a block, and
+# warps that loop over several queries each.
+TILES_ROUTES = [(1, 16), (2, 16), (4, 16), (8, 16), (16, 8), (32, 4), (128, 1), (4, 4), (1, 32)]
+
+
+@pytest.mark.parametrize("b", [8, 16])
+@pytest.mark.parametrize("nsample", [32, 64])
+def test_ball_query_tiles_kernels_on_every_route(cuda_device, b, nsample):
+    """SA1 of semantic.json with the production window on the inputs the
+    calibrated op makes: the planned route and every forced one, bit for bit."""
+    xyz = _box(26, b, 8192, scale=(8.0, 8.0, 4.9))
+    _, cent = ops.fps_centroids(xyz, 1024)
+    perm, xs, _, qs, lo, ok = core.ball_query_window_plan(xyz, cent, 0.5, 3072)
+    assert bool(ok)
+    want = core.ball_query_tiles(xs, perm, qs, lo, 0.5, nsample, 3072)
+    want_pos = core.ball_query_tiles_pos(xs, perm, qs, lo, 0.5, nsample, 3072)
+    sms = cuda_bq.num_sms(xs.device.index)
+    assert cuda_bq.tiles_route(xs, 1024, 128, 3072) == cuda_bq.tiles_plan(b, 1024, 128, 3072, sms)
+    for route in (None, *TILES_ROUTES):
+        got = cuda.ball_query_tiles(xs, perm, qs, lo, 0.5, nsample, 3072, route=route)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), route
+        got = cuda.ball_query_tiles_pos(xs, perm, qs, lo, 0.5, nsample, 3072, route=route)
+        assert all(torch.equal(g, w) for g, w in zip(got, want_pos)), route
+    with pytest.raises(ValueError, match="route"):
+        cuda.ball_query_tiles(xs, perm, qs, lo, 0.5, nsample, 3072, route=(3, 16))
+
+
+@pytest.mark.parametrize("nsample", [8, 64])
+def test_ball_query_tiles_kernel_at_the_x_boundary(cuda_device, nsample):
+    """Columns at dx = +-r exactly (out of the span and of the ball), one ulp
+    inside (in both), and runs of equal x, on every route."""
+    qx = 2.0
+    cloud = _box(27, 1, 512, scale=(4.0, 0.01, 0.01))
+    cloud[0, ::8, 0] = torch.round(cloud[0, ::8, 0] * 4.0) / 4.0  # runs of equal x
+    edge = torch.tensor([qx - 0.5, qx + 0.5], device=cuda_device)
+    cloud[0, :2, 0] = edge
+    cloud[0, 2:4, 0] = torch.nextafter(edge, torch.full_like(edge, qx))
+    cloud[0, :4, 1:] = 0.0
+    queries = torch.zeros((1, 128, 3), device=cuda_device)
+    queries[0, :, 0] = qx + torch.linspace(-0.3, 0.3, 128, device=cuda_device)
+    queries[0, 64, 0] = qx
+    perm, xs, _, qs, lo, _ = core.ball_query_window_plan(cloud, queries, 0.5, 512)
+    want = core.ball_query_tiles_pos(xs, perm, qs, lo, 0.5, nsample, 512)
+    for route in (None, (1, 16), (8, 16), (128, 1)):
+        got = cuda.ball_query_tiles_pos(xs, perm, qs, lo, 0.5, nsample, 512, route=route)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), route
 
 
 @pytest.mark.parametrize(
@@ -687,8 +788,12 @@ def test_calibrated_ball_query_window_past_shared_memory(cuda_device, nsample):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     xs, perm, qs = _sorted_tiles(xyz1, xyz2, 128)
     lo = torch.randint(0, (32768 - 16384) // 128 + 1, (1, 8), device=cuda_device, dtype=torch.int32) * 128
-    got = cuda.ball_query_tiles_pos(xs, perm, qs, lo, 0.2, nsample, 16384)
-    assert all(torch.equal(g, w) for g, w in zip(got, core.ball_query_tiles_pos(xs, perm, qs, lo, 0.2, nsample, 16384)))
+    want = core.ball_query_tiles_pos(xs, perm, qs, lo, 0.2, nsample, 16384)
+    for route in (None, (1, 16), (8, 16), (128, 1)):  # the plan's, and forced ones
+        got = cuda.ball_query_tiles_pos(xs, perm, qs, lo, 0.2, nsample, 16384, route=route)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), route
+        got = cuda.ball_query_tiles(xs, perm, qs, lo, 0.2, nsample, 16384, route=route)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[2]), route
 
 
 @pytest.mark.parametrize("k,window", [(17, 512), (32, 384), (3, 16384), (32, 16384)])
@@ -842,8 +947,11 @@ def test_fused_three_interpolate_function_on_the_kernel_path(cuda_device, c1):
     skip = torch.randn((2, 1024, c1 + 3), generator=gen, device=cuda_device)[..., 3:].requires_grad_()
     g = torch.randn((2, 1024, 64 + c1), generator=gen, device=cuda_device)
     got = torch.autograd.grad(ops.three_interpolate(p, idx, weight, skip=skip), (p, skip), g)
+    with deterministic_algorithms():
+        plain = torch.autograd.grad(ops.three_interpolate(p, idx, weight, impl="torch", skip=skip), (p, skip), g)
+    assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
     want = torch.autograd.grad(core.three_interpolate_concat(p, idx, weight, skip), (p, skip), g)
-    torch.testing.assert_close(got[0], want[0], **GRAD_TOL)
+    torch.testing.assert_close(got[0], want[0], **AUTOGRAD_ORDER_TOL)
     assert torch.equal(got[1], want[1])
 
 

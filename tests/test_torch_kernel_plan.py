@@ -1,6 +1,7 @@
-"""The launch plans of the FPS, exact ball-query, kNN and three_interpolate kernels, on the CPU.
+"""The launch plans of the FPS, ball-query, kNN and three_interpolate kernels, on the CPU.
 
-``ops.cuda.fps.plan``, ``ops.cuda.ballquery.plan``, ``ops.cuda.knn.plan`` and
+``ops.cuda.fps.plan``, ``ops.cuda.ballquery.plan`` (the exact kernel) and
+``tiles_plan`` (the windowed one over sorted tiles), ``ops.cuda.knn.plan`` and
 ``ops.cuda.interpolate.plan`` are plain Python: they take the card's answers
 (resident clusters of each size, the SM count) or the rows' alignment as
 arguments, so every route they can pick is checked here without a card; the
@@ -121,6 +122,53 @@ def test_ball_query_plan_at_the_model_shapes():
     assert bq.plan(16, 64, 16, 132) == (1, 64)
     assert bq.shared_bytes(8192, 4096) == 2 * 4096 * 12
     assert bq.shared_bytes(1024, 1024) == 1024 * 12
+
+
+TILE_SHAPES = [(m, tm, w) for m, tm in ((1024, 128), (256, 128), (128, 128), (64, 64), (100, 100), (4096, 128))
+               for w in (128, 512, 3072, 14528, 16384)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 16])
+def test_tiles_plan_fills_the_card_or_stops(sms):
+    """Every split divides the tile; it doubles until the blocks' warps fill
+    each SM to TILES_WARPS_PER_SM, or until halving would leave a block fewer
+    than TILES_MIN_QUERIES queries; one warp a query up to TILES_MAX_WARPS."""
+    for (m, tm, w), b in itertools.product(TILE_SHAPES, (1, 2, 8, 16, 65)):
+        split, warps = bq.tiles_plan(b, m, tm, w, sms)
+        assert bq.check_tiles_plan(m, tm, (split, warps)) == (split, warps)
+        assert tm % split == 0 and split & (split - 1) == 0
+        assert warps == min(bq.TILES_MAX_WARPS, tm // split)
+        staged = 16 * w <= bq.MAX_SHARED_BYTES
+        held = min(bq.SM_SHARED_BYTES // (16 * w + 1024) if staged else 32, 64 // warps)
+        fills = min(b * (m // tm) * split, held * sms) * warps >= bq.TILES_WARPS_PER_SM * sms
+        halves = tm % (2 * split) == 0 and tm // (2 * split) >= bq.TILES_MIN_QUERIES
+        assert fills or not halves
+        if split > 1:  # the split before did not fill the card
+            prev = min(bq.TILES_MAX_WARPS, 2 * tm // split)
+            held = min(bq.SM_SHARED_BYTES // (16 * w + 1024) if staged else 32, 64 // prev)
+            assert min(b * (m // tm) * split // 2, held * sms) * prev < bq.TILES_WARPS_PER_SM * sms
+
+
+def test_tiles_plan_at_the_model_shapes():
+    """SA1 of semantic.json with the production window: 8 blocks a tile at the
+    B=8 predict chunk, 4 at the B=16 train batch, 16 warps each, on an H100."""
+    assert bq.tiles_plan(8, 1024, 128, 3072, 132) == (8, 16)
+    assert bq.tiles_plan(16, 1024, 128, 3072, 132) == (4, 16)
+    assert bq.tiles_plan(1, 1024, 128, 16384, 132) == (16, 8)
+    assert bq.tiles_plan(1, 128, 128, 512, 132) == (16, 8)
+    assert bq.tiles_plan.cache_info().currsize > 0  # cached, as the other plans
+
+
+@pytest.mark.parametrize("route", [(0, 16), (3, 16), (256, 1), (8, 0), (8, 33)])
+def test_tiles_check_plan_refuses_bad_routes(route):
+    with pytest.raises(ValueError, match="route"):
+        bq.check_tiles_plan(1024, 128, route)
+
+
+@pytest.mark.parametrize("b,m,tm,w", [(0, 1024, 128, 3072), (8, 1000, 128, 3072), (8, 1024, 128, 0)])
+def test_tiles_plan_refuses_what_no_route_takes(b, m, tm, w):
+    with pytest.raises(ValueError, match="tiles"):
+        bq.tiles_plan(b, m, tm, w, 132)
 
 
 @pytest.mark.parametrize("b,n,m", [(0, 10, 10), (1, 0, 10), (1, 10, 0), (2**24, 10, 2**14)])

@@ -269,12 +269,28 @@ def test_op_bench_on_the_cpu_measures_nothing(capsys):
     assert op_bench.main(["--device", "cpu", "--small"]) == 0
     rows = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
     assert {row["op"] for row in rows} == {
-        "farthest_point_sample", "fps_centroids", "ball_query", "ball_query_windowed", "three_nn", "knn",
-        "three_interpolate_concat",
+        "farthest_point_sample", "fps_centroids", "ball_query", "ball_query_sliced", "ball_query_sliced_pos",
+        "ball_query_windowed", "three_nn", "knn", "three_interpolate_concat", "three_interpolate_grad",
     }
     for row in rows:
         assert row["kernel_ms"] is None and row["plain_ms"] is None and row["library_ms"] is None
         assert row["bound_by"] in ("bytes", "operations") and row["bound_ms"] > 0
+
+
+def test_kernel_probe_refuses_to_run_without_a_card(monkeypatch):
+    from pointnet2_tpu_torch.tools import kernel_probe
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="card"):
+        kernel_probe.main(["tree"])
+    # Its per-kernel lines name kernels as the profiler prints them.
+    for key, name in (
+        ("(anonymous namespace)::three_interpolate_grad_zero_kernel(int*, int)", "three_interpolate_grad_zero_kernel"),
+        ("void (anonymous namespace)::three_interpolate_grad_sum_kernel<true>(float const*, long long)",
+         "three_interpolate_grad_sum_kernel"),
+        ("void pn2_window::ball_query_tiles_kernel<false, true>(float const*, int const*)", "ball_query_tiles_kernel"),
+    ):
+        assert kernel_probe.kernel_name(key) == name
 
 
 def test_stage_bench_on_the_cpu_measures_nothing(capsys):
