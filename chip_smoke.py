@@ -66,9 +66,11 @@ non-zero and prints no result):
    windowed kNN) equal their plain versions on the sorted inputs the
    calibrated ops make, at the B=8 chunk and the B=16 batch, on the route
    their plan picks (the windowed ball query's ``(split, warps)`` is in its
-   record), timed beside their bounds (9 operations a pair the data needs:
-   for the ball query the columns of each query's x-span,
-   ``ops.core.ball_query_tile_spans``; the gather's bytes, with
+   record; the windowed kNN's blocks, one a tile, and device time in its),
+   timed beside their bounds (9 operations a pair the data
+   needs: for the ball query the columns of each query's x-span,
+   ``ops.core.ball_query_tile_spans``, for the kNN those of each query's
+   span at its k-th distance, ``ops.core.knn_tile_spans``; the gather's bytes, with
    ``index_select`` of the same rows as its library call) and beside the whole
    calibrated op and the exact op it stands in for (``op_ms``,
    ``exact_op_ms``). The whole ops equal on the kernel and the plain path,
@@ -96,7 +98,10 @@ non-zero and prints no result):
    sorted inputs, the whole op equal to the plain windowed op and to the
    exact kernel, run under ``torch.cuda.set_sync_debug_mode("error")`` (no
    host read decides the fallback), the tiles that fit counted on the host
-   from the plan; both kernels timed beside their bounds, their plain
+   from the plan, its ``(split, warps)``, blocks and device time recorded,
+   its bound 9 operations a pair of each query's x-span over its tile's
+   range (the window, or the whole sorted cloud for a tile that falls back);
+   both kernels timed beside their bounds, their plain
    versions timed with 3 single calls (the plain FPS takes some 200 ms a
    call). Then ``tools.parity`` on the card (48 checks of every kernel
    against the NumPy oracles; zero failures), and the op-level path: one run
@@ -562,18 +567,21 @@ def window_kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> None:
     fperm, fxs, _, fqs, flo = core.knn_window_plan(cent, xyz, wf)
     got = cuda.knn_tiles(fxs, fperm, fqs, flo, 3, wf)
     want = core.knn_tiles(fxs, fperm, fqs, flo, 3, wf)
+    nq = fqs.shape[1]
+    pairs = op_bench.knn_tiles_pairs(fxs, fqs, flo, want[0], wf)
     report.add(
         "knn_sliced", b, f"Nq={n} M={m} k=3 w={wf}",
         lambda: cuda.knn_tiles(fxs, fperm, fqs, flo, 3, wf),
         lambda: core.knn_tiles(fxs, fperm, fqs, flo, 3, wf),
-        nbytes=b * m * 16 + b * fqs.shape[1] * 12 + b * flo.shape[1] * 4 + b * fqs.shape[1] * 3 * 8,
-        nops=9 * b * fqs.shape[1] * wf,
+        *op_bench.work_knn_tiles(b, m, nq, flo.shape[1], 3, pairs),
         err=max_abs(got[0], want[0]),
         match=torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
         extra={
             "op_ms": lambda: ops.three_nn_calibrated(xyz, cent, FP_WINDOW, impl="cuda"),
             "exact_op_ms": lambda: ops.three_nn(xyz, cent, impl="cuda"),
         },
+        info={"blocks": flo.numel(), "pairs": pairs, "window_pairs": b * nq * wf,
+              "device_ms": device_ms(lambda: cuda.knn_tiles(fxs, fperm, fqs, flo, 3, wf), "knn_sliced")},
     )
     check_op(
         "three_nn_calibrated",
@@ -641,9 +649,11 @@ def repaired_phase(cfg: Config, seed: int, report: Report) -> None:
         report.add(
             "knn_sliced", b, f"{label} Nq={nq} M={m} k={k} w={w}",
             lambda: cuda.knn_tiles(fxs, fperm, fqs, flo, k, w), lambda: core.knn_tiles(fxs, fperm, fqs, flo, k, w),
-            nbytes=b * m * 16 + b * nq * 12 + b * flo.shape[1] * 4 + b * nq * k * 8, nops=9 * b * nq * w,
+            # the list route (k > 16) scans the whole window; the register route each query's span
+            *op_bench.work_knn_tiles(b, m, nq, flo.shape[1], k, b * nq * w if k > cuda_knn.MAX_REGISTER_K
+                                     else op_bench.knn_tiles_pairs(fxs, fqs, flo, want[0], w)),
             err=max_abs(got[0], want[0]), match=torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-            info={"case": "repaired"},
+            info={"case": "repaired", "blocks": flo.numel()},
         )
         got = ops.knn_calibrated(refs, queries, k, w, impl="cuda")
         want = ops.knn_calibrated(refs, queries, k, w, impl="torch")
@@ -700,6 +710,7 @@ def windowed_rows(report: Report, label: str, xyz, cent, radius: float, nsample:
     b, n = xyz.shape[:2]
     m = cent.shape[1]
     plan, w, fits, pairs = op_bench.windowed_plan(xyz, cent, radius, nsample)
+    split, warps = cuda_ballquery.windowed_plan(b, n, m, m // fits.shape[1], w, cuda_ballquery.num_sms(xyz.device.index))
     got = cuda.ball_query_window_tiles(xyz, *plan, radius, nsample, w)
     want = core.ball_query_window_tiles(xyz, *plan, radius, nsample, w)
     op = no_host_read(lambda: ops.ball_query(xyz, cent, radius, nsample, impl="windowed"))
@@ -718,7 +729,10 @@ def windowed_rows(report: Report, label: str, xyz, cent, radius: float, nsample:
             "op_ms": lambda: ops.ball_query(xyz, cent, radius, nsample, impl="windowed"),
             "exact_op_ms": lambda: ops.ball_query(xyz, cent, radius, nsample, impl="cuda"),
         },
-        info={"cloud": label, "tiles_fit": int(fits.sum()), "tiles": fits.numel(), "no_host_read": True},
+        info={"cloud": label, "tiles_fit": int(fits.sum()), "tiles": fits.numel(), "no_host_read": True,
+              "route": [split, warps], "blocks": fits.numel() * split, "pairs": pairs,
+              "device_ms": device_ms(lambda: cuda.ball_query_window_tiles(xyz, *plan, radius, nsample, w),
+                                     "ball_query_windowed")},
     )
 
 

@@ -44,8 +44,8 @@
 // `pn2_ball_query_tiles` (the calibrated-window variant) and
 // `pn2_ball_query_windowed` (the round-1 windowed ball query) are the
 // kernels of window_bq.cuh, which says what they replace and how they work;
-// the windowed one's in-kernel fallback keeps `pn2_window::exact_scan`, one
-// warp a query over the unsorted cloud.
+// the windowed one's in-kernel fallback scans the whole sorted cloud over the
+// same x-spans, and reads no unsorted cloud.
 
 #include <cuda_runtime.h>
 
@@ -230,22 +230,21 @@ int pn2_ball_query_tiles(const float* xs, const int* perm, const float* qs,
       (cudaStream_t)stream);
 }
 
-// The round-1 windowed ball query over x-sorted query tiles: xyz1 (b, n, 3)
-// f32 the unsorted cloud, xs (b, n, 3) f32 and perm (b, n) i32 the sorted cloud
-// and its original indices, qs (b, m, 3) f32 the sorted queries in tiles of
-// tm, lo and hi (b, m / tm) i32 each tile's window start and the column after
-// its last candidate, w the window (any width; more than kMaxSharedWindow
-// columns are read from device memory), any nsample -> idx (b, m, nsample)
-// i32, cnt (b, m) i32, in sorted query order. A tile with hi - lo > w scans
-// the unsorted cloud exactly.
-int pn2_ball_query_windowed(const float* xyz1, const float* xs, const int* perm,
-                            const float* qs, const int* lo, const int* hi, int b, int n,
-                            int m, int tm, int w, float r2, int nsample, int* idx,
-                            int* cnt, int device, void* stream) {
+// The round-1 windowed ball query over x-sorted query tiles: xs (b, n, 3)
+// f32 and perm (b, n) i32 the sorted cloud and its original indices, qs
+// (b, m, 3) f32 the sorted queries in tiles of tm, lo and hi (b, m / tm) i32
+// each tile's window start and the column after its last candidate, w the
+// window (any width), any nsample, split blocks of `warps` warps a tile ->
+// idx (b, m, nsample) i32, cnt (b, m) i32, in sorted query order. A tile with
+// hi - lo > w scans the whole sorted cloud over its queries' x-spans.
+int pn2_ball_query_windowed(const float* xs, const int* perm, const float* qs, const int* lo,
+                            const int* hi, int b, int n, int m, int tm, int w, int split,
+                            int warps, float r2, int nsample, int* idx, int* cnt, int device,
+                            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return (int)pn2_window::launch_ball_query_windowed(xyz1, xs, perm, qs, lo, hi, b, n, m,
-                                                     tm, w, r2, nsample, idx, cnt,
+  return (int)pn2_window::launch_ball_query_windowed(xs, perm, qs, lo, hi, b, n, m, tm, w, split,
+                                                     warps, r2, nsample, idx, cnt,
                                                      (cudaStream_t)stream);
 }
 

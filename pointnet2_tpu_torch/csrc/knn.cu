@@ -70,16 +70,50 @@
 // the window), which is what the TPU kernel's k min-and-remove passes give.
 //
 // What bounds it on the H100: operations, about 9 a (query, column) pair of
-// the scan. The TPU kernel makes k full-width passes over a (128, w) block.
+// the scan, over the columns a query's k-th distance cannot rule out. The TPU
+// kernel makes k full-width passes over a (128, w) block.
 //
-// Design: one block of 128 threads per (cloud, tile). The window sits in
-// dynamic shared memory (x, y, z, original index; 16 bytes a column,
-// window_bq.cuh's `stage_window`) when it fits beside the lists, else it is
-// read where it lies, through L1 and L2. For k <= 16 one thread a query
-// reads every column (a broadcast) into a sorted top-k in registers; for
-// k > 16 each warp takes 32 of the tile's queries in turn, with the list
-// route above. Both compare (distance, original index) lexicographically:
-// the window is in x order, not index order.
+// Design, k <= 16 (the register route): one block of 128 threads per
+// (cloud, tile), one lane a query. The block stages the window in dynamic shared memory as 16-byte (x, y, z,
+// original index) quads (window_bq.cuh's `stage_quads`), one 16-byte load a
+// column, when it fits; else it reads the window where it lies. A query
+// walks outward from its place in the x-sorted window, a cursor on each
+// side; a side stops when the next column's fl(dx^2) is strictly above the
+// query's current k-th distance d_k. The stop is exact: the rounded dy^2 and
+// dz^2 are not negative, so a column's distance is at least its fl(dx^2),
+// and along a side fl(dx^2) does not fall; a column with fl(dx^2) == d_k is
+// still looked at, since it can tie d_k with a lower original index.
+// Queries are x-sorted, so the 32 queries of a warp walk nearly the same
+// columns: the warp walks them in step, from the place of its first query
+// outward, kChunk columns of one side a step (independent 16-byte loads, the
+// same address in every lane: a broadcast), each step on the side whose
+// next chunk starts nearer in x to its middle query, and stops a side when
+// no lane's outermost column of the chunk passes the test (`__any_sync`); on
+// the right a column still left of a lane's own query keeps that lane
+// going. The warp's choices are the same in every lane, so nothing diverges
+// but the inserts. Columns arrive out of index order, so the top k is kept
+// as 64-bit keys (distance bits << 32 | original index), one compare a slot
+// for the full (distance, index) order. When the k-th pick is +inf the walk
+// never stopped, so every column was seen: the +inf picks take the window's
+// lowest original index, which the query then reads (a window with fewer
+// than k finite columns; rare).
+//
+// On the H100 (PERF.md), at FP4: a walk of its own a lane, its side chosen
+// by its own fl(dx^2), diverged at every step (50 / 72 us at B=8 / 16); the
+// warp's walk a column a step paid its side choice, vote and prefetch on
+// every column (56 / 86 us); kChunk = 8 columns a step took 30.5 / 48 us.
+// Splitting a query over 2 or 4 lanes (each a share of the chunk, the bounds
+// shared by shuffle) was slower (33.5 / 61.5 us with 2): a lane that sees
+// fewer columns inserts more often, and the warp pays every insert; so was
+// splitting a tile's queries over 2 or 4 blocks, the card already full at
+// 512 / 1024 blocks. What is left is the inserts: the walk meets the columns in x
+// order, so a query's top k changes about k ln(n / k) times in n columns,
+// and in most chunks some lane of the warp inserts.
+//
+// Design, k > 16 (the list route): one block of up to 4 warps per (cloud,
+// tile), each warp taking 32 of the tile's queries in turn with the list
+// route above over the whole window (the window's quads, then the lists, in
+// shared memory), comparing (distance, original index) lexicographically.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -99,6 +133,10 @@ constexpr int kMaxShared = 232448;  // H100: 227 KB of dynamic shared memory a b
 constexpr int kTileQueries = 128;
 constexpr int kBatch = 16;  // references a lane scans between two refreshes of the query's bound
 constexpr unsigned kEmpty = 0xffffffffu;
+constexpr int kChunk = 8;  // columns of one side the windowed kNN's warp takes a step
+constexpr unsigned kInfBits = 0x7f800000u;  // +inf's bit pattern
+using Key = unsigned long long;  // distance bits << 32 | original index
+constexpr Key kNoKey = ~0ull;
 
 template <typename T>
 __device__ __forceinline__ bool before(T d, int i, T bd, int bi) {
@@ -426,32 +464,110 @@ cudaError_t launch_list(const float* refs, const float* queries, int b, int m, i
   return cudaGetLastError();
 }
 
-// Grid (tiles, b), kTileQueries threads, 16 * w bytes of dynamic shared memory
-// when `staged`. xs (b, m, 3), perm (b, m) sorted; qs (b, nq, 3) sorted,
-// nq = 128 * tiles; lo (b, tiles); dist/idx (b, nq, K) in sorted query order.
-// K = 0: the list route, k pairs of 8 bytes a warp after the window.
+// Insert v into the ascending keys bk, v known to sort before the last.
 template <int K>
-__global__ void knn_tiles_kernel(const float* __restrict__ xs,
-                                 const int* __restrict__ perm,
-                                 const float* __restrict__ qs,
-                                 const int* __restrict__ lo, int m, int nq,
-                                 int w, int k, bool staged, float* __restrict__ dist,
+__device__ __forceinline__ void insert_key(Key (&bk)[K], Key v) {
+  bool below[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) below[s] = s == K - 1 || v < bk[s];
+#pragma unroll
+  for (int s = K - 1; s > 0; --s) bk[s] = below[s - 1] ? bk[s - 1] : (below[s] ? v : bk[s]);
+  if (below[0]) bk[0] = v;
+}
+
+// The k-th distance's bits of a list (+inf while it holds fewer than k).
+__device__ __forceinline__ unsigned kth_bits(Key last) { return min((unsigned)(last >> 32), kInfBits); }
+
+// The walk of one warp's queries over the x-sorted columns [0, len) of
+// `cols`, all lanes in step, kChunk columns of one side a step. The left side
+// starts left of the warp's first query (every query of the warp lies at or
+// right of it: the queries are sorted), the right side at it; each step
+// takes the side whose next chunk starts nearer in x to the warp's middle
+// query. A side stops once no lane's outermost column of the chunk has
+// fl(dx^2) at or below its k-th distance (on the right, a column left of the
+// lane's own query always goes on: there fl(dx^2) still falls). Leaves each
+// lane's k smallest keys in bk.
+template <int K, class Columns>
+__device__ __forceinline__ void walk(const Columns& cols, int len, float qx, float qy, float qz,
+                                     Key (&bk)[K]) {
+  int a = 0, e = len;  // the query's place: the first column with x >= qx
+  while (a < e) {
+    const int mid = (a + e) >> 1;
+    if (cols.xat(mid) < qx) {
+      a = mid + 1;
+    } else {
+      e = mid;
+    }
+  }
+  const int place = __shfl_sync(kFull, a, 0);
+  const float centre = __shfl_sync(kFull, qx, 16);
+  // The innermost column of each side's next chunk, and its x (the same in every lane).
+  int left = place - 1, right = place;
+  bool open_left = left >= 0, open_right = right < len;
+  float lx = open_left ? cols.xat(left) : 0.f;
+  float rx = open_right ? cols.xat(right) : 0.f;
+  unsigned bound = kInfBits;  // the k-th distance's bits
+  while (open_left || open_right) {
+    const bool take_left = open_left && (!open_right || __fsub_rn(centre, lx) <= __fsub_rn(rx, centre));
+    const int base = take_left ? left : right;
+    const int dir = take_left ? -1 : 1;
+    bool go = false;  // this lane's outermost column of the chunk passed: the side goes on
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) {
+      const int j = base + dir * i;
+      if (j >= 0 && j < len) {
+        const float4 v = cols.quad(j);
+        const float dx = __fsub_rn(qx, v.x);
+        const float dx2 = __fmul_rn(dx, dx);
+        const float dy = __fsub_rn(qy, v.y);
+        const float dz = __fsub_rn(qz, v.z);
+        const float d = __fadd_rn(__fadd_rn(dx2, __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+        const Key key = ((Key)__float_as_uint(d) << 32) | (unsigned)__float_as_int(v.w);
+        if (key < bk[K - 1]) {
+          insert_key<K>(bk, key);
+          bound = kth_bits(bk[K - 1]);
+        }
+        // Strict: a column at fl(dx^2) == d_k may still tie d_k with a lower index.
+        go = __float_as_uint(dx2) <= bound || (!take_left && j < a);
+      }
+    }
+    const bool more = __any_sync(kFull, go);
+    if (take_left) {
+      left -= kChunk;
+      open_left = more && left >= 0;
+      if (open_left) lx = cols.xat(left);
+    } else {
+      right += kChunk;
+      open_right = more && right < len;
+      if (open_right) rx = cols.xat(right);
+    }
+  }
+}
+
+// Grid (tiles, b). K > 0: kTileQueries threads, one a query; K = 0 (the
+// list route): up to 4 warps, k pairs of 8 bytes a warp after the window. Dynamic shared memory: 16 * w bytes for the
+// window's quads when `staged`, then the lists. xs (b, m, 3), perm (b, m)
+// sorted; qs (b, nq, 3) sorted, nq = 128 * tiles; lo (b, tiles); dist/idx
+// (b, nq, k) in sorted query order.
+template <int K>
+__global__ void knn_tiles_kernel(const float* __restrict__ xs, const int* __restrict__ perm,
+                                 const float* __restrict__ qs, const int* __restrict__ lo, int m,
+                                 int nq, int w, int k, bool staged, float* __restrict__ dist,
                                  int* __restrict__ idx) {
-  extern __shared__ __align__(16) float window_smem[];
-  float* smem = window_smem;
+  extern __shared__ __align__(16) float4 window_quads[];
   const int tile = blockIdx.x;
   const int b = blockIdx.y;
   const int start = lo[b * gridDim.x + tile];
   const int len = max(0, min(w, m - start));  // the window's columns inside the dataset
   const pn2_window::GlobalColumns window{xs + ((size_t)b * m + start) * 3,
                                          perm + (size_t)b * m + start};
-  pn2_window::SharedColumns shared{};
-  if (staged) shared = pn2_window::stage_window(smem, w, len, window.xyz, window.orig);
+  const pn2_window::SharedQuads shared =
+      staged ? pn2_window::stage_quads(window_quads, window, 0, len) : pn2_window::SharedQuads{window_quads, 0};
 
   if constexpr (K == 0) {
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
-    float* ld = smem + (staged ? 4 * w : 0) + (size_t)warp * k * 2;
+    float* ld = reinterpret_cast<float*>(window_quads + (staged ? w : 0)) + (size_t)warp * k * 2;
     int* li = reinterpret_cast<int*>(ld + k);
     for (int qi = warp; qi < kTileQueries; qi += blockDim.x >> 5) {
       const size_t q = (size_t)b * nq + (size_t)tile * kTileQueries + qi;
@@ -469,29 +585,26 @@ __global__ void knn_tiles_kernel(const float* __restrict__ xs,
     const float qx = qs[q * 3 + 0];
     const float qy = qs[q * 3 + 1];
     const float qz = qs[q * 3 + 2];
-    float bd[K];
-    int bo[K];
+    Key bk[K];
 #pragma unroll
-    for (int s = 0; s < K; ++s) {
-      bd[s] = INFINITY;
-      bo[s] = INT_MAX;
+    for (int s = 0; s < K; ++s) bk[s] = kNoKey;
+    if (staged) {
+      walk<K>(shared, len, qx, qy, qz, bk);
+    } else {
+      walk<K>(window, len, qx, qy, qz, bk);
     }
-    int lowest = m;  // the lowest original index in the window
-    for (int i = 0; i < len; ++i) {
-      float cx, cy, cz;
-      int o;
-      if (staged) {
-        shared.get(i, cx, cy, cz, o);
-      } else {
-        window.get(i, cx, cy, cz, o);
-      }
-      lowest = min(lowest, o);
-      insert<K>(bd, bo, dist2(qx, qy, qz, cx, cy, cz), o);
+    // A +inf k-th pick: the query saw every column, and its +inf picks take
+    // the lowest original index of the window (m for padding alone).
+    int lowest = m;
+    if (kth_bits(bk[K - 1]) == kInfBits) {
+      for (int j = 0; j < len; ++j) lowest = min(lowest, staged ? __float_as_int(shared.quad(j).w) : window.orig[j]);
     }
 #pragma unroll
     for (int s = 0; s < K; ++s) {
-      dist[q * K + s] = bd[s];
-      idx[q * K + s] = bd[s] == INFINITY ? lowest : bo[s];
+      const unsigned bits = (unsigned)(bk[s] >> 32);
+      const bool inf = bits >= kInfBits;
+      dist[q * K + s] = inf ? INFINITY : __uint_as_float(bits);
+      idx[q * K + s] = inf ? lowest : (int)(unsigned)bk[s];
     }
   }
 }
@@ -501,8 +614,8 @@ cudaError_t launch_tiles(const float* xs, const int* perm, const float* qs,
                          const int* lo, int b, int m, int nq, int w, int k,
                          float* dist, int* idx, cudaStream_t stream) {
   // The list route: up to 4 warps, as many as have room for their lists.
-  const int warps = K == 0 ? max(1, min(kTileQueries / 32, kMaxShared / (k * 8))) : 0;
-  const size_t lists = (size_t)warps * k * 8;
+  const int threads = K == 0 ? 32 * max(1, min(kTileQueries / 32, kMaxShared / (k * 8))) : kTileQueries;
+  const size_t lists = K == 0 ? (size_t)(threads / 32) * k * 8 : 0;
   if (lists > (size_t)kMaxShared) return cudaErrorInvalidValue;
   const bool staged = (size_t)w * 16 + lists <= (size_t)kMaxShared;
   const size_t smem = (staged ? (size_t)w * 16 : 0) + lists;
@@ -512,8 +625,8 @@ cudaError_t launch_tiles(const float* xs, const int* perm, const float* qs,
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(nq / kTileQueries, b);
-  knn_tiles_kernel<K><<<grid, K == 0 ? warps * 32 : kTileQueries, smem, stream>>>(
-      xs, perm, qs, lo, m, nq, w, k, staged, dist, idx);
+  knn_tiles_kernel<K><<<grid, threads, smem, stream>>>(xs, perm, qs, lo, m, nq, w, k, staged, dist,
+                                                       idx);
   return cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
-// Ball-query scans shared by ballquery.cu and wingather.cu: the exact scan of
-// one query in dataset order, the windowed scan of one query over x-sorted
-// columns, and the two kernels built from them over tiles of x-sorted queries.
+// Ball-query scans shared by ballquery.cu, wingather.cu and knn.cu: the
+// windowed scan of one query over x-sorted columns, the x-span search that
+// bounds it, the 16-byte staging of columns, and the two kernels built from
+// them over tiles of x-sorted queries.
 //
 // Replaces: pointnet2_tpu/ops/pallas/ballquery.py:247 `_ball_query_sliced_kernel`
 //           and pointnet2_tpu/ops/pallas/wingather.py:54 `_bq_sliced_pos_kernel`
@@ -21,32 +22,38 @@
 // With kWithPos, each pick's window column too (0 for an empty ball). The
 // windowed kernel also takes hi[b,t], the column after the tile's last
 // candidate: a tile with hi - lo > w does not fit its window, and its queries
-// take the exact scan of the unsorted cloud instead, so the output is the
+// take the whole sorted cloud [0, n) as their range instead. Any x-sorted
+// range that holds every in-ball column gives the same answer (the nsample
+// smallest original indices of the in-ball columns), so the output is the
 // exact ball query whichever tiles fit. The JAX wrapper decides the same with
-// a lax.cond over all tiles at once; here each block decides for its own
-// tile, and nothing goes back to the host.
+// a lax.cond over all tiles at once, and runs the exact kernel over the
+// unsorted cloud; here each block decides for its own tile, and nothing goes
+// back to the host.
 //
 // What bounds it on the H100: operations, about 9 a (query, column) pair
-// scanned; the window is read from device memory once a block. The TPU
+// scanned; the columns are read from device memory once a block. The TPU
 // kernel extracts the picks with nsample full-width min passes over a
 // (tm, w) key block; here each pair is looked at once, and only the pairs
 // that can hit.
 //
-// Design of the tiles kernel (rows 7 and 8), for the card: each tile's
-// queries are split over `split` blocks of `warps` warps (the plan in
-// ops/cuda/ballquery.py fills the card: at SA1 8 blocks a tile at B=8 and 4
+// Design of both kernels (rows 7, 8 and 11), for the card: each tile's
+// queries are split over `split` blocks of `warps` warps (the plans in
+// ops/cuda/ballquery.py fill the card: at SA1 8 blocks a tile at B=8 and 4
 // at B=16, where one block a tile left 64 or 128 blocks on 132 SMs). The
-// window is sorted by x, and a column whose rounded dx^2 alone reaches r2 is
+// range is sorted by x, and a column whose rounded dx^2 alone reaches r2 is
 // never in the ball (adding the rounded dy^2 and dz^2 cannot lower the sum):
-// such columns form the two ends of the window. So each warp finds, by a
+// such columns form the two ends of the range. So each warp finds, by a
 // search of 32 probes a round, the span of columns its block's queries can
 // hit (the first query's left end to the last query's right end); the block
 // stages only that span in shared memory as 16-byte (x, y, z, original
-// index) quads, one 16-byte load a column; and each query scans only its own
-// span, found the same way (at SA1 about a third of the 3072 columns). The
-// count, the picks and their columns are those of the whole window. A window
-// wider than shared memory holds (kMaxSharedWindow columns) is read where it
-// lies, with the same spans.
+// index) quads, one 16-byte load a column, when it fits the block's buffer;
+// and each query scans only its own span, found the same way (at SA1 about a
+// third of a 3072-column window, about 990 of the 8192 sorted columns). The
+// count, the picks and their columns are those of the whole range. A span
+// wider than the buffer is read where it lies, with the same spans. The
+// round-1 kernel's buffer holds min(n, w) columns, as the tiles kernel's (a
+// fitting tile's span is at most w; a falling-back tile's block whose span
+// is wider reads it where it lies), none where that passes kMaxSharedWindow.
 //
 // Design common to the scans: one warp per query: it walks its columns in
 // 32-column strips, `__ballot_sync` gives the strip's in-ball lanes, `__popc`
@@ -56,12 +63,7 @@
 // (`__shfl_up_sync`), and the key takes the free lane. For a larger nsample
 // the list lives in the query's own output row (and the picks' columns in the
 // position row) and the warp shifts it 32 slots at a time. Original indices
-// are unique, so no removal is needed. The round-1 windowed kernel (row 11,
-// not redesigned) keeps one block per (cloud, tile) of kBqThreads threads, a
-// window staged as four arrays (x, y, z, original index; 16 bytes a column)
-// and the whole window a query. The exact scan walks the cloud in dataset
-// order and appends the hits (the slot of a hit is the count so far plus the
-// `__popc` of the hits in lower lanes), stopping at nsample hits.
+// are unique, so no removal is needed.
 
 #pragma once
 
@@ -71,8 +73,14 @@
 namespace pn2_window {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kBqThreads = 512;  // the round-1 kernel: 16 warps, 8 queries each in a tile of 128
 constexpr int kMaxSlots = 32;    // one slot a lane
+// Blocks of up to 32 warps. The round-1 kernel's slot variant is held to 32
+// registers (two such blocks an SM): its plan counts 4 blocks of 16 warps an
+// SM, which more registers would cut to 3. The tiles kernel (rows 7 and 8)
+// keeps a body of its own with no bound: ptxas fits it in 29 registers, and
+// held to 32 the body it shared with the round-1 kernel ran 2-3 % slower
+// (PERF.md).
+constexpr int kMaxBlockThreads = 1024;
 // The widest window that fits a block's 227 KB of dynamic shared memory.
 constexpr int kMaxSharedWindow = 232448 / 16;
 
@@ -84,21 +92,6 @@ __device__ __forceinline__ float dist2(float x, float y, float z,
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                    __fmul_rn(dz, dz));
 }
-
-// A window staged in shared memory as four arrays.
-struct SharedColumns {
-  const float* x;
-  const float* y;
-  const float* z;
-  const int* orig;
-  __device__ __forceinline__ void get(int j, float& cx, float& cy, float& cz,
-                                      int& o) const {
-    cx = x[j];
-    cy = y[j];
-    cz = z[j];
-    o = orig[j];
-  }
-};
 
 // A window read where it lies: sorted (x, y, z) rows and their original indices.
 struct GlobalColumns {
@@ -112,24 +105,38 @@ struct GlobalColumns {
     cz = xyz[3 * j + 2];
     o = orig[j];
   }
+  // Column j as an (x, y, z, original index) quad.
+  __device__ __forceinline__ float4 quad(int j) const {
+    return make_float4(xyz[3 * j], xyz[3 * j + 1], xyz[3 * j + 2], __int_as_float(orig[j]));
+  }
 };
 
 // Window columns [first, first + len) staged in shared memory as 16-byte
 // (x, y, z, original index) quads: one 16-byte load a column. Takes the
-// window column j, as the other two do.
+// window column j, as GlobalColumns does.
 struct SharedQuads {
-  const float4* quad;
+  const float4* quads;
   int first;
-  __device__ __forceinline__ float xat(int j) const { return quad[j - first].x; }
+  __device__ __forceinline__ float xat(int j) const { return quads[j - first].x; }
+  __device__ __forceinline__ float4 quad(int j) const { return quads[j - first]; }
   __device__ __forceinline__ void get(int j, float& cx, float& cy, float& cz,
                                       int& o) const {
-    const float4 v = quad[j - first];
+    const float4 v = quads[j - first];
     cx = v.x;
     cy = v.y;
     cz = v.z;
     o = __float_as_int(v.w);
   }
 };
+
+// Stages columns [begin, end) of `cols` into `dst` as quads (dst[0] is column
+// begin) and returns them as SharedQuads. Every thread of the block calls it.
+__device__ __forceinline__ SharedQuads stage_quads(float4* dst, const GlobalColumns& cols,
+                                                   int begin, int end) {
+  for (int j = begin + threadIdx.x; j < end; j += blockDim.x) dst[j - begin] = cols.quad(j);
+  __syncthreads();
+  return SharedQuads{dst, begin};
+}
 
 // Along x-sorted columns the x difference dx = fl(qx - cx) falls as cx
 // grows, and fl(dx * dx) grows with |dx|; the rounded dy^2 and dz^2 it is
@@ -290,54 +297,6 @@ __device__ int scan_list(const Columns& cols, int begin, int end, float qx, floa
   return count;
 }
 
-// The exact ball query of one query, one warp: the first nsample in-ball
-// points of data (n points, dataset order) appended to out, unused slots
-// repeating the first hit (0 for none). Returns min(#in-ball, nsample).
-__device__ __forceinline__ int exact_scan(const float* __restrict__ data, int n,
-                                          float qx, float qy, float qz, float r2,
-                                          int nsample, int lane, int* __restrict__ out) {
-  int count = 0;  // hits so far, the same in every lane
-  int first = 0;
-  for (int base = 0; base < n && count < nsample; base += 32) {
-    const int j = base + lane;
-    bool in = false;
-    if (j < n) {
-      in = dist2(qx, qy, qz, data[j * 3 + 0], data[j * 3 + 1], data[j * 3 + 2]) < r2;
-    }
-    const unsigned mask = __ballot_sync(kFull, in);
-    if (mask != 0u) {
-      if (count == 0) first = base + __ffs(mask) - 1;
-      if (in) {
-        const int slot = count + __popc(mask & ((1u << lane) - 1u));
-        if (slot < nsample) out[slot] = j;
-      }
-      count += __popc(mask);
-    }
-  }
-  const int c = count < nsample ? count : nsample;
-  for (int s = c + lane; s < nsample; s += 32) out[s] = first;
-  return c;
-}
-
-// Stages columns [0, len) of a window into shared memory as four arrays of
-// stride w (x, y, z split from the coalesced rows). Every thread of the block
-// calls it.
-__device__ __forceinline__ SharedColumns stage_window(float* smem, int w, int len,
-                                                      const float* __restrict__ src,
-                                                      const int* __restrict__ psrc) {
-  float* sx = smem;
-  float* sy = sx + w;
-  float* sz = sy + w;
-  int* so = reinterpret_cast<int*>(sz + w);
-  for (int i = threadIdx.x; i < 3 * len; i += blockDim.x) {
-    const int j = i / 3;
-    smem[(i - 3 * j) * w + j] = src[i];
-  }
-  for (int j = threadIdx.x; j < len; j += blockDim.x) so[j] = psrc[j];
-  __syncthreads();
-  return SharedColumns{sx, sy, sz, so};
-}
-
 // Grid (tiles * split, b), `warps` warps a block, 16 * w bytes of dynamic
 // shared memory when `staged` (w <= kMaxSharedWindow), else none: the window
 // is read where it lies. xs (b, n, 3), perm (b, n), qs (b, m, 3) sorted; lo
@@ -448,73 +407,89 @@ cudaError_t launch_ball_query_tiles(const float* xs, const int* perm,
   return cudaGetLastError();
 }
 
-// Grid b * tiles (cloud-major), kBqThreads threads, 16 * w bytes of dynamic
-// shared memory when `staged` (w <= kMaxSharedWindow), else none.
-// xyz1 (b, n, 3) the unsorted cloud; xs (b, n, 3), perm (b, n), qs (b, m, 3)
-// sorted; lo, hi (b, tiles); idx (b, m, nsample), cnt (b, m) in sorted query
-// order. kSlots: nsample <= 32, the list in registers.
+// Grid b * tiles * split (cloud-major, one dimension: any number of clouds),
+// `warps` warps a block, 16 * capacity bytes of dynamic shared memory. xs
+// (b, n, 3), perm (b, n), qs (b, m, 3) sorted; lo, hi (b, tiles); idx (b, m,
+// nsample), cnt (b, m) in sorted query order. A tile with hi - lo <= w takes
+// its window [lo, min(lo + w, n)) as its range, any other the whole sorted
+// cloud [0, n). Block (tile, part) takes the tm / split sorted queries
+// [part * tm / split, (part + 1) * tm / split) of the tile. The block's
+// x-span is staged as quads when it holds at most `capacity` columns, else
+// read where it lies; each warp takes a query at a time over its own x-span.
+// kSlots: nsample <= 32, the list in registers; else in the output rows.
 template <bool kSlots>
-__global__ void ball_query_windowed_kernel(const float* __restrict__ xyz1,
-                                           const float* __restrict__ xs,
-                                           const int* __restrict__ perm,
-                                           const float* __restrict__ qs,
-                                           const int* __restrict__ lo,
-                                           const int* __restrict__ hi, int n, int m,
-                                           int tm, int tiles, int w, bool staged,
-                                           float r2, int nsample,
-                                           int* __restrict__ idx, int* __restrict__ cnt) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x / tiles;
-  const int tile = blockIdx.x - b * tiles;
-  const int start = lo[blockIdx.x];
-  const bool fits = hi[blockIdx.x] - start <= w;  // the same in the whole block
-  const int len = w < n - start ? w : n - start;  // columns of the window inside the cloud
-  const GlobalColumns window{xs + ((size_t)b * n + start) * 3, perm + (size_t)b * n + start};
-  const bool in_smem = fits && staged;
-  SharedColumns shared{};
-  if (in_smem) shared = stage_window(smem, w, len, window.xyz, window.orig);
-
-  const float* cloud = xyz1 + (size_t)b * n * 3;
+__global__ void __launch_bounds__(kMaxBlockThreads, kSlots ? 2 : 1)
+    ball_query_windowed_kernel(const float* __restrict__ xs, const int* __restrict__ perm,
+                               const float* __restrict__ qs, const int* __restrict__ lo,
+                               const int* __restrict__ hi, int n, int m, int tm, int w, int split,
+                               int capacity, float r2, int nsample, int* __restrict__ idx,
+                               int* __restrict__ cnt) {
+  extern __shared__ float4 quads[];
+  const int t = blockIdx.x / split;  // b * tiles + tile
+  const int part = blockIdx.x - t * split;
+  const int b = t / (m / tm);
+  const int start = lo[t];
+  const bool fits = hi[t] - start <= w;  // the same in the whole block
+  const int first = fits ? start : 0;
+  const int len = fits ? max(0, min(w, n - start)) : n;
+  const GlobalColumns range{xs + ((size_t)b * n + first) * 3, perm + (size_t)b * n + first};
+  const int per_block = tm / split;
+  const size_t q0 = (size_t)t * tm + (size_t)part * per_block;
   const int lane = threadIdx.x & 31;
-  for (int qi = threadIdx.x >> 5; qi < tm; qi += blockDim.x >> 5) {
-    const size_t q = (size_t)b * m + (size_t)tile * tm + qi;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+
+  // The block's span, as in the tiles kernel; every warp finds the same one,
+  // so `staged` is the same in the whole block.
+  const int2 span = x_span(range, 0, len, qs[q0 * 3], qs[(q0 + per_block - 1) * 3], r2, lane);
+  const bool staged = span.y - span.x <= capacity;
+  const SharedQuads shared = staged ? stage_quads(quads, range, span.x, span.y) : SharedQuads{quads, 0};
+
+  for (int qi = warp; qi < per_block; qi += warps) {
+    const size_t q = q0 + qi;
     const float qx = qs[q * 3 + 0];
     const float qy = qs[q * 3 + 1];
     const float qz = qs[q * 3 + 2];
-    int* out = idx + q * nsample;
+    const int2 cols = staged ? x_span(shared, span.x, span.y, qx, qx, r2, lane)
+                             : x_span(range, span.x, span.y, qx, qx, r2, lane);
+    const int begin = cols.x, end = cols.y;
     int c;
-    if (!fits) {
-      c = exact_scan(cloud, n, qx, qy, qz, r2, nsample, lane, out);
-    } else if constexpr (kSlots) {
+    if constexpr (kSlots) {
       int key, col, count;
-      if (in_smem) {
-        scan_slots(shared, 0, len, qx, qy, qz, r2, nsample, lane, key, col, count);
+      if (staged) {
+        scan_slots(shared, begin, end, qx, qy, qz, r2, nsample, lane, key, col, count);
       } else {
-        scan_slots(window, 0, len, qx, qy, qz, r2, nsample, lane, key, col, count);
+        scan_slots(range, begin, end, qx, qy, qz, r2, nsample, lane, key, col, count);
       }
       c = count < nsample ? count : nsample;
-      const int first = __shfl_sync(kFull, key, 0);
-      if (lane < nsample) out[lane] = lane < c ? key : (c > 0 ? first : 0);
+      const int first_key = __shfl_sync(kFull, key, 0);
+      if (lane < nsample) idx[q * nsample + lane] = lane < c ? key : (c > 0 ? first_key : 0);
     } else {
-      const int count = in_smem ? scan_list(shared, 0, len, qx, qy, qz, r2, nsample, lane, out)
-                                : scan_list(window, 0, len, qx, qy, qz, r2, nsample, lane, out);
+      int* out = idx + q * nsample;
+      const int count = staged ? scan_list(shared, begin, end, qx, qy, qz, r2, nsample, lane, out)
+                               : scan_list(range, begin, end, qx, qy, qz, r2, nsample, lane, out);
       c = count < nsample ? count : nsample;
-      const int first = c > 0 ? out[0] : 0;
+      const int first_key = c > 0 ? out[0] : 0;
       __syncwarp();
-      for (int s = c + lane; s < nsample; s += 32) out[s] = first;
+      for (int s = c + lane; s < nsample; s += 32) out[s] = first_key;
     }
     if (lane == 0) cnt[q] = c;
   }
 }
 
-inline cudaError_t launch_ball_query_windowed(const float* xyz1, const float* xs,
-                                              const int* perm, const float* qs,
-                                              const int* lo, const int* hi, int b, int n,
-                                              int m, int tm, int w, float r2, int nsample,
-                                              int* idx, int* cnt, cudaStream_t stream) {
-  const int tiles = m / tm;
-  const bool staged = w <= kMaxSharedWindow;
-  const size_t smem = staged ? (size_t)w * 16 : 0;
+// split: blocks a tile (tm % split == 0); warps: warps a block (1 to 32).
+// A block stages up to min(n, w) columns, none where that passes
+// kMaxSharedWindow.
+inline cudaError_t launch_ball_query_windowed(const float* xs, const int* perm, const float* qs,
+                                              const int* lo, const int* hi, int b, int n, int m,
+                                              int tm, int w, int split, int warps, float r2,
+                                              int nsample, int* idx, int* cnt, cudaStream_t stream) {
+  if (split < 1 || tm < 1 || tm % split || warps < 1 || warps > 32 ||
+      (long long)b * (m / tm) * split > 0x7fffffffLL) {
+    return cudaErrorInvalidValue;
+  }
+  const int capacity = min(n, w) <= kMaxSharedWindow ? min(n, w) : 0;
+  const size_t smem = (size_t)capacity * 16;
   auto* kernel = nsample <= kMaxSlots ? &ball_query_windowed_kernel<true>
                                       : &ball_query_windowed_kernel<false>;
   if (smem > 48 * 1024) {
@@ -522,8 +497,8 @@ inline cudaError_t launch_ball_query_windowed(const float* xyz1, const float* xs
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<b * tiles, kBqThreads, smem, stream>>>(xyz1, xs, perm, qs, lo, hi, n, m, tm,
-                                                  tiles, w, staged, r2, nsample, idx, cnt);
+  kernel<<<b * (m / tm) * split, warps * 32, smem, stream>>>(xs, perm, qs, lo, hi, n, m, tm, w,
+                                                             split, capacity, r2, nsample, idx, cnt);
   return cudaGetLastError();
 }
 

@@ -330,28 +330,70 @@ def _bq_tile_keys(xs, perm, qs, lo, radius, w, with_pos):
     return torch.where(in_ball, keys, sentinel).reshape(b, m, w), sentinel
 
 
-def ball_query_tile_spans(xs: Tensor, qs: Tensor, lo: Tensor, radius: float, w: int) -> tuple[Tensor, Tensor]:
-    """Each sorted query's window columns ``[first, last)`` that can be in its
-    ball, as the CUDA tiles kernel finds them (``csrc/window_bq.cuh``).
+def _x_spans(cols_x: Tensor, q_x: Tensor, bound: Tensor | float, strict: bool) -> tuple[Tensor, Tensor]:
+    """The run of x-sorted columns ``cols_x (..., 1, W)`` whose rounded
+    ``dx * dx`` (``dx = fl(qx - cx)``) stays below ``bound`` (at or below
+    with ``strict=False``), for each query of ``q_x (..., TQ, 1)``: ``(first,
+    last)``, (..., TQ) int64, ``last >= first``.
 
-    Along the x-sorted window ``dx = fl(qx - cx)`` falls as ``cx`` grows and
-    ``fl(dx * dx)`` grows with ``|dx|``; the rounded ``dy^2`` and ``dz^2``
-    added to it are not negative, so a column with ``fl(dx * dx) >= r2`` is
-    never in the ball. ``first`` counts such columns left of the query
-    (``dx > 0``, a prefix of the window) and ``last`` is where those right of
-    it (``dx < 0``, a suffix) begin; ``last >= first``. The in-ball columns of
-    ``[lo, lo + w)`` all lie in ``[lo + first, lo + last)``. Returns (B, M)
-    int64, window-relative, in sorted query order.
+    Along the sorted columns ``dx`` falls as ``cx`` grows and ``fl(dx * dx)``
+    grows with ``|dx|``, so the columns outside the run form a prefix left of
+    the query (``dx > 0``) and a suffix right of it (``dx < 0``): ``first``
+    counts the prefix, ``last`` is where the suffix begins.
+    """
+    dx = q_x - cols_x
+    dx2 = dx * dx
+    out = dx2 >= bound if strict else dx2 > bound
+    first = ((dx > 0) & out).sum(-1)
+    last = cols_x.shape[-1] - ((dx < 0) & out).sum(-1)
+    return first, torch.maximum(first, last)
+
+
+def ball_query_tile_spans(xs: Tensor, qs: Tensor, lo: Tensor, radius: float, w: int,
+                          hi: Tensor | None = None) -> tuple[Tensor, Tensor]:
+    """Each sorted query's columns ``[first, last)`` that can be in its ball,
+    as the CUDA tiles kernels find them (``csrc/window_bq.cuh``).
+
+    A column with ``fl(dx * dx) >= r2`` is never in the ball: the rounded
+    ``dy^2`` and ``dz^2`` added to it are not negative. The in-ball columns of
+    a query's range all lie in its span. The range is the tile's window
+    ``[lo, lo + w)``, and the span is window-relative; with ``hi`` (the
+    round-1 kernel's), a tile with ``hi - lo > w`` takes the whole sorted
+    cloud ``[0, N)`` instead, and its queries' spans are columns of the
+    sorted cloud. Returns (B, M) int64, in sorted query order.
     """
     b, t = lo.shape
+    n = xs.shape[1]
     m = qs.shape[1]
+    r2 = squared_radius(radius)
+    q_x = qs[..., 0].reshape(b, t, m // t, 1)
     cols = (lo.long()[:, :, None] + torch.arange(w, device=lo.device)).reshape(b, t * w)
-    wx = xs[..., 0].gather(1, cols).reshape(b, t, 1, w)
-    dx = qs[..., 0].reshape(b, t, m // t, 1) - wx
-    far = dx * dx >= squared_radius(radius)
-    first = ((dx > 0) & far).sum(-1).reshape(b, m)
-    last = w - ((dx < 0) & far).sum(-1).reshape(b, m)
-    return first, torch.maximum(first, last)
+    first, last = _x_spans(xs[..., 0].gather(1, cols).reshape(b, t, 1, w), q_x, r2, strict=True)
+    if hi is not None:
+        whole = _x_spans(xs[..., 0].reshape(b, 1, 1, n), q_x, r2, strict=True)
+        fits = ((hi - lo) <= w)[..., None]
+        first, last = (torch.where(fits, f, g) for f, g in zip((first, last), whole))
+    return first.reshape(b, m), last.reshape(b, m)
+
+
+def knn_tile_spans(xs: Tensor, qs: Tensor, lo: Tensor, dist_k: Tensor, w: int) -> tuple[Tensor, Tensor]:
+    """Each sorted query's window columns ``[first, last)`` with ``fl(dx *
+    dx) <= d_k``, its k-th distance: the columns the CUDA windowed kNN's walk
+    cannot rule out (``csrc/knn.cu``). Every pick lies there (a column's
+    distance is at least its ``fl(dx * dx)``), ties at ``d_k`` included. The
+    window is padded past M as ``knn_tiles`` pads it (x = 1e30, out of any
+    finite span). xs (B, M, 3) and qs (B, Nq, 3) sorted, lo (B, T) window
+    starts, dist_k (B, Nq). Returns (B, Nq) int64, window-relative, in sorted
+    query order.
+    """
+    b, m, _ = xs.shape
+    t = lo.shape[1]
+    nq = qs.shape[1]
+    xs_x = torch.cat([xs[..., 0].float(), xs.new_full((b, round_up(m, LANES) - m), 1e30)], dim=1)
+    cols = (lo.long()[:, :, None] + torch.arange(w, device=lo.device)).reshape(b, t * w)
+    first, last = _x_spans(xs_x.gather(1, cols).reshape(b, t, 1, w), qs[..., 0].reshape(b, t, nq // t, 1),
+                           dist_k.reshape(b, t, nq // t, 1), strict=False)
+    return first.reshape(b, nq), last.reshape(b, nq)
 
 
 def ball_query_tiles(xs, perm, qs, lo, radius: float, nsample: int, w: int):

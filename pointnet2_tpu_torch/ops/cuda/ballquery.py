@@ -14,10 +14,12 @@
   XLA) with the two kernels.
 - ``ball_query_window_tiles`` replaces ``ballquery.py:80``
   (``_ball_query_window_kernel``) and its wrapper's fallback, tile by tile;
-  its plain version is ``ops.core.ball_query_window_tiles``.
-  ``ball_query_windowed`` is the whole round-1 op (sorts and window bounds in
-  PyTorch, no host read) with the kernel, or the exact kernel on the static
-  fallback.
+  its plain version is ``ops.core.ball_query_window_tiles``. It runs on the
+  tiles kernel's design, a falling-back tile over the whole sorted cloud;
+  ``windowed_plan`` splits the tiles over blocks, and the wrapper takes
+  ``route=`` to force a split. ``ball_query_windowed`` is the whole round-1
+  op (sorts and window bounds in PyTorch, no host read) with the kernel, or
+  the exact kernel on the static fallback.
 """
 
 from __future__ import annotations
@@ -32,9 +34,9 @@ from pointnet2_tpu_torch.ops.cuda.common import (
     FLOAT, INT, PTR, launch, require, require_cuda, require_int32_range, stream_of,
 )
 
-# The window's four columns (x, y, z, original index) sit in a block's shared
-# memory up to csrc/window_bq.cuh's kMaxSharedWindow (14528 columns); every
-# windowed kernel reads a wider window from device memory. Any nsample: up to
+# A column (x, y, z, original index) takes 16 bytes of a block's shared
+# memory, up to csrc/window_bq.cuh's kMaxSharedWindow (14528 columns); every
+# windowed kernel reads wider spans from device memory. Any nsample: up to
 # 32 one slot a lane of a warp, past it the sorted list in the output row.
 MAX_SHARED_BYTES = 232448  # H100: 227 KB of dynamic shared memory a block
 
@@ -84,11 +86,14 @@ def check_plan(n: int, route: tuple[int, int]) -> tuple[int, int]:
 TILES_MAX_WARPS = 16
 TILES_WARPS_PER_SM = 32  # the warps in flight on each SM the split aims at
 TILES_MIN_QUERIES = 8  # the fewest queries a block of a split tile takes
+# The round-1 kernel splits further: at SA2 and SA3 (32 and 16 tiles at B=16)
+# 8 queries a block leave fewer blocks than SMs.
+WINDOWED_MIN_QUERIES = 4
 SM_SHARED_BYTES = 233472  # H100: 228 KB of shared memory an SM, 1 KB of it kept a block
 
 
 @functools.cache
-def tiles_plan(b: int, m: int, tm: int, w: int, num_sms: int) -> tuple[int, int]:
+def tiles_plan(b: int, m: int, tm: int, w: int, num_sms: int, min_queries: int = TILES_MIN_QUERIES) -> tuple[int, int]:
     """``(split, warps)`` of the windowed ball query for ``b`` clouds of ``m``
     sorted queries in tiles of ``tm``, a ``w``-column window, on a card of
     ``num_sms`` SMs: each tile's queries go to ``split`` blocks of ``warps``
@@ -98,7 +103,7 @@ def tiles_plan(b: int, m: int, tm: int, w: int, num_sms: int) -> tuple[int, int]
     the plan doubles the split, from 1, until the blocks' warps would give
     each SM ``TILES_WARPS_PER_SM`` (counting only the blocks an SM holds at
     once: its shared memory takes ``SM_SHARED_BYTES // (16 w + 1024)`` staged
-    windows), or until a block would take fewer than ``TILES_MIN_QUERIES``
+    windows), or until a block would take fewer than ``min_queries``
     queries; ``warps`` is one a query up to ``TILES_MAX_WARPS``. Each block
     stages only the columns its queries can reach, so a larger split stages
     more columns in all: the plan stops at the first split that fills the
@@ -113,7 +118,7 @@ def tiles_plan(b: int, m: int, tm: int, w: int, num_sms: int) -> tuple[int, int]
         warps = min(TILES_MAX_WARPS, tm // split)
         held = min(SM_SHARED_BYTES // (16 * w + 1024) if staged else 32, 64 // warps)
         in_flight = min(b * tiles * split, held * num_sms) * warps
-        halves = tm % (2 * split) == 0 and tm // (2 * split) >= TILES_MIN_QUERIES
+        halves = tm % (2 * split) == 0 and tm // (2 * split) >= min_queries
         if in_flight >= TILES_WARPS_PER_SM * num_sms or not halves:
             return check_tiles_plan(m, tm, (split, warps))
         split *= 2
@@ -127,6 +132,18 @@ def check_tiles_plan(m: int, tm: int, route: tuple[int, int]) -> tuple[int, int]
     if split < 1 or tm % split or not 1 <= warps <= 32 or (m // tm) * split >= 2**31:
         raise ValueError(f"not a windowed ball query route for tiles of {tm}: {route}")
     return split, warps
+
+
+@functools.cache
+def windowed_plan(b: int, n: int, m: int, tm: int, w: int, num_sms: int) -> tuple[int, int]:
+    """``(split, warps)`` of the round-1 windowed ball query: ``tiles_plan``
+    for blocks that stage up to ``min(n, w)`` columns, down to
+    ``WINDOWED_MIN_QUERIES`` queries a block. A fitting tile's block needs at
+    most ``w``; a falling-back tile's block whose x-span is wider reads it
+    where it lies. (A buffer of ``min(n, 2 w)`` columns staged more of those
+    spans but held 3 blocks an SM where ``w`` holds 4, and SA1 ran slower on
+    the H100: PERF.md.)"""
+    return tiles_plan(b, m, tm, min(n, w), num_sms, WINDOWED_MIN_QUERIES)
 
 
 @functools.cache
@@ -224,11 +241,13 @@ def ball_query_sliced(xyz1, xyz2, radius: float, nsample: int, window: int):
     )
 
 
-def ball_query_window_tiles(xyz1, xs, perm, qs, lo, hi, radius: float, nsample: int, w: int):
+def ball_query_window_tiles(xyz1, xs, perm, qs, lo, hi, radius: float, nsample: int, w: int, route=None):
     """The round-1 windowed ball query over sorted tiles, each tile with
-    ``hi - lo > w`` scanning the unsorted cloud ``xyz1`` exactly; see
-    ``ops.core.ball_query_window_tiles``. Any ``nsample`` and any window width.
-    Returns idx (B, M, nsample), cnt (B, M) int32 in sorted query order.
+    ``hi - lo > w`` scanning the whole sorted cloud; see
+    ``ops.core.ball_query_window_tiles``, whose signature it keeps (the
+    kernel reads no ``xyz1``). Any ``nsample`` and any window width.
+    ``route``: a forced ``(split, warps)``, else ``windowed_plan``'s. Returns
+    idx (B, M, nsample), cnt (B, M) int32 in sorted query order.
     """
     require(xyz1, "xyz1", torch.float32, (None, None, 3))
     b, n, _ = xyz1.shape
@@ -245,14 +264,20 @@ def ball_query_window_tiles(xyz1, xs, perm, qs, lo, hi, radius: float, nsample: 
         raise ValueError(f"the windowed ball query needs nsample > 0 and a window > 0, got {nsample}, {w}")
     require_int32_range("ball_query_windowed", b, m, nsample)
     require_int32_range("ball_query_windowed", b, n, 3)
+    tm = m // t
+    if route is None:
+        split, warps = windowed_plan(b, n, m, tm, w, num_sms(xs.device.index))
+    else:
+        split, warps = check_tiles_plan(m, tm, tuple(route))
     idx = torch.empty((b, m, nsample), dtype=torch.int32, device=xs.device)
     cnt = torch.empty((b, m), dtype=torch.int32, device=xs.device)
     device, stream = stream_of(xs)
     launch(
         "ball_query_windowed", "ballquery", "pn2_ball_query_windowed",
-        [PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, FLOAT, INT, PTR, PTR, INT, PTR],
-        xyz1.data_ptr(), xs.data_ptr(), perm.data_ptr(), qs.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        b, n, m, m // t, w, squared_radius(radius), nsample, idx.data_ptr(), cnt.data_ptr(), device, stream,
+        [PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, FLOAT, INT, PTR, PTR, INT, PTR],
+        xs.data_ptr(), perm.data_ptr(), qs.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        b, n, m, tm, w, split, warps, squared_radius(radius), nsample,
+        idx.data_ptr(), cnt.data_ptr(), device, stream,
     )
     return idx, cnt
 

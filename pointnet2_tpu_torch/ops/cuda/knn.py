@@ -8,9 +8,12 @@
   wrapper takes ``route=`` to force one. For k > 16 (the list route) one warp a query keeps its sorted
   list in shared memory.
 - ``knn_tiles`` replaces ``knn.py:133`` (``_knn_sliced_kernel``); its plain
-  version is ``ops.core.knn_tiles``. ``knn_sliced`` and ``three_nn_sliced``
-  are the whole calibrated op (sorts, window starts and certificate in
-  PyTorch) with the two kernels.
+  version is ``ops.core.knn_tiles``. For k <= 16 each warp's queries walk
+  outward from their place in the x-sorted window, 8 columns of one side a
+  step, and stop exactly where the rounded dx^2 passes each query's k-th
+  distance; one block of 128 threads a tile, one a query. ``knn_sliced`` and
+  ``three_nn_sliced`` are the whole calibrated op (sorts, window starts and
+  certificate in PyTorch) with the two kernels.
 
 Limits: any 1 <= k <= M up to ``MAX_K`` = 29056, the most pairs of 8 bytes
 one warp's list holds in a block's 227 KB of shared memory; any window (one

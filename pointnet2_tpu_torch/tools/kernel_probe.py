@@ -1,13 +1,14 @@
-"""Device time of three_interpolate's backward and the windowed ball queries, by kernel name.
+"""Device time of three_interpolate's backward and the windowed kernels, by kernel name.
 
     python /path/to/pointnet2_tpu_torch/tools/kernel_probe.py TAG   (from a tree's root, that tree on PYTHONPATH)
 
-Reads rows 5, 7, 8 and 11 of PERF.md's kernel table at the model's shapes
-(``tools.op_bench``'s levels: bench.py's clouds and their FPS centroids),
-B=8 and B=16: three_interpolate's backward at the four FP levels on a
-cotangent strided as the train step hands it over, the calibrated windowed
-ball query with and without window columns at SA1 with the production
-window (3072), and the round-1 windowed ball query at SA1-SA3. Each line is
+Reads rows 5, 7, 8, 10 and 11 of PERF.md's kernel table at the model's
+shapes (``tools.op_bench``'s levels: bench.py's clouds and their FPS
+centroids), B=8 and B=16: three_interpolate's backward at the four FP levels
+on a cotangent strided as the train step hands it over, the calibrated
+windowed ball query with and without window columns at SA1 with the
+production window (3072), the windowed 3-NN at FP4 with the production
+``fp_window`` (512), and the round-1 windowed ball query at SA1-SA3. Each line is
 one JSON object: the profiler's device time of one call, summed over every
 kernel whose name holds the row's name, median of 3 sessions of 20 calls,
 and each kernel's own share (``kernels``). It calls only the op API, which
@@ -35,6 +36,7 @@ from pointnet2_tpu_torch.tools.op_bench import FP, SA, levels
 from pointnet2_tpu_torch.utils.bench import card_line
 
 BQ_WINDOW = 3072
+FP_WINDOW = 512
 
 
 def kernel_name(key: str) -> str:
@@ -91,6 +93,8 @@ def run(tag: str) -> None:
         emit(8, b, f"SA1 w={BQ_WINDOW}", device_us(
             lambda: cuda.ball_query_tiles_pos(xs, perm, qs, lo, radius, nsample, BQ_WINDOW),
             "ball_query_tiles_kernel"))
+        emit(10, b, f"FP4 w={FP_WINDOW}", device_us(
+            lambda: ops.three_nn_calibrated(lv[0], lv[1], FP_WINDOW), "knn_tiles_kernel"))
         for i, (npoint, radius, nsample) in enumerate(SA[:3]):
             src, cent = lv[i], lv[i + 1]
             emit(11, b, f"SA{i + 1}", device_us(

@@ -8,7 +8,8 @@ in 8 x 8 x 4.9 m, each level the FPS centroids of the one before, as the
 model makes them) it times FPS (the index-only and the fused entry), the
 ball query (exact, the calibrated windowed one's two kernels with the
 production window where it engages, and the round-1 windowed one with its
-default window), and at the four FP levels the 3-NN, three_interpolate
+default window), and at the four FP levels the 3-NN (and the windowed 3-NN
+with the production ``fp_window`` where it engages), three_interpolate
 writing the FP concat (the skip as the model hands it over: FP4's is the
 input cloud's colours), its backward on a cotangent strided as the train
 step's, and a kNN with k=8, all at B=16 (``semantic.json``'s batch; ``--batch 8``
@@ -25,13 +26,14 @@ for the predict path's chunk). One JSON line per op and shape:
 - ``plan``: the launch shape the wrapper's plan picked (FPS: cluster,
   threads, points a thread; exact ball query: warps a block, tile points;
   3-NN: lanes a query, threads; three_interpolate: 16-byte accesses or not,
-  the skip's 16-byte copy; the windowed ball query over tiles: blocks a
-  tile, warps a block; the backward: 16-byte accesses or not), and for the
-  3-NN, three_interpolate and the windowed ball query ``routes_device_ms``,
-  the device time of every route of that shape (3-NN: 1 to 32 lanes a
-  query; three_interpolate: 4-byte accesses, and 16-byte ones where the rows
-  allow; the windowed ball query: ``tiles_routes``), the yardstick of the
-  plan's choice; three_interpolate's
+  the skip's 16-byte copy; the windowed ball queries over tiles: blocks a
+  tile, warps a block; the backward: 16-byte accesses or not; the windowed
+  3-NN has one launch shape, a block a tile), and for the 3-NN,
+  three_interpolate and the windowed ball queries ``routes_device_ms``, the
+  device time of every route of that shape (3-NN: 1 to 32 lanes a query;
+  three_interpolate: 4-byte accesses, and 16-byte ones where the rows allow;
+  the windowed ball queries: ``tiles_routes``), the yardstick of the plan's
+  choice; three_interpolate's
   ``unfused_ms`` is the kernel without the skip followed by ``torch.cat``;
   and for FPS ``chain_ms``, the device time of the same number of empty
   cluster-barrier steps in the same layout (``ops.cuda.fps.barrier_chain``):
@@ -82,6 +84,9 @@ BATCH, SMALL_BATCH = 16, 2
 # engages at SA1, where the cloud is wider; --small uses a window that
 # engages on its 1024 points.
 BQ_WINDOW, SMALL_BQ_WINDOW = 3072, 384
+# The windowed 3-NN's production window (the Trainer's fp_window opt-in): it
+# engages at FP4, where the coarse cloud is wider; --small's at its FP4 too.
+FP_WINDOW, SMALL_FP_WINDOW = 512, 128
 
 
 def work_fps(b: int, n: int, npoint: int, rows: bool) -> tuple[float, float]:
@@ -106,26 +111,22 @@ def windowed_plan(xyz, cent, radius, nsample):
     """The round-1 windowed ball query's inputs and what its data asks of the
     kernel: ``(plan, w, fits, pairs)``. ``plan`` is ``(xs, perm, qs, lo,
     hi)``; ``fits`` (B, T) bool says which tiles fit their window; ``pairs``
-    counts the (query, column) pairs the kernel scans: w for each query of a
-    fitting tile, the exact scan's pairs for each query of another. Read on
-    the host, outside any timed or checked call."""
-    n, m = xyz.shape[1], cent.shape[1]
+    counts the (query, column) pairs of each query's x-span over its tile's
+    range, the window for a fitting tile and the whole sorted cloud for
+    another (``ops.core.ball_query_tile_spans`` with ``hi``): the columns that
+    can hit. Read on the host, outside any timed or checked call."""
+    n = xyz.shape[1]
     w = core.round_up(core.default_bq_window(n, nsample), core.LANES)
     perm, xs, qperm, qs, lo, hi = core.ball_query_window_bounds(xyz, cent, radius, w)
-    fits = (hi - lo) <= w
-    tm = m // lo.shape[1]
-    q_fits = fits[:, :, None].expand(-1, -1, tm).reshape(fits.shape[0], m)
-    idx, cnt = ops.ball_query(xyz, qs, radius, nsample, impl="torch")
-    exact = scanned_pairs(idx, cnt, n, nsample)
-    pairs = int(torch.where(q_fits, w, exact).sum())
-    return (xs, perm, qs, lo, hi), w, fits, pairs
+    first, last = core.ball_query_tile_spans(xs, qs, lo, radius, w, hi=hi)
+    return (xs, perm, qs, lo, hi), w, (hi - lo) <= w, int((last - first).sum())
 
 
 def work_ball_query_windowed(b, n, m, tiles, nsample, pairs: int) -> tuple[float, float]:
-    """(bytes, operations) of the round-1 kernel: the unsorted and the sorted
-    cloud, the original indices, the sorted queries and two ints a tile read,
-    idx and cnt written; 9 operations a scanned pair."""
-    return b * n * 28 + b * m * 12 + b * tiles * 8 + b * m * (nsample + 1) * 4, 9 * pairs
+    """(bytes, operations) of the round-1 kernel: the sorted cloud with its
+    original indices, the sorted queries and two ints a tile read, idx and cnt
+    written; 9 operations a pair of each query's x-span over its range."""
+    return b * n * 16 + b * m * 12 + b * tiles * 8 + b * m * (nsample + 1) * 4, 9 * pairs
 
 
 def work_ball_query_tiles(b, n, m, tiles, nsample, outs: int, pairs: int) -> tuple[float, float]:
@@ -142,6 +143,20 @@ def tiles_routes(tm: int) -> list[tuple[int, int]]:
     1 to 32 with a warp a query up to 16, and 8-warp blocks at split 4 and 8."""
     routes = [(s, min(cuda_ballquery.TILES_MAX_WARPS, tm // s)) for s in (1, 2, 4, 8, 16, 32) if tm % s == 0]
     return routes + [(s, 8) for s in (4, 8) if tm % s == 0 and (s, 8) not in routes]
+
+
+def knn_tiles_pairs(xs, qs, lo, dist, w: int) -> int:
+    """Pairs the windowed kNN's walk cannot rule out on this data: the columns
+    of each query's span at its k-th distance (``ops.core.knn_tile_spans``)."""
+    first, last = core.knn_tile_spans(xs, qs, lo, dist[..., -1], w)
+    return int((last - first).sum())
+
+
+def work_knn_tiles(b, m, nq, tiles, k, pairs: int) -> tuple[float, float]:
+    """(bytes, operations) of the windowed kNN: the sorted dataset with its
+    original indices, the sorted queries and a start a tile read, dist and idx
+    written; 9 operations a pair of each query's span (``knn_tiles_pairs``)."""
+    return b * m * 16 + b * nq * 12 + b * tiles * 4 + b * nq * k * 8, 9 * pairs
 
 
 def work_three_interpolate_grad(b, n, m, c) -> tuple[float, float]:
@@ -273,6 +288,7 @@ def run(device: torch.device, small: bool, batch: int = BATCH) -> list[dict]:
             continue  # the round-1 windowed op runs the exact kernel here
         plan, w, fits, pairs = windowed_plan(src, cent, radius, nsample)
         kernel = cuda.ball_query_window_tiles if timed else core.ball_query_window_tiles
+        tm = m // fits.shape[1]
         rows.append(_record(
             "ball_query_windowed",
             f"B={b} N={n} M={m} r={radius} nsample={nsample} w={w} tiles_fit={int(fits.sum())}/{fits.numel()}",
@@ -280,6 +296,14 @@ def run(device: torch.device, small: bool, batch: int = BATCH) -> list[dict]:
             lambda: kernel(src, *plan, radius, nsample, w),
             lambda: core.ball_query_window_tiles(src, *plan, radius, nsample, w),
             *work_ball_query_windowed(b, n, m, fits.shape[1], nsample, pairs), timed,
+            plan=cuda_ballquery.windowed_plan(b, n, m, tm, w, cuda_ballquery.num_sms(src.device.index))
+            if timed else None,
+            routes_device_ms={
+                route_key(r): (lambda r=r: device_ms(
+                    lambda: cuda.ball_query_window_tiles(src, *plan, radius, nsample, w, route=r),
+                    "ball_query_windowed"))
+                for r in tiles_routes(tm)
+            } if timed else {},
             op_ms=lambda: ops.ball_query(src, cent, radius, nsample, impl="windowed"),
             exact_op_ms=lambda: ops.ball_query(src, cent, radius, nsample),
         ))
@@ -297,6 +321,20 @@ def run(device: torch.device, small: bool, batch: int = BATCH) -> list[dict]:
                 for r in knn_routes(nq)
             } if timed else {},
         ))
+        wf = core.round_up(SMALL_FP_WINDOW if small else FP_WINDOW, core.LANES)
+        if wf < m and nq >= core.LANES:  # the windowed 3-NN engages here
+            fperm, fxs, _, fqs, flo = core.knn_window_plan(coarse, dense, wf)
+            want = core.knn_tiles(fxs, fperm, fqs, flo, 3, wf)
+            tiles_fn = cuda.knn_tiles if timed else core.knn_tiles
+            rows.append(_record(
+                "knn_sliced", f"B={b} Nq={nq} M={m} k=3 w={wf}", card, "knn_sliced",
+                lambda: tiles_fn(fxs, fperm, fqs, flo, 3, wf),
+                lambda: core.knn_tiles(fxs, fperm, fqs, flo, 3, wf),
+                *work_knn_tiles(b, m, fqs.shape[1], flo.shape[1], 3, knn_tiles_pairs(fxs, fqs, flo, want[0], wf)),
+                timed,
+                op_ms=lambda: ops.three_nn_calibrated(dense, coarse, wf),
+                exact_op_ms=lambda: ops.three_nn(dense, coarse),
+            ))
         # three_interpolate writing the FP concat, with the skip as the model hands it over.
         d2, idx = ops.three_nn(dense, coarse)
         weight = ops.interpolation_weights(d2)

@@ -974,3 +974,119 @@ def test_feature_propagation_launches_no_concat(cuda_device):
     with torch.no_grad():
         want = fp(xyz1, xyz2, points1, points2)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+# -- the round-1 windowed ball query (row 11) and the windowed kNN (row 10),
+# redesigned: split over the card, x-spans, the exact stop
+
+
+def _windowed_routes(tm):
+    """Forced (split, warps) of the round-1 kernel at a tile of ``tm``: one
+    block a tile, the plans' splits, one query a block, warps looping."""
+    routes = [(1, 16), (2, 16), (4, 16), (8, 16), (16, 8), (32, 4), (64, 2), (128, 1), (4, 4), (1, 32)]
+    return [r for r in routes if tm % r[0] == 0]
+
+
+def _levels(seed, b, clustered=False):
+    """SA1-SA3 inputs of semantic.json: bench.py's clouds (or half of them in a
+    2 cm band of x) and the FPS centroids of each level."""
+    xyz = _box(seed, b, 8192, scale=(8.0, 8.0, 4.9))
+    if clustered:
+        xyz[:, :4096, 0] = 4.0 + 0.02 * xyz[:, :4096, 0] / 8.0
+    out = [xyz.contiguous()]
+    for npoint in (1024, 256, 64):
+        out.append(ops.fps_centroids(out[-1], npoint)[1].contiguous())
+    return out
+
+
+def _windowed_both(xyz, cent, radius, nsample, routes):
+    """The round-1 kernel against its plain version on the op's sorted
+    inputs, on the plan's route and each forced one. Returns the tiles that fit."""
+    n, m = xyz.shape[1], cent.shape[1]
+    w = core.round_up(core.default_bq_window(n, nsample), core.LANES)
+    perm, xs, _, qs, lo, hi = core.ball_query_window_bounds(xyz, cent, radius, w)
+    want = core.ball_query_window_tiles(xyz, xs, perm, qs, lo, hi, radius, nsample, w)
+    for route in (None, *routes):
+        got = cuda.ball_query_window_tiles(xyz, xs, perm, qs, lo, hi, radius, nsample, w, route=route)
+        assert all(torch.equal(g, h) for g, h in zip(got, want)), route
+    return (hi - lo) <= w
+
+
+@pytest.mark.parametrize("b", [8, 16])
+@pytest.mark.parametrize("cloud,nsample", [("box", 32), ("clustered", 32), ("box", 64)])
+def test_ball_query_windowed_kernel_on_every_route(cuda_device, b, cloud, nsample):
+    """SA1-SA3 of semantic.json at both batches, bench.py's clouds and a
+    clustered one (its band's tiles fall back, the others fit), nsample 32
+    and 64: every route, bit for bit."""
+    lv = _levels(40 + b, b, clustered=cloud == "clustered")
+    for i, (radius, tm) in enumerate(((0.5, 128), (1.0, 128), (2.0, 64))):
+        fits = _windowed_both(lv[i], lv[i + 1], radius, nsample, _windowed_routes(tm))
+        if i > 0:
+            assert not bool(fits.any())  # SA2, SA3: every tile scans the whole sorted cloud
+        elif cloud == "clustered":
+            assert bool(fits.any()) and not bool(fits.all())
+
+
+def test_ball_query_windowed_kernel_routes_past_shared_memory(cuda_device):
+    """A 16384-column window (N = 65536): no span is staged, each read where it lies."""
+    xyz = _box(47, 2, 65536, scale=(8.0, 8.0, 4.9))
+    cent = xyz[:, torch.randperm(65536, generator=torch.Generator().manual_seed(48))[:1024].to(cuda_device)]
+    assert 16384 * 16 > cuda_bq.MAX_SHARED_BYTES
+    _windowed_both(xyz, cent.contiguous(), 0.5, 32, [(1, 16), (4, 16), (16, 8), (128, 1)])
+
+
+def test_ball_query_windowed_kernel_fills_the_card(cuda_device):
+    """At SA2 and SA3 of a B=16 batch the plan launches at least a block an SM."""
+    sms = cuda_bq.num_sms(cuda_device.index or 0)
+    for m, tm, n, w in ((256, 128, 1024, 256), (64, 64, 256, 128)):
+        split, _ = cuda_bq.windowed_plan(16, n, m, tm, w, sms)
+        assert 16 * (m // tm) * split >= sms
+
+
+def test_ball_query_windowed_kernel_past_65535_clouds(cuda_device):
+    """65537 clouds of 256 points (a 128-column window), 32 queries each: the
+    grid is one dimension of clouds x tiles x split blocks, so the number of
+    clouds has no limit of its own. Every other cloud's queries lie in a
+    narrow band of x, so its tile fits its window; the others fall back."""
+    xyz = _box(49, 65537, 256, scale=(1.0, 1.0, 1.0))
+    cent = xyz[:, :32].clone()
+    cent[::2, :, 0] *= 0.1
+    fits = _windowed_both(xyz, cent, 0.2, 8, [(1, 16), (4, 8)])
+    assert bool(fits.any()) and not bool(fits.all())
+
+
+def _knn_tiles_both(refs, queries, k, w, lo=None):
+    """The windowed kNN against its plain version on the calibrated op's
+    sorted inputs (or the given window starts), bit for bit."""
+    perm, xs, _, qs, plan_lo = core.knn_window_plan(refs, queries, w)
+    lo = plan_lo if lo is None else lo
+    want = core.knn_tiles(xs, perm, qs, lo, k, w)
+    got = cuda.knn_tiles(xs, perm, qs, lo, k, w)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("b", [8, 16])
+def test_knn_tiles_kernel_at_fp4(cuda_device, b):
+    """FP4 of semantic.json with the production window (512) at both
+    batches, bit for bit."""
+    lv = _levels(50 + b, b)
+    _knn_tiles_both(lv[1], lv[0], 3, 512)
+
+
+@pytest.mark.parametrize("k", list(range(1, 17)))
+def test_knn_tiles_kernel_ties_at_the_kth_distance_and_padding(cuda_device, k):
+    """A lattice: columns tied at the k-th distance on both sides of each
+    query (queries on and between lattice points), repeated x everywhere; a
+    window partly past M (padding), and a window with fewer than k real
+    columns. Every k from 1 to 16."""
+    g = torch.arange(0, 2.0, 0.25, device=cuda_device)
+    lattice = torch.stack(torch.meshgrid(g * 2.0, g, g, indexing="ij"), -1).reshape(1, -1, 3)  # 512 points
+    lattice = lattice[:, torch.randperm(512, generator=torch.Generator().manual_seed(k)).to(cuda_device)]
+    refs = lattice[:, :500].contiguous()  # M = 500: the last window reaches past it
+    queries = torch.cat([lattice[:, ::2], lattice[:, 1::2] + 0.125], 1)[:, :512].contiguous()
+    _knn_tiles_both(refs, queries, k, 128)
+    tiles = queries.shape[1] // 128
+    _knn_tiles_both(refs, queries, k, 128,
+                    lo=torch.full((1, tiles), 384, dtype=torch.int32, device=cuda_device))  # 116 real columns
+    _knn_tiles_both(refs[:, :130].contiguous(), queries, k, 128,
+                    lo=torch.full((1, tiles), 128, dtype=torch.int32, device=cuda_device))  # 2 real columns

@@ -1,7 +1,8 @@
 """The launch plans of the FPS, ball-query, kNN and three_interpolate kernels, on the CPU.
 
 ``ops.cuda.fps.plan``, ``ops.cuda.ballquery.plan`` (the exact kernel) and
-``tiles_plan`` (the windowed one over sorted tiles), ``ops.cuda.knn.plan`` and
+``tiles_plan`` and ``windowed_plan`` (the windowed ones over sorted tiles),
+``ops.cuda.knn.plan`` and
 ``ops.cuda.interpolate.plan`` are plain Python: they take the card's answers
 (resident clusters of each size, the SM count) or the rows' alignment as
 arguments, so every route they can pick is checked here without a card; the
@@ -282,3 +283,56 @@ def test_three_interpolate_plan(c, c1, aligned, skip_ok, want):
 def test_three_interpolate_plan_refuses_empty_rows():
     with pytest.raises(ValueError):
         interpolate.plan(0, 3, True, False)
+
+
+# -- the round-1 windowed ball query (row 11) and the windowed kNN (row 10) ----------
+
+# semantic.json's SA1-SA3 with the round-1 default window max(2 nsample, N // 4):
+# (N, M, tm, w), and a cloud whose window passes shared memory.
+WINDOWED_LEVELS = [(8192, 1024, 128, 2048), (1024, 256, 128, 256), (256, 64, 64, 128)]
+
+
+@pytest.mark.parametrize("sms", [132, 16])
+def test_windowed_plan_is_the_tiles_plan_for_its_buffer(sms):
+    """The tiles plan for blocks that stage up to min(N, w) columns, down to
+    WINDOWED_MIN_QUERIES queries a block."""
+    for (n, m, tm, w), b in itertools.product([*WINDOWED_LEVELS, (65536, 1024, 128, 16384), (100, 128, 128, 384)],
+                                              (1, 8, 16, 65)):
+        route = bq.windowed_plan(b, n, m, tm, w, sms)
+        assert route == bq.tiles_plan(b, m, tm, min(n, w), sms, bq.WINDOWED_MIN_QUERIES)
+        split, warps = route
+        assert tm // split >= min(tm, bq.WINDOWED_MIN_QUERIES) and warps == min(bq.TILES_MAX_WARPS, tm // split)
+
+
+def test_windowed_plan_covers_the_card_at_the_model_shapes():
+    """On an H100 (132 SMs) at B=16 every level launches at least a block an
+    SM (the kernel before ran one block a tile: 128, 32 and 16), and SA1
+    takes the calibrated kernel's split."""
+    blocks = {}
+    for b in (8, 16):
+        for n, m, tm, w in WINDOWED_LEVELS:
+            split, warps = bq.windowed_plan(b, n, m, tm, w, 132)
+            blocks[b, n] = b * (m // tm) * split
+    assert bq.windowed_plan(16, 8192, 1024, 128, 2048, 132) == (4, 16)
+    assert bq.windowed_plan(8, 8192, 1024, 128, 2048, 132) == (8, 16)
+    assert all(blocks[16, n] >= 132 for n, *_ in WINDOWED_LEVELS)
+    assert blocks[16, 1024] == 1024 and blocks[16, 256] == 256 and blocks[8, 1024] == 512
+    assert bq.windowed_plan.cache_info().currsize > 0
+
+
+def test_windowed_plan_keeps_the_tiles_plan_as_it_was():
+    """The calibrated kernel's plan (rows 7 and 8) does not move: 8 queries a
+    block at the fewest."""
+    assert bq.tiles_plan(1, 128, 128, 512, 132) == (16, 8)
+    assert bq.tiles_plan(1, 128, 128, 512, 132, bq.WINDOWED_MIN_QUERIES) == (32, 4)
+
+
+@pytest.mark.parametrize("b", [65535, 65536, 2**20])
+def test_windowed_plan_takes_any_number_of_clouds(b):
+    """The round-1 kernel's grid is one dimension of clouds x tiles x split
+    blocks: past 65535 clouds the plan still gives a route, one block a tile
+    (the card is full), and its blocks fit the grid."""
+    for n, m, tm, w in WINDOWED_LEVELS:
+        split, warps = bq.windowed_plan(b, n, m, tm, w, 132)
+        assert split == 1 and warps == min(bq.TILES_MAX_WARPS, tm)
+        assert b * (m // tm) < 2**31
