@@ -71,7 +71,12 @@ non-zero and prints no result):
    needs: for the ball query the columns of each query's x-span,
    ``ops.core.ball_query_tile_spans``, for the kNN those of each query's
    span at its k-th distance, ``ops.core.knn_tile_spans``; the gather's bytes, with
-   ``index_select`` of the same rows as its library call) and beside the whole
+   ``index_select`` of the same rows as its library call and its planned
+   ``(vec, lanes, stream)`` route and device time in its record, then one line
+   for each forced route, 16-byte vectors or floats with each store policy,
+   and one for a source 4 bytes off 16-byte alignment, which must plan the
+   float route; each bit for bit against the plain version and
+   ``index_select``) and beside the whole
    calibrated op and the exact op it stands in for (``op_ms``,
    ``exact_op_ms``). The whole ops equal on the kernel and the plain path,
    ``ok`` included, with a window that fits and one too small (256 at SA1
@@ -141,6 +146,7 @@ from pointnet2_tpu_torch.ops.cuda import ballquery as cuda_ballquery
 from pointnet2_tpu_torch.ops.cuda import build
 from pointnet2_tpu_torch.ops.cuda import fps as cuda_fps
 from pointnet2_tpu_torch.ops.cuda import interpolate as cuda_interp
+from pointnet2_tpu_torch.ops.cuda import wingather as cuda_gather
 from pointnet2_tpu_torch.tools import op_bench, parity, stage_bench
 from pointnet2_tpu_torch.train import Trainer
 from pointnet2_tpu_torch.train_profile import train_batch
@@ -545,22 +551,7 @@ def window_kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> None:
 
     pos = got[1]
     zp_s = ops.gather_points(x, perm) @ w0 + b0  # the projected sorted cloud, as the fused op makes it
-    c = zp_s.shape[-1]
-    rows = (lo.long().repeat_interleave(m // tiles, dim=1)[:, :, None] + pos.long()
-            + torch.arange(b, device=dev)[:, None, None] * n).reshape(-1)
-    flat = zp_s.reshape(b * n, c)
-    out = cuda.window_gather(zp_s, lo, pos)
-    report.add(
-        "window_gather", b, f"N={n} M={m} K={ns} C={c}",
-        lambda: cuda.window_gather(zp_s, lo, pos),
-        lambda: core.window_gather(zp_s, lo, pos),
-        nbytes=b * n * c * 4 + b * tiles * 4 + b * m * ns * 4 + b * m * ns * c * 4,
-        nops=0,
-        err=max_abs(out, core.window_gather(zp_s, lo, pos)),
-        match=torch.equal(out, core.window_gather(zp_s, lo, pos))
-        and torch.equal(out.reshape(-1, c), torch.index_select(flat, 0, rows)),
-        library=lambda: torch.index_select(flat, 0, rows),
-    )
+    gather_rows(report, b, n, zp_s, lo, pos)
 
     # FP4: the dense cloud's 3-NN among SA1's centroids.
     wf = core.round_up(FP_WINDOW, core.LANES)
@@ -589,6 +580,54 @@ def window_kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> None:
         lambda win: ops.three_nn_calibrated(xyz, cent, win, impl="torch"),
         (FP_WINDOW, SMALL_FP_WINDOW), {FP_WINDOW: True},
     )
+
+
+def gather_rows(report: Report, b: int, n: int, zp_s: torch.Tensor, lo: torch.Tensor, pos: torch.Tensor) -> None:
+    """Row 9 at the fused grouping's shapes: the planned route against its
+    plain version and ``index_select`` of the same rows, timed beside its
+    bound; then one line for each forced route (16-byte vectors or floats,
+    each store policy) and one for a source 4 bytes off 16-byte alignment,
+    which must plan the float route. Every line bit for bit."""
+    m, ns = pos.shape[1:]
+    tiles, c = lo.shape[1], zp_s.shape[-1]
+    rows = (lo.long().repeat_interleave(m // tiles, dim=1)[:, :, None] + pos.long()
+            + torch.arange(b, device=zp_s.device)[:, None, None] * n).reshape(-1)
+    flat = zp_s.reshape(b * n, c)
+    want = core.window_gather(zp_s, lo, pos)
+
+    def equal(out):
+        return torch.equal(out, want) and torch.equal(out.reshape(-1, c), torch.index_select(flat, 0, rows))
+
+    out = cuda.window_gather(zp_s, lo, pos)
+    shape = f"N={n} M={m} K={ns} C={c}"
+    report.add(
+        "window_gather", b, shape,
+        lambda: cuda.window_gather(zp_s, lo, pos),
+        lambda: core.window_gather(zp_s, lo, pos),
+        *op_bench.work_window_gather(b, n, m, tiles, ns, c),
+        err=max_abs(out, want),
+        match=equal(out),
+        library=lambda: torch.index_select(flat, 0, rows),
+        info={"route": list(cuda_gather.planned_route(zp_s)),
+              "device_ms": device_ms(lambda: cuda.window_gather(zp_s, lo, pos), "window_gather")},
+    )
+    offset = torch.empty(zp_s.numel() + 1, device=zp_s.device)[1:].view_as(zp_s)
+    offset.copy_(zp_s)
+    if cuda_gather.planned_route(offset)[0]:
+        raise AssertionError("window_gather planned 16-byte vectors on a source 4 bytes off alignment")
+    routes = [(vec, cuda_gather.plan(c, vec)[1], stream) for vec in (True, False) for stream in (False, True)]
+    for forced, src in [(route, zp_s) for route in routes] + [(None, offset)]:
+        out = cuda.window_gather(src, lo, pos, route=forced)
+        if not equal(out):
+            raise AssertionError(f"window_gather on route {forced} at {shape} disagrees with its plain version")
+        emit({"kernel": "window_gather", "batch": b, "shape": f"B={b} {shape}",
+              "forced_route": None if forced is None else list(forced),
+              "route": list(cuda_gather.planned_route(src, forced)),
+              "source_offset_bytes": src.data_ptr() % 16,
+              "kernel_ms": cuda_ms(lambda: cuda.window_gather(src, lo, pos, route=forced)),
+              "device_ms": device_ms(lambda: cuda.window_gather(src, lo, pos, route=forced),
+                                     "window_gather"),
+              "max_abs_err": max_abs(out, want), "match": True, "card": report.card})
 
 
 def repaired_phase(cfg: Config, seed: int, report: Report) -> None:

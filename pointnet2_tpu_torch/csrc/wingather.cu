@@ -23,18 +23,36 @@
 // x-sorted cloud; each output row is the row at its tile's window start plus
 // its pick's column. The result equals its plain version bit for bit.
 //
-// What bounds it on the H100: bytes, each output element written once (67 MB
-// at SA1, batch 16, c = 32) and the source rows read once (16.8 MB; a tile's
-// window rows are read again by the tile's other picks, from L2).
+// What bounds it on the H100: bytes. Each output element is written once
+// (33.5 MB at SA1, batch 8, c = 32; 67 MB at batch 16), the source rows, the
+// window starts and the picks read once (8.4 + 1.0 MB at batch 8): 12.8 /
+// 25.7 us at 3.35 TB/s. A tile's picks lie inside its w-row window, so the
+// source is read again by the tile's other picks, from L1 or L2.
 //
-// Design: one thread per 16-byte vector of the output (float4 where c is a
-// multiple of 4 and the rows are 16-byte aligned, else one float),
-// consecutive threads on consecutive channels of one row, then the next
-// row: the writes are coalesced, and the
-// threads of a row read one contiguous source row. The TPU kernel copied two
-// window blocks into VMEM and then rows out of them, because it had no vector
-// gather; the blocks are not needed here (the block width is kept only in the
-// wrapper's fallback condition, for parity of the paths with the JAX package).
+// Design: no division on the hot path. The grid's z picks the cloud and y
+// the tile (each looping past 65535), so the window start is read once a
+// block into a uniform register and every offset inside the tile is 32-bit
+// beside one 64-bit base a block; x picks a run of the tile's tm * k output
+// rows. A row's 16-byte vectors (float4 where c is a multiple of 4 and both
+// arrays are 16-byte aligned, else single floats: the same grid) go to
+// kLanes consecutive lanes, a power of two up to 16 (a template parameter,
+// so row and lane are a shift and a mask of threadIdx.x); rows wider than
+// kLanes vectors loop over their channels. The row's lanes read its pick at
+// one address, which the warp serves in one transaction. Each thread holds
+// kUnroll rows: it issues the loads of all of them before any store, which
+// keeps 4 L2 round trips in flight a thread (the TPU kernel's unroll=4).
+// Loads take the read-only path; stores are coalesced, each pass of the
+// block writing 256 consecutive vectors, evict-first (__stcs) on the planned
+// route or default (kStream false). At SA1 the planned route (16-byte
+// vectors, 8 lanes, evict-first) took 11.4 / 30.1 us at batch 8 / 16 where
+// default stores took 15.7 / 31.6 and the kernel before this design 27.7 /
+// 53.3 (one H100 at 700 W, tools/kernel_probe.py and tools.op_bench); at
+// batch 8 it beats the byte bound, because the source rows and picks it
+// counts are still in L2 from the kernels that wrote them.
+// The TPU kernel copied two window blocks into VMEM and then rows out of
+// them, because it had no vector gather; the blocks are not needed here (the
+// block width is kept only in the wrapper's fallback condition, for parity of
+// the paths with the JAX package).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -44,39 +62,79 @@
 namespace {
 
 constexpr int kGatherThreads = 256;
+constexpr int kUnroll = 4;  // rows in flight a thread
+constexpr int kMaxGrid = 65535;
 
-template <typename V>
-__global__ void window_gather_kernel(const V* __restrict__ zp,
-                                     const int* __restrict__ lo,
-                                     const int* __restrict__ pos, int n, int m,
-                                     int tm, int k, int cv, long long total,
-                                     V* __restrict__ out) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const int tiles = m / tm;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < total;
-       t += stride) {
-    const long long row = t / cv;  // (b * m + q) * k + s
-    const int c = (int)(t - row * cv);
-    const long long bq = row / k;
-    const int b = (int)(bq / m);
-    const int q = (int)(bq - (long long)b * m);
-    const int src = lo[b * tiles + q / tm] + pos[row];
-    out[t] = zp[((long long)b * n + src) * cv + c];
+template <bool kStream, typename V>
+__device__ __forceinline__ void store_row(V* p, V v) {
+  if constexpr (kStream) {
+    __stcs(p, v);
+  } else {
+    *p = v;
   }
 }
 
-template <typename V>
-cudaError_t launch_gather(const float* zp, const int* lo, const int* pos, int b,
-                          int n, int m, int tm, int k, int c, float* out,
-                          cudaStream_t stream) {
-  const int cv = c / (int)(sizeof(V) / sizeof(float));
-  const long long total = (long long)b * m * k * cv;
-  long long blocks = (total + kGatherThreads - 1) / kGatherThreads;
-  if (blocks > (1LL << 30)) blocks = 1LL << 30;  // the loop strides over the rest
-  window_gather_kernel<V><<<(unsigned)blocks, kGatherThreads, 0, stream>>>(
-      reinterpret_cast<const V*>(zp), lo, pos, n, m, tm, k, cv, total,
-      reinterpret_cast<V*>(out));
+// rows = tm * k output rows a tile; cv = vectors a row.
+template <typename V, int kLanes, bool kStream>
+__global__ void __launch_bounds__(kGatherThreads)
+    window_gather_kernel(const V* __restrict__ zp, const int* __restrict__ lo,
+                         const int* __restrict__ pos, int b_count, int n, int tiles,
+                         int rows, int cv, V* __restrict__ out) {
+  constexpr int kRowsPass = kGatherThreads / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  const int first = blockIdx.x * (kRowsPass * kUnroll) + threadIdx.x / kLanes;
+  for (int b = blockIdx.z; b < b_count; b += gridDim.z) {
+    for (int t = blockIdx.y; t < tiles; t += gridDim.y) {
+      const int tile = b * tiles + t;
+      const V* src = zp + ((long long)b * n + __ldg(lo + tile)) * cv;
+      const long long base = (long long)tile * rows;  // the tile's first output row
+      const int* picks = pos + base;
+      V* dst = out + base * cv;
+      int at[kUnroll];  // each row's source offset in the window
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int r = first + u * kRowsPass;
+        at[u] = r < rows ? __ldg(picks + r) * cv : 0;
+      }
+#pragma unroll 1
+      for (int c = lane; c < cv; c += kLanes) {  // once where the row fits its lanes
+        V v[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (first + u * kRowsPass < rows) v[u] = __ldg(src + at[u] + c);
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int r = first + u * kRowsPass;
+          if (r < rows) store_row<kStream>(dst + r * cv + c, v[u]);
+        }
+      }
+    }
+  }
+}
+
+template <typename V, int kLanes, bool kStream>
+cudaError_t launch_gather(const float* zp, const int* lo, const int* pos, int b, int n,
+                          int tiles, int rows, int cv, float* out, cudaStream_t stream) {
+  constexpr int kRowsBlock = kGatherThreads / kLanes * kUnroll;
+  const dim3 grid((rows + kRowsBlock - 1) / kRowsBlock, tiles < kMaxGrid ? tiles : kMaxGrid,
+                  b < kMaxGrid ? b : kMaxGrid);
+  window_gather_kernel<V, kLanes, kStream><<<grid, kGatherThreads, 0, stream>>>(
+      reinterpret_cast<const V*>(zp), lo, pos, b, n, tiles, rows, cv, reinterpret_cast<V*>(out));
   return cudaGetLastError();
+}
+
+template <typename V, bool kStream>
+cudaError_t launch_lanes(int lanes, const float* zp, const int* lo, const int* pos, int b,
+                         int n, int tiles, int rows, int cv, float* out, cudaStream_t s) {
+  switch (lanes) {
+    case 1: return launch_gather<V, 1, kStream>(zp, lo, pos, b, n, tiles, rows, cv, out, s);
+    case 2: return launch_gather<V, 2, kStream>(zp, lo, pos, b, n, tiles, rows, cv, out, s);
+    case 4: return launch_gather<V, 4, kStream>(zp, lo, pos, b, n, tiles, rows, cv, out, s);
+    case 8: return launch_gather<V, 8, kStream>(zp, lo, pos, b, n, tiles, rows, cv, out, s);
+    case 16: return launch_gather<V, 16, kStream>(zp, lo, pos, b, n, tiles, rows, cv, out, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -97,17 +155,28 @@ int pn2_ball_query_tiles_pos(const float* xs, const int* perm, const float* qs,
 }
 
 // zp (b, n, c) f32, lo (b, m / tm) i32, pos (b, m, k) i32 ->
-// out (b, m, k, c) f32. Returns cudaGetLastError() after the launch.
-int pn2_window_gather(const float* zp, const int* lo, const int* pos, int b,
-                      int n, int m, int tm, int k, int c, float* out,
+// out (b, m, k, c) f32 on the route (vec, lanes, stream) that
+// ops/cuda/wingather.py plans: 16-byte vectors or floats, lanes a row (1, 2,
+// 4, 8 or 16), evict-first stores or not. Returns cudaGetLastError() after
+// the launch, or cudaErrorInvalidValue for a route the arrays do not take.
+int pn2_window_gather(const float* zp, const int* lo, const int* pos, int b, int n, int m,
+                      int tm, int k, int c, int vec, int lanes, int stream_stores, float* out,
                       int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  const bool aligned = c % 4 == 0 && reinterpret_cast<uintptr_t>(zp) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  if (aligned) return (int)launch_gather<float4>(zp, lo, pos, b, n, m, tm, k, c, out, s);
-  return (int)launch_gather<float>(zp, lo, pos, b, n, m, tm, k, c, out, s);
+  const int tiles = m / tm, rows = tm * k;
+  if (vec) {
+    const bool aligned = c % 4 == 0 && reinterpret_cast<uintptr_t>(zp) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(out) % 16 == 0;
+    if (!aligned) return (int)cudaErrorInvalidValue;
+    return (int)(stream_stores
+                     ? launch_lanes<float4, true>(lanes, zp, lo, pos, b, n, tiles, rows, c / 4, out, s)
+                     : launch_lanes<float4, false>(lanes, zp, lo, pos, b, n, tiles, rows, c / 4, out, s));
+  }
+  return (int)(stream_stores
+                   ? launch_lanes<float, true>(lanes, zp, lo, pos, b, n, tiles, rows, c, out, s)
+                   : launch_lanes<float, false>(lanes, zp, lo, pos, b, n, tiles, rows, c, out, s));
 }
 
 const char* pn2_ball_query_tiles_pos_error_string(int code) {

@@ -1,13 +1,15 @@
-"""Device time of three_interpolate's backward and the windowed kernels, by kernel name.
+"""Device time of three_interpolate's backward, the windowed kernels and the window gather, by kernel name.
 
     python /path/to/pointnet2_tpu_torch/tools/kernel_probe.py TAG   (from a tree's root, that tree on PYTHONPATH)
 
-Reads rows 5, 7, 8, 10 and 11 of PERF.md's kernel table at the model's
-shapes (``tools.op_bench``'s levels: bench.py's clouds and their FPS
-centroids), B=8 and B=16: three_interpolate's backward at the four FP levels
-on a cotangent strided as the train step hands it over, the calibrated
-windowed ball query with and without window columns at SA1 with the
-production window (3072), the windowed 3-NN at FP4 with the production
+Reads rows 5 and 7-11 of PERF.md's kernel table at the model's shapes
+(``tools.op_bench``'s levels: bench.py's clouds and their FPS centroids),
+B=8 and B=16: three_interpolate's backward at the four FP levels on a
+cotangent strided as the train step hands it over, the calibrated windowed
+ball query with and without window columns at SA1 with the production
+window (3072), the window gather of the fused grouping on those window
+columns (a seeded source of SA1's first MLP width standing for the
+projected sorted cloud), the windowed 3-NN at FP4 with the production
 ``fp_window`` (512), and the round-1 windowed ball query at SA1-SA3. Each line is
 one JSON object: the profiler's device time of one call, summed over every
 kernel whose name holds the row's name, median of 3 sessions of 20 calls,
@@ -31,6 +33,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from pointnet2_tpu_torch import ops
+from pointnet2_tpu_torch.models.pointnet2_seg import SA_MLPS
 from pointnet2_tpu_torch.ops import core, cuda
 from pointnet2_tpu_torch.tools.op_bench import FP, SA, levels
 from pointnet2_tpu_torch.utils.bench import card_line
@@ -93,6 +96,11 @@ def run(tag: str) -> None:
         emit(8, b, f"SA1 w={BQ_WINDOW}", device_us(
             lambda: cuda.ball_query_tiles_pos(xs, perm, qs, lo, radius, nsample, BQ_WINDOW),
             "ball_query_tiles_kernel"))
+        pos = cuda.ball_query_tiles_pos(xs, perm, qs, lo, radius, nsample, BQ_WINDOW)[1]
+        c = SA_MLPS[0][0]
+        zp_s = torch.randn((b, lv[0].shape[1], c), generator=gen, device="cuda")
+        emit(9, b, f"SA1 w={BQ_WINDOW} K={nsample} C={c}", device_us(
+            lambda: cuda.window_gather(zp_s, lo, pos), "window_gather_kernel"))
         emit(10, b, f"FP4 w={FP_WINDOW}", device_us(
             lambda: ops.three_nn_calibrated(lv[0], lv[1], FP_WINDOW), "knn_tiles_kernel"))
         for i, (npoint, radius, nsample) in enumerate(SA[:3]):

@@ -7,8 +7,9 @@ levels of ``semantic.json`` (clouds as ``bench.py`` makes them: xyz uniform
 in 8 x 8 x 4.9 m, each level the FPS centroids of the one before, as the
 model makes them) it times FPS (the index-only and the fused entry), the
 ball query (exact, the calibrated windowed one's two kernels with the
-production window where it engages, and the round-1 windowed one with its
-default window), and at the four FP levels the 3-NN (and the windowed 3-NN
+production window where it engages, then the window gather of the fused
+grouping on its window columns and a seeded projection of SA1's first MLP
+width, and the round-1 windowed one with its default window), and at the four FP levels the 3-NN (and the windowed 3-NN
 with the production ``fp_window`` where it engages), three_interpolate
 writing the FP concat (the skip as the model hands it over: FP4's is the
 input cloud's colours), its backward on a cotangent strided as the train
@@ -27,13 +28,14 @@ for the predict path's chunk). One JSON line per op and shape:
   threads, points a thread; exact ball query: warps a block, tile points;
   3-NN: lanes a query, threads; three_interpolate: 16-byte accesses or not,
   the skip's 16-byte copy; the windowed ball queries over tiles: blocks a
-  tile, warps a block; the backward: 16-byte accesses or not; the windowed
-  3-NN has one launch shape, a block a tile), and for the 3-NN,
-  three_interpolate and the windowed ball queries ``routes_device_ms``, the
-  device time of every route of that shape (3-NN: 1 to 32 lanes a query;
-  three_interpolate: 4-byte accesses, and 16-byte ones where the rows allow;
-  the windowed ball queries: ``tiles_routes``), the yardstick of the plan's
-  choice; three_interpolate's
+  tile, warps a block; the window gather: 16-byte vectors or not, lanes a
+  row, evict-first stores or not; the backward: 16-byte accesses or not; the
+  windowed 3-NN has one launch shape, a block a tile), and for the 3-NN,
+  three_interpolate, the windowed ball queries and the window gather
+  ``routes_device_ms``, the device time of every route of that shape (3-NN:
+  1 to 32 lanes a query; three_interpolate: 4-byte accesses, and 16-byte ones
+  where the rows allow; the windowed ball queries: ``tiles_routes``; the
+  gather: ``gather_routes``), the yardstick of the plan's choice; three_interpolate's
   ``unfused_ms`` is the kernel without the skip followed by ``torch.cat``;
   and for FPS ``chain_ms``, the device time of the same number of empty
   cluster-barrier steps in the same layout (``ops.cuda.fps.barrier_chain``):
@@ -41,7 +43,8 @@ for the predict path's chunk). One JSON line per op and shape:
 - ``plain_ms``: the plain PyTorch version on the card (median of 3 single
   calls: the plain FPS takes some 200 ms a call);
 - ``library_ms``: one PyTorch call computing the same function, or null
-  where there is none (there is none for any of these ops);
+  where there is none (``index_select`` of the same rows for the window
+  gather; none for the other ops);
 - ``bound_ms`` and ``bound_by``: the least time for the work of these inputs
   (``work_*`` below; ``utils.bench.bound``);
 - ``launches``: launches of the kernel in one call, counted before the timed ones.
@@ -62,10 +65,12 @@ import numpy as np
 import torch
 
 from pointnet2_tpu_torch import ops
+from pointnet2_tpu_torch.models.pointnet2_seg import SA_MLPS
 from pointnet2_tpu_torch.ops import core, cuda
 from pointnet2_tpu_torch.ops.cuda import ballquery as cuda_ballquery
 from pointnet2_tpu_torch.ops.cuda import fps as cuda_fps
 from pointnet2_tpu_torch.ops.cuda import interpolate as cuda_interp
+from pointnet2_tpu_torch.ops.cuda import wingather as cuda_gather
 from pointnet2_tpu_torch.utils.bench import bound, card_line, cuda_ms, device_ms, require_device
 
 # The package's ``knn`` is the wrapper function; the module is reached by name.
@@ -159,6 +164,20 @@ def work_knn_tiles(b, m, nq, tiles, k, pairs: int) -> tuple[float, float]:
     return b * m * 16 + b * nq * 12 + b * tiles * 4 + b * nq * k * 8, 9 * pairs
 
 
+def work_window_gather(b, n, m, tiles, k, c) -> tuple[float, float]:
+    """(bytes, operations) of the window gather: the source rows, a start a
+    tile and the picks read once, the (B, M, K, C) rows written once; no
+    arithmetic."""
+    return b * n * c * 4 + b * tiles * 4 + b * m * k * 4 + b * m * k * c * 4, 0
+
+
+def gather_routes(c: int, aligned: bool) -> list[tuple[bool, int, bool]]:
+    """Every route of the window gather for rows of C floats: 16-byte vectors
+    where ``plan`` allows them and floats, each lane count, each store policy."""
+    vecs = (True, False) if cuda_gather.plan(c, aligned)[0] else (False,)
+    return [(v, lanes, s) for v in vecs for lanes in cuda_gather.GATHER_LANES for s in (False, True)]
+
+
 def work_three_interpolate_grad(b, n, m, c) -> tuple[float, float]:
     """(bytes, operations) of three_interpolate's backward: the cotangent,
     indices and weights read once, the (B, M, C) result written once; 6
@@ -188,6 +207,11 @@ def route_key(route) -> str:
     return "x".join(str(v) for v in route)
 
 
+def gather_route_key(route) -> str:
+    vec, lanes, stream = route
+    return f"{'vec' if vec else 'float'}x{lanes}x{'evict_first' if stream else 'default'}"
+
+
 def levels(batch: int, num_point: int, sa, device, seed: int = 0) -> list[torch.Tensor]:
     """The five levels' coordinates of a batch: bench.py's clouds, then the
     FPS centroids of each level (the plain FPS on the CPU, the kernel on the card)."""
@@ -200,11 +224,12 @@ def levels(batch: int, num_point: int, sa, device, seed: int = 0) -> list[torch.
 
 
 def _record(op, shape, card, kernel, run, plain, nbytes, nops, timed, plan=None, chain=None,
-            routes_device_ms=None, **extra):
+            routes_device_ms=None, library=None, **extra):
     """One line: times where ``timed``, else nulls; launches of ``kernel`` in
     one call. ``chain``: the FPS call's empty barrier chain, timed on the
     device; ``routes_device_ms``: route name -> a function returning that
-    route's device time, each measured beside the plan's."""
+    route's device time, each measured beside the plan's; ``library``: one
+    PyTorch call computing the same function."""
     bound_ms, bound_by = bound(nbytes, nops)
     row = {"op": op, "shape": shape, "kernel": kernel, "plan": plan, "bound_ms": bound_ms,
            "bound_by": bound_by, "bytes": nbytes, "ops": nops, "library_ms": None, "card": card}
@@ -217,6 +242,8 @@ def _record(op, shape, card, kernel, run, plain, nbytes, nops, timed, plan=None,
         if chain is not None:
             row["chain_ms"] = device_ms(chain, "fps_barrier_chain")
         row["plain_ms"] = cuda_ms(plain, reps=3, inner=1, warmup=1)
+        if library is not None:
+            row["library_ms"] = cuda_ms(library)
         row.update({key: cuda_ms(fn) for key, fn in extra.items()})
         if routes_device_ms:
             row["routes_device_ms"] = {name: fn() for name, fn in routes_device_ms.items()}
@@ -226,6 +253,33 @@ def _record(op, shape, card, kernel, run, plain, nbytes, nops, timed, plan=None,
                     **({"chain_ms": None} if chain is not None else {}), **{key: None for key in extra}})
     print(json.dumps(row), flush=True)
     return row
+
+
+def _gather_record(card, timed, xs, perm, qs, lo, radius, nsample, w) -> dict:
+    """The window gather at a calibrated level: the picks' window columns from
+    the windowed ball query, a seeded (B, N, C) source of SA1's first MLP
+    width standing for the projected sorted cloud."""
+    b, n = xs.shape[:2]
+    m, tiles, c = qs.shape[1], lo.shape[1], SA_MLPS[0][0]
+    tiles_pos = cuda.ball_query_tiles_pos if timed else core.ball_query_tiles_pos
+    pos = tiles_pos(xs, perm, qs, lo, radius, nsample, w)[1]
+    zp_s = torch.randn((b, n, c), generator=torch.Generator(device=xs.device).manual_seed(3), device=xs.device)
+    gather = cuda.window_gather if timed else core.window_gather
+    rows = (lo.long().repeat_interleave(m // tiles, dim=1)[:, :, None] + pos.long()
+            + torch.arange(b, device=xs.device)[:, None, None] * n).reshape(-1)
+    flat = zp_s.reshape(b * n, c)
+    return _record(
+        "window_gather", f"B={b} N={n} M={m} K={nsample} C={c} w={w}", card, "window_gather",
+        lambda: gather(zp_s, lo, pos), lambda: core.window_gather(zp_s, lo, pos),
+        *work_window_gather(b, n, m, tiles, nsample, c), timed,
+        plan=cuda_gather.planned_route(zp_s) if timed else None,
+        routes_device_ms={
+            gather_route_key(r): (lambda r=r: device_ms(
+                lambda: cuda.window_gather(zp_s, lo, pos, route=r), "window_gather"))
+            for r in gather_routes(c, zp_s.data_ptr() % 16 == 0)
+        } if timed else {},
+        library=lambda: torch.index_select(flat, 0, rows),
+    )
 
 
 def run(device: torch.device, small: bool, batch: int = BATCH) -> list[dict]:
@@ -283,6 +337,7 @@ def run(device: torch.device, small: bool, batch: int = BATCH) -> list[dict]:
                         for r in tiles_routes(tm)
                     } if timed else {},
                 ))
+            rows.append(_gather_record(card, timed, xs, perm, qs, lo, radius, nsample, w))
         w = core.round_up(core.default_bq_window(n, nsample), core.LANES)
         if core.bq_falls_back(n, m, w):
             continue  # the round-1 windowed op runs the exact kernel here

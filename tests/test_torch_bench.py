@@ -79,3 +79,24 @@ def test_the_backward_symbol_names_all_its_kernels_and_no_other():
     assert kernels["three_interpolate_grad_sum_kernel"] == ["bool"]
     others = [s for key, s in KERNEL_SYMBOLS.items() if key != "three_interpolate_grad"]
     assert not any(s in k for s in others for k in grad)
+
+
+def test_sass_probe_counts_opcodes_by_function():
+    from pointnet2_tpu_torch.tools import sass_probe
+
+    sass = """
+        Function : _ZN12_GLOBAL__N_120window_gather_kernelIfLi8ELb0EEEvPKT_PKiS6_iiiiiPS2_
+        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                        /* 0x00000a00ff017b82 */
+        /*0010*/                   S2R R0, SR_TID.X ;                            /* 0x0000000000007919 */
+        /*0020*/              @!P0 BRA 0x70 ;                                    /* 0x0000000000008947 */
+        /*0030*/                   CALL.REL.NOINC 0x400 ;                        /* 0x0000000000007944 */
+        /*0040*/               @P1 STG.E.128 desc[UR4][R2.64], R4 ;             /* 0x0000000402001986 */
+        Function : _Z5otherv
+        /*0000*/                   EXIT ;                                        /* 0x000000000000794d */
+    """
+    got = sass_probe.functions(sass)
+    assert list(got) == ["_ZN12_GLOBAL__N_120window_gather_kernelIfLi8ELb0EEEvPKT_PKiS6_iiiiiPS2_", "_Z5otherv"]
+    first = got["_ZN12_GLOBAL__N_120window_gather_kernelIfLi8ELb0EEEvPKT_PKiS6_iiiiiPS2_"]
+    assert first == {"LDC": 1, "S2R": 1, "BRA": 1, "CALL": 1, "STG": 1}
+    assert got["_Z5otherv"] == {"EXIT": 1}

@@ -35,6 +35,7 @@ from pointnet2_tpu_torch.ops import core, cuda
 from pointnet2_tpu_torch.ops.cuda import ballquery as cuda_bq
 from pointnet2_tpu_torch.ops.cuda import fps as cuda_fps
 from pointnet2_tpu_torch.ops.cuda import interpolate as cuda_interp
+from pointnet2_tpu_torch.ops.cuda import wingather as cuda_gather
 from pointnet2_tpu_torch.utils.bench import deterministic_algorithms
 
 # The package's ``knn`` is the wrapper function; the module is reached by name.
@@ -352,18 +353,54 @@ def test_ball_query_tiles_kernels(cuda_device, b, n, m, radius, nsample, window)
     assert torch.equal(got_pos[0], got[0]) and torch.equal(got_pos[2], got[1])
 
 
-@pytest.mark.parametrize("b,n,m,k,c", [(2, 8192, 1024, 32, 32), (1, 512, 128, 8, 7), (2, 1024, 256, 4, 64)])
-def test_window_gather_kernel(cuda_device, b, n, m, k, c):
+# (b, n, m, tiles, k, c): SA1 (8 tiles a cloud, 8 vectors a row); odd rows
+# (floats, one lane of 8 idle); 16 lanes; K not a power of two with one vector
+# a row; 18 vectors a row, past the top lane count; floats past 16 lanes.
+GATHER_SHAPES = [
+    (2, 8192, 1024, 8, 32, 32), (1, 512, 128, 1, 8, 7), (2, 1024, 256, 2, 4, 64),
+    (3, 640, 96, 3, 5, 4), (2, 1024, 256, 4, 24, 72), (1, 300, 64, 4, 3, 33),
+]
+
+
+def _gather_inputs(gen, b, n, m, tiles, k, w, device):
+    lo = torch.randint(0, n - w + 1, (b, tiles), generator=gen, device=device, dtype=torch.int32)
+    pos = torch.randint(0, w, (b, m, k), generator=gen, device=device, dtype=torch.int32)
+    lo[-1, -1] = n - w
+    pos[-1, -1, -1] = w - 1  # a pick of the cloud's last row: lo + pos = N - 1
+    return lo, pos
+
+
+@pytest.mark.parametrize("b,n,m,tiles,k,c", GATHER_SHAPES)
+def test_window_gather_kernel(cuda_device, b, n, m, tiles, k, c):
+    """The planned route and every forced one (16-byte vectors where the rows
+    allow, floats, each lane count, each store policy) bit for bit; a
+    contiguous source 4 bytes off 16-byte alignment plans the float route,
+    refuses the vector one, and gathers bit for bit."""
     gen = torch.Generator(device=cuda_device).manual_seed(21)
     zp = torch.randn((b, n, c), generator=gen, device=cuda_device)
-    t = max(m // 128, 1)
-    w = 256
-    lo = torch.randint(0, (n - w) // 128 + 1, (b, t), device=cuda_device, dtype=torch.int32) * 128
-    pos = torch.randint(0, w, (b, m, k), device=cuda_device, dtype=torch.int32)
+    lo, pos = _gather_inputs(gen, b, n, m, tiles, k, min(256, n), cuda_device)
+    want = core.window_gather(zp, lo, pos)
+    assert torch.equal(cuda.window_gather(zp, lo, pos), want)
+    vec, lanes, _ = cuda_gather.planned_route(zp)
+    assert vec == (c % 4 == 0)
+    for route in [(v, n_lanes, s) for v in {vec, False} for n_lanes in cuda_gather.GATHER_LANES for s in (False, True)]:
+        assert torch.equal(cuda.window_gather(zp, lo, pos, route=route), want), route
+    offset = torch.randn(b * n * c + 1, generator=gen, device=cuda_device)[1:].view(b, n, c)
+    assert offset.data_ptr() % 16 == 4 and not cuda_gather.planned_route(offset)[0]
+    with pytest.raises(ValueError, match="route"):
+        cuda.window_gather(offset, lo, pos, route=(True, lanes, False))
+    assert torch.equal(cuda.window_gather(offset, lo, pos), core.window_gather(offset, lo, pos))
+
+
+@pytest.mark.parametrize("b,tiles", [(1, 70000), (70000, 1)])
+def test_window_gather_kernel_past_the_grid_limits(cuda_device, b, tiles):
+    """More tiles, or more clouds, than a grid dimension holds (65535): the
+    kernel loops over the rest."""
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+    n, k, c = 16, 2, 4
+    zp = torch.randn((b, n, c), generator=gen, device=cuda_device)
+    lo, pos = _gather_inputs(gen, b, n, tiles, tiles, k, 8, cuda_device)
     assert torch.equal(cuda.window_gather(zp, lo, pos), core.window_gather(zp, lo, pos))
-    # A view whose rows are not 16-byte aligned takes the scalar path.
-    wide = torch.randn((b, n, c + 1), generator=gen, device=cuda_device)[..., 1:].contiguous()
-    assert torch.equal(cuda.window_gather(wide, lo, pos), core.window_gather(wide, lo, pos))
 
 
 # Forced (split, warps) routes of the windowed ball query: one block a tile

@@ -1,9 +1,9 @@
-"""The launch plans of the FPS, ball-query, kNN and three_interpolate kernels, on the CPU.
+"""The launch plans of the FPS, ball-query, kNN, three_interpolate and window-gather kernels, on the CPU.
 
 ``ops.cuda.fps.plan``, ``ops.cuda.ballquery.plan`` (the exact kernel) and
 ``tiles_plan`` and ``windowed_plan`` (the windowed ones over sorted tiles),
-``ops.cuda.knn.plan`` and
-``ops.cuda.interpolate.plan`` are plain Python: they take the card's answers
+``ops.cuda.knn.plan``,
+``ops.cuda.interpolate.plan`` and ``ops.cuda.wingather.plan`` are plain Python: they take the card's answers
 (resident clusters of each size, the SM count) or the rows' alignment as
 arguments, so every route they can pick is checked here without a card; the
 card tests in ``tests/test_torch_cuda.py`` hold each route's kernel against
@@ -14,10 +14,13 @@ import importlib
 import itertools
 
 import pytest
+import torch
 
 from pointnet2_tpu_torch.ops.cuda import ballquery as bq
 from pointnet2_tpu_torch.ops.cuda import fps
 from pointnet2_tpu_torch.ops.cuda import interpolate
+from pointnet2_tpu_torch.ops.cuda import wingather
+from pointnet2_tpu_torch.tools import op_bench
 
 # The package's ``knn`` is the wrapper function; the module is reached by name.
 knn = importlib.import_module("pointnet2_tpu_torch.ops.cuda.knn")
@@ -283,6 +286,67 @@ def test_three_interpolate_plan(c, c1, aligned, skip_ok, want):
 def test_three_interpolate_plan_refuses_empty_rows():
     with pytest.raises(ValueError):
         interpolate.plan(0, 3, True, False)
+
+
+# -- the window gather (row 9) -------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "c,aligned,want",
+    [
+        (32, True, (True, 8)),  # SA1's projected rows: 8 vectors, a lane each
+        (32, False, (False, 16)),  # the same rows off a 16-byte boundary: floats, 2 a lane
+        (4, True, (True, 1)),
+        (64, True, (True, 16)),
+        (72, True, (True, 16)),  # 18 vectors: past the top lane count, a loop
+        (128, True, (True, 16)),
+        (7, True, (False, 8)),  # one lane of 8 idle
+        (3, True, (False, 4)),
+        (1, True, (False, 1)),
+        (33, False, (False, 16)),
+        (12, True, (True, 4)),  # 3 vectors
+    ],
+)
+def test_window_gather_plan(c, aligned, want):
+    assert wingather.plan(c, aligned) == want
+
+
+def test_window_gather_plan_refuses_empty_rows():
+    with pytest.raises(ValueError):
+        wingather.plan(0, True)
+
+
+@pytest.mark.parametrize("route", [(True, 8, False), (False, 3, False), (False, 32, True), (False, 0, False)])
+def test_window_gather_check_route_refuses_bad_routes(route):
+    with pytest.raises(ValueError, match="route"):
+        wingather.check_route(route, vec_ok=False)
+
+
+@pytest.mark.parametrize("route", [(v, lanes, s) for v in (True, False) for lanes in wingather.GATHER_LANES
+                                   for s in (False, True)])
+def test_window_gather_check_route_takes_every_built_route(route):
+    assert wingather.check_route(route, vec_ok=True) == route
+
+
+def test_window_gather_planned_route_follows_the_source_alignment():
+    """A contiguous source 4 bytes off a 16-byte boundary takes the float
+    route; the store policy is the module's unless a route is forced."""
+    aligned = torch.zeros(2, 64, 32)
+    offset = torch.zeros(2 * 64 * 32 + 1)[1:].view(2, 64, 32)
+    assert aligned.data_ptr() % 16 == 0 and offset.data_ptr() % 16 == 4 and offset.is_contiguous()
+    assert wingather.planned_route(aligned) == (True, 8, wingather.STREAM_STORES) == (True, 8, True)
+    assert wingather.planned_route(offset) == (False, 16, wingather.STREAM_STORES)
+    assert wingather.planned_route(offset, route=(False, 4, True)) == (False, 4, True)
+    with pytest.raises(ValueError, match="route"):
+        wingather.planned_route(offset, route=(True, 8, False))
+
+
+def test_window_gather_sweep_covers_every_route():
+    assert len(op_bench.gather_routes(32, True)) == 2 * len(wingather.GATHER_LANES) * 2
+    assert all(not vec for vec, _, _ in op_bench.gather_routes(7, True))
+    # SA1 at B=8: the projected rows, the starts and picks read, the output written.
+    assert op_bench.work_window_gather(8, 8192, 1024, 8, 32, 32) == (
+        8 * 8192 * 32 * 4 + 8 * 8 * 4 + 8 * 1024 * 32 * 4 + 8 * 1024 * 32 * 32 * 4, 0)
 
 
 # -- the round-1 windowed ball query (row 11) and the windowed kNN (row 10) ----------

@@ -270,7 +270,7 @@ def test_op_bench_on_the_cpu_measures_nothing(capsys):
     rows = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
     assert {row["op"] for row in rows} == {
         "farthest_point_sample", "fps_centroids", "ball_query", "ball_query_sliced", "ball_query_sliced_pos",
-        "ball_query_windowed", "three_nn", "knn_sliced", "knn", "three_interpolate_concat",
+        "window_gather", "ball_query_windowed", "three_nn", "knn_sliced", "knn", "three_interpolate_concat",
         "three_interpolate_grad",
     }
     for row in rows:
