@@ -70,13 +70,13 @@ non-zero and prints no result):
    timed beside their bounds (9 operations a pair the data
    needs: for the ball query the columns of each query's x-span,
    ``ops.core.ball_query_tile_spans``, for the kNN those of each query's
-   span at its k-th distance, ``ops.core.knn_tile_spans``; the gather's bytes, with
-   ``index_select`` of the same rows as its library call and its planned
-   ``(vec, lanes, stream)`` route and device time in its record, then one line
-   for each forced route, 16-byte vectors or floats with each store policy,
-   and one for a source 4 bytes off 16-byte alignment, which must plan the
-   float route; each bit for bit against the plain version and
-   ``index_select``) and beside the whole
+   span at its k-th distance, ``ops.core.knn_tile_spans``; the gather's bytes,
+   each distinct source row its picks name read once, with ``index_select``
+   of the same rows as its library call and its planned ``(vec, lanes)``
+   route and device time in its record, then one line for each forced
+   route, 16-byte vectors or floats, and one for a source 4 bytes off
+   16-byte alignment, which must plan the float route; each bit for bit
+   against the plain version and ``index_select``) and beside the whole
    calibrated op and the exact op it stands in for (``op_ms``,
    ``exact_op_ms``). The whole ops equal on the kernel and the plain path,
    ``ok`` included, with a window that fits and one too small (256 at SA1
@@ -585,13 +585,12 @@ def window_kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> None:
 def gather_rows(report: Report, b: int, n: int, zp_s: torch.Tensor, lo: torch.Tensor, pos: torch.Tensor) -> None:
     """Row 9 at the fused grouping's shapes: the planned route against its
     plain version and ``index_select`` of the same rows, timed beside its
-    bound; then one line for each forced route (16-byte vectors or floats,
-    each store policy) and one for a source 4 bytes off 16-byte alignment,
-    which must plan the float route. Every line bit for bit."""
+    bound; then one line for each forced route (16-byte vectors or floats)
+    and one for a source 4 bytes off 16-byte alignment, which must plan the
+    float route. Every line bit for bit."""
     m, ns = pos.shape[1:]
-    tiles, c = lo.shape[1], zp_s.shape[-1]
-    rows = (lo.long().repeat_interleave(m // tiles, dim=1)[:, :, None] + pos.long()
-            + torch.arange(b, device=zp_s.device)[:, None, None] * n).reshape(-1)
+    c = zp_s.shape[-1]
+    rows = op_bench.gather_source_rows(lo, pos, n)
     flat = zp_s.reshape(b * n, c)
     want = core.window_gather(zp_s, lo, pos)
 
@@ -604,7 +603,7 @@ def gather_rows(report: Report, b: int, n: int, zp_s: torch.Tensor, lo: torch.Te
         "window_gather", b, shape,
         lambda: cuda.window_gather(zp_s, lo, pos),
         lambda: core.window_gather(zp_s, lo, pos),
-        *op_bench.work_window_gather(b, n, m, tiles, ns, c),
+        *op_bench.work_window_gather(lo, rows, c),
         err=max_abs(out, want),
         match=equal(out),
         library=lambda: torch.index_select(flat, 0, rows),
@@ -615,7 +614,7 @@ def gather_rows(report: Report, b: int, n: int, zp_s: torch.Tensor, lo: torch.Te
     offset.copy_(zp_s)
     if cuda_gather.planned_route(offset)[0]:
         raise AssertionError("window_gather planned 16-byte vectors on a source 4 bytes off alignment")
-    routes = [(vec, cuda_gather.plan(c, vec)[1], stream) for vec in (True, False) for stream in (False, True)]
+    routes = [(vec, cuda_gather.plan(c, vec)[1]) for vec in (True, False)]
     for forced, src in [(route, zp_s) for route in routes] + [(None, offset)]:
         out = cuda.window_gather(src, lo, pos, route=forced)
         if not equal(out):

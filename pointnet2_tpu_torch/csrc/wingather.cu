@@ -24,10 +24,12 @@
 // its pick's column. The result equals its plain version bit for bit.
 //
 // What bounds it on the H100: bytes. Each output element is written once
-// (33.5 MB at SA1, batch 8, c = 32; 67 MB at batch 16), the source rows, the
-// window starts and the picks read once (8.4 + 1.0 MB at batch 8): 12.8 /
-// 25.7 us at 3.35 TB/s. A tile's picks lie inside its w-row window, so the
-// source is read again by the tile's other picks, from L1 or L2.
+// (33.5 MB at SA1, batch 8, c = 32; 67.1 MB at batch 16); each distinct
+// source row the picks name, the window starts and the picks are read once
+// (8.1 + 1.0 MB at batch 8, where the picks name 96.5 % of the cloud's
+// rows): 12.75 / 25.49 us at 3.35 TB/s, of which the output alone is 10.0 /
+// 20.0 us. A tile's picks lie inside its w-row window, so a row picked again
+// by the tile's other picks comes from L1 or L2.
 //
 // Design: no division on the hot path. The grid's z picks the cloud and y
 // the tile (each looping past 65535), so the window start is read once a
@@ -42,13 +44,14 @@
 // kUnroll rows: it issues the loads of all of them before any store, which
 // keeps 4 L2 round trips in flight a thread (the TPU kernel's unroll=4).
 // Loads take the read-only path; stores are coalesced, each pass of the
-// block writing 256 consecutive vectors, evict-first (__stcs) on the planned
-// route or default (kStream false). At SA1 the planned route (16-byte
-// vectors, 8 lanes, evict-first) took 11.4 / 30.1 us at batch 8 / 16 where
-// default stores took 15.7 / 31.6 and the kernel before this design 27.7 /
-// 53.3 (one H100 at 700 W, tools/kernel_probe.py and tools.op_bench); at
-// batch 8 it beats the byte bound, because the source rows and picks it
-// counts are still in L2 from the kernels that wrote them.
+// block writing 256 consecutive vectors, and evict-first (__stcs): they beat
+// default stores at both batches (PERF.md section 6 has both). At SA1 the
+// planned route (16-byte vectors, 8 lanes) takes 12.6-12.8 / 30.1-30.2 us at
+// batch 8 / 16, against 27.7-27.8 / 53.4 for the kernel before this design
+// (one H100 at 700 W, tools/kernel_probe.py). At batch 8 that is the bound:
+// in back-to-back calls the source and picks are still in L2, so the time is
+// the output's, at 79 % of its own 10.0 us; PERF.md has the reads with the
+// L2 cleared first.
 // The TPU kernel copied two window blocks into VMEM and then rows out of
 // them, because it had no vector gather; the blocks are not needed here (the
 // block width is kept only in the wrapper's fallback condition, for parity of
@@ -65,17 +68,8 @@ constexpr int kGatherThreads = 256;
 constexpr int kUnroll = 4;  // rows in flight a thread
 constexpr int kMaxGrid = 65535;
 
-template <bool kStream, typename V>
-__device__ __forceinline__ void store_row(V* p, V v) {
-  if constexpr (kStream) {
-    __stcs(p, v);
-  } else {
-    *p = v;
-  }
-}
-
 // rows = tm * k output rows a tile; cv = vectors a row.
-template <typename V, int kLanes, bool kStream>
+template <typename V, int kLanes>
 __global__ void __launch_bounds__(kGatherThreads)
     window_gather_kernel(const V* __restrict__ zp, const int* __restrict__ lo,
                          const int* __restrict__ pos, int b_count, int n, int tiles,
@@ -106,33 +100,33 @@ __global__ void __launch_bounds__(kGatherThreads)
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           const int r = first + u * kRowsPass;
-          if (r < rows) store_row<kStream>(dst + r * cv + c, v[u]);
+          if (r < rows) __stcs(dst + r * cv + c, v[u]);
         }
       }
     }
   }
 }
 
-template <typename V, int kLanes, bool kStream>
+template <typename V, int kLanes>
 cudaError_t launch_gather(const float* zp, const int* lo, const int* pos, int b, int n,
                           int tiles, int rows, int cv, float* out, cudaStream_t stream) {
   constexpr int kRowsBlock = kGatherThreads / kLanes * kUnroll;
   const dim3 grid((rows + kRowsBlock - 1) / kRowsBlock, tiles < kMaxGrid ? tiles : kMaxGrid,
                   b < kMaxGrid ? b : kMaxGrid);
-  window_gather_kernel<V, kLanes, kStream><<<grid, kGatherThreads, 0, stream>>>(
+  window_gather_kernel<V, kLanes><<<grid, kGatherThreads, 0, stream>>>(
       reinterpret_cast<const V*>(zp), lo, pos, b, n, tiles, rows, cv, reinterpret_cast<V*>(out));
   return cudaGetLastError();
 }
 
-template <typename V, bool kStream>
+template <typename V>
 cudaError_t launch_lanes(int lanes, const float* zp, const int* lo, const int* pos, int b,
                          int n, int tiles, int rows, int cv, float* out, cudaStream_t s) {
   switch (lanes) {
-    case 1: return launch_gather<V, 1, kStream>(zp, lo, pos, b, n, tiles, rows, cv, out, s);
-    case 2: return launch_gather<V, 2, kStream>(zp, lo, pos, b, n, tiles, rows, cv, out, s);
-    case 4: return launch_gather<V, 4, kStream>(zp, lo, pos, b, n, tiles, rows, cv, out, s);
-    case 8: return launch_gather<V, 8, kStream>(zp, lo, pos, b, n, tiles, rows, cv, out, s);
-    case 16: return launch_gather<V, 16, kStream>(zp, lo, pos, b, n, tiles, rows, cv, out, s);
+    case 1: return launch_gather<V, 1>(zp, lo, pos, b, n, tiles, rows, cv, out, s);
+    case 2: return launch_gather<V, 2>(zp, lo, pos, b, n, tiles, rows, cv, out, s);
+    case 4: return launch_gather<V, 4>(zp, lo, pos, b, n, tiles, rows, cv, out, s);
+    case 8: return launch_gather<V, 8>(zp, lo, pos, b, n, tiles, rows, cv, out, s);
+    case 16: return launch_gather<V, 16>(zp, lo, pos, b, n, tiles, rows, cv, out, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -155,13 +149,13 @@ int pn2_ball_query_tiles_pos(const float* xs, const int* perm, const float* qs,
 }
 
 // zp (b, n, c) f32, lo (b, m / tm) i32, pos (b, m, k) i32 ->
-// out (b, m, k, c) f32 on the route (vec, lanes, stream) that
-// ops/cuda/wingather.py plans: 16-byte vectors or floats, lanes a row (1, 2,
-// 4, 8 or 16), evict-first stores or not. Returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue for a route the arrays do not take.
+// out (b, m, k, c) f32 on the route (vec, lanes) that ops/cuda/wingather.py
+// plans: 16-byte vectors or floats, lanes a row (1, 2, 4, 8 or 16). Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a route
+// the arrays do not take.
 int pn2_window_gather(const float* zp, const int* lo, const int* pos, int b, int n, int m,
-                      int tm, int k, int c, int vec, int lanes, int stream_stores, float* out,
-                      int device, void* stream) {
+                      int tm, int k, int c, int vec, int lanes, float* out, int device,
+                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
@@ -170,13 +164,9 @@ int pn2_window_gather(const float* zp, const int* lo, const int* pos, int b, int
     const bool aligned = c % 4 == 0 && reinterpret_cast<uintptr_t>(zp) % 16 == 0 &&
                          reinterpret_cast<uintptr_t>(out) % 16 == 0;
     if (!aligned) return (int)cudaErrorInvalidValue;
-    return (int)(stream_stores
-                     ? launch_lanes<float4, true>(lanes, zp, lo, pos, b, n, tiles, rows, c / 4, out, s)
-                     : launch_lanes<float4, false>(lanes, zp, lo, pos, b, n, tiles, rows, c / 4, out, s));
+    return (int)launch_lanes<float4>(lanes, zp, lo, pos, b, n, tiles, rows, c / 4, out, s);
   }
-  return (int)(stream_stores
-                   ? launch_lanes<float, true>(lanes, zp, lo, pos, b, n, tiles, rows, c, out, s)
-                   : launch_lanes<float, false>(lanes, zp, lo, pos, b, n, tiles, rows, c, out, s));
+  return (int)launch_lanes<float>(lanes, zp, lo, pos, b, n, tiles, rows, c, out, s);
 }
 
 const char* pn2_ball_query_tiles_pos_error_string(int code) {

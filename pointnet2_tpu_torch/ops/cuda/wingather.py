@@ -28,10 +28,6 @@ from pointnet2_tpu_torch.ops.cuda.common import (
 )
 
 GATHER_LANES = (1, 2, 4, 8, 16)  # lanes a row the kernel is built for (csrc/wingather.cu)
-# Stores of the planned route: evict-first (``__stcs``), which beat the
-# default policy alone (11.4 against 15.7 µs at SA1, B=8; 30.1 against 31.6 at
-# B=16) and in the windowed predict's profile; PERF.md §6 has both.
-STREAM_STORES = True
 
 
 def ball_query_tiles_pos(xs, perm, qs, lo, radius: float, nsample: int, w: int, route=None):
@@ -68,27 +64,26 @@ def plan(c: int, aligned: bool) -> tuple[bool, int]:
     return vec, min(GATHER_LANES[-1], 1 << (vectors - 1).bit_length())
 
 
-def check_route(route, vec_ok: bool) -> tuple[bool, int, bool]:
-    """A forced ``(vec, lanes, stream)`` as the kernel takes it: 16-byte
-    vectors only where the rows allow them (``vec_ok``), lanes one of
-    ``GATHER_LANES``, any store policy."""
-    vec, lanes, stream = route
+def check_route(route, vec_ok: bool) -> tuple[bool, int]:
+    """A forced ``(vec, lanes)`` as the kernel takes it: 16-byte vectors
+    only where the rows allow them (``vec_ok``), lanes one of ``GATHER_LANES``."""
+    vec, lanes = route
     if (vec and not vec_ok) or lanes not in GATHER_LANES:
         raise ValueError(f"not a window_gather route for these rows: {route} (16-byte vectors allowed: {vec_ok})")
-    return bool(vec), int(lanes), bool(stream)
+    return bool(vec), int(lanes)
 
 
-def planned_route(zp_s: torch.Tensor, route=None) -> tuple[bool, int, bool]:
-    """The ``(vec, lanes, stream)`` the wrapper launches ``zp_s`` with:
-    ``plan``'s and ``STREAM_STORES``, or the forced ``route``."""
+def planned_route(zp_s: torch.Tensor, route=None) -> tuple[bool, int]:
+    """The ``(vec, lanes)`` the wrapper launches ``zp_s`` with: ``plan``'s,
+    or the forced ``route``."""
     vec, lanes = plan(zp_s.shape[2], zp_s.data_ptr() % 16 == 0)
-    return (vec, lanes, STREAM_STORES) if route is None else check_route(route, vec)
+    return (vec, lanes) if route is None else check_route(route, vec)
 
 
 def window_gather(zp_s: torch.Tensor, lo: torch.Tensor, pos: torch.Tensor, route=None) -> torch.Tensor:
     """zp_s (B, N, C) float32, lo (B, T) and pos (B, M, K) int32 -> (B, M, K, C):
     row ``lo[b, tile(q)] + pos[b, q, s]`` of ``zp_s[b]``, M/T queries a tile.
-    ``route``: a forced ``(vec, lanes, stream)``, else ``planned_route``'s.
+    ``route``: a forced ``(vec, lanes)``, else ``planned_route``'s.
 
     Every ``lo + pos`` must lie in [0, N): the windowed ball query's columns do.
     """
@@ -103,16 +98,16 @@ def window_gather(zp_s: torch.Tensor, lo: torch.Tensor, pos: torch.Tensor, route
     require_int32_range("window_gather", b, n, c)
     require_int32_range("window_gather", b, t)
     require_int32_range("window_gather", m // t, k, c)  # offsets inside a tile
-    vec, lanes, stream_stores = planned_route(zp_s, route)
+    vec, lanes = planned_route(zp_s, route)
     out = torch.empty((b, m, k, c), dtype=torch.float32, device=zp_s.device)
     if out.numel() == 0:
         return out
     device, stream = stream_of(zp_s)
     launch(
         "window_gather", "wingather", "pn2_window_gather",
-        [PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, INT, INT, PTR, INT, PTR],
+        [PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, INT, PTR, INT, PTR],
         zp_s.data_ptr(), lo.data_ptr(), pos.data_ptr(), b, n, m, m // t, k, c,
-        int(vec), lanes, int(stream_stores), out.data_ptr(), device, stream,
+        int(vec), lanes, out.data_ptr(), device, stream,
     )
     return out
 

@@ -1,7 +1,6 @@
 """Where the predict path's time goes on the GPU: a torch.profiler breakdown.
 
-    python -m pointnet2_tpu_torch.predict_profile [--bq_window W] [--fp_window W]
-        [--gather_stores default|evict_first] [--out FILE]
+    python -m pointnet2_tpu_torch.predict_profile [--bq_window W] [--fp_window W] [--out FILE]
 
 Builds the same ``Predictor`` as ``chip_smoke.py`` (full ``semantic.json``
 width, weights from ``convert.init_variables(seed=0)``; with the calibrated
@@ -12,9 +11,7 @@ time summed over kernels (busy share = device time / wall time), the device
 time of each of the port's kernels, of matrix products, and of everything
 else, the 20 largest device-time entries, the 15 host-side operators
 with the most host time of their own, and the calls of the CUDA runtime that
-make the host wait for the device (``host_waits``). ``--gather_stores``
-sets the window gather's store policy (``ops.cuda.wingather.STREAM_STORES``)
-for the run, to compare the two on the windowed path. Runs on CUDA only.
+make the host wait for the device (``host_waits``). Runs on CUDA only.
 """
 
 from __future__ import annotations
@@ -34,7 +31,6 @@ from torch.profiler import ProfilerActivity, profile
 from pointnet2_tpu_torch import convert
 from pointnet2_tpu_torch.config import Config
 from pointnet2_tpu_torch.infer import Predictor
-from pointnet2_tpu_torch.ops.cuda import wingather
 from pointnet2_tpu_torch.utils.bench import KERNEL_SYMBOLS, event_device_us
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -106,15 +102,11 @@ def main(argv=None) -> int:
     ap.add_argument("--out", type=pathlib.Path, default=None)
     ap.add_argument("--bq_window", type=int, default=None, help="calibrated ball-query window")
     ap.add_argument("--fp_window", type=int, default=None, help="calibrated 3-NN window")
-    ap.add_argument("--gather_stores", choices=("default", "evict_first"), default=None,
-                    help="the window gather's store policy (else the planned one)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("predict_profile: needs a CUDA device", file=sys.stderr)
         return 1
 
-    if args.gather_stores is not None:
-        wingather.STREAM_STORES = args.gather_stores == "evict_first"
     cfg = Config.from_json(ROOT / "semantic.json")
     sd = convert.from_flax_variables(convert.init_variables(cfg, num_classes=9, seed=0))
     predictor = Predictor(cfg, sd, infer_chunk=8, bq_window=args.bq_window, fp_window=args.fp_window)
@@ -141,7 +133,6 @@ def main(argv=None) -> int:
         "batch": BATCH,
         "bq_window": args.bq_window,
         "fp_window": args.fp_window,
-        "gather_stores": "evict_first" if wingather.STREAM_STORES else "default",
         "wall_ms_per_request": wall_ms / REQUESTS,
         **summarise(prof, wall_ms),
     }

@@ -9,10 +9,12 @@ cotangent strided as the train step hands it over, the calibrated windowed
 ball query with and without window columns at SA1 with the production
 window (3072), the window gather of the fused grouping on those window
 columns (a seeded source of SA1's first MLP width standing for the
-projected sorted cloud), the windowed 3-NN at FP4 with the production
-``fp_window`` (512), and the round-1 windowed ball query at SA1-SA3. Each line is
-one JSON object: the profiler's device time of one call, summed over every
-kernel whose name holds the row's name, median of 3 sessions of 20 calls,
+projected sorted cloud; then again with 256 MB read before each call,
+so that its source and picks come from memory, not from the L2), the
+windowed 3-NN at FP4 with the production ``fp_window`` (512), and the
+round-1 windowed ball query at SA1-SA3. Each line is one JSON object: the
+profiler's device time of one call, summed over every kernel whose name
+holds the row's name, median of 3 sessions of 20 calls,
 and each kernel's own share (``kernels``). It calls only the op API, which
 every tree of the port has, and matches kernels by a part of their name, so
 one copy of this script reads an older tree too: run it from that tree's
@@ -72,6 +74,7 @@ def device_us(fn, part: str, calls: int = 20, sessions: int = 3) -> tuple[float,
 
 def run(tag: str) -> None:
     card = card_line()
+    flush = torch.zeros(64 << 20, device="cuda")  # 256 MB read before a cold call: five L2s of clean lines
 
     def emit(row, b, shape, measured):
         us, kernels = measured
@@ -101,6 +104,8 @@ def run(tag: str) -> None:
         zp_s = torch.randn((b, lv[0].shape[1], c), generator=gen, device="cuda")
         emit(9, b, f"SA1 w={BQ_WINDOW} K={nsample} C={c}", device_us(
             lambda: cuda.window_gather(zp_s, lo, pos), "window_gather_kernel"))
+        emit(9, b, f"SA1 w={BQ_WINDOW} K={nsample} C={c} cold L2", device_us(
+            lambda: (flush.sum(), cuda.window_gather(zp_s, lo, pos)), "window_gather_kernel"))
         emit(10, b, f"FP4 w={FP_WINDOW}", device_us(
             lambda: ops.three_nn_calibrated(lv[0], lv[1], FP_WINDOW), "knn_tiles_kernel"))
         for i, (npoint, radius, nsample) in enumerate(SA[:3]):

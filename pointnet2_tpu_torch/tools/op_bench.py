@@ -29,8 +29,8 @@ for the predict path's chunk). One JSON line per op and shape:
   3-NN: lanes a query, threads; three_interpolate: 16-byte accesses or not,
   the skip's 16-byte copy; the windowed ball queries over tiles: blocks a
   tile, warps a block; the window gather: 16-byte vectors or not, lanes a
-  row, evict-first stores or not; the backward: 16-byte accesses or not; the
-  windowed 3-NN has one launch shape, a block a tile), and for the 3-NN,
+  row; the backward: 16-byte accesses or not; the windowed 3-NN has one
+  launch shape, a block a tile), and for the 3-NN,
   three_interpolate, the windowed ball queries and the window gather
   ``routes_device_ms``, the device time of every route of that shape (3-NN:
   1 to 32 lanes a query; three_interpolate: 4-byte accesses, and 16-byte ones
@@ -164,18 +164,29 @@ def work_knn_tiles(b, m, nq, tiles, k, pairs: int) -> tuple[float, float]:
     return b * m * 16 + b * nq * 12 + b * tiles * 4 + b * nq * k * 8, 9 * pairs
 
 
-def work_window_gather(b, n, m, tiles, k, c) -> tuple[float, float]:
-    """(bytes, operations) of the window gather: the source rows, a start a
-    tile and the picks read once, the (B, M, K, C) rows written once; no
+def gather_source_rows(lo: torch.Tensor, pos: torch.Tensor, n: int) -> torch.Tensor:
+    """The window gather's picks as rows of the (B * N, C) source, in output
+    order: ``b * n + lo[b, tile(q)] + pos[b, q, s]``, int64."""
+    b, m = pos.shape[:2]
+    tiles = lo.shape[1]
+    return (lo.long().repeat_interleave(m // tiles, dim=1)[:, :, None] + pos.long()
+            + torch.arange(b, device=pos.device)[:, None, None] * n).reshape(-1)
+
+
+def work_window_gather(lo: torch.Tensor, rows: torch.Tensor, c: int) -> tuple[float, float]:
+    """(bytes, operations) of the window gather on these picks: each distinct
+    source row they name (``rows``, ``gather_source_rows``) read once, a start
+    a tile and the picks read once, the output rows written once; no
     arithmetic."""
-    return b * n * c * 4 + b * tiles * 4 + b * m * k * 4 + b * m * k * c * 4, 0
+    picked = int(torch.unique(rows).numel())
+    return picked * c * 4 + lo.numel() * 4 + rows.numel() * 4 + rows.numel() * c * 4, 0
 
 
-def gather_routes(c: int, aligned: bool) -> list[tuple[bool, int, bool]]:
+def gather_routes(c: int, aligned: bool) -> list[tuple[bool, int]]:
     """Every route of the window gather for rows of C floats: 16-byte vectors
-    where ``plan`` allows them and floats, each lane count, each store policy."""
+    where ``plan`` allows them and floats, each lane count."""
     vecs = (True, False) if cuda_gather.plan(c, aligned)[0] else (False,)
-    return [(v, lanes, s) for v in vecs for lanes in cuda_gather.GATHER_LANES for s in (False, True)]
+    return [(v, lanes) for v in vecs for lanes in cuda_gather.GATHER_LANES]
 
 
 def work_three_interpolate_grad(b, n, m, c) -> tuple[float, float]:
@@ -208,8 +219,8 @@ def route_key(route) -> str:
 
 
 def gather_route_key(route) -> str:
-    vec, lanes, stream = route
-    return f"{'vec' if vec else 'float'}x{lanes}x{'evict_first' if stream else 'default'}"
+    vec, lanes = route
+    return f"{'vec' if vec else 'float'}x{lanes}"
 
 
 def levels(batch: int, num_point: int, sa, device, seed: int = 0) -> list[torch.Tensor]:
@@ -260,18 +271,17 @@ def _gather_record(card, timed, xs, perm, qs, lo, radius, nsample, w) -> dict:
     the windowed ball query, a seeded (B, N, C) source of SA1's first MLP
     width standing for the projected sorted cloud."""
     b, n = xs.shape[:2]
-    m, tiles, c = qs.shape[1], lo.shape[1], SA_MLPS[0][0]
+    m, c = qs.shape[1], SA_MLPS[0][0]
     tiles_pos = cuda.ball_query_tiles_pos if timed else core.ball_query_tiles_pos
     pos = tiles_pos(xs, perm, qs, lo, radius, nsample, w)[1]
     zp_s = torch.randn((b, n, c), generator=torch.Generator(device=xs.device).manual_seed(3), device=xs.device)
     gather = cuda.window_gather if timed else core.window_gather
-    rows = (lo.long().repeat_interleave(m // tiles, dim=1)[:, :, None] + pos.long()
-            + torch.arange(b, device=xs.device)[:, None, None] * n).reshape(-1)
+    rows = gather_source_rows(lo, pos, n)
     flat = zp_s.reshape(b * n, c)
     return _record(
         "window_gather", f"B={b} N={n} M={m} K={nsample} C={c} w={w}", card, "window_gather",
         lambda: gather(zp_s, lo, pos), lambda: core.window_gather(zp_s, lo, pos),
-        *work_window_gather(b, n, m, tiles, nsample, c), timed,
+        *work_window_gather(lo, rows, c), timed,
         plan=cuda_gather.planned_route(zp_s) if timed else None,
         routes_device_ms={
             gather_route_key(r): (lambda r=r: device_ms(

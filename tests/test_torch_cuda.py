@@ -373,7 +373,7 @@ def _gather_inputs(gen, b, n, m, tiles, k, w, device):
 @pytest.mark.parametrize("b,n,m,tiles,k,c", GATHER_SHAPES)
 def test_window_gather_kernel(cuda_device, b, n, m, tiles, k, c):
     """The planned route and every forced one (16-byte vectors where the rows
-    allow, floats, each lane count, each store policy) bit for bit; a
+    allow, floats, each lane count) bit for bit; a
     contiguous source 4 bytes off 16-byte alignment plans the float route,
     refuses the vector one, and gathers bit for bit."""
     gen = torch.Generator(device=cuda_device).manual_seed(21)
@@ -381,14 +381,14 @@ def test_window_gather_kernel(cuda_device, b, n, m, tiles, k, c):
     lo, pos = _gather_inputs(gen, b, n, m, tiles, k, min(256, n), cuda_device)
     want = core.window_gather(zp, lo, pos)
     assert torch.equal(cuda.window_gather(zp, lo, pos), want)
-    vec, lanes, _ = cuda_gather.planned_route(zp)
+    vec, lanes = cuda_gather.planned_route(zp)
     assert vec == (c % 4 == 0)
-    for route in [(v, n_lanes, s) for v in {vec, False} for n_lanes in cuda_gather.GATHER_LANES for s in (False, True)]:
+    for route in [(v, n_lanes) for v in {vec, False} for n_lanes in cuda_gather.GATHER_LANES]:
         assert torch.equal(cuda.window_gather(zp, lo, pos, route=route), want), route
     offset = torch.randn(b * n * c + 1, generator=gen, device=cuda_device)[1:].view(b, n, c)
     assert offset.data_ptr() % 16 == 4 and not cuda_gather.planned_route(offset)[0]
     with pytest.raises(ValueError, match="route"):
-        cuda.window_gather(offset, lo, pos, route=(True, lanes, False))
+        cuda.window_gather(offset, lo, pos, route=(True, lanes))
     assert torch.equal(cuda.window_gather(offset, lo, pos), core.window_gather(offset, lo, pos))
 
 

@@ -16,6 +16,7 @@ import itertools
 import pytest
 import torch
 
+from pointnet2_tpu_torch.ops import core
 from pointnet2_tpu_torch.ops.cuda import ballquery as bq
 from pointnet2_tpu_torch.ops.cuda import fps
 from pointnet2_tpu_torch.ops.cuda import interpolate
@@ -316,37 +317,79 @@ def test_window_gather_plan_refuses_empty_rows():
         wingather.plan(0, True)
 
 
-@pytest.mark.parametrize("route", [(True, 8, False), (False, 3, False), (False, 32, True), (False, 0, False)])
+@pytest.mark.parametrize("route", [(True, 8), (False, 3), (False, 32), (False, 0)])
 def test_window_gather_check_route_refuses_bad_routes(route):
     with pytest.raises(ValueError, match="route"):
         wingather.check_route(route, vec_ok=False)
 
 
-@pytest.mark.parametrize("route", [(v, lanes, s) for v in (True, False) for lanes in wingather.GATHER_LANES
-                                   for s in (False, True)])
+@pytest.mark.parametrize("route", [(v, lanes) for v in (True, False) for lanes in wingather.GATHER_LANES])
 def test_window_gather_check_route_takes_every_built_route(route):
     assert wingather.check_route(route, vec_ok=True) == route
 
 
 def test_window_gather_planned_route_follows_the_source_alignment():
     """A contiguous source 4 bytes off a 16-byte boundary takes the float
-    route; the store policy is the module's unless a route is forced."""
+    route, and refuses a forced vector one."""
     aligned = torch.zeros(2, 64, 32)
     offset = torch.zeros(2 * 64 * 32 + 1)[1:].view(2, 64, 32)
     assert aligned.data_ptr() % 16 == 0 and offset.data_ptr() % 16 == 4 and offset.is_contiguous()
-    assert wingather.planned_route(aligned) == (True, 8, wingather.STREAM_STORES) == (True, 8, True)
-    assert wingather.planned_route(offset) == (False, 16, wingather.STREAM_STORES)
-    assert wingather.planned_route(offset, route=(False, 4, True)) == (False, 4, True)
+    assert wingather.planned_route(aligned) == (True, 8)
+    assert wingather.planned_route(offset) == (False, 16)
+    assert wingather.planned_route(offset, route=(False, 4)) == (False, 4)
     with pytest.raises(ValueError, match="route"):
-        wingather.planned_route(offset, route=(True, 8, False))
+        wingather.planned_route(offset, route=(True, 8))
 
 
 def test_window_gather_sweep_covers_every_route():
-    assert len(op_bench.gather_routes(32, True)) == 2 * len(wingather.GATHER_LANES) * 2
-    assert all(not vec for vec, _, _ in op_bench.gather_routes(7, True))
-    # SA1 at B=8: the projected rows, the starts and picks read, the output written.
-    assert op_bench.work_window_gather(8, 8192, 1024, 8, 32, 32) == (
-        8 * 8192 * 32 * 4 + 8 * 8 * 4 + 8 * 1024 * 32 * 4 + 8 * 1024 * 32 * 32 * 4, 0)
+    assert len(op_bench.gather_routes(32, True)) == 2 * len(wingather.GATHER_LANES)
+    assert all(not vec for vec, _ in op_bench.gather_routes(7, True))
+    assert len(set(map(op_bench.gather_route_key, op_bench.gather_routes(32, True)))) == 10
+
+
+def _gather_picks(seed, b, n, m, tiles, k, w):
+    gen = torch.Generator().manual_seed(seed)
+    lo = torch.randint(0, n - w + 1, (b, tiles), generator=gen, dtype=torch.int32)
+    pos = torch.randint(0, w, (b, m, k), generator=gen, dtype=torch.int32)
+    return lo, pos
+
+
+@pytest.mark.parametrize(
+    "b,n,m,tiles,k,c,w",
+    [
+        (1, 64, 8, 1, 4, 4, 16), (2, 256, 32, 4, 5, 7, 64), (3, 100, 12, 3, 3, 33, 100), (2, 512, 64, 8, 8, 32, 128),
+        (1, 8192, 1024, 8, 32, 32, 3072),  # one cloud at SA1 with the production window
+    ],
+)
+def test_gather_source_rows_name_the_plain_gathers_rows(b, n, m, tiles, k, c, w):
+    """``index_select`` of the flat source at these rows is the window gather:
+    the library call and the bound read the rows the gather copies."""
+    lo, pos = _gather_picks(b * n + k, b, n, m, tiles, k, w)
+    zp = torch.randn((b, n, c), generator=torch.Generator().manual_seed(5))
+    rows = op_bench.gather_source_rows(lo, pos, n)
+    assert rows.dtype == torch.int64 and rows.shape == (b * m * k,)
+    got = torch.index_select(zp.reshape(b * n, c), 0, rows).view(b, m, k, c)
+    assert torch.equal(got, core.window_gather(zp, lo, pos))
+
+
+@pytest.mark.parametrize(
+    "lo,pos,n,picked",
+    [
+        ([[0]], [[[3, 3, 3]]], 8, 1),  # one row picked three times: read once
+        ([[0]], [[[0, 1, 2]]], 8, 3),
+        ([[0, 1]], [[[0, 1], [0, 1]]], 8, 3),  # two tiles whose windows overlap: rows 0, 1, 2
+        ([[1], [1]], [[[0, 4]], [[0, 4]]], 8, 4),  # the same picks in two clouds are different rows
+        ([[0]], [[[7, 7], [6, 7]]], 8, 2),  # picks at N - 1
+    ],
+)
+def test_window_gather_bound_reads_each_picked_row_once(lo, pos, n, picked):
+    lo = torch.tensor(lo, dtype=torch.int32)
+    pos = torch.tensor(pos, dtype=torch.int32)
+    c = 4
+    rows = op_bench.gather_source_rows(lo, pos, n)
+    outputs = pos.numel()
+    assert op_bench.work_window_gather(lo, rows, c) == (
+        picked * c * 4 + lo.numel() * 4 + outputs * 4 + outputs * c * 4, 0)
 
 
 # -- the round-1 windowed ball query (row 11) and the windowed kNN (row 10) ----------
