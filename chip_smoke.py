@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one NVIDIA GPU: kernels, parity, the predict, train and op paths.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: kernels, parity, the predict, train, CLI and op paths.
 
     python3 chip_smoke.py [--out FILE]
 
@@ -113,13 +113,34 @@ non-zero and prints no result):
    of ``tools.stage_bench``'s composites (the SA sample-and-group through
    ``ops.farthest_point_sample`` with either ball query, the gather, the FP
    interpolation), which must launch its five kernels.
+7. CLI: the entry points a user runs. Fabricated Semantic3D scenes (a
+   ``.pcd`` and ``.labels`` for every train and validation prefix,
+   ``tools.scenes.fabricate``) in a temporary directory; a copy of
+   ``semantic.json`` with only ``data_path``, ``logdir`` and ``max_epoch = 1``
+   changed; then ``cli.train.main`` with ``--seed 0``, once exact and once
+   with ``--bq_window 3072 --fp_window 512`` (``python -m
+   pointnet2_tpu_torch.tools.scenes`` prints the widest windows those
+   batches need): sampler thread, pinned prefetch
+   through a side stream, 4 Adam steps and the eval of the 2 validation
+   batches, each run's launch counts those its steps and eval chunks imply
+   (rows 1-5; rows 7-10 in the windowed run), and every checkpoint it wrote
+   restored into a fresh Trainer, all with the same weights. Then
+   ``cli.predict.main`` on the exact run's ``model.pt`` (``--set validation
+   --num_samples 16 --batch_size 8``): 4 launches of each forward kernel a
+   batch, every ``.pcd`` equal bit for bit to the samples a fresh
+   ``SemanticDataset(seed=0)`` draws, and the ``.labels`` equal to a plain
+   ``Predictor(impl="torch")``'s on those samples on >= 99.99 % of points. Its
+   line gives each train run's host ms a step and ms waited on the prefetch
+   (medians over the steps after the first), beside the train phase's median
+   (``Trainer.train_step`` fed by hand) and the host ms one train batch takes
+   to sample with no other thread running, and predict's samples/s.
 
 Output: one JSON line a kernel and shape, one for each driven path (predict,
-train, predict_windows, train_windows, op_surface; the parity sweep's lines
-and the stage bench's lines inside the last), the ``nvidia-smi`` line, one
-``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
-Each path's launch counts are reset just before it and read just after;
-the ``kernels`` line sums them.
+train, predict_windows, train_windows, cli, op_surface; the parity sweep's
+lines and the stage bench's lines inside the last), the ``nvidia-smi`` line,
+one ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
+Each path's launch counts are reset just before it and read just after (the
+CLI phase's three runs each apart); the ``kernels`` line sums them.
 """
 
 from __future__ import annotations
@@ -130,6 +151,7 @@ import json
 import pathlib
 import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -137,7 +159,11 @@ import torch
 import torch.nn.functional as F
 
 from pointnet2_tpu_torch import convert, ops
+from pointnet2_tpu_torch.cli import predict as cli_predict
+from pointnet2_tpu_torch.cli import train as cli_train
 from pointnet2_tpu_torch.config import Config
+from pointnet2_tpu_torch.data.io import load_labels, read_pcd
+from pointnet2_tpu_torch.data.semantic3d import SemanticDataset
 from pointnet2_tpu_torch.infer import Predictor, full_float32
 from pointnet2_tpu_torch.models.pointnet2_seg import SA_MLPS
 from pointnet2_tpu_torch.ops.calibrate import calibrate_model_windows
@@ -147,8 +173,8 @@ from pointnet2_tpu_torch.ops.cuda import build
 from pointnet2_tpu_torch.ops.cuda import fps as cuda_fps
 from pointnet2_tpu_torch.ops.cuda import interpolate as cuda_interp
 from pointnet2_tpu_torch.ops.cuda import wingather as cuda_gather
-from pointnet2_tpu_torch.tools import op_bench, parity, stage_bench
-from pointnet2_tpu_torch.train import Trainer
+from pointnet2_tpu_torch.tools import op_bench, parity, scenes, stage_bench
+from pointnet2_tpu_torch.train import Trainer, load_model_state, restore_checkpoint
 from pointnet2_tpu_torch.train_profile import train_batch
 from pointnet2_tpu_torch.utils.bench import bound, card_line, cuda_ms, deterministic_algorithms, device_ms
 
@@ -206,6 +232,15 @@ WINDOW_LOGIT_TOL = 1e-4
 FEW = dict(reps=3, inner=1, warmup=1)
 # Past a block's shared memory: N // 4 = 16384 columns > the 14528 that fit.
 WIDE_N, WIDE_M, WIDE_B = 65536, 1024, 2
+CLI_SAMPLES, CLI_PREDICT_BATCH = 16, 8
+# The kernels' launches a train step and an eval chunk of CHUNK clouds, without
+# and with the windows (SA1 and FP4 engage; the other levels take the exact kernels).
+STEP_LAUNCHES = {name: 4 for name in (*GEOMETRY_KERNELS, *INTERPOLATE_KERNELS)}
+CHUNK_LAUNCHES = {name: 4 for name in (*GEOMETRY_KERNELS, "three_interpolate")}
+WINDOW_STEP_LAUNCHES = {"fps_centroids": 4, "ball_query_sliced": 1, "ball_query": 3, "knn_sliced": 1, "knn": 3,
+                        "three_interpolate": 4, "three_interpolate_grad": 4}
+WINDOW_CHUNK_LAUNCHES = {"fps_centroids": 4, "three_interpolate": 4, "ball_query": 3, "knn": 3,
+                         "ball_query_sliced_pos": 1, "window_gather": 1, "knn_sliced": 1}
 
 
 def emit(obj: dict) -> None:
@@ -961,7 +996,7 @@ def train_phase(cfg: Config, seed: int, card: str) -> dict:
                   "losses": accum_losses, "launches": accum_launches},
         "card": card,
     })
-    return launches
+    return launches, median
 
 
 def predict_phase(cfg: Config, requests: int, batch: int, seed: int, card: str) -> dict:
@@ -1164,6 +1199,153 @@ def train_windows_phase(cfg: Config, seed: int, card: str) -> dict:
     return launches
 
 
+def _cli_train(cfg_path: pathlib.Path, seed: int, windows: list) -> dict:
+    """One run of the train CLI on the card, its launch counts reset just before
+    it and read just after, held to the counts its steps and eval chunks imply;
+    then every checkpoint it wrote restored into a fresh Trainer."""
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    summary = cli_train.main(["--config_file", str(cfg_path), "--seed", str(seed)] + windows)
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    (epoch,) = summary["epochs"]
+    steps, chunks = epoch["train_batches"], epoch["val_batches"] * (BATCH // CHUNK)
+    if steps < 1 or chunks < 1 or summary["step"] != steps:
+        raise AssertionError(f"the train CLI ran {steps} steps and {chunks} eval chunks (step {summary['step']})")
+    step, chunk = (WINDOW_STEP_LAUNCHES, WINDOW_CHUNK_LAUNCHES) if windows else (STEP_LAUNCHES, CHUNK_LAUNCHES)
+    _expect_launches(
+        launches, {name: steps * step.get(name, 0) + chunks * chunk.get(name, 0) for name in KERNELS},
+        f"the train CLI{' with windows' if windows else ''}: {steps} steps, {chunks} eval chunks",
+    )
+    cfg = Config.from_json(cfg_path)
+    names = sorted({pathlib.Path(path).name for path in summary["checkpoints"]})
+    if not {"model.pt", "model_autosave.pt"} <= set(names):
+        raise AssertionError(f"the train CLI wrote {names}")
+    states = []
+    for name in names:
+        trainer = Trainer(cfg, device=DEVICE, bq_window=summary["bq_window"], fp_window=summary["fp_window"])
+        restore_checkpoint(pathlib.Path(cfg.logdir) / name, trainer)
+        if trainer.step != steps or not trainer.optimizer.state:
+            raise AssertionError(f"{name} restored at step {trainer.step} without its optimizer state")
+        states.append(trainer.model.state_dict())
+        del trainer
+    if not all(torch.equal(state[k], v) for state in states[1:] for k, v in states[0].items()):
+        raise AssertionError(f"the checkpoints of one epoch hold different weights: {names}")
+    return {
+        "steps": steps,
+        "eval_chunks": chunks,
+        "step_ms": epoch["step_ms"],
+        "median_step_ms": statistics.median(epoch["step_ms"][1:]),
+        "prefetch_wait_ms": epoch["prefetch_wait_ms"],
+        "median_prefetch_wait_ms": statistics.median(epoch["prefetch_wait_ms"][1:]),
+        "seconds": seconds,
+        "checkpoints_restored": names,
+        "launches": launches,
+    }
+
+
+def _plain_labels(cfg: Config, ckpt: pathlib.Path, out_dir: pathlib.Path) -> dict:
+    """The predict CLI's files against the plain path on the card: a
+    ``Predictor(impl="torch")`` fed the samples the CLI drew, drawn again from
+    a fresh ``SemanticDataset(seed=0)`` after ``np.random.seed(0)``. The
+    ``.pcd`` points must equal the samples bit for bit, and the labels agree on
+    >= 99.99 % of points."""
+    plain = Predictor(cfg, load_model_state(ckpt), infer_chunk=CHUNK, device=DEVICE, impl="torch")
+    np.random.seed(0)
+    dataset = SemanticDataset(cfg.num_point, "validation", bool(cfg.use_color), cfg.box_size_x, cfg.box_size_y,
+                              cfg.data_path, seed=0)
+    agree = total = 0
+    for fd in dataset.list_file_data:
+        prefix = pathlib.Path(fd.file_path_without_ext).name
+        raws, labels = [], []
+        for start in range(0, CLI_SAMPLES, CLI_PREDICT_BATCH):
+            centered, raw, _, colors = fd.sample_batch(min(CLI_PREDICT_BATCH, CLI_SAMPLES - start), cfg.num_point)
+            raws.append(raw.reshape(-1, 3))
+            x = np.concatenate((centered, colors), -1) if cfg.use_color else centered
+            labels.append(plain.predict_step(x.astype(np.float32)).cpu().numpy().reshape(-1))
+        if not np.array_equal(read_pcd(out_dir / f"{prefix}.pcd").points,
+                              np.concatenate(raws).astype(np.float32).astype(np.float64)):
+            raise AssertionError(f"{prefix}.pcd: the points are not the samples the CLI drew")
+        written = load_labels(out_dir / f"{prefix}.labels")
+        want = np.concatenate(labels)
+        if written.shape != want.shape:
+            raise AssertionError(f"{prefix}.labels: {written.shape} labels, want {want.shape}")
+        agree += int((written == want).sum())
+        total += want.size
+    if agree < 0.9999 * total:
+        raise AssertionError(f"the predict CLI's labels agree with the plain path on {agree} of {total} points")
+    return {"label_agreement": agree / total, "points": total}
+
+
+def cli_phase(seed: int, card: str, train_median_ms: float) -> dict:
+    """The port's entry points as a user runs them: the train CLI on
+    fabricated scenes from a copy of ``semantic.json`` with only
+    ``data_path``, ``logdir`` and ``max_epoch = 1`` changed, once exact and
+    once with the windows, each with ``--seed``; then the predict CLI on the
+    exact run's ``model.pt`` over the validation split, held against the
+    plain path. Returns each run's launch counts."""
+    raw_cfg = json.loads((ROOT / "semantic.json").read_text())
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        tmp = pathlib.Path(tmp)
+        (tmp / "scenes").mkdir()
+        scenes.fabricate(tmp / "scenes", seed)
+        runs, cfg_paths = {}, {}
+        for name, windows in (("cli_train", []),
+                              ("cli_train_windows", ["--bq_window", str(BQ_WINDOW), "--fp_window", str(FP_WINDOW)])):
+            cfg_paths[name] = tmp / f"{name}.json"
+            cfg_paths[name].write_text(json.dumps(
+                {**raw_cfg, "data_path": str(tmp / "scenes"), "logdir": str(tmp / name), "max_epoch": 1}
+            ))
+            runs[name] = _cli_train(cfg_paths[name], seed, windows)
+            torch.cuda.empty_cache()
+
+        cfg = Config.from_json(cfg_paths["cli_train"])
+        ckpt = pathlib.Path(cfg.logdir) / "model.pt"
+        out_dir = tmp / "sparse"
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        summary = cli_predict.main([
+            "--ckpt", str(ckpt), "--set", "validation", "--config_file", str(cfg_paths["cli_train"]),
+            "--num_samples", str(CLI_SAMPLES), "--batch_size", str(CLI_PREDICT_BATCH), "--output_dir", str(out_dir),
+        ])
+        launches = dict(cuda.LAUNCHES)
+        batches = len(summary["batch_seconds"])
+        _expect_launches(launches, {name: batches * n for name, n in CHUNK_LAUNCHES.items()},
+                         f"the predict CLI: {batches} batches of {CLI_PREDICT_BATCH}")
+        seconds = summary["batch_seconds"]
+        predict = {
+            "samples": summary["samples"],
+            "batches": batches,
+            "batch_seconds": seconds,
+            "samples_per_s": summary["samples"] / sum(seconds),
+            "samples_per_s_after_first": (summary["samples"] - CLI_PREDICT_BATCH) / sum(seconds[1:]),
+            **_plain_labels(cfg, ckpt, out_dir),
+            "launches": launches,
+        }
+        # The sampler alone, on this thread with no other running: what one
+        # batch of the train split costs the host.
+        train_ds = SemanticDataset(cfg.num_point, "train", bool(cfg.use_color), cfg.box_size_x, cfg.box_size_y,
+                                   cfg.data_path, seed=seed)
+        sampler_ms = []
+        for _ in range(3):
+            s = time.perf_counter()
+            train_ds.sample_batch_in_all_files(cfg.batch_size, True)
+            sampler_ms.append((time.perf_counter() - s) * 1e3)
+    emit({
+        "phase": "cli",
+        "train": runs["cli_train"],
+        "train_windows": {"bq_window": BQ_WINDOW, "fp_window": FP_WINDOW, **runs["cli_train_windows"]},
+        "predict": predict,
+        "train_phase_median_ms": train_median_ms,
+        "sampler_ms_per_batch": sampler_ms,
+        "phase_seconds": time.perf_counter() - t0,
+        "card": card,
+    })
+    return {**{name: run["launches"] for name, run in runs.items()}, "cli_predict": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None, help="also write every record here as JSON")
@@ -1200,11 +1382,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     paths = {"predict": predict_phase(cfg, REQUESTS, BATCH, SEED, card)}
     torch.cuda.empty_cache()
-    paths["train"] = train_phase(cfg, SEED, card)
+    paths["train"], train_median_ms = train_phase(cfg, SEED, card)
     torch.cuda.empty_cache()
     paths["predict_windows"] = predict_windows_phase(cfg, REQUESTS, BATCH, SEED, card)
     torch.cuda.empty_cache()
     paths["train_windows"] = train_windows_phase(cfg, SEED, card)
+    torch.cuda.empty_cache()
+    paths.update(cli_phase(SEED, card, train_median_ms))
     torch.cuda.empty_cache()
     paths["op_surface"] = op_surface_phase(card)
     kernels = report.kernels_line(paths)

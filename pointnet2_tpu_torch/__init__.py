@@ -14,8 +14,13 @@ The package mirrors the JAX package's layout and imports nothing of it:
 - ``infer``     ``Predictor``: the chunked eval forward and argmax labels.
 - ``train``     ``Trainer``: the train step (forward, backward, Adam or
                 momentum SGD), gradient accumulation, eval step, checkpoints.
-- ``utils``     the device confusion matrix; the CUDA-event timer and the
-                bound of a kernel's work (``utils.bench``).
+- ``data``      Semantic3D file I/O, sampling, augmentation and voxels (own
+                copies of the JAX package's NumPy modules), and the host
+                pipeline: sampler threads and the pinned prefetch to the card.
+- ``cli``       the train and predict entry points
+                (``python -m pointnet2_tpu_torch.cli.train`` / ``.predict``).
+- ``utils``     the device and host confusion matrices; the run logger; the
+                CUDA-event timer and the bound of a kernel's work (``utils.bench``).
 - ``tools``     the parity sweep against the NumPy oracles, the op bench and
                 the stage bench (``python -m pointnet2_tpu_torch.tools.<name>``).
 

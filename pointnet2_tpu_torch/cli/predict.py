@@ -1,0 +1,159 @@
+"""Sparse multi-sample inference on Semantic3D scenes with the port, on the card.
+
+    python -m pointnet2_tpu_torch.cli.predict --ckpt log/semantic/model.pt [--set validation]
+
+Counterpart of the root ``predict.py``, with its flags by the same names:
+it loads the model of a checkpoint the port's train CLI wrote, samples each
+scene of the split ``--num_samples`` times in batches of ``--batch_size``
+(``SemanticDataset(seed=0)`` after ``np.random.seed(0)``, so the same boxes
+as the JAX script's), labels them, writes ``<output_dir>/<scene>.pcd`` (the
+sampled points) and ``.labels`` (one label a point), and prints the
+confusion matrix over the sampled points' ground truth when the split has
+labels. With ``--bq_window``/``--fp_window`` (ints or ``auto``) every
+batch's window certificate is checked and a failure aborts the run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+
+from pointnet2_tpu_torch.cli import add_device_flag, cli_device, refuse_not_ported
+from pointnet2_tpu_torch.config import Config
+from pointnet2_tpu_torch.data.io import write_labels, write_pcd
+from pointnet2_tpu_torch.data.semantic3d import SemanticDataset
+from pointnet2_tpu_torch.infer import Predictor
+from pointnet2_tpu_torch.ops.calibrate import calibrate_model_windows, parse_window_arg
+from pointnet2_tpu_torch.train.trainer import load_model_state
+from pointnet2_tpu_torch.utils.metrics import ConfusionMatrix
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--num_samples", type=int, default=8, help="# samples, each contains num_point points_centered")
+    parser.add_argument("--ckpt", required=True, help="checkpoint file of the port's train CLI")
+    parser.add_argument("--set", default="validation", help="train, validation, test")
+    parser.add_argument("--config_file", default="semantic.json")
+    parser.add_argument("--batch_size", type=int, default=64)
+    parser.add_argument("--output_dir", default=os.path.join("result", "sparse"))
+    parser.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
+    parser.add_argument("--bf16_min_width", type=int, default=None)
+    parser.add_argument("--arch", default="ssg", choices=["ssg", "msg"])
+    parser.add_argument(
+        "--bq_window", type=parse_window_arg, default=None,
+        help="calibrated ball-query x-window: an int, or 'auto' to calibrate from scene samples at "
+        "startup; the certificate is checked on every batch and the run aborts if it fails",
+    )
+    parser.add_argument(
+        "--fp_window", type=parse_window_arg, default=None,
+        help="calibrated 3-NN x-window for the FP levels (int or 'auto'); checked like --bq_window",
+    )
+    parser.add_argument("--sharded", action="store_true")
+    parser.add_argument("--dist_coordinator", default=None)
+    parser.add_argument("--dist_num_processes", type=int, default=None)
+    parser.add_argument("--dist_process_id", type=int, default=None)
+    add_device_flag(parser)
+    return parser
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    """Run the prediction; returns the samples labelled, each batch's seconds
+    (sampling excluded, the labels' read back included) and the files written."""
+    np.random.seed(0)
+    flags = build_parser().parse_args(argv)
+    refuse_not_ported(flags)
+    device = cli_device(flags.device)
+
+    cfg = Config.from_json(flags.config_file)
+    os.makedirs(flags.output_dir, exist_ok=True)
+    dataset = SemanticDataset(
+        num_points_per_sample=cfg.num_point, split=flags.set, box_size_x=cfg.box_size_x,
+        box_size_y=cfg.box_size_y, use_color=bool(cfg.use_color), path=cfg.data_path, seed=0,
+    )
+    if flags.bq_window == "auto" or flags.fp_window == "auto":
+        crng = np.random.RandomState(0)
+
+        def sample_xyz() -> np.ndarray:
+            fd = dataset.list_file_data[crng.randint(len(dataset.list_file_data))]
+            return fd.sample_batch(batch_size=8, num_points_per_sample=cfg.num_point)[0]
+
+        auto_bq, auto_fp = calibrate_model_windows(
+            sa_specs=[(s.npoint, s.radius) for s in cfg.sa_layers], num_point=cfg.num_point,
+            sample_xyz=sample_xyz, num_batches=8, device=device,
+        )
+        if flags.bq_window == "auto":
+            flags.bq_window = auto_bq
+        if flags.fp_window == "auto":
+            flags.fp_window = auto_fp
+        print(
+            f"auto window calibration: bq_window={flags.bq_window}, fp_window={flags.fp_window} "
+            "(None = windowing would not engage; full exact kernels run)"
+        )
+    checked = flags.bq_window is not None or flags.fp_window is not None
+
+    predictor = Predictor(
+        cfg, load_model_state(os.path.abspath(flags.ckpt)), num_classes=dataset.num_classes,
+        infer_chunk=8, device=device, bq_window=flags.bq_window, fp_window=flags.fp_window,
+    )
+    print("Model restored")
+
+    batch_size = flags.batch_size
+    cm = ConfusionMatrix(dataset.num_classes)
+    summary: dict = {"samples": 0, "batch_seconds": [], "outputs": []}
+    for file_data in dataset.list_file_data:
+        print(f"Processing {file_data.file_path_without_ext}")
+        points_collector: list[np.ndarray] = []
+        pd_labels_collector: list[np.ndarray] = []
+
+        for batch_index in range(int(np.ceil(flags.num_samples / batch_size))):
+            current = min(batch_size, flags.num_samples - batch_index * batch_size)
+            centered, raw, gt_labels, colors = file_data.sample_batch(
+                batch_size=current, num_points_per_sample=cfg.num_point
+            )
+            inputs = np.concatenate((centered, colors), axis=-1) if cfg.use_color else centered
+            # The JAX script pads a short last batch to batch_size for its one
+            # compiled shape. Not here: in eval mode each cloud is labelled on
+            # its own (FPS, grouping and BatchNorm's moving statistics are per
+            # cloud), so the short batch gives the labels the padded one would.
+            s = time.perf_counter()
+            if checked:
+                labels, ok = predictor.predict_step_checked(inputs.astype(np.float32))
+                if not ok:
+                    raise ValueError(
+                        f"--bq_window={flags.bq_window} / --fp_window={flags.fp_window} is too small for "
+                        f"this dataset (exactness certificate failed on batch {batch_index} of "
+                        f"{file_data.file_path_without_ext}); recalibrate with --bq_window auto"
+                    )
+            else:
+                labels = predictor.predict_step(inputs.astype(np.float32))
+            pred = labels.cpu().numpy()
+            seconds = time.perf_counter() - s
+            summary["batch_seconds"].append(seconds)
+            summary["samples"] += current
+            print(f"Batch size: {current}, time: {seconds}")
+
+            points_collector.extend(raw)
+            pd_labels_collector.extend(pred)
+            if flags.set != "test":
+                cm.increment_from_list(gt_labels.flatten(), pred.flatten())
+
+        prefix = os.path.basename(file_data.file_path_without_ext)
+        pcd_path = os.path.join(flags.output_dir, prefix + ".pcd")
+        write_pcd(pcd_path, np.array(points_collector).reshape((-1, 3)))
+        print(f"Exported sparse pcd to {pcd_path}")
+        labels_path = os.path.join(flags.output_dir, prefix + ".labels")
+        write_labels(labels_path, np.array(pd_labels_collector).flatten())
+        print(f"Exported sparse labels to {labels_path}")
+        summary["outputs"].append((pcd_path, labels_path))
+
+    if flags.set != "test":
+        cm.print_metrics()
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,304 @@
+"""Train PointNet++ on Semantic3D with the port, on the card.
+
+    python -m pointnet2_tpu_torch.cli.train --config_file semantic.json [--data_path DIR] [--seed 0]
+
+Counterpart of the root ``train.py``, with its flags by the same names and
+its epoch loop:
+
+- sampler threads (``data.pipeline.BatchProducer``) draw batches of boxes
+  from the split's scenes, and ``device_prefetch`` copies each to the card
+  two batches ahead of its step;
+- the losses, the confusion matrix and the window certificates stay on the
+  device and are read once an epoch; a failed certificate aborts the run;
+- per-class IoU a epoch, eval on the validation split every 5 epochs,
+  ``best_model_epoch_NNN.pt`` when the eval accuracy improves, ``model.pt``
+  every 10 epochs, and ``model_autosave.pt`` however the loop ends;
+- ``--resume`` continues from one of those files, step and optimizer
+  included; ``--seed`` makes the batch stream reproducible and so runs one
+  sampler thread (``data/rng.py``).
+
+Checkpoints are the port's own ``torch.save`` files (``train.save_checkpoint``):
+the JAX package's orbax directories cannot be read. Besides the JAX loop's
+log lines, each epoch logs the host's median ms a step and the median ms
+the loop waited on the prefetch; ``main`` returns them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import statistics
+import time
+from datetime import datetime
+from typing import Optional, Sequence
+
+import torch
+
+from pointnet2_tpu_torch.cli import add_device_flag, cli_device, refuse_not_ported
+from pointnet2_tpu_torch.config import Config
+from pointnet2_tpu_torch.data.pipeline import BatchProducer, device_prefetch
+from pointnet2_tpu_torch.data.semantic3d import SemanticDataset
+from pointnet2_tpu_torch.ops.calibrate import calibrate_model_windows, parse_window_arg
+from pointnet2_tpu_torch.train.trainer import Trainer, restore_checkpoint, save_checkpoint
+from pointnet2_tpu_torch.utils.logging import RunLogger, update_progress
+from pointnet2_tpu_torch.utils.metrics import ConfusionMatrix
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--train_set", default="train", help="train, train_full")
+    parser.add_argument("--config_file", default="semantic.json", help="config path")
+    parser.add_argument("--resume", default="", help="checkpoint file to resume from")
+    parser.add_argument("--max_epoch", type=int, default=None)
+    parser.add_argument("--data_path", default=None)
+    parser.add_argument(
+        "--seed", type=int, default=None, help="seeds the weights, the sampler and dropout; one sampler thread"
+    )
+    parser.add_argument(
+        "--accum_steps", type=int, default=1,
+        help="split each batch into this many microbatches and accumulate gradients "
+        "(one optimizer update per batch; ghost-BN moments)",
+    )
+    parser.add_argument(
+        "--hoist_geometry", type=int, default=1, choices=(0, 1),
+        help="with --accum_steps > 1: FPS, ball query and 3-NN once at full batch width (1) "
+        "or per microbatch (0)",
+    )
+    parser.add_argument(
+        "--bq_window", type=parse_window_arg, default=None,
+        help="calibrated ball-query x-window: an int, a per-SA-level list like '3072,768,-,-', or "
+        "'auto' to calibrate from sampled training batches at startup; the certificates are AND-ed "
+        "over every train batch (checked at each epoch's end) and every eval batch, and the run "
+        "aborts if the window was ever too small",
+    )
+    parser.add_argument(
+        "--fp_window", type=parse_window_arg, default=None,
+        help="calibrated 3-NN x-window for the FP levels (int or 'auto'); checked like --bq_window",
+    )
+    parser.add_argument("--train_dtype", default="float32", choices=["float32", "bfloat16"])
+    parser.add_argument("--bf16_min_width", type=int, default=None)
+    parser.add_argument("--arch", default="ssg", choices=["ssg", "msg"])
+    parser.add_argument("--dist_coordinator", default=None)
+    parser.add_argument("--dist_num_processes", type=int, default=None)
+    parser.add_argument("--dist_process_id", type=int, default=None)
+    parser.add_argument("--dist_sampling", choices=["sharded", "replicated"], default="sharded")
+    parser.add_argument(
+        "--num_workers", type=int, default=None,
+        help="sampler threads (default: the CPU count; 1 with --seed)",
+    )
+    add_device_flag(parser)
+    return parser
+
+
+def _window_error(flags, what: str) -> ValueError:
+    return ValueError(
+        f"--bq_window={flags.bq_window} / --fp_window={flags.fp_window} exactness certificate "
+        f"failed on {what}; the window is too small for this data — recalibrate with "
+        "--bq_window auto / --fp_window auto"
+    )
+
+
+def _median(values: Sequence[float]) -> Optional[float]:
+    return statistics.median(values) if values else None
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    """Run the training; returns the final step, the checkpoints written and
+    each epoch's host timings (ms a step from one step's start to the next
+    one's, the last ending at the epoch's read of the device; ms waited on
+    the prefetch)."""
+    flags = build_parser().parse_args(argv)
+    refuse_not_ported(flags)
+    device = cli_device(flags.device)
+    if flags.seed is not None:
+        # One sampler thread: a seeded stream is reproducible only in the order one thread draws it.
+        flags.num_workers = 1
+
+    cfg = Config.from_json(flags.config_file)
+    if flags.max_epoch is not None:
+        cfg = cfg.replace(max_epoch=flags.max_epoch)
+    if flags.data_path is not None:
+        cfg = cfg.replace(data_path=flags.data_path)
+
+    logger = RunLogger(cfg.logdir)
+    try:
+        return _train(flags, cfg, device, logger)
+    finally:
+        logger.close()
+
+
+def _train(flags: argparse.Namespace, cfg: Config, device: torch.device, logger: RunLogger) -> dict:
+    card = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    logger.log(f"device: {device} ({card})")
+
+    def dataset(split: str) -> SemanticDataset:
+        return SemanticDataset(
+            num_points_per_sample=cfg.num_point, split=split, box_size_x=cfg.box_size_x,
+            box_size_y=cfg.box_size_y, use_color=bool(cfg.use_color), path=cfg.data_path, seed=flags.seed,
+        )
+
+    train_ds, val_ds = dataset(flags.train_set), dataset("validation")
+
+    if flags.bq_window == "auto" or flags.fp_window == "auto":
+        auto_bq, auto_fp = calibrate_model_windows(
+            sa_specs=[(s.npoint, s.radius) for s in cfg.sa_layers],
+            num_point=cfg.num_point,
+            sample_xyz=lambda: train_ds.sample_batch_in_all_files(cfg.batch_size)[0][..., :3],
+            num_batches=8,
+            device=device,
+        )
+        if flags.bq_window == "auto":
+            flags.bq_window = auto_bq
+        if flags.fp_window == "auto":
+            flags.fp_window = auto_fp
+        logger.log(
+            f"auto window calibration: bq_window={flags.bq_window}, fp_window={flags.fp_window} "
+            "(None = windowing would not engage; full exact kernels run)"
+        )
+
+    trainer = Trainer(
+        cfg, num_classes=train_ds.num_classes, accum_steps=flags.accum_steps,
+        hoist_geometry=bool(flags.hoist_geometry), device=device,
+        bq_window=flags.bq_window, fp_window=flags.fp_window,
+    )
+    trainer.init_state(flags.seed or 0)
+    if flags.resume:
+        restore_checkpoint(os.path.abspath(flags.resume), trainer)
+        logger.log(f"resumed from {flags.resume} at step {trainer.step}")
+    dropout = torch.Generator(device=device).manual_seed((flags.seed or 0) + 1)
+
+    num_train_batches = train_ds.get_num_batches(cfg.batch_size)
+    num_val_batches = val_ds.get_num_batches(cfg.batch_size)
+    logger.log(f"train batches/epoch: {num_train_batches}, val batches: {num_val_batches}")
+    if num_train_batches == 0:
+        raise ValueError(
+            f"train split '{flags.train_set}' has {train_ds.get_total_num_points()} points across "
+            f"{len(train_ds.list_file_data)} scenes — that is 0 batches of batch_size={cfg.batch_size} "
+            f"x num_point={cfg.num_point}; reduce batch_size/num_point or provide more data"
+        )
+    if num_val_batches == 0:
+        logger.log("validation split yields 0 batches; skipping eval epochs")
+
+    train_workers = flags.num_workers if flags.num_workers is not None else max(os.cpu_count() or 1, 2)
+    logger.log(f"sampler threads: {train_workers}")
+
+    def named(batch):
+        data, labels, weights = batch
+        return {"points": data, "labels": labels, "weights": weights}
+
+    train_producer = BatchProducer(
+        lambda: named(train_ds.sample_batch_in_all_files(cfg.batch_size, True)),
+        max_queue=16, num_workers=train_workers,
+    )
+    val_producer = BatchProducer(
+        lambda: named(val_ds.sample_batch_in_all_files(cfg.batch_size, False)),
+        max_queue=8, num_workers=min(2, train_workers),
+    )
+    train_iter = device_prefetch(train_producer, device, depth=2)
+    val_iter = device_prefetch(val_producer, device, depth=2)
+
+    summary: dict = {"step": trainer.step, "checkpoints": [], "epochs": [],
+                     "bq_window": flags.bq_window, "fp_window": flags.fp_window}
+
+    def save(name: str) -> None:
+        path = os.path.abspath(os.path.join(cfg.logdir, name))
+        save_checkpoint(path, trainer)
+        summary["checkpoints"].append(path)
+        logger.log(f"Model saved in file: {path}")
+
+    best_acc = 0.0
+    try:
+        for epoch in range(cfg.max_epoch):
+            logger.log(f"**** EPOCH {epoch:03d} ****  {datetime.now()}")
+            cm = ConfusionMatrix(train_ds.num_classes)
+            # Every metric stays on the device; the epoch reads it back once.
+            dev_losses, dev_cm, dev_ok = [], None, None
+            step_ms, wait_ms = [], []
+            started = None
+            for i in range(num_train_batches):
+                update_progress(i / max(num_train_batches, 1))
+                t0 = time.perf_counter()
+                if started is not None:
+                    step_ms.append((t0 - started) * 1e3)
+                started = t0
+                batch = next(train_iter)
+                wait_ms.append((time.perf_counter() - t0) * 1e3)
+                metrics = trainer.train_step(batch, generator=dropout)
+                dev_losses.append(metrics["loss"])
+                dev_cm = metrics["confusion"] if dev_cm is None else dev_cm + metrics["confusion"]
+                if "window_ok" in metrics:
+                    dev_ok = metrics["window_ok"] if dev_ok is None else dev_ok & metrics["window_ok"]
+                last_metrics = metrics
+            losses = torch.stack(dev_losses).cpu().numpy()  # the epoch's one wait for the device
+            step_ms.append((time.perf_counter() - started) * 1e3)
+            update_progress(1.0)
+            print()
+            cm.increment_from_matrix(dev_cm)
+            if dev_ok is not None and not bool(dev_ok):
+                # Some batch's windowed neighbour query left out candidates and its
+                # gradients were wrong: abort rather than train on bad groupings.
+                raise _window_error(flags, f"a training batch during epoch {epoch}")
+            logger.log(f"mean loss: {float(losses.mean()):f}")
+            logger.log(f"Overall accuracy : {cm.get_accuracy():f}")
+            logger.log(f"Average IoU : {cm.get_mean_iou():f}")
+            logger.log(
+                f"host ms a step (median of the {len(step_ms) - 1} after the first): {_median(step_ms[1:])}; "
+                f"waited on the prefetch (median): {_median(wait_ms[1:])}"
+            )
+            logger.scalars(
+                trainer.step, "train", loss=float(losses.mean()), accuracy=cm.get_accuracy(),
+                learning_rate=last_metrics["learning_rate"], bn_decay=last_metrics["bn_decay"],
+            )
+            ious = [0.0] + cm.get_per_class_ious()
+            for c in range(1, train_ds.num_classes):
+                logger.log(f"IoU of {train_ds.labels_names[c]} : {ious[c]:f}")
+            record = {"epoch": epoch, "train_batches": num_train_batches, "val_batches": 0,
+                      "step_ms": step_ms, "prefetch_wait_ms": wait_ms}
+
+            acc = best_acc
+            if epoch % 5 == 0 and num_val_batches > 0:
+                vcm = ConfusionMatrix(val_ds.num_classes)
+                dev_vcm, dev_vok = None, None
+                for _ in range(num_val_batches):
+                    metrics = trainer.eval_step(next(val_iter))
+                    dev_vcm = metrics["confusion"] if dev_vcm is None else dev_vcm + metrics["confusion"]
+                    if "window_ok" in metrics:
+                        dev_vok = metrics["window_ok"] if dev_vok is None else dev_vok & metrics["window_ok"]
+                if dev_vok is not None and not bool(dev_vok):
+                    raise _window_error(flags, "a validation batch")
+                vcm.increment_from_matrix(dev_vcm)
+                record["val_batches"] = num_val_batches
+                acc = vcm.get_accuracy()
+                logger.log(f"---- EPOCH {epoch:03d} EVALUATION ----")
+                logger.log(f"eval accuracy: {acc:f}  mIoU: {vcm.get_mean_iou():f}")
+                vious = [0.0] + vcm.get_per_class_ious()
+                for c in range(1, val_ds.num_classes):
+                    logger.log(f"eval IoU of {val_ds.labels_names[c]} : {vious[c]:f}")
+                logger.scalars(
+                    trainer.step, "validation", accuracy=acc, miou=vcm.get_mean_iou(),
+                    **{f"iou_{val_ds.labels_names[c]}": vious[c] for c in range(1, val_ds.num_classes)},
+                )
+            summary["epochs"].append(record)
+
+            if acc > best_acc:
+                best_acc = acc
+                save(f"best_model_epoch_{epoch:03d}.pt")
+            if epoch % 10 == 0:
+                save("model.pt")
+    finally:
+        # Whatever ended the loop (the last epoch, an interrupt, an exception),
+        # the latest state stays recoverable with --resume.
+        try:
+            if trainer.step > 0:
+                save("model_autosave.pt")
+                logger.log(f"Autosaved state at step {trainer.step}")
+        except Exception as e:  # never mask the original exception
+            logger.log(f"autosave failed: {e}")
+        train_producer.stop()
+        val_producer.stop()
+    summary["step"] = trainer.step
+    return summary
+
+
+if __name__ == "__main__":
+    main()

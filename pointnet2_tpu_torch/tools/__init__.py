@@ -17,4 +17,7 @@ plain versions (``--small`` for small shapes) and measures no time.
                   backward and the windowed ball queries by kernel name,
                   through the op API only, so that one copy reads an older
                   tree of the port beside a newer one; card only.
+- ``scenes``      (no counterpart): fabricated Semantic3D scenes for the
+                  CLIs (``chip_smoke.py`` trains on them), and the widest
+                  calibrated windows the train CLI's seeded batches need there.
 """

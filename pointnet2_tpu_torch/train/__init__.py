@@ -4,6 +4,7 @@ from pointnet2_tpu_torch.train.trainer import (
     Trainer,
     bn_momentum_schedule,
     learning_rate_schedule,
+    load_model_state,
     restore_checkpoint,
     save_checkpoint,
 )
@@ -12,6 +13,7 @@ __all__ = [
     "Trainer",
     "bn_momentum_schedule",
     "learning_rate_schedule",
+    "load_model_state",
     "restore_checkpoint",
     "save_checkpoint",
 ]

@@ -191,11 +191,17 @@ class Trainer:
     # -- steps ------------------------------------------------------------
 
     def _to_device(self, batch: Mapping) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The batch's points, labels (int64) and weights as tensors on the
+        Trainer's device. A tensor already there in its dtype comes back as
+        the same object (``Tensor.to`` returns ``self`` when nothing changes):
+        no copy and no synchronisation, so a batch that
+        ``data.pipeline.device_prefetch`` copied ahead is used where it lies.
+        Labels of another integer type are cast on the device."""
         dtype = self.model.fc2.weight.dtype  # float32, unless the caller made the model double
-        points = torch.as_tensor(batch["points"]).to(self.device, dtype)
-        labels = torch.as_tensor(batch["labels"]).to(self.device).long()
-        weights = torch.as_tensor(batch["weights"]).to(self.device, dtype)
-        return points, labels, weights
+        return tuple(
+            torch.as_tensor(batch[key]).to(self.device, want)
+            for key, want in (("points", dtype), ("labels", torch.int64), ("weights", dtype))
+        )
 
     def train_step(self, batch: Mapping, generator: Optional[torch.Generator] = None) -> dict:
         """One optimizer step on ``batch``: points (B, N, D), labels (B, N), weights (B, N).
@@ -343,9 +349,24 @@ def save_checkpoint(path: str | pathlib.Path, trainer: Trainer) -> None:
     )
 
 
+def _load(path: str | pathlib.Path, map_location) -> dict:
+    if pathlib.Path(path).is_dir():
+        raise ValueError(
+            f"{path} is a directory: the port's checkpoints are single torch.save files (what "
+            "save_checkpoint writes); it cannot read the JAX package's orbax checkpoint directories"
+        )
+    return torch.load(path, map_location=map_location, weights_only=True)
+
+
 def restore_checkpoint(path: str | pathlib.Path, trainer: Trainer) -> None:
     """Load what ``save_checkpoint`` wrote into ``trainer``, onto its device."""
-    ckpt = torch.load(path, map_location=trainer.device, weights_only=True)
+    ckpt = _load(path, trainer.device)
     trainer.model.load_state_dict(ckpt["model"])
     trainer.optimizer.load_state_dict(ckpt["optimizer"])
     trainer.step = int(ckpt["step"])
+
+
+def load_model_state(path: str | pathlib.Path) -> dict[str, torch.Tensor]:
+    """The model ``state_dict`` of a checkpoint ``save_checkpoint`` wrote, on
+    the CPU: what a ``Predictor`` needs, without the optimizer's state."""
+    return _load(path, "cpu")["model"]

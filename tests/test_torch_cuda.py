@@ -1127,3 +1127,65 @@ def test_knn_tiles_kernel_ties_at_the_kth_distance_and_padding(cuda_device, k):
                     lo=torch.full((1, tiles), 384, dtype=torch.int32, device=cuda_device))  # 116 real columns
     _knn_tiles_both(refs[:, :130].contiguous(), queries, k, 128,
                     lo=torch.full((1, tiles), 128, dtype=torch.int32, device=cuda_device))  # 2 real columns
+
+
+# -- the host pipeline's copy to the card --------------------------------------
+
+
+def _train_batches(n, b=16, points=8192, seed=0):
+    rng = np.random.RandomState(seed)
+    return [
+        {"points": rng.rand(b, points, 6).astype(np.float32),
+         "labels": rng.randint(0, 9, (b, points)).astype(np.int32),
+         "weights": rng.rand(b, points).astype(np.float32)}
+        for _ in range(n)
+    ]
+
+
+def test_device_prefetch_batches_equal_their_host_batches(cuda_device):
+    """20 batches of the train step's size from a one-worker producer through
+    the pinned ring and the side stream, with the consumer's stream kept busy
+    between batches: a batch read before its copy ended, or a pinned buffer
+    refilled before its copy read it, would show as a wrong value. Each batch
+    is copied on the consumer's stream as it arrives, and every yielded
+    tensor is checked again after a synchronize."""
+    from pointnet2_tpu_torch.data.pipeline import BatchProducer, device_prefetch
+
+    host = _train_batches(20)
+    order = iter(range(10**6))
+    producer = BatchProducer(lambda: host[next(order) % len(host)], max_queue=4, num_workers=1)
+    work = torch.randn(2048, 2048, device=cuda_device)
+    yielded, copies = [], []
+    try:
+        batches = device_prefetch(producer, cuda_device, depth=2)
+        for _ in range(len(host)):
+            batch = next(batches)
+            copies.append({k: v.clone() for k, v in batch.items()})
+            yielded.append(batch)
+            for _ in range(8):
+                work = torch.tanh(work @ work) / 64
+    finally:
+        producer.stop()
+    torch.cuda.synchronize()
+    for got, copy, want in zip(yielded, copies, host, strict=True):
+        for k, v in want.items():
+            assert got[k].is_cuda and got[k].dtype == torch.from_numpy(v).dtype
+            assert np.array_equal(got[k].cpu().numpy(), v) and np.array_equal(copy[k].cpu().numpy(), v), k
+
+
+def test_trainer_to_device_keeps_a_batch_already_on_the_card(cuda_device):
+    from pointnet2_tpu_torch.config import Config
+    from pointnet2_tpu_torch.data.pipeline import device_prefetch
+    from pointnet2_tpu_torch.train import Trainer
+
+    cfg = Config(num_point=512, batch_size=2, l1_npoint=128, l2_npoint=64, l3_npoint=16, l4_npoint=8)
+    trainer = Trainer(cfg)
+    batch = next(device_prefetch(_train_batches(1, b=2, points=512), cuda_device))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # no host read in the hand-over
+    try:
+        points, labels, weights = trainer._to_device(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert points.data_ptr() == batch["points"].data_ptr() and weights.data_ptr() == batch["weights"].data_ptr()
+    assert labels.is_cuda and labels.dtype == torch.int64 and torch.equal(labels, batch["labels"].long())
