@@ -134,13 +134,37 @@ non-zero and prints no result):
    (medians over the steps after the first), beside the train phase's median
    (``Trainer.train_step`` fed by hand) and the host ms one train batch takes
    to sample with no other thread running, and predict's samples/s.
+8. Densify: ``cli.interpolate`` on fabricated validation scenes
+   (``tools.scenes.fabricate_dense``), the first a Semantic3D-like scan of
+   2 000 000 points with 250 000 labelled sparse points drawn from it, the
+   other five of 20 000 and 2 500: ``--engine device`` on the card (row 3
+   once a scene, then the vote on the device) and ``--engine native`` on the
+   host. The device engine equals its plain version (``ops.core.knn`` in
+   query chunks) bit for bit on a fixed subset of 65 536 points of the first
+   scene, and the native engine on >= 99.99 % of all points (float64 against
+   float32 distances: only near-ties of the 3rd and 4th neighbour may
+   differ; each mismatch's two distances are printed, up to 10). Row 3 is
+   held and timed at the subset's shape; the whole scene's kernel time and
+   the device engine's beside its bound, and both engines' seconds and
+   Mpoints/s from the CLI runs.
+9. KITTI: ``cli.kitti_predict --save`` on a fabricated drive of 3 sweeps of
+   120 000 points (``tools.scenes.write_drive``; the 60 x 20 m crop keeps
+   tens of thousands a frame) with a ``.pt`` of random weights at
+   ``semantic_no_color.json`` widths, exact and with ``--bq_window auto
+   --fp_window auto``: each frame's sample labelled by the Predictor and
+   densified on the card, the launch counts those of one chunk and one
+   densify a frame (and the calibration's FPS), the dense labels equal to
+   the plain path's (a plain Predictor on the sample the CLI drew, then the
+   plain densify) on >= 99.99 % of points; the per-stage timers of every
+   frame. Row 3 is held and timed at the first frame's densify shape.
 
 Output: one JSON line a kernel and shape, one for each driven path (predict,
-train, predict_windows, train_windows, cli, op_surface; the parity sweep's
-lines and the stage bench's lines inside the last), the ``nvidia-smi`` line,
-one ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
-Each path's launch counts are reset just before it and read just after (the
-CLI phase's three runs each apart); the ``kernels`` line sums them.
+train, predict_windows, train_windows, cli, op_surface, densify, kitti; the
+parity sweep's lines and the stage bench's lines inside op_surface), the
+``nvidia-smi`` line, one ``{"kernels": [...]}`` line, and last ``{"ok":
+true, "device": {...}}``. Each path's launch counts are reset just before it
+and read just after (the CLI phase's three runs and the KITTI phase's two
+each apart); the ``kernels`` line sums them.
 """
 
 from __future__ import annotations
@@ -148,6 +172,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import json
+import os
 import pathlib
 import statistics
 import sys
@@ -158,7 +183,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pointnet2_tpu_torch import convert, ops
+from pointnet2_tpu_torch import convert, native, ops
+from pointnet2_tpu_torch.cli import interpolate as cli_interpolate
+from pointnet2_tpu_torch.cli import kitti_predict as cli_kitti
 from pointnet2_tpu_torch.cli import predict as cli_predict
 from pointnet2_tpu_torch.cli import train as cli_train
 from pointnet2_tpu_torch.config import Config
@@ -167,14 +194,14 @@ from pointnet2_tpu_torch.data.semantic3d import SemanticDataset
 from pointnet2_tpu_torch.infer import Predictor, full_float32
 from pointnet2_tpu_torch.models.pointnet2_seg import SA_MLPS
 from pointnet2_tpu_torch.ops.calibrate import calibrate_model_windows
-from pointnet2_tpu_torch.ops import core, cuda
+from pointnet2_tpu_torch.ops import core, cuda, densify
 from pointnet2_tpu_torch.ops.cuda import ballquery as cuda_ballquery
 from pointnet2_tpu_torch.ops.cuda import build
 from pointnet2_tpu_torch.ops.cuda import fps as cuda_fps
 from pointnet2_tpu_torch.ops.cuda import interpolate as cuda_interp
 from pointnet2_tpu_torch.ops.cuda import wingather as cuda_gather
 from pointnet2_tpu_torch.tools import op_bench, parity, scenes, stage_bench
-from pointnet2_tpu_torch.train import Trainer, load_model_state, restore_checkpoint
+from pointnet2_tpu_torch.train import Trainer, load_model_state, restore_checkpoint, save_checkpoint
 from pointnet2_tpu_torch.train_profile import train_batch
 from pointnet2_tpu_torch.utils.bench import bound, card_line, cuda_ms, deterministic_algorithms, device_ms
 
@@ -233,6 +260,14 @@ FEW = dict(reps=3, inner=1, warmup=1)
 # Past a block's shared memory: N // 4 = 16384 columns > the 14528 that fit.
 WIDE_N, WIDE_M, WIDE_B = 65536, 1024, 2
 CLI_SAMPLES, CLI_PREDICT_BATCH = 16, 8
+# The densify phase: the first validation scene at the size of a Semantic3D
+# scan's crop, with a sparse cloud of predict's samples' size; the other five smaller.
+DENSE_POINTS, SPARSE_POINTS = 2_000_000, 250_000
+SMALL_DENSE, SMALL_SPARSE = 20_000, 2_500
+DENSIFY_SUBSET = 65_536  # dense points held bit for bit against the plain version
+NATIVE_AGREEMENT = 0.9999
+# The KITTI phase: a drive of HDL-64E-sized sweeps.
+KITTI_FRAMES, KITTI_SWEEP_POINTS = 3, 120_000
 # The kernels' launches a train step and an eval chunk of CHUNK clouds, without
 # and with the windows (SA1 and FP4 engage; the other levels take the exact kernels).
 STEP_LAUNCHES = {name: 4 for name in (*GEOMETRY_KERNELS, *INTERPOLATE_KERNELS)}
@@ -893,7 +928,7 @@ def _one_step(cfg: Config, impl, batch: dict, seed: int, **windows):
     of two paths; the timed steps run without them)."""
     with deterministic_algorithms():
         trainer = Trainer(cfg, ops_impl=impl, dropout_rate=0.0, device=DEVICE, **windows)
-        trainer.init_state(seed)
+        trainer.init_state(seed, bn_stats="random")
         loss = trainer.train_step(batch)["loss"]
         grads = {name: p.grad.clone() for name, p in trainer.model.named_parameters()}
         torch.cuda.synchronize()
@@ -919,7 +954,7 @@ def train_phase(cfg: Config, seed: int, card: str) -> dict:
     """The port's second main path: Trainer.train_step on full-width batches."""
     batches = [train_batch(cfg, BATCH, seed + 200 + i) for i in range(1 + TRAIN_STEPS)]
     trainer = Trainer(cfg, device=DEVICE)
-    trainer.init_state(seed)
+    trainer.init_state(seed, bn_stats="random")
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     stats_before = {k: v.clone() for k, v in trainer.model.named_buffers()}
     trainer.train_step(batches[0], generator=gen)  # warm-up: first launches, allocator, cuBLAS
@@ -957,7 +992,7 @@ def train_phase(cfg: Config, seed: int, card: str) -> dict:
     del step, again
 
     accum = Trainer(cfg, accum_steps=ACCUM, device=DEVICE)
-    accum.init_state(seed)
+    accum.init_state(seed, bn_stats="random")
     accum.train_step(batches[0], generator=gen)
     torch.cuda.synchronize()
     cuda.reset_launches()
@@ -1001,7 +1036,7 @@ def train_phase(cfg: Config, seed: int, card: str) -> dict:
 
 def predict_phase(cfg: Config, requests: int, batch: int, seed: int, card: str) -> dict:
     """The port's main path: Predictor.predict_step on full-width requests."""
-    sd = convert.from_flax_variables(convert.init_variables(cfg, num_classes=9, seed=seed))
+    sd = convert.from_flax_variables(convert.init_variables(cfg, num_classes=9, seed=seed, bn_stats="random"))
     predictor = Predictor(cfg, sd, num_classes=9, infer_chunk=CHUNK, device=DEVICE)
     inputs = [clouds(batch, cfg, seed + 1 + i) for i in range(requests)]
     predictor.predict_step(inputs[0])  # warm-up: first launches, allocator
@@ -1058,7 +1093,7 @@ def predict_windows_phase(cfg: Config, requests: int, batch: int, seed: int, car
     """The calibrated-window predict path: ``Predictor(bq_window, fp_window)``
     through ``predict_step_checked``, against the no-window kernel path on the
     same requests, timed in turns; and a too-small window that must say so."""
-    sd = convert.from_flax_variables(convert.init_variables(cfg, num_classes=9, seed=seed))
+    sd = convert.from_flax_variables(convert.init_variables(cfg, num_classes=9, seed=seed, bn_stats="random"))
     windowed = Predictor(cfg, sd, infer_chunk=CHUNK, device=DEVICE, bq_window=BQ_WINDOW, fp_window=FP_WINDOW)
     exact = Predictor(cfg, sd, infer_chunk=CHUNK, device=DEVICE)
     inputs = [clouds(batch, cfg, seed + 1 + i) for i in range(requests)]
@@ -1132,7 +1167,7 @@ def train_windows_phase(cfg: Config, seed: int, card: str) -> dict:
     windowed = Trainer(cfg, device=DEVICE, bq_window=BQ_WINDOW, fp_window=FP_WINDOW)
     exact = Trainer(cfg, device=DEVICE)
     for trainer in (windowed, exact):
-        trainer.init_state(seed)
+        trainer.init_state(seed, bn_stats="random")
         trainer.train_step(batches[0], generator=torch.Generator(device=DEVICE).manual_seed(seed))
     torch.cuda.synchronize()
 
@@ -1345,6 +1380,239 @@ def cli_phase(seed: int, card: str, train_median_ms: float) -> dict:
     })
     return {**{name: run["launches"] for name, run in runs.items()}, "cli_predict": launches}
 
+def chunked_plain_knn(xyz1: torch.Tensor, xyz2: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``ops.core.knn`` over the queries in chunks, as the densify engine's plain
+    version takes them: the plain kNN at shapes whose (Nq, M) matrix would not fit."""
+    step = densify.device_chunk(k, xyz1.shape[1], kernel=False)
+    parts = [core.knn(xyz1, xyz2[:, s : s + step], k) for s in range(0, xyz2.shape[1], step)]
+    return torch.cat([d for d, _ in parts], 1), torch.cat([i for _, i in parts], 1)
+
+
+def densify_knn_row(report: Report, label: str, sparse: torch.Tensor, queries: torch.Tensor) -> None:
+    """Row 3 at a densify shape (one cloud, k = 3) against its chunked plain
+    version, with the planned route and the device time; the plain version
+    timed with 3 single calls."""
+    sparse, queries = sparse[None].contiguous(), queries[None].contiguous()
+    (m, nq), k = (sparse.shape[1], queries.shape[1]), 3
+    d2, idx = ops.knn(sparse, queries, k, impl="cuda")
+    p_d2, p_idx = chunked_plain_knn(sparse, queries, k)
+    report.add(
+        "knn", 1, f"{label} Nq={nq} M={m} k={k}",
+        lambda: ops.knn(sparse, queries, k, impl="cuda"),
+        lambda: chunked_plain_knn(sparse, queries, k),
+        *op_bench.work_knn(1, nq, m, k),
+        err=max_abs(d2, p_d2),
+        match=torch.equal(idx, p_idx) and torch.equal(d2, p_d2),
+        plain_timing=FEW,
+        info={"plan": cuda_knn.plan(1, nq, m, k, cuda_ballquery.num_sms(sparse.device.index)),
+              "device_ms": device_ms(lambda: ops.knn(sparse, queries, k, impl="cuda"), "knn", calls=3)},
+    )
+
+
+def _host_seconds(fn, runs: int = 2) -> list[float]:
+    """Host seconds of each of ``runs`` calls of ``fn``, the device synchronised after each."""
+    out = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def densify_phase(seed: int, card: str, report: Report) -> dict:
+    """``cli.interpolate`` as a user runs it, on fabricated validation scenes
+    (``tools.scenes.fabricate_dense``): the first of ``DENSE_POINTS`` raw points
+    with ``SPARSE_POINTS`` labelled sparse ones, the other five smaller.
+    ``--engine device`` on the card (launch counts reset just before it and
+    read just after: row 3 once a scene), then ``--engine native`` on the
+    host. The device engine's labels equal its plain version's bit for bit on
+    a fixed subset of ``DENSIFY_SUBSET`` points of the first scene, on the
+    card, and agree with the native engine's on >= 99.99 % of all points (the
+    native engine computes distances in float64, the kernel in float32, so
+    only near-ties of the 3rd and 4th neighbour may differ: each mismatch's
+    two distances are printed, up to 10). Row 3 is held and timed at the
+    first scene's shapes, the whole scene's kernel time beside its bound, and
+    both engines are run again on the first scene by the host clock."""
+    if native.get_lib() is None:
+        logs = {p.name: p.read_text()[-400:] for p in native.BUILD_DIR.glob("libpn2native_*.log")}
+        raise AssertionError(f"the native densify engine could not be built: {logs}")
+    dense_sizes = (DENSE_POINTS,) + (SMALL_DENSE,) * 5
+    sparse_sizes = (SPARSE_POINTS,) + (SMALL_SPARSE,) * 5
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_densify_") as tmp:
+        tmp = pathlib.Path(tmp)
+        for name in ("gt", "sparse"):
+            (tmp / name).mkdir()
+        scenes.fabricate_dense(tmp / "gt", tmp / "sparse", seed, "validation", dense_sizes, sparse_sizes)
+        common = ["--set", "validation", "--sparse_dir", str(tmp / "sparse"), "--gt_dir", str(tmp / "gt")]
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        on_card = cli_interpolate.main(common + ["--engine", "device", "--dense_dir", str(tmp / "device")])
+        launches = dict(cuda.LAUNCHES)
+        chunk = densify.device_chunk(3, SPARSE_POINTS, kernel=True)
+        _expect_launches(launches, {"knn": sum(-(-n // chunk) for n in dense_sizes)},
+                         f"cli.interpolate --engine device on {len(dense_sizes)} scenes")
+        on_host = cli_interpolate.main(common + ["--engine", "native", "--dense_dir", str(tmp / "native")])
+        if on_card["points"] != list(dense_sizes) or on_host["points"] != list(dense_sizes):
+            raise AssertionError(f"densified {on_card['points']} and {on_host['points']} points")
+
+        mismatches, total, first = [], 0, None
+        for prefix, (device_labels, _), (native_labels, _) in zip(on_card["scenes"], on_card["outputs"],
+                                                                   on_host["outputs"]):
+            got, want = load_labels(device_labels), load_labels(native_labels)
+            total += len(got)
+            sparse_cloud = read_pcd(tmp / "sparse" / f"{prefix}.pcd").points
+            dense_cloud = read_pcd(tmp / "gt" / f"{prefix}.pcd").points
+            sparse = torch.from_numpy(sparse_cloud.astype(np.float32)).to(DEVICE)
+            for i in np.flatnonzero(got != want):
+                if len(mismatches) < 10:
+                    q = torch.from_numpy(dense_cloud[i : i + 1].astype(np.float32)).to(DEVICE)
+                    d2 = core.knn(sparse[None], q[None], 4)[0][0, 0].cpu().numpy()
+                    mismatches.append({"scene": prefix, "point": int(i), "third_d2": float(d2[2]),
+                                       "fourth_d2": float(d2[3])})
+                else:
+                    mismatches.append({"scene": prefix, "point": int(i)})
+            if first is None:
+                first = (sparse, load_labels(tmp / "sparse" / f"{prefix}.labels"), dense_cloud, sparse_cloud)
+        if len(mismatches) > (1 - NATIVE_AGREEMENT) * total:
+            raise AssertionError(f"device and native engines disagree on {len(mismatches)} of {total} points: "
+                                 f"{mismatches[:10]}")
+
+        sparse, sparse_labels, dense_cloud, sparse_cloud_first = first
+        labels_dev = torch.from_numpy(sparse_labels).to(DEVICE)
+        dense = torch.from_numpy(dense_cloud.astype(np.float32)).to(DEVICE)
+        pick = torch.from_numpy(np.sort(np.random.RandomState(seed).choice(len(dense_cloud), DENSIFY_SUBSET,
+                                                                           replace=False))).to(DEVICE)
+        subset = dense[pick].contiguous()
+        got, got_colors = densify.densify_labels_device(sparse, labels_dev, subset, 3, device=DEVICE)
+        want, want_colors = densify.densify_labels_device(sparse, labels_dev, subset, 3, device=DEVICE, impl="torch")
+        if not (torch.equal(got, want) and torch.equal(got_colors, want_colors)):
+            raise AssertionError(f"the device engine differs from its plain version on "
+                                 f"{int((got != want).sum())} of {DENSIFY_SUBSET} points")
+        engine_ms = cuda_ms(lambda: densify.densify_labels_device(sparse, labels_dev, dense, 3, device=DEVICE),
+                            **FEW)
+        # The CLI's call of each engine on the first scene was the process's first at
+        # that size; the same calls again, from the host arrays, by the host clock.
+        host_args = (sparse_cloud_first, sparse_labels, dense_cloud)
+        warm_seconds = {engine: _host_seconds(lambda: densify.densify_labels(*host_args, 3, engine, device=DEVICE))
+                        for engine in ("device", "native")}
+        scene_kernel_ms = cuda_ms(lambda: ops.knn(sparse[None], dense[None], 3, impl="cuda"), **FEW)
+        densify_knn_row(report, "densify subset", sparse, subset)
+    scene_bound_ms, scene_bound_by = bound(*op_bench.work_knn(1, DENSE_POINTS, SPARSE_POINTS, 3))
+    emit({
+        "phase": "densify",
+        "scenes": len(dense_sizes),
+        "dense_points": list(dense_sizes),
+        "sparse_points": list(sparse_sizes),
+        "device_seconds": on_card["seconds"],
+        "native_seconds": on_host["seconds"],
+        "device_mpoints_per_s": DENSE_POINTS / on_card["seconds"][0] / 1e6,
+        "native_mpoints_per_s": DENSE_POINTS / on_host["seconds"][0] / 1e6,
+        "warm_seconds": warm_seconds,
+        "engine_on_device_ms": engine_ms,
+        "scene_kernel_ms": scene_kernel_ms,
+        "scene_bound_ms": scene_bound_ms,
+        "scene_bound_by": scene_bound_by,
+        "scene_pairs": DENSE_POINTS * SPARSE_POINTS,
+        "native_mismatches": len(mismatches),
+        "native_agreement": 1 - len(mismatches) / total,
+        "mismatch_distances": mismatches[:10],
+        "subset_bit_equal": True,
+        "launches": launches,
+        "phase_seconds": time.perf_counter() - t0,
+        "card": card,
+    })
+    return launches
+
+
+def _kitti_expected(frames: int, windows: bool, launches: dict) -> None:
+    """Each frame: one chunk of one cloud (FPS and three_interpolate 4 times,
+    the four ball queries exact or through the fused window, the four FP 3-NN
+    exact or windowed), then the densify's one launch of row 3; with ``auto``
+    windows also the calibration's FPS, 4 levels of min(8, frames) samples."""
+    got = {name: launches.get(name, 0) for name in KERNELS}
+    calibration = 4 * min(8, frames) if windows else 0
+    totals = {"fps_centroids": got["fps_centroids"] - calibration, "three_interpolate": got["three_interpolate"],
+              "ball": got["ball_query"] + got["ball_query_sliced_pos"], "three_nn": got["knn"] + got["knn_sliced"]}
+    want_total = {"fps_centroids": 4, "three_interpolate": 4, "ball": 4, "three_nn": 5}
+    extra = {name for name, n in got.items() if n and name not in (
+        "fps_centroids", "three_interpolate", "ball_query", "ball_query_sliced_pos", "window_gather", "knn",
+        "knn_sliced")}
+    if (totals != {k: frames * v for k, v in want_total.items()} or extra
+            or got["window_gather"] != got["ball_query_sliced_pos"]
+            or (not windows and (got["ball_query_sliced_pos"] or got["knn_sliced"]))):
+        raise AssertionError(f"cli.kitti_predict over {frames} frames{' with windows' if windows else ''} "
+                             f"launched {launches}")
+
+
+def kitti_phase(seed: int, card: str, report: Report) -> dict:
+    """``cli.kitti_predict --save`` as a user runs it, on a fabricated drive
+    (``tools.scenes.write_drive``: ``KITTI_FRAMES`` sweeps of
+    ``KITTI_SWEEP_POINTS`` points) with a ``.pt`` of random weights at
+    ``semantic_no_color.json`` widths (``bn_stats="random"``), once exact and
+    once with ``--bq_window auto --fp_window auto``, each with its launch
+    counts reset just before it and read just after. Every frame's dense
+    labels, written by the CLI, agree on >= 99.99 % of points with the plain
+    path on the card: a plain ``Predictor`` (no windows) on the sample the CLI
+    drew, then the densify engine's plain version. Row 3 is held and timed at
+    the first frame's densify shape."""
+    cfg_path = ROOT / "semantic_no_color.json"
+    cfg = Config.from_json(cfg_path)
+    t0 = time.perf_counter()
+    cwd = pathlib.Path.cwd()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kitti_") as tmp:
+        tmp = pathlib.Path(tmp)
+        root = scenes.write_drive(tmp / "drive", seed, KITTI_FRAMES, KITTI_SWEEP_POINTS)
+        trainer = Trainer(cfg, device=DEVICE)
+        trainer.init_state(seed, bn_stats="random")
+        save_checkpoint(tmp / "model.pt", trainer)
+        del trainer
+        plain = Predictor(cfg, load_model_state(tmp / "model.pt"), device=DEVICE, impl="torch")
+        runs, paths = {}, {}
+        for name, windows in (("kitti", []), ("kitti_windows", ["--bq_window", "auto", "--fp_window", "auto"])):
+            (tmp / name).mkdir()
+            os.chdir(tmp / name)
+            try:
+                torch.cuda.synchronize()
+                cuda.reset_launches()
+                s = time.perf_counter()
+                summary = cli_kitti.main(["--ckpt", str(tmp / "model.pt"), "--kitti_root", str(root),
+                                          "--config_file", str(cfg_path), "--save"] + windows)
+                seconds = time.perf_counter() - s
+                launches = dict(cuda.LAUNCHES)
+            finally:
+                os.chdir(cwd)
+            _kitti_expected(KITTI_FRAMES, bool(windows), launches)
+            agree, frames = [], summary["frames"]
+            for frame in frames:
+                stem = tmp / name / "result" / "dense" / frame["name"][-4:]
+                dense = read_pcd(stem.with_suffix(".pcd")).points.astype(np.float32)
+                written = load_labels(stem.with_suffix(".labels"))
+                sparse = plain.predict_step(frame["centered"][None].astype(np.float32)).reshape(-1)
+                want, _ = densify.densify_labels_device(frame["raw"].astype(np.float32), sparse, dense, 3,
+                                                        device=DEVICE, impl="torch")
+                if written.shape != (frame["dense_points"],):
+                    raise AssertionError(f"{stem}.labels: {written.shape} labels for {frame['dense_points']} points")
+                agree.append(float((written == want.cpu().numpy()).mean()))
+            if min(agree) < 0.9999:
+                raise AssertionError(f"{name}: dense labels agree with the plain path on {agree} of each frame")
+            runs[name] = {
+                "bq_window": summary["bq_window"], "fp_window": summary["fp_window"], "seconds": seconds,
+                "frames": [{"name": f["name"], "dense_points": f["dense_points"], "timer": f["timer"]}
+                           for f in frames],
+                "label_agreement": agree, "launches": launches,
+            }
+            paths[name] = launches
+        first = summary["frames"][0]
+        dense = torch.from_numpy(
+            read_pcd(tmp / "kitti_windows" / "result" / "dense" / f"{first['name'][-4:]}.pcd").points
+        ).to(DEVICE, torch.float32)
+        densify_knn_row(report, "kitti densify", torch.from_numpy(first["raw"]).to(DEVICE, torch.float32), dense)
+    emit({"phase": "kitti", "frames": KITTI_FRAMES, "sweep_points": KITTI_SWEEP_POINTS, **runs,
+          "phase_seconds": time.perf_counter() - t0, "card": card})
+    return paths
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1391,6 +1659,10 @@ def main(argv=None) -> int:
     paths.update(cli_phase(SEED, card, train_median_ms))
     torch.cuda.empty_cache()
     paths["op_surface"] = op_surface_phase(card)
+    torch.cuda.empty_cache()
+    paths["densify"] = densify_phase(SEED, card, report)
+    torch.cuda.empty_cache()
+    paths.update(kitti_phase(SEED, card, report))
     kernels = report.kernels_line(paths)
 
     if args.out is not None:

@@ -1,12 +1,16 @@
-"""The port's command-line entry points, counterparts of the root ``train.py`` and ``predict.py``.
+"""The port's command-line entry points, counterparts of the root ``train.py``,
+``predict.py``, ``interpolate.py`` and ``kitti_predict.py``.
 
     python -m pointnet2_tpu_torch.cli.train --config_file semantic.json
     python -m pointnet2_tpu_torch.cli.predict --ckpt log/semantic/model.pt
+    python -m pointnet2_tpu_torch.cli.interpolate --set validation [--engine device]
+    python -m pointnet2_tpu_torch.cli.kitti_predict --ckpt log/semantic/model.pt --kitti_root DIR --save
 
-Both take the JAX scripts' flags by the same names, and ``--device``: CUDA
+Each takes the JAX script's flags by the same names, and ``--device``: CUDA
 by default, which must be present (``--device cpu`` runs the plain versions
-of the operators, for tests). A flag of a mode the port does not have yet
-raises ``NotImplementedError`` naming the ROADMAP item that will bring it.
+of the operators, for tests; ``interpolate`` uses it for ``--engine device``
+only). A flag of a mode the port does not have yet raises
+``NotImplementedError`` naming the ROADMAP item that will bring it.
 """
 
 from __future__ import annotations

@@ -159,13 +159,12 @@ def _train(flags: argparse.Namespace, cfg: Config, device: torch.device, logger:
     trainer = Trainer(
         cfg, num_classes=train_ds.num_classes, accum_steps=flags.accum_steps,
         hoist_geometry=bool(flags.hoist_geometry), device=device,
-        bq_window=flags.bq_window, fp_window=flags.fp_window,
+        bq_window=flags.bq_window, fp_window=flags.fp_window, dropout_seed=(flags.seed or 0) + 1,
     )
     trainer.init_state(flags.seed or 0)
     if flags.resume:
         restore_checkpoint(os.path.abspath(flags.resume), trainer)
         logger.log(f"resumed from {flags.resume} at step {trainer.step}")
-    dropout = torch.Generator(device=device).manual_seed((flags.seed or 0) + 1)
 
     num_train_batches = train_ds.get_num_batches(cfg.batch_size)
     num_val_batches = val_ds.get_num_batches(cfg.batch_size)
@@ -223,7 +222,7 @@ def _train(flags: argparse.Namespace, cfg: Config, device: torch.device, logger:
                 started = t0
                 batch = next(train_iter)
                 wait_ms.append((time.perf_counter() - t0) * 1e3)
-                metrics = trainer.train_step(batch, generator=dropout)
+                metrics = trainer.train_step(batch)
                 dev_losses.append(metrics["loss"])
                 dev_cm = metrics["confusion"] if dev_cm is None else dev_cm + metrics["confusion"]
                 if "window_ok" in metrics:

@@ -13,7 +13,9 @@ port's ``PointNet2SemSeg`` by name:
 Every leaf is consumed exactly once: a missing or a leftover leaf raises.
 ``to_flax_variables`` is the inverse, from a ``state_dict`` back to the tree.
 ``init_variables`` builds a tree in the same flax layout from a seed, so a run
-needs neither JAX nor a checkpoint.
+needs neither JAX nor a checkpoint: with flax's moving statistics (mean 0,
+variance 1) by default, as a fresh JAX ``init_state`` has them, or with
+``bn_stats="random"`` ones for checks in which BatchNorm must do real work.
 """
 
 from __future__ import annotations
@@ -110,13 +112,22 @@ def to_flax_variables(state_dict: Mapping[str, torch.Tensor]) -> dict:
     return tree
 
 
-def init_variables(cfg: Config, num_classes: int = 9, seed: int = 0) -> dict:
+BN_STATS = ("flax", "random")
+
+
+def init_variables(cfg: Config, num_classes: int = 9, seed: int = 0, bn_stats: str = "flax") -> dict:
     """Seeded weights in the flax layout of ``PointNet2SemSeg(...).init``.
 
     Xavier-uniform kernels (as the flax model initialises them), zero biases,
-    unit scales, and moving statistics that are not the identity (means
-    N(0, 0.1), variances U(0.5, 2)), so BatchNorm does real work.
+    unit scales, and moving statistics as ``bn_stats`` asks: ``"flax"``, the
+    flax model's (means 0, variances 1), or ``"random"`` ones that are not the
+    identity (means N(0, 0.1), variances U(0.5, 2)), so that BatchNorm does
+    real work. The random statistics are drawn either way, so both give the
+    same kernels for a seed.
     """
+    if bn_stats not in BN_STATS:
+        raise ValueError(f"bn_stats must be one of {BN_STATS}, got {bn_stats!r}")
+    flax_stats = bn_stats == "flax"
     rng = np.random.RandomState(seed)
     tree: dict = {}
     for key, tensor in _template(bool(cfg.use_color), num_classes).state_dict().items():
@@ -130,8 +141,12 @@ def init_variables(cfg: Config, num_classes: int = 9, seed: int = 0) -> dict:
             value = np.ones(shape)
         elif leaf == "mean":
             value = rng.normal(0.0, 0.1, shape)
+            if flax_stats:
+                value = np.zeros(shape)
         elif leaf == "var":
             value = rng.uniform(0.5, 2.0, shape)
+            if flax_stats:
+                value = np.ones(shape)
         else:  # bias, b0
             value = np.zeros(shape)
         node = tree

@@ -1,9 +1,9 @@
-"""Semantic3D data on the host: file I/O, sampling, augmentation, voxels, the batch pipeline.
+"""Semantic3D and KITTI data on the host: file I/O, sampling, augmentation, voxels, the batch pipeline.
 
 Own copies of the numpy modules of ``pointnet2_tpu/data/`` (the port imports
-nothing of the JAX package), and ``pipeline``, rewritten for PyTorch: the
-sampler threads and the copy of each batch to the card ahead of its step.
-``kitti`` is not ported yet (ROADMAP queue 1 item 6).
+nothing of the JAX package), ``kitti`` among them, and ``pipeline``,
+rewritten for PyTorch: the sampler threads and the copy of each batch to the
+card ahead of its step.
 """
 
 from pointnet2_tpu_torch.data.io import (

@@ -10,9 +10,9 @@ and the per-voxel *trace* (which source points landed in it) drives
 majority-vote label pooling (np.bincount().argmax() per voxel — ties resolve
 to the smallest label, same as the reference).
 
-Implemented as a vectorized NumPy hash-grid (no per-voxel Python loop). The
-JAX package's native C++ engine (``native/``) has no counterpart here yet:
-ROADMAP queue 1 item 6.
+Implemented as a vectorized NumPy hash-grid (no per-voxel Python loop); the
+native C++ engine in ``native/`` provides the same binning for huge clouds
+(``voxel_assign``, bound by ``pointnet2_tpu_torch.native``).
 """
 
 from __future__ import annotations

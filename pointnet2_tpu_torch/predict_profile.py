@@ -3,7 +3,7 @@
     python -m pointnet2_tpu_torch.predict_profile [--bq_window W] [--fp_window W] [--out FILE]
 
 Builds the same ``Predictor`` as ``chip_smoke.py`` (full ``semantic.json``
-width, weights from ``convert.init_variables(seed=0)``; with the calibrated
+width, weights from ``convert.init_variables(seed=0, bn_stats="random")``; with the calibrated
 windows given, through ``predict_step_checked``), answers one warm-up
 request, then profiles 3 requests of 16 clouds with CPU and CUDA
 activities. Prints one JSON object: the wall time of the window, the device
@@ -108,7 +108,7 @@ def main(argv=None) -> int:
         return 1
 
     cfg = Config.from_json(ROOT / "semantic.json")
-    sd = convert.from_flax_variables(convert.init_variables(cfg, num_classes=9, seed=0))
+    sd = convert.from_flax_variables(convert.init_variables(cfg, num_classes=9, seed=0, bn_stats="random"))
     predictor = Predictor(cfg, sd, infer_chunk=8, bq_window=args.bq_window, fp_window=args.fp_window)
     step = predictor.predict_step_checked if args.bq_window or args.fp_window else predictor.predict_step
     rng = np.random.RandomState(1)

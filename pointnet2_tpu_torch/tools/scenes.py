@@ -1,4 +1,4 @@
-"""Fabricated Semantic3D scenes for the CLIs, and the windows their seeded batches need.
+"""Fabricated Semantic3D scenes and KITTI drives for the CLIs, and the windows their seeded batches need.
 
     python -m pointnet2_tpu_torch.tools.scenes [--seed 0] [--device cpu]
 
@@ -11,6 +11,13 @@ the 5 x 5 m of a corner, and the sampler thins each at random: a box with
 fewer points repeats its lowest-x points, a step in density along x that
 needs wider calibrated windows than the data's. ``chip_smoke.py``'s CLI
 phase trains and predicts on these scenes.
+
+``fabricate_dense`` writes what ``cli.interpolate`` reads for a split: each
+scene's raw dense cloud and its labels (``gt_dir``) and a sparse labelled
+cloud (``sparse_dir``), a subset of the dense points, as ``cli.predict``'s
+samples are. ``write_drive`` writes a KITTI raw drive (Velodyne scans,
+timestamps, OXTS packets, a calibration file) in the layout
+``data.kitti`` reads, with scans shaped like an HDL-64E sweep.
 
 ``main`` draws the batches that one epoch of ``cli.train --seed S`` draws
 (one sampler thread, the first to draw from a fresh dataset a split: the
@@ -35,7 +42,12 @@ import torch
 
 from pointnet2_tpu_torch.config import Config
 from pointnet2_tpu_torch.data.io import write_labels, write_pcd
-from pointnet2_tpu_torch.data.semantic3d import SemanticDataset, train_file_prefixes, validation_file_prefixes
+from pointnet2_tpu_torch.data.semantic3d import (
+    SemanticDataset,
+    map_name_to_file_prefixes,
+    train_file_prefixes,
+    validation_file_prefixes,
+)
 from pointnet2_tpu_torch.infer import resolve_device
 from pointnet2_tpu_torch.ops import fps_centroids
 from pointnet2_tpu_torch.ops.calibrate import required_bq_window, required_fp_window
@@ -55,6 +67,84 @@ def fabricate(data_dir: pathlib.Path, seed: int) -> None:
         labels = 1 + (pts[:, 2] / SCENE_M[2] * 4).astype(np.int64) + 4 * (pts[:, 0] > SCENE_M[0] / 2)
         write_pcd(data_dir / f"{prefix}.pcd", pts, rng.rand(n, 3))
         write_labels(data_dir / f"{prefix}.labels", labels)
+
+
+def dense_scene(rng: np.random.RandomState, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """A Semantic3D-like outdoor scan of ``n`` points and labels that follow
+    space: 60 % ground over 60 x 60 m (man-made terrain on one half, natural
+    on the other), the rest in 12 boxes of buildings, vegetation, hard scape
+    and cars, each box's points on its faces. No two points coincide."""
+    ground = int(0.6 * n)
+    pts = np.empty((n, 3))
+    labels = np.empty(n, np.int64)
+    pts[:ground, :2] = rng.rand(ground, 2) * 60.0
+    pts[:ground, 2] = rng.randn(ground) * 0.05
+    labels[:ground] = np.where(pts[:ground, 0] < 30.0, 1, 2)
+    boxes = rng.rand(12, 6) * [50.0, 50.0, 0.0, 8.0, 8.0, 12.0] + [2.0, 2.0, 0.0, 1.0, 1.0, 1.0]
+    box_labels = np.array([5, 3, 4, 6, 8, 5, 3, 4, 6, 8, 5, 3])
+    which = rng.randint(0, 12, n - ground)
+    lo, size = boxes[which, :3], boxes[which, 3:]
+    local = rng.rand(n - ground, 3) * size
+    face = rng.randint(0, 3, n - ground)  # pin one coordinate to a face of the box
+    side = rng.rand(n - ground) < 0.5
+    rows = np.arange(n - ground)
+    local[rows, face] = np.where(side, 0.0, size[rows, face]) + rng.randn(n - ground) * 0.02
+    pts[ground:] = lo + local
+    labels[ground:] = box_labels[which]
+    return pts, labels
+
+
+def fabricate_dense(gt_dir: pathlib.Path, sparse_dir: pathlib.Path, seed: int, split: str,
+                    dense_points: tuple[int, ...], sparse_points: tuple[int, ...]) -> None:
+    """For the i-th scene of ``split``: ``dense_points[i]`` raw points with
+    colours and labels in ``gt_dir``, and ``sparse_points[i]`` of them, drawn
+    without repeats, with their labels in ``sparse_dir``."""
+    rng = np.random.RandomState(seed)
+    for prefix, n, m in zip(map_name_to_file_prefixes[split], dense_points, sparse_points, strict=True):
+        pts, labels = dense_scene(rng, n)
+        write_pcd(gt_dir / f"{prefix}.pcd", pts, rng.rand(n, 3))
+        write_labels(gt_dir / f"{prefix}.labels", labels)
+        pick = rng.choice(n, m, replace=False)
+        write_pcd(sparse_dir / f"{prefix}.pcd", pts[pick])
+        write_labels(sparse_dir / f"{prefix}.labels", labels[pick])
+
+
+def write_drive(root: pathlib.Path, seed: int, frames: int, points: int,
+                date: str = "2011_09_26", drive: str = "0095") -> pathlib.Path:
+    """A KITTI raw drive under ``root``: ``frames`` scans of ``points`` points
+    (x y z reflectance, float32), three quarters on the road around the car
+    (z = -1.73 m, the sensor's height, at ranges of 3 m plus an exponential of
+    15 m mean, at most 80 m: a sweep's rings crowd near the car) and a quarter
+    on objects up to 2.5 m high; about 70 000 of 120 000 fall in the 60 x 20 m
+    crop of ``data.kitti``. The timestamps, OXTS packets and
+    ``calib_imu_to_velo.txt`` of ``tests/test_kitti.py``'s drive. Returns ``root``."""
+    rng = np.random.RandomState(seed)
+    base = root / date / f"{date}_drive_{drive}_sync"
+    velo = base / "velodyne_points" / "data"
+    velo.mkdir(parents=True)
+    oxts = base / "oxts" / "data"
+    oxts.mkdir(parents=True)
+    road = int(0.75 * points)
+    for i in range(frames):
+        r = np.minimum(3.0 + rng.exponential(15.0, points), 80.0)
+        theta = rng.uniform(-np.pi, np.pi, points)
+        scan = np.empty((points, 4), np.float32)
+        scan[:, 0], scan[:, 1] = r * np.cos(theta), r * np.sin(theta)
+        scan[:road, 2] = -1.73 + rng.randn(road) * 0.03
+        scan[road:, 2] = rng.uniform(-1.73, 2.5, points - road)
+        scan[:, 3] = rng.rand(points)
+        scan.tofile(velo / f"{i:010d}.bin")
+        packet = np.zeros(30)
+        packet[:3] = 49.011 + i * 1e-5, 8.417 + i * 1e-5, 112.8
+        packet[5] = 0.1 * i
+        np.savetxt(oxts / f"{i:010d}.txt", packet[None], fmt="%.9f")
+    with open(base / "velodyne_points" / "timestamps.txt", "w") as f:
+        for i in range(frames):
+            f.write(f"2011-09-26 13:02:{25 + i:02d}.5943603{i}5\n")
+    (root / date / "calib_imu_to_velo.txt").write_text(
+        "calib_time: 25-May-2012 16:47:16\nR: 1 0 0 0 1 0 0 0 1\nT: 0.1 0.2 0.3\n"
+    )
+    return root
 
 
 def window_needs(cfg: Config, seed: int, device: torch.device) -> dict:

@@ -17,6 +17,10 @@ Counterpart of ``pointnet2_tpu/train/trainer.py``:
   ``momentum**(1/G)`` so that they advance as in one step). With
   ``hoist_geometry`` FPS, ball query and 3-NN run once on the whole batch
   (``:370-480``);
+- with ``dropout_seed`` each step draws its dropout masks from a generator
+  seeded from (``dropout_seed``, step) alone, the counterpart of
+  ``fold_in(dropout_rng, state.step)`` (``:319``): a run resumed at step s
+  draws the masks an unbroken run draws there;
 - ``eval_step`` is the chunked eval forward of ``infer`` plus loss and counts
   (``:528-548``);
 - with calibrated windows (``bq_window``, ``fp_window``) every step and eval
@@ -101,6 +105,12 @@ def bn_momentum_schedule(cfg: Config) -> Callable[[int], float]:
     return schedule
 
 
+def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+    """A generator on ``device`` seeded from ``(seed, step)`` alone."""
+    mixed = np.random.SeedSequence((seed, step)).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(mixed >> np.uint64(1)))
+
+
 class Trainer:
     """Owns the model, the optimizer and the step counter.
 
@@ -108,8 +118,11 @@ class Trainer:
     versions of the operators. ``ops_impl`` goes to every point-set operator
     (None: the kernels on a CUDA device; "torch": the plain versions).
     ``dropout_rate`` is the head's; 0.0 makes a step deterministic for
-    comparisons. ``bq_window``/``fp_window`` are the model's calibrated
-    windows (an int or a per-level 4-sequence).
+    comparisons. ``dropout_seed``: each step given no generator draws its
+    masks from ``step_generator(dropout_seed, step)``, so they depend only on
+    the seed and the step, resumed or not (None: the model's own generator).
+    ``bq_window``/``fp_window`` are the model's calibrated windows (an int or
+    a per-level 4-sequence).
     """
 
     def __init__(
@@ -123,6 +136,7 @@ class Trainer:
         device: Optional[str | torch.device] = None,
         infer_chunk: int = 8,
         dropout_rate: float = 0.5,
+        dropout_seed: Optional[int] = None,
         bq_window: Window = None,
         fp_window: Window = None,
         **not_ported,
@@ -154,6 +168,7 @@ class Trainer:
         self.bn_accum_rescale = bn_accum_rescale
         self.device = resolve_device(device)
         self.infer_chunk = infer_chunk
+        self.dropout_seed = dropout_seed
         self.lr_schedule = learning_rate_schedule(cfg)
         self.bn_schedule = bn_momentum_schedule(cfg)
         self.model = PointNet2SemSeg(
@@ -174,9 +189,14 @@ class Trainer:
             return torch.optim.Adam(self.model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
         return torch.optim.SGD(self.model.parameters(), lr=lr, momentum=self.cfg.momentum)
 
-    def init_state(self, seed: int = 0) -> None:
-        """Seeded weights (``convert.init_variables``), a fresh optimizer, step 0."""
-        self.load_variables(convert.init_variables(self.cfg, self.num_classes, seed))
+    def init_state(self, seed: int = 0, bn_stats: str = "flax") -> None:
+        """Seeded weights (``convert.init_variables``), a fresh optimizer, step 0.
+
+        The moving statistics are flax's (mean 0, variance 1), as the JAX
+        ``init_state`` starts them; ``bn_stats="random"`` asks for ones that are
+        not the identity, for checks in which eval BatchNorm must do real work.
+        """
+        self.load_variables(convert.init_variables(self.cfg, self.num_classes, seed, bn_stats=bn_stats))
 
     def load_variables(self, variables: Mapping) -> None:
         """Weights and moving statistics from a flax variable tree; a fresh optimizer, step 0."""
@@ -206,12 +226,15 @@ class Trainer:
     def train_step(self, batch: Mapping, generator: Optional[torch.Generator] = None) -> dict:
         """One optimizer step on ``batch``: points (B, N, D), labels (B, N), weights (B, N).
 
-        ``generator`` draws the dropout masks (default: the model's own).
+        ``generator`` draws the dropout masks (default: ``step_generator`` of
+        ``dropout_seed`` and this step, else the model's own).
         Returns ``loss``, ``accuracy`` and ``confusion`` as tensors on the
         device, and the step's ``learning_rate`` and ``bn_decay`` as floats;
         with windows also ``window_ok``, a 0-d bool tensor on the device.
         """
         points, labels, weights = self._to_device(batch)
+        if generator is None and self.dropout_seed is not None:
+            generator = step_generator(self.dropout_seed, self.step, self.device)
         lr = self.lr_schedule(self.step)
         bn_momentum = self.bn_schedule(self.step)
         self.model.train()

@@ -3,7 +3,7 @@
     python -m pointnet2_tpu_torch.train_profile [--accum G] [--bq_window W] [--fp_window W] [--out FILE]
 
 Builds the same ``Trainer`` as ``chip_smoke.py``'s train phase (full
-``semantic.json`` width, Adam, weights from ``convert.init_variables(seed=0)``,
+``semantic.json`` width, Adam, weights from ``convert.init_variables(seed=0, bn_stats="random")``,
 batches of 16 clouds with seeded labels and weights), takes two warm-up
 steps, then profiles 3 steps with CPU and CUDA activities. Prints one JSON
 object: the wall time of the window and per step, the device time summed
@@ -60,7 +60,7 @@ def main(argv=None) -> int:
 
     cfg = Config.from_json(ROOT / "semantic.json")
     trainer = Trainer(cfg, accum_steps=args.accum, bq_window=args.bq_window, fp_window=args.fp_window)
-    trainer.init_state(seed=0)
+    trainer.init_state(seed=0, bn_stats="random")
     batches = [train_batch(cfg, BATCH, 1 + i) for i in range(WARMUP + STEPS)]
     for batch in batches[:WARMUP]:
         trainer.train_step(batch)

@@ -252,7 +252,7 @@ def port_predict(scenes, tmp_path_factory):
     base = tmp_path_factory.mktemp("cli_port_predict")
     cfg_path = _write_config(base / "cfg.json", data_path=str(scenes), logdir=str(base / "log"))
     trainer = Trainer(Config.from_json(cfg_path), device="cpu")
-    trainer.load_variables(convert.init_variables(trainer.cfg, 9, seed=4))
+    trainer.load_variables(convert.init_variables(trainer.cfg, 9, seed=4, bn_stats="random"))
     save_checkpoint(base / "port.pt", trainer)
     cli_predict.main(["--ckpt", str(base / "port.pt"), "--output_dir", str(base / "port"), "--device", "cpu",
                       "--set", "validation", "--config_file", cfg_path, "--num_samples", "3", "--batch_size", "2"])

@@ -272,7 +272,7 @@ def test_small_train_step_kernel_path_against_plain_path(cuda_device):
     with deterministic_algorithms():
         for run, impl in (("kernel", None), ("again", None), ("plain", "torch")):
             trainer = Trainer(cfg, ops_impl=impl, dropout_rate=0.0)
-            trainer.init_state(seed=0)
+            trainer.init_state(seed=0, bn_stats="random")
             cuda.reset_launches()
             metrics = trainer.train_step(batch)
             runs[run] = (metrics, {k: p.grad.clone() for k, p in trainer.model.named_parameters()},
@@ -1189,3 +1189,26 @@ def test_trainer_to_device_keeps_a_batch_already_on_the_card(cuda_device):
         torch.cuda.set_sync_debug_mode("default")
     assert points.data_ptr() == batch["points"].data_ptr() and weights.data_ptr() == batch["weights"].data_ptr()
     assert labels.is_cuda and labels.dtype == torch.int64 and torch.equal(labels, batch["labels"].long())
+
+
+@pytest.mark.parametrize("knn", [1, 3, 5])
+def test_densify_device_engine_equals_its_plain_version(cuda_device, knn):
+    """The densify engine on the card: row 3's kernel, once for a dense cloud
+    below a chunk, then the vote and the colors on the device, equal to the
+    same function on the plain kNN bit for bit, and to the native engine."""
+    from pointnet2_tpu_torch import native
+    from pointnet2_tpu_torch.ops.densify import densify_labels_device
+
+    rng = np.random.RandomState(40 + knn)
+    sparse = (rng.rand(5000, 3) * 20).astype(np.float32)
+    labels = rng.randint(0, 9, 5000).astype(np.int32)
+    dense = (rng.rand(100_000, 3) * 20).astype(np.float32)
+    cuda.reset_launches()
+    got, got_colors = densify_labels_device(sparse, labels, dense, knn, device=cuda_device)
+    assert dict(cuda.LAUNCHES) == {"knn": 1}
+    assert got.is_cuda and got.dtype == torch.int32 and got_colors.is_cuda and got_colors.dtype == torch.uint8
+    want, want_colors = densify_labels_device(sparse, labels, dense, knn, device=cuda_device, impl="torch")
+    assert torch.equal(got, want) and torch.equal(got_colors, want_colors)
+    host = native.densify_labels_native(sparse, labels, dense, knn)
+    if host is not None:
+        assert (got.cpu().numpy() == host[0]).mean() >= 0.9999

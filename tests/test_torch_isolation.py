@@ -45,7 +45,10 @@ def test_importing_the_port_loads_no_jax():
             "pointnet2_tpu_torch.ops.calibrate", "pointnet2_tpu_torch.ops.cuda.wingather",
             "pointnet2_tpu_torch.ops.reference", "pointnet2_tpu_torch.utils.bench",
             "pointnet2_tpu_torch.tools.parity", "pointnet2_tpu_torch.tools.op_bench",
-            "pointnet2_tpu_torch.tools.stage_bench"} <= set(mods)
+            "pointnet2_tpu_torch.tools.stage_bench", "pointnet2_tpu_torch.ops.densify",
+            "pointnet2_tpu_torch.native", "pointnet2_tpu_torch.data.kitti", "pointnet2_tpu_torch.utils.colors",
+            "pointnet2_tpu_torch.utils.render", "pointnet2_tpu_torch.cli.interpolate",
+            "pointnet2_tpu_torch.cli.kitti_predict"} <= set(mods)
 
 
 _FORBIDDEN = re.compile(

@@ -152,7 +152,7 @@ def _jax_logits(cfg_kw, use_color, variables, x):
 @pytest.mark.parametrize("use_color", [1, 0])
 def test_eval_logits_match_jax(use_color):
     cfg = Config(use_color=use_color, **SMALL)
-    variables = convert.init_variables(cfg, num_classes=9, seed=3)
+    variables = convert.init_variables(cfg, num_classes=9, seed=3, bn_stats="random")
     x = _cloud(7, 2, cfg.num_point, use_color)
     want = _jax_logits(SMALL, use_color, variables, x)
 
@@ -177,15 +177,15 @@ def test_init_variables_has_the_flax_tree(use_color):
         jax.random.PRNGKey(0), jnp.zeros((1, cfg.num_point, cfg.point_dim)), train=False
     )
     want = {k: v.shape for k, v in flatten_dict(jax.tree_util.tree_map(np.asarray, ref)).items()}
-    got = {k: v.shape for k, v in flatten_dict(convert.init_variables(cfg, 9, 0)).items()}
+    got = {k: v.shape for k, v in flatten_dict(convert.init_variables(cfg, 9, 0, bn_stats="random")).items()}
     assert got == want
 
 
 def test_init_variables_is_seeded_and_nontrivial():
     cfg = Config(**SMALL)
-    a = flatten_dict(convert.init_variables(cfg, 9, 0))
-    b = flatten_dict(convert.init_variables(cfg, 9, 0))
-    c = flatten_dict(convert.init_variables(cfg, 9, 1))
+    a = flatten_dict(convert.init_variables(cfg, 9, 0, bn_stats="random"))
+    b = flatten_dict(convert.init_variables(cfg, 9, 0, bn_stats="random"))
+    c = flatten_dict(convert.init_variables(cfg, 9, 1, bn_stats="random"))
     assert all(np.array_equal(a[k], b[k]) for k in a)
     assert not np.array_equal(a[("params", "sa1", "w0")], c[("params", "sa1", "w0")])
     mean = a[("batch_stats", "sa2", "bn0", "mean")]
@@ -215,21 +215,21 @@ def test_converter_uses_every_leaf_of_model_init():
 
 
 def test_converter_raises_on_a_leftover_leaf():
-    variables = convert.init_variables(Config(**SMALL), 9, 0)
+    variables = convert.init_variables(Config(**SMALL), 9, 0, bn_stats="random")
     variables["params"]["fc2"]["extra"] = np.zeros(3, np.float32)
     with pytest.raises(KeyError, match="unused"):
         convert.from_flax_variables(variables)
 
 
 def test_converter_raises_on_a_missing_leaf():
-    variables = convert.init_variables(Config(**SMALL), 9, 0)
+    variables = convert.init_variables(Config(**SMALL), 9, 0, bn_stats="random")
     del variables["batch_stats"]["sa3"]["mlp_rest"]["bn_1"]["var"]
     with pytest.raises(KeyError, match="lack"):
         convert.from_flax_variables(variables)
 
 
 def test_converter_raises_on_a_wrong_shape():
-    variables = convert.init_variables(Config(**SMALL), 9, 0)
+    variables = convert.init_variables(Config(**SMALL), 9, 0, bn_stats="random")
     variables["params"]["fp2"]["mlp"]["dense_1"]["bias"] = np.zeros(7, np.float32)
     with pytest.raises(ValueError, match="shape"):
         convert.from_flax_variables(variables)
@@ -239,7 +239,7 @@ def test_converter_raises_on_a_wrong_shape():
 def test_predictor_chunking_gives_the_same_result(chunk):
     """Chunks of 1 and 2 split the batch of 4; 3 does not divide it and runs whole."""
     cfg = Config(**SMALL).replace(num_point=256)
-    sd = convert.from_flax_variables(convert.init_variables(cfg, 9, 0))
+    sd = convert.from_flax_variables(convert.init_variables(cfg, 9, 0, bn_stats="random"))
     x = _cloud(11, 4, 256, 1)
     whole = Predictor(cfg, sd, infer_chunk=0, device="cpu")
     chunked = Predictor(cfg, sd, infer_chunk=chunk, device="cpu")
@@ -258,7 +258,7 @@ def test_predictor_matches_the_jax_trainer_forward():
 
     cfg = Config(**SMALL).replace(num_point=256)
     jcfg = JaxConfig(**{**SMALL, "num_point": 256})
-    variables = convert.init_variables(cfg, 9, 5)
+    variables = convert.init_variables(cfg, 9, 5, bn_stats="random")
     x = _cloud(13, 4, 256, 1)
     trainer = Trainer(cfg=jcfg, ops_impl="xla", infer_chunk=2)
     with jax.default_matmul_precision("highest"):
@@ -281,7 +281,7 @@ def _state(trainer, variables):
 def test_predictor_default_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = Config(**SMALL)
-    sd = convert.from_flax_variables(convert.init_variables(cfg, 9, 0))
+    sd = convert.from_flax_variables(convert.init_variables(cfg, 9, 0, bn_stats="random"))
     with pytest.raises(RuntimeError, match="CUDA"):
         Predictor(cfg, sd)
 
@@ -318,7 +318,7 @@ def test_train_logits_match_jax(monkeypatch):
 
     monkeypatch.setattr(flax.linen.Dropout, "__call__", lambda self, x, *a, **k: x)
     cfg = Config(**SMALL).replace(num_point=256)
-    variables = convert.init_variables(cfg, num_classes=9, seed=3)
+    variables = convert.init_variables(cfg, num_classes=9, seed=3, bn_stats="random")
     x = _cloud(8, 4, 256, 1)
     model = JaxSemSeg(num_classes=9, config=JaxConfig(**{**SMALL, "num_point": 256}), ops_impl="xla")
     with jax.default_matmul_precision("highest"):
@@ -363,7 +363,7 @@ def test_input_gradient_matches_jax_with_and_without_the_leaf_path(input_is_leaf
     levels' centroids and FP4's colour skip); otherwise it also goes through
     SA1's grouping scatter and the FPS centroids' scatter-add. Relative L2 <= 1e-3."""
     cfg = Config(**SMALL).replace(num_point=256)
-    variables = convert.init_variables(cfg, num_classes=9, seed=4)
+    variables = convert.init_variables(cfg, num_classes=9, seed=4, bn_stats="random")
     x = _cloud(9, 2, 256, 1)
     cot = np.random.RandomState(1).randn(2, 256, 9).astype(np.float32)
     port = PointNet2SemSeg(cfg, input_is_leaf=input_is_leaf).eval()
@@ -403,7 +403,7 @@ def test_precompute_geometry_matches_jax_and_the_inline_forward():
         np.testing.assert_array_equal(level["idx"].numpy(), np.asarray(ref["idx"]))
         np.testing.assert_allclose(level["dist2"].numpy(), np.asarray(ref["dist2"]), rtol=1e-5, atol=1e-6)
     model = PointNet2SemSeg(cfg).eval()
-    model.load_state_dict(convert.from_flax_variables(convert.init_variables(cfg, 9, 0)))
+    model.load_state_dict(convert.from_flax_variables(convert.init_variables(cfg, 9, 0, bn_stats="random")))
     with torch.no_grad():
         xt = torch.from_numpy(x)
         assert torch.equal(model(xt, geometry=got), model(xt))

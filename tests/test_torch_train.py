@@ -134,7 +134,7 @@ def _float64_run(steps, seed, first_batch, **trainer_kw):
     """``steps`` free-running momentum-SGD steps in float64 on both sides; a record per step."""
     cfg_kw = dict(SMALL, optimizer="momentum")
     port = Trainer(Config(**cfg_kw), device="cpu", dropout_rate=0.0, **trainer_kw)
-    port.load_variables(convert.init_variables(port.cfg, 9, seed=seed))
+    port.load_variables(convert.init_variables(port.cfg, 9, seed=seed, bn_stats="random"))
     port.model.double()
     jt, patch = _jax_trainer(cfg=JaxConfig(**cfg_kw), **trainer_kw)
     # The accumulation scan carries an int32 confusion matrix; with 64-bit types
@@ -181,7 +181,7 @@ def _assert_stats(got, want):
 def adam_run():
     """Three lockstep Adam steps; per step the port's and the JAX trainer's records."""
     cfg = Config(**SMALL)
-    variables = convert.init_variables(cfg, 9, seed=3)
+    variables = convert.init_variables(cfg, 9, seed=3, bn_stats="random")
     port = Trainer(cfg, device="cpu", dropout_rate=0.0)
     port.load_variables(variables)
     jt, patch = _jax_trainer(cfg=JaxConfig(**SMALL))
@@ -355,7 +355,7 @@ def test_accum_step_matches_the_jax_accum_step():
 
 def _accum_trainer(g, seed=6, **kw):
     trainer = Trainer(Config(**SMALL), device="cpu", dropout_rate=0.0, accum_steps=g, **kw)
-    trainer.load_variables(convert.init_variables(trainer.cfg, 9, seed=seed))
+    trainer.load_variables(convert.init_variables(trainer.cfg, 9, seed=seed, bn_stats="random"))
     return trainer
 
 
@@ -464,7 +464,7 @@ def test_trainer_default_device_needs_cuda(monkeypatch):
 
 def test_eval_step_matches_jax():
     cfg = Config(**SMALL)
-    variables = convert.init_variables(cfg, 9, seed=7)
+    variables = convert.init_variables(cfg, 9, seed=7, bn_stats="random")
     batch = _batch(50)
     jt = JaxTrainer(cfg=JaxConfig(**SMALL), ops_impl="xla", infer_chunk=2)
     unflat = {"params": variables["params"], "batch_stats": variables["batch_stats"]}
@@ -520,8 +520,71 @@ def test_init_state_is_seeded():
     assert a.step == 0 and len(a.optimizer.state) == 0
 
 
+def test_init_state_has_the_jax_init_states_moving_statistics():
+    """A fresh state's BatchNorm starts where flax's does (mean 0, variance 1),
+    exactly; ``bn_stats="random"`` keeps the kernels and draws other statistics."""
+    port = Trainer(Config(**SMALL), device="cpu")
+    port.init_state(seed=0)
+    want = flatten_dict(jax.tree_util.tree_map(
+        np.asarray, JaxTrainer(cfg=JaxConfig(**SMALL)).init_state(jax.random.PRNGKey(0)).batch_stats
+    ))
+    got = flatten_dict(convert.to_flax_variables(port.model.state_dict())["batch_stats"])
+    assert set(got) == set(want) and len(got) > 20
+    for key, value in want.items():
+        assert value.dtype == got[key].dtype == np.float32
+        np.testing.assert_array_equal(got[key], value, err_msg=str(key))
+        np.testing.assert_array_equal(value, 0.0 if key[-1] == "mean" else 1.0)
+    random = Trainer(Config(**SMALL), device="cpu")
+    random.init_state(seed=0, bn_stats="random")
+    for key, value in port.model.state_dict().items():
+        assert torch.equal(random.model.state_dict()[key], value) != key.endswith((".mean", ".var")), key
+    with pytest.raises(ValueError, match="bn_stats"):
+        convert.init_variables(Config(**SMALL), bn_stats="identity")
+
+
+def _head_masks(trainer, masks):
+    """Record each step's dropout keep-mask: the draw the generator it is
+    handed makes, taken from a copy of its state before the step draws it."""
+    inner = trainer.model._dropout
+
+    def recording(x, generator):
+        copy = torch.Generator().set_state(generator.get_state())
+        masks.append(torch.rand(x.shape, generator=copy) >= trainer.model.dropout_rate)
+        return inner(x, generator)
+
+    trainer.model._dropout = recording
+
+
+def test_a_resumed_run_draws_the_unbroken_runs_dropout_masks(tmp_path):
+    """Step s's head mask depends on the seed and s alone, as the reference's
+    ``fold_in(dropout_rng, step)``: a run saved after step 0 and resumed in a
+    new Trainer draws the unbroken run's step-1 mask, not its step-0 mask."""
+    unbroken, masks = Trainer(Config(**SMALL), device="cpu", dropout_seed=1), []
+    unbroken.init_state(seed=0)
+    _head_masks(unbroken, masks)
+    for step in range(2):
+        unbroken.train_step(_batch(80 + step))
+    first = Trainer(Config(**SMALL), device="cpu", dropout_seed=1)
+    first.init_state(seed=0)
+    first.train_step(_batch(80))
+    save_checkpoint(tmp_path / "ckpt.pt", first)
+    resumed, resumed_masks = Trainer(Config(**SMALL), device="cpu", dropout_seed=1), []
+    resumed.init_state(seed=0)
+    restore_checkpoint(tmp_path / "ckpt.pt", resumed)
+    _head_masks(resumed, resumed_masks)
+    resumed.train_step(_batch(81))
+    (mask,) = resumed_masks
+    assert mask.shape == masks[1].shape and 0.4 < mask.float().mean() < 0.6
+    assert torch.equal(mask, masks[1]) and not torch.equal(mask, masks[0])
+    other, other_masks = Trainer(Config(**SMALL), device="cpu", dropout_seed=2), []
+    other.init_state(seed=0)
+    _head_masks(other, other_masks)
+    other.train_step(_batch(80))
+    assert not torch.equal(other_masks[0], masks[0])
+
+
 def test_to_flax_variables_inverts_from_flax_variables():
-    variables = convert.init_variables(Config(**SMALL), 9, seed=2)
+    variables = convert.init_variables(Config(**SMALL), 9, seed=2, bn_stats="random")
     back = convert.to_flax_variables(convert.from_flax_variables(variables))
     want, got = flatten_dict(variables), flatten_dict(back)
     assert set(got) == set(want)
@@ -553,7 +616,7 @@ def test_dropout_is_seeded_halves_and_doubles():
 
 def test_dropout_only_in_train_mode_and_off_at_rate_zero():
     cfg = Config(**SMALL)
-    sd = convert.from_flax_variables(convert.init_variables(cfg, 9, seed=1))
+    sd = convert.from_flax_variables(convert.init_variables(cfg, 9, seed=1, bn_stats="random"))
     x = torch.from_numpy(_batch(70, b=2)["points"])
     on, off = PointNet2SemSeg(cfg), PointNet2SemSeg(cfg, dropout_rate=0.0)
     on.load_state_dict(sd), off.load_state_dict(sd)

@@ -240,7 +240,7 @@ def test_windowed_eval_logits_and_certificates_match_the_pallas_model():
     plain path: logits within 1e-4, the 8 certificates equal, and the port's
     logits equal to its own no-window forward, as the certificates promise."""
     cfg = Config(**FUSED)
-    variables = convert.init_variables(cfg, num_classes=9, seed=5)
+    variables = convert.init_variables(cfg, num_classes=9, seed=5, bn_stats="random")
     x = _scene(11, 1, cfg.num_point)
     jax_model = JaxSemSeg(
         num_classes=9, config=JaxConfig(**FUSED), ops_impl="pallas", bq_window=BQ_WINDOW, fp_window=FP_WINDOW
@@ -270,7 +270,7 @@ def test_windowed_eval_logits_and_certificates_match_the_pallas_model():
 
 def test_predictor_predict_step_checked():
     cfg = Config(**FUSED)
-    sd = convert.from_flax_variables(convert.init_variables(cfg, num_classes=9, seed=6))
+    sd = convert.from_flax_variables(convert.init_variables(cfg, num_classes=9, seed=6, bn_stats="random"))
     x = _scene(12, 2, cfg.num_point)
     plain = Predictor(cfg, sd, infer_chunk=1, device="cpu")
     windowed = Predictor(cfg, sd, infer_chunk=1, device="cpu", bq_window=BQ_WINDOW, fp_window=FP_WINDOW)
@@ -298,7 +298,7 @@ def _step(accum_steps=1, **windows):
     trainer = Trainer(
         Config(**SMALL_TRAIN), device="cpu", dropout_rate=0.0, accum_steps=accum_steps, **windows
     )
-    trainer.init_state(seed=7)
+    trainer.init_state(seed=7, bn_stats="random")
     metrics = trainer.train_step(_batch(13))
     grads = {name: p.grad.clone() for name, p in trainer.model.named_parameters()}
     return trainer, metrics, grads
