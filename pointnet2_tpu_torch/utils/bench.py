@@ -11,7 +11,10 @@ early). On the card a kernel's time is CUDA events around a run of launches:
 - ``device_ms``: the device time of one call's launches of one kernel,
   summed from ``torch.profiler``'s kernel durations. Where the host's side
   of a launch takes longer than the kernel (the small levels), ``cuda_ms``
-  measures the host's enqueue rate and this the kernel;
+  measures the host's enqueue rate and this the kernel. The card's tracer
+  now and then records no kernel in a session, and has done so for every
+  session of a call; then the whole call is timed by CUDA events instead,
+  with a warning;
 - ``deterministic_algorithms``: PyTorch's deterministic algorithms for the
   checks that compare a kernel path with a plain path bit for bit (the
   plain versions' scatters then sum in a fixed order on the card too); no
@@ -31,6 +34,7 @@ from __future__ import annotations
 import contextlib
 import statistics
 import subprocess
+import warnings
 
 import torch
 
@@ -87,7 +91,10 @@ def device_ms(fn, kernel: str, calls: int = 20, warmup: int = 2, tries: int = 3)
     """Device time of ``kernel``'s launches (``KERNEL_SYMBOLS``) in one call
     of ``fn``, in ms: the profiler's kernel durations over ``calls`` calls.
     A profiling session that records none of them (the card's tracer has
-    dropped a whole session now and then) is run again, ``tries`` in all."""
+    dropped a whole session now and then) is run again, ``tries`` in all;
+    when every session came back empty, the time is ``cuda_ms`` of one call
+    of ``fn`` over ``calls`` runs, all of the call's device work counted,
+    and a ``RuntimeWarning`` says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -108,7 +115,12 @@ def device_ms(fn, kernel: str, calls: int = 20, warmup: int = 2, tries: int = 3)
         )
         if us > 0.0:
             return us / 1e3 / calls
-    raise RuntimeError(f"the profiler saw no device time for {kernel} ({symbol!r}) in {tries} sessions")
+    warnings.warn(
+        f"the profiler saw no device time for {kernel} ({symbol!r}) in {tries} sessions; "
+        "timing the whole call by CUDA events instead",
+        RuntimeWarning, stacklevel=2,
+    )
+    return cuda_ms(fn, reps=calls, inner=1, warmup=0)
 
 
 @contextlib.contextmanager

@@ -1212,3 +1212,16 @@ def test_densify_device_engine_equals_its_plain_version(cuda_device, knn):
     host = native.densify_labels_native(sparse, labels, dense, knn)
     if host is not None:
         assert (got.cpu().numpy() == host[0]).mean() >= 0.9999
+
+
+def test_device_ms_times_by_events_when_the_profiler_records_no_kernel(cuda_device, monkeypatch):
+    """``utils.bench.device_ms`` where every profiling session comes back
+    without the kernel (a symbol that names none stands in for a dropped
+    session): a warning, and the call's time by CUDA events, not an error."""
+    from pointnet2_tpu_torch.utils import bench
+
+    monkeypatch.setitem(bench.KERNEL_SYMBOLS, "knn", "no_kernel_has_this_name")
+    xyz1, xyz2 = _cloud(0, 1, 4096), _cloud(1, 1, 8192)
+    with pytest.warns(RuntimeWarning, match="no device time for knn"):
+        ms = bench.device_ms(lambda: ops.knn(xyz1, xyz2, 3, impl="cuda"), "knn", calls=3, tries=2)
+    assert 0.0 < ms < 1e3
