@@ -37,7 +37,16 @@ non-zero and prints no result):
    sums 12 to 24 addends of magnitude below 1 on average). The
    differentiable ``ops.three_interpolate`` as a whole (both kernels) equals
    the plain Function bit for bit, and autograd through the plain forward
-   (which sums query by query) within the same tolerance.
+   (which sums query by query) within the same tolerance. Rows 4 and 5's
+   bfloat16 instances (the bf16 modes: ``three_interpolate_bf16``,
+   ``three_interpolate_grad_bf16``) run at the same shapes on bfloat16
+   features, under both precisions, with a bfloat16 skip and with a float32
+   one (a selective stage's float32 concat), the backward on bfloat16 and on
+   float32 cotangents into bfloat16 ``dpoints``: each equal to its plain
+   version bit for bit (the same float32 arithmetic and one rounding). The
+   rows, at the modes' own setting, carry their bfloat16 byte bound and the
+   float32 kernel's ``f32_ms``, ``f32_device_ms`` and ``f32_bound_ms`` on the
+   same values widened.
 3. Predict: a ``Predictor`` at full ``semantic.json`` width with seeded
    weights (``convert.init_variables``) answers 3 requests of 16 clouds of
    8192 points (after one warm-up request). The launch counts, reset just before,
@@ -93,6 +102,20 @@ non-zero and prints no result):
    1e-5 relative, gradients within 1e-3 of their max abs; the worst error and
    bit equality recorded); and the windows ``auto`` would pick
    (``calibrate_model_windows``) on the smoke clouds.
+5b. bf16 modes (``Predictor(dtype="bfloat16")``, ``Trainer(train_dtype=
+   "bfloat16", bf16_min_width=128)``): the predict phase's requests through
+   four Predictors, uniform and selective (``bf16_min_width=128``), exact and
+   with the windows, each held against its plain path in the same mode (labels
+   >= 99.99 %, logits within 1e-3; the windows' certificates True; rows 4's
+   bfloat16 instance 4 times a chunk, the float32 one never), with ms a request
+   on the host's clock and on the device's (the profiler's kernel time of one
+   request, by category) beside the float32 Predictor's, and each mode's
+   labels' agreement with the float32 path; then the mixed-precision Trainer:
+   1 + 5 Adam steps on the train phase's batches (finite losses, float32
+   master weights and gradients, rows 4 and 5's bfloat16 instances 4 times a
+   step), two dropout-free kernel-path steps equal and held to the plain
+   path's with the train phase's gates, ms a step and peak memory beside the
+   train phase's.
 6. Op surface: the index-only FPS (``farthest_point_sample``) at the four SA
    shapes of both batches, equal to its plain version and to the fused
    kernel's indices; the round-1 windowed ball query (``ops.ball_query(
@@ -129,7 +152,12 @@ non-zero and prints no result):
    --num_samples 16 --batch_size 8``): 4 launches of each forward kernel a
    batch, every ``.pcd`` equal bit for bit to the samples a fresh
    ``SemanticDataset(seed=0)`` draws, and the ``.labels`` equal to a plain
-   ``Predictor(impl="torch")``'s on those samples on >= 99.99 % of points. Its
+   ``Predictor(impl="torch")``'s on those samples on >= 99.99 % of points.
+   Then the bf16 modes through the same entry points: one ``cli.train``
+   epoch with ``--train_dtype bfloat16 --bf16_min_width 128`` (its steps
+   launch rows 4 and 5's bfloat16 instances, its eval chunks the float32 one;
+   every checkpoint restored, float32), and ``cli.predict --dtype bfloat16``
+   on its ``model.pt``, held to a plain bf16 Predictor the same way. Its
    line gives each train run's host ms a step and ms waited on the prefetch
    (medians over the steps after the first), beside the train phase's median
    (``Trainer.train_step`` fed by hand) and the host ms one train batch takes
@@ -159,7 +187,8 @@ non-zero and prints no result):
    frame. Row 3 is held and timed at the first frame's densify shape.
 
 Output: one JSON line a kernel and shape, one for each driven path (predict,
-train, predict_windows, train_windows, cli, op_surface, densify, kitti; the
+train, predict_windows, train_windows, predict_bf16, train_bf16, cli,
+op_surface, densify, kitti; the
 parity sweep's lines and the stage bench's lines inside op_surface), the
 ``nvidia-smi`` line, one ``{"kernels": [...]}`` line, and last ``{"ok":
 true, "device": {...}}``. Each path's launch counts are reset just before it
@@ -182,8 +211,9 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
 
-from pointnet2_tpu_torch import convert, native, ops
+from pointnet2_tpu_torch import convert, native, ops, predict_profile
 from pointnet2_tpu_torch.cli import interpolate as cli_interpolate
 from pointnet2_tpu_torch.cli import kitti_predict as cli_kitti
 from pointnet2_tpu_torch.cli import predict as cli_predict
@@ -234,6 +264,13 @@ KERNELS = {
     "three_interpolate_grad": (
         "pointnet2_tpu_torch/csrc/interpolate.cu", "pointnet2_tpu/ops/pallas/interpolate.py:112",
     ),
+    # Rows 4 and 5's bfloat16 instances (the bf16 precision modes), counted apart.
+    "three_interpolate_bf16": (
+        "pointnet2_tpu_torch/csrc/interpolate.cu", "pointnet2_tpu/ops/pallas/interpolate.py:48",
+    ),
+    "three_interpolate_grad_bf16": (
+        "pointnet2_tpu_torch/csrc/interpolate.cu", "pointnet2_tpu/ops/pallas/interpolate.py:112",
+    ),
     "ball_query_sliced": ("pointnet2_tpu_torch/csrc/ballquery.cu", "pointnet2_tpu/ops/pallas/ballquery.py:247"),
     "ball_query_sliced_pos": ("pointnet2_tpu_torch/csrc/wingather.cu", "pointnet2_tpu/ops/pallas/wingather.py:54"),
     "window_gather": ("pointnet2_tpu_torch/csrc/wingather.cu", "pointnet2_tpu/ops/pallas/wingather.py:98"),
@@ -276,6 +313,24 @@ WINDOW_STEP_LAUNCHES = {"fps_centroids": 4, "ball_query_sliced": 1, "ball_query"
                         "three_interpolate": 4, "three_interpolate_grad": 4}
 WINDOW_CHUNK_LAUNCHES = {"fps_centroids": 4, "three_interpolate": 4, "ball_query": 3, "knn": 3,
                          "ball_query_sliced_pos": 1, "window_gather": 1, "knn_sliced": 1}
+# The bf16 modes at semantic.json's widths: every FP stage computes in
+# bfloat16 (uniform, and selective at 128, whose narrowest FP width is 128),
+# so each interpolation and its backward take the bfloat16 instances.
+BF16_MIN_WIDTH = 128
+BF16_STEP_LAUNCHES = {**{name: 4 for name in GEOMETRY_KERNELS},
+                      "three_interpolate_bf16": 4, "three_interpolate_grad_bf16": 4}
+BF16_CHUNK_LAUNCHES = {**{name: 4 for name in GEOMETRY_KERNELS}, "three_interpolate_bf16": 4}
+BF16_WINDOW_CHUNK_LAUNCHES = {**{k: v for k, v in WINDOW_CHUNK_LAUNCHES.items() if k != "three_interpolate"},
+                              "three_interpolate_bf16": 4}
+BF16_CLI_TRAIN = ("--train_dtype", "bfloat16", "--bf16_min_width", str(BF16_MIN_WIDTH))
+# The bf16 predict modes: (name, Predictor keywords).
+BF16_MODES = (
+    ("uniform", dict(dtype="bfloat16")),
+    ("selective", dict(dtype="bfloat16", bf16_min_width=BF16_MIN_WIDTH)),
+    ("uniform_windows", dict(dtype="bfloat16", bq_window=BQ_WINDOW, fp_window=FP_WINDOW)),
+    ("selective_windows", dict(dtype="bfloat16", bf16_min_width=BF16_MIN_WIDTH, bq_window=BQ_WINDOW,
+                               fp_window=FP_WINDOW)),
+)
 
 
 def emit(obj: dict) -> None:
@@ -530,6 +585,106 @@ def grad_kernel_phase(levels: list, seed: int, report: Report) -> None:
                 f"{max_abs(got[0], plain[0])}, off autograd by {max_abs(got[0], want[0])}, "
                 f"d weight by {max_abs(got[1], want[1])}"
             )
+
+
+def bf16_kernel_phase(levels: list, seed: int, report: Report) -> None:
+    """Rows 4 and 5's bfloat16 instances at the four FP levels of the levels'
+    batch, as the bf16 modes run them, each held bit for bit against its
+    plain version on the same inputs (the same float32 arithmetic by
+    construction), under both precisions and with a float32 skip beside
+    bfloat16 points (a selective stage's concat: a float32 row). The rows are
+    timed at the modes' own setting ("default", a bfloat16 skip; FP4's skip the
+    colours cast to bfloat16) beside the float32 kernel on the same values
+    widened (``f32_ms``, ``f32_device_ms``, ``f32_bound_ms``)."""
+    dev = torch.device(DEVICE)
+    b = levels[0].shape[0]
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(seed + 200)
+    for i, (c, c1) in enumerate(zip(FP_CHANNELS, FP_SKIP_CHANNELS)):
+        lvl = 3 - i
+        dense, coarse = levels[lvl], levels[lvl + 1]
+        n, m = dense.shape[1], coarse.shape[1]
+        d2, idx = ops.three_nn(dense, coarse, impl="cuda")
+        weight = ops.interpolation_weights(d2)
+        points = torch.randn((b, m, c), generator=gen, device=dev).to(bf16)
+        if c1 == 3:  # the input cloud's colours, a view of row stride 6
+            skip32 = torch.rand((b, n, 6), generator=gen, device=dev)[..., 3:]
+        else:
+            skip32 = torch.randn((b, n, c1), generator=gen, device=dev)
+        skip = skip32.to(bf16)
+        for precision, s in (("default", skip), ("highest", skip), ("default", skip32), ("highest", skip32), ("default", None)):
+            got = ops.three_interpolate(points, idx, weight, impl="cuda", precision=precision, skip=s)
+            want = ops.three_interpolate(points, idx, weight, impl="torch", precision=precision, skip=s)
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                raise AssertionError(
+                    f"three_interpolate bf16 at N={n} C={c} precision={precision} skip "
+                    f"{None if s is None else s.dtype}: {got.dtype} vs {want.dtype}, max abs {max_abs(got, want)}"
+                )
+        out = ops.three_interpolate(points, idx, weight, impl="cuda", precision="default", skip=skip)
+        ref = ops.three_interpolate(points, idx, weight, impl="torch", precision="default", skip=skip)
+        flat_idx = (idx.long() + torch.arange(b, device=dev)[:, None, None] * m).reshape(-1, 3)
+        flat_points, flat_w = points.reshape(b * m, c), weight.to(bf16).reshape(-1, 3)
+        points32 = points.float()
+        vec, skip_vec = cuda_interp.planned_route(points, skip)
+        f32_bound = bound(*op_bench.work_fp_interpolate(b, n, m, c, c1))[0]
+        report.add(
+            "three_interpolate_bf16", b, f"M={m} C={c} N={n} skip={c1} precision=default",
+            lambda: ops.three_interpolate(points, idx, weight, impl="cuda", precision="default", skip=skip),
+            lambda: ops.three_interpolate(points, idx, weight, impl="torch", precision="default", skip=skip),
+            *op_bench.work_fp_interpolate(b, n, m, c, c1, elem=2),
+            err=max_abs(out, ref),
+            match=out.dtype == bf16 and torch.equal(out, ref),
+            library=lambda: torch.cat([F.embedding_bag(
+                flat_idx, flat_points, mode="sum", per_sample_weights=flat_w
+            ).view(b, n, c), skip], -1),
+            extra={"f32_ms": lambda: ops.three_interpolate(points32, idx, weight, impl="cuda", skip=skip32)},
+            info={"plan": {"vec": vec, "skip_vec": skip_vec},
+                  "device_ms": device_ms(lambda: ops.three_interpolate(
+                      points, idx, weight, impl="cuda", precision="default", skip=skip), "three_interpolate"),
+                  "f32_device_ms": device_ms(
+                      lambda: ops.three_interpolate(points32, idx, weight, impl="cuda", skip=skip32), "three_interpolate"),
+                  "f32_bound_ms": f32_bound},
+        )
+
+        # The backward: a bfloat16 cotangent slice of the bfloat16 concat's
+        # (a bfloat16 stage), and a float32 one (a selective stage's float32
+        # concat), each into bfloat16 dpoints.
+        g = torch.randn((b, n, c + c1), generator=gen, device=dev).to(bf16)[..., :c]
+        g32 = torch.randn((b, n, c + c1), generator=gen, device=dev)[..., :c]
+        for precision, gg in (("default", g), ("highest", g), ("highest", g32), ("default", g32)):
+            got = ops.three_interpolate_grad(gg, idx, weight, m, impl="cuda", precision=precision, dtype=bf16)
+            want = ops.three_interpolate_grad(
+                gg.cpu(), idx.cpu(), weight.cpu(), m, impl="torch", precision=precision, dtype=bf16
+            ).to(dev)
+            again = ops.three_interpolate_grad(gg, idx, weight, m, impl="cuda", precision=precision, dtype=bf16)
+            if got.dtype != bf16 or not torch.equal(got, want) or not torch.equal(got, again):
+                raise AssertionError(
+                    f"three_interpolate_grad bf16 at N={n} C={c} precision={precision} g {gg.dtype}: "
+                    f"max abs {max_abs(got, want)} against the plain version, {max_abs(got, again)} run to run"
+                )
+        with deterministic_algorithms():
+            card_plain = ops.three_interpolate_grad(g, idx, weight, m, impl="torch", precision="default", dtype=bf16)
+        out = ops.three_interpolate_grad(g, idx, weight, m, impl="cuda", precision="default", dtype=bf16)
+        flat_rows = torch.zeros((b * m, c), device=dev, dtype=bf16, requires_grad=True)
+        bag = F.embedding_bag(flat_idx, flat_rows, mode="sum", per_sample_weights=flat_w)
+        flat_g = g.reshape(-1, c)
+        g32_copy = g.float()
+        report.add(
+            "three_interpolate_grad_bf16", b, f"N={n} C={c} M={m} g_row_stride={c + c1} precision=default",
+            lambda: ops.three_interpolate_grad(g, idx, weight, m, impl="cuda", precision="default", dtype=bf16),
+            lambda: ops.three_interpolate_grad(g, idx, weight, m, impl="torch", precision="default", dtype=bf16),
+            *op_bench.work_three_interpolate_grad(b, n, m, c, elem=2),
+            err=max_abs(out, card_plain),
+            match=torch.equal(out, card_plain),
+            library=lambda: torch.autograd.grad(bag, flat_rows, flat_g, retain_graph=True),
+            extra={"f32_ms": lambda: ops.three_interpolate_grad(g32_copy, idx, weight, m, impl="cuda")},
+            info={"device_ms": device_ms(lambda: ops.three_interpolate_grad(
+                      g, idx, weight, m, impl="cuda", precision="default", dtype=bf16), "three_interpolate_grad"),
+                  "f32_device_ms": device_ms(
+                      lambda: ops.three_interpolate_grad(g32_copy, idx, weight, m, impl="cuda"),
+                      "three_interpolate_grad"),
+                  "f32_bound_ms": bound(*op_bench.work_three_interpolate_grad(b, n, m, c))[0]},
+        )
 
 
 def window_kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> None:
@@ -922,12 +1077,13 @@ def _expect_launches(launches: dict, want: dict, what: str) -> None:
         raise AssertionError(f"{what}: launches {got}, want {want}")
 
 
-def _one_step(cfg: Config, impl, batch: dict, seed: int, **windows):
+def _one_step(cfg: Config, impl, batch: dict, seed: int, **options):
     """Loss and parameter gradients of one dropout-free step from seeded
     weights, under PyTorch's deterministic algorithms (for the comparisons
-    of two paths; the timed steps run without them)."""
+    of two paths; the timed steps run without them). ``options``: the
+    Trainer's windows or precision mode."""
     with deterministic_algorithms():
-        trainer = Trainer(cfg, ops_impl=impl, dropout_rate=0.0, device=DEVICE, **windows)
+        trainer = Trainer(cfg, ops_impl=impl, dropout_rate=0.0, device=DEVICE, **options)
         trainer.init_state(seed, bn_stats="random")
         loss = trainer.train_step(batch)["loss"]
         grads = {name: p.grad.clone() for name, p in trainer.model.named_parameters()}
@@ -1014,7 +1170,7 @@ def train_phase(cfg: Config, seed: int, card: str) -> dict:
         raise AssertionError(f"accum losses not finite: {accum_losses}")
 
     median = statistics.median(times)
-    emit({
+    row = {
         "phase": "train",
         "steps": TRAIN_STEPS,
         "batch": BATCH,
@@ -1030,8 +1186,9 @@ def train_phase(cfg: Config, seed: int, card: str) -> dict:
         "accum": {"accum_steps": ACCUM, "steps": ACCUM_STEPS, "ms_per_step": accum_times,
                   "losses": accum_losses, "launches": accum_launches},
         "card": card,
-    })
-    return launches, median
+    }
+    emit(row)
+    return launches, row
 
 
 def predict_phase(cfg: Config, requests: int, batch: int, seed: int, card: str) -> dict:
@@ -1234,14 +1391,164 @@ def train_windows_phase(cfg: Config, seed: int, card: str) -> dict:
     return launches
 
 
-def _cli_train(cfg_path: pathlib.Path, seed: int, windows: list) -> dict:
+def profiled_device_ms(fn, tries: int = 3):
+    """Device ms of one call of ``fn``: the profiler's kernel durations summed
+    (``predict_profile.summarise``). A session that records no kernel (the
+    card's tracer drops one now and then) is run again; None if all do."""
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        summary = predict_profile.summarise(prof, wall_ms)
+        if summary["device_ms"] > 0:
+            return {key: summary[key] for key in ("device_ms", "device_busy_share", "device_ms_by_category")}
+    return None
+
+
+def predict_bf16_phase(cfg: Config, requests: int, batch: int, seed: int, card: str) -> dict:
+    """The bf16 inference mode: ``Predictor(dtype="bfloat16")`` uniform and
+    selective (``bf16_min_width=128``), exact and with the windows, on the
+    predict phase's requests. Each mode's kernel path is held against its
+    plain path (``impl="torch"``, the same mode) with the float32 gates, its
+    launches counted exactly; its labels' agreement with the float32 kernel
+    path, and ms a request on the host's clock and on the device's, beside
+    the float32 path's. Returns each mode's launch counts."""
+    sd = convert.from_flax_variables(convert.init_variables(cfg, num_classes=9, seed=seed, bn_stats="random"))
+    inputs = [clouds(batch, cfg, seed + 1 + i) for i in range(requests)]
+    chunks = requests * (batch // CHUNK)
+
+    def timed(step):
+        step(inputs[0])  # warm-up: first launches, allocator, cuBLAS's bfloat16 kernels
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        out, times = [], []
+        for x in inputs:
+            t0 = time.perf_counter()
+            out.append(step(x))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, times, dict(cuda.LAUNCHES)
+
+    f32 = Predictor(cfg, sd, infer_chunk=CHUNK, device=DEVICE)
+    f32_labels, f32_times, _ = timed(f32.predict_step)
+    rows = {"f32": {"ms_per_request": f32_times, "median_ms": statistics.median(f32_times),
+                    "device": profiled_device_ms(lambda: f32.predict_step(inputs[0]))}}
+    paths = {}
+    for name, mode in BF16_MODES:
+        predictor = Predictor(cfg, sd, infer_chunk=CHUNK, device=DEVICE, **mode)
+        windows = "bq_window" in mode
+        step = predictor.predict_step_checked if windows else predictor.predict_step
+        got, times, launches = timed(step)
+        labels = [g[0] for g in got] if windows else got
+        if windows and not all(ok for _, ok in got):
+            raise AssertionError(f"bf16 {name}: window certificates {[ok for _, ok in got]}")
+        _expect_launches(
+            launches, {k: chunks * v for k, v in (BF16_WINDOW_CHUNK_LAUNCHES if windows else BF16_CHUNK_LAUNCHES).items()},
+            f"bf16 {name}: {chunks} predict chunks",
+        )
+        plain = Predictor(cfg, sd, infer_chunk=CHUNK, device=DEVICE, impl="torch", **mode)
+        agree, logit_err = [], 0.0
+        for x, got_labels in zip(inputs, labels):
+            logits, ref = predictor.infer_logits(x), plain.infer_logits(x)
+            if logits.shape != (batch, cfg.num_point, 9) or logits.dtype != torch.float32 or not torch.isfinite(logits).all():
+                raise AssertionError(f"bf16 {name}: bad logits {tuple(logits.shape)} {logits.dtype}")
+            logit_err = max(logit_err, max_abs(logits, ref))
+            agree.append(float((got_labels == ref.argmax(-1).to(torch.int32)).float().mean()))
+        if min(agree) < 0.9999 or logit_err > 1e-3:
+            raise AssertionError(f"bf16 {name} kernel path vs plain path: label agreement {agree}, "
+                                 f"max abs logit diff {logit_err}")
+        rows[name] = {
+            **{k: v for k, v in mode.items() if k != "dtype"},
+            "ms_per_request": times,
+            "median_ms": statistics.median(times),
+            "points_per_s": batch * cfg.num_point / (statistics.median(times) / 1e3),
+            "device": profiled_device_ms(lambda: step(inputs[0])),
+            "label_agreement_with_plain": agree,
+            "max_abs_logit_diff": logit_err,
+            "label_agreement_with_f32": [float((a == b).float().mean()) for a, b in zip(labels, f32_labels)],
+            "launches": launches,
+        }
+        paths[f"predict_bf16_{name}"] = launches
+        del predictor, plain
+        torch.cuda.empty_cache()
+    emit({"phase": "predict_bf16", "requests": requests, "batch": batch, "infer_chunk": CHUNK, **rows, "card": card})
+    return paths
+
+
+def train_bf16_phase(cfg: Config, seed: int, card: str, f32_row: dict) -> dict:
+    """The mixed-precision train mode, ``Trainer(train_dtype="bfloat16",
+    bf16_min_width=128)``: one warm-up and 5 Adam steps (dropout on) on the
+    train phase's batches, finite losses, float32 master weights and
+    gradients, exact launch counts; then two dropout-free kernel-path steps
+    equal to each other and to the plain path's within the train phase's
+    gates, under deterministic algorithms. ms a step and peak memory beside
+    the float32 train phase's."""
+    mode = dict(train_dtype="bfloat16", bf16_min_width=BF16_MIN_WIDTH)
+    batches = [train_batch(cfg, BATCH, seed + 200 + i) for i in range(1 + TRAIN_STEPS)]
+    trainer = Trainer(cfg, device=DEVICE, **mode)
+    trainer.init_state(seed, bn_stats="random")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    trainer.train_step(batches[0], generator=gen)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for batch in batches[1:]:
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch, generator=gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    launches = dict(cuda.LAUNCHES)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    _expect_launches(launches, {k: TRAIN_STEPS * v for k, v in BF16_STEP_LAUNCHES.items()},
+                     f"{TRAIN_STEPS} bf16 train steps")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"bf16 train losses not finite: {losses}")
+    if any(p.dtype != torch.float32 or p.grad is None or p.grad.dtype != torch.float32
+           for p in trainer.model.parameters()):
+        raise AssertionError("bf16 training: a master weight or its gradient is not float32")
+    del trainer
+    step = _one_step(cfg, None, batches[0], seed, **mode)
+    again = _one_step(cfg, None, batches[0], seed, **mode)
+    if again[0] != step[0] or not all(torch.equal(g, step[1][k]) for k, g in again[1].items()):
+        raise AssertionError("two bf16 kernel-path steps from the same weights and batch gave other gradients")
+    kernel_vs_plain = _compare_steps(
+        "bf16 kernel path vs plain path", step, _one_step(cfg, "torch", batches[0], seed, **mode)
+    )
+    median = statistics.median(times)
+    emit({
+        "phase": "train_bf16",
+        **mode,
+        "steps": TRAIN_STEPS,
+        "batch": BATCH,
+        "ms_per_step": times,
+        "median_ms": median,
+        "points_per_s": BATCH * cfg.num_point / (median / 1e3),
+        "f32_median_ms": f32_row["median_ms"],
+        "losses": losses,
+        "f32_losses": f32_row["losses"],
+        "launches": launches,
+        "peak_memory_mb": peak_mb,
+        "f32_peak_memory_mb": f32_row["peak_memory_mb"],
+        "kernel_vs_plain": kernel_vs_plain,
+        "card": card,
+    })
+    return launches
+
+
+def _cli_train(cfg_path: pathlib.Path, seed: int, windows: list, precision: tuple = ()) -> dict:
     """One run of the train CLI on the card, its launch counts reset just before
     it and read just after, held to the counts its steps and eval chunks imply;
-    then every checkpoint it wrote restored into a fresh Trainer."""
+    then every checkpoint it wrote restored into a fresh Trainer. ``precision``:
+    ``--train_dtype bfloat16`` and its ``--bf16_min_width``, whose steps launch
+    rows 4 and 5's bfloat16 instances (the eval chunks stay float32)."""
     torch.cuda.synchronize()
     cuda.reset_launches()
     t0 = time.perf_counter()
-    summary = cli_train.main(["--config_file", str(cfg_path), "--seed", str(seed)] + windows)
+    summary = cli_train.main(["--config_file", str(cfg_path), "--seed", str(seed), *windows, *precision])
     seconds = time.perf_counter() - t0
     launches = dict(cuda.LAUNCHES)
     (epoch,) = summary["epochs"]
@@ -1249,6 +1556,8 @@ def _cli_train(cfg_path: pathlib.Path, seed: int, windows: list) -> dict:
     if steps < 1 or chunks < 1 or summary["step"] != steps:
         raise AssertionError(f"the train CLI ran {steps} steps and {chunks} eval chunks (step {summary['step']})")
     step, chunk = (WINDOW_STEP_LAUNCHES, WINDOW_CHUNK_LAUNCHES) if windows else (STEP_LAUNCHES, CHUNK_LAUNCHES)
+    if precision:
+        step = BF16_STEP_LAUNCHES
     _expect_launches(
         launches, {name: steps * step.get(name, 0) + chunks * chunk.get(name, 0) for name in KERNELS},
         f"the train CLI{' with windows' if windows else ''}: {steps} steps, {chunks} eval chunks",
@@ -1263,6 +1572,8 @@ def _cli_train(cfg_path: pathlib.Path, seed: int, windows: list) -> dict:
         restore_checkpoint(pathlib.Path(cfg.logdir) / name, trainer)
         if trainer.step != steps or not trainer.optimizer.state:
             raise AssertionError(f"{name} restored at step {trainer.step} without its optimizer state")
+        if any(v.dtype != torch.float32 for v in trainer.model.state_dict().values()):
+            raise AssertionError(f"{name} holds weights that are not float32")
         states.append(trainer.model.state_dict())
         del trainer
     if not all(torch.equal(state[k], v) for state in states[1:] for k, v in states[0].items()):
@@ -1280,13 +1591,13 @@ def _cli_train(cfg_path: pathlib.Path, seed: int, windows: list) -> dict:
     }
 
 
-def _plain_labels(cfg: Config, ckpt: pathlib.Path, out_dir: pathlib.Path) -> dict:
+def _plain_labels(cfg: Config, ckpt: pathlib.Path, out_dir: pathlib.Path, **mode) -> dict:
     """The predict CLI's files against the plain path on the card: a
-    ``Predictor(impl="torch")`` fed the samples the CLI drew, drawn again from
-    a fresh ``SemanticDataset(seed=0)`` after ``np.random.seed(0)``. The
-    ``.pcd`` points must equal the samples bit for bit, and the labels agree on
-    >= 99.99 % of points."""
-    plain = Predictor(cfg, load_model_state(ckpt), infer_chunk=CHUNK, device=DEVICE, impl="torch")
+    ``Predictor(impl="torch")`` in the CLI's precision ``mode`` fed the samples
+    the CLI drew, drawn again from a fresh ``SemanticDataset(seed=0)`` after
+    ``np.random.seed(0)``. The ``.pcd`` points must equal the samples bit for
+    bit, and the labels agree on >= 99.99 % of points."""
+    plain = Predictor(cfg, load_model_state(ckpt), infer_chunk=CHUNK, device=DEVICE, impl="torch", **mode)
     np.random.seed(0)
     dataset = SemanticDataset(cfg.num_point, "validation", bool(cfg.use_color), cfg.box_size_x, cfg.box_size_y,
                               cfg.data_path, seed=0)
@@ -1359,6 +1670,37 @@ def cli_phase(seed: int, card: str, train_median_ms: float) -> dict:
             **_plain_labels(cfg, ckpt, out_dir),
             "launches": launches,
         }
+        # The bf16 modes through the same entry points: one mixed-precision
+        # train epoch, then the bf16 predict CLI on its float32 checkpoint.
+        name = "cli_train_bf16"
+        cfg_paths[name] = tmp / f"{name}.json"
+        cfg_paths[name].write_text(json.dumps(
+            {**raw_cfg, "data_path": str(tmp / "scenes"), "logdir": str(tmp / name), "max_epoch": 1}
+        ))
+        runs[name] = _cli_train(cfg_paths[name], seed, [], BF16_CLI_TRAIN)
+        torch.cuda.empty_cache()
+        bf16_ckpt = pathlib.Path(Config.from_json(cfg_paths[name]).logdir) / "model.pt"
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        bf16_summary = cli_predict.main([
+            "--ckpt", str(bf16_ckpt), "--set", "validation", "--config_file", str(cfg_paths[name]),
+            "--num_samples", str(CLI_SAMPLES), "--batch_size", str(CLI_PREDICT_BATCH),
+            "--output_dir", str(tmp / "sparse_bf16"), "--dtype", "bfloat16",
+        ])
+        bf16_launches = dict(cuda.LAUNCHES)
+        bf16_batches = len(bf16_summary["batch_seconds"])
+        _expect_launches(bf16_launches, {name: bf16_batches * n for name, n in BF16_CHUNK_LAUNCHES.items()},
+                         f"the bf16 predict CLI: {bf16_batches} batches of {CLI_PREDICT_BATCH}")
+        predict_bf16 = {
+            "dtype": "bfloat16",
+            "samples": bf16_summary["samples"],
+            "batches": bf16_batches,
+            "batch_seconds": bf16_summary["batch_seconds"],
+            "samples_per_s": bf16_summary["samples"] / sum(bf16_summary["batch_seconds"]),
+            **_plain_labels(Config.from_json(cfg_paths[name]), bf16_ckpt, tmp / "sparse_bf16", dtype="bfloat16"),
+            "launches": bf16_launches,
+        }
+
         # The sampler alone, on this thread with no other running: what one
         # batch of the train split costs the host.
         train_ds = SemanticDataset(cfg.num_point, "train", bool(cfg.use_color), cfg.box_size_x, cfg.box_size_y,
@@ -1373,12 +1715,15 @@ def cli_phase(seed: int, card: str, train_median_ms: float) -> dict:
         "train": runs["cli_train"],
         "train_windows": {"bq_window": BQ_WINDOW, "fp_window": FP_WINDOW, **runs["cli_train_windows"]},
         "predict": predict,
+        "train_bf16": {"flags": list(BF16_CLI_TRAIN), **runs["cli_train_bf16"]},
+        "predict_bf16": predict_bf16,
         "train_phase_median_ms": train_median_ms,
         "sampler_ms_per_batch": sampler_ms,
         "phase_seconds": time.perf_counter() - t0,
         "card": card,
     })
-    return {**{name: run["launches"] for name, run in runs.items()}, "cli_predict": launches}
+    return {**{name: run["launches"] for name, run in runs.items()}, "cli_predict": launches,
+            "cli_predict_bf16": bf16_launches}
 
 def chunked_plain_knn(xyz1: torch.Tensor, xyz2: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """``ops.core.knn`` over the queries in chunks, as the densify engine's plain
@@ -1640,6 +1985,8 @@ def main(argv=None) -> int:
     train_levels = kernel_phase(cfg, SEED + 100, report, BATCH)
     grad_kernel_phase(chunk_levels, SEED, report)
     grad_kernel_phase(train_levels, SEED, report)
+    bf16_kernel_phase(chunk_levels, SEED, report)
+    bf16_kernel_phase(train_levels, SEED, report)
     window_kernel_phase(cfg, SEED, report, CHUNK)
     window_kernel_phase(cfg, SEED + 100, report, BATCH)
     op_surface_kernel_phase(cfg, chunk_levels, report)
@@ -1650,13 +1997,17 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     paths = {"predict": predict_phase(cfg, REQUESTS, BATCH, SEED, card)}
     torch.cuda.empty_cache()
-    paths["train"], train_median_ms = train_phase(cfg, SEED, card)
+    paths["train"], train_row = train_phase(cfg, SEED, card)
     torch.cuda.empty_cache()
     paths["predict_windows"] = predict_windows_phase(cfg, REQUESTS, BATCH, SEED, card)
     torch.cuda.empty_cache()
     paths["train_windows"] = train_windows_phase(cfg, SEED, card)
     torch.cuda.empty_cache()
-    paths.update(cli_phase(SEED, card, train_median_ms))
+    paths.update(predict_bf16_phase(cfg, REQUESTS, BATCH, SEED, card))
+    torch.cuda.empty_cache()
+    paths["train_bf16"] = train_bf16_phase(cfg, SEED, card, train_row)
+    torch.cuda.empty_cache()
+    paths.update(cli_phase(SEED, card, train_row["median_ms"]))
     torch.cuda.empty_cache()
     paths["op_surface"] = op_surface_phase(card)
     torch.cuda.empty_cache()

@@ -22,15 +22,11 @@ import torch
 from pointnet2_tpu_torch.infer import resolve_device
 from pointnet2_tpu_torch.train.trainer import _NOT_PORTED
 
-_PRECISION = _NOT_PORTED["train_dtype"][1]
 _MSG = _NOT_PORTED["arch"][1]
 _MULTI_PROCESS = "queue 1 item 10 (multi-process)"
 
 # Flag -> (the value that means "off", the ROADMAP item that will bring it).
 NOT_PORTED_FLAGS = {
-    "train_dtype": ("float32", _PRECISION),
-    "dtype": ("float32", _PRECISION),
-    "bf16_min_width": (None, _PRECISION),
     "arch": ("ssg", _MSG),
     "sharded": (False, _MULTI_PROCESS),
     "dist_coordinator": (None, _MULTI_PROCESS),

@@ -15,7 +15,10 @@ its epoch loop:
   every 10 epochs, and ``model_autosave.pt`` however the loop ends;
 - ``--resume`` continues from one of those files, step and optimizer
   included; ``--seed`` makes the batch stream reproducible and so runs one
-  sampler thread (``data/rng.py``).
+  sampler thread (``data/rng.py``);
+- ``--train_dtype bfloat16`` (with ``--bf16_min_width``, selectively) takes
+  the train steps in the mixed-precision mode; the eval epochs run float32
+  and the checkpoints hold the float32 master weights either way.
 
 Checkpoints are the port's own ``torch.save`` files (``train.save_checkpoint``):
 the JAX package's orbax directories cannot be read. Besides the JAX loop's
@@ -75,8 +78,16 @@ def build_parser() -> argparse.ArgumentParser:
         "--fp_window", type=parse_window_arg, default=None,
         help="calibrated 3-NN x-window for the FP levels (int or 'auto'); checked like --bq_window",
     )
-    parser.add_argument("--train_dtype", default="float32", choices=["float32", "bfloat16"])
-    parser.add_argument("--bf16_min_width", type=int, default=None)
+    parser.add_argument(
+        "--train_dtype", default="float32", choices=["float32", "bfloat16"],
+        help="training compute dtype: bfloat16 = mixed precision (bfloat16 MLP matmuls and activations; "
+        "float32 master weights, BatchNorm statistics, geometry, logits and loss); checkpoints stay float32",
+    )
+    parser.add_argument(
+        "--bf16_min_width", type=int, default=None,
+        help="selective mixed precision: with --train_dtype bfloat16, stages whose narrowest MLP width "
+        "is below this stay float32 (128 keeps SA1 and SA2 in float32). Default: uniform bfloat16",
+    )
     parser.add_argument("--arch", default="ssg", choices=["ssg", "msg"])
     parser.add_argument("--dist_coordinator", default=None)
     parser.add_argument("--dist_num_processes", type=int, default=None)
@@ -160,6 +171,7 @@ def _train(flags: argparse.Namespace, cfg: Config, device: torch.device, logger:
         cfg, num_classes=train_ds.num_classes, accum_steps=flags.accum_steps,
         hoist_geometry=bool(flags.hoist_geometry), device=device,
         bq_window=flags.bq_window, fp_window=flags.fp_window, dropout_seed=(flags.seed or 0) + 1,
+        train_dtype=flags.train_dtype, bf16_min_width=flags.bf16_min_width,
     )
     trainer.init_state(flags.seed or 0)
     if flags.resume:

@@ -34,6 +34,20 @@
 // because Mosaic has no vector gather; on this card that would do M/3 times
 // the work for nothing.
 //
+// Features in bfloat16 (the bf16 precision modes): `points` and the skip are
+// each float32 or bfloat16, and the output is the concat's promoted type
+// (bfloat16 only if both are). A gathered element is widened to float32
+// exactly, the weights stay float32 (rounded to bfloat16 first when the
+// caller asks, as the "default" precision does for bfloat16 points), the
+// blend is the float32 blend above, and it is rounded once to the points'
+// type, then stored in the output's (exact when that is wider). So a
+// bfloat16 result equals the plain version's bit for bit. The 16-byte
+// route takes 8 bfloat16 values a lane and access (C and C + C1 multiples
+// of 8); a float32 output of bfloat16 points stores those 8 as two 16-byte
+// stores. The skip is copied 16 bytes at a time only where it already has
+// the output's type; a bfloat16 skip in a float32 row is widened element by
+// element. In bfloat16 the output bytes halve, and so does the byte bound.
+//
 // ---------------------------------------------------------------------------
 // three_interpolate backward (second entry, pn2_three_interpolate_grad):
 //   dpoints[m, c] = sum over the pairs (q, j) with idx[q, j] == m of
@@ -75,6 +89,12 @@
 // read in place). A row of more than 64 keys (none at the model's shapes:
 // 12 to 24 on average, 51 at most measured at FP4) scans its cloud's pairs
 // for slot 0, 1, 2 in query order instead, which is the order of the sum.
+// In bfloat16 (g, dpoints or both; dpoints has the type of the forward's
+// points): the same keys, order and float32 sums, each g element widened
+// exactly, the weight rounded to bfloat16 first when the caller asks, and
+// each result rounded once to dpoints' type. The vector route then moves 4
+// channels a lane as 8 bytes of bfloat16 (C and g's strides multiples of 4).
+//
 // Every row is written with plain stores; one no pair names is +0.0. A g row
 // is read once for each of its up to three destination rows: at FP4 that is
 // about 200 MB out of L2, which bounds this design near 40 us at B=16 where
@@ -92,9 +112,74 @@
 // whose last bits followed the atomics' order.
 
 #include <climits>
+#include <type_traits>
+
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+// v in T, rounded to nearest even (exact for float).
+template <typename T>
+__device__ __forceinline__ T from_f32(float v) {
+  if constexpr (std::is_same_v<T, float>) {
+    return v;
+  } else {
+    return __float2bfloat16_rn(v);
+  }
+}
+
+// The value of T nearest v, as a float.
+template <typename T>
+__device__ __forceinline__ float round_as(float v) {
+  return to_f32(from_f32<T>(v));
+}
+
+// N consecutive elements of T, 16-byte aligned (4 floats or 8 bfloat16 in
+// one access; 4 bfloat16 in one 8-byte access), as floats and back.
+template <typename T, int N>
+__device__ __forceinline__ void load_vec(const T* p, float* v) {
+  static_assert(N * sizeof(T) == 16 || N * sizeof(T) == 8, "one 8- or 16-byte access");
+  if constexpr (std::is_same_v<T, float>) {
+    static_assert(N == 4, "float32: 4 a 16-byte access");
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else {
+    using Word = std::conditional_t<N == 8, uint4, uint2>;
+    const Word x = *reinterpret_cast<const Word*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void store_vec(T* p, const float* v) {
+  static_assert(N * sizeof(T) == 16 || N * sizeof(T) == 8, "one 8- or 16-byte access");
+  if constexpr (std::is_same_v<T, float>) {
+    static_assert(N == 4, "float32: 4 a 16-byte access");
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    using Word = std::conditional_t<N == 8, uint4, uint2>;
+    Word x;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<Word*>(p) = x;
+  }
+}
 
 __device__ __forceinline__ float blend(float w0, float a, float w1, float b, float w2, float c) {
   float acc = __fmul_rn(w0, a);
@@ -102,17 +187,21 @@ __device__ __forceinline__ float blend(float w0, float a, float w1, float b, flo
   return __fadd_rn(acc, __fmul_rn(w2, c));
 }
 
-// kVec: 16-byte loads and stores, else 4-byte ones. Grid: ceil(rows /
-// (threads / 32)) blocks of `threads`, a warp a row; out rows out_stride apart.
-template <bool kVec>
-__global__ void three_interpolate_kernel(const float* __restrict__ points,
+// TP: the points' type, TS: the skip's, TO: the output's (the wider of the
+// two). kVec: one 16-byte load of points a lane and step (16 / sizeof(TP)
+// channels), the same channels stored as 16-byte stores of TO; else one
+// element a lane. Grid: ceil(rows / (threads / 32)) blocks of `threads`, a
+// warp a row; out rows out_stride elements apart. round_w: the weights are
+// rounded to bfloat16 before the blend.
+template <typename TP, typename TS, typename TO, bool kVec>
+__global__ void three_interpolate_kernel(const TP* __restrict__ points,
                                          const int* __restrict__ idx,
                                          const float* __restrict__ weight, int m,
                                          int n, int c, int rows,
-                                         float* __restrict__ out, int out_stride,
-                                         const float* __restrict__ skip,
+                                         TO* __restrict__ out, int out_stride,
+                                         const TS* __restrict__ skip,
                                          long long skip_stride_b, long long skip_stride_n,
-                                         int c1, bool skip_vec) {
+                                         int c1, bool skip_vec, bool round_w) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (row >= rows) return;  // a whole warp: the shuffles below see all 32 lanes
@@ -121,6 +210,7 @@ __global__ void three_interpolate_kernel(const float* __restrict__ points,
   if (lane < 3) {
     iv = idx[(size_t)row * 3 + lane];
     wv = weight[(size_t)row * 3 + lane];
+    if (round_w) wv = round_as<bf16>(wv);
   }
   const int i0 = __shfl_sync(0xffffffffu, iv, 0);
   const int i1 = __shfl_sync(0xffffffffu, iv, 1);
@@ -129,32 +219,44 @@ __global__ void three_interpolate_kernel(const float* __restrict__ points,
   const float w1 = __shfl_sync(0xffffffffu, wv, 1);
   const float w2 = __shfl_sync(0xffffffffu, wv, 2);
   const int bi = row / n;
-  const float* pb = points + (size_t)bi * m * c;
-  const float* p0 = pb + (size_t)i0 * c;
-  const float* p1 = pb + (size_t)i1 * c;
-  const float* p2 = pb + (size_t)i2 * c;
-  float* o = out + (size_t)row * out_stride;
+  const TP* pb = points + (size_t)bi * m * c;
+  const TP* p0 = pb + (size_t)i0 * c;
+  const TP* p1 = pb + (size_t)i1 * c;
+  const TP* p2 = pb + (size_t)i2 * c;
+  TO* o = out + (size_t)row * out_stride;
   if constexpr (kVec) {
-    for (int ch = 4 * lane; ch < c; ch += 128) {
-      const float4 a = *reinterpret_cast<const float4*>(p0 + ch);
-      const float4 b = *reinterpret_cast<const float4*>(p1 + ch);
-      const float4 d = *reinterpret_cast<const float4*>(p2 + ch);
-      *reinterpret_cast<float4*>(o + ch) =
-          make_float4(blend(w0, a.x, w1, b.x, w2, d.x), blend(w0, a.y, w1, b.y, w2, d.y),
-                      blend(w0, a.z, w1, b.z, w2, d.z), blend(w0, a.w, w1, b.w, w2, d.w));
+    constexpr int kE = 16 / sizeof(TP);  // channels a lane and step
+    constexpr int kO = 16 / sizeof(TO);  // of them, in one store of TO
+    for (int ch = kE * lane; ch < c; ch += 32 * kE) {
+      float a[kE], b[kE], d[kE], r[kE];
+      load_vec<TP, kE>(p0 + ch, a);
+      load_vec<TP, kE>(p1 + ch, b);
+      load_vec<TP, kE>(p2 + ch, d);
+#pragma unroll
+      for (int e = 0; e < kE; ++e) r[e] = round_as<TP>(blend(w0, a[e], w1, b[e], w2, d[e]));
+#pragma unroll
+      for (int s = 0; s < kE; s += kO) store_vec<TO, kO>(o + ch + s, r + s);
     }
   } else {
-    for (int ch = lane; ch < c; ch += 32) o[ch] = blend(w0, p0[ch], w1, p1[ch], w2, p2[ch]);
+    for (int ch = lane; ch < c; ch += 32) {
+      o[ch] = from_f32<TO>(round_as<TP>(
+          blend(w0, to_f32(p0[ch]), w1, to_f32(p1[ch]), w2, to_f32(p2[ch]))));
+    }
   }
   if (skip != nullptr) {
-    const float* s = skip + bi * skip_stride_b + (long long)(row - bi * n) * skip_stride_n;
-    float* os = o + c;
-    if (skip_vec) {
-      for (int ch = 4 * lane; ch < c1; ch += 128) {
-        *reinterpret_cast<float4*>(os + ch) = *reinterpret_cast<const float4*>(s + ch);
+    const TS* s = skip + bi * skip_stride_b + (long long)(row - bi * n) * skip_stride_n;
+    TO* os = o + c;
+    if constexpr (std::is_same_v<TS, TO>) {
+      constexpr int kS = 16 / sizeof(TS);
+      if (skip_vec) {
+        for (int ch = kS * lane; ch < c1; ch += 32 * kS) {
+          *reinterpret_cast<uint4*>(os + ch) = *reinterpret_cast<const uint4*>(s + ch);
+        }
+      } else {
+        for (int ch = lane; ch < c1; ch += 32) os[ch] = s[ch];
       }
-    } else {
-      for (int ch = lane; ch < c1; ch += 32) os[ch] = s[ch];
+    } else {  // a bfloat16 skip in a float32 row: widened, exactly
+      for (int ch = lane; ch < c1; ch += 32) os[ch] = from_f32<TO>(to_f32(s[ch]));
     }
   }
 }
@@ -219,8 +321,8 @@ __device__ __forceinline__ int warp_merge(int key, int lane) {
 // weight wv and the offset gv of g's row), in lane order, into the lane's
 // kChunk / 32 channels from ch0. Lanes past len hold weight 0 and offset 0:
 // their rows are loaded (g's first row of the cloud) but never added.
-template <bool kVec>
-__device__ __forceinline__ void add_rows(float (&acc)[kChunk / 32], const float* gb, float wv,
+template <typename TG, bool kVec>
+__device__ __forceinline__ void add_rows(float (&acc)[kChunk / 32], const TG* gb, float wv,
                                          long long gv, int len, int ch0, int c, int lane) {
   constexpr int kPerLane = kChunk / 32;
   for (int t0 = 0; t0 < len; t0 += kSumUnroll) {
@@ -230,20 +332,20 @@ __device__ __forceinline__ void add_rows(float (&acc)[kChunk / 32], const float*
     for (int u = 0; u < kSumUnroll; ++u) {
       const int src = (t0 + u) & 31;
       ws[u] = __shfl_sync(kFull, wv, src);
-      const float* gr = gb + __shfl_sync(kFull, gv, src);
+      const TG* gr = gb + __shfl_sync(kFull, gv, src);
       if constexpr (kVec) {
         const int ch = ch0 + kPerLane * lane;
-        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (ch < c) x = *reinterpret_cast<const float4*>(gr + ch);
-        v[u][0] = x.x;
-        v[u][1] = x.y;
-        v[u][2] = x.z;
-        v[u][3] = x.w;
+        if (ch < c) {
+          load_vec<TG, kPerLane>(gr + ch, v[u]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < kPerLane; ++i) v[u][i] = 0.f;
+        }
       } else {
 #pragma unroll
         for (int i = 0; i < kPerLane; ++i) {
           const int ch = ch0 + lane + 32 * i;
-          v[u][i] = ch < c ? gr[ch] : 0.f;
+          v[u][i] = ch < c ? to_f32(gr[ch]) : 0.f;
         }
       }
     }
@@ -260,15 +362,18 @@ __device__ __forceinline__ void add_rows(float (&acc)[kChunk / 32], const float*
 // One warp a destination row r = b * m + row and a chunk of kChunk channels
 // from ch0 (chunks warps a row). Up to kSlots keys: the bucket's, sorted in
 // the lanes (two a lane). More: the cloud's pairs scanned in (j, q) order,
-// which is the order of the sum, so nothing is sorted. kVec: 16-byte loads of
-// g and stores of dpoints.
-template <bool kVec>
-__global__ void three_interpolate_grad_sum_kernel(const float* __restrict__ g, long long g_stride_b,
+// which is the order of the sum, so nothing is sorted. TG: g's type, TD:
+// dpoints'. kVec: 4 channels a lane in one access of g and one of dpoints
+// (16 bytes of float32, 8 of bfloat16). round_w: the weights rounded to
+// bfloat16 before their products.
+template <typename TG, typename TD, bool kVec>
+__global__ void three_interpolate_grad_sum_kernel(const TG* __restrict__ g, long long g_stride_b,
                                                   long long g_stride_n, const int* __restrict__ idx,
                                                   const float* __restrict__ weight,
                                                   const int* __restrict__ count_of,
                                                   const int* __restrict__ bucket, int m, int n, int c,
-                                                  int rows, int chunks, float* __restrict__ dpoints) {
+                                                  int rows, int chunks, TD* __restrict__ dpoints,
+                                                  bool round_w) {
   constexpr int kPerLane = kChunk / 32;
   const int lane = threadIdx.x & 31;
   const long long w = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
@@ -278,7 +383,7 @@ __global__ void three_interpolate_grad_sum_kernel(const float* __restrict__ g, l
   const int b = r / m;
   const int row = r - b * m;
   const int count = count_of[r];
-  const float* gb = g + b * g_stride_b;
+  const TG* gb = g + b * g_stride_b;
   const float* wb = weight + (size_t)b * n * 3;
   float acc[kPerLane];
 #pragma unroll
@@ -305,9 +410,10 @@ __global__ void three_interpolate_grad_sum_kernel(const float* __restrict__ g, l
         const int j = k >= 2 * n ? 2 : (k >= n ? 1 : 0);
         const int q = k - j * n;
         wv = wb[q * 3 + j];
+        if (round_w) wv = round_as<bf16>(wv);
         gv = q * g_stride_n;
       }
-      add_rows<kVec>(acc, gb, wv, gv, len, ch0, c, lane);
+      add_rows<TG, kVec>(acc, gb, wv, gv, len, ch0, c, lane);
     }
   } else {
     const int* ib = idx + (size_t)b * n * 3;
@@ -321,6 +427,7 @@ __global__ void three_interpolate_grad_sum_kernel(const float* __restrict__ g, l
         // takes the t-th hit.
         const int len = __popc(mask);
         float wv = hit ? wb[q * 3 + j] : 0.f;
+        if (round_w) wv = round_as<bf16>(wv);
         long long gv = hit ? q * g_stride_n : 0;
         int from = 0, rank = 0;
         for (unsigned bits = mask; bits; bits &= bits - 1u, ++rank) {
@@ -332,20 +439,55 @@ __global__ void three_interpolate_grad_sum_kernel(const float* __restrict__ g, l
           wv = 0.f;
           gv = 0;
         }
-        add_rows<kVec>(acc, gb, wv, gv, len, ch0, c, lane);
+        add_rows<TG, kVec>(acc, gb, wv, gv, len, ch0, c, lane);
       }
     }
   }
-  float* out = dpoints + (size_t)r * c;
+  TD* out = dpoints + (size_t)r * c;
   if constexpr (kVec) {
     const int ch = ch0 + kPerLane * lane;
-    if (ch < c) *reinterpret_cast<float4*>(out + ch) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    if (ch < c) store_vec<TD, kPerLane>(out + ch, acc);
   } else {
 #pragma unroll
     for (int i = 0; i < kPerLane; ++i) {
       const int ch = ch0 + lane + 32 * i;
-      if (ch < c) out[ch] = acc[i];
+      if (ch < c) out[ch] = from_f32<TD>(acc[i]);
     }
+  }
+}
+
+template <typename TP, typename TS, typename TO>
+void launch_forward(const void* points, const int* idx, const float* weight, int m, int n, int c,
+                    int rows, void* out, int out_stride, const void* skip, long long skip_stride_b,
+                    long long skip_stride_n, int c1, bool vec, bool skip_vec, bool round_w, int blocks,
+                    int threads, cudaStream_t s) {
+  const TP* p = static_cast<const TP*>(points);
+  TO* o = static_cast<TO*>(out);
+  const TS* k = static_cast<const TS*>(skip);
+  if (vec) {
+    three_interpolate_kernel<TP, TS, TO, true><<<blocks, threads, 0, s>>>(
+        p, idx, weight, m, n, c, rows, o, out_stride, k, skip_stride_b, skip_stride_n, c1, skip_vec,
+        round_w);
+  } else {
+    three_interpolate_kernel<TP, TS, TO, false><<<blocks, threads, 0, s>>>(
+        p, idx, weight, m, n, c, rows, o, out_stride, k, skip_stride_b, skip_stride_n, c1, false,
+        round_w);
+  }
+}
+
+template <typename TG, typename TD>
+void launch_grad_sum(const void* g, long long g_stride_b, long long g_stride_n, const int* idx,
+                     const float* weight, const int* count, const int* bucket, int m, int n, int c,
+                     int rows, int chunks, void* dpoints, bool vec, bool round_w, unsigned blocks,
+                     cudaStream_t s) {
+  const TG* gp = static_cast<const TG*>(g);
+  TD* out = static_cast<TD*>(dpoints);
+  if (vec) {
+    three_interpolate_grad_sum_kernel<TG, TD, true><<<blocks, kGradThreads, 0, s>>>(
+        gp, g_stride_b, g_stride_n, idx, weight, count, bucket, m, n, c, rows, chunks, out, round_w);
+  } else {
+    three_interpolate_grad_sum_kernel<TG, TD, false><<<blocks, kGradThreads, 0, s>>>(
+        gp, g_stride_b, g_stride_n, idx, weight, count, bucket, m, n, c, rows, chunks, out, round_w);
   }
 }
 
@@ -353,52 +495,65 @@ __global__ void three_interpolate_grad_sum_kernel(const float* __restrict__ g, l
 
 extern "C" {
 
-// points (b, m, c), idx (b, n, 3) i32, weight (b, n, 3) f32 -> out (b, n, c + c1)
-// f32, rows out_stride = c + c1 floats apart: the blend in [0, c) and, when
-// skip is not null, the skip rows (b, n, c1) f32, their channels adjacent,
-// batch and row strides in elements, in [c, c + c1). vec: 16-byte loads
-// and stores (points and out 16-byte aligned, c and out_stride multiples of
-// 4), else 4-byte ones; skip_vec: the skip is copied 16 bytes at a time (vec,
-// skip aligned, its strides and c1 multiples of 4). A warp a row, blocks of
-// `threads`.
+// points (b, m, c), idx (b, n, 3) i32, weight (b, n, 3) f32 -> out (b, n, c + c1),
+// rows out_stride = c + c1 elements apart: the blend in [0, c) and, when skip
+// is not null, the skip rows (b, n, c1), their channels adjacent, batch and
+// row strides in elements, in [c, c + c1). points_bf16 / skip_bf16: points /
+// skip are bfloat16, else float32; out is bfloat16 when points are and the
+// skip (if any) is too, else float32. round_w: the weights are rounded to
+// bfloat16 before the blend. vec: 16-byte loads and stores (points and out
+// 16-byte aligned, c and out_stride multiples of 16 bytes' worth of points);
+// skip_vec: the skip is copied 16 bytes at a time (vec, the skip of out's
+// type, aligned, its strides and c1 multiples of 16 bytes' worth). A warp a
+// row, blocks of `threads`.
 // Returns cudaGetLastError() after the launch.
-int pn2_three_interpolate(const float* points, const int* idx, const float* weight,
-                          int b, int m, int n, int c, float* out, int out_stride,
-                          const float* skip, long long skip_stride_b, long long skip_stride_n,
-                          int c1, int vec, int skip_vec, int threads, int device,
-                          void* stream) {
+int pn2_three_interpolate(const void* points, const int* idx, const float* weight,
+                          int b, int m, int n, int c, void* out, int out_stride,
+                          const void* skip, long long skip_stride_b, long long skip_stride_n,
+                          int c1, int points_bf16, int skip_bf16, int round_w, int vec,
+                          int skip_vec, int threads, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (threads < 32 || threads > 1024 || threads % 32 || (skip_vec && !vec)) {
+  const bool out_bf16 = points_bf16 && (skip == nullptr || skip_bf16);
+  if (threads < 32 || threads > 1024 || threads % 32 || (skip_vec && !vec) ||
+      (skip_vec && (skip_bf16 != 0) != out_bf16)) {
     return (int)cudaErrorInvalidValue;
   }
   const int rows = b * n;
   const int per_block = threads >> 5;
   const int blocks = (rows + per_block - 1) / per_block;
   cudaStream_t s = (cudaStream_t)stream;
-  if (vec) {
-    three_interpolate_kernel<true><<<blocks, threads, 0, s>>>(
-        points, idx, weight, m, n, c, rows, out, out_stride, skip, skip_stride_b, skip_stride_n,
-        c1, skip_vec != 0);
+  const bool v = vec != 0, sv = skip_vec != 0, rw = round_w != 0;
+  if (!points_bf16 && !(skip != nullptr && skip_bf16)) {
+    launch_forward<float, float, float>(points, idx, weight, m, n, c, rows, out, out_stride, skip,
+                                        skip_stride_b, skip_stride_n, c1, v, sv, rw, blocks, threads, s);
+  } else if (!points_bf16) {
+    launch_forward<float, bf16, float>(points, idx, weight, m, n, c, rows, out, out_stride, skip,
+                                       skip_stride_b, skip_stride_n, c1, v, sv, rw, blocks, threads, s);
+  } else if (out_bf16) {
+    launch_forward<bf16, bf16, bf16>(points, idx, weight, m, n, c, rows, out, out_stride, skip,
+                                     skip_stride_b, skip_stride_n, c1, v, sv, rw, blocks, threads, s);
   } else {
-    three_interpolate_kernel<false><<<blocks, threads, 0, s>>>(
-        points, idx, weight, m, n, c, rows, out, out_stride, skip, skip_stride_b, skip_stride_n,
-        c1, false);
+    launch_forward<bf16, float, float>(points, idx, weight, m, n, c, rows, out, out_stride, skip,
+                                       skip_stride_b, skip_stride_n, c1, v, sv, rw, blocks, threads, s);
   }
   return (int)cudaGetLastError();
 }
 
-// g (b, n, c) f32, idx (b, n, 3) i32, weight (b, n, 3) f32 -> dpoints (b, m, c) f32,
-// every element written. g's channels lie next to each other; its batch and
-// row strides, in elements, are g_stride_b and g_stride_n (n * c and c when
-// it is contiguous), so a cotangent that is a channel slice of a wider tensor
-// is read where it lies. scratch holds b * m * (1 + kSlots) ints (each row's
-// count and its bucket of keys). vec: 16-byte loads of g and stores of
-// dpoints (both 16-byte aligned, c and the strides multiples of 4). 3 * b * n
+// g (b, n, c), idx (b, n, 3) i32, weight (b, n, 3) f32 -> dpoints (b, m, c),
+// every element written; g_bf16 / d_bf16: g / dpoints are bfloat16, else
+// float32. g's channels lie next to each other; its batch and row strides,
+// in elements, are g_stride_b and g_stride_n (n * c and c when it is
+// contiguous), so a cotangent that is a channel slice of a wider tensor is
+// read where it lies. scratch holds b * m * (1 + kSlots) ints (each row's
+// count and its bucket of keys). round_w: the weights are rounded to
+// bfloat16 before their products. vec: 4 channels a lane in one access (g
+// and dpoints aligned to it, c and the strides multiples of 4). 3 * b * n
 // and b * m * c must fit in an int. Returns the first CUDA error, or 0.
-int pn2_three_interpolate_grad(const float* g, long long g_stride_b, long long g_stride_n,
+int pn2_three_interpolate_grad(const void* g, long long g_stride_b, long long g_stride_n,
                                const int* idx, const float* weight,
-                               int b, int m, int n, int c, float* dpoints, int* scratch, int vec,
+                               int b, int m, int n, int c, void* dpoints, int* scratch,
+                               int g_bf16, int d_bf16, int round_w, int vec,
                                int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -415,12 +570,20 @@ int pn2_three_interpolate_grad(const float* g, long long g_stride_b, long long g
   const long long warps = (long long)rows * chunks;
   const long long blocks = (warps + (kGradThreads >> 5) - 1) / (kGradThreads >> 5);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  if (vec) {
-    three_interpolate_grad_sum_kernel<true><<<(unsigned)blocks, kGradThreads, 0, s>>>(
-        g, g_stride_b, g_stride_n, idx, weight, count, bucket, m, n, c, rows, chunks, dpoints);
+  const bool v = vec != 0, rw = round_w != 0;
+  const unsigned nb = (unsigned)blocks;
+  if (!g_bf16 && !d_bf16) {
+    launch_grad_sum<float, float>(g, g_stride_b, g_stride_n, idx, weight, count, bucket, m, n, c, rows,
+                                  chunks, dpoints, v, rw, nb, s);
+  } else if (!g_bf16) {
+    launch_grad_sum<float, bf16>(g, g_stride_b, g_stride_n, idx, weight, count, bucket, m, n, c, rows,
+                                 chunks, dpoints, v, rw, nb, s);
+  } else if (d_bf16) {
+    launch_grad_sum<bf16, bf16>(g, g_stride_b, g_stride_n, idx, weight, count, bucket, m, n, c, rows,
+                                chunks, dpoints, v, rw, nb, s);
   } else {
-    three_interpolate_grad_sum_kernel<false><<<(unsigned)blocks, kGradThreads, 0, s>>>(
-        g, g_stride_b, g_stride_n, idx, weight, count, bucket, m, n, c, rows, chunks, dpoints);
+    launch_grad_sum<bf16, float>(g, g_stride_b, g_stride_n, idx, weight, count, bucket, m, n, c, rows,
+                                 chunks, dpoints, v, rw, nb, s);
   }
   return (int)cudaGetLastError();
 }

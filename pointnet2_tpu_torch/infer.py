@@ -10,18 +10,41 @@ labels. With calibrated windows (``bq_window``, ``fp_window``),
 the request held (``_predict_step_checked``, ``:555-563``).
 
 The Predictor runs on CUDA unless it is given another device, and raises if
-CUDA is absent; it never falls back to the CPU.
+CUDA is absent; it never falls back to the CPU. ``dtype="bfloat16"`` is the
+JAX package's production inference mode (``infer_dtype``, ``:120-124``,
+``:487-495``): the MLP path in bfloat16 (or, with ``bf16_min_width``, only
+its wide stages), on weights whose eval BatchNorms are folded into the
+linear layers once, at construction (``nn.fold``); geometry and logits stay
+float32, and the checkpoint is the same float32 one.
 """
 
 from __future__ import annotations
 
-from typing import List, Mapping, Optional
+from typing import Callable, List, Mapping, Optional
 
 import numpy as np
 import torch
 
 from pointnet2_tpu_torch.config import Config
 from pointnet2_tpu_torch.models.pointnet2_seg import PointNet2SemSeg, Window
+from pointnet2_tpu_torch.nn.fold import fold_batch_norm
+
+# The precision modes' names (the JAX Trainer's): None is float32.
+DTYPES = {"float32": None, "f32": None, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
+
+
+def compute_dtype(name: str, what: str) -> Optional[torch.dtype]:
+    """The model's ``compute_dtype`` for a mode name; ValueError for another name."""
+    if name not in DTYPES:
+        raise ValueError(f"unknown {what} {name!r}, expected 'float32'/'bfloat16'")
+    return DTYPES[name]
+
+
+def check_min_width(bf16_min_width: Optional[int], what: str, *dtypes: Optional[torch.dtype]) -> None:
+    """``bf16_min_width`` needs a bfloat16 mode among ``dtypes``: without one
+    it would do nothing. ``what`` says which dtypes are not bfloat16."""
+    if bf16_min_width is not None and not any(dtypes):
+        raise ValueError(f"bf16_min_width is set but {what} — it would silently do nothing")
 
 
 def resolve_device(device: Optional[str | torch.device]) -> torch.device:
@@ -34,16 +57,20 @@ def resolve_device(device: Optional[str | torch.device]) -> torch.device:
 
 
 def full_float32() -> None:
-    """Keep float32 matmuls and convolutions in float32 (TF32 off)."""
+    """Keep float32 matmuls and convolutions in float32 (TF32 off), and let
+    no bfloat16 GEMM reduce its split-K partial sums in bfloat16: the
+    reference accumulates in float32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 @torch.no_grad()
 def chunked_logits(
-    model: PointNet2SemSeg, x: torch.Tensor, chunk: int, certificates: Optional[List] = None
+    model: PointNet2SemSeg | Callable, x: torch.Tensor, chunk: int, certificates: Optional[List] = None
 ) -> torch.Tensor:
-    """The eval forward of ``model`` over ``x (B, N, 3+C)`` in chunks of ``chunk`` clouds.
+    """The eval forward of ``model`` (a module in eval mode, or a function
+    called as one) over ``x (B, N, 3+C)`` in chunks of ``chunk`` clouds.
 
     A chunk size that is 0, not below B, or does not divide B runs the batch
     whole. ``certificates`` receives every chunk's window certificates.
@@ -68,6 +95,8 @@ class Predictor:
     ``impl`` is passed to every point-set operator: None runs the CUDA
     kernels on a CUDA device, "torch" the plain versions (for comparisons).
     ``bq_window``/``fp_window`` are the model's calibrated windows.
+    ``dtype`` ("float32" or "bfloat16") and ``bf16_min_width`` are the
+    precision mode (see the module docstring).
     """
 
     def __init__(
@@ -80,7 +109,11 @@ class Predictor:
         impl: Optional[str] = None,
         bq_window: Window = None,
         fp_window: Window = None,
+        dtype: str = "float32",
+        bf16_min_width: Optional[int] = None,
     ):
+        precision = compute_dtype(dtype, "dtype")
+        check_min_width(bf16_min_width, "dtype is not bfloat16", precision)
         full_float32()
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -88,8 +121,9 @@ class Predictor:
         model = PointNet2SemSeg(
             cfg, num_classes, bool(cfg.use_color), ops_impl=impl,
             bq_window=bq_window, fp_window=fp_window,
+            compute_dtype=precision, compute_dtype_min_width=bf16_min_width,
         )
-        model.load_state_dict(state_dict)
+        model.load_state_dict(state_dict if precision is None else fold_batch_norm(state_dict))
         self.model = model.to(self.device).eval()
 
     def infer_logits(

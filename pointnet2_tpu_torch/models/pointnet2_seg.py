@@ -15,10 +15,18 @@ one per level. ``precompute_geometry`` (``:204-289``) computes
 the parameter-free neighbour structure of a batch ahead of the forward;
 ``weighted_ce_sum``/``weighted_ce_loss`` (``:411-441``) are the weighted cross
 entropy divided by the number of non-zero weights.
+
+``compute_dtype`` and ``compute_dtype_min_width`` (``:46-62``, ``:98-106``)
+are the bf16 precision modes: the MLP path of every stage, or with the
+threshold only of the stages whose narrowest MLP width reaches it, computes
+in bfloat16, with float32 parameters, geometry, BatchNorm statistics and
+logits. ``with_precision`` gives a model in another mode that shares this
+one's parameters and buffers, as the JAX Trainer's ``clone`` does.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Mapping, Optional, Sequence, Union
 
 import torch
@@ -26,7 +34,7 @@ from torch import nn
 
 from pointnet2_tpu_torch import ops
 from pointnet2_tpu_torch.config import Config
-from pointnet2_tpu_torch.nn.layers import BatchNorm, Momentum
+from pointnet2_tpu_torch.nn.layers import BatchNorm, Momentum, dense
 from pointnet2_tpu_torch.nn.pointnet import Certificates, FeaturePropagation, SetAbstraction
 
 # One width shared by every level, or one per level (None keeps a level exact).
@@ -49,6 +57,11 @@ class PointNet2SemSeg(nn.Module):
     x-windows: an int for every level, or a 4-sequence of int or None. A level
     whose cloud is not larger than its window runs the exact operator; every
     level with a window reports a certificate (``forward``'s ``certificates``).
+
+    ``compute_dtype`` (None or ``torch.bfloat16``) is the type of the MLP
+    path; with ``compute_dtype_min_width`` only the stages whose narrowest
+    MLP width is at least that run in it (``fc1`` counts as a stage of width
+    128), the others in float32. ``fc2`` always gives float32 logits.
     """
 
     def __init__(
@@ -61,6 +74,8 @@ class PointNet2SemSeg(nn.Module):
         dropout_rate: float = 0.5,
         bq_window: Window = None,
         fp_window: Window = None,
+        compute_dtype: Optional[torch.dtype] = None,
+        compute_dtype_min_width: Optional[int] = None,
     ):
         super().__init__()
         cfg = config or Config()
@@ -93,6 +108,38 @@ class PointNet2SemSeg(nn.Module):
         self.fc1 = nn.Linear(coarse, 128)
         self.fc1_bn = BatchNorm(128)
         self.fc2 = nn.Linear(128, num_classes)
+        self._set_precision(compute_dtype, compute_dtype_min_width)
+
+    def _stage_dtype(self, widths: Sequence[int]) -> Optional[torch.dtype]:
+        """A stage's compute type under the selective mode (``:98-106``)."""
+        if self.compute_dtype is None or self.compute_dtype_min_width is None:
+            return self.compute_dtype
+        return self.compute_dtype if min(widths) >= self.compute_dtype_min_width else None
+
+    def _set_precision(self, compute_dtype: Optional[torch.dtype], min_width: Optional[int]) -> None:
+        if compute_dtype not in (None, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be None or torch.bfloat16, got {compute_dtype!r}")
+        self.compute_dtype = compute_dtype
+        self.compute_dtype_min_width = min_width
+        for i, mlp in enumerate(SA_MLPS):
+            getattr(self, f"sa{i + 1}").set_compute_dtype(self._stage_dtype(mlp))
+        for i, mlp in enumerate(FP_MLPS):
+            getattr(self, f"fp{i + 1}").set_compute_dtype(self._stage_dtype(mlp))
+        self.fc1_dtype = self._stage_dtype([128])
+
+    def with_precision(
+        self, compute_dtype: Optional[torch.dtype], min_width: Optional[int] = None
+    ) -> "PointNet2SemSeg":
+        """This model in another precision mode, sharing its parameters and
+        buffers (the same tensors: a step of either trains both). Make it
+        after moving the model: a later ``.to()`` of one replaces only its
+        own buffers."""
+        memo = {id(t): t for t in (*self.parameters(), *self.buffers())}
+        if self._generator is not None:  # the copy makes its own dropout generator
+            memo[id(self._generator)] = None
+        clone = copy.deepcopy(self, memo)
+        clone._set_precision(compute_dtype, min_width)
+        return clone
 
     def forward(
         self,
@@ -122,10 +169,10 @@ class PointNet2SemSeg(nn.Module):
                 xyzs[lvl], xyzs[lvl + 1], feats[lvl], feats[lvl + 1], bn_momentum,
                 None if geometry is None else geometry["fp"][i], certificates,
             )
-        net = torch.relu(self.fc1_bn(self.fc1(feats[0]), bn_momentum))
+        net = torch.relu(self.fc1_bn(dense(self.fc1, feats[0], self.fc1_dtype), bn_momentum))
         if self.training and self.dropout_rate > 0.0:
             net = self._dropout(net, generator)
-        return self.fc2(net)
+        return dense(self.fc2, net)  # float32 logits: the input meets the float32 weights
 
     def _dropout(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
         """Zero each element with probability ``dropout_rate``, scale the rest by 1/keep."""
@@ -134,7 +181,7 @@ class PointNet2SemSeg(nn.Module):
                 self._generator = torch.Generator(device=x.device).manual_seed(0)
             generator = self._generator
         keep = torch.rand(x.shape, generator=generator, device=x.device) >= self.dropout_rate
-        return torch.where(keep, x / (1.0 - self.dropout_rate), torch.zeros((), device=x.device))
+        return torch.where(keep, x / (1.0 - self.dropout_rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def level_window(window: Window, i: int) -> Optional[int]:

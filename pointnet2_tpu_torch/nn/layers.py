@@ -6,6 +6,14 @@ its momentum means the opposite. This ``BatchNorm`` holds ``scale``/``bias``
 parameters and moving ``mean``/``var`` buffers under the flax names, and
 computes ``(x - mean) * (rsqrt(var + 1e-3) * scale) + bias`` with the moving
 statistics in eval mode and with the batch's own in train mode.
+
+The bf16 precision modes (``nn/layers.py:24-92`` of the JAX package) cast
+explicitly, never through ``torch.autocast``, which would recast the float32
+stages of selective mode and pick its own types for reductions: a
+``SharedMLP`` of ``dtype`` bfloat16 runs each linear layer on its input and
+its float32 weights cast to bfloat16 at use (the gradients come back to the
+float32 weights through the casts), and ``BatchNorm`` takes its statistics
+and applies them in float32 over a bfloat16 input, and casts its output back.
 """
 
 from __future__ import annotations
@@ -13,6 +21,7 @@ from __future__ import annotations
 from typing import Optional, Sequence, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -27,6 +36,8 @@ class BatchNorm(nn.Module):
     through them, and the moving buffers are updated in place as
     ``moving = moving·m + batch·(1 − m)``. The momentum ``m`` is an argument
     of each call (a float or a 0-d tensor) because the train step anneals it.
+    An input narrower than the buffers (bfloat16) is widened for the
+    statistics and the affine map, and the output has the input's type.
     """
 
     def __init__(self, features: int, epsilon: float = 1e-3):
@@ -38,6 +49,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor, momentum: Optional[Momentum] = None) -> torch.Tensor:
+        dtype = x.dtype
+        x = x.to(torch.promote_types(dtype, self.mean.dtype))
         if self.training:
             if momentum is None:
                 raise ValueError("BatchNorm in train mode needs the momentum of this step")
@@ -50,18 +63,29 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.mean, self.var
         inv = torch.rsqrt(var + self.epsilon) * self.scale
-        return (x - mean) * inv + self.bias
+        return ((x - mean) * inv + self.bias).to(dtype)
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``layer`` on ``x`` in ``dtype``: input, weight and bias cast at use (flax's
+    ``Dense(dtype=...)``). ``None``: in the promoted type of the input and the
+    weight, so a bfloat16 input meets float32 weights in float32."""
+    dtype = dtype or torch.promote_types(x.dtype, layer.weight.dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
 class SharedMLP(nn.Module):
     """Per-point MLP: [Linear -> BatchNorm -> ReLU] for each width, on the last axis.
 
     Layers are named ``dense_{i}`` and ``bn_{i}``, as in the flax module.
+    ``dtype`` is the compute type of the linear layers (``dense``); the
+    parameters stay float32.
     """
 
-    def __init__(self, in_features: int, features: Sequence[int]):
+    def __init__(self, in_features: int, features: Sequence[int], dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.depth = len(features)
+        self.dtype = dtype
         for i, f in enumerate(features):
             self.add_module(f"dense_{i}", nn.Linear(in_features, f))
             self.add_module(f"bn_{i}", BatchNorm(f))
@@ -69,6 +93,6 @@ class SharedMLP(nn.Module):
 
     def forward(self, x: torch.Tensor, bn_momentum: Optional[Momentum] = None) -> torch.Tensor:
         for i in range(self.depth):
-            x = getattr(self, f"dense_{i}")(x)
+            x = dense(getattr(self, f"dense_{i}"), x, self.dtype)
             x = torch.relu(getattr(self, f"bn_{i}")(x, bn_momentum))
         return x

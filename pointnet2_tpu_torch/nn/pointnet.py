@@ -17,6 +17,14 @@ train:
   with the skip concat (one kernel writes both on the kernel path;
   ``torch.cat`` after the plain version), and a ``SharedMLP``.
 
+Both take ``compute_dtype`` (``:251-255``, ``:371-374``, ``:581-596``): None
+for float32, or bfloat16 for a stage of the bf16 modes. The SA projection,
+the centre subtraction and ``bn0`` stay float32 (the features are widened
+for the concat with the coordinates), and the cast comes after the ReLU; in
+FP the interpolation runs at ``precision="default"`` and the skip features
+are cast to the stage's type before the concat, whose type is the promoted
+one of the two halves, as in JAX.
+
 Both take ``geometry``, the neighbour structure computed beforehand
 (``models.precompute_geometry``), in place of their own FPS, ball query or
 3-NN. The index searches run under ``no_grad``: no parameter reaches them.
@@ -64,6 +72,7 @@ class SetAbstraction(nn.Module):
         ops_impl: Optional[str] = None,
         leaf_inputs: bool = False,
         bq_window: Optional[int] = None,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.npoint = npoint
@@ -77,6 +86,11 @@ class SetAbstraction(nn.Module):
         self.b0 = nn.Parameter(torch.zeros(f0))
         self.bn0 = BatchNorm(f0)
         self.mlp_rest = SharedMLP(f0, mlp[1:])
+        self.set_compute_dtype(compute_dtype)
+
+    def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> None:
+        self.compute_dtype = dtype
+        self.mlp_rest.dtype = dtype
 
     def forward(
         self,
@@ -86,7 +100,11 @@ class SetAbstraction(nn.Module):
         geometry: Optional[Mapping[str, torch.Tensor]] = None,
         certificates: Optional[Certificates] = None,
     ):
-        inputs = xyz if points is None else torch.cat([xyz, points], dim=-1)
+        if points is None:
+            inputs = xyz
+        else:  # a bfloat16 stage's features widened: the projection runs in float32
+            dtype = torch.promote_types(xyz.dtype, points.dtype)
+            inputs = torch.cat([xyz.to(dtype), points.to(dtype)], dim=-1)
         if geometry is not None:
             new_xyz, idx = geometry["new_xyz"], geometry["idx"]
         else:
@@ -114,9 +132,12 @@ class SetAbstraction(nn.Module):
                 grouped = ops.group_points(zp, idx)
             zq = new_xyz @ self.w0[:3]  # the centres' xyz projection, no bias
             h = grouped - zq[:, :, None, :]
-        h = torch.relu(self.bn0(h, bn_momentum))
+        h = self._cast(torch.relu(self.bn0(h, bn_momentum)))
         h = self.mlp_rest(h, bn_momentum)
         return new_xyz, h.amax(dim=2), idx
+
+    def _cast(self, h: torch.Tensor) -> torch.Tensor:
+        return h if self.compute_dtype is None else h.to(self.compute_dtype)
 
     def _ball_query(self, xyz, new_xyz, certificates: Optional[Certificates]) -> torch.Tensor:
         if self.bq_window is None:
@@ -141,7 +162,7 @@ class SetAbstraction(nn.Module):
             certificates.append(("bq_window_ok", ok))
         centers = new_xyz if qperm is None else ops.gather_points(new_xyz, qperm)
         h = grouped - (centers @ self.w0[:3])[:, :, None, :]
-        h = torch.relu(self.bn0(h, bn_momentum))
+        h = self._cast(torch.relu(self.bn0(h, bn_momentum)))
         new_points = self.mlp_rest(h, bn_momentum).amax(dim=2)
         if inv_q is not None:
             new_points = ops.gather_points(new_points, inv_q)
@@ -154,12 +175,17 @@ class FeaturePropagation(nn.Module):
 
     def __init__(
         self, in_features: int, mlp: Sequence[int], ops_impl: Optional[str] = None,
-        fp_window: Optional[int] = None,
+        fp_window: Optional[int] = None, compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.ops_impl = ops_impl
         self.fp_window = fp_window
         self.mlp = SharedMLP(in_features, mlp)
+        self.set_compute_dtype(compute_dtype)
+
+    def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> None:
+        self.compute_dtype = dtype
+        self.mlp.dtype = dtype
 
     def forward(
         self,
@@ -183,7 +209,14 @@ class FeaturePropagation(nn.Module):
                 dist2, idx = ops.three_nn(xyz1, xyz2, impl=self.ops_impl)
         # Distances are geometry, not parameters: no gradient goes back through them.
         weight = ops.interpolation_weights(dist2.detach())
+        # A bfloat16 stage interpolates at default precision (bfloat16 weights)
+        # and concatenates its skip features in bfloat16.
+        precision = "default" if self.compute_dtype == torch.bfloat16 else None
+        if points1 is not None and self.compute_dtype is not None:
+            points1 = points1.to(self.compute_dtype)
         # With skip features, the interpolation and the concat in one op:
         # on the kernel path one kernel writes both halves of each row.
-        interpolated = ops.three_interpolate(points2, idx, weight, impl=self.ops_impl, skip=points1)
+        interpolated = ops.three_interpolate(
+            points2, idx, weight, impl=self.ops_impl, precision=precision, skip=points1
+        )
         return self.mlp(interpolated, bn_momentum)

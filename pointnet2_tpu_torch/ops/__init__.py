@@ -120,22 +120,29 @@ def three_nn(xyz1, xyz2, impl: str | None = None):
     return core.three_nn(xyz1, xyz2)
 
 
-def three_interpolate(points, idx, weight, impl: str | None = None, *, skip=None):
+def three_interpolate(points, idx, weight, impl: str | None = None, precision: str | None = None, *, skip=None):
     """Inverse-distance blend of three rows: (B, M, C), (B, N, 3) x2 -> (B, N, C).
 
-    ``skip`` (B, N, C1), the feature-propagation module's own keyword: the
-    result is ``torch.cat([blend, skip], -1)``, (B, N, C + C1), which the
-    kernel writes in one pass; the skip gets the matching slice of the
-    gradient.
+    The result has the points' type: the three rows are widened to float32,
+    weighted and summed in float32, and rounded once. ``precision``, as in
+    the JAX package's ``ops.three_interpolate``: ``None``/``"highest"``
+    multiplies by the float32 weights; ``"default"`` rounds them to the
+    points' type first (bfloat16 points: bfloat16 weights, the bf16 modes'
+    setting). ``skip`` (B, N, C1), the feature-propagation module's own
+    keyword: the result is ``torch.cat([blend, skip], -1)`` in the promoted
+    type of the two, (B, N, C + C1), which the kernel writes in one pass;
+    the skip gets the matching slice of the gradient.
     """
-    return autograd.ThreeInterpolate.apply(points, idx, weight, _use_kernel(impl, points), skip)
+    return autograd.ThreeInterpolate.apply(points, idx, weight, _use_kernel(impl, points), skip, precision)
 
 
-def three_interpolate_grad(g, idx, weight, m: int, impl: str | None = None):
-    """The ``points`` cotangent of ``three_interpolate``: g (B, N, C) -> (B, m, C)."""
+def three_interpolate_grad(g, idx, weight, m: int, impl: str | None = None, precision: str | None = None,
+                           dtype=None):
+    """The ``points`` cotangent of ``three_interpolate``: g (B, N, C) -> (B, m, C)
+    in ``dtype``, the forward's points' type (default: g's)."""
     if _use_kernel(impl, g):
-        return cuda.three_interpolate_grad(g, idx, weight, m)
-    return core.three_interpolate_grad(g, idx, weight, m)
+        return cuda.three_interpolate_grad(g, idx, weight, m, precision, dtype)
+    return core.three_interpolate_grad(g, idx, weight, m, precision, dtype)
 
 
 def project_group_leaf(inputs, w, b, idx):

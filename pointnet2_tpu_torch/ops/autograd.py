@@ -10,7 +10,9 @@ Counterparts of the JAX package's ``custom_vjp``s:
   also writes the skip features after the blend (the FP concat); the
   backward hands the blend's channels of the cotangent, a slice read in
   place, to the backward kernel and returns the skip's channels, a view, as
-  the skip's gradient.
+  the skip's gradient (in the skip's type). ``precision`` goes to both
+  kernels, and ``dpoints`` comes back in the points' type (bfloat16 in the
+  bf16 modes), ``dweight`` in the weights'.
 - ``FpsCentroids`` (``pointnet2_tpu/ops/pallas/fps.py:218-249``): the kernel's
   centroids are a copy with no autograd path; the backward re-attaches the
   gather's VJP, a scatter-add of the centroid cotangent into
@@ -34,14 +36,16 @@ from pointnet2_tpu_torch.ops import core, cuda
 
 class ThreeInterpolate(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, points, idx, weight, use_kernel: bool, skip=None):
+    def forward(ctx, points, idx, weight, use_kernel: bool, skip=None, precision=None):
         ctx.use_kernel = use_kernel
+        ctx.precision = precision
+        ctx.skip_dtype = None if skip is None else skip.dtype
         ctx.save_for_backward(points, idx, weight)
         if use_kernel:
-            return cuda.three_interpolate(points, idx, weight, skip)
+            return cuda.three_interpolate(points, idx, weight, skip, precision=precision)
         if skip is None:
-            return core.three_interpolate(points, idx, weight)
-        return core.three_interpolate_concat(points, idx, weight, skip)
+            return core.three_interpolate(points, idx, weight, precision)
+        return core.three_interpolate_concat(points, idx, weight, skip, precision)
 
     @staticmethod
     def backward(ctx, g):
@@ -51,15 +55,13 @@ class ThreeInterpolate(torch.autograd.Function):
         dpoints = dweight = dskip = None
         if ctx.needs_input_grad[0]:
             m = points.shape[1]
-            if ctx.use_kernel:
-                dpoints = cuda.three_interpolate_grad(g_points, idx, weight, m)
-            else:
-                dpoints = core.three_interpolate_grad(g_points, idx, weight, m)
+            grad = cuda.three_interpolate_grad if ctx.use_kernel else core.three_interpolate_grad
+            dpoints = grad(g_points, idx, weight, m, ctx.precision, points.dtype)
         if ctx.needs_input_grad[2]:
-            dweight = core.three_interpolate_weight_grad(g_points, points, idx)
+            dweight = core.three_interpolate_weight_grad(g_points, points, idx).to(weight.dtype)
         if len(ctx.needs_input_grad) > 4 and ctx.needs_input_grad[4]:
-            dskip = g[..., c:]
-        return dpoints, None, dweight, None, dskip
+            dskip = g[..., c:].to(ctx.skip_dtype)
+        return dpoints, None, dweight, None, dskip, None
 
 
 class FpsCentroids(torch.autograd.Function):

@@ -190,54 +190,98 @@ def interpolation_weights(dist2: Tensor) -> Tensor:
     return inv / inv.sum(dim=-1, keepdim=True)
 
 
-def _floating(t: Tensor) -> Tensor:
-    """float32 and float64 pass (float64 is what ``gradcheck`` feeds); anything else becomes float32."""
-    return t if t.dtype in (torch.float32, torch.float64) else t.float()
+PRECISIONS = (None, "highest", "default")
 
 
-def three_interpolate(points: Tensor, idx: Tensor, weight: Tensor) -> Tensor:
-    """points (B, M, C), idx/weight (B, N, 3) -> (B, N, C), float32.
+def _feature_dtype(t: Tensor) -> torch.dtype:
+    """The type a result of features ``t`` has: its own if floating, else float32."""
+    return t.dtype if t.is_floating_point() else torch.float32
 
-    ``w0*p[i0] + w1*p[i1] + w2*p[i2]``, summed left to right, as the kernel does.
+
+def _sum_dtype(*ts: Tensor) -> torch.dtype:
+    """The type the interpolation sums in: float32, or float64 where an input
+    is float64 (what ``gradcheck`` feeds)."""
+    return torch.float64 if any(t.dtype == torch.float64 for t in ts) else torch.float32
+
+
+def blend_weight(weight: Tensor, precision: str | None, dtype: torch.dtype) -> Tensor:
+    """The weights as the blend of ``dtype`` features multiplies them.
+
+    ``None``/``"highest"``: as given. ``"default"``: rounded to the features'
+    type first (bfloat16 features: the weights in bfloat16, as the JAX
+    package's default-precision path multiplies them); a no-op for float32
+    and float64. Widened to the type of the sums either way.
     """
-    g = group_points(_floating(points), idx)  # (B, N, 3, C)
-    w = _floating(weight)[..., None]
-    return g[:, :, 0] * w[:, :, 0] + g[:, :, 1] * w[:, :, 1] + g[:, :, 2] * w[:, :, 2]
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    acc = _sum_dtype(weight) if dtype != torch.float64 else torch.float64
+    if precision == "default":
+        weight = weight.to(dtype)
+    return weight.to(acc)
 
 
-def three_interpolate_concat(points: Tensor, idx: Tensor, weight: Tensor, skip: Tensor) -> Tensor:
+def three_interpolate(points: Tensor, idx: Tensor, weight: Tensor, precision: str | None = None) -> Tensor:
+    """points (B, M, C), idx/weight (B, N, 3) -> (B, N, C) in the points' type.
+
+    ``w0*p[i0] + w1*p[i1] + w2*p[i2]``, as the kernel computes it: the
+    gathered rows widened to float32 (float64 stays), the weights as
+    ``blend_weight`` gives them, each product rounded, the three summed left
+    to right, and the result rounded once to the points' type.
+    """
+    dtype = _feature_dtype(points)
+    w = blend_weight(weight, precision, dtype)[..., None]
+    g = group_points(points, idx).to(w.dtype)  # (B, N, 3, C)
+    out = g[:, :, 0] * w[:, :, 0] + g[:, :, 1] * w[:, :, 1] + g[:, :, 2] * w[:, :, 2]
+    return out.to(dtype)
+
+
+def three_interpolate_concat(
+    points: Tensor, idx: Tensor, weight: Tensor, skip: Tensor, precision: str | None = None
+) -> Tensor:
     """``three_interpolate`` followed by the skip features: (B, N, C + C1).
 
-    The feature-propagation concat, ``torch.cat([interpolated, skip], -1)``,
-    which the kernel writes in the same pass.
+    The feature-propagation concat, ``torch.cat([interpolated, skip], -1)``
+    in the promoted type of the two (each widened explicitly), which the
+    kernel writes in the same pass.
     """
-    return torch.cat([three_interpolate(points, idx, weight), _floating(skip)], dim=-1)
+    blend = three_interpolate(points, idx, weight, precision)
+    dtype = torch.promote_types(blend.dtype, _feature_dtype(skip))
+    return torch.cat([blend.to(dtype), skip.to(dtype)], dim=-1)
 
 
-def three_interpolate_grad(g: Tensor, idx: Tensor, weight: Tensor, m: int) -> Tensor:
+def three_interpolate_grad(
+    g: Tensor, idx: Tensor, weight: Tensor, m: int, precision: str | None = None,
+    dtype: torch.dtype | None = None,
+) -> Tensor:
     """The cotangent of ``three_interpolate``'s ``points``: g (B, N, C) -> (B, M, C).
 
     ``dpoints[m, c]`` is the sum of ``weight[q, j] * g[q, c]`` over the pairs
     (q, j) with ``idx[q, j] == m`` (ThreeInterpolateGrad): three ``index_add_``
-    calls, one per neighbour slot j, in that order.
+    calls, one per neighbour slot j, in that order, in float32 (float64
+    stays), with the weights as ``blend_weight`` gives them for the forward's
+    points' type ``dtype`` (default: g's), and the result rounded once to it.
     """
-    g = _floating(g)
-    w = _floating(weight).to(g.dtype)
+    dtype = _feature_dtype(g) if dtype is None else dtype
+    w = blend_weight(weight, precision, dtype)
+    acc = torch.promote_types(_sum_dtype(g), w.dtype)
+    g, w = g.to(acc), w.to(acc)
     b, _, c = g.shape
-    out = torch.zeros((b, m, c), dtype=g.dtype, device=g.device)
+    out = torch.zeros((b, m, c), dtype=acc, device=g.device)
     flat = out.view(b * m, c)
     rows = idx.long() + torch.arange(b, device=g.device)[:, None, None] * m  # (B, N, 3)
     for j in range(3):
         flat.index_add_(0, rows[:, :, j].reshape(-1), (g * w[:, :, j, None]).reshape(-1, c))
-    return out
+    return out.to(dtype)
 
 
 def three_interpolate_weight_grad(g: Tensor, points: Tensor, idx: Tensor) -> Tensor:
-    """The cotangent of ``three_interpolate``'s ``weight``: (B, N, 3).
+    """The cotangent of ``three_interpolate``'s ``weight``: (B, N, 3), in the
+    type of the sums (the caller casts it to the weights' type).
 
     The dot of ``g[q]`` with each of the three gathered rows.
     """
-    return (group_points(_floating(points), idx) * _floating(g)[:, :, None, :]).sum(-1)
+    acc = _sum_dtype(g, points)
+    return (group_points(points, idx).to(acc) * g.to(acc)[:, :, None, :]).sum(-1)
 
 
 def project_group_leaf(inputs: Tensor, w: Tensor, b: Tensor, idx: Tensor) -> Tensor:

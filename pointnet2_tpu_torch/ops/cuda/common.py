@@ -32,17 +32,19 @@ def reset_launches() -> None:
 
 
 def require(
-    t: torch.Tensor, what: str, dtype: torch.dtype, shape: tuple, contiguous: bool = True
+    t: torch.Tensor, what: str, dtype: torch.dtype | tuple, shape: tuple, contiguous: bool = True
 ) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and ``shape``.
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (or of one
+    of a tuple of dtypes) and ``shape``.
 
     ``shape`` may hold None for a dimension that is not fixed. With
     ``contiguous=False`` the layout is the caller's to settle.
     """
     if not isinstance(t, torch.Tensor) or not t.is_cuda:
         raise ValueError(f"{what} must be a CUDA tensor for the kernel")
-    if t.dtype != dtype:
-        raise ValueError(f"{what} must be {dtype}, got {t.dtype}")
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        raise ValueError(f"{what} must be {' or '.join(map(str, dtypes))}, got {t.dtype}")
     if t.dim() != len(shape) or any(
         want is not None and got != want for got, want in zip(t.shape, shape)
     ):

@@ -1,10 +1,12 @@
 """Where the predict path's time goes on the GPU: a torch.profiler breakdown.
 
-    python -m pointnet2_tpu_torch.predict_profile [--bq_window W] [--fp_window W] [--out FILE]
+    python -m pointnet2_tpu_torch.predict_profile [--dtype bfloat16 [--bf16_min_width 128]]
+        [--bq_window W] [--fp_window W] [--out FILE]
 
 Builds the same ``Predictor`` as ``chip_smoke.py`` (full ``semantic.json``
 width, weights from ``convert.init_variables(seed=0, bn_stats="random")``; with the calibrated
-windows given, through ``predict_step_checked``), answers one warm-up
+windows given, through ``predict_step_checked``; with ``--dtype bfloat16``
+in the bf16 inference mode), answers one warm-up
 request, then profiles 3 requests of 16 clouds with CPU and CUDA
 activities. Prints one JSON object: the wall time of the window, the device
 time summed over kernels (busy share = device time / wall time), the device
@@ -47,7 +49,8 @@ def _category(name: str) -> str:
     lowered = name.lower()
     if "multi_tensor" in lowered or "adam" in lowered:
         return "optimizer"
-    if "gemm" in lowered or "sgemm" in lowered or "cutlass" in lowered or "matmul" in lowered:
+    # cuBLAS names its Hopper GEMMs sm90_xmma_gemm_*, cutlass* or nvjet_* (bfloat16 among them).
+    if any(part in lowered for part in ("gemm", "cutlass", "matmul", "nvjet", "xmma")):
         return "matmul"
     if "index" in lowered or "gather" in lowered or "scatter" in lowered:
         return "gather_scatter"
@@ -102,6 +105,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", type=pathlib.Path, default=None)
     ap.add_argument("--bq_window", type=int, default=None, help="calibrated ball-query window")
     ap.add_argument("--fp_window", type=int, default=None, help="calibrated 3-NN window")
+    ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"], help="Predictor dtype")
+    ap.add_argument("--bf16_min_width", type=int, default=None, help="Predictor bf16_min_width")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("predict_profile: needs a CUDA device", file=sys.stderr)
@@ -109,7 +114,8 @@ def main(argv=None) -> int:
 
     cfg = Config.from_json(ROOT / "semantic.json")
     sd = convert.from_flax_variables(convert.init_variables(cfg, num_classes=9, seed=0, bn_stats="random"))
-    predictor = Predictor(cfg, sd, infer_chunk=8, bq_window=args.bq_window, fp_window=args.fp_window)
+    predictor = Predictor(cfg, sd, infer_chunk=8, bq_window=args.bq_window, fp_window=args.fp_window,
+                          dtype=args.dtype, bf16_min_width=args.bf16_min_width)
     step = predictor.predict_step_checked if args.bq_window or args.fp_window else predictor.predict_step
     rng = np.random.RandomState(1)
     inputs = []
@@ -133,6 +139,8 @@ def main(argv=None) -> int:
         "batch": BATCH,
         "bq_window": args.bq_window,
         "fp_window": args.fp_window,
+        "dtype": args.dtype,
+        "bf16_min_width": args.bf16_min_width,
         "wall_ms_per_request": wall_ms / REQUESTS,
         **summarise(prof, wall_ms),
     }

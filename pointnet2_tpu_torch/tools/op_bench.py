@@ -1,6 +1,6 @@
 """Op-level timing of the port's kernels at the model's shapes, on the card.
 
-    python -m pointnet2_tpu_torch.tools.op_bench [--device cpu] [--small] [--batch 8]
+    python -m pointnet2_tpu_torch.tools.op_bench [--device cpu] [--small] [--batch 8] [--dtype bfloat16]
 
 The counterpart of the JAX repo's ``tools/op_bench.py``. At the four SA
 levels of ``semantic.json`` (clouds as ``bench.py`` makes them: xyz uniform
@@ -14,7 +14,10 @@ with the production ``fp_window`` where it engages), three_interpolate
 writing the FP concat (the skip as the model hands it over: FP4's is the
 input cloud's colours), its backward on a cotangent strided as the train
 step's, and a kNN with k=8, all at B=16 (``semantic.json``'s batch; ``--batch 8``
-for the predict path's chunk). One JSON line per op and shape:
+for the predict path's chunk). ``--dtype bfloat16`` runs three_interpolate
+and its backward as the bf16 modes do (bfloat16 features, skip and
+cotangent, ``precision="default"``, bfloat16 ``dpoints``; their bounds count
+2-byte features). One JSON line per op and shape:
 
 - ``kernel_ms``: the kernel alone (``utils.bench.cuda_ms``: CUDA events,
   median of 10 runs of 5 calls); for the windowed ball query the kernel on
@@ -189,11 +192,12 @@ def gather_routes(c: int, aligned: bool) -> list[tuple[bool, int]]:
     return [(v, lanes) for v in vecs for lanes in cuda_gather.GATHER_LANES]
 
 
-def work_three_interpolate_grad(b, n, m, c) -> tuple[float, float]:
+def work_three_interpolate_grad(b, n, m, c, elem: int = 4) -> tuple[float, float]:
     """(bytes, operations) of three_interpolate's backward: the cotangent,
-    indices and weights read once, the (B, M, C) result written once; 6
-    operations an element of the cotangent (its three products and sums)."""
-    return b * n * c * 4 + b * n * 3 * 8 + b * m * c * 4, 6 * b * n * c
+    indices and weights read once, the (B, M, C) result written once, the
+    features ``elem`` bytes an element (4 float32, 2 bfloat16); 6 operations
+    an element of the cotangent (its three products and sums)."""
+    return b * n * c * elem + b * n * 3 * 8 + b * m * c * elem, 6 * b * n * c
 
 
 def work_knn(b, nq, m, k) -> tuple[float, float]:
@@ -201,11 +205,12 @@ def work_knn(b, nq, m, k) -> tuple[float, float]:
     return b * m * 12 + b * nq * 12 + b * nq * k * 8, 9 * b * nq * m
 
 
-def work_fp_interpolate(b, n, m, c, c1) -> tuple[float, float]:
+def work_fp_interpolate(b, n, m, c, c1, elem: int = 4) -> tuple[float, float]:
     """(bytes, operations) of three_interpolate writing the FP concat: the
     features, indices, weights and skip read once, the concatenated rows
-    written once; 5 operations an interpolated element."""
-    return b * m * c * 4 + b * n * 3 * 8 + b * n * c1 * 4 + b * n * (c + c1) * 4, 5 * b * n * c
+    written once, the features ``elem`` bytes an element (4 float32, 2
+    bfloat16); 5 operations an interpolated element."""
+    return b * m * c * elem + b * n * 3 * 8 + b * n * c1 * elem + b * n * (c + c1) * elem, 5 * b * n * c
 
 
 def knn_routes(nq: int) -> list[tuple[int, int]]:
@@ -249,7 +254,7 @@ def _record(op, shape, card, kernel, run, plain, nbytes, nops, timed, plan=None,
         run()
         row["launches"] = cuda.LAUNCHES[kernel] - before
         row["kernel_ms"] = cuda_ms(run)
-        row["device_ms"] = device_ms(run, kernel)
+        row["device_ms"] = device_ms(run, kernel.removesuffix("_bf16"))  # a bfloat16 instance's symbol is its row's
         if chain is not None:
             row["chain_ms"] = device_ms(chain, "fps_barrier_chain")
         row["plain_ms"] = cuda_ms(plain, reps=3, inner=1, warmup=1)
@@ -292,8 +297,11 @@ def _gather_record(card, timed, xs, perm, qs, lo, radius, nsample, w) -> dict:
     )
 
 
-def run(device: torch.device, small: bool, batch: int = BATCH) -> list[dict]:
+def run(device: torch.device, small: bool, batch: int = BATCH, dtype: str = "float32") -> list[dict]:
     timed = device.type == "cuda"
+    features = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    precision = "default" if features == torch.bfloat16 else None
+    elem = torch.finfo(features).bits // 8
     card = card_line() if timed else "cpu (not measured)"
     sa = SMALL_SA if small else SA
     lv = levels(SMALL_BATCH if small else batch, 1024 if small else 8192, sa, device)
@@ -403,31 +411,35 @@ def run(device: torch.device, small: bool, batch: int = BATCH) -> list[dict]:
         # three_interpolate writing the FP concat, with the skip as the model hands it over.
         d2, idx = ops.three_nn(dense, coarse)
         weight = ops.interpolation_weights(d2)
-        points = torch.randn((b, m, c), generator=gen, device=device)
+        points = torch.randn((b, m, c), generator=gen, device=device).to(features)
         skip = cloud[..., 3:] if lvl == 0 else torch.randn((b, nq, c1), generator=gen, device=device)
+        skip = skip.to(features)  # a bfloat16 stage casts its skip features
+        bf16 = "_bf16" if features == torch.bfloat16 else ""
         widths = (False, True) if timed and cuda_interp.planned_route(points, skip)[0] else (False,)
         rows.append(_record(
-            "three_interpolate_concat", f"B={b} M={m} C={c} N={nq} skip={c1}", card, "three_interpolate",
-            lambda: ops.three_interpolate(points, idx, weight, skip=skip),
-            lambda: ops.three_interpolate(points, idx, weight, impl="torch", skip=skip),
-            *work_fp_interpolate(b, nq, m, c, c1), timed,
+            "three_interpolate_concat", f"B={b} M={m} C={c} N={nq} skip={c1} {dtype}", card,
+            f"three_interpolate{bf16}",
+            lambda: ops.three_interpolate(points, idx, weight, precision=precision, skip=skip),
+            lambda: ops.three_interpolate(points, idx, weight, impl="torch", precision=precision, skip=skip),
+            *work_fp_interpolate(b, nq, m, c, c1, elem), timed,
             plan=cuda_interp.planned_route(points, skip) if timed else None,
-            unfused_ms=lambda: torch.cat([ops.three_interpolate(points, idx, weight), skip], -1),
+            unfused_ms=lambda: torch.cat([ops.three_interpolate(points, idx, weight, precision=precision), skip], -1),
             routes_device_ms={
                 f"vec={vec}": (lambda vec=vec: device_ms(
-                    lambda: cuda.three_interpolate(points, idx, weight, skip, route=vec), "three_interpolate"))
+                    lambda: cuda.three_interpolate(points, idx, weight, skip, route=vec, precision=precision),
+                    "three_interpolate"))
                 for vec in widths
             } if timed else {},
         ))
         # The backward, on a cotangent laid out as the train step hands it over:
         # the first C channels of the FP concat's.
-        g = torch.randn((b, nq, c + c1), generator=gen, device=device)[..., :c]
+        g = torch.randn((b, nq, c + c1), generator=gen, device=device).to(features)[..., :c]
         rows.append(_record(
-            "three_interpolate_grad", f"B={b} M={m} C={c} N={nq} g_row_stride={c + c1}", card,
-            "three_interpolate_grad",
-            lambda: ops.three_interpolate_grad(g, idx, weight, m),
-            lambda: ops.three_interpolate_grad(g, idx, weight, m, impl="torch"),
-            *work_three_interpolate_grad(b, nq, m, c), timed,
+            "three_interpolate_grad", f"B={b} M={m} C={c} N={nq} g_row_stride={c + c1} {dtype}", card,
+            f"three_interpolate_grad{bf16}",
+            lambda: ops.three_interpolate_grad(g, idx, weight, m, precision=precision),
+            lambda: ops.three_interpolate_grad(g, idx, weight, m, impl="torch", precision=precision),
+            *work_three_interpolate_grad(b, nq, m, c, elem), timed,
             plan=cuda_interp.grad_vec(g, c) if timed else None,
         ))
         k = min(KNN_K, m)
@@ -445,9 +457,11 @@ def main(argv=None) -> int:
     ap.add_argument("--small", action="store_true", help="small shapes")
     ap.add_argument("--batch", type=int, default=BATCH,
                     help="clouds a call: 16, the train batch (the default), or 8, the predict chunk")
+    ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="three_interpolate's features and its backward's, as the precision modes run them")
     args = ap.parse_args(argv)
     device = require_device(args.device)
-    run(device, args.small, args.batch)
+    run(device, args.small, args.batch, args.dtype)
     return 0
 
 

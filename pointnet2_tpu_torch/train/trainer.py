@@ -26,7 +26,15 @@ Counterpart of ``pointnet2_tpu/train/trainer.py``:
 - with calibrated windows (``bq_window``, ``fp_window``) every step and eval
   step also reports ``window_ok``, the AND of the step's certificates;
   ``predict_step_checked`` and ``check_bq_window`` run the eval forward and
-  return the certificates' verdict (``:555-585``).
+  return the certificates' verdict (``:555-585``);
+- ``train_dtype`` and ``infer_dtype`` ("float32" or "bfloat16") and
+  ``bf16_min_width`` are the precision modes (``:120-144``, ``:231-260``):
+  ``train_model`` and ``infer_model`` are ``model`` in those modes, all three
+  sharing one set of float32 master weights and moving statistics
+  (``PointNet2SemSeg.with_precision``), so the optimizer, the gradients and
+  the checkpoints stay float32. A bfloat16 eval forward runs on the weights
+  with their BatchNorms folded in (``nn.fold``, ``:487-495``), through
+  ``torch.func.functional_call``; a train step never folds.
 
 The step leaves every metric on the device and reads nothing back: the
 caller decides when to synchronise.
@@ -42,7 +50,14 @@ import torch
 
 from pointnet2_tpu_torch import convert
 from pointnet2_tpu_torch.config import Config
-from pointnet2_tpu_torch.infer import all_ok, chunked_logits, full_float32, resolve_device
+from pointnet2_tpu_torch.infer import (
+    all_ok,
+    check_min_width,
+    chunked_logits,
+    compute_dtype,
+    full_float32,
+    resolve_device,
+)
 from pointnet2_tpu_torch.models.pointnet2_seg import (
     PointNet2SemSeg,
     Window,
@@ -50,15 +65,13 @@ from pointnet2_tpu_torch.models.pointnet2_seg import (
     weighted_ce_loss,
     weighted_ce_sum,
 )
+from pointnet2_tpu_torch.nn.fold import fold_batch_norm
 from pointnet2_tpu_torch.utils.metrics import confusion_matrix
 
 # Options of the JAX Trainer that the port does not have yet: the value that
 # means "off", and the ROADMAP item that will bring each.
 _NOT_PORTED = {
     "arch": ("ssg", "queue 1 item 9 (MSG)"),
-    "infer_dtype": ("float32", "queue 1 item 8 (precision modes)"),
-    "train_dtype": ("float32", "queue 1 item 8 (precision modes)"),
-    "bf16_min_width": (None, "queue 1 item 8 (precision modes)"),
 }
 
 
@@ -122,7 +135,8 @@ class Trainer:
     masks from ``step_generator(dropout_seed, step)``, so they depend only on
     the seed and the step, resumed or not (None: the model's own generator).
     ``bq_window``/``fp_window`` are the model's calibrated windows (an int or
-    a per-level 4-sequence).
+    a per-level 4-sequence). ``train_dtype``, ``infer_dtype`` and
+    ``bf16_min_width`` are the precision modes (see the module docstring).
     """
 
     def __init__(
@@ -139,6 +153,9 @@ class Trainer:
         dropout_seed: Optional[int] = None,
         bq_window: Window = None,
         fp_window: Window = None,
+        infer_dtype: str = "float32",
+        train_dtype: str = "float32",
+        bf16_min_width: Optional[int] = None,
         **not_ported,
     ):
         for name, value in not_ported.items():
@@ -157,6 +174,11 @@ class Trainer:
             )
         if cfg.optimizer not in ("adam", "momentum"):
             raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+        infer_precision = compute_dtype(infer_dtype, "infer_dtype")
+        train_precision = compute_dtype(train_dtype, "train_dtype")
+        check_min_width(
+            bf16_min_width, "neither infer_dtype nor train_dtype is bfloat16", infer_precision, train_precision
+        )
         full_float32()
         self.cfg = cfg
         self.bq_window = norm_window("bq_window", bq_window)
@@ -175,6 +197,11 @@ class Trainer:
             cfg, num_classes, bool(cfg.use_color), ops_impl=ops_impl, dropout_rate=dropout_rate,
             bq_window=self.bq_window, fp_window=self.fp_window,
         ).to(self.device)
+        self.infer_dtype, self.train_dtype, self.bf16_min_width = infer_dtype, train_dtype, bf16_min_width
+        self.infer_model, self.train_model = (
+            self.model if dt is None else self.model.with_precision(dt, bf16_min_width)
+            for dt in (infer_precision, train_precision)
+        )
         self.optimizer = self._new_optimizer()
         self.step = 0
 
@@ -237,7 +264,7 @@ class Trainer:
             generator = step_generator(self.dropout_seed, self.step, self.device)
         lr = self.lr_schedule(self.step)
         bn_momentum = self.bn_schedule(self.step)
-        self.model.train()
+        self.train_model.train()
         self.optimizer.zero_grad(set_to_none=True)
         certificates: list = []
         if self.accum_steps > 1:
@@ -245,7 +272,7 @@ class Trainer:
                 points, labels, weights, bn_momentum, generator, certificates
             )
         else:
-            logits = self.model(
+            logits = self.train_model(
                 points, bn_momentum=bn_momentum, generator=generator, certificates=certificates
             )
             loss = weighted_ce_loss(logits, labels, weights)
@@ -298,7 +325,7 @@ class Trainer:
                     part: tuple({k: v[j::g].contiguous() for k, v in level.items()} for level in levels)
                     for part, levels in geometry.items()
                 }
-            logits = self.model(
+            logits = self.train_model(
                 points[j::g], bn_momentum=bn_momentum, geometry=micro_geometry, generator=generator,
                 certificates=certificates,
             )
@@ -320,12 +347,22 @@ class Trainer:
         }
         return metrics, bn_momentum
 
+    def infer_forward(self):
+        """The eval forward as ``chunked_logits`` calls it: ``infer_model`` in
+        eval mode, on the current weights with their BatchNorms folded in
+        when it computes in bfloat16."""
+        model = self.infer_model.eval()
+        if self.infer_model is self.model:
+            return model
+        folded = fold_batch_norm(self.model.state_dict())
+        return lambda x, **kwargs: torch.func.functional_call(model, folded, (x,), kwargs)
+
     def eval_step(self, batch: Mapping) -> dict:
         """Eval-mode forward in chunks of ``infer_chunk`` clouds: loss, accuracy,
         confusion, preds, and with windows ``window_ok``."""
         points, labels, weights = self._to_device(batch)
         certificates: list = []
-        logits = chunked_logits(self.model.eval(), points, self.infer_chunk, certificates)
+        logits = chunked_logits(self.infer_forward(), points, self.infer_chunk, certificates)
         preds = logits.argmax(dim=-1)
         metrics = {
             "loss": weighted_ce_loss(logits, labels, weights),
@@ -343,7 +380,7 @@ class Trainer:
         left out candidates on this batch and the caller should recalibrate."""
         x = torch.as_tensor(points).to(self.device, self.model.fc2.weight.dtype)
         certificates: list = []
-        logits = chunked_logits(self.model.eval(), x, self.infer_chunk, certificates)
+        logits = chunked_logits(self.infer_forward(), x, self.infer_chunk, certificates)
         return logits.argmax(dim=-1).to(torch.int32), all_ok(certificates, self.device)
 
     def check_bq_window(self, points) -> bool:
@@ -353,7 +390,7 @@ class Trainer:
             return True
         x = torch.as_tensor(points).to(self.device, self.model.fc2.weight.dtype)
         certificates: list = []
-        chunked_logits(self.model.eval(), x, 0, certificates)
+        chunked_logits(self.infer_forward(), x, 0, certificates)
         return bool(all_ok(certificates, self.device))
 
 

@@ -1,6 +1,7 @@
 """Where the train step's time goes on the GPU: a torch.profiler breakdown.
 
-    python -m pointnet2_tpu_torch.train_profile [--accum G] [--bq_window W] [--fp_window W] [--out FILE]
+    python -m pointnet2_tpu_torch.train_profile [--accum G] [--dtype bfloat16 [--bf16_min_width 128]]
+        [--bq_window W] [--fp_window W] [--out FILE]
 
 Builds the same ``Trainer`` as ``chip_smoke.py``'s train phase (full
 ``semantic.json`` width, Adam, weights from ``convert.init_variables(seed=0, bn_stats="random")``,
@@ -11,7 +12,8 @@ over kernels (busy share = device time / wall time), the device time of each
 of the port's kernels, of matrix products, of the optimizer and of
 everything else, the 20 largest device-time entries and the 15 host-side
 operators with the most host time of their own. The calibrated windows, when
-given, go to the Trainer. Runs on CUDA only.
+given, go to the Trainer, and so do ``--dtype`` (its ``train_dtype``) and
+``--bf16_min_width``. Runs on CUDA only.
 """
 
 from __future__ import annotations
@@ -52,6 +54,8 @@ def main(argv=None) -> int:
     ap.add_argument("--accum", type=int, default=1, help="accum_steps of the Trainer")
     ap.add_argument("--bq_window", type=int, default=None, help="calibrated ball-query window")
     ap.add_argument("--fp_window", type=int, default=None, help="calibrated 3-NN window")
+    ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"], help="Trainer train_dtype")
+    ap.add_argument("--bf16_min_width", type=int, default=None, help="Trainer bf16_min_width")
     ap.add_argument("--out", type=pathlib.Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -59,7 +63,8 @@ def main(argv=None) -> int:
         return 1
 
     cfg = Config.from_json(ROOT / "semantic.json")
-    trainer = Trainer(cfg, accum_steps=args.accum, bq_window=args.bq_window, fp_window=args.fp_window)
+    trainer = Trainer(cfg, accum_steps=args.accum, bq_window=args.bq_window, fp_window=args.fp_window,
+                      train_dtype=args.dtype, bf16_min_width=args.bf16_min_width)
     trainer.init_state(seed=0, bn_stats="random")
     batches = [train_batch(cfg, BATCH, 1 + i) for i in range(WARMUP + STEPS)]
     for batch in batches[:WARMUP]:
@@ -80,6 +85,8 @@ def main(argv=None) -> int:
         "accum_steps": args.accum,
         "bq_window": args.bq_window,
         "fp_window": args.fp_window,
+        "dtype": args.dtype,
+        "bf16_min_width": args.bf16_min_width,
         "wall_ms_per_step": wall_ms / STEPS,
         "last_loss": float(metrics["loss"]),
         "peak_memory_mb": torch.cuda.max_memory_allocated() / 2**20,

@@ -76,7 +76,7 @@ def test_the_backward_symbol_names_all_its_kernels_and_no_other():
     kernels = _kernels()
     grad = sorted(k for k in kernels if k.startswith(KERNEL_SYMBOLS["three_interpolate_grad"]))
     assert grad == [f"three_interpolate_grad_{part}_kernel" for part in ("fill", "sum", "zero")]
-    assert kernels["three_interpolate_grad_sum_kernel"] == ["bool"]
+    assert kernels["three_interpolate_grad_sum_kernel"] == ["typename", "typename", "bool"]  # <TG, TD, kVec>
     others = [s for key, s in KERNEL_SYMBOLS.items() if key != "three_interpolate_grad"]
     assert not any(s in k for s in others for k in grad)
 

@@ -284,6 +284,39 @@ def test_three_interpolate_plan(c, c1, aligned, skip_ok, want):
     assert interpolate.plan(c, c1, aligned, skip_ok) == want
 
 
+@pytest.mark.parametrize(
+    "c,c1,aligned,skip_ok,want",
+    [
+        (128, 3, True, False, (False, False)),  # FP4 in bfloat16: rows of 131, one element a lane
+        (256, 64, True, True, (True, True)),  # FP3: 8 bfloat16 a 16-byte access
+        (512, 256, True, True, (True, True)),  # FP1
+        (256, 4, True, True, (False, False)),  # C + C1 not a multiple of 8
+        (12, 4, True, False, (False, False)),  # C not a multiple of 8 (float32 would take it)
+        (256, 64, True, False, (True, False)),  # a float32 skip in a float32 row beside bfloat16 points
+        (64, 64, False, True, (False, False)),  # points off a 16-byte boundary
+    ],
+)
+def test_three_interpolate_plan_bf16(c, c1, aligned, skip_ok, want):
+    assert interpolate.plan(c, c1, aligned, skip_ok, elem=2) == want
+
+
+def test_three_interpolate_route_of_bfloat16_tensors():
+    """The wrapper's plan reads the element size and the skip's type off the tensors."""
+    points = torch.zeros(2, 16, 256, dtype=torch.bfloat16)
+    assert interpolate.planned_route(points, torch.zeros(2, 32, 64, dtype=torch.bfloat16)) == (True, True)
+    # A float32 skip makes the row float32 and is copied 16 bytes at a time;
+    # a bfloat16 skip in a float32 row is widened element by element.
+    assert interpolate.planned_route(points, torch.zeros(2, 32, 64, dtype=torch.float32)) == (True, True)
+    assert interpolate.planned_route(points.float(), torch.zeros(2, 32, 64, dtype=torch.bfloat16)) == (True, False)
+    assert interpolate.planned_route(points[..., :12].contiguous()) == (False, False)
+    assert interpolate.out_dtype(points, torch.zeros(1, dtype=torch.float32)) == torch.float32
+    g = torch.zeros(2, 32, 131, dtype=torch.bfloat16)
+    assert interpolate.grad_vec(g[..., :128], 128) is False and interpolate.grad_vec(g[..., :128].contiguous(), 128)
+    assert interpolate.round_weights("default", torch.bfloat16) and not interpolate.round_weights("default", torch.float32)
+    with pytest.raises(ValueError, match="precision"):
+        interpolate.round_weights("low", torch.bfloat16)
+
+
 def test_three_interpolate_plan_refuses_empty_rows():
     with pytest.raises(ValueError):
         interpolate.plan(0, 3, True, False)

@@ -434,10 +434,8 @@ def test_accum_rejects_a_batch_it_does_not_divide():
 
 @pytest.mark.parametrize(
     "option",
-    # The windows are ported: beside them, the precision modes still raise.
-    [{"arch": "msg"}, {"bq_window": 3072, "infer_dtype": "bfloat16"},
-     {"fp_window": (None, None, None, 256), "train_dtype": "bfloat16"},
-     {"infer_dtype": "bfloat16"}, {"train_dtype": "bfloat16"}, {"bf16_min_width": 128}],
+    # The windows and the precision modes are ported; MSG still raises.
+    [{"arch": "msg"}],
 )
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
