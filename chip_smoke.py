@@ -46,7 +46,12 @@ non-zero and prints no result):
    version bit for bit (the same float32 arithmetic and one rounding). The
    rows, at the modes' own setting, carry their bfloat16 byte bound and the
    float32 kernel's ``f32_ms``, ``f32_device_ms`` and ``f32_bound_ms`` on the
-   same values widened.
+   same values widened. Then the MSG model's new shapes at both batches,
+   with the same checks: row 2 at each MSG level's first scale (half the
+   radius, nsample 16), rows 4 and 5 (float32 and bfloat16) at FP2 and FP3,
+   whose skips are SA2's and SA1's two scales concatenated (192 and 96
+   channels; the backward reading 448- and 352-wide cotangents), and rows
+   7-9 (phase 5's checks) at SA1's first scale: row 9 on rows of 16 floats.
 3. Predict: a ``Predictor`` at full ``semantic.json`` width with seeded
    weights (``convert.init_variables``) answers 3 requests of 16 clouds of
    8192 points (after one warm-up request). The launch counts, reset just before,
@@ -116,6 +121,16 @@ non-zero and prints no result):
    step), two dropout-free kernel-path steps equal and held to the plain
    path's with the train phase's gates, ms a step and peak memory beside the
    train phase's.
+5c. MSG (``arch="msg"``, ``convert.init_variables(arch="msg",
+   bn_stats="random")``, full ``semantic.json`` width): phases 3, 4 and 5's
+   predict and train paths again, with the same gates and requests or
+   steps, launch counts each: FPS 4 a chunk or step (one a level, shared by
+   its scales), row 2 6 (4 with the windows, rows 7 or 8 and 9 twice), rows
+   3 and 4 4, row 5 4 a step; then the selective bf16 Predictor and one
+   mixed-precision train step with phase 5b's gates. The predict lines of
+   both arches carry the device ms of a request and SA1's share of one
+   chunk's forward (CUDA events, ``sa1_share``); the train lines the device
+   ms of a step.
 6. Op surface: the index-only FPS (``farthest_point_sample``) at the four SA
    shapes of both batches, equal to its plain version and to the fused
    kernel's indices; the round-1 windowed ball query (``ops.ball_query(
@@ -157,7 +172,9 @@ non-zero and prints no result):
    epoch with ``--train_dtype bfloat16 --bf16_min_width 128`` (its steps
    launch rows 4 and 5's bfloat16 instances, its eval chunks the float32 one;
    every checkpoint restored, float32), and ``cli.predict --dtype bfloat16``
-   on its ``model.pt``, held to a plain bf16 Predictor the same way. Its
+   on its ``model.pt``, held to a plain bf16 Predictor the same way; and the
+   MSG model: one ``cli.train --arch msg`` epoch and ``cli.predict --arch
+   msg`` on its ``model.pt``, held to a plain MSG Predictor. Its
    line gives each train run's host ms a step and ms waited on the prefetch
    (medians over the steps after the first), beside the train phase's median
    (``Trainer.train_step`` fed by hand) and the host ms one train batch takes
@@ -187,7 +204,9 @@ non-zero and prints no result):
    frame. Row 3 is held and timed at the first frame's densify shape.
 
 Output: one JSON line a kernel and shape, one for each driven path (predict,
-train, predict_windows, train_windows, predict_bf16, train_bf16, cli,
+train, predict_windows, train_windows, predict_bf16, train_bf16, their MSG
+counterparts predict_msg, train_msg, predict_windows_msg,
+train_windows_msg, predict_msg_bf16, train_msg_bf16, then cli,
 op_surface, densify, kitti; the
 parity sweep's lines and the stage bench's lines inside op_surface), the
 ``nvidia-smi`` line, one ``{"kernels": [...]}`` line, and last ``{"ok":
@@ -222,7 +241,7 @@ from pointnet2_tpu_torch.config import Config
 from pointnet2_tpu_torch.data.io import load_labels, read_pcd
 from pointnet2_tpu_torch.data.semantic3d import SemanticDataset
 from pointnet2_tpu_torch.infer import Predictor, full_float32
-from pointnet2_tpu_torch.models.pointnet2_seg import SA_MLPS
+from pointnet2_tpu_torch.models.pointnet2_seg import SA_MLPS, msg_scales
 from pointnet2_tpu_torch.ops.calibrate import calibrate_model_windows
 from pointnet2_tpu_torch.ops import core, cuda, densify
 from pointnet2_tpu_torch.ops.cuda import ballquery as cuda_ballquery
@@ -246,6 +265,10 @@ SEED = 0
 DEVICE = "cuda"  # every phase runs here; there is no other choice from the command line
 FP_CHANNELS = (512, 256, 256, 128)  # features interpolated by FP1..FP4
 FP_SKIP_CHANNELS = (256, 128, 64, 3)  # the skip features each is concatenated with (SA3, SA2, SA1, colour)
+# The MSG model's: SA2's and SA1's two scales concatenated (64 + 128, 32 + 64);
+# FP2 and FP3 are the levels whose shapes differ from SSG's.
+MSG_FP_SKIP_CHANNELS = (256, 192, 96, 3)
+MSG_FP = (1, 2)
 TRAIN_STEPS = 5
 ACCUM = 4
 ACCUM_STEPS = 2
@@ -280,7 +303,6 @@ KERNELS = {
         "pointnet2_tpu_torch/csrc/window_bq.cuh", "pointnet2_tpu/ops/pallas/ballquery.py:80",
     ),
 }
-GEOMETRY_KERNELS = ("fps_centroids", "ball_query", "knn")
 INTERPOLATE_KERNELS = ("three_interpolate", "three_interpolate_grad")
 # The production windows (bench.py's Trainer(bq_window=3072) and its fp_window=512
 # opt-in): at semantic.json's widths they engage at SA1 (8192 points) and FP4
@@ -305,23 +327,10 @@ DENSIFY_SUBSET = 65_536  # dense points held bit for bit against the plain versi
 NATIVE_AGREEMENT = 0.9999
 # The KITTI phase: a drive of HDL-64E-sized sweeps.
 KITTI_FRAMES, KITTI_SWEEP_POINTS = 3, 120_000
-# The kernels' launches a train step and an eval chunk of CHUNK clouds, without
-# and with the windows (SA1 and FP4 engage; the other levels take the exact kernels).
-STEP_LAUNCHES = {name: 4 for name in (*GEOMETRY_KERNELS, *INTERPOLATE_KERNELS)}
-CHUNK_LAUNCHES = {name: 4 for name in (*GEOMETRY_KERNELS, "three_interpolate")}
-WINDOW_STEP_LAUNCHES = {"fps_centroids": 4, "ball_query_sliced": 1, "ball_query": 3, "knn_sliced": 1, "knn": 3,
-                        "three_interpolate": 4, "three_interpolate_grad": 4}
-WINDOW_CHUNK_LAUNCHES = {"fps_centroids": 4, "three_interpolate": 4, "ball_query": 3, "knn": 3,
-                         "ball_query_sliced_pos": 1, "window_gather": 1, "knn_sliced": 1}
 # The bf16 modes at semantic.json's widths: every FP stage computes in
 # bfloat16 (uniform, and selective at 128, whose narrowest FP width is 128),
 # so each interpolation and its backward take the bfloat16 instances.
 BF16_MIN_WIDTH = 128
-BF16_STEP_LAUNCHES = {**{name: 4 for name in GEOMETRY_KERNELS},
-                      "three_interpolate_bf16": 4, "three_interpolate_grad_bf16": 4}
-BF16_CHUNK_LAUNCHES = {**{name: 4 for name in GEOMETRY_KERNELS}, "three_interpolate_bf16": 4}
-BF16_WINDOW_CHUNK_LAUNCHES = {**{k: v for k, v in WINDOW_CHUNK_LAUNCHES.items() if k != "three_interpolate"},
-                              "three_interpolate_bf16": 4}
 BF16_CLI_TRAIN = ("--train_dtype", "bfloat16", "--bf16_min_width", str(BF16_MIN_WIDTH))
 # The bf16 predict modes: (name, Predictor keywords).
 BF16_MODES = (
@@ -331,6 +340,41 @@ BF16_MODES = (
     ("selective_windows", dict(dtype="bfloat16", bf16_min_width=BF16_MIN_WIDTH, bq_window=BQ_WINDOW,
                                fp_window=FP_WINDOW)),
 )
+# The MSG model's bf16 modes: the selective predict mode, and one mixed-precision train step.
+MSG_BF16_MODES = (BF16_MODES[1],)
+MSG_BF16_STEPS = 1
+
+
+def chunk_launches(arch: str = "ssg", windows: bool = False, bf16: bool = False) -> dict:
+    """The kernels' launches an eval chunk of CHUNK clouds at semantic.json's
+    widths. FPS runs once a level (MSG's scales share it); an MSG level
+    queries each of its two scales. With the windows SA1 (8192 points) and
+    FP4 (1024 coarse points) engage: the fused grouping's two kernels once a
+    scale of SA1, the windowed kNN once; the other levels take the exact
+    kernels. In the bf16 modes every FP stage interpolates in bfloat16."""
+    scales = 2 if arch == "msg" else 1
+    out = {"fps_centroids": 4, "three_interpolate_bf16" if bf16 else "three_interpolate": 4}
+    if windows:
+        return {**out, "ball_query_sliced_pos": scales, "window_gather": scales, "ball_query": scales + 2,
+                "knn_sliced": 1, "knn": 3}
+    return {**out, "ball_query": 2 * scales + 2, "knn": 4}
+
+
+def step_launches(arch: str = "ssg", windows: bool = False, bf16: bool = False) -> dict:
+    """The kernels' launches a train step: ``chunk_launches``' geometry, the
+    windowed ball query in place of the fused grouping (train mode), and the
+    interpolation's forward and backward at each FP level."""
+    scales = 2 if arch == "msg" else 1
+    suffix = "_bf16" if bf16 else ""
+    out = {"fps_centroids": 4, f"three_interpolate{suffix}": 4, f"three_interpolate_grad{suffix}": 4}
+    if windows:
+        return {**out, "ball_query_sliced": scales, "ball_query": scales + 2, "knn_sliced": 1, "knn": 3}
+    return {**out, "ball_query": 2 * scales + 2, "knn": 4}
+
+
+def scaled(launches: dict, n: int) -> dict:
+    """Each count of ``launches`` times ``n``."""
+    return {name: n * count for name, count in launches.items()}
 
 
 def emit(obj: dict) -> None:
@@ -442,21 +486,7 @@ def kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> list:
             match=torch.equal(idx, p_idx) and torch.equal(cent, p_cent),
             info={"plan": cuda_fps.planned_route(src, spec.npoint)},
         )
-        m, ns, r = spec.npoint, spec.nsample, spec.radius
-        bq, cnt = ops.ball_query(src, cent, r, ns, impl="cuda")
-        p_bq, p_cnt = ops.ball_query(src, cent, r, ns, impl="torch")
-        # Pairs this data needs: up to the nsample-th hit, or all N.
-        scanned = torch.where(cnt == ns, bq[..., -1].long() + 1, n).sum().item()
-        report.add(
-            "ball_query", b, f"N={n} M={m} r={r} nsample={ns}",
-            lambda: ops.ball_query(src, cent, r, ns, impl="cuda"),
-            lambda: ops.ball_query(src, cent, r, ns, impl="torch"),
-            nbytes=b * n * 12 + b * m * 12 + b * m * (ns + 1) * 4,
-            nops=9 * scanned,
-            err=0.0,
-            match=torch.equal(bq, p_bq) and torch.equal(cnt, p_cnt),
-            info={"plan": cuda_ballquery.plan(b, n, m, cuda_ballquery.num_sms(src.device.index))},
-        )
+        ball_query_row(report, src, cent, spec.radius, spec.nsample)
         levels.append(cent)
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -479,47 +509,99 @@ def kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> list:
         # The FP concat as the model writes it: FP4's skip is the input cloud's
         # colours (a view of row stride 6), the others the SA level's features.
         skip = x[..., 3:6] if c1 == 3 else torch.randn((b, nq, c1), generator=gen, device=dev)
-        weight = ops.interpolation_weights(d2)
-        points = torch.randn((b, m, c), generator=gen, device=dev)
-        out = ops.three_interpolate(points, nn_idx, weight, impl="cuda", skip=skip)
-        ref = ops.three_interpolate(points, nn_idx, weight, impl="torch", skip=skip)
-        bare = ops.three_interpolate(points, nn_idx, weight, impl="cuda")
-        flat_idx = (nn_idx.long() + torch.arange(b, device=dev)[:, None, None] * m).reshape(-1, 3)
-        flat_points, flat_w = points.reshape(b * m, c), weight.reshape(-1, 3)
-        vec, skip_vec = cuda_interp.planned_route(points, skip)
-        report.add(
-            "three_interpolate", b, f"M={m} C={c} N={nq} skip={c1}",
-            lambda: ops.three_interpolate(points, nn_idx, weight, impl="cuda", skip=skip),
-            lambda: ops.three_interpolate(points, nn_idx, weight, impl="torch", skip=skip),
-            # points, idx/weight and the skip read once, the concatenated rows written once
-            nbytes=b * m * c * 4 + b * nq * 3 * 8 + b * nq * c1 * 4 + b * nq * (c + c1) * 4,
-            nops=5 * b * nq * c,
-            err=max(max_abs(out, ref), max_abs(bare, ref[..., :c])),
-            match=torch.allclose(out, ref, rtol=1e-6, atol=1e-6) and torch.equal(out[..., c:], ref[..., c:])
-            and torch.allclose(bare, ref[..., :c], rtol=1e-6, atol=1e-6),
-            library=lambda: torch.cat([F.embedding_bag(
-                flat_idx, flat_points, mode="sum", per_sample_weights=flat_w
-            ).view(b, nq, c), skip], -1),
-            extra={
-                # The path before the fused kernel: the kernel without the skip, then torch.cat.
-                "no_skip_ms": lambda: ops.three_interpolate(points, nn_idx, weight, impl="cuda"),
-                "concat_ms": lambda: torch.cat([bare, skip], -1),
-            },
-            info={"plan": {"vec": vec, "skip_vec": skip_vec},
-                  "device_ms": device_ms(
-                      lambda: ops.three_interpolate(points, nn_idx, weight, impl="cuda", skip=skip), "three_interpolate")},
-        )
+        interpolate_row(report, nn_idx, ops.interpolation_weights(d2), m, c, skip, gen)
     return levels
 
 
-def grad_kernel_phase(levels: list, seed: int, report: Report) -> None:
-    """three_interpolate_grad at the four shapes a train step of the levels'
-    batch gives it, on the levels ``kernel_phase`` made (whose 3-NN it held
-    against the plain version), and the whole Function."""
+def ball_query_row(report: Report, src: torch.Tensor, cent: torch.Tensor, r: float, ns: int) -> None:
+    """Row 2 at one level's shape against its plain version, its bound the
+    pairs this data needs (up to each query's nsample-th hit, or all N)."""
+    b, n = src.shape[:2]
+    m = cent.shape[1]
+    bq, cnt = ops.ball_query(src, cent, r, ns, impl="cuda")
+    p_bq, p_cnt = ops.ball_query(src, cent, r, ns, impl="torch")
+    scanned = torch.where(cnt == ns, bq[..., -1].long() + 1, n).sum().item()
+    report.add(
+        "ball_query", b, f"N={n} M={m} r={r} nsample={ns}",
+        lambda: ops.ball_query(src, cent, r, ns, impl="cuda"),
+        lambda: ops.ball_query(src, cent, r, ns, impl="torch"),
+        nbytes=b * n * 12 + b * m * 12 + b * m * (ns + 1) * 4,
+        nops=9 * scanned,
+        err=0.0,
+        match=torch.equal(bq, p_bq) and torch.equal(cnt, p_cnt),
+        info={"plan": cuda_ballquery.plan(b, n, m, cuda_ballquery.num_sms(src.device.index))},
+    )
+
+
+def interpolate_row(report: Report, nn_idx: torch.Tensor, weight: torch.Tensor, m: int, c: int, skip: torch.Tensor,
+                    gen: torch.Generator) -> None:
+    """Row 4 with the FP skip written into its rows, on seeded features of C
+    channels, against its plain version, beside the bare kernel, the
+    ``torch.cat`` it replaced and ``embedding_bag`` (its library call)."""
+    dev = nn_idx.device
+    b, nq = nn_idx.shape[:2]
+    c1 = skip.shape[2]
+    points = torch.randn((b, m, c), generator=gen, device=dev)
+    out = ops.three_interpolate(points, nn_idx, weight, impl="cuda", skip=skip)
+    ref = ops.three_interpolate(points, nn_idx, weight, impl="torch", skip=skip)
+    bare = ops.three_interpolate(points, nn_idx, weight, impl="cuda")
+    flat_idx = (nn_idx.long() + torch.arange(b, device=dev)[:, None, None] * m).reshape(-1, 3)
+    flat_points, flat_w = points.reshape(b * m, c), weight.reshape(-1, 3)
+    vec, skip_vec = cuda_interp.planned_route(points, skip)
+    report.add(
+        "three_interpolate", b, f"M={m} C={c} N={nq} skip={c1}",
+        lambda: ops.three_interpolate(points, nn_idx, weight, impl="cuda", skip=skip),
+        lambda: ops.three_interpolate(points, nn_idx, weight, impl="torch", skip=skip),
+        # points, idx/weight and the skip read once, the concatenated rows written once
+        nbytes=b * m * c * 4 + b * nq * 3 * 8 + b * nq * c1 * 4 + b * nq * (c + c1) * 4,
+        nops=5 * b * nq * c,
+        err=max(max_abs(out, ref), max_abs(bare, ref[..., :c])),
+        match=torch.allclose(out, ref, rtol=1e-6, atol=1e-6) and torch.equal(out[..., c:], ref[..., c:])
+        and torch.allclose(bare, ref[..., :c], rtol=1e-6, atol=1e-6),
+        library=lambda: torch.cat([F.embedding_bag(
+            flat_idx, flat_points, mode="sum", per_sample_weights=flat_w
+        ).view(b, nq, c), skip], -1),
+        extra={
+            # The path before the fused kernel: the kernel without the skip, then torch.cat.
+            "no_skip_ms": lambda: ops.three_interpolate(points, nn_idx, weight, impl="cuda"),
+            "concat_ms": lambda: torch.cat([bare, skip], -1),
+        },
+        info={"plan": {"vec": vec, "skip_vec": skip_vec},
+              "device_ms": device_ms(
+                  lambda: ops.three_interpolate(points, nn_idx, weight, impl="cuda", skip=skip), "three_interpolate")},
+    )
+
+
+def msg_kernel_phase(cfg: Config, levels: list, seed: int, report: Report) -> None:
+    """The MSG model's new shapes of rows 2, 4 and 5 at the levels' batch (the
+    levels ``kernel_phase`` made): the ball query of each MSG level's first
+    scale (half the radius, nsample 16), and the interpolation with its skip
+    and its backward, float32 and bfloat16, at FP2 and FP3, whose skips are
+    SA2's and SA1's concatenated scales."""
+    dev = torch.device(DEVICE)
+    for i in (0, 1):
+        r, ns = msg_scales(cfg.sa_layers[i])[0]
+        ball_query_row(report, levels[i], levels[i + 1], r, ns)
+    gen = torch.Generator(device=dev).manual_seed(seed + 50)
+    for i in MSG_FP:
+        dense, coarse = levels[3 - i], levels[4 - i]
+        d2, nn_idx = ops.three_nn(dense, coarse, impl="cuda")
+        skip = torch.randn((*dense.shape[:2], MSG_FP_SKIP_CHANNELS[i]), generator=gen, device=dev)
+        interpolate_row(report, nn_idx, ops.interpolation_weights(d2), coarse.shape[1], FP_CHANNELS[i], skip, gen)
+    grad_kernel_phase(levels, seed, report, MSG_FP_SKIP_CHANNELS, MSG_FP)
+    bf16_kernel_phase(levels, seed, report, MSG_FP_SKIP_CHANNELS, MSG_FP)
+
+
+def grad_kernel_phase(levels: list, seed: int, report: Report, skips=FP_SKIP_CHANNELS, fp=range(4)) -> None:
+    """three_interpolate_grad at the shapes a train step of the levels'
+    batch gives it at the FP levels ``fp`` (indices into FP1..FP4) with the
+    skip widths ``skips``, on the levels ``kernel_phase`` made (whose 3-NN
+    it held against the plain version), and the whole Function."""
     dev = torch.device(DEVICE)
     b = levels[0].shape[0]
     gen = torch.Generator(device=dev).manual_seed(seed + 100)
-    for i, (c, skip) in enumerate(zip(FP_CHANNELS, FP_SKIP_CHANNELS)):
+    for i in fp:
+        c, skip = FP_CHANNELS[i], skips[i]
         lvl = 3 - i
         dense, coarse = levels[lvl], levels[lvl + 1]
         n, m = dense.shape[1], coarse.shape[1]
@@ -587,9 +669,9 @@ def grad_kernel_phase(levels: list, seed: int, report: Report) -> None:
             )
 
 
-def bf16_kernel_phase(levels: list, seed: int, report: Report) -> None:
-    """Rows 4 and 5's bfloat16 instances at the four FP levels of the levels'
-    batch, as the bf16 modes run them, each held bit for bit against its
+def bf16_kernel_phase(levels: list, seed: int, report: Report, skips=FP_SKIP_CHANNELS, fp=range(4)) -> None:
+    """Rows 4 and 5's bfloat16 instances at the FP levels ``fp`` of the levels'
+    batch (skip widths ``skips``), as the bf16 modes run them, each held bit for bit against its
     plain version on the same inputs (the same float32 arithmetic by
     construction), under both precisions and with a float32 skip beside
     bfloat16 points (a selective stage's concat: a float32 row). The rows are
@@ -600,7 +682,8 @@ def bf16_kernel_phase(levels: list, seed: int, report: Report) -> None:
     b = levels[0].shape[0]
     bf16 = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(seed + 200)
-    for i, (c, c1) in enumerate(zip(FP_CHANNELS, FP_SKIP_CHANNELS)):
+    for i in fp:
+        c, c1 = FP_CHANNELS[i], skips[i]
         lvl = 3 - i
         dense, coarse = levels[lvl], levels[lvl + 1]
         n, m = dense.shape[1], coarse.shape[1]
@@ -687,7 +770,7 @@ def bf16_kernel_phase(levels: list, seed: int, report: Report) -> None:
         )
 
 
-def window_kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> None:
+def window_kernel_phase(cfg: Config, seed: int, report: Report, b: int, arch: str = "ssg") -> None:
     """The four calibrated-window kernels at the shapes a batch of ``b`` gives
     them, each against its plain version on the same sorted inputs, and the
     whole calibrated ops (sorts, window starts, certificate) on the kernel
@@ -695,13 +778,17 @@ def window_kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> None:
 
     Every row runs at both batches: row 7 (the windowed ball query of the
     train forward), rows 8 and 9 (the fused eval grouping), row 10 (FP4's
-    windowed 3-NN).
+    windowed 3-NN). With ``arch="msg"``, rows 7-9 at MSG's SA1 first scale
+    (half the radius and the samples, rows of 16 projected channels); row 10
+    has no MSG shape of its own.
     """
     dev = torch.device(DEVICE)
     x = torch.from_numpy(clouds(b, cfg, seed)).to(dev)
     xyz = x[..., :3].contiguous()
     sa1, n = cfg.sa_layers[0], cfg.num_point
-    m, ns, r = sa1.npoint, sa1.nsample, sa1.radius
+    m, ns, r, f0 = sa1.npoint, sa1.nsample, sa1.radius, SA_MLPS[0][0]
+    if arch == "msg":
+        (r, ns), f0 = msg_scales(sa1)[0], f0 // 2
     _, cent = ops.fps_centroids(xyz, m, impl="cuda")
     w = core.round_up(BQ_WINDOW, core.LANES)
     perm, xs, _, qs, lo, ok = core.ball_query_window_plan(xyz, cent, r, w)
@@ -749,8 +836,8 @@ def window_kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> None:
     got = cuda.ball_query_tiles_pos(xs, perm, qs, lo, r, ns, w)
     want = core.ball_query_tiles_pos(xs, perm, qs, lo, r, ns, w)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    w0 = torch.randn((cfg.point_dim, SA_MLPS[0][0]), generator=gen, device=dev) * 0.5
-    b0 = torch.randn((SA_MLPS[0][0],), generator=gen, device=dev) * 0.1
+    w0 = torch.randn((cfg.point_dim, f0), generator=gen, device=dev) * 0.5
+    b0 = torch.randn((f0,), generator=gen, device=dev) * 0.1
     report.add(
         "ball_query_sliced_pos", b, f"N={n} M={m} r={r} nsample={ns} w={w}",
         lambda: cuda.ball_query_tiles_pos(xs, perm, qs, lo, r, ns, w),
@@ -777,6 +864,8 @@ def window_kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> None:
     pos = got[1]
     zp_s = ops.gather_points(x, perm) @ w0 + b0  # the projected sorted cloud, as the fused op makes it
     gather_rows(report, b, n, zp_s, lo, pos)
+    if arch != "ssg":
+        return
 
     # FP4: the dense cloud's 3-NN among SA1's centroids.
     wf = core.round_up(FP_WINDOW, core.LANES)
@@ -1106,10 +1195,11 @@ def _compare_steps(what: str, step: tuple, ref_step: tuple) -> dict:
     return {"loss": loss, "ref_loss": ref_loss, "worst_grad_err_of_max_abs": worst, "bit_equal": equal}
 
 
-def train_phase(cfg: Config, seed: int, card: str) -> dict:
-    """The port's second main path: Trainer.train_step on full-width batches."""
+def train_phase(cfg: Config, seed: int, card: str, arch: str = "ssg") -> dict:
+    """The port's second main path: Trainer.train_step on full-width batches,
+    of the ``arch`` model."""
     batches = [train_batch(cfg, BATCH, seed + 200 + i) for i in range(1 + TRAIN_STEPS)]
-    trainer = Trainer(cfg, device=DEVICE)
+    trainer = Trainer(cfg, device=DEVICE, arch=arch)
     trainer.init_state(seed, bn_stats="random")
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     stats_before = {k: v.clone() for k, v in trainer.model.named_buffers()}
@@ -1127,10 +1217,7 @@ def train_phase(cfg: Config, seed: int, card: str) -> dict:
         losses.append(float(metrics["loss"]))
     launches = dict(cuda.LAUNCHES)
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    _expect_launches(
-        launches, {name: 4 * TRAIN_STEPS for name in (*GEOMETRY_KERNELS, *INTERPOLATE_KERNELS)},
-        f"{TRAIN_STEPS} train steps",
-    )
+    _expect_launches(launches, scaled(step_launches(arch), TRAIN_STEPS), f"{TRAIN_STEPS} {arch} train steps")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"train losses not finite: {losses}")
     if metrics["confusion"].shape != (9, 9) or int(metrics["confusion"].sum()) != BATCH * cfg.num_point:
@@ -1138,16 +1225,19 @@ def train_phase(cfg: Config, seed: int, card: str) -> dict:
     unmoved = [k for k, v in trainer.model.named_buffers() if torch.equal(v, stats_before[k])]
     if unmoved or trainer.step != 1 + TRAIN_STEPS:
         raise AssertionError(f"moving statistics that did not move: {unmoved}; step {trainer.step}")
+    device = profiled_device_ms(lambda: trainer.train_step(batches[1], generator=gen))
     del trainer
 
-    step = _one_step(cfg, None, batches[0], seed)
-    again = _one_step(cfg, None, batches[0], seed)
+    step = _one_step(cfg, None, batches[0], seed, arch=arch)
+    again = _one_step(cfg, None, batches[0], seed, arch=arch)
     if again[0] != step[0] or not all(torch.equal(g, step[1][k]) for k, g in again[1].items()):
-        raise AssertionError("two kernel-path steps from the same weights and batch gave other gradients")
-    kernel_vs_plain = _compare_steps("kernel path vs plain path", step, _one_step(cfg, "torch", batches[0], seed))
+        raise AssertionError(f"two {arch} kernel-path steps from the same weights and batch gave other gradients")
+    kernel_vs_plain = _compare_steps(
+        f"{arch} kernel path vs plain path", step, _one_step(cfg, "torch", batches[0], seed, arch=arch)
+    )
     del step, again
 
-    accum = Trainer(cfg, accum_steps=ACCUM, device=DEVICE)
+    accum = Trainer(cfg, accum_steps=ACCUM, device=DEVICE, arch=arch)
     accum.init_state(seed, bn_stats="random")
     accum.train_step(batches[0], generator=gen)
     torch.cuda.synchronize()
@@ -1160,18 +1250,20 @@ def train_phase(cfg: Config, seed: int, card: str) -> dict:
         accum_times.append((time.perf_counter() - t0) * 1e3)
         accum_losses.append(float(metrics["loss"]))
     accum_launches = dict(cuda.LAUNCHES)
+    # The hoisted geometry once a step; the interpolation once a microbatch.
     _expect_launches(
         accum_launches,
-        {**{name: 4 * ACCUM_STEPS for name in GEOMETRY_KERNELS},
-         **{name: 4 * ACCUM * ACCUM_STEPS for name in INTERPOLATE_KERNELS}},
-        f"{ACCUM_STEPS} accum-{ACCUM} steps",
+        {name: ACCUM_STEPS * n * (ACCUM if name in INTERPOLATE_KERNELS else 1)
+         for name, n in step_launches(arch).items()},
+        f"{ACCUM_STEPS} {arch} accum-{ACCUM} steps",
     )
     if not all(np.isfinite(accum_losses)):
         raise AssertionError(f"accum losses not finite: {accum_losses}")
 
     median = statistics.median(times)
     row = {
-        "phase": "train",
+        "phase": "train" if arch == "ssg" else f"train_{arch}",
+        "arch": arch,
         "steps": TRAIN_STEPS,
         "batch": BATCH,
         "points": cfg.num_point,
@@ -1182,6 +1274,7 @@ def train_phase(cfg: Config, seed: int, card: str) -> dict:
         "losses": losses,
         "launches": launches,
         "peak_memory_mb": peak_mb,
+        "device": device,
         "kernel_vs_plain": kernel_vs_plain,
         "accum": {"accum_steps": ACCUM, "steps": ACCUM_STEPS, "ms_per_step": accum_times,
                   "losses": accum_losses, "launches": accum_launches},
@@ -1191,10 +1284,29 @@ def train_phase(cfg: Config, seed: int, card: str) -> dict:
     return launches, row
 
 
-def predict_phase(cfg: Config, requests: int, batch: int, seed: int, card: str) -> dict:
-    """The port's main path: Predictor.predict_step on full-width requests."""
-    sd = convert.from_flax_variables(convert.init_variables(cfg, num_classes=9, seed=seed, bn_stats="random"))
-    predictor = Predictor(cfg, sd, num_classes=9, infer_chunk=CHUNK, device=DEVICE)
+def seeded_state(cfg: Config, seed: int, arch: str) -> dict:
+    """Seeded weights of the ``arch`` model with moving statistics that do real work."""
+    return convert.from_flax_variables(
+        convert.init_variables(cfg, num_classes=9, seed=seed, bn_stats="random", arch=arch)
+    )
+
+
+def sa1_share(model, x: torch.Tensor) -> dict:
+    """CUDA-event ms of the eval forward of one chunk ``x`` and of its SA1 level
+    alone (the input cloud to SA1's features), and their ratio."""
+    xyz, feats = x[..., :3].contiguous(), x[..., 3:6]
+    with torch.no_grad():
+        forward_ms = cuda_ms(lambda: model(x), **FEW)
+        sa1_ms = cuda_ms(lambda: model.sa1(xyz, feats), **FEW)
+    return {"forward_ms": forward_ms, "sa1_ms": sa1_ms, "sa1_share": sa1_ms / forward_ms}
+
+
+def predict_phase(cfg: Config, requests: int, batch: int, seed: int, card: str, arch: str = "ssg") -> dict:
+    """The port's main path: Predictor.predict_step on full-width requests,
+    of the ``arch`` model; with the device ms of one request and SA1's share
+    of a chunk's forward."""
+    sd = seeded_state(cfg, seed, arch)
+    predictor = Predictor(cfg, sd, num_classes=9, infer_chunk=CHUNK, device=DEVICE, arch=arch)
     inputs = [clouds(batch, cfg, seed + 1 + i) for i in range(requests)]
     predictor.predict_step(inputs[0])  # warm-up: first launches, allocator
     torch.cuda.synchronize()
@@ -1209,12 +1321,9 @@ def predict_phase(cfg: Config, requests: int, batch: int, seed: int, card: str) 
     launches = dict(cuda.LAUNCHES)
 
     chunks = requests * (batch // CHUNK)
-    _expect_launches(
-        launches, {name: 4 * chunks for name in (*GEOMETRY_KERNELS, "three_interpolate")},
-        f"{chunks} predict chunks",
-    )
+    _expect_launches(launches, scaled(chunk_launches(arch), chunks), f"{chunks} {arch} predict chunks")
 
-    plain = Predictor(cfg, sd, num_classes=9, infer_chunk=CHUNK, device=DEVICE, impl="torch")
+    plain = Predictor(cfg, sd, num_classes=9, infer_chunk=CHUNK, device=DEVICE, impl="torch", arch=arch)
     logits = predictor.infer_logits(inputs[0])
     ref_logits = plain.infer_logits(inputs[0])
     if logits.shape != (batch, cfg.num_point, 9) or not torch.isfinite(logits).all():
@@ -1225,11 +1334,13 @@ def predict_phase(cfg: Config, requests: int, batch: int, seed: int, card: str) 
         want = plain.predict_step(x)
         agree.append(float((got == want).float().mean()))
     if min(agree) < 0.9999 or logit_err > 1e-3:
-        raise AssertionError(f"kernel path vs plain path: label agreement {agree}, max abs logit diff {logit_err}")
+        raise AssertionError(f"{arch} kernel path vs plain path: label agreement {agree}, "
+                             f"max abs logit diff {logit_err}")
 
     median = statistics.median(times)
     row = {
-        "phase": "predict",
+        "phase": "predict" if arch == "ssg" else f"predict_{arch}",
+        "arch": arch,
         "requests": requests,
         "batch": batch,
         "points": cfg.num_point,
@@ -1240,19 +1351,22 @@ def predict_phase(cfg: Config, requests: int, batch: int, seed: int, card: str) 
         "launches": launches,
         "label_agreement": agree,
         "max_abs_logit_diff": logit_err,
+        "device": profiled_device_ms(lambda: predictor.predict_step(inputs[0])),
+        "chunk": sa1_share(predictor.model, torch.from_numpy(inputs[0][:CHUNK]).to(DEVICE)),
         "card": card,
     }
     emit(row)
     return launches
 
 
-def predict_windows_phase(cfg: Config, requests: int, batch: int, seed: int, card: str) -> dict:
+def predict_windows_phase(cfg: Config, requests: int, batch: int, seed: int, card: str, arch: str = "ssg") -> dict:
     """The calibrated-window predict path: ``Predictor(bq_window, fp_window)``
     through ``predict_step_checked``, against the no-window kernel path on the
     same requests, timed in turns; and a too-small window that must say so."""
-    sd = convert.from_flax_variables(convert.init_variables(cfg, num_classes=9, seed=seed, bn_stats="random"))
-    windowed = Predictor(cfg, sd, infer_chunk=CHUNK, device=DEVICE, bq_window=BQ_WINDOW, fp_window=FP_WINDOW)
-    exact = Predictor(cfg, sd, infer_chunk=CHUNK, device=DEVICE)
+    sd = seeded_state(cfg, seed, arch)
+    windowed = Predictor(cfg, sd, infer_chunk=CHUNK, device=DEVICE, bq_window=BQ_WINDOW, fp_window=FP_WINDOW,
+                         arch=arch)
+    exact = Predictor(cfg, sd, infer_chunk=CHUNK, device=DEVICE, arch=arch)
     inputs = [clouds(batch, cfg, seed + 1 + i) for i in range(requests)]
     windowed.predict_step_checked(inputs[0])  # warm-up
     exact.predict_step(inputs[0])
@@ -1270,10 +1384,7 @@ def predict_windows_phase(cfg: Config, requests: int, batch: int, seed: int, car
     launches = dict(cuda.LAUNCHES)
     chunks = requests * (batch // CHUNK)
     _expect_launches(
-        launches,
-        {"fps_centroids": 4 * chunks, "three_interpolate": 4 * chunks, "ball_query": 3 * chunks, "knn": 3 * chunks,
-         "ball_query_sliced_pos": chunks, "window_gather": chunks, "knn_sliced": chunks},
-        f"{chunks} windowed predict chunks",
+        launches, scaled(chunk_launches(arch, windows=True), chunks), f"{chunks} windowed {arch} predict chunks"
     )
     if not all(oks):
         raise AssertionError(f"window certificates of the smoke requests: {oks}")
@@ -1289,14 +1400,16 @@ def predict_windows_phase(cfg: Config, requests: int, batch: int, seed: int, car
     logits = windowed.infer_logits(inputs[0])
     logit_err = max_abs(logits, exact.infer_logits(inputs[0]))
     if not torch.isfinite(logits).all() or min(agree) < 0.9999 or logit_err > WINDOW_LOGIT_TOL:
-        raise AssertionError(f"windowed vs exact path: label agreement {agree}, max abs logit diff {logit_err}")
-    small = Predictor(cfg, sd, infer_chunk=CHUNK, device=DEVICE, bq_window=SMALL_BQ_WINDOW)
+        raise AssertionError(f"windowed vs exact {arch} path: label agreement {agree}, "
+                             f"max abs logit diff {logit_err}")
+    small = Predictor(cfg, sd, infer_chunk=CHUNK, device=DEVICE, bq_window=SMALL_BQ_WINDOW, arch=arch)
     if small.predict_step_checked(inputs[0])[1]:
         raise AssertionError(f"bq_window={SMALL_BQ_WINDOW} certified SA1 on the smoke clouds")
 
     median, exact_median = statistics.median(times), statistics.median(exact_times)
     emit({
-        "phase": "predict_windows",
+        "phase": "predict_windows" if arch == "ssg" else f"predict_windows_{arch}",
+        "arch": arch,
         "bq_window": BQ_WINDOW,
         "fp_window": FP_WINDOW,
         "requests": requests,
@@ -1315,28 +1428,28 @@ def predict_windows_phase(cfg: Config, requests: int, batch: int, seed: int, car
     return launches
 
 
-def train_windows_phase(cfg: Config, seed: int, card: str) -> dict:
+def train_windows_phase(cfg: Config, seed: int, card: str, arch: str = "ssg") -> dict:
     """The calibrated-window train path: ``Trainer(bq_window, fp_window)``, one
     warm-up and 3 Adam steps beside the no-window Trainer on the same batches,
     then one dropout-free step against the no-window step, and the windows
     that ``auto`` would pick on these clouds."""
     batches = [train_batch(cfg, BATCH, seed + 300 + i) for i in range(1 + WINDOW_TRAIN_STEPS)]
-    windowed = Trainer(cfg, device=DEVICE, bq_window=BQ_WINDOW, fp_window=FP_WINDOW)
-    exact = Trainer(cfg, device=DEVICE)
+    windowed = Trainer(cfg, device=DEVICE, bq_window=BQ_WINDOW, fp_window=FP_WINDOW, arch=arch)
+    exact = Trainer(cfg, device=DEVICE, arch=arch)
     for trainer in (windowed, exact):
         trainer.init_state(seed, bn_stats="random")
         trainer.train_step(batches[0], generator=torch.Generator(device=DEVICE).manual_seed(seed))
     torch.cuda.synchronize()
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
-    times, exact_times, oks, step_launches = [], [], [], []
+    times, exact_times, oks, per_step = [], [], [], []
     for batch in batches[1:]:
         cuda.reset_launches()
         t0 = time.perf_counter()
         metrics = windowed.train_step(batch, generator=gen)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        step_launches.append(dict(cuda.LAUNCHES))
+        per_step.append(dict(cuda.LAUNCHES))
         oks.append(bool(metrics["window_ok"]))
         if not np.isfinite(float(metrics["loss"])):
             raise AssertionError("windowed train loss not finite")
@@ -1347,22 +1460,17 @@ def train_windows_phase(cfg: Config, seed: int, card: str) -> dict:
     # Train mode groups through the windowed ball query (row 7) and the raw
     # gather: SA1 engages the window, SA2-4 (clouds of 1024 and fewer) take the
     # exact kernel; FP4 engages the 3-NN window, FP1-3 take the exact kernel.
-    for launches in step_launches:
-        _expect_launches(
-            launches,
-            {"fps_centroids": 4, "ball_query_sliced": 1, "ball_query": 3, "knn_sliced": 1, "knn": 3,
-             "three_interpolate": 4, "three_interpolate_grad": 4},
-            "one windowed train step",
-        )
+    for launches in per_step:
+        _expect_launches(launches, step_launches(arch, windows=True), f"one windowed {arch} train step")
     if not all(oks):
         raise AssertionError(f"window_ok of the windowed train steps: {oks}")
-    launches = {name: sum(step.get(name, 0) for step in step_launches) for name in KERNELS}
+    launches = {name: sum(step.get(name, 0) for step in per_step) for name in KERNELS}
     del windowed, exact
 
     windowed_vs_exact = _compare_steps(
-        "windowed vs exact step",
-        _one_step(cfg, None, batches[0], seed, bq_window=BQ_WINDOW, fp_window=FP_WINDOW),
-        _one_step(cfg, None, batches[0], seed),
+        f"windowed vs exact {arch} step",
+        _one_step(cfg, None, batches[0], seed, bq_window=BQ_WINDOW, fp_window=FP_WINDOW, arch=arch),
+        _one_step(cfg, None, batches[0], seed, arch=arch),
     )
 
     sample = iter(clouds(BATCH, cfg, seed + 400 + i) for i in range(2))
@@ -1372,7 +1480,8 @@ def train_windows_phase(cfg: Config, seed: int, card: str) -> dict:
     )
     median, exact_median = statistics.median(times), statistics.median(exact_times)
     emit({
-        "phase": "train_windows",
+        "phase": "train_windows" if arch == "ssg" else f"train_windows_{arch}",
+        "arch": arch,
         "bq_window": BQ_WINDOW,
         "fp_window": FP_WINDOW,
         "steps": WINDOW_TRAIN_STEPS,
@@ -1407,15 +1516,18 @@ def profiled_device_ms(fn, tries: int = 3):
     return None
 
 
-def predict_bf16_phase(cfg: Config, requests: int, batch: int, seed: int, card: str) -> dict:
-    """The bf16 inference mode: ``Predictor(dtype="bfloat16")`` uniform and
-    selective (``bf16_min_width=128``), exact and with the windows, on the
-    predict phase's requests. Each mode's kernel path is held against its
+def predict_bf16_phase(
+    cfg: Config, requests: int, batch: int, seed: int, card: str, arch: str = "ssg", modes=BF16_MODES
+) -> dict:
+    """The bf16 inference mode of the ``arch`` model: ``Predictor(dtype=
+    "bfloat16")`` in each of ``modes`` (uniform and selective
+    (``bf16_min_width=128``), exact and with the windows), on the predict
+    phase's requests. Each mode's kernel path is held against its
     plain path (``impl="torch"``, the same mode) with the float32 gates, its
     launches counted exactly; its labels' agreement with the float32 kernel
     path, and ms a request on the host's clock and on the device's, beside
     the float32 path's. Returns each mode's launch counts."""
-    sd = convert.from_flax_variables(convert.init_variables(cfg, num_classes=9, seed=seed, bn_stats="random"))
+    sd = seeded_state(cfg, seed, arch)
     inputs = [clouds(batch, cfg, seed + 1 + i) for i in range(requests)]
     chunks = requests * (batch // CHUNK)
 
@@ -1431,13 +1543,14 @@ def predict_bf16_phase(cfg: Config, requests: int, batch: int, seed: int, card: 
             times.append((time.perf_counter() - t0) * 1e3)
         return out, times, dict(cuda.LAUNCHES)
 
-    f32 = Predictor(cfg, sd, infer_chunk=CHUNK, device=DEVICE)
+    f32 = Predictor(cfg, sd, infer_chunk=CHUNK, device=DEVICE, arch=arch)
     f32_labels, f32_times, _ = timed(f32.predict_step)
     rows = {"f32": {"ms_per_request": f32_times, "median_ms": statistics.median(f32_times),
                     "device": profiled_device_ms(lambda: f32.predict_step(inputs[0]))}}
     paths = {}
-    for name, mode in BF16_MODES:
-        predictor = Predictor(cfg, sd, infer_chunk=CHUNK, device=DEVICE, **mode)
+    prefix = "predict_bf16" if arch == "ssg" else f"predict_{arch}_bf16"
+    for name, mode in modes:
+        predictor = Predictor(cfg, sd, infer_chunk=CHUNK, device=DEVICE, arch=arch, **mode)
         windows = "bq_window" in mode
         step = predictor.predict_step_checked if windows else predictor.predict_step
         got, times, launches = timed(step)
@@ -1445,10 +1558,9 @@ def predict_bf16_phase(cfg: Config, requests: int, batch: int, seed: int, card: 
         if windows and not all(ok for _, ok in got):
             raise AssertionError(f"bf16 {name}: window certificates {[ok for _, ok in got]}")
         _expect_launches(
-            launches, {k: chunks * v for k, v in (BF16_WINDOW_CHUNK_LAUNCHES if windows else BF16_CHUNK_LAUNCHES).items()},
-            f"bf16 {name}: {chunks} predict chunks",
+            launches, scaled(chunk_launches(arch, windows, bf16=True), chunks), f"{arch} bf16 {name}: {chunks} predict chunks"
         )
-        plain = Predictor(cfg, sd, infer_chunk=CHUNK, device=DEVICE, impl="torch", **mode)
+        plain = Predictor(cfg, sd, infer_chunk=CHUNK, device=DEVICE, impl="torch", arch=arch, **mode)
         agree, logit_err = [], 0.0
         for x, got_labels in zip(inputs, labels):
             logits, ref = predictor.infer_logits(x), plain.infer_logits(x)
@@ -1457,7 +1569,7 @@ def predict_bf16_phase(cfg: Config, requests: int, batch: int, seed: int, card: 
             logit_err = max(logit_err, max_abs(logits, ref))
             agree.append(float((got_labels == ref.argmax(-1).to(torch.int32)).float().mean()))
         if min(agree) < 0.9999 or logit_err > 1e-3:
-            raise AssertionError(f"bf16 {name} kernel path vs plain path: label agreement {agree}, "
+            raise AssertionError(f"{arch} bf16 {name} kernel path vs plain path: label agreement {agree}, "
                                  f"max abs logit diff {logit_err}")
         rows[name] = {
             **{k: v for k, v in mode.items() if k != "dtype"},
@@ -1470,23 +1582,26 @@ def predict_bf16_phase(cfg: Config, requests: int, batch: int, seed: int, card: 
             "label_agreement_with_f32": [float((a == b).float().mean()) for a, b in zip(labels, f32_labels)],
             "launches": launches,
         }
-        paths[f"predict_bf16_{name}"] = launches
+        paths[f"{prefix}_{name}"] = launches
         del predictor, plain
         torch.cuda.empty_cache()
-    emit({"phase": "predict_bf16", "requests": requests, "batch": batch, "infer_chunk": CHUNK, **rows, "card": card})
+    emit({"phase": prefix, "arch": arch, "requests": requests, "batch": batch, "infer_chunk": CHUNK, **rows,
+          "card": card})
     return paths
 
 
-def train_bf16_phase(cfg: Config, seed: int, card: str, f32_row: dict) -> dict:
-    """The mixed-precision train mode, ``Trainer(train_dtype="bfloat16",
-    bf16_min_width=128)``: one warm-up and 5 Adam steps (dropout on) on the
-    train phase's batches, finite losses, float32 master weights and
-    gradients, exact launch counts; then two dropout-free kernel-path steps
-    equal to each other and to the plain path's within the train phase's
-    gates, under deterministic algorithms. ms a step and peak memory beside
-    the float32 train phase's."""
-    mode = dict(train_dtype="bfloat16", bf16_min_width=BF16_MIN_WIDTH)
-    batches = [train_batch(cfg, BATCH, seed + 200 + i) for i in range(1 + TRAIN_STEPS)]
+def train_bf16_phase(
+    cfg: Config, seed: int, card: str, f32_row: dict, arch: str = "ssg", steps: int = TRAIN_STEPS
+) -> dict:
+    """The mixed-precision train mode of the ``arch`` model,
+    ``Trainer(train_dtype="bfloat16", bf16_min_width=128)``: one warm-up and
+    ``steps`` Adam steps (dropout on) on the train phase's batches, finite
+    losses, float32 master weights and gradients, exact launch counts; then
+    two dropout-free kernel-path steps equal to each other and to the plain
+    path's within the train phase's gates, under deterministic algorithms. ms
+    a step and peak memory beside the float32 train phase's (``f32_row``)."""
+    mode = dict(train_dtype="bfloat16", bf16_min_width=BF16_MIN_WIDTH, arch=arch)
+    batches = [train_batch(cfg, BATCH, seed + 200 + i) for i in range(1 + steps)]
     trainer = Trainer(cfg, device=DEVICE, **mode)
     trainer.init_state(seed, bn_stats="random")
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -1503,8 +1618,7 @@ def train_bf16_phase(cfg: Config, seed: int, card: str, f32_row: dict) -> dict:
         losses.append(float(metrics["loss"]))
     launches = dict(cuda.LAUNCHES)
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    _expect_launches(launches, {k: TRAIN_STEPS * v for k, v in BF16_STEP_LAUNCHES.items()},
-                     f"{TRAIN_STEPS} bf16 train steps")
+    _expect_launches(launches, scaled(step_launches(arch, bf16=True), steps), f"{steps} {arch} bf16 train steps")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"bf16 train losses not finite: {losses}")
     if any(p.dtype != torch.float32 or p.grad is None or p.grad.dtype != torch.float32
@@ -1514,15 +1628,15 @@ def train_bf16_phase(cfg: Config, seed: int, card: str, f32_row: dict) -> dict:
     step = _one_step(cfg, None, batches[0], seed, **mode)
     again = _one_step(cfg, None, batches[0], seed, **mode)
     if again[0] != step[0] or not all(torch.equal(g, step[1][k]) for k, g in again[1].items()):
-        raise AssertionError("two bf16 kernel-path steps from the same weights and batch gave other gradients")
+        raise AssertionError(f"two {arch} bf16 kernel-path steps from the same weights and batch gave other gradients")
     kernel_vs_plain = _compare_steps(
-        "bf16 kernel path vs plain path", step, _one_step(cfg, "torch", batches[0], seed, **mode)
+        f"{arch} bf16 kernel path vs plain path", step, _one_step(cfg, "torch", batches[0], seed, **mode)
     )
     median = statistics.median(times)
     emit({
-        "phase": "train_bf16",
+        "phase": "train_bf16" if arch == "ssg" else f"train_{arch}_bf16",
         **mode,
-        "steps": TRAIN_STEPS,
+        "steps": steps,
         "batch": BATCH,
         "ms_per_step": times,
         "median_ms": median,
@@ -1539,28 +1653,30 @@ def train_bf16_phase(cfg: Config, seed: int, card: str, f32_row: dict) -> dict:
     return launches
 
 
-def _cli_train(cfg_path: pathlib.Path, seed: int, windows: list, precision: tuple = ()) -> dict:
-    """One run of the train CLI on the card, its launch counts reset just before
-    it and read just after, held to the counts its steps and eval chunks imply;
-    then every checkpoint it wrote restored into a fresh Trainer. ``precision``:
-    ``--train_dtype bfloat16`` and its ``--bf16_min_width``, whose steps launch
-    rows 4 and 5's bfloat16 instances (the eval chunks stay float32)."""
+def _cli_train(cfg_path: pathlib.Path, seed: int, windows: list, precision: tuple = (), arch: str = "ssg") -> dict:
+    """One run of the train CLI on the card (``--arch arch``), its launch counts
+    reset just before it and read just after, held to the counts its steps and
+    eval chunks imply; then every checkpoint it wrote restored into a fresh
+    Trainer of that arch. ``precision``: ``--train_dtype bfloat16`` and its
+    ``--bf16_min_width``, whose steps launch rows 4 and 5's bfloat16 instances
+    (the eval chunks stay float32)."""
     torch.cuda.synchronize()
     cuda.reset_launches()
     t0 = time.perf_counter()
-    summary = cli_train.main(["--config_file", str(cfg_path), "--seed", str(seed), *windows, *precision])
+    summary = cli_train.main(
+        ["--config_file", str(cfg_path), "--seed", str(seed), "--arch", arch, *windows, *precision]
+    )
     seconds = time.perf_counter() - t0
     launches = dict(cuda.LAUNCHES)
     (epoch,) = summary["epochs"]
     steps, chunks = epoch["train_batches"], epoch["val_batches"] * (BATCH // CHUNK)
     if steps < 1 or chunks < 1 or summary["step"] != steps:
         raise AssertionError(f"the train CLI ran {steps} steps and {chunks} eval chunks (step {summary['step']})")
-    step, chunk = (WINDOW_STEP_LAUNCHES, WINDOW_CHUNK_LAUNCHES) if windows else (STEP_LAUNCHES, CHUNK_LAUNCHES)
-    if precision:
-        step = BF16_STEP_LAUNCHES
+    # A bf16 run's eval chunks stay float32.
+    step, chunk = step_launches(arch, bool(windows), bool(precision)), chunk_launches(arch, bool(windows))
     _expect_launches(
         launches, {name: steps * step.get(name, 0) + chunks * chunk.get(name, 0) for name in KERNELS},
-        f"the train CLI{' with windows' if windows else ''}: {steps} steps, {chunks} eval chunks",
+        f"the {arch} train CLI{' with windows' if windows else ''}: {steps} steps, {chunks} eval chunks",
     )
     cfg = Config.from_json(cfg_path)
     names = sorted({pathlib.Path(path).name for path in summary["checkpoints"]})
@@ -1568,7 +1684,7 @@ def _cli_train(cfg_path: pathlib.Path, seed: int, windows: list, precision: tupl
         raise AssertionError(f"the train CLI wrote {names}")
     states = []
     for name in names:
-        trainer = Trainer(cfg, device=DEVICE, bq_window=summary["bq_window"], fp_window=summary["fp_window"])
+        trainer = Trainer(cfg, device=DEVICE, bq_window=summary["bq_window"], fp_window=summary["fp_window"], arch=arch)
         restore_checkpoint(pathlib.Path(cfg.logdir) / name, trainer)
         if trainer.step != steps or not trainer.optimizer.state:
             raise AssertionError(f"{name} restored at step {trainer.step} without its optimizer state")
@@ -1630,7 +1746,8 @@ def cli_phase(seed: int, card: str, train_median_ms: float) -> dict:
     ``data_path``, ``logdir`` and ``max_epoch = 1`` changed, once exact and
     once with the windows, each with ``--seed``; then the predict CLI on the
     exact run's ``model.pt`` over the validation split, held against the
-    plain path. Returns each run's launch counts."""
+    plain path; the same pair in the bf16 modes and with ``--arch msg``.
+    Returns each run's launch counts."""
     raw_cfg = json.loads((ROOT / "semantic.json").read_text())
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
@@ -1658,7 +1775,7 @@ def cli_phase(seed: int, card: str, train_median_ms: float) -> dict:
         ])
         launches = dict(cuda.LAUNCHES)
         batches = len(summary["batch_seconds"])
-        _expect_launches(launches, {name: batches * n for name, n in CHUNK_LAUNCHES.items()},
+        _expect_launches(launches, scaled(chunk_launches(), batches),
                          f"the predict CLI: {batches} batches of {CLI_PREDICT_BATCH}")
         seconds = summary["batch_seconds"]
         predict = {
@@ -1689,7 +1806,7 @@ def cli_phase(seed: int, card: str, train_median_ms: float) -> dict:
         ])
         bf16_launches = dict(cuda.LAUNCHES)
         bf16_batches = len(bf16_summary["batch_seconds"])
-        _expect_launches(bf16_launches, {name: bf16_batches * n for name, n in BF16_CHUNK_LAUNCHES.items()},
+        _expect_launches(bf16_launches, scaled(chunk_launches(bf16=True), bf16_batches),
                          f"the bf16 predict CLI: {bf16_batches} batches of {CLI_PREDICT_BATCH}")
         predict_bf16 = {
             "dtype": "bfloat16",
@@ -1699,6 +1816,37 @@ def cli_phase(seed: int, card: str, train_median_ms: float) -> dict:
             "samples_per_s": bf16_summary["samples"] / sum(bf16_summary["batch_seconds"]),
             **_plain_labels(Config.from_json(cfg_paths[name]), bf16_ckpt, tmp / "sparse_bf16", dtype="bfloat16"),
             "launches": bf16_launches,
+        }
+
+        # The MSG model through the same entry points: one exact train epoch
+        # with --arch msg, then the predict CLI with --arch msg on its model.pt.
+        name = "cli_train_msg"
+        cfg_paths[name] = tmp / f"{name}.json"
+        cfg_paths[name].write_text(json.dumps(
+            {**raw_cfg, "data_path": str(tmp / "scenes"), "logdir": str(tmp / name), "max_epoch": 1}
+        ))
+        runs[name] = _cli_train(cfg_paths[name], seed, [], arch="msg")
+        torch.cuda.empty_cache()
+        msg_ckpt = pathlib.Path(Config.from_json(cfg_paths[name]).logdir) / "model.pt"
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        msg_summary = cli_predict.main([
+            "--ckpt", str(msg_ckpt), "--set", "validation", "--config_file", str(cfg_paths[name]),
+            "--num_samples", str(CLI_SAMPLES), "--batch_size", str(CLI_PREDICT_BATCH),
+            "--output_dir", str(tmp / "sparse_msg"), "--arch", "msg",
+        ])
+        msg_launches = dict(cuda.LAUNCHES)
+        msg_batches = len(msg_summary["batch_seconds"])
+        _expect_launches(msg_launches, scaled(chunk_launches("msg"), msg_batches),
+                         f"the msg predict CLI: {msg_batches} batches of {CLI_PREDICT_BATCH}")
+        predict_msg = {
+            "arch": "msg",
+            "samples": msg_summary["samples"],
+            "batches": msg_batches,
+            "batch_seconds": msg_summary["batch_seconds"],
+            "samples_per_s": msg_summary["samples"] / sum(msg_summary["batch_seconds"]),
+            **_plain_labels(Config.from_json(cfg_paths[name]), msg_ckpt, tmp / "sparse_msg", arch="msg"),
+            "launches": msg_launches,
         }
 
         # The sampler alone, on this thread with no other running: what one
@@ -1717,13 +1865,15 @@ def cli_phase(seed: int, card: str, train_median_ms: float) -> dict:
         "predict": predict,
         "train_bf16": {"flags": list(BF16_CLI_TRAIN), **runs["cli_train_bf16"]},
         "predict_bf16": predict_bf16,
+        "train_msg": {"arch": "msg", **runs["cli_train_msg"]},
+        "predict_msg": predict_msg,
         "train_phase_median_ms": train_median_ms,
         "sampler_ms_per_batch": sampler_ms,
         "phase_seconds": time.perf_counter() - t0,
         "card": card,
     })
     return {**{name: run["launches"] for name, run in runs.items()}, "cli_predict": launches,
-            "cli_predict_bf16": bf16_launches}
+            "cli_predict_bf16": bf16_launches, "cli_predict_msg": msg_launches}
 
 def chunked_plain_knn(xyz1: torch.Tensor, xyz2: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """``ops.core.knn`` over the queries in chunks, as the densify engine's plain
@@ -1989,6 +2139,10 @@ def main(argv=None) -> int:
     bf16_kernel_phase(train_levels, SEED, report)
     window_kernel_phase(cfg, SEED, report, CHUNK)
     window_kernel_phase(cfg, SEED + 100, report, BATCH)
+    msg_kernel_phase(cfg, chunk_levels, SEED, report)
+    msg_kernel_phase(cfg, train_levels, SEED, report)
+    window_kernel_phase(cfg, SEED, report, CHUNK, arch="msg")
+    window_kernel_phase(cfg, SEED + 100, report, BATCH, arch="msg")
     op_surface_kernel_phase(cfg, chunk_levels, report)
     op_surface_kernel_phase(cfg, train_levels, report)
     windowed_stress_phase(cfg, SEED, report)
@@ -2006,6 +2160,18 @@ def main(argv=None) -> int:
     paths.update(predict_bf16_phase(cfg, REQUESTS, BATCH, SEED, card))
     torch.cuda.empty_cache()
     paths["train_bf16"] = train_bf16_phase(cfg, SEED, card, train_row)
+    torch.cuda.empty_cache()
+    paths["predict_msg"] = predict_phase(cfg, REQUESTS, BATCH, SEED, card, arch="msg")
+    torch.cuda.empty_cache()
+    paths["train_msg"], msg_train_row = train_phase(cfg, SEED, card, arch="msg")
+    torch.cuda.empty_cache()
+    paths["predict_windows_msg"] = predict_windows_phase(cfg, REQUESTS, BATCH, SEED, card, arch="msg")
+    torch.cuda.empty_cache()
+    paths["train_windows_msg"] = train_windows_phase(cfg, SEED, card, arch="msg")
+    torch.cuda.empty_cache()
+    paths.update(predict_bf16_phase(cfg, REQUESTS, BATCH, SEED, card, arch="msg", modes=MSG_BF16_MODES))
+    torch.cuda.empty_cache()
+    paths["train_msg_bf16"] = train_bf16_phase(cfg, SEED, card, msg_train_row, arch="msg", steps=MSG_BF16_STEPS)
     torch.cuda.empty_cache()
     paths.update(cli_phase(SEED, card, train_row["median_ms"]))
     torch.cuda.empty_cache()

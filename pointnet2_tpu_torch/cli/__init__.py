@@ -20,14 +20,11 @@ import argparse
 import torch
 
 from pointnet2_tpu_torch.infer import resolve_device
-from pointnet2_tpu_torch.train.trainer import _NOT_PORTED
 
-_MSG = _NOT_PORTED["arch"][1]
 _MULTI_PROCESS = "queue 1 item 10 (multi-process)"
 
 # Flag -> (the value that means "off", the ROADMAP item that will bring it).
 NOT_PORTED_FLAGS = {
-    "arch": ("ssg", _MSG),
     "sharded": (False, _MULTI_PROCESS),
     "dist_coordinator": (None, _MULTI_PROCESS),
     "dist_num_processes": (None, _MULTI_PROCESS),

@@ -14,7 +14,8 @@ between the two; only the dense labels and colors come back to the host.
 a PNG a frame to ``result/frames/`` (it needs matplotlib, and raises
 ``ImportError`` at the start where it is missing). With
 ``--bq_window``/``--fp_window`` (ints or ``auto``) every frame's window
-certificate is checked and a failure aborts the run.
+certificate is checked and a failure aborts the run. ``--arch msg`` runs
+the multi-scale-grouping model, which must be the checkpoint's.
 
 Each frame prints the JAX script's timer line, then ``predict_interpolate``
 split in two on a line of its own: ``predict`` (the model, the device
@@ -33,7 +34,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from pointnet2_tpu_torch.cli import add_device_flag, cli_device, refuse_not_ported
+from pointnet2_tpu_torch.cli import add_device_flag, cli_device
 from pointnet2_tpu_torch.config import Config
 from pointnet2_tpu_torch.data.io import write_labels, write_pcd
 from pointnet2_tpu_torch.data.kitti import KittiDataset
@@ -52,7 +53,10 @@ def build_parser() -> argparse.ArgumentParser:
         "--render", action="store_true", default=False,
         help="write a colorized PNG per frame to result/frames/ (needs matplotlib)",
     )
-    parser.add_argument("--arch", default="ssg", choices=["ssg", "msg"])
+    parser.add_argument(
+        "--arch", default="ssg", choices=["ssg", "msg"],
+        help="model architecture: must match the checkpoint's (cli.train --arch)",
+    )
     parser.add_argument("--kitti_root", required=True)
     parser.add_argument("--config_file", default="semantic_no_color.json")
     parser.add_argument("--dates", nargs="+", default=["2011_09_26"])
@@ -74,7 +78,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Run every frame; returns each frame's name, dense point count, timers
     and sample (``centered``, the model's input, and ``raw``), and the windows."""
     flags = build_parser().parse_args(argv)
-    refuse_not_ported(flags)
     if flags.render:
         require_matplotlib()
     device = cli_device(flags.device)
@@ -116,7 +119,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     predictor = Predictor(
         cfg, load_model_state(os.path.abspath(flags.ckpt)), num_classes=dataset.num_classes,
-        device=device, bq_window=flags.bq_window, fp_window=flags.fp_window,
+        device=device, bq_window=flags.bq_window, fp_window=flags.fp_window, arch=flags.arch,
     )
     print("Model restored")
 

@@ -12,7 +12,8 @@ confusion matrix over the sampled points' ground truth when the split has
 labels. With ``--bq_window``/``--fp_window`` (ints or ``auto``) every
 batch's window certificate is checked and a failure aborts the run.
 ``--dtype bfloat16`` (with ``--bf16_min_width``, selectively) labels in the
-bf16 inference mode, from the same float32 checkpoint.
+bf16 inference mode, from the same float32 checkpoint. ``--arch msg``
+labels with the multi-scale-grouping model: it must be the checkpoint's.
 """
 
 from __future__ import annotations
@@ -51,7 +52,10 @@ def build_parser() -> argparse.ArgumentParser:
         help="selective mixed precision: with --dtype bfloat16, stages whose narrowest MLP width is "
         "below this stay float32 (128 keeps SA1 and SA2 in float32). Default: uniform bfloat16",
     )
-    parser.add_argument("--arch", default="ssg", choices=["ssg", "msg"])
+    parser.add_argument(
+        "--arch", default="ssg", choices=["ssg", "msg"],
+        help="model architecture: must match the checkpoint's (cli.train --arch)",
+    )
     parser.add_argument(
         "--bq_window", type=parse_window_arg, default=None,
         help="calibrated ball-query x-window: an int, or 'auto' to calibrate from scene samples at "
@@ -109,7 +113,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     predictor = Predictor(
         cfg, load_model_state(os.path.abspath(flags.ckpt)), num_classes=dataset.num_classes,
         infer_chunk=8, device=device, bq_window=flags.bq_window, fp_window=flags.fp_window,
-        dtype=flags.dtype, bf16_min_width=flags.bf16_min_width,
+        dtype=flags.dtype, bf16_min_width=flags.bf16_min_width, arch=flags.arch,
     )
     print("Model restored")
 

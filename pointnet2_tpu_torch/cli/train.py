@@ -16,6 +16,8 @@ its epoch loop:
 - ``--resume`` continues from one of those files, step and optimizer
   included; ``--seed`` makes the batch stream reproducible and so runs one
   sampler thread (``data/rng.py``);
+- ``--arch msg`` trains the multi-scale-grouping model
+  (``models.PointNet2SemSegMSG``); its checkpoints load only into that arch;
 - ``--train_dtype bfloat16`` (with ``--bf16_min_width``, selectively) takes
   the train steps in the mixed-precision mode; the eval epochs run float32
   and the checkpoints hold the float32 master weights either way.
@@ -88,7 +90,10 @@ def build_parser() -> argparse.ArgumentParser:
         help="selective mixed precision: with --train_dtype bfloat16, stages whose narrowest MLP width "
         "is below this stay float32 (128 keeps SA1 and SA2 in float32). Default: uniform bfloat16",
     )
-    parser.add_argument("--arch", default="ssg", choices=["ssg", "msg"])
+    parser.add_argument(
+        "--arch", default="ssg", choices=["ssg", "msg"],
+        help="model architecture: 'ssg' (the reference flagship) or 'msg' (multi-scale grouping at SA1 and SA2)",
+    )
     parser.add_argument("--dist_coordinator", default=None)
     parser.add_argument("--dist_num_processes", type=int, default=None)
     parser.add_argument("--dist_process_id", type=int, default=None)
@@ -171,7 +176,7 @@ def _train(flags: argparse.Namespace, cfg: Config, device: torch.device, logger:
         cfg, num_classes=train_ds.num_classes, accum_steps=flags.accum_steps,
         hoist_geometry=bool(flags.hoist_geometry), device=device,
         bq_window=flags.bq_window, fp_window=flags.fp_window, dropout_seed=(flags.seed or 0) + 1,
-        train_dtype=flags.train_dtype, bf16_min_width=flags.bf16_min_width,
+        train_dtype=flags.train_dtype, bf16_min_width=flags.bf16_min_width, arch=flags.arch,
     )
     trainer.init_state(flags.seed or 0)
     if flags.resume:

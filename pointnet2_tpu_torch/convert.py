@@ -2,7 +2,8 @@
 
 The JAX model's ``model.init`` returns ``{"params": ..., "batch_stats": ...}``;
 with its leaves as numpy arrays, ``from_flax_variables`` maps it onto the
-port's ``PointNet2SemSeg`` by name:
+port's ``PointNet2SemSeg`` or ``PointNet2SemSegMSG`` (a tree whose ``sa1``
+holds ``scale0``) by name:
 
 - ``params/<path>/kernel`` (in, out) -> ``<path>.weight`` (out, in), transposed
   for ``nn.Linear``;
@@ -27,7 +28,7 @@ import torch
 from torch import nn
 
 from pointnet2_tpu_torch.config import Config
-from pointnet2_tpu_torch.models.pointnet2_seg import PointNet2SemSeg
+from pointnet2_tpu_torch.models.pointnet2_seg import model_class
 
 
 def _flax_key(port_key: str) -> tuple[tuple[str, ...], bool]:
@@ -75,26 +76,30 @@ def state_dict_from_flax(variables: Mapping, module: nn.Module) -> dict[str, tor
     return out
 
 
-def _template(use_color: bool, num_classes: int) -> nn.Module:
+def _template(use_color: bool, num_classes: int, arch: str = "ssg") -> nn.Module:
     """The port model on the meta device: names and shapes, no storage."""
     with torch.device("meta"):
-        return PointNet2SemSeg(num_classes=num_classes, use_color=use_color)
+        return model_class(arch)(num_classes=num_classes, use_color=use_color)
 
 
 def from_flax_variables(variables: Mapping) -> dict[str, torch.Tensor]:
-    """A ``PointNet2SemSeg`` state_dict from the JAX model's variables.
+    """A ``PointNet2SemSeg`` or ``PointNet2SemSegMSG`` state_dict from the JAX
+    model's variables.
 
-    Colour input and the class count are read off the tree (``sa1/w0`` has 6
-    or 3 input rows; ``fc2/kernel`` has num_classes columns).
+    The arch, colour input and the class count are read off the tree (an MSG
+    tree's ``sa1`` holds ``scale0``; SA1's ``w0`` has 6 or 3 input rows;
+    ``fc2/kernel`` has num_classes columns).
     """
     params = variables["params"]
-    use_color = np.shape(params["sa1"]["w0"])[0] == 6
+    arch = "msg" if "scale0" in params["sa1"] else "ssg"
+    sa1 = params["sa1"]["scale0"] if arch == "msg" else params["sa1"]
+    use_color = np.shape(sa1["w0"])[0] == 6
     num_classes = np.shape(params["fc2"]["kernel"])[1]
-    return state_dict_from_flax(variables, _template(use_color, num_classes))
+    return state_dict_from_flax(variables, _template(use_color, num_classes, arch))
 
 
 def to_flax_variables(state_dict: Mapping[str, torch.Tensor]) -> dict:
-    """The flax variable tree (numpy leaves) of a ``PointNet2SemSeg`` state_dict.
+    """The flax variable tree (numpy leaves) of a model's state_dict, either arch.
 
     The inverse of ``from_flax_variables``: every key once, ``weight``
     transposed back into ``kernel``.
@@ -115,8 +120,11 @@ def to_flax_variables(state_dict: Mapping[str, torch.Tensor]) -> dict:
 BN_STATS = ("flax", "random")
 
 
-def init_variables(cfg: Config, num_classes: int = 9, seed: int = 0, bn_stats: str = "flax") -> dict:
-    """Seeded weights in the flax layout of ``PointNet2SemSeg(...).init``.
+def init_variables(
+    cfg: Config, num_classes: int = 9, seed: int = 0, bn_stats: str = "flax", arch: str = "ssg"
+) -> dict:
+    """Seeded weights in the flax layout of the ``arch`` model's ``init``
+    (``PointNet2SemSeg`` or ``PointNet2SemSegMSG``).
 
     Xavier-uniform kernels (as the flax model initialises them), zero biases,
     unit scales, and moving statistics as ``bn_stats`` asks: ``"flax"``, the
@@ -130,7 +138,7 @@ def init_variables(cfg: Config, num_classes: int = 9, seed: int = 0, bn_stats: s
     flax_stats = bn_stats == "flax"
     rng = np.random.RandomState(seed)
     tree: dict = {}
-    for key, tensor in _template(bool(cfg.use_color), num_classes).state_dict().items():
+    for key, tensor in _template(bool(cfg.use_color), num_classes, arch).state_dict().items():
         path, transposed = _flax_key(key)
         shape = tuple(tensor.shape)[::-1] if transposed else tuple(tensor.shape)
         leaf = path[-1]

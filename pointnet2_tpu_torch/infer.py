@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from pointnet2_tpu_torch.config import Config
-from pointnet2_tpu_torch.models.pointnet2_seg import PointNet2SemSeg, Window
+from pointnet2_tpu_torch.models.pointnet2_seg import PointNet2SemSeg, Window, model_class
 from pointnet2_tpu_torch.nn.fold import fold_batch_norm
 
 # The precision modes' names (the JAX Trainer's): None is float32.
@@ -90,7 +90,8 @@ def all_ok(certificates: List, device: torch.device) -> torch.Tensor:
 
 
 class Predictor:
-    """Eval-mode ``PointNet2SemSeg`` with batch chunking.
+    """Eval-mode ``PointNet2SemSeg`` (``arch="ssg"``) or ``PointNet2SemSegMSG``
+    (``arch="msg"``; the state_dict must be of the same arch) with batch chunking.
 
     ``impl`` is passed to every point-set operator: None runs the CUDA
     kernels on a CUDA device, "torch" the plain versions (for comparisons).
@@ -111,14 +112,16 @@ class Predictor:
         fp_window: Window = None,
         dtype: str = "float32",
         bf16_min_width: Optional[int] = None,
+        arch: str = "ssg",
     ):
+        model_cls = model_class(arch)
         precision = compute_dtype(dtype, "dtype")
         check_min_width(bf16_min_width, "dtype is not bfloat16", precision)
         full_float32()
         self.cfg = cfg
         self.device = resolve_device(device)
         self.infer_chunk = infer_chunk
-        model = PointNet2SemSeg(
+        model = model_cls(
             cfg, num_classes, bool(cfg.use_color), ops_impl=impl,
             bq_window=bq_window, fp_window=fp_window,
             compute_dtype=precision, compute_dtype_min_width=bf16_min_width,

@@ -1,4 +1,4 @@
-"""PointNet++ SSG semantic segmentation network, its geometry and its loss.
+"""PointNet++ semantic segmentation networks, SSG and MSG, their geometry and their loss.
 
 Counterpart of ``pointnet2_tpu/models/pointnet2_seg.py``:
 
@@ -6,6 +6,12 @@ Counterpart of ``pointnet2_tpu/models/pointnet2_seg.py``:
     SA1..SA4: FPS + ball query, MLPs [32,32,64] / [64,64,128] / [128,128,256] / [256,256,512]
     FP1..FP4: [256,256] / [256,256] / [256,128] / [128,128,128]
     head: Linear 128 -> BatchNorm -> ReLU -> Dropout 0.5 (train only) -> Linear num_classes
+
+``PointNet2SemSegMSG`` (``:292-408``) groups SA1 and SA2 at two scales each
+(``msg_scales``: radius/2 with nsample/2 and half-width MLPs, then radius
+with nsample) and concatenates them; SA3, SA4, the FP decoder (widened by
+the skip channels: 768, 448, 352 and 131 inputs with colour) and the head
+are SSG's. ``model_class`` maps the ``arch`` names "ssg"/"msg" to the two.
 
 Module names follow the flax tree (``sa1``, ``fp4``, ``fc1_bn``, ...), so
 ``convert.from_flax_variables`` maps one onto the other by name. The forward
@@ -35,7 +41,13 @@ from torch import nn
 from pointnet2_tpu_torch import ops
 from pointnet2_tpu_torch.config import Config
 from pointnet2_tpu_torch.nn.layers import BatchNorm, Momentum, dense
-from pointnet2_tpu_torch.nn.pointnet import Certificates, FeaturePropagation, SetAbstraction
+from pointnet2_tpu_torch.nn.pointnet import (
+    Certificates,
+    FeaturePropagation,
+    SetAbstraction,
+    SetAbstractionMSG,
+    ball_query,
+)
 
 # One width shared by every level, or one per level (None keeps a level exact).
 Window = Union[int, Sequence[Optional[int]], None]
@@ -85,16 +97,7 @@ class PointNet2SemSeg(nn.Module):
         self.dropout_rate = float(dropout_rate)
         self._generator: Optional[torch.Generator] = None
         # Feature widths per level: l0 (colour or none), then each SA's output.
-        widths = [3 if self.use_color else 0] + [mlp[-1] for mlp in SA_MLPS]
-        for i, (spec, mlp) in enumerate(zip(cfg.sa_layers, SA_MLPS)):
-            self.add_module(
-                f"sa{i + 1}",
-                SetAbstraction(
-                    spec.npoint, spec.radius, spec.nsample, mlp, widths[i], ops_impl,
-                    leaf_inputs=(i == 0) and input_is_leaf,
-                    bq_window=level_window(bq_window, i),
-                ),
-            )
+        widths = self._add_encoder(cfg, 3 if self.use_color else 0, ops_impl, input_is_leaf, bq_window)
         coarse = widths[-1]
         for i, mlp in enumerate(FP_MLPS):
             lvl = 3 - i  # target level: 3, 2, 1, 0
@@ -110,6 +113,33 @@ class PointNet2SemSeg(nn.Module):
         self.fc2 = nn.Linear(128, num_classes)
         self._set_precision(compute_dtype, compute_dtype_min_width)
 
+    # The leading SA levels that group at two scales (PointNet2SemSegMSG's 2).
+    msg_levels = 0
+
+    def _add_encoder(self, cfg: Config, width: int, ops_impl, input_is_leaf: bool, bq_window: Window) -> list:
+        """Adds ``sa1``..``sa4`` and sets ``sa_stage_widths``, each level's MLP
+        widths (over every scale) for the selective precision mode. Returns
+        the feature width of each level, the input's (``width``) first."""
+        widths, stages = [width], []
+        for i, (spec, mlp) in enumerate(zip(cfg.sa_layers, SA_MLPS)):
+            kw = dict(leaf_inputs=(i == 0) and input_is_leaf, bq_window=level_window(bq_window, i))
+            if i < self.msg_levels:
+                half = [c // 2 for c in mlp]
+                scales = msg_scales(spec)
+                module = SetAbstractionMSG(
+                    spec.npoint, [r for r, _ in scales], [k for _, k in scales], (half, mlp), widths[-1],
+                    ops_impl, **kw,
+                )
+                stages.append(half + mlp)
+                widths.append(half[-1] + mlp[-1])
+            else:
+                module = SetAbstraction(spec.npoint, spec.radius, spec.nsample, mlp, widths[-1], ops_impl, **kw)
+                stages.append(mlp)
+                widths.append(mlp[-1])
+            self.add_module(f"sa{i + 1}", module)
+        self.sa_stage_widths = tuple(stages)
+        return widths
+
     def _stage_dtype(self, widths: Sequence[int]) -> Optional[torch.dtype]:
         """A stage's compute type under the selective mode (``:98-106``)."""
         if self.compute_dtype is None or self.compute_dtype_min_width is None:
@@ -121,8 +151,8 @@ class PointNet2SemSeg(nn.Module):
             raise ValueError(f"compute_dtype must be None or torch.bfloat16, got {compute_dtype!r}")
         self.compute_dtype = compute_dtype
         self.compute_dtype_min_width = min_width
-        for i, mlp in enumerate(SA_MLPS):
-            getattr(self, f"sa{i + 1}").set_compute_dtype(self._stage_dtype(mlp))
+        for i, stage in enumerate(self.sa_stage_widths):
+            getattr(self, f"sa{i + 1}").set_compute_dtype(self._stage_dtype(stage))
         for i, mlp in enumerate(FP_MLPS):
             getattr(self, f"fp{i + 1}").set_compute_dtype(self._stage_dtype(mlp))
         self.fc1_dtype = self._stage_dtype([128])
@@ -157,10 +187,10 @@ class PointNet2SemSeg(nn.Module):
         xyzs = [point_cloud[..., :3].contiguous()]
         feats = [point_cloud[..., 3:6] if self.use_color else None]
         for i in range(4):
-            new_xyz, new_points, _ = getattr(self, f"sa{i + 1}")(
+            new_xyz, new_points = getattr(self, f"sa{i + 1}")(
                 xyzs[-1], feats[-1], bn_momentum,
                 None if geometry is None else geometry["sa"][i], certificates,
-            )
+            )[:2]
             xyzs.append(new_xyz)
             feats.append(new_points)
         for i in range(4):
@@ -184,6 +214,35 @@ class PointNet2SemSeg(nn.Module):
         return torch.where(keep, x / (1.0 - self.dropout_rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+class PointNet2SemSegMSG(PointNet2SemSeg):
+    """The multi-scale-grouping variant: ``PointNet2SemSeg`` with SA1 and SA2
+    replaced by ``SetAbstractionMSG`` levels of two scales (``msg_scales``,
+    MLPs ``(half, mlp)``), which concatenate 96 and 192 features. The
+    arguments are ``PointNet2SemSeg``'s: ``bq_window`` is shared by an MSG
+    level's scales (calibrate for the largest radius); a stage's selective
+    precision reads the narrowest width over both scales; SA1's scales take
+    the leaf path with ``input_is_leaf``.
+    """
+
+    msg_levels = 2
+
+
+ARCHES = {"ssg": PointNet2SemSeg, "msg": PointNet2SemSegMSG}
+
+
+def model_class(arch: str) -> type:
+    """The model of an ``arch`` name, "ssg" or "msg"; ValueError for another."""
+    if arch not in ARCHES:
+        raise ValueError(f"unknown arch {arch!r}, expected 'ssg'/'msg'")
+    return ARCHES[arch]
+
+
+def msg_scales(spec) -> tuple:
+    """An MSG dense level's grouping scales from its ``SALayerSpec``:
+    ``((radius / 2, max(nsample // 2, 1)), (radius, nsample))``."""
+    return ((spec.radius / 2.0, max(spec.nsample // 2, 1)), (spec.radius, spec.nsample))
+
+
 def level_window(window: Window, i: int) -> Optional[int]:
     """Level ``i``'s width from one shared int or a per-level sequence."""
     if window is None or isinstance(window, int):
@@ -198,8 +257,9 @@ def precompute_geometry(
     ops_impl: Optional[str] = None,
     bq_window: Window = None,
     fp_window: Window = None,
+    arch: str = "ssg",
 ) -> tuple[dict, torch.Tensor]:
-    """The neighbour structure of ``PointNet2SemSeg`` for a batch, computed once.
+    """The neighbour structure of the ``arch`` model for a batch, computed once.
 
     FPS centroids, ball-query groups and the FP levels' 3-NN depend on the
     coordinates alone, never on parameters, so a gradient-accumulation step
@@ -208,21 +268,24 @@ def precompute_geometry(
     ``{"sa": ({"new_xyz", "idx"}, ...), "fp": ({"dist2", "idx"}, ...)}``, every
     leaf with a leading batch axis, and the AND of the windowed levels'
     certificates, a 0-d bool tensor on the device (True without windows).
+    With ``arch="msg"`` the two dense levels' ``idx`` is a tuple, one index
+    set a grouping scale (``msg_scales``).
     """
+    model_class(arch)  # raises for an unknown arch
     cfg = config or Config()
     xyzs = [point_cloud[..., :3].contiguous()]
     ok = torch.ones((), dtype=torch.bool, device=point_cloud.device)
+    certificates: Certificates = []
     sa = []
     for i, spec in enumerate(cfg.sa_layers):
         _, new_xyz = ops.fps_centroids(xyzs[-1], spec.npoint, impl=ops_impl)
         window = level_window(bq_window, i)
-        if window is None:
-            idx, _ = ops.ball_query(xyzs[-1], new_xyz, spec.radius, spec.nsample, impl=ops_impl)
-        else:
-            idx, _, level_ok = ops.ball_query_calibrated(
-                xyzs[-1], new_xyz, spec.radius, spec.nsample, window, impl=ops_impl
+        if arch == "msg" and i < 2:  # dense levels: one index set a scale
+            idx = tuple(
+                ball_query(xyzs[-1], new_xyz, r, k, window, ops_impl, certificates) for r, k in msg_scales(spec)
             )
-            ok = ok & level_ok
+        else:
+            idx = ball_query(xyzs[-1], new_xyz, spec.radius, spec.nsample, window, ops_impl, certificates)
         sa.append({"new_xyz": new_xyz, "idx": idx})
         xyzs.append(new_xyz)
     fp = []
@@ -235,6 +298,8 @@ def precompute_geometry(
             dist2, idx, level_ok = ops.three_nn_calibrated(xyzs[lvl], xyzs[lvl + 1], window, impl=ops_impl)
             ok = ok & level_ok
         fp.append({"dist2": dist2, "idx": idx})
+    for _, level_ok in certificates:
+        ok = ok & level_ok
     return {"sa": tuple(sa), "fp": tuple(fp)}, ok
 
 

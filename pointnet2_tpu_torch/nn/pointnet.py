@@ -1,7 +1,7 @@
 """PointNet++ building blocks: Set Abstraction and Feature Propagation.
 
-Counterpart of ``pointnet2_tpu/nn/pointnet.py`` for the SSG model, eval and
-train:
+Counterpart of ``pointnet2_tpu/nn/pointnet.py`` for the SSG and MSG models,
+eval and train:
 
 - ``SetAbstraction`` is the pre-projected path (``:239-391``) with max
   pooling. The first MLP layer's linear part runs over all N points before
@@ -12,6 +12,10 @@ train:
   subtracts the centre and projects after (``:335-355``), so the backward
   needs no scatter into the cloud; the eval forward takes
   ``ops.project_group_leaf``.
+- ``SetAbstractionMSG`` (``:394-535``) groups around one shared FPS at
+  several radii and concatenates the per-scale pooled features; each scale
+  is a ``SetAbstraction`` fed through the geometry seam below, or, with
+  ``pre_project=False``, the literal grouped-first-layer layout.
 - ``FeaturePropagation`` is the exact path (``:538-597``): ``three_nn``,
   ``interpolation_weights`` of the detached distances, ``three_interpolate``
   with the skip concat (one kernel writes both on the kernel path;
@@ -25,9 +29,12 @@ FP the interpolation runs at ``precision="default"`` and the skip features
 are cast to the stage's type before the concat, whose type is the promoted
 one of the two halves, as in JAX.
 
-Both take ``geometry``, the neighbour structure computed beforehand
+They take ``geometry``, the neighbour structure computed beforehand
 (``models.precompute_geometry``), in place of their own FPS, ball query or
-3-NN. The index searches run under ``no_grad``: no parameter reaches them.
+3-NN. A ``SetAbstraction`` given the centroids alone (``{"new_xyz"}``,
+``:251-270``) skips FPS and still groups, through the fused windowed path
+where that applies. The index searches run under ``no_grad``: no parameter
+reaches them.
 
 Calibrated windows (``:174-193``, ``:272-326``, ``:551-574``): with
 ``bq_window`` the ball query, and with ``fp_window`` the 3-NN, run through
@@ -37,7 +44,8 @@ x-sorted query order, un-permuting only the pooled output. Each windowed
 level appends ``("bq_window_ok", ok)`` or ``("fp_window_ok", ok)`` to the
 ``certificates`` list it is given, where flax sows them.
 
-Other pooling modes, kNN grouping, ``group_all`` and MSG are not ported yet.
+Other pooling modes, kNN grouping and ``group_all`` are not ported: no
+model of the JAX package uses them.
 """
 
 from __future__ import annotations
@@ -52,6 +60,19 @@ from pointnet2_tpu_torch.nn.layers import BatchNorm, Momentum, SharedMLP
 
 # What a windowed level appends for the caller: (name, 0-d bool tensor).
 Certificates = List[Tuple[str, torch.Tensor]]
+
+
+@torch.no_grad()
+def ball_query(xyz, new_xyz, radius: float, nsample: int, window: Optional[int], impl: Optional[str],
+               certificates: Optional[Certificates]) -> torch.Tensor:
+    """The group indices of one grouping scale: the exact ball query, or with
+    ``window`` the calibrated one, whose certificate goes to ``certificates``."""
+    if window is None:
+        return ops.ball_query(xyz, new_xyz, radius, nsample, impl=impl)[0]
+    idx, _, ok = ops.ball_query_calibrated(xyz, new_xyz, radius, nsample, window, impl=impl)
+    if certificates is not None:
+        certificates.append(("bq_window_ok", ok))
+    return idx
 
 
 class SetAbstraction(nn.Module):
@@ -106,16 +127,17 @@ class SetAbstraction(nn.Module):
             dtype = torch.promote_types(xyz.dtype, points.dtype)
             inputs = torch.cat([xyz.to(dtype), points.to(dtype)], dim=-1)
         if geometry is not None:
-            new_xyz, idx = geometry["new_xyz"], geometry["idx"]
+            new_xyz = geometry["new_xyz"]
         else:
             _, new_xyz = ops.fps_centroids(xyz, self.npoint, impl=self.ops_impl)
-            # Fused windowed grouping: eval only (train-mode BatchNorm's batch
-            # statistics would sum in another order over permuted rows), and
-            # only without autograd (the gather kernel has no backward).
-            if self.bq_window is not None and not self.training and not torch.is_grad_enabled():
+        if geometry is not None and "idx" in geometry:
+            idx = geometry["idx"]
+        else:
+            # Centroids-only geometry ({"new_xyz"}) skips FPS alone: the
+            # grouping, fused or not, still runs here.
+            if self.fused_window():
                 return self._fused_window(xyz, inputs, new_xyz, bn_momentum, certificates)
-            with torch.no_grad():
-                idx = self._ball_query(xyz, new_xyz, certificates)
+            idx = ball_query(xyz, new_xyz, self.radius, self.nsample, self.bq_window, self.ops_impl, certificates)
         if self.leaf_inputs and self.training:
             # (x - c) @ w0[:3] in place of x @ w0[:3] - c @ w0[:3]: equal up to
             # float32 reassociation, and nothing is scattered back into the cloud.
@@ -136,18 +158,15 @@ class SetAbstraction(nn.Module):
         h = self.mlp_rest(h, bn_momentum)
         return new_xyz, h.amax(dim=2), idx
 
+    def fused_window(self) -> bool:
+        """Whether the grouping takes the fused windowed path: eval only
+        (train-mode BatchNorm's batch statistics would sum in another order
+        over permuted rows), and only without autograd (the gather kernel has
+        no backward)."""
+        return self.bq_window is not None and not self.training and not torch.is_grad_enabled()
+
     def _cast(self, h: torch.Tensor) -> torch.Tensor:
         return h if self.compute_dtype is None else h.to(self.compute_dtype)
-
-    def _ball_query(self, xyz, new_xyz, certificates: Optional[Certificates]) -> torch.Tensor:
-        if self.bq_window is None:
-            return ops.ball_query(xyz, new_xyz, self.radius, self.nsample, impl=self.ops_impl)[0]
-        idx, _, ok = ops.ball_query_calibrated(
-            xyz, new_xyz, self.radius, self.nsample, self.bq_window, impl=self.ops_impl
-        )
-        if certificates is not None:
-            certificates.append(("bq_window_ok", ok))
-        return idx
 
     def _fused_window(self, xyz, inputs, new_xyz, bn_momentum, certificates: Optional[Certificates]):
         """The eval forward through ``ops.project_group_calibrated``: the grouped
@@ -167,6 +186,112 @@ class SetAbstraction(nn.Module):
         if inv_q is not None:
             new_points = ops.gather_points(new_points, inv_q)
         return new_xyz, new_points, idx
+
+
+class SetAbstractionMSG(nn.Module):
+    """Multi-scale grouping: (B, N, 3) xyz + (B, N, C) features -> (B, npoint, 3)
+    centroids and (B, npoint, sum of each scale's mlp[-1]) features, the
+    concat of the per-scale max-pooled features around one shared FPS.
+
+    ``pre_project=True`` (the default) makes scale i a ``SetAbstraction``
+    named ``scale{i}`` fed the level's centroids and its own group indices
+    through the geometry seam, so it keeps the pre-projected forward, the
+    leaf path's scatter-free train backward and the flax names
+    ``sa1/scale0/{w0,b0,bn0,mlp_rest}``. Under the fused condition (eval, no
+    autograd, a window) a scale gets the centroids alone and groups through
+    its own fused windowed path. ``pre_project=False`` is the literal layout:
+    one gather of ``[xyz, points]`` a scale, the rows ``[features, xyz
+    offsets]`` (in that order) into a ``SharedMLP`` named ``mlp_{i}``.
+
+    ``bq_window`` is shared by the scales (calibrated for the largest
+    radius); without the fused path each scale appends its own certificate.
+    ``geometry`` is ``{"new_xyz", "idx"}`` with ``idx`` a tuple, one index set
+    a scale (``models.precompute_geometry(arch="msg")``).
+    """
+
+    def __init__(
+        self,
+        npoint: int,
+        radius_list: Sequence[float],
+        nsample_list: Sequence[int],
+        mlp_list: Sequence[Sequence[int]],
+        in_features: int,
+        ops_impl: Optional[str] = None,
+        leaf_inputs: bool = False,
+        bq_window: Optional[int] = None,
+        compute_dtype: Optional[torch.dtype] = None,
+        pre_project: bool = True,
+    ):
+        super().__init__()
+        self.npoint = npoint
+        self.scales = tuple(zip(radius_list, nsample_list))
+        self.ops_impl = ops_impl
+        self.bq_window = bq_window
+        self.pre_project = pre_project
+        for i, ((radius, nsample), mlp) in enumerate(zip(self.scales, mlp_list)):
+            if pre_project:
+                self.add_module(f"scale{i}", SetAbstraction(
+                    npoint, radius, nsample, mlp, in_features, ops_impl, leaf_inputs=leaf_inputs,
+                    bq_window=bq_window,
+                ))
+            else:
+                self.add_module(f"mlp_{i}", SharedMLP(3 + in_features, mlp))
+        self.set_compute_dtype(compute_dtype)
+
+    def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> None:
+        self.compute_dtype = dtype
+        for i in range(len(self.scales)):
+            if self.pre_project:
+                getattr(self, f"scale{i}").set_compute_dtype(dtype)
+            else:
+                getattr(self, f"mlp_{i}").dtype = dtype
+
+    def forward(
+        self,
+        xyz: torch.Tensor,
+        points: Optional[torch.Tensor],
+        bn_momentum: Optional[Momentum] = None,
+        geometry: Optional[Mapping] = None,
+        certificates: Optional[Certificates] = None,
+    ):
+        if geometry is not None:
+            sets = geometry["idx"]
+            count = len(sets) if isinstance(sets, (tuple, list)) else 1  # one tensor: an SSG level's
+            if count != len(self.scales):
+                raise ValueError(f"geometry carries {count} index sets for {len(self.scales)} grouping scales")
+            new_xyz = geometry["new_xyz"]
+        else:
+            _, new_xyz = ops.fps_centroids(xyz, self.npoint, impl=self.ops_impl)
+        fused = geometry is None and self.pre_project and self.scale0.fused_window()
+        feats = []
+        for i, (radius, nsample) in enumerate(self.scales):
+            if fused:  # the scale groups on its own, through the fused windowed path
+                feats.append(getattr(self, f"scale{i}")(
+                    xyz, points, bn_momentum, {"new_xyz": new_xyz}, certificates
+                )[1])
+                continue
+            if geometry is not None:
+                idx = geometry["idx"][i]
+            else:
+                idx = ball_query(xyz, new_xyz, radius, nsample, self.bq_window, self.ops_impl, certificates)
+            if self.pre_project:
+                feats.append(getattr(self, f"scale{i}")(
+                    xyz, points, bn_momentum, {"new_xyz": new_xyz, "idx": idx}
+                )[1])
+            else:
+                feats.append(self._literal(i, xyz, points, new_xyz, idx, bn_momentum))
+        return new_xyz, torch.cat(feats, dim=-1)
+
+    def _literal(self, i, xyz, points, new_xyz, idx, bn_momentum) -> torch.Tensor:
+        """Scale i in the literal layout: one gather of ``[xyz, points]``, the
+        rows ``[features, xyz offsets]``, the MLP, the max over each group."""
+        if points is None:
+            grouped = ops.group_points(xyz, idx) - new_xyz[:, :, None, :]
+        else:
+            grouped_all = ops.group_points(torch.cat([xyz, points.to(xyz.dtype)], dim=-1), idx)
+            offsets = grouped_all[..., :3] - new_xyz[:, :, None, :]
+            grouped = torch.cat([grouped_all[..., 3:].to(points.dtype), offsets], dim=-1)
+        return getattr(self, f"mlp_{i}")(grouped, bn_momentum).amax(dim=2)
 
 
 class FeaturePropagation(nn.Module):

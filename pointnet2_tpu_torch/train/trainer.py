@@ -21,6 +21,9 @@ Counterpart of ``pointnet2_tpu/train/trainer.py``:
   seeded from (``dropout_seed``, step) alone, the counterpart of
   ``fold_in(dropout_rng, state.step)`` (``:319``): a run resumed at step s
   draws the masks an unbroken run draws there;
+- ``arch`` is the model, "ssg" (``PointNet2SemSeg``) or "msg"
+  (``PointNet2SemSegMSG``, ``:94-99``, ``:207-230``); the hoisted geometry
+  carries one index set a grouping scale at MSG's dense levels;
 - ``eval_step`` is the chunked eval forward of ``infer`` plus loss and counts
   (``:528-548``);
 - with calibrated windows (``bq_window``, ``fp_window``) every step and eval
@@ -59,20 +62,14 @@ from pointnet2_tpu_torch.infer import (
     resolve_device,
 )
 from pointnet2_tpu_torch.models.pointnet2_seg import (
-    PointNet2SemSeg,
     Window,
+    model_class,
     precompute_geometry,
     weighted_ce_loss,
     weighted_ce_sum,
 )
 from pointnet2_tpu_torch.nn.fold import fold_batch_norm
 from pointnet2_tpu_torch.utils.metrics import confusion_matrix
-
-# Options of the JAX Trainer that the port does not have yet: the value that
-# means "off", and the ROADMAP item that will bring each.
-_NOT_PORTED = {
-    "arch": ("ssg", "queue 1 item 9 (MSG)"),
-}
 
 
 def norm_window(name: str, window) -> Window:
@@ -137,6 +134,7 @@ class Trainer:
     ``bq_window``/``fp_window`` are the model's calibrated windows (an int or
     a per-level 4-sequence). ``train_dtype``, ``infer_dtype`` and
     ``bf16_min_width`` are the precision modes (see the module docstring).
+    ``arch`` is the model: "ssg" or "msg"; another name raises ValueError.
     """
 
     def __init__(
@@ -156,16 +154,9 @@ class Trainer:
         infer_dtype: str = "float32",
         train_dtype: str = "float32",
         bf16_min_width: Optional[int] = None,
-        **not_ported,
+        arch: str = "ssg",
     ):
-        for name, value in not_ported.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"Trainer got an unexpected argument {name!r}")
-            off, item = _NOT_PORTED[name]
-            if value != off:
-                raise NotImplementedError(
-                    f"{name}={value!r} is not ported yet: ROADMAP.md {item}"
-                )
+        model = model_class(arch)
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         if accum_steps > 1 and cfg.batch_size % accum_steps:
@@ -181,6 +172,7 @@ class Trainer:
         )
         full_float32()
         self.cfg = cfg
+        self.arch = arch
         self.bq_window = norm_window("bq_window", bq_window)
         self.fp_window = norm_window("fp_window", fp_window)
         self.num_classes = num_classes
@@ -193,7 +185,7 @@ class Trainer:
         self.dropout_seed = dropout_seed
         self.lr_schedule = learning_rate_schedule(cfg)
         self.bn_schedule = bn_momentum_schedule(cfg)
-        self.model = PointNet2SemSeg(
+        self.model = model(
             cfg, num_classes, bool(cfg.use_color), ops_impl=ops_impl, dropout_rate=dropout_rate,
             bq_window=self.bq_window, fp_window=self.fp_window,
         ).to(self.device)
@@ -223,7 +215,9 @@ class Trainer:
         ``init_state`` starts them; ``bn_stats="random"`` asks for ones that are
         not the identity, for checks in which eval BatchNorm must do real work.
         """
-        self.load_variables(convert.init_variables(self.cfg, self.num_classes, seed, bn_stats=bn_stats))
+        self.load_variables(
+            convert.init_variables(self.cfg, self.num_classes, seed, bn_stats=bn_stats, arch=self.arch)
+        )
 
     def load_variables(self, variables: Mapping) -> None:
         """Weights and moving statistics from a flax variable tree; a fresh optimizer, step 0."""
@@ -309,7 +303,7 @@ class Trainer:
         geometry = None
         if self.hoist_geometry:
             geometry, geometry_ok = precompute_geometry(
-                points, self.cfg, self.ops_impl, self.bq_window, self.fp_window
+                points, self.cfg, self.ops_impl, self.bq_window, self.fp_window, arch=self.arch
             )
             certificates.append(("geometry_ok", geometry_ok))
         ce_sum = torch.zeros((), device=self.device)
@@ -322,7 +316,7 @@ class Trainer:
             micro_geometry = None
             if geometry is not None:
                 micro_geometry = {
-                    part: tuple({k: v[j::g].contiguous() for k, v in level.items()} for level in levels)
+                    part: tuple({k: _micro(v, j, g) for k, v in level.items()} for level in levels)
                     for part, levels in geometry.items()
                 }
             logits = self.train_model(
@@ -392,6 +386,14 @@ class Trainer:
         certificates: list = []
         chunked_logits(self.infer_forward(), x, 0, certificates)
         return bool(all_ok(certificates, self.device))
+
+
+def _micro(leaf, j: int, g: int):
+    """Microbatch ``j`` of ``g`` of a geometry leaf: a tensor, or a tuple of
+    them (an MSG level's index sets, one a scale)."""
+    if isinstance(leaf, tuple):
+        return tuple(_micro(t, j, g) for t in leaf)
+    return leaf[j::g].contiguous()
 
 
 # -- checkpointing ---------------------------------------------------------

@@ -140,10 +140,10 @@ def test_train_cli_aborts_on_a_failed_certificate(scenes, tmp_path, monkeypatch,
 
 
 _REFUSED = {
-    "train": [("--arch", "msg", "item 9"), ("--dist_coordinator", "localhost:1234", "item 10"),
+    "train": [("--dist_coordinator", "localhost:1234", "item 10"),
               ("--dist_num_processes", "2", "item 10"), ("--dist_process_id", "1", "item 10"),
               ("--dist_sampling", "replicated", "item 10")],
-    "predict": [("--arch", "msg", "item 9"), ("--sharded", None, "item 10"),
+    "predict": [("--sharded", None, "item 10"),
                 ("--dist_coordinator", "localhost:1234", "item 10"), ("--dist_num_processes", "2", "item 10"),
                 ("--dist_process_id", "1", "item 10")],
 }

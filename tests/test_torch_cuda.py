@@ -69,7 +69,8 @@ def test_fps_centroids_kernel(cuda_device, b, n, m):
 @pytest.mark.parametrize(
     "b,n,m,radius,nsample",
     [(2, 128, 128, 0.3, 8), (1, 300, 100, 0.5, 4), (2, 64, 37, 0.8, 16), (1, 16, 20, 1.5, 32),
-     (2, 4096, 256, 0.25, 32)],
+     (2, 4096, 256, 0.25, 32),
+     (2, 8192, 1024, 0.25, 16), (2, 1024, 256, 0.5, 16)],  # MSG's SA1 and SA2 scale0: half radius, k = 16
 )
 def test_ball_query_kernel(cuda_device, b, n, m, radius, nsample):
     xyz1 = _cloud(1, b, n, scale=1.0)
@@ -127,6 +128,28 @@ def test_three_interpolate_kernel(cuda_device, b, m, c, n):
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,skip", [(64, 256, 192), (256, 1024, 96)])
+def test_three_interpolate_kernel_with_msg_skips(cuda_device, m, n, skip, dtype):
+    """MSG's FP2 and FP3: 256 interpolated channels beside SA2's and SA1's
+    concatenated scales (192 and 96 channels), on the 16-byte route, in
+    float32 and in bfloat16 (the bf16 modes, bit for bit)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    points = torch.randn((8, m, 256), generator=gen, device=cuda_device).to(dtype)
+    skip_feats = torch.randn((8, n, skip), generator=gen, device=cuda_device).to(dtype)
+    dist, idx = ops.three_nn(_cloud(6, 8, n), _cloud(7, 8, m), impl="cuda")
+    weight = ops.interpolation_weights(dist)
+    precision = "default" if dtype == torch.bfloat16 else None
+    assert cuda_interp.planned_route(points, skip_feats) == (True, True)
+    got = ops.three_interpolate(points, idx, weight, impl="cuda", precision=precision, skip=skip_feats)
+    want = ops.three_interpolate(points, idx, weight, impl="torch", precision=precision, skip=skip_feats)
+    assert got.shape == (8, n, 256 + skip) and torch.equal(got[..., 256:], skip_feats)
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
 # Autograd through the plain forward sums a row's addends query by query, not
 # slot by slot as the backward kernel and its plain version do.
 AUTOGRAD_ORDER_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -159,6 +182,7 @@ def _plain_grad(g, idx, weight, m):
     "b,m,c,n,skip",
     [(16, 16, 512, 64, 256), (16, 64, 256, 256, 128), (16, 256, 256, 1024, 64), (16, 1024, 128, 8192, 3),
      (16, 16, 512, 64, 0), (16, 1024, 128, 8192, 0),  # the train step's, strided as it hands them over, and not
+     (16, 64, 256, 256, 192), (16, 256, 256, 1024, 96),  # MSG's FP2 and FP3: 448- and 352-wide cotangents
      (2, 100, 7, 37, 0), (1, 3, 33, 50, 0)],  # C off the multiples of 32; M = 3: every query names every row
 )
 def test_three_interpolate_grad_kernel(cuda_device, b, m, c, n, skip):
@@ -259,6 +283,15 @@ def test_small_train_step_kernel_path_against_plain_path(cuda_device):
     kernel-path steps give the same gradients bit for bit; against the plain
     path the loss within rtol 1e-5, each parameter gradient within 1e-3 of
     its max abs (cuBLAS may sum in other orders on the two paths' shapes)."""
+    _train_step_kernel_path_against_plain_path("ssg", ball_queries=4)
+
+
+def test_small_msg_train_step_kernel_path_against_plain_path(cuda_device):
+    """The same for the MSG model: its two dense levels query two scales each."""
+    _train_step_kernel_path_against_plain_path("msg", ball_queries=6)
+
+
+def _train_step_kernel_path_against_plain_path(arch: str, ball_queries: int) -> None:
     from pointnet2_tpu_torch.config import Config
     from pointnet2_tpu_torch.train import Trainer
 
@@ -271,14 +304,15 @@ def test_small_train_step_kernel_path_against_plain_path(cuda_device):
     runs = {}
     with deterministic_algorithms():
         for run, impl in (("kernel", None), ("again", None), ("plain", "torch")):
-            trainer = Trainer(cfg, ops_impl=impl, dropout_rate=0.0)
+            trainer = Trainer(cfg, ops_impl=impl, dropout_rate=0.0, arch=arch)
             trainer.init_state(seed=0, bn_stats="random")
             cuda.reset_launches()
             metrics = trainer.train_step(batch)
             runs[run] = (metrics, {k: p.grad.clone() for k, p in trainer.model.named_parameters()},
                          dict(cuda.LAUNCHES))
     (got, got_grads, launches), (want, want_grads, plain_launches) = runs["kernel"], runs["plain"]
-    assert launches == {k: 4 for k in ("fps_centroids", "ball_query", "knn", "three_interpolate", "three_interpolate_grad")}
+    assert launches == {**{k: 4 for k in ("fps_centroids", "knn", "three_interpolate", "three_interpolate_grad")},
+                        "ball_query": ball_queries}
     assert not plain_launches
     assert all(torch.equal(got_grads[k], g) for k, g in runs["again"][1].items())
     torch.testing.assert_close(got["loss"], want["loss"], rtol=1e-5, atol=0)
@@ -336,7 +370,8 @@ def _sorted_tiles(xyz, queries, tm):
     [(2, 1024, 256, 0.3, 8, 512), (1, 2048, 512, 0.05, 32, 640), (2, 8192, 1024, 0.5, 32, 3072),
      (1, 4096, 128, 3.0, 32, 3072),  # every column in the ball: counts far above nsample
      (1, 8192, 1024, 0.5, 32, 7168),  # 112 KB of shared memory: the opt-in above 48 KB
-     (2, 512, 64, 0.2, 5, 256)],  # one tile of 64 queries, nsample off the powers of two
+     (2, 512, 64, 0.2, 5, 256),  # one tile of 64 queries, nsample off the powers of two
+     (2, 8192, 1024, 0.25, 16, 3072)],  # MSG's SA1 scale0 with the production window
 )
 def test_ball_query_tiles_kernels(cuda_device, b, n, m, radius, nsample, window):
     xyz = _box(20, b, n)
@@ -355,10 +390,12 @@ def test_ball_query_tiles_kernels(cuda_device, b, n, m, radius, nsample, window)
 
 # (b, n, m, tiles, k, c): SA1 (8 tiles a cloud, 8 vectors a row); odd rows
 # (floats, one lane of 8 idle); 16 lanes; K not a power of two with one vector
-# a row; 18 vectors a row, past the top lane count; floats past 16 lanes.
+# a row; 18 vectors a row, past the top lane count; floats past 16 lanes;
+# MSG's SA1 scale0 (K = 16 picks of rows of 16 floats: 4 vectors, 4 lanes).
 GATHER_SHAPES = [
     (2, 8192, 1024, 8, 32, 32), (1, 512, 128, 1, 8, 7), (2, 1024, 256, 2, 4, 64),
     (3, 640, 96, 3, 5, 4), (2, 1024, 256, 4, 24, 72), (1, 300, 64, 4, 3, 33),
+    (2, 8192, 1024, 8, 16, 16),
 ]
 
 
@@ -509,6 +546,35 @@ def test_windowed_model_launch_counts(cuda_device):
         "knn_sliced": 1, "knn": 3, "three_interpolate": 4,
     }
     assert len(certificates) == 8
+
+
+def test_msg_model_launch_counts(cuda_device):
+    """The MSG model's eval forward without gradients: one FPS a level shared
+    by its scales, two ball queries at each MSG level; with the windows the
+    fused grouping runs once a scale at SA1 (SA2's 512 points fall back to the
+    exact kernel), and every scale reports a certificate."""
+    from pointnet2_tpu_torch.config import Config
+    from pointnet2_tpu_torch.models import PointNet2SemSegMSG
+
+    cfg = Config(num_point=2048, l1_npoint=512, l2_npoint=128, l3_npoint=32, l4_npoint=16)
+    x = torch.cat([_box(25, 2, 2048, scale=(8.0, 8.0, 4.9)), torch.rand(2, 2048, 3, device=cuda_device)], -1)
+    exact = PointNet2SemSegMSG(cfg).to(cuda_device).eval()
+    windowed = PointNet2SemSegMSG(cfg, bq_window=1024, fp_window=256).to(cuda_device).eval()
+    windowed.load_state_dict(exact.state_dict())
+    certificates = []
+    with torch.no_grad():
+        cuda.reset_launches()
+        want = exact(x)
+        assert dict(cuda.LAUNCHES) == {"fps_centroids": 4, "ball_query": 6, "knn": 4, "three_interpolate": 4}
+        cuda.reset_launches()
+        got = windowed(x, certificates=certificates)
+    assert dict(cuda.LAUNCHES) == {
+        "fps_centroids": 4, "ball_query_sliced_pos": 2, "window_gather": 2, "ball_query": 4,
+        "knn_sliced": 1, "knn": 3, "three_interpolate": 4,
+    }
+    assert len(certificates) == 10
+    if all(bool(ok) for _, ok in certificates):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
 def test_windowed_wrappers_check_their_inputs(cuda_device):

@@ -271,6 +271,8 @@ def test_knn_limits():
         (256, 64, True, True, (True, True)),  # FP3
         (256, 128, True, True, (True, True)),  # FP2
         (512, 256, True, True, (True, True)),  # FP1
+        (256, 192, True, True, (True, True)),  # MSG's FP2: SA2's two scales, 64 + 128 skip channels
+        (256, 96, True, True, (True, True)),  # MSG's FP3: SA1's two scales, 32 + 64
         (512, 0, True, False, (True, False)),  # no skip
         (64, 64, False, True, (False, False)),  # points off a 16-byte boundary
         (7, 5, True, False, (False, False)),
@@ -290,6 +292,8 @@ def test_three_interpolate_plan(c, c1, aligned, skip_ok, want):
         (128, 3, True, False, (False, False)),  # FP4 in bfloat16: rows of 131, one element a lane
         (256, 64, True, True, (True, True)),  # FP3: 8 bfloat16 a 16-byte access
         (512, 256, True, True, (True, True)),  # FP1
+        (256, 192, True, True, (True, True)),  # MSG's FP2
+        (256, 96, True, True, (True, True)),  # MSG's FP3
         (256, 4, True, True, (False, False)),  # C + C1 not a multiple of 8
         (12, 4, True, False, (False, False)),  # C not a multiple of 8 (float32 would take it)
         (256, 64, True, False, (True, False)),  # a float32 skip in a float32 row beside bfloat16 points
@@ -317,6 +321,15 @@ def test_three_interpolate_route_of_bfloat16_tensors():
         interpolate.round_weights("low", torch.bfloat16)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("row", [448, 352])
+def test_three_interpolate_grad_reads_msg_cotangents_in_vectors(row, dtype):
+    """MSG's FP2 and FP3 hand the backward the first 256 channels of a
+    448- or 352-wide concat cotangent: both strides multiples of 4."""
+    g = torch.zeros(2, 32, row, dtype=dtype)[..., :256]
+    assert not g.is_contiguous() and interpolate.grad_vec(g, 256)
+
+
 def test_three_interpolate_plan_refuses_empty_rows():
     with pytest.raises(ValueError):
         interpolate.plan(0, 3, True, False)
@@ -329,6 +342,8 @@ def test_three_interpolate_plan_refuses_empty_rows():
     "c,aligned,want",
     [
         (32, True, (True, 8)),  # SA1's projected rows: 8 vectors, a lane each
+        (16, True, (True, 4)),  # MSG's SA1 scale0 (f0 = 16): 4 vectors, a lane each
+        (16, False, (False, 16)),  # the same rows off a 16-byte boundary: a float a lane
         (32, False, (False, 16)),  # the same rows off a 16-byte boundary: floats, 2 a lane
         (4, True, (True, 1)),
         (64, True, (True, 16)),

@@ -240,8 +240,6 @@ def test_kitti_predict_auto_windows_and_the_certificate_abort(port_ckpt, monkeyp
 
 
 def test_kitti_predict_refusals(port_ckpt, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="--arch.*ROADMAP.md queue 1 item 9 "):
-        cli_kitti.main(port_ckpt + ["--arch", "msg"])
     orbax_dir = tmp_path / "orbax"
     orbax_dir.mkdir()
     with pytest.raises(ValueError, match="cannot read the JAX package's orbax checkpoint directories"):

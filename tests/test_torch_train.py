@@ -134,7 +134,7 @@ def _float64_run(steps, seed, first_batch, **trainer_kw):
     """``steps`` free-running momentum-SGD steps in float64 on both sides; a record per step."""
     cfg_kw = dict(SMALL, optimizer="momentum")
     port = Trainer(Config(**cfg_kw), device="cpu", dropout_rate=0.0, **trainer_kw)
-    port.load_variables(convert.init_variables(port.cfg, 9, seed=seed, bn_stats="random"))
+    port.load_variables(convert.init_variables(port.cfg, 9, seed=seed, bn_stats="random", arch=port.arch))
     port.model.double()
     jt, patch = _jax_trainer(cfg=JaxConfig(**cfg_kw), **trainer_kw)
     # The accumulation scan carries an int32 confusion matrix; with 64-bit types
@@ -430,16 +430,6 @@ def test_accum_rejects_a_batch_it_does_not_divide():
         trainer.train_step(_batch(43, b=6))
     with pytest.raises(ValueError, match="divide"):
         Trainer(Config(**SMALL), device="cpu", accum_steps=3)
-
-
-@pytest.mark.parametrize(
-    "option",
-    # The windows and the precision modes are ported; MSG still raises.
-    [{"arch": "msg"}],
-)
-def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(Config(**SMALL), device="cpu", **option)
 
 
 def test_unported_options_at_their_off_value_and_unknown_ones():
