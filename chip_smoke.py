@@ -203,11 +203,39 @@ non-zero and prints no result):
    plain densify) on >= 99.99 % of points; the per-stage timers of every
    frame. Row 3 is held and timed at the first frame's densify shape.
 
+10. Export: the entry point ``tools.export_model.main`` with its default
+   device (CUDA) on a checkpoint (``save_checkpoint``) of seeded weights at
+   ``semantic.json`` width: SSG float32 at a fixed batch of 16 (the chunked
+   forward), SSG float32 at a symbolic batch, SSG with the windows (3072 /
+   512) at 16, and MSG in selective bf16 (``bf16_min_width=128``) at a
+   symbolic batch; the first again with ``--output logits``. One fresh ``python -c`` process loads
+   the four artifacts with ``export.load_exported`` (no module of
+   ``pointnet2_tpu_torch.models`` or ``.nn`` may be imported there) and runs
+   them on 16 clouds, the symbolic ones also on 1 and 3. In this process
+   each artifact runs the same clouds: its labels equal the subprocess's and
+   a ``Predictor``'s of the same weights and mode on >= 99.99 % of points
+   (the windowed one's certificate True), the logits artifact within 1e-3 of
+   the Predictor's logits, and the launch counts, reset before each, are
+   ``chunk_launches`` times the forwards run. Export seconds, artifact MB,
+   load seconds and ms a 16-cloud call beside the Predictor's; and the host
+   µs of a call of ``ops.fps_centroids`` through its ``pn2`` operator beside
+   the raw wrapper's at SA4's shape (B=8, 64 points, 16 centroids).
+11. Serve: the entry point's ``cli.serve.build_server`` on the fixed-16 SSG
+   artifact on a loopback port (port 0, the daemon's default device, the
+   artifact's): 24 client threads send 4 ``.npy`` requests each, of 1 to
+   4 clouds, then one JSON request; every answer's labels are the
+   Predictor's on >= 99.99 % of points, ``/stats`` shows batched clouds and
+   the device batches the launch counts imply (two chunks a call). Then on
+   the windowed artifact one request of a cloud with half its points in a
+   2 cm band of x (its certificate fails) and one box cloud, coalesced into
+   one round: 503 for the first, 200 with the Predictor's labels for the
+   second. Requests, clouds/s, p50/p95 latency and the mean device batch.
+
 Output: one JSON line a kernel and shape, one for each driven path (predict,
 train, predict_windows, train_windows, predict_bf16, train_bf16, their MSG
 counterparts predict_msg, train_msg, predict_windows_msg,
 train_windows_msg, predict_msg_bf16, train_msg_bf16, then cli,
-op_surface, densify, kitti; the
+op_surface, densify, kitti, export, serve; the
 parity sweep's lines and the stage bench's lines inside op_surface), the
 ``nvidia-smi`` line, one ``{"kernels": [...]}`` line, and last ``{"ok":
 true, "device": {...}}``. Each path's launch counts are reset just before it
@@ -219,13 +247,19 @@ from __future__ import annotations
 
 import argparse
 import importlib
+import io
 import json
 import os
 import pathlib
 import statistics
+import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -236,10 +270,12 @@ from pointnet2_tpu_torch import convert, native, ops, predict_profile
 from pointnet2_tpu_torch.cli import interpolate as cli_interpolate
 from pointnet2_tpu_torch.cli import kitti_predict as cli_kitti
 from pointnet2_tpu_torch.cli import predict as cli_predict
+from pointnet2_tpu_torch.cli import serve as cli_serve
 from pointnet2_tpu_torch.cli import train as cli_train
 from pointnet2_tpu_torch.config import Config
 from pointnet2_tpu_torch.data.io import load_labels, read_pcd
 from pointnet2_tpu_torch.data.semantic3d import SemanticDataset
+from pointnet2_tpu_torch.export import load_exported
 from pointnet2_tpu_torch.infer import Predictor, full_float32
 from pointnet2_tpu_torch.models.pointnet2_seg import SA_MLPS, msg_scales
 from pointnet2_tpu_torch.ops.calibrate import calibrate_model_windows
@@ -249,6 +285,7 @@ from pointnet2_tpu_torch.ops.cuda import build
 from pointnet2_tpu_torch.ops.cuda import fps as cuda_fps
 from pointnet2_tpu_torch.ops.cuda import interpolate as cuda_interp
 from pointnet2_tpu_torch.ops.cuda import wingather as cuda_gather
+from pointnet2_tpu_torch.tools import export_model as export_cli
 from pointnet2_tpu_torch.tools import op_bench, parity, scenes, stage_bench
 from pointnet2_tpu_torch.train import Trainer, load_model_state, restore_checkpoint, save_checkpoint
 from pointnet2_tpu_torch.train_profile import train_batch
@@ -343,6 +380,22 @@ BF16_MODES = (
 # The MSG model's bf16 modes: the selective predict mode, and one mixed-precision train step.
 MSG_BF16_MODES = (BF16_MODES[1],)
 MSG_BF16_STEPS = 1
+# The export phase's artifacts: (name, Trainer keywords, batch; None is symbolic).
+# ``EXPORT_FLAGS`` names each keyword's ``tools.export_model`` flag.
+EXPORTS = (
+    ("ssg_f32_b16", {}, BATCH),
+    ("ssg_f32_symbolic", {}, None),
+    ("ssg_windows_b16", dict(bq_window=BQ_WINDOW, fp_window=FP_WINDOW), BATCH),
+    ("msg_selective_bf16_symbolic", dict(arch="msg", infer_dtype="bfloat16", bf16_min_width=BF16_MIN_WIDTH), None),
+)
+EXPORT_FLAGS = {"arch": "--arch", "infer_dtype": "--dtype", "bf16_min_width": "--bf16_min_width",
+                "bq_window": "--bq_window", "fp_window": "--fp_window"}
+SYMBOLIC_BATCHES = (BATCH, 1, 3)  # what a symbolic artifact answers
+DISPATCH_CALLS = 500  # below the card's queue of pending launches: the host's time, not the device's
+# The serve phase: client threads x requests each, of 1..4 clouds.
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_MAX_CLOUDS = 24, 4, 4
+SERVE_DELAY_MS = 5.0  # the daemon's default coalescing window
+SPLIT_DELAY_MS = 500.0  # long enough that the two requests of the certificate split share a round
 
 
 def chunk_launches(arch: str = "ssg", windows: bool = False, bf16: bool = False) -> dict:
@@ -2109,6 +2162,286 @@ def kitti_phase(seed: int, card: str, report: Report) -> dict:
     return paths
 
 
+# The fresh process that loads the export phase's artifacts: argv[1] is a JSON
+# list of (name, directory, batches), argv[2] the clouds (.npz, one array a
+# batch). It writes each artifact's labels beside it and prints the seconds
+# each load took and the model modules it found imported.
+LOAD_CHECK = """
+import json, sys, time
+import numpy as np, torch
+from pointnet2_tpu_torch.export import load_exported
+clouds = np.load(sys.argv[2])
+seconds = {}
+for name, path, batches in json.loads(sys.argv[1]):
+    t0 = time.perf_counter()
+    fn, manifest = load_exported(path)
+    seconds[name] = time.perf_counter() - t0
+    for b in batches:
+        out = fn(torch.from_numpy(clouds[str(b)]).to(manifest["device"]))
+        labels = out[0] if manifest["window_certificate"] else out
+        np.save(f"{path}/labels_{b}.npy", labels.cpu().numpy())
+model_code = sorted(n for n in sys.modules if n.startswith(("pointnet2_tpu_torch.models", "pointnet2_tpu_torch.nn")))
+print(json.dumps({"load_seconds": seconds, "model_modules": model_code}))
+"""
+
+
+def _artifact_predictor(cfg: Config, trainer: Trainer, chunk: int = CHUNK) -> Predictor:
+    """The eager Predictor of a Trainer's weights and mode, as ``export_model``
+    builds it; ``chunk`` 0 runs a batch whole, as a symbolic-batch artifact
+    does (in bfloat16 a GEMM's result depends on its batch: cuBLAS picks
+    another kernel, and on the H100 2 in 10**4 labels of a 16-cloud MSG
+    selective-bf16 batch flipped between one call and two chunks of 8)."""
+    return Predictor(
+        cfg, trainer.model.state_dict(), infer_chunk=chunk, device=DEVICE, arch=trainer.arch,
+        dtype=trainer.infer_dtype, bf16_min_width=trainer.bf16_min_width, bq_window=trainer.bq_window,
+        fp_window=trainer.fp_window,
+    )
+
+
+def _host_ms(fn, runs: int = 3) -> list[float]:
+    """Host ms of ``fn()`` to a synchronize, ``runs`` times."""
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def dispatch_us(cfg: Config, seed: int) -> dict:
+    """Host µs a call of ``ops.fps_centroids`` (through ``pn2::fps_centroids``)
+    and of the raw wrapper ``ops.cuda.fps_centroids``, at SA4's shape (B=8 of
+    the 64 SA3 centroids, 16 out), in turns raw, op, op, raw: the calls are
+    queued without a synchronize, so the host's clock reads their dispatch."""
+    xyz = torch.from_numpy(np.ascontiguousarray(clouds(CHUNK, cfg, seed)[:, : cfg.l3_npoint, :3])).to(DEVICE)
+    calls = {"raw": lambda: cuda.fps_centroids(xyz, cfg.l4_npoint), "pn2": lambda: ops.fps_centroids(xyz, cfg.l4_npoint)}
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    out = {"raw": [], "pn2": []}
+    for name in ("raw", "pn2", "pn2", "raw"):
+        t0 = time.perf_counter()
+        for _ in range(DISPATCH_CALLS):
+            calls[name]()
+        out[name].append((time.perf_counter() - t0) * 1e6 / DISPATCH_CALLS)
+        torch.cuda.synchronize()
+    raw, pn2 = statistics.mean(out["raw"]), statistics.mean(out["pn2"])
+    return {"shape": f"B={CHUNK} N={cfg.l3_npoint} npoint={cfg.l4_npoint}", "raw_us": out["raw"],
+            "pn2_us": out["pn2"], "pn2_minus_raw_us": pn2 - raw}
+
+
+def export_cli_main(ckpt: pathlib.Path, out: pathlib.Path, kw: dict, batch, *extra: str) -> dict:
+    """``tools.export_model.main`` of checkpoint ``ckpt`` into ``out``, with no
+    ``--device`` (the default, CUDA): the manifest."""
+    flags = ["--batch", str(batch or 0)]
+    for key, value in kw.items():
+        flags += [EXPORT_FLAGS[key], str(value)]
+    return export_cli.main(["--ckpt", str(ckpt), "--config_file", str(ROOT / "semantic.json"), "--out", str(out),
+                            *flags, *extra])
+
+
+def export_phase(cfg: Config, seed: int, card: str, root: pathlib.Path) -> tuple[dict, dict]:
+    """Phase 10: the four artifacts (``EXPORTS``) and a logits export of the
+    first, exported by the entry point from checkpoints under ``root``,
+    loaded in a fresh process and here, each held against the Predictor of
+    the weights the checkpoint was written from. Returns the phase's launch
+    counts and the weights of the SSG float32 artifacts (for the serve phase)."""
+    inputs = {b: clouds(b, cfg, seed + 900 + b) for b in SYMBOLIC_BATCHES}
+    np.savez(root / "clouds.npz", **{str(b): x for b, x in inputs.items()})
+    trainers, records, launches = {}, {}, {}
+    for name, kw, batch in EXPORTS:
+        trainer = Trainer(cfg, device=DEVICE, **kw)
+        trainer.init_state(seed, bn_stats="random")
+        trainers[name] = trainer
+        save_checkpoint(root / f"{name}.pt", trainer)
+        t0 = time.perf_counter()
+        manifest = export_cli_main(root / f"{name}.pt", root / name, kw, batch)
+        records[name] = {"export_seconds": time.perf_counter() - t0, "artifact_mb": manifest["artifact_bytes"] / 1e6,
+                         "input_shape": manifest["input_shape"], "device": manifest["device"]}
+        if manifest["device"] != torch.device(DEVICE).type:
+            raise AssertionError(f"artifact {name} exported on {manifest['device']}, not on {DEVICE}")
+    spec = [(name, str(root / name), [batch] if batch else list(SYMBOLIC_BATCHES)) for name, _, batch in EXPORTS]
+    run = subprocess.run([sys.executable, "-c", LOAD_CHECK, json.dumps(spec), str(root / "clouds.npz")],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"loading the artifacts in a fresh process failed:\n{run.stdout}\n{run.stderr}")
+    fresh = json.loads(run.stdout.strip().splitlines()[-1])
+    if fresh["model_modules"]:
+        raise AssertionError(f"loading the artifacts imported model code: {fresh['model_modules']}")
+
+    for name, kw, batch in EXPORTS:
+        fn, manifest = load_exported(str(root / name))
+        predictor = _artifact_predictor(cfg, trainers[name], CHUNK if batch else 0)
+        batches = [batch] if batch else list(SYMBOLIC_BATCHES)
+        xs = {b: torch.from_numpy(inputs[b]).to(DEVICE) for b in batches}
+        fn(xs[batches[0]])  # first launches and plans, as the Predictor's warm-up
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        outs = {b: fn(xs[b]) for b in batches}
+        torch.cuda.synchronize()
+        counted = dict(cuda.LAUNCHES)
+        forwards = BATCH // CHUNK if batch else len(batches)
+        want = scaled(chunk_launches(kw.get("arch", "ssg"), "bq_window" in kw, "infer_dtype" in kw), forwards)
+        _expect_launches(counted, want, f"artifact {name}")
+        for kernel, count in counted.items():
+            launches[kernel] = launches.get(kernel, 0) + count
+        agree, oks = {}, {}
+        for b in batches:
+            labels, ok = outs[b] if manifest["window_certificate"] else (outs[b], None)
+            want_labels, want_ok = predictor.predict_step_checked(inputs[b])
+            sub = torch.from_numpy(np.load(root / name / f"labels_{b}.npy")).to(DEVICE)
+            agree[b] = {"predictor": float((labels == want_labels).float().mean()),
+                        "fresh_process": float((sub == labels).float().mean())}
+            oks[b] = None if ok is None else bool(ok)
+            if ok is not None and not (bool(ok) and want_ok):
+                raise AssertionError(f"artifact {name}: window certificate {bool(ok)} (Predictor {want_ok}) at B={b}")
+        if min(min(a.values()) for a in agree.values()) < 0.9999:
+            raise AssertionError(f"artifact {name}: label agreement with the Predictor and the fresh process {agree}")
+        x16 = inputs[BATCH]
+        records[name].update({
+            "load_seconds_fresh_process": fresh["load_seconds"][name],
+            "batches": batches, "label_agreement": agree, "window_ok": oks, "launches": counted,
+            "ms_per_16": _host_ms(lambda: fn(xs[BATCH])), "predictor_ms_per_16": _host_ms(lambda: predictor.predict_step(x16)),
+        })
+
+    trainer = trainers["ssg_f32_b16"]
+    t0 = time.perf_counter()
+    export_cli_main(root / "ssg_f32_b16.pt", root / "ssg_f32_b16_logits", {}, BATCH, "--output", "logits")
+    logits_export_s = time.perf_counter() - t0
+    fn, _ = load_exported(str(root / "ssg_f32_b16_logits"))
+    x16 = torch.from_numpy(inputs[BATCH]).to(DEVICE)
+    cuda.reset_launches()
+    logits = fn(x16)
+    torch.cuda.synchronize()
+    counted = dict(cuda.LAUNCHES)
+    _expect_launches(counted, scaled(chunk_launches(), BATCH // CHUNK), "the logits artifact")
+    for kernel, count in counted.items():
+        launches[kernel] = launches.get(kernel, 0) + count
+    ref = _artifact_predictor(cfg, trainer).infer_logits(inputs[BATCH])
+    logit_err = max_abs(logits, ref)
+    if logits.shape != (BATCH, cfg.num_point, 9) or not torch.isfinite(logits).all() or logit_err > 1e-3:
+        raise AssertionError(f"logits artifact: shape {tuple(logits.shape)}, max abs diff {logit_err} to the Predictor")
+    emit({
+        "phase": "export", "artifacts": records, "logits_export_seconds": logits_export_s,
+        "max_abs_logit_diff": logit_err, "launches": launches, "dispatch": dispatch_us(cfg, seed), "card": card,
+    })
+    return launches, trainer.model.state_dict()
+
+
+def _npy(a: np.ndarray) -> bytes:
+    buf = io.BytesIO()
+    np.save(buf, a)
+    return buf.getvalue()
+
+
+def _post(port: int, body: bytes, ctype: str = "application/x-npy") -> tuple[int, bytes, float]:
+    """POST ``body`` to the daemon's predict path: (status, body, ms)."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/predict", data=body, method="POST")
+    req.add_header("Content-Type", ctype)
+    req.add_header("Accept", "application/x-npy")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            status, out = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, out = e.code, e.read()
+    return status, out, (time.perf_counter() - t0) * 1e3
+
+
+def _band(cloud: np.ndarray) -> np.ndarray:
+    """``clustered``'s cloud as a request: half the points in a 2 cm band of x."""
+    out = cloud.copy()
+    half = out.shape[1] // 2
+    out[:, :half, 0] = 4.0 + 0.02 * out[:, :half, 0] / 8.0
+    return out
+
+
+def serve_phase(cfg: Config, seed: int, card: str, root: pathlib.Path, state: dict) -> dict:
+    """Phase 11: the daemon on the fixed-16 SSG artifact under 24 clients,
+    then the certificate split on the windowed artifact."""
+    rng = np.random.RandomState(seed + 1000)
+    sizes = rng.randint(1, SERVE_MAX_CLOUDS + 1, size=(SERVE_CLIENTS, SERVE_REQUESTS))
+    starts = np.concatenate([[0], np.cumsum(sizes)])[:-1].reshape(sizes.shape)
+    pts = clouds(int(sizes.sum()) + 1, cfg, seed + 1000)  # the last cloud is the JSON request's
+    predictor = Predictor(cfg, state, infer_chunk=CHUNK, device=DEVICE)
+    want = torch.cat([predictor.predict_step(pts[i : i + BATCH]) for i in range(0, len(pts), BATCH)]).cpu().numpy()
+
+    server = cli_serve.build_server(["--artifact", str(root / "ssg_f32_b16"), "--port", "0", "--batch", str(BATCH),
+                                     "--max_delay_ms", str(SERVE_DELAY_MS)])
+    server.start_background()
+    try:
+        def client(c: int) -> list:
+            out = []
+            for r in range(SERVE_REQUESTS):
+                s, n = int(starts[c, r]), int(sizes[c, r])
+                status, body, ms = _post(server.port, _npy(pts[s : s + n]))
+                labels = np.load(io.BytesIO(body)) if status == 200 else None
+                out.append((status, ms, None if labels is None else float((labels == want[s : s + n]).mean())))
+            return out
+
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=SERVE_CLIENTS) as ex:
+            results = [res for per_client in ex.map(client, range(SERVE_CLIENTS)) for res in per_client]
+        wall = time.perf_counter() - t0
+        status, body, json_ms = _post(server.port, json.dumps({"points": pts[-1].tolist()}).encode(), "application/json")
+        torch.cuda.synchronize()
+        launches = dict(cuda.LAUNCHES)
+        stats = server.stats.snapshot()
+    finally:
+        server.shutdown()
+    json_agree = float((np.load(io.BytesIO(body))[0] == want[-1]).mean()) if status == 200 else None
+    statuses = sorted({r[0] for r in results} | {status})
+    agree = [r[2] for r in results] + [json_agree]
+    if statuses != [200] or min(agree) < 0.9999:
+        raise AssertionError(f"serve: statuses {statuses}, worst label agreement {min(a or 0 for a in agree)}")
+    _expect_launches(launches, scaled(chunk_launches(), (BATCH // CHUNK) * stats["device_batches"]),
+                     f"{stats['device_batches']} served device batches")
+    if stats["batched_clouds"] <= 0 or stats["requests"] != len(results) + 1:
+        raise AssertionError(f"serve: no micro-batching seen in /stats {stats}")
+    latencies = sorted(r[1] for r in results)
+
+    # The certificate split: a band cloud and a box cloud in one round.
+    box, band = clouds(1, cfg, seed + 1100), _band(clouds(1, cfg, seed + 1101))
+    windowed = cli_serve.build_server(["--artifact", str(root / "ssg_windows_b16"), "--port", "0",
+                                       "--batch", str(BATCH), "--max_delay_ms", str(SPLIT_DELAY_MS)])
+    windowed.start_background()
+    go = threading.Barrier(2)
+    try:
+        def send(x: np.ndarray):
+            go.wait(timeout=60)
+            return _post(windowed.port, _npy(x))
+
+        with ThreadPoolExecutor(max_workers=2) as ex:
+            (band_status, _, _), (box_status, box_body, _) = ex.map(send, (band, box))
+        split_stats = windowed.stats.snapshot()
+    finally:
+        windowed.shutdown()
+    win_predictor = Predictor(cfg, state, infer_chunk=CHUNK, device=DEVICE, bq_window=BQ_WINDOW, fp_window=FP_WINDOW)
+    box_want, box_ok = win_predictor.predict_step_checked(box)
+    band_ok = win_predictor.predict_step_checked(band)[1]
+    box_agree = float((np.load(io.BytesIO(box_body)) == box_want.cpu().numpy()).mean()) if box_status == 200 else 0.0
+    if (band_status, box_status) != (503, 200) or split_stats["batched_clouds"] != 2 or band_ok or not box_ok \
+            or box_agree < 0.9999:
+        raise AssertionError(f"certificate split: band {band_status} (Predictor ok {band_ok}), box {box_status} "
+                             f"(ok {box_ok}, agreement {box_agree}), stats {split_stats}")
+
+    clouds_served = int(sizes.sum()) + 1
+    emit({
+        "phase": "serve", "requests": len(results) + 1, "clouds": clouds_served, "wall_seconds": wall,
+        "clouds_per_s": int(sizes.sum()) / wall, "p50_ms": latencies[len(latencies) // 2],
+        "p95_ms": latencies[int(0.95 * (len(latencies) - 1))], "json_request_ms": json_ms,
+        "mean_device_batch": stats["clouds"] / stats["device_batches"], "stats": stats,
+        "label_agreement_min": min(agree), "launches": launches,
+        "certificate_split": {"band": band_status, "box": box_status, "box_label_agreement": box_agree,
+                              "stats": split_stats},
+        "card": card,
+    })
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None, help="also write every record here as JSON")
@@ -2180,6 +2513,11 @@ def main(argv=None) -> int:
     paths["densify"] = densify_phase(SEED, card, report)
     torch.cuda.empty_cache()
     paths.update(kitti_phase(SEED, card, report))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="pn2_export_") as export_root:
+        paths["export"], served_state = export_phase(cfg, SEED, card, pathlib.Path(export_root))
+        torch.cuda.empty_cache()
+        paths["serve"] = serve_phase(cfg, SEED, card, pathlib.Path(export_root), served_state)
     kernels = report.kernels_line(paths)
 
     if args.out is not None:

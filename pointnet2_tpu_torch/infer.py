@@ -89,6 +89,25 @@ def all_ok(certificates: List, device: torch.device) -> torch.Tensor:
     return torch.stack([ok for _, ok in certificates]).all()
 
 
+class ServedForward(torch.nn.Module):
+    """The eval forward as an exported artifact runs it (``export.export_model``):
+    ``(B, N, 3+C)`` float32 -> labels ``(B, N)`` int32 (the argmax) or logits,
+    in chunks of ``chunk`` clouds (``chunked_logits``; 0 runs the batch whole),
+    and with ``checked`` also the AND of the window certificates (``all_ok``)."""
+
+    def __init__(self, model: torch.nn.Module, chunk: int, output: str, checked: bool):
+        super().__init__()
+        if output not in ("labels", "logits"):
+            raise ValueError(f"unknown output {output!r}, expected labels/logits")
+        self.model, self.chunk, self.output, self.checked = model, chunk, output, checked
+
+    def forward(self, points: torch.Tensor):
+        certificates: Optional[List] = [] if self.checked else None
+        logits = chunked_logits(self.model, points, self.chunk, certificates)
+        out = logits.argmax(dim=-1).to(torch.int32) if self.output == "labels" else logits
+        return (out, all_ok(certificates, points.device)) if self.checked else out
+
+
 class Predictor:
     """Eval-mode ``PointNet2SemSeg`` (``arch="ssg"``) or ``PointNet2SemSegMSG``
     (``arch="msg"``; the state_dict must be of the same arch) with batch chunking.

@@ -3,15 +3,19 @@
 Each operator on the eval and train paths has a plain PyTorch version in
 ``ops.core`` and a CUDA kernel in ``ops.cuda``. ``impl`` picks between them:
 
-- ``None`` (default): the kernel for a CUDA tensor, the plain version for a
+- ``None`` (default): the ``pn2`` operator (``ops.library``), whose
+  dispatcher runs the kernel for a CUDA tensor and the plain version for a
   CPU tensor;
 - ``"torch"``: the plain version on either device, for comparisons;
-- ``"cuda"``: the kernel, which raises on a CPU tensor.
+- ``"cuda"``: the ``pn2`` operator, which raises here on a CPU tensor.
 
-There is no fallback: a kernel that fails to build or launch raises.
+There is no fallback: a kernel that fails to build or launch raises. The
+calibrated-window operators and the round-1 windowed ball query are
+composites in PyTorch around ``pn2`` operators, so ``torch.export`` keeps
+each kernel as one node of the exported graph.
 ``ball_query`` also takes ``impl="windowed"``: the round-1 windowed ball
 query (x-sorted windows, each tile falling back to the exact scan on its own),
-its kernel on a CUDA tensor and its plain version on a CPU tensor.
+through the ``pn2`` operators on either device.
 ``group_points``, ``interpolation_weights``, ``prob_sample`` and the
 full-row ``selection_sort``/``select_top_k`` have no kernel (the JAX package
 leaves them to XLA as well). ``three_interpolate`` is differentiable
@@ -32,7 +36,7 @@ from __future__ import annotations
 
 import torch
 
-from pointnet2_tpu_torch.ops import autograd, core, cuda
+from pointnet2_tpu_torch.ops import autograd, core, cuda, library  # noqa: F401  (library registers torch.ops.pn2)
 from pointnet2_tpu_torch.ops.core import (
     gather_points,
     group_points,
@@ -43,6 +47,7 @@ from pointnet2_tpu_torch.ops.core import (
 )
 
 IMPLS = (None, "torch", "cuda")
+pn2 = torch.ops.pn2  # registered by ops.library
 
 __all__ = [
     "farthest_point_sample",
@@ -66,18 +71,28 @@ __all__ = [
 ]
 
 
-def _use_kernel(impl: str | None, t: torch.Tensor) -> bool:
+def _use_kernel(impl: str | None, t: torch.Tensor, *differentiable: torch.Tensor) -> bool:
+    """Whether the call goes through the ``pn2`` operators (``impl`` None or
+    "cuda"); "cuda" on a CPU tensor raises.
+
+    The operators have no Autograd kernel, so ``impl=None`` on a CPU tensor
+    calls the plain version by name when autograd records through one of
+    ``differentiable`` (the inputs a float output depends on): that keeps
+    their gradients. The kernels give none, as before the operators.
+    """
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}, expected one of {IMPLS}")
     if impl == "cuda" and not t.is_cuda:
         raise ValueError("impl='cuda' needs CUDA tensors")
-    return impl == "cuda" or (impl is None and t.is_cuda)
+    if impl is None and not t.is_cuda and torch.is_grad_enabled():
+        return not any(x.requires_grad for x in differentiable)
+    return impl != "torch"
 
 
 def farthest_point_sample(xyz, npoint: int, impl: str | None = None):
     """FPS indices alone: (B, N, 3) -> (B, npoint) int32."""
     if _use_kernel(impl, xyz):
-        return cuda.farthest_point_sample(xyz, npoint)
+        return pn2.farthest_point_sample(xyz, int(npoint))
     return core.farthest_point_sample(xyz, npoint)
 
 
@@ -87,7 +102,7 @@ def fps_centroids(xyz, npoint: int, impl: str | None = None):
     if xyz.requires_grad and torch.is_grad_enabled():
         return autograd.FpsCentroids.apply(xyz, npoint, use_kernel)
     if use_kernel:
-        return cuda.fps_centroids(xyz, npoint)
+        return pn2.fps_centroids(xyz, int(npoint))
     return core.fps_centroids(xyz, npoint)
 
 
@@ -98,25 +113,25 @@ def ball_query(xyz1, xyz2, radius: float, nsample: int, impl: str | None = None)
     window (``core.ball_query_windowed``): the same outputs bit for bit.
     """
     if impl == "windowed":
-        if xyz1.is_cuda:
-            return cuda.ball_query_windowed(xyz1, xyz2, radius, nsample)
-        return core.ball_query_windowed(xyz1, xyz2, radius, nsample)
+        return core.ball_query_windowed(
+            xyz1, xyz2, float(radius), int(nsample), exact=pn2.ball_query, tiles=pn2.ball_query_window_tiles
+        )
     if _use_kernel(impl, xyz1):
-        return cuda.ball_query(xyz1, xyz2, radius, nsample)
+        return pn2.ball_query(xyz1, xyz2, float(radius), int(nsample))
     return core.ball_query(xyz1, xyz2, radius, nsample)
 
 
 def knn(xyz1, xyz2, k: int, impl: str | None = None):
     """k exact nearest neighbours, squared distances ascending: (dist2, idx)."""
-    if _use_kernel(impl, xyz1):
-        return cuda.knn(xyz1, xyz2, k)
+    if _use_kernel(impl, xyz1, xyz1, xyz2):
+        return pn2.knn(xyz1, xyz2, int(k))
     return core.knn(xyz1, xyz2, k)
 
 
 def three_nn(xyz1, xyz2, impl: str | None = None):
     """3-NN of each xyz1 point among xyz2, squared distances: (dist2, idx)."""
-    if _use_kernel(impl, xyz1):
-        return cuda.three_nn(xyz1, xyz2)
+    if _use_kernel(impl, xyz1, xyz1, xyz2):
+        return pn2.knn(xyz2, xyz1, 3)
     return core.three_nn(xyz1, xyz2)
 
 
@@ -140,8 +155,8 @@ def three_interpolate_grad(g, idx, weight, m: int, impl: str | None = None, prec
                            dtype=None):
     """The ``points`` cotangent of ``three_interpolate``: g (B, N, C) -> (B, m, C)
     in ``dtype``, the forward's points' type (default: g's)."""
-    if _use_kernel(impl, g):
-        return cuda.three_interpolate_grad(g, idx, weight, m, precision, dtype)
+    if _use_kernel(impl, g, g, weight):
+        return pn2.three_interpolate_grad(g, idx, weight, int(m), precision, dtype)
     return core.three_interpolate_grad(g, idx, weight, m, precision, dtype)
 
 
@@ -154,7 +169,9 @@ def ball_query_calibrated(xyz1, xyz2, radius: float, nsample: int, window: int, 
     """Ball query through calibrated x-windows: ``(idx, cnt, ok)``; with ``ok``
     True the outputs equal ``ball_query``'s. See ``core.ball_query_sliced``."""
     if _use_kernel(impl, xyz1):
-        return cuda.ball_query_sliced(xyz1, xyz2, radius, nsample, window)
+        return core.ball_query_sliced(
+            xyz1, xyz2, float(radius), int(nsample), window, exact=pn2.ball_query, tiles=pn2.ball_query_tiles
+        )
     return core.ball_query_sliced(xyz1, xyz2, radius, nsample, window)
 
 
@@ -166,21 +183,22 @@ def project_group_calibrated(
     None, ``grouped`` alone is in x-sorted query order. See
     ``core.project_group_sliced``. The kernel path gives ``w0``/``b0`` no
     gradient through the gather: it is for the eval forward."""
-    if _use_kernel(impl, xyz):
-        return cuda.project_group_sliced(inputs, w0, b0, xyz, new_xyz, radius, nsample, window)
+    if _use_kernel(impl, xyz, inputs, w0, b0):
+        return core.project_group_sliced(
+            inputs, w0, b0, xyz, new_xyz, float(radius), int(nsample), window,
+            exact=pn2.ball_query, tiles=pn2.ball_query_tiles_pos, gather=pn2.window_gather,
+        )
     return core.project_group_sliced(inputs, w0, b0, xyz, new_xyz, radius, nsample, window)
 
 
 def knn_calibrated(xyz1, xyz2, k: int, window: int, impl: str | None = None):
     """kNN through calibrated x-windows: ``(dist2, idx, ok)``; with ``ok`` True
     equal to ``knn``. See ``core.knn_sliced``."""
-    if _use_kernel(impl, xyz1):
-        return cuda.knn_sliced(xyz1, xyz2, k, window)
+    if _use_kernel(impl, xyz1, xyz1, xyz2):
+        return core.knn_sliced(xyz1, xyz2, int(k), window, exact=pn2.knn, tiles=pn2.knn_tiles)
     return core.knn_sliced(xyz1, xyz2, k, window)
 
 
 def three_nn_calibrated(xyz1, xyz2, window: int, impl: str | None = None):
     """3-NN of each xyz1 point among xyz2 through calibrated x-windows: ``(dist2, idx, ok)``."""
-    if _use_kernel(impl, xyz1):
-        return cuda.three_nn_sliced(xyz1, xyz2, window)
-    return core.three_nn_sliced(xyz1, xyz2, window)
+    return knn_calibrated(xyz2, xyz1, 3, window, impl)

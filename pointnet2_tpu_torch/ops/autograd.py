@@ -3,8 +3,10 @@
 Counterparts of the JAX package's ``custom_vjp``s:
 
 - ``ThreeInterpolate`` (``pointnet2_tpu/ops/pallas/interpolate.py:187-218``):
-  forward and backward are the two kernels of ``csrc/interpolate.cu`` on a
-  CUDA tensor, or their plain versions; ``idx`` gets no gradient, and the
+  forward and backward are the ``pn2`` operators of the two kernels of
+  ``csrc/interpolate.cu`` (``ops.library``: the kernel on a CUDA tensor, the
+  plain version on a CPU tensor), or, for ``impl="torch"``, the plain
+  versions; ``idx`` gets no gradient, and the
   weight cotangent is computed only when it is asked for (the model detaches
   the distances, so on the train step it never is). With ``skip`` the forward
   also writes the skip features after the blend (the FP concat); the
@@ -23,15 +25,15 @@ Counterparts of the JAX package's ``custom_vjp``s:
   inputs again and contracts them with the cotangent, and returns exactly
   zero for ``inputs``: only for an input cloud that needs no gradient.
 
-``use_kernel`` is decided by the caller (``ops._use_kernel``); nothing here
-falls back from a kernel to a plain version.
+``use_kernel`` (go through the ``pn2`` operators) is decided by the caller
+(``ops._use_kernel``); nothing here falls back from a kernel to a plain version.
 """
 
 from __future__ import annotations
 
 import torch
 
-from pointnet2_tpu_torch.ops import core, cuda
+from pointnet2_tpu_torch.ops import core
 
 
 class ThreeInterpolate(torch.autograd.Function):
@@ -42,7 +44,7 @@ class ThreeInterpolate(torch.autograd.Function):
         ctx.skip_dtype = None if skip is None else skip.dtype
         ctx.save_for_backward(points, idx, weight)
         if use_kernel:
-            return cuda.three_interpolate(points, idx, weight, skip, precision=precision)
+            return torch.ops.pn2.three_interpolate(points, idx, weight, skip, precision)
         if skip is None:
             return core.three_interpolate(points, idx, weight, precision)
         return core.three_interpolate_concat(points, idx, weight, skip, precision)
@@ -55,7 +57,7 @@ class ThreeInterpolate(torch.autograd.Function):
         dpoints = dweight = dskip = None
         if ctx.needs_input_grad[0]:
             m = points.shape[1]
-            grad = cuda.three_interpolate_grad if ctx.use_kernel else core.three_interpolate_grad
+            grad = torch.ops.pn2.three_interpolate_grad if ctx.use_kernel else core.three_interpolate_grad
             dpoints = grad(g_points, idx, weight, m, ctx.precision, points.dtype)
         if ctx.needs_input_grad[2]:
             dweight = core.three_interpolate_weight_grad(g_points, points, idx).to(weight.dtype)
@@ -67,7 +69,7 @@ class ThreeInterpolate(torch.autograd.Function):
 class FpsCentroids(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xyz, npoint: int, use_kernel: bool):
-        fn = cuda.fps_centroids if use_kernel else core.fps_centroids
+        fn = torch.ops.pn2.fps_centroids if use_kernel else core.fps_centroids
         idx, new_xyz = fn(xyz, npoint)
         ctx.save_for_backward(idx)
         ctx.xyz_shape = xyz.shape

@@ -9,17 +9,18 @@
   (``_ball_query_sliced_kernel``); its plain version is
   ``ops.core.ball_query_tiles``. ``tiles_plan`` splits each tile's queries
   over blocks so that the card fills, and the wrapper takes ``route=`` to
-  force a split. ``ball_query_sliced`` is the whole calibrated op (sorts,
-  window starts and certificate in PyTorch, as the JAX wrapper leaves them to
-  XLA) with the two kernels.
+  force a split.
 - ``ball_query_window_tiles`` replaces ``ballquery.py:80``
   (``_ball_query_window_kernel``) and its wrapper's fallback, tile by tile;
   its plain version is ``ops.core.ball_query_window_tiles``. It runs on the
   tiles kernel's design, a falling-back tile over the whole sorted cloud;
   ``windowed_plan`` splits the tiles over blocks, and the wrapper takes
-  ``route=`` to force a split. ``ball_query_windowed`` is the whole round-1
-  op (sorts and window bounds in PyTorch, no host read) with the kernel, or
-  the exact kernel on the static fallback.
+  ``route=`` to force a split.
+
+The whole calibrated op (sorts, window starts and certificate) and the whole
+round-1 op (sorts and window bounds, no host read) are PyTorch composites in
+``ops.core`` (``ball_query_sliced``, ``ball_query_windowed``), which ``ops``
+runs over these kernels' ``pn2`` operators.
 """
 
 from __future__ import annotations
@@ -28,10 +29,9 @@ import functools
 
 import torch
 
-from pointnet2_tpu_torch.ops import core
 from pointnet2_tpu_torch.ops.core import squared_radius
 from pointnet2_tpu_torch.ops.cuda.common import (
-    FLOAT, INT, PTR, launch, require, require_cuda, require_int32_range, stream_of,
+    FLOAT, INT, PTR, launch, require, require_int32_range, stream_of,
 )
 
 # A column (x, y, z, original index) takes 16 bytes of a block's shared
@@ -233,14 +233,6 @@ def ball_query_tiles(xs, perm, qs, lo, radius: float, nsample: int, w: int, rout
     return idx, cnt
 
 
-def ball_query_sliced(xyz1, xyz2, radius: float, nsample: int, window: int):
-    """``ops.core.ball_query_sliced`` with the two CUDA kernels: ``(idx, cnt, ok)``."""
-    require_cuda(xyz1, xyz2)
-    return core.ball_query_sliced(
-        xyz1, xyz2, radius, nsample, window, exact=ball_query, tiles=ball_query_tiles
-    )
-
-
 def ball_query_window_tiles(xyz1, xs, perm, qs, lo, hi, radius: float, nsample: int, w: int, route=None):
     """The round-1 windowed ball query over sorted tiles, each tile with
     ``hi - lo > w`` scanning the whole sorted cloud; see
@@ -281,10 +273,3 @@ def ball_query_window_tiles(xyz1, xs, perm, qs, lo, hi, radius: float, nsample: 
     )
     return idx, cnt
 
-
-def ball_query_windowed(xyz1, xyz2, radius: float, nsample: int, window: int | None = None):
-    """``ops.core.ball_query_windowed`` with the CUDA kernels: idx, cnt."""
-    require_cuda(xyz1, xyz2)
-    return core.ball_query_windowed(
-        xyz1, xyz2, radius, nsample, window, exact=ball_query, tiles=ball_query_window_tiles
-    )

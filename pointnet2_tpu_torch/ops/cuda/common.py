@@ -53,12 +53,6 @@ def require(
         raise ValueError(f"{what} must be contiguous")
 
 
-def require_cuda(*tensors: torch.Tensor) -> None:
-    """Raise unless every tensor lies on a CUDA device."""
-    if not all(isinstance(t, torch.Tensor) and t.is_cuda for t in tensors):
-        raise ValueError("the kernels take CUDA tensors only")
-
-
 def require_int32_range(what: str, *sizes: int) -> None:
     """Raise if a product of sizes overflows the kernels' int indexing."""
     total = 1

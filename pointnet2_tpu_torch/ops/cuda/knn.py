@@ -11,9 +11,10 @@
   version is ``ops.core.knn_tiles``. For k <= 16 each warp's queries walk
   outward from their place in the x-sorted window, 8 columns of one side a
   step, and stop exactly where the rounded dx^2 passes each query's k-th
-  distance; one block of 128 threads a tile, one a query. ``knn_sliced`` and
-  ``three_nn_sliced`` are the whole calibrated op (sorts, window starts and
-  certificate in PyTorch) with the two kernels.
+  distance; one block of 128 threads a tile, one a query. The whole
+  calibrated op (sorts, window starts and certificate) is the PyTorch
+  composite ``ops.core.knn_sliced``, which ``ops`` runs over the two
+  kernels' ``pn2`` operators.
 
 Limits: any 1 <= k <= M up to ``MAX_K`` = 29056, the most pairs of 8 bytes
 one warp's list holds in a block's 227 KB of shared memory; any window (one
@@ -29,7 +30,7 @@ import torch
 from pointnet2_tpu_torch.ops import core
 from pointnet2_tpu_torch.ops.cuda.ballquery import MAX_SHARED_BYTES, num_sms
 from pointnet2_tpu_torch.ops.cuda.common import (
-    INT, PTR, launch, require, require_cuda, require_int32_range, stream_of,
+    INT, PTR, launch, require, require_int32_range, stream_of,
 )
 
 MAX_REGISTER_K = 16  # csrc/knn.cu instantiates the register route for k = 1..16
@@ -135,11 +136,6 @@ def knn(xyz1: torch.Tensor, xyz2: torch.Tensor, k: int, route=None) -> tuple[tor
     return dist, idx
 
 
-def three_nn(xyz1: torch.Tensor, xyz2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """3 nearest xyz2 points of each xyz1 point: dist2 (B, N, 3), idx (B, N, 3)."""
-    return knn(xyz2, xyz1, 3)
-
-
 def knn_tiles(xs, perm, qs, lo, k: int, w: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The windowed kNN over sorted tiles of 128 queries; see ``ops.core.knn_tiles``.
 
@@ -171,13 +167,3 @@ def knn_tiles(xs, perm, qs, lo, k: int, w: int) -> tuple[torch.Tensor, torch.Ten
     )
     return dist, idx
 
-
-def knn_sliced(xyz1, xyz2, k: int, window: int):
-    """``ops.core.knn_sliced`` with the two CUDA kernels: ``(dist2, idx, ok)``."""
-    require_cuda(xyz1, xyz2)
-    return core.knn_sliced(xyz1, xyz2, k, window, exact=knn, tiles=knn_tiles)
-
-
-def three_nn_sliced(xyz1, xyz2, window: int):
-    """Windowed 3-NN of each xyz1 point among xyz2, with the CUDA kernels: ``(dist2, idx, ok)``."""
-    return knn_sliced(xyz2, xyz1, 3, window)

@@ -8,10 +8,11 @@
   from the row width and the source's alignment: 16-byte vectors or floats,
   and the lanes a row.
 
-``project_group_sliced`` is the whole op with the two kernels (and the exact
-ball query on the static fallback): the sorts, window starts, certificate
-and the projection ``sorted_inputs @ w0 + b0`` are PyTorch, as the JAX
-wrapper leaves them to XLA.
+The whole op is the PyTorch composite ``ops.core.project_group_sliced``
+(the sorts, window starts, certificate and the projection ``sorted_inputs @
+w0 + b0``, as the JAX wrapper leaves them to XLA), which ``ops`` runs over
+the two kernels' ``pn2`` operators (and the exact ball query's on the static
+fallback).
 """
 
 from __future__ import annotations
@@ -20,11 +21,10 @@ import functools
 
 import torch
 
-from pointnet2_tpu_torch.ops import core
 from pointnet2_tpu_torch.ops.core import squared_radius
-from pointnet2_tpu_torch.ops.cuda.ballquery import ball_query, check_tiles, tiles_route
+from pointnet2_tpu_torch.ops.cuda.ballquery import check_tiles, tiles_route
 from pointnet2_tpu_torch.ops.cuda.common import (
-    FLOAT, INT, PTR, launch, require, require_cuda, require_int32_range, stream_of,
+    FLOAT, INT, PTR, launch, require, require_int32_range, stream_of,
 )
 
 GATHER_LANES = (1, 2, 4, 8, 16)  # lanes a row the kernel is built for (csrc/wingather.cu)
@@ -111,12 +111,3 @@ def window_gather(zp_s: torch.Tensor, lo: torch.Tensor, pos: torch.Tensor, route
     )
     return out
 
-
-def project_group_sliced(inputs, w0, b0, xyz, new_xyz, radius: float, nsample: int, window: int):
-    """``ops.core.project_group_sliced`` with the CUDA kernels:
-    ``(grouped, idx, cnt, qperm, inv_q, ok)``."""
-    require_cuda(inputs, xyz, new_xyz)
-    return core.project_group_sliced(
-        inputs, w0, b0, xyz, new_xyz, radius, nsample, window,
-        exact=ball_query, tiles=ball_query_tiles_pos, gather=window_gather,
-    )

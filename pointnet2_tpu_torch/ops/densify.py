@@ -115,7 +115,7 @@ def densify_labels_device(
         raise ValueError(f"densify needs a non-empty sparse cloud with a label a point, got {m} points, "
                          f"{labels.shape[0]} labels")
     k = int(min(knn, m))
-    step = device_chunk(k, m, ops._use_kernel(impl, sparse))
+    step = device_chunk(k, m, ops._use_kernel(impl, sparse) and sparse.is_cuda)
     out = torch.empty(n, dtype=torch.int32, device=dev)
     for start in range(0, n, step):
         chunk = dense[start : start + step].to(dev, torch.float32).contiguous()

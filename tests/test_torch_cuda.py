@@ -25,18 +25,20 @@ gradient within 1e-3 of its max abs of the plain path's.
 """
 
 import importlib
+import inspect
 
 import numpy as np
 import pytest
 import torch
 
 from pointnet2_tpu_torch import ops
-from pointnet2_tpu_torch.ops import core, cuda
+from pointnet2_tpu_torch.ops import core, cuda, library
 from pointnet2_tpu_torch.ops.cuda import ballquery as cuda_bq
 from pointnet2_tpu_torch.ops.cuda import fps as cuda_fps
 from pointnet2_tpu_torch.ops.cuda import interpolate as cuda_interp
 from pointnet2_tpu_torch.ops.cuda import wingather as cuda_gather
 from pointnet2_tpu_torch.utils.bench import deterministic_algorithms
+from test_torch_library import _inputs as pn2_inputs
 
 # The package's ``knn`` is the wrapper function; the module is reached by name.
 cuda_knn = importlib.import_module("pointnet2_tpu_torch.ops.cuda.knn")
@@ -331,6 +333,30 @@ def test_launch_counts_and_default_dispatch(cuda_device):
     assert dict(cuda.LAUNCHES) == {"fps_centroids": 1, "ball_query": 1, "knn": 1, "three_interpolate": 1}
     ops.fps_centroids(xyz, 32, impl="torch")
     assert cuda.LAUNCHES["fps_centroids"] == 1
+
+
+def _raise(*args, **kwargs):
+    raise AssertionError("a plain version of ops.core was called on the kernel path")
+
+
+@pytest.mark.parametrize("name", sorted(library.SCHEMAS))
+def test_pn2_operators_on_cuda_tensors_never_run_a_plain_version(cuda_device, name, monkeypatch):
+    """Each ``pn2`` operator on CUDA tensors runs its kernel: with every
+    function of ``ops.core`` made to raise, it still answers, bit for bit as
+    before, and launches its kernel once a call."""
+    cases = pn2_inputs(cuda_device)[name]
+    op = getattr(torch.ops.pn2, name)
+    before = [op(*args) for args in cases]
+    for attr, fn in list(vars(core).items()):
+        if inspect.isfunction(fn) and fn.__module__ == core.__name__:
+            monkeypatch.setattr(core, attr, _raise)
+    cuda.reset_launches()
+    after = [op(*args) for args in cases]
+    torch.cuda.synchronize()
+    assert sum(cuda.LAUNCHES.values()) == len(cases)
+    for got, want in zip(after, before):
+        for a, b in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+            assert a.is_cuda and torch.equal(a, b), name
 
 
 def test_wrappers_check_their_inputs(cuda_device):
@@ -630,7 +656,13 @@ def test_ball_query_windowed_kernel(cuda_device, b, n, m, radius, nsample, windo
     xyz = _clustered(31, b, n) if cloud == "clustered" else _box(31, b, n, scale=(8.0, 8.0, 4.9))
     queries = xyz[:, torch.randperm(n, generator=torch.Generator().manual_seed(32))[:m].to(cuda_device)]
     queries = queries.contiguous()
-    got = cuda.ball_query_windowed(xyz, queries, radius, nsample, window)
+    got = core.ball_query_windowed(
+        xyz, queries, radius, nsample, window,
+        exact=torch.ops.pn2.ball_query, tiles=torch.ops.pn2.ball_query_window_tiles,
+    )
+    if window is None:
+        public = ops.ball_query(xyz, queries, radius, nsample, impl="windowed")
+        assert all(torch.equal(g, p) for g, p in zip(got, public))
     want = core.ball_query_windowed(xyz, queries, radius, nsample, window)
     exact = ops.ball_query(xyz, queries, radius, nsample, impl="cuda")
     assert all(torch.equal(g, w) for g, w in zip(got, want))

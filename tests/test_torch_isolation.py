@@ -48,7 +48,9 @@ def test_importing_the_port_loads_no_jax():
             "pointnet2_tpu_torch.tools.stage_bench", "pointnet2_tpu_torch.ops.densify",
             "pointnet2_tpu_torch.native", "pointnet2_tpu_torch.data.kitti", "pointnet2_tpu_torch.utils.colors",
             "pointnet2_tpu_torch.utils.render", "pointnet2_tpu_torch.cli.interpolate",
-            "pointnet2_tpu_torch.cli.kitti_predict"} <= set(mods)
+            "pointnet2_tpu_torch.cli.kitti_predict", "pointnet2_tpu_torch.ops.library",
+            "pointnet2_tpu_torch.export", "pointnet2_tpu_torch.serving", "pointnet2_tpu_torch.cli.serve",
+            "pointnet2_tpu_torch.tools.export_model"} <= set(mods)
 
 
 _FORBIDDEN = re.compile(
@@ -105,12 +107,10 @@ def test_impl_cuda_on_a_cpu_tensor_raises(op):
 @pytest.mark.parametrize(
     "name", ["fps_centroids", "ball_query", "knn", "three_interpolate", "three_interpolate_grad",
              "ball_query_tiles", "ball_query_tiles_pos", "window_gather", "knn_tiles",
-             "ball_query_sliced", "project_group_sliced", "knn_sliced", "three_nn_sliced",
-             "farthest_point_sample", "ball_query_window_tiles", "ball_query_windowed"]
+             "farthest_point_sample", "ball_query_window_tiles"]
 )
 def test_kernel_wrappers_refuse_cpu_tensors(name):
-    """Called directly, a wrapper never runs a plain version in the kernel's place,
-    the windowed ones on the static fallback and on the windowed path alike."""
+    """Called directly, a wrapper never runs a plain version in the kernel's place."""
     from pointnet2_tpu_torch.ops import cuda
 
     xyz = torch.rand(1, 32, 3)
@@ -122,16 +122,9 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
         "ball_query_tiles_pos": (big, perm, big[:, :128].contiguous(), lo, 0.1, 4, 128),
         "window_gather": (torch.rand(1, 512, 8), lo, torch.zeros(1, 128, 4, dtype=torch.int32)),
         "knn_tiles": (big, perm, big[:, :128].contiguous(), lo, 3, 128),
-        "ball_query_sliced": (big, big[:, :128].contiguous(), 0.1, 4, 128),
-        "project_group_sliced": (
-            torch.rand(1, 512, 6), torch.rand(6, 4), torch.rand(4), big, big[:, :128].contiguous(), 0.1, 4, 128,
-        ),
-        "knn_sliced": (big, big, 3, 128),
-        "three_nn_sliced": (big, big, 128),
         "fps_centroids": (xyz, 8),
         "farthest_point_sample": (xyz, 8),
         "ball_query_window_tiles": (big, big, perm, big[:, :128].contiguous(), lo, lo, 0.1, 4, 128),
-        "ball_query_windowed": (big, big[:, :128].contiguous(), 0.1, 4),
         "ball_query": (xyz, xyz, 0.5, 4),
         "knn": (xyz, xyz, 3),
         "three_interpolate": (torch.rand(1, 8, 4), torch.zeros(1, 32, 3, dtype=torch.int32), torch.rand(1, 32, 3)),
@@ -157,10 +150,18 @@ def test_trainer_without_cuda_raises_unless_given_the_cpu(monkeypatch):
     assert Trainer(small, device="cpu").device.type == "cpu"
 
 
-def test_the_three_interpolate_backward_on_the_kernel_path_has_no_plain_fallback():
-    """With use_kernel the Function calls the CUDA wrappers, which refuse a CPU tensor."""
+def test_the_three_interpolate_backward_on_the_kernel_path_has_no_plain_fallback(monkeypatch):
+    """With use_kernel the Function calls the ``pn2`` operators, forward and
+    backward; their CUDA implementations are the wrappers, which refuse a CPU
+    tensor. (On a CPU tensor the operators' dispatcher runs the plain
+    versions, so here each operator is given its CUDA implementation.)"""
+    from pointnet2_tpu_torch.ops import library
     from pointnet2_tpu_torch.ops.autograd import ThreeInterpolate
+    from pointnet2_tpu_torch.ops.cuda import interpolate
 
+    assert library.CUDA["three_interpolate_grad"] is interpolate.three_interpolate_grad
+    for name in ("three_interpolate", "three_interpolate_grad"):
+        monkeypatch.setattr(torch.ops.pn2, name, library.CUDA[name])
     args = (torch.rand(1, 8, 4, requires_grad=True), torch.zeros(1, 32, 3, dtype=torch.int32), torch.rand(1, 32, 3))
     with pytest.raises(ValueError, match="CUDA"):
         ThreeInterpolate.apply(*args, True)
