@@ -192,6 +192,32 @@ non-zero and prints no result):
    held and timed at the subset's shape; the whole scene's kernel time and
    the device engine's beside its bound, and both engines' seconds and
    Mpoints/s from the CLI runs.
+8b. Dist, the multi-process and sharded paths (``pointnet2_tpu_torch.parallel``);
+   each process a subprocess started by ``parallel.launch.run_ranks`` within
+   ``DIST_TIMEOUT_S`` (a rank that fails or hangs fails the phase):
+   (a) ``tools.dist_step`` on 2 processes of this card (gloo), 8 rows each of
+   one seeded 16 x 8192 x 6 batch, dropout on, one Adam step, against the
+   one-process step on the 16 rows in this process: on the kernels in
+   float32 (loss within 1e-5 relative, moving statistics within atol + rtol
+   1e-5, the gradients' relative L2 within 5e-2, each process's launches
+   ``step_launches()``, both processes' states equal bit for bit) and on the
+   plain versions in float64 (loss 1e-6, every gradient within 1e-6 of its
+   max abs, statistics a tenth of the float32 limit); (b) a group of one over
+   NCCL, under deterministic algorithms, bit for bit the plain ``Trainer``
+   step taken after it in the same process; (c) ``cli.train`` on 2 processes
+   (``--dist_sampling replicated --seed 0``) on the ``cli`` phase's scenes,
+   against the one-process run: one ``log_train.txt`` and one set of
+   checkpoints (process 0's), ``[proc 1]`` lines, each process's launches
+   its steps' and eval chunks', every step's loss within 1e-4 relative at a
+   learning rate of 1e-5, and the same pair at semantic.json's rate
+   measured; (d) ``cli.predict --sharded`` (every visible card) and
+   ``cli.predict`` on 2 processes against the one-process predict CLI:
+   every ``.labels`` file equal byte for byte, the gathered confusion matrix
+   exact, process 0 alone printing it; (e) ``parallel.knn_sharded`` over
+   ``[cuda:0]`` and ``[cuda:0, cuda:0]`` on the densify phase's first scene,
+   bit for bit ``ops.knn`` with row 3 once a shard, and ``cli.interpolate
+   --engine sharded`` on the densify phase's scenes, the ``--engine
+   device`` run's files byte for byte, row 3 once a shard and chunk.
 9. KITTI: ``cli.kitti_predict --save`` on a fabricated drive of 3 sweeps of
    120 000 points (``tools.scenes.write_drive``; the 60 x 20 m crop keeps
    tens of thousands a frame) with a ``.pt`` of random weights at
@@ -235,17 +261,19 @@ Output: one JSON line a kernel and shape, one for each driven path (predict,
 train, predict_windows, train_windows, predict_bf16, train_bf16, their MSG
 counterparts predict_msg, train_msg, predict_windows_msg,
 train_windows_msg, predict_msg_bf16, train_msg_bf16, then cli,
-op_surface, densify, kitti, export, serve; the
+op_surface, densify, dist, kitti, export, serve; the
 parity sweep's lines and the stage bench's lines inside op_surface), the
 ``nvidia-smi`` line, one ``{"kernels": [...]}`` line, and last ``{"ok":
 true, "device": {...}}``. Each path's launch counts are reset just before it
 and read just after (the CLI phase's three runs and the KITTI phase's two
-each apart); the ``kernels`` line sums them.
+each apart; the dist phase's processes count their own and report them);
+the ``kernels`` line sums them.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib
 import io
 import json
@@ -260,6 +288,7 @@ import time
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 import torch
@@ -267,6 +296,7 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from pointnet2_tpu_torch import convert, native, ops, predict_profile
+from pointnet2_tpu_torch.cli import cli_mesh
 from pointnet2_tpu_torch.cli import interpolate as cli_interpolate
 from pointnet2_tpu_torch.cli import kitti_predict as cli_kitti
 from pointnet2_tpu_torch.cli import predict as cli_predict
@@ -274,7 +304,7 @@ from pointnet2_tpu_torch.cli import serve as cli_serve
 from pointnet2_tpu_torch.cli import train as cli_train
 from pointnet2_tpu_torch.config import Config
 from pointnet2_tpu_torch.data.io import load_labels, read_pcd
-from pointnet2_tpu_torch.data.semantic3d import SemanticDataset
+from pointnet2_tpu_torch.data.semantic3d import SemanticDataset, validation_file_prefixes
 from pointnet2_tpu_torch.export import load_exported
 from pointnet2_tpu_torch.infer import Predictor, full_float32
 from pointnet2_tpu_torch.models.pointnet2_seg import SA_MLPS, msg_scales
@@ -285,8 +315,10 @@ from pointnet2_tpu_torch.ops.cuda import build
 from pointnet2_tpu_torch.ops.cuda import fps as cuda_fps
 from pointnet2_tpu_torch.ops.cuda import interpolate as cuda_interp
 from pointnet2_tpu_torch.ops.cuda import wingather as cuda_gather
+from pointnet2_tpu_torch.parallel import knn_sharded
+from pointnet2_tpu_torch.parallel.launch import dist_flags, run_ranks
 from pointnet2_tpu_torch.tools import export_model as export_cli
-from pointnet2_tpu_torch.tools import op_bench, parity, scenes, stage_bench
+from pointnet2_tpu_torch.tools import dist_step, op_bench, parity, scenes, stage_bench
 from pointnet2_tpu_torch.train import Trainer, load_model_state, restore_checkpoint, save_checkpoint
 from pointnet2_tpu_torch.train_profile import train_batch
 from pointnet2_tpu_torch.utils.bench import bound, card_line, cuda_ms, deterministic_algorithms, device_ms
@@ -2074,6 +2106,330 @@ def densify_phase(seed: int, card: str, report: Report) -> dict:
     return launches
 
 
+# The dist phase: the ranks run as subprocesses (``parallel.launch.run_ranks``),
+# each within ``DIST_TIMEOUT_S``; a rank that fails or hangs fails the phase.
+DIST_RANKS = 2
+DIST_TIMEOUT_S = 300
+DIST_GROUP_TIMEOUT_S = 240
+DIST_STATS_TOL = 1e-5  # moving statistics: atol and rtol
+# The 2-process step's gates against the one-process step: the loss's
+# relative error, a gradient measure and its limit, the statistics' error
+# as a share of the DIST_STATS_TOL limit (float64: of a 1e-6 one).
+# In float32 the processes' BatchNorm sums round otherwise than one process's
+# and ReLU flips follow, so a gradient element may move by 7e-2 of its max
+# abs (PERF.md, PR 15): the gate there is the relative L2 of every
+# gradient together, as between the JAX package and the port
+# (tests/test_torch_train.py); float64 holds every gradient to 1e-6.
+DIST_F32_TOL = {"loss": 1e-5, "grads": ("grad_rel_l2", 5e-2), "stats": 1.0}
+DIST_F64_TOL = {"loss": 1e-6, "grads": ("worst_grad_err_of_max_abs", 1e-6), "stats": 0.1}
+# The train CLI over processes is held to the one-process run at a learning
+# rate of 1e-5: at semantic.json's 1e-3 training amplifies the float32
+# rounding of the split sums by some 30 times a step (PERF.md, PR 15), and
+# that pair is measured, not gated.
+DIST_CLI_LOSS_RTOL = 1e-4
+DIST_CLI_LR = 1e-5
+DIST_SOLO_BACKEND = "nccl"  # the group of one: the only NCCL group one card can form
+# A rank of a CLI: runs its ``main`` on the arguments after the output path
+# and writes its summary there, with the kernels' launches over the run.
+CLI_RANK = (
+    "import json, sys\n"
+    "from pointnet2_tpu_torch.cli import {module}\n"
+    "from pointnet2_tpu_torch.ops import cuda\n"
+    "summary = {module}.main(sys.argv[2:])\n"
+    "summary['launches'] = dict(cuda.LAUNCHES)\n"
+    "json.dump(summary, open(sys.argv[1], 'w'), default=lambda o: o.tolist())\n"
+)
+
+
+def _dist_ranks(argv_of, world: int = DIST_RANKS) -> list[str]:
+    return run_ranks(argv_of, world, timeout=DIST_TIMEOUT_S, group_timeout=DIST_GROUP_TIMEOUT_S, cwd=ROOT)
+
+
+def _cli_ranks(module: str, out: pathlib.Path, argv: list) -> tuple[list, list]:
+    """``DIST_RANKS`` processes of the CLI ``module`` (on this card, gloo): their summaries and outputs."""
+    outputs = _dist_ranks(lambda r, c: [sys.executable, "-c", CLI_RANK.format(module=module), f"{out}.rank{r}.json",
+                                        *argv, *dist_flags(r, DIST_RANKS, c)])
+    return [json.loads(pathlib.Path(f"{out}.rank{r}.json").read_text()) for r in range(DIST_RANKS)], outputs
+
+
+def _sum_launches(*counts: dict) -> dict:
+    total: dict = {}
+    for launches in counts:
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def _two_process_steps(cfg: Config, cases: list, tmp: pathlib.Path) -> list[tuple[dict, list, dict]]:
+    """``cases`` (``tools.dist_step``) on ``DIST_RANKS`` processes of this
+    card (gloo), each on its rows of the 16-cloud batch, and in this process
+    on all of them. For each case: the gaps between the two (loss, gradients
+    of their max abs and relative L2, moving statistics of the
+    ``DIST_STATS_TOL`` limit), the ranks' records and the one-process record."""
+    spec = tmp / "step.json"
+    spec.write_text(json.dumps({"config": dataclasses.asdict(cfg), "device": DEVICE, "cases": cases}))
+    t0 = time.perf_counter()
+    _dist_ranks(dist_step.rank_argv(spec, tmp / "step", DIST_RANKS))
+    ranks_seconds = time.perf_counter() - t0
+    outs = [torch.load(tmp / f"step.rank{r}.pt")["cases"] for r in range(DIST_RANKS)]
+    results = []
+    for i, case in enumerate(cases):
+        ranks = [out[i] for out in outs]
+        ref = dist_step.run_case(cfg, case, torch.device(DEVICE))
+        for rank in ranks:
+            if rank["backend"] != "gloo" or rank["world"] != DIST_RANKS:
+                raise AssertionError(f"rank {rank['rank']} ran {rank['backend']} in a group of {rank['world']}")
+            if not all(torch.equal(v, ranks[0]["state"][k]) for k, v in rank["state"].items()):
+                raise AssertionError(f"rank {rank['rank']} holds another state than rank 0 after the step")
+        got = ranks[0]
+        stats = {k: v for k, v in ref["state"].items() if k.endswith(".mean") or k.endswith(".var")}
+        num = sum(float(((got["grads"][k].double() - v.double()) ** 2).sum()) for k, v in ref["grads"].items())
+        den = sum(float((v.double() ** 2).sum()) for v in ref["grads"].values())
+        gaps = {
+            "case": {k: v for k, v in case.items() if k != "steps"},
+            "processes": DIST_RANKS, "backend": got["backend"], "batch": cfg.batch_size,
+            "rows_a_process": cfg.batch_size // DIST_RANKS, "loss": got["losses"][0], "ref_loss": ref["losses"][0],
+            "loss_rel_err": abs(got["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0]),
+            # A bias in front of a BatchNorm has a gradient of rounding noise: those are left out.
+            "worst_grad_err_of_max_abs": max(
+                max_abs(got["grads"][k], v) / float(v.abs().max())
+                for k, v in ref["grads"].items() if float(v.abs().max()) > 1e-6
+            ),
+            "grad_rel_l2": (num / den) ** 0.5,
+            "stats_err_of_limit": max(
+                float(((got["state"][k] - v).abs() / (DIST_STATS_TOL + DIST_STATS_TOL * v.abs())).max())
+                for k, v in stats.items()
+            ),
+            "rank_first_step_ms": [r["step_ms"][0] for r in ranks], "one_process_first_step_ms": ref["step_ms"][0],
+            "ranks_seconds": ranks_seconds,
+        }
+        print(f"dist: {DIST_RANKS} processes against one: {json.dumps(gaps)}", flush=True)
+        results.append((gaps, ranks, ref))
+    return results
+
+
+def _dist_step_phase(cfg: Config, seed: int, tmp: pathlib.Path) -> tuple[dict, dict]:
+    """(a) One Adam step of 2 processes on this card (gloo), 8 rows of a 16-cloud
+    batch each, dropout on, held to the one-process step on the 16 rows here:
+    on the kernels in float32, and on the plain versions in float64;
+    (b) one step of a group of one over NCCL, bit for bit the plain Trainer step."""
+    case = dict(arch="ssg", accum_steps=1, dropout_rate=0.5, weights_seed=seed, batch_seed=seed + 300, steps=1)
+    (step, ranks, ref), (float64, _, _) = _two_process_steps(
+        cfg, [case, {**case, "dtype": "float64", "ops_impl": "torch"}], tmp
+    )
+    for rank in ranks:
+        _expect_launches(rank["launches"], step_launches(), f"rank {rank['rank']}'s train step")
+    _expect_launches(ref["launches"], step_launches(), "the one-process train step")
+    step["launches_a_rank"] = ranks[0]["launches"]
+    for what, gaps, tol in (("float32", step, DIST_F32_TOL), ("float64", float64, DIST_F64_TOL)):
+        if gaps["loss_rel_err"] > tol["loss"] or gaps[tol["grads"][0]] > tol["grads"][1] \
+                or gaps["stats_err_of_limit"] > tol["stats"]:
+            raise AssertionError(f"the {what} 2-process step is beyond its gates {tol}: {gaps}")
+
+    spec = tmp / "nccl.json"
+    spec.write_text(json.dumps({"config": dataclasses.asdict(cfg), "device": DEVICE, "backend": DIST_SOLO_BACKEND,
+                                "deterministic": True, "plain_after": True, "cases": [case]}))
+    _dist_ranks(dist_step.rank_argv(spec, tmp / "nccl", 1), world=1)
+    out = torch.load(tmp / "nccl.rank0.pt")
+    (dist_run,), (plain,) = out["cases"], out["plain"]
+    if dist_run["backend"] != DIST_SOLO_BACKEND or dist_run["world"] != 1 or plain["backend"] is not None:
+        raise AssertionError(f"the NCCL run ran {dist_run['backend']}, the plain one {plain['backend']}")
+    _expect_launches(dist_run["launches"], step_launches(), "the NCCL group of one's train step")
+    unequal = [f"{part}.{k}" for part in ("grads", "state") for k, v in plain[part].items()
+               if not torch.equal(dist_run[part][k], v)]
+    if dist_run["losses"] != plain["losses"] or not torch.equal(dist_run["confusion"], plain["confusion"]) or unequal:
+        raise AssertionError(f"the NCCL group of one differs from the plain step: losses {dist_run['losses']} vs "
+                             f"{plain['losses']}, {unequal[:5]}")
+    nccl = {"backend": DIST_SOLO_BACKEND, "world": 1, "bit_equal": True, "loss": dist_run["losses"][0],
+            "step_ms": dist_run["step_ms"][0], "plain_step_ms": plain["step_ms"][0]}
+    record = {"step": step, "step_float64": float64, "nccl_world_1": nccl}
+    return record, _sum_launches(*(r["launches"] for r in ranks), dist_run["launches"])
+
+
+def _train_pair(seed: int, tmp: pathlib.Path, name: str,
+                learning_rate: Optional[float]) -> tuple[dict, dict, pathlib.Path]:
+    """``cli.train --seed`` in this process and on ``DIST_RANKS`` processes
+    (replicated sampling) on the scenes of ``tmp``, from a copy of
+    semantic.json with ``data_path``, ``logdir``, ``max_epoch = 1`` and,
+    where given, ``learning_rate`` changed. Checks process 0's artifacts and
+    each process's launches; returns the record (the largest relative gap of
+    a step's loss among it), the processes' launches and the one-process
+    run's config path."""
+    raw_cfg = json.loads((ROOT / "semantic.json").read_text())
+    cfg_paths = {}
+    for run in ("one", "two"):
+        cfg_paths[run] = tmp / f"{name}_{run}.json"
+        cfg_paths[run].write_text(json.dumps(
+            {**raw_cfg, "data_path": str(tmp / "scenes"), "logdir": str(tmp / f"{name}_log_{run}"), "max_epoch": 1,
+             **({} if learning_rate is None else {"learning_rate": learning_rate})}
+        ))
+    one = cli_train.main(["--config_file", str(cfg_paths["one"]), "--seed", str(seed), "--device", DEVICE])
+    t0 = time.perf_counter()
+    summaries, outputs = _cli_ranks("train", tmp / name, [
+        "--config_file", str(cfg_paths["two"]), "--seed", str(seed), "--dist_sampling", "replicated",
+        "--device", DEVICE,
+    ])
+    ranks_seconds = time.perf_counter() - t0
+    (epoch,) = one["epochs"]
+    want = np.asarray(epoch["losses"])
+    steps, val_batches = epoch["train_batches"], epoch["val_batches"]
+    local_chunks = val_batches * max(1, BATCH // DIST_RANKS // CHUNK)
+    log = pathlib.Path(Config.from_json(cfg_paths["two"]).logdir)
+    text = (log / "log_train.txt").read_text()
+    if text.count("**** EPOCH 000") != 1 or "[proc" in text or "[proc 1] mean loss" not in outputs[1]:
+        raise AssertionError("the 2-process train CLI did not keep its log to process 0")
+    written = sorted(p.name for p in log.glob("*.pt"))
+    if summaries[1]["checkpoints"] or sorted(pathlib.Path(p).name for p in summaries[0]["checkpoints"]) != written \
+            or "model_autosave.pt" not in written:
+        raise AssertionError(f"the 2-process train CLI wrote {written}; process 1 {summaries[1]['checkpoints']}")
+    gaps = []
+    for summary in summaries:
+        (rank_epoch,) = summary["epochs"]
+        got = np.asarray(rank_epoch["losses"])
+        if summary["processes"] != DIST_RANKS or summary["step"] != steps or got.shape != want.shape:
+            raise AssertionError(f"a rank ran {summary['step']} steps in {summary['processes']} processes")
+        _expect_launches(summary["launches"], _sum_launches(scaled(step_launches(), steps),
+                                                            scaled(chunk_launches(), local_chunks)),
+                         f"a rank of the 2-process train CLI: {steps} steps, {local_chunks} eval chunks")
+        gaps.append(float(np.max(np.abs(got - want) / np.abs(want))))
+    record = {
+        "backend": summaries[0]["backend"], "processes": DIST_RANKS, "steps": steps,
+        "learning_rate": learning_rate or raw_cfg["learning_rate"], "losses": want.tolist(),
+        "dist_losses": summaries[0]["epochs"][0]["losses"], "largest_loss_gap": max(gaps),
+        "median_step_ms": statistics.median(epoch["step_ms"][1:]),
+        "dist_median_step_ms": [statistics.median(s["epochs"][0]["step_ms"][1:]) for s in summaries],
+        "ranks_seconds": ranks_seconds, "checkpoints": written,
+    }
+    print(f"dist: {name}, the 2-process train CLI's losses against one process's: {json.dumps(record)}", flush=True)
+    return record, _sum_launches(*(s["launches"] for s in summaries)), cfg_paths["one"]
+
+
+def _dist_cli_phase(seed: int, tmp: pathlib.Path) -> tuple[dict, dict]:
+    """(c) ``cli.train`` on 2 processes (replicated sampling, ``--seed``)
+    against the one-process run, at ``DIST_CLI_LR`` (every step's loss within
+    ``DIST_CLI_LOSS_RTOL``) and at semantic.json's learning rate (measured);
+    (d) ``cli.predict --sharded`` and on 2 processes against the one-process
+    predict CLI."""
+    (tmp / "scenes").mkdir()
+    scenes.fabricate(tmp / "scenes", seed)
+    train, train_launches, cfg_path = _train_pair(seed, tmp, "train", DIST_CLI_LR)
+    if train["largest_loss_gap"] > DIST_CLI_LOSS_RTOL:
+        raise AssertionError(f"the 2-process train CLI's losses {train['dist_losses']} part from the one-process "
+                             f"run's {train['losses']} by {train['largest_loss_gap']} relative")
+    measured, measured_launches, _ = _train_pair(seed, tmp, "train_semantic_lr", None)
+    train_launches = _sum_launches(train_launches, measured_launches)
+
+    ckpt = pathlib.Path(Config.from_json(cfg_path).logdir) / "model.pt"
+    common = ["--ckpt", str(ckpt), "--set", "validation", "--config_file", str(cfg_path),
+              "--num_samples", str(CLI_SAMPLES), "--batch_size", str(CLI_PREDICT_BATCH), "--device", DEVICE]
+    plain = cli_predict.main(common + ["--output_dir", str(tmp / "plain")])
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    sharded = cli_predict.main(common + ["--output_dir", str(tmp / "sharded"), "--sharded"])
+    sharded_launches = dict(cuda.LAUNCHES)
+    batches = len(sharded["batch_seconds"])
+    _expect_launches(sharded_launches, scaled(chunk_launches(), batches), f"predict --sharded: {batches} batches")
+    ranks, rank_outputs = _cli_ranks("predict", tmp / "predict", common + ["--output_dir", str(tmp / "two")])
+    prefixes = [pathlib.Path(labels).stem for _, labels in plain["outputs"]]
+    for prefix in prefixes:
+        want_labels = (tmp / "plain" / f"{prefix}.labels").read_bytes()
+        if (tmp / "sharded" / f"{prefix}.labels").read_bytes() != want_labels:
+            raise AssertionError(f"predict --sharded labelled {prefix} otherwise than the plain predict CLI")
+        if (tmp / "two" / f"{prefix}.labels").read_bytes() != want_labels:
+            raise AssertionError(f"the 2-process predict CLI labelled {prefix} otherwise than one process")
+    for r, rank in enumerate(ranks):
+        mine = [pathlib.Path(labels).stem for _, labels in rank["outputs"]]
+        if mine != prefixes[r::DIST_RANKS] or not np.array_equal(rank["confusion"], plain["confusion"]):
+            raise AssertionError(f"predict process {r} wrote {mine}; its gathered matrix is not the one-process one")
+        _expect_launches(rank["launches"], scaled(chunk_launches(), len(rank["batch_seconds"])),
+                         f"predict process {r}")
+    if "Confusion matrix" not in rank_outputs[0] or "Confusion matrix" in rank_outputs[1]:
+        raise AssertionError("the gathered metrics are not printed by process 0 alone")
+    predict = {
+        "sharded_devices": len(cli_mesh(DEVICE)), "labels_bit_equal": True, "confusion_exact": True,
+        "samples_per_s": plain["samples"] / sum(plain["batch_seconds"]),
+        "sharded_samples_per_s": sharded["samples"] / sum(sharded["batch_seconds"]),
+        "process_samples": [rank["samples"] for rank in ranks],
+    }
+    return ({"train_cli": train, "train_cli_semantic_lr": measured, "predict_cli": predict},
+            _sum_launches(train_launches, sharded_launches, *(r["launches"] for r in ranks)))
+
+
+def _dist_densify_phase(seed: int, tmp: pathlib.Path) -> tuple[dict, dict]:
+    """(e) ``knn_sharded`` over one and two shards of this card at the densify
+    phase's shapes, and ``cli.interpolate --engine sharded`` on its scenes."""
+    dense_sizes = (DENSE_POINTS,) + (SMALL_DENSE,) * 5
+    sparse_sizes = (SPARSE_POINTS,) + (SMALL_SPARSE,) * 5
+    for name in ("gt", "sparse"):
+        (tmp / name).mkdir()
+    scenes.fabricate_dense(tmp / "gt", tmp / "sparse", seed, "validation", dense_sizes, sparse_sizes)
+    prefix = validation_file_prefixes[0]
+    sparse = read_pcd(tmp / "sparse" / f"{prefix}.pcd").points.astype(np.float32)
+    dense = read_pcd(tmp / "gt" / f"{prefix}.pcd").points.astype(np.float32)
+    dev = torch.device(DEVICE)
+    want_d2, want_idx = ops.knn(torch.from_numpy(sparse).to(dev)[None], torch.from_numpy(dense).to(dev)[None], 3)
+    want_d2, want_idx = want_d2[0].cpu(), want_idx[0].cpu()
+    knn_rows, launches = {}, {}
+    for shards in (1, 2):
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        d2, idx = knn_sharded(sparse, dense, 3, [dev] * shards)
+        seconds = time.perf_counter() - t0
+        counted = dict(cuda.LAUNCHES)
+        _expect_launches(counted, {"knn": shards}, f"knn_sharded over {shards} shards")
+        if not (torch.equal(d2, want_d2) and torch.equal(idx, want_idx)):
+            raise AssertionError(f"knn_sharded over {shards} shards differs from ops.knn")
+        knn_rows[str(shards)] = {"bit_equal": True, "seconds": seconds}
+        launches = _sum_launches(launches, counted)
+    common = ["--set", "validation", "--sparse_dir", str(tmp / "sparse"), "--gt_dir", str(tmp / "gt"),
+              "--device", DEVICE]
+    device_run = cli_interpolate.main(common + ["--engine", "device", "--dense_dir", str(tmp / "device")])
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    sharded_run = cli_interpolate.main(common + ["--engine", "sharded", "--dense_dir", str(tmp / "sharded")])
+    counted = dict(cuda.LAUNCHES)
+    mesh = len(cli_mesh(DEVICE))
+    chunk = densify.device_chunk(3, SPARSE_POINTS, kernel=True)
+    shard_points = [-(-n // (mesh * 128)) * 128 for n in dense_sizes]  # each scene padded to mesh x 128
+    want_launches = sum(mesh * -(-points // chunk) for points in shard_points)
+    _expect_launches(counted, {"knn": want_launches}, f"cli.interpolate --engine sharded on {len(dense_sizes)} scenes")
+    for name in sharded_run["scenes"]:
+        if (tmp / "sharded" / f"{name}.labels").read_bytes() != (tmp / "device" / f"{name}.labels").read_bytes():
+            raise AssertionError(f"--engine sharded labelled {name} otherwise than --engine device")
+    interpolate = {"devices": mesh, "labels_bit_equal": True, "seconds": sharded_run["seconds"],
+                   "device_seconds": device_run["seconds"]}
+    return ({"knn_sharded": {"queries": DENSE_POINTS, "refs": SPARSE_POINTS, "k": 3, "shards": knn_rows},
+             "interpolate_sharded": interpolate}, _sum_launches(launches, counted))
+
+
+def dist_phase(cfg: Config, seed: int, card: str) -> dict:
+    """The multi-process and sharded paths (``parallel``): (a)-(b) the train
+    step over processes, (c)-(d) the train and predict CLIs over processes and
+    ``--sharded``, (e) the sharded kNN and densify. Returns the launches of the
+    distributed and sharded runs (the ranks' own counts among them), not those
+    of the one-process runs they are held to."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        tmp = pathlib.Path(tmp)
+        parts = []
+        for sub, run in (("step", lambda d: _dist_step_phase(cfg, seed, d)),
+                         ("cli", lambda d: _dist_cli_phase(seed, d)),
+                         ("densify", lambda d: _dist_densify_phase(seed, d))):
+            (tmp / sub).mkdir()
+            parts.append(run(tmp / sub))
+            torch.cuda.empty_cache()
+    launches = _sum_launches(*(counted for _, counted in parts))
+    emit({
+        "phase": "dist",
+        **{key: value for record, _ in parts for key, value in record.items()},
+        "launches": launches,
+        "phase_seconds": time.perf_counter() - t0,
+        "card": card,
+    })
+    return launches
+
+
 def _kitti_expected(frames: int, windows: bool, launches: dict) -> None:
     """Each frame: one chunk of one cloud (FPS and three_interpolate 4 times,
     the four ball queries exact or through the fused window, the four FP 3-NN
@@ -2511,6 +2867,8 @@ def main(argv=None) -> int:
     paths["op_surface"] = op_surface_phase(card)
     torch.cuda.empty_cache()
     paths["densify"] = densify_phase(SEED, card, report)
+    torch.cuda.empty_cache()
+    paths["dist"] = dist_phase(cfg, SEED, card)
     torch.cuda.empty_cache()
     paths.update(kitti_phase(SEED, card, report))
     torch.cuda.empty_cache()

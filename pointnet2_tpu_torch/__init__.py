@@ -19,6 +19,8 @@ The package mirrors the JAX package's layout and imports nothing of it:
                 pipeline: sampler threads and the pinned prefetch to the card.
 - ``cli``       the train and predict entry points
                 (``python -m pointnet2_tpu_torch.cli.train`` / ``.predict``).
+- ``parallel``  runs over processes (one a device, ``torch.distributed``)
+                and the point-sharded kNN and densify over devices.
 - ``utils``     the device and host confusion matrices; the run logger; the
                 CUDA-event timer and the bound of a kernel's work (``utils.bench``).
 - ``tools``     the parity sweep against the NumPy oracles, the op bench and

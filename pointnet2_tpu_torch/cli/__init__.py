@@ -9,8 +9,9 @@
 Each takes the JAX script's flags by the same names, and ``--device``: CUDA
 by default, which must be present (``--device cpu`` runs the plain versions
 of the operators, for tests; ``interpolate`` uses it for ``--engine device``
-only). A flag of a mode the port does not have yet raises
-``NotImplementedError`` naming the ROADMAP item that will bring it.
+and ``--engine sharded`` only). ``train`` and ``predict`` run over several
+processes with ``--dist_coordinator``, ``--dist_num_processes`` and
+``--dist_process_id`` (``parallel.multihost``: one process a device).
 """
 
 from __future__ import annotations
@@ -20,25 +21,7 @@ import argparse
 import torch
 
 from pointnet2_tpu_torch.infer import resolve_device
-
-_MULTI_PROCESS = "queue 1 item 10 (multi-process)"
-
-# Flag -> (the value that means "off", the ROADMAP item that will bring it).
-NOT_PORTED_FLAGS = {
-    "sharded": (False, _MULTI_PROCESS),
-    "dist_coordinator": (None, _MULTI_PROCESS),
-    "dist_num_processes": (None, _MULTI_PROCESS),
-    "dist_process_id": (None, _MULTI_PROCESS),
-    "dist_sampling": ("sharded", _MULTI_PROCESS),
-}
-
-
-def refuse_not_ported(flags: argparse.Namespace) -> None:
-    """Raise ``NotImplementedError`` for the first flag set to a mode not ported yet."""
-    for name, (off, item) in NOT_PORTED_FLAGS.items():
-        value = getattr(flags, name, off)
-        if value != off:
-            raise NotImplementedError(f"--{name} {value!r} is not ported yet: ROADMAP.md {item}")
+from pointnet2_tpu_torch.parallel.mesh import create_mesh
 
 
 def add_device_flag(parser: argparse.ArgumentParser) -> None:
@@ -49,6 +32,22 @@ def add_device_flag(parser: argparse.ArgumentParser) -> None:
     )
 
 
+def add_dist_flags(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument(
+        "--dist_coordinator", default=None,
+        help="host:port of process 0's rendezvous; with --dist_num_processes > 1 each process joins one "
+        "torch.distributed group and drives one device (cuda:(process id mod card count), or --device cpu)",
+    )
+    parser.add_argument("--dist_num_processes", type=int, default=None, help="the number of processes")
+    parser.add_argument("--dist_process_id", type=int, default=None, help="this process's index in [0, processes)")
+
+
 def cli_device(name: str) -> torch.device:
     """``cuda`` must be present and raises without it; any other name is taken as given."""
     return resolve_device(None if name == "cuda" else name)
+
+
+def cli_mesh(name: str) -> tuple[torch.device, ...]:
+    """The devices a sharded run splits over: for ``cuda`` every visible card
+    (raises without one), for any other name that device alone."""
+    return create_mesh() if name == "cuda" else (cli_device(name),)

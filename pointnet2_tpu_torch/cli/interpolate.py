@@ -1,9 +1,9 @@
 """Dense label propagation with the port: sparse predictions -> full raw clouds.
 
-    python -m pointnet2_tpu_torch.cli.interpolate [--set validation] [--engine auto|native|scipy|device]
+    python -m pointnet2_tpu_torch.cli.interpolate [--set validation] [--engine auto|native|scipy|device|sharded]
 
 Counterpart of the root ``interpolate.py``, with its flags by the same names,
-and ``--device`` for ``--engine device``: for each scene of ``--set`` it
+and ``--device`` for ``--engine device`` and ``sharded``: for each scene of ``--set`` it
 loads ``<sparse_dir>/<scene>.{pcd,labels}`` (what ``cli.predict`` wrote) and
 the raw dense cloud ``<gt_dir>/<scene>.pcd``, densifies the labels by a
 k-nearest majority vote (``ops.densify.densify_labels``), writes
@@ -12,7 +12,8 @@ scene's and the global confusion matrix where ``<gt_dir>/<scene>.labels``
 exists. The engine ``auto`` (the default) is the native C++ grid kNN on the
 host, or scipy where it cannot be built; ``device`` runs row 3's kNN kernel
 on the card (``--device``, CUDA by default, which must be present) and never
-falls back. ``--engine sharded`` is not ported yet (ROADMAP queue 1 item 10).
+falls back; ``sharded`` splits the dense cloud over every visible card
+(``parallel.sharded_ops``; with ``--device cpu`` over the CPU alone).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import time
 from pprint import pprint
 from typing import Optional, Sequence
 
-from pointnet2_tpu_torch.cli import add_device_flag, cli_device
+from pointnet2_tpu_torch.cli import add_device_flag, cli_device, cli_mesh
 from pointnet2_tpu_torch.data.io import load_labels, read_pcd, write_labels, write_pcd
 from pointnet2_tpu_torch.data.semantic3d import map_name_to_file_prefixes
 from pointnet2_tpu_torch.ops.densify import ENGINES, densify_labels
@@ -39,7 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--knn", type=int, default=3)
     parser.add_argument(
         "--engine", default="auto", choices=ENGINES,
-        help="auto: native, else scipy; device: row 3's kNN kernel on --device (sharded: not ported yet)",
+        help="auto: native, else scipy; device: row 3's kNN kernel on --device; sharded: the device engine "
+        "with the dense cloud split over every visible card",
     )
     add_device_flag(parser)
     return parser
@@ -50,9 +52,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     points, the engine's seconds (the host clock around ``densify_labels``,
     the labels back on the host) and the files written."""
     flags = build_parser().parse_args(argv)
-    if flags.engine == "sharded":
-        raise NotImplementedError("--engine 'sharded' is not ported yet: ROADMAP.md queue 1 item 10 (multi-process)")
     device = cli_device(flags.device) if flags.engine == "device" else None
+    mesh = cli_mesh(flags.device) if flags.engine == "sharded" else None
 
     os.makedirs(flags.dense_dir, exist_ok=True)
     cm_global = ConfusionMatrix(9)
@@ -72,7 +73,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         start = time.time()
         dense_labels, dense_colors = densify_labels(
             sparse_cloud.points, sparse_labels, dense_cloud.points, knn=flags.knn, engine=flags.engine,
-            device=device,
+            device=device, mesh=mesh,
         )
         seconds = time.time() - start
         print(f"KNN interpolation time: {seconds} seconds", flush=True)

@@ -14,6 +14,16 @@ batch's window certificate is checked and a failure aborts the run.
 ``--dtype bfloat16`` (with ``--bf16_min_width``, selectively) labels in the
 bf16 inference mode, from the same float32 checkpoint. ``--arch msg``
 labels with the multi-scale-grouping model: it must be the checkpoint's.
+
+``--sharded`` splits each batch over every visible card (``--device cpu``:
+the CPU alone), a copy of the model on each; ``--batch_size`` must divide by
+their count, and a short last batch is padded with copies of its clouds.
+With ``--dist_coordinator``, ``--dist_num_processes`` and
+``--dist_process_id`` process I of P labels the scenes ``I::P`` on its own
+device (``parallel.multihost``); every process still draws every scene's
+samples in order, so each scene gets the samples, and the labels, of a
+one-process run. The confusion matrices are gathered, and process 0 prints
+the global metrics.
 """
 
 from __future__ import annotations
@@ -24,13 +34,16 @@ import time
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
-from pointnet2_tpu_torch.cli import add_device_flag, cli_device, refuse_not_ported
+from pointnet2_tpu_torch.cli import add_device_flag, add_dist_flags, cli_device, cli_mesh
 from pointnet2_tpu_torch.config import Config
 from pointnet2_tpu_torch.data.io import write_labels, write_pcd
 from pointnet2_tpu_torch.data.semantic3d import SemanticDataset
 from pointnet2_tpu_torch.infer import Predictor, check_min_width, compute_dtype
 from pointnet2_tpu_torch.ops.calibrate import calibrate_model_windows, parse_window_arg
+from pointnet2_tpu_torch.parallel import multihost
+from pointnet2_tpu_torch.parallel.mesh import pad_batch_to_devices, shard_batch
 from pointnet2_tpu_torch.train.trainer import load_model_state
 from pointnet2_tpu_torch.utils.metrics import ConfusionMatrix
 
@@ -65,24 +78,42 @@ def build_parser() -> argparse.ArgumentParser:
         "--fp_window", type=parse_window_arg, default=None,
         help="calibrated 3-NN x-window for the FP levels (int or 'auto'); checked like --bq_window",
     )
-    parser.add_argument("--sharded", action="store_true")
-    parser.add_argument("--dist_coordinator", default=None)
-    parser.add_argument("--dist_num_processes", type=int, default=None)
-    parser.add_argument("--dist_process_id", type=int, default=None)
+    parser.add_argument(
+        "--sharded", action="store_true",
+        help="split each batch over every visible card, the model copied to each; --batch_size must divide by "
+        "their count",
+    )
+    add_dist_flags(parser)
     add_device_flag(parser)
     return parser
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Run the prediction; returns the samples labelled, each batch's seconds
-    (sampling excluded, the labels' read back included) and the files written."""
+    (sampling excluded, the labels' read back included), the files written
+    and the confusion matrix over every process's points (None for the
+    test set)."""
     np.random.seed(0)
-    flags = build_parser().parse_args(argv)
-    refuse_not_ported(flags)
+    parser = build_parser()
+    flags = parser.parse_args(argv)
     # As the JAX script's Trainer does, before anything is read.
     check_min_width(flags.bf16_min_width, "--dtype is not bfloat16", compute_dtype(flags.dtype, "dtype"))
-    device = cli_device(flags.device)
+    mesh = cli_mesh(flags.device) if flags.sharded else None
+    if mesh is not None and flags.batch_size % len(mesh):
+        parser.error(f"--sharded: batch_size {flags.batch_size} must divide by the device count {len(mesh)}")
+    nproc = flags.dist_num_processes or 1
+    device = multihost.maybe_initialize_distributed(
+        flags.dist_coordinator, flags.dist_num_processes, flags.dist_process_id, cli_device(flags.device)
+    )
+    try:
+        return _predict(flags, device, mesh)
+    finally:
+        if nproc > 1:
+            multihost.shutdown()
 
+
+def _predict(flags: argparse.Namespace, device: torch.device, mesh) -> dict:
+    nproc, pid = multihost.process_count(), multihost.process_index()
     cfg = Config.from_json(flags.config_file)
     os.makedirs(flags.output_dir, exist_ok=True)
     dataset = SemanticDataset(
@@ -90,6 +121,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         box_size_y=cfg.box_size_y, use_color=bool(cfg.use_color), path=cfg.data_path, seed=0,
     )
     if flags.bq_window == "auto" or flags.fp_window == "auto":
+        # Every process calibrates on the same samples, and so picks the same windows.
         crng = np.random.RandomState(0)
 
         def sample_xyz() -> np.ndarray:
@@ -110,18 +142,41 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         )
     checked = flags.bq_window is not None or flags.fp_window is not None
 
-    predictor = Predictor(
-        cfg, load_model_state(os.path.abspath(flags.ckpt)), num_classes=dataset.num_classes,
-        infer_chunk=8, device=device, bq_window=flags.bq_window, fp_window=flags.fp_window,
-        dtype=flags.dtype, bf16_min_width=flags.bf16_min_width, arch=flags.arch,
-    )
-    print("Model restored")
+    state = load_model_state(os.path.abspath(flags.ckpt))
+    predictors = {
+        d: Predictor(
+            cfg, state, num_classes=dataset.num_classes, infer_chunk=8, device=d, bq_window=flags.bq_window,
+            fp_window=flags.fp_window, dtype=flags.dtype, bf16_min_width=flags.bf16_min_width, arch=flags.arch,
+        )
+        for d in dict.fromkeys(mesh or (device,))
+    }
+    print("Model restored" + (f" (sharded over {len(mesh)} devices)" if mesh else ""))
+
+    def label(inputs: np.ndarray) -> tuple[np.ndarray, bool]:
+        """Labels of ``inputs`` and whether every window certificate held."""
+        if mesh is None:
+            shards, devices = [inputs], [device]
+        else:
+            # A short batch is padded with copies of its clouds; each cloud is labelled on its own.
+            rows = np.arange(pad_batch_to_devices(len(inputs), len(mesh))) % len(inputs)
+            shards, devices = shard_batch(inputs[rows], mesh), mesh
+        if checked:
+            outs = [predictors[d].predict_step_checked(x) for d, x in zip(devices, shards)]
+        else:
+            outs = [(predictors[d].predict_step(x), True) for d, x in zip(devices, shards)]  # all launched, then read
+        labels = np.concatenate([out.cpu().numpy() for out, _ in outs])[: len(inputs)]
+        return labels, all(ok for _, ok in outs)
 
     batch_size = flags.batch_size
     cm = ConfusionMatrix(dataset.num_classes)
-    summary: dict = {"samples": 0, "batch_seconds": [], "outputs": []}
-    for file_data in dataset.list_file_data:
-        print(f"Processing {file_data.file_path_without_ext}")
+    summary: dict = {"samples": 0, "batch_seconds": [], "outputs": [], "processes": nproc, "confusion": None}
+    for index, file_data in enumerate(dataset.list_file_data):
+        # Every process draws every scene's samples, so that the shared stream
+        # gives each scene what a one-process run draws for it; a process
+        # labels and writes its scenes alone.
+        mine = index % nproc == pid
+        if mine:
+            print(f"Processing {file_data.file_path_without_ext}" + (f" (process {pid})" if nproc > 1 else ""))
         points_collector: list[np.ndarray] = []
         pd_labels_collector: list[np.ndarray] = []
 
@@ -130,23 +185,21 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             centered, raw, gt_labels, colors = file_data.sample_batch(
                 batch_size=current, num_points_per_sample=cfg.num_point
             )
+            if not mine:
+                continue
             inputs = np.concatenate((centered, colors), axis=-1) if cfg.use_color else centered
             # The JAX script pads a short last batch to batch_size for its one
             # compiled shape. Not here: in eval mode each cloud is labelled on
             # its own (FPS, grouping and BatchNorm's moving statistics are per
             # cloud), so the short batch gives the labels the padded one would.
             s = time.perf_counter()
-            if checked:
-                labels, ok = predictor.predict_step_checked(inputs.astype(np.float32))
-                if not ok:
-                    raise ValueError(
-                        f"--bq_window={flags.bq_window} / --fp_window={flags.fp_window} is too small for "
-                        f"this dataset (exactness certificate failed on batch {batch_index} of "
-                        f"{file_data.file_path_without_ext}); recalibrate with --bq_window auto"
-                    )
-            else:
-                labels = predictor.predict_step(inputs.astype(np.float32))
-            pred = labels.cpu().numpy()
+            pred, ok = label(inputs.astype(np.float32))
+            if not ok:
+                raise ValueError(
+                    f"--bq_window={flags.bq_window} / --fp_window={flags.fp_window} is too small for "
+                    f"this dataset (exactness certificate failed on batch {batch_index} of "
+                    f"{file_data.file_path_without_ext}); recalibrate with --bq_window auto"
+                )
             seconds = time.perf_counter() - s
             summary["batch_seconds"].append(seconds)
             summary["samples"] += current
@@ -156,6 +209,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             pd_labels_collector.extend(pred)
             if flags.set != "test":
                 cm.increment_from_list(gt_labels.flatten(), pred.flatten())
+        if not mine:
+            continue
 
         prefix = os.path.basename(file_data.file_path_without_ext)
         pcd_path = os.path.join(flags.output_dir, prefix + ".pcd")
@@ -167,7 +222,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         summary["outputs"].append((pcd_path, labels_path))
 
     if flags.set != "test":
-        cm.print_metrics()
+        # One collective at the end: the matrix is a sum over points, so the
+        # processes' matrices add up to a one-process run's.
+        total = ConfusionMatrix(dataset.num_classes)
+        total.increment_from_matrix(multihost.allgather_host(np.asarray(cm.confusion_matrix, np.int64)).sum(axis=0))
+        summary["confusion"] = np.asarray(total.confusion_matrix)
+        if pid == 0:
+            total.print_metrics()
     return summary
 
 

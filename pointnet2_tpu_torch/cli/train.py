@@ -20,12 +20,29 @@ its epoch loop:
   (``models.PointNet2SemSegMSG``); its checkpoints load only into that arch;
 - ``--train_dtype bfloat16`` (with ``--bf16_min_width``, selectively) takes
   the train steps in the mixed-precision mode; the eval epochs run float32
-  and the checkpoints hold the float32 master weights either way.
+  and the checkpoints hold the float32 master weights either way;
+- ``--dist_coordinator HOST:PORT --dist_num_processes P --dist_process_id I``
+  runs process I of P (``parallel.multihost``: one process a device,
+  ``cuda:(I mod cards)``; NCCL where each process has a card, gloo where
+  they share one or run on the CPU). Each process steps on its rows of
+  every global batch of ``batch_size`` (which must divide by P), and every
+  process takes the same step (``Trainer``: global BatchNorm statistics,
+  dropout masks, loss denominator, gradient sums and metrics).
+  ``--dist_sampling sharded`` (the default): each process draws its
+  ``batch_size / P`` clouds with seed ``seed + 9973 * I``;
+  ``replicated``: every process draws the global batch from ``--seed``
+  (required) with one sampler thread and keeps its rows, so the batches are
+  the one-process run's. Process 0 alone writes ``log_train.txt``,
+  ``scalars.jsonl`` and checkpoints (the others log to stdout with a
+  ``[proc I]`` prefix); ``--resume`` restores the same file in every
+  process, and the processes' states are held equal bit for bit before the
+  first step; ``auto`` windows are the largest any process calibrated.
 
 Checkpoints are the port's own ``torch.save`` files (``train.save_checkpoint``):
 the JAX package's orbax directories cannot be read. Besides the JAX loop's
 log lines, each epoch logs the host's median ms a step and the median ms
-the loop waited on the prefetch; ``main`` returns them.
+the loop waited on the prefetch; ``main`` returns them, with each step's
+loss.
 """
 
 from __future__ import annotations
@@ -37,15 +54,17 @@ import time
 from datetime import datetime
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
-from pointnet2_tpu_torch.cli import add_device_flag, cli_device, refuse_not_ported
+from pointnet2_tpu_torch.cli import add_device_flag, add_dist_flags, cli_device
 from pointnet2_tpu_torch.config import Config
 from pointnet2_tpu_torch.data.pipeline import BatchProducer, device_prefetch
 from pointnet2_tpu_torch.data.semantic3d import SemanticDataset
 from pointnet2_tpu_torch.ops.calibrate import calibrate_model_windows, parse_window_arg
+from pointnet2_tpu_torch.parallel import multihost
 from pointnet2_tpu_torch.train.trainer import Trainer, restore_checkpoint, save_checkpoint
-from pointnet2_tpu_torch.utils.logging import RunLogger, update_progress
+from pointnet2_tpu_torch.utils.logging import NullLogger, RunLogger, update_progress
 from pointnet2_tpu_torch.utils.metrics import ConfusionMatrix
 
 
@@ -94,10 +113,13 @@ def build_parser() -> argparse.ArgumentParser:
         "--arch", default="ssg", choices=["ssg", "msg"],
         help="model architecture: 'ssg' (the reference flagship) or 'msg' (multi-scale grouping at SA1 and SA2)",
     )
-    parser.add_argument("--dist_coordinator", default=None)
-    parser.add_argument("--dist_num_processes", type=int, default=None)
-    parser.add_argument("--dist_process_id", type=int, default=None)
-    parser.add_argument("--dist_sampling", choices=["sharded", "replicated"], default="sharded")
+    add_dist_flags(parser)
+    parser.add_argument(
+        "--dist_sampling", choices=["sharded", "replicated"], default="sharded",
+        help="multi-process batches: 'sharded' = each process draws its batch_size/processes clouds with seed "
+        "seed + 9973 * process id; 'replicated' = every process draws the global batch from --seed (required) "
+        "with one sampler thread and keeps its rows: the one-process run's batches",
+    )
     parser.add_argument(
         "--num_workers", type=int, default=None,
         help="sampler threads (default: the CPU count; 1 with --seed)",
@@ -114,6 +136,14 @@ def _window_error(flags, what: str) -> ValueError:
     )
 
 
+def widest_windows(bq: Optional[int], fp: Optional[int]) -> tuple[Optional[int], Optional[int]]:
+    """The largest of every process's calibrated windows (None: a process's
+    windowing would not engage): every process must run the same model, and a
+    larger window certifies whatever a smaller one does. As given in one process."""
+    gathered = multihost.allgather_host(np.array([-1 if w is None else w for w in (bq, fp)], np.int64)).max(axis=0)
+    return tuple(None if w < 0 else int(w) for w in gathered)
+
+
 def _median(values: Sequence[float]) -> Optional[float]:
     return statistics.median(values) if values else None
 
@@ -123,9 +153,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     each epoch's host timings (ms a step from one step's start to the next
     one's, the last ending at the epoch's read of the device; ms waited on
     the prefetch)."""
-    flags = build_parser().parse_args(argv)
-    refuse_not_ported(flags)
+    parser = build_parser()
+    flags = parser.parse_args(argv)
     device = cli_device(flags.device)
+    if flags.dist_sampling == "replicated" and (flags.dist_num_processes or 1) > 1 and flags.seed is None:
+        parser.error("--dist_sampling replicated requires --seed (every process must draw the same global batches)")
     if flags.seed is not None:
         # One sampler thread: a seeded stream is reproducible only in the order one thread draws it.
         flags.num_workers = 1
@@ -135,22 +167,48 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         cfg = cfg.replace(max_epoch=flags.max_epoch)
     if flags.data_path is not None:
         cfg = cfg.replace(data_path=flags.data_path)
+    nproc = flags.dist_num_processes or 1
+    if cfg.batch_size % nproc:
+        parser.error(
+            f"batch_size {cfg.batch_size} must divide by the process count {nproc} "
+            "(each process feeds batch_size/num_processes samples)"
+        )
+    if nproc > 1 and (cfg.batch_size // nproc) % flags.accum_steps:
+        parser.error(f"--accum_steps {flags.accum_steps} must divide each process's batch of {cfg.batch_size // nproc}")
 
-    logger = RunLogger(cfg.logdir)
+    device = multihost.maybe_initialize_distributed(
+        flags.dist_coordinator, flags.dist_num_processes, flags.dist_process_id, device
+    )
     try:
-        return _train(flags, cfg, device, logger)
+        pid = multihost.process_index()
+        logger = RunLogger(cfg.logdir) if pid == 0 else NullLogger(pid)
+        try:
+            return _train(flags, cfg, device, logger)
+        finally:
+            logger.close()
     finally:
-        logger.close()
+        if nproc > 1:
+            multihost.shutdown()
 
 
-def _train(flags: argparse.Namespace, cfg: Config, device: torch.device, logger: RunLogger) -> dict:
+def _train(flags: argparse.Namespace, cfg: Config, device: torch.device, logger) -> dict:
     card = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    logger.log(f"device: {device} ({card})")
+    nproc, pid = multihost.process_count(), multihost.process_index()
+    is_main = pid == 0
+    logger.log(
+        f"device: {device} ({card})"
+        + (f"; {nproc} processes, backend {multihost.backend()}, sampling {flags.dist_sampling}" if nproc > 1 else "")
+    )
+    # "sharded": each process draws its own shard from a decorrelated stream;
+    # "replicated": every process draws the global batches from one seed.
+    ds_seed = flags.seed
+    if nproc > 1 and flags.dist_sampling == "sharded" and flags.seed is not None:
+        ds_seed = flags.seed + 9973 * pid
 
     def dataset(split: str) -> SemanticDataset:
         return SemanticDataset(
             num_points_per_sample=cfg.num_point, split=split, box_size_x=cfg.box_size_x,
-            box_size_y=cfg.box_size_y, use_color=bool(cfg.use_color), path=cfg.data_path, seed=flags.seed,
+            box_size_y=cfg.box_size_y, use_color=bool(cfg.use_color), path=cfg.data_path, seed=ds_seed,
         )
 
     train_ds, val_ds = dataset(flags.train_set), dataset("validation")
@@ -163,6 +221,7 @@ def _train(flags: argparse.Namespace, cfg: Config, device: torch.device, logger:
             num_batches=8,
             device=device,
         )
+        auto_bq, auto_fp = widest_windows(auto_bq, auto_fp)
         if flags.bq_window == "auto":
             flags.bq_window = auto_bq
         if flags.fp_window == "auto":
@@ -182,6 +241,7 @@ def _train(flags: argparse.Namespace, cfg: Config, device: torch.device, logger:
     if flags.resume:
         restore_checkpoint(os.path.abspath(flags.resume), trainer)
         logger.log(f"resumed from {flags.resume} at step {trainer.step}")
+    multihost.assert_replicated(trainer.model)
 
     num_train_batches = train_ds.get_num_batches(cfg.batch_size)
     num_val_batches = val_ds.get_num_batches(cfg.batch_size)
@@ -197,30 +257,43 @@ def _train(flags: argparse.Namespace, cfg: Config, device: torch.device, logger:
 
     train_workers = flags.num_workers if flags.num_workers is not None else max(os.cpu_count() or 1, 2)
     logger.log(f"sampler threads: {train_workers}")
+    # A process draws the global batch and keeps its rows ("replicated"), or
+    # draws its shard alone ("sharded"); one process draws the batch.
+    replicated = nproc > 1 and flags.dist_sampling == "replicated"
+    sample_bs = cfg.batch_size // nproc if nproc > 1 and not replicated else cfg.batch_size
+    if nproc > 1:
+        logger.log(f"sampling {flags.dist_sampling}: seed {ds_seed}, {sample_bs} clouds a draw, "
+                   f"{cfg.batch_size // nproc} rows a step")
 
     def named(batch):
         data, labels, weights = batch
-        return {"points": data, "labels": labels, "weights": weights}
+        out = {"points": data, "labels": labels, "weights": weights}
+        return multihost.local_rows(out) if replicated else out
 
     train_producer = BatchProducer(
-        lambda: named(train_ds.sample_batch_in_all_files(cfg.batch_size, True)),
+        lambda: named(train_ds.sample_batch_in_all_files(sample_bs, True)),
         max_queue=16, num_workers=train_workers,
     )
     val_producer = BatchProducer(
-        lambda: named(val_ds.sample_batch_in_all_files(cfg.batch_size, False)),
+        lambda: named(val_ds.sample_batch_in_all_files(sample_bs, False)),
         max_queue=8, num_workers=min(2, train_workers),
     )
     train_iter = device_prefetch(train_producer, device, depth=2)
     val_iter = device_prefetch(val_producer, device, depth=2)
 
-    summary: dict = {"step": trainer.step, "checkpoints": [], "epochs": [],
-                     "bq_window": flags.bq_window, "fp_window": flags.fp_window}
+    summary: dict = {"step": trainer.step, "checkpoints": [], "epochs": [], "processes": nproc,
+                     "backend": multihost.backend(), "bq_window": flags.bq_window, "fp_window": flags.fp_window}
 
     def save(name: str) -> None:
+        if not is_main:  # process 0 writes the run's checkpoints
+            return
         path = os.path.abspath(os.path.join(cfg.logdir, name))
         save_checkpoint(path, trainer)
         summary["checkpoints"].append(path)
         logger.log(f"Model saved in file: {path}")
+
+    # Every process has built its model and started its samplers before the first step's collectives.
+    multihost.barrier()
 
     best_acc = 0.0
     try:
@@ -232,7 +305,8 @@ def _train(flags: argparse.Namespace, cfg: Config, device: torch.device, logger:
             step_ms, wait_ms = [], []
             started = None
             for i in range(num_train_batches):
-                update_progress(i / max(num_train_batches, 1))
+                if is_main:
+                    update_progress(i / max(num_train_batches, 1))
                 t0 = time.perf_counter()
                 if started is not None:
                     step_ms.append((t0 - started) * 1e3)
@@ -247,8 +321,9 @@ def _train(flags: argparse.Namespace, cfg: Config, device: torch.device, logger:
                 last_metrics = metrics
             losses = torch.stack(dev_losses).cpu().numpy()  # the epoch's one wait for the device
             step_ms.append((time.perf_counter() - started) * 1e3)
-            update_progress(1.0)
-            print()
+            if is_main:
+                update_progress(1.0)
+                print()
             cm.increment_from_matrix(dev_cm)
             if dev_ok is not None and not bool(dev_ok):
                 # Some batch's windowed neighbour query left out candidates and its
@@ -269,7 +344,7 @@ def _train(flags: argparse.Namespace, cfg: Config, device: torch.device, logger:
             for c in range(1, train_ds.num_classes):
                 logger.log(f"IoU of {train_ds.labels_names[c]} : {ious[c]:f}")
             record = {"epoch": epoch, "train_batches": num_train_batches, "val_batches": 0,
-                      "step_ms": step_ms, "prefetch_wait_ms": wait_ms}
+                      "losses": losses.tolist(), "step_ms": step_ms, "prefetch_wait_ms": wait_ms}
 
             acc = best_acc
             if epoch % 5 == 0 and num_val_batches > 0:
@@ -305,7 +380,7 @@ def _train(flags: argparse.Namespace, cfg: Config, device: torch.device, logger:
         # Whatever ended the loop (the last epoch, an interrupt, an exception),
         # the latest state stays recoverable with --resume.
         try:
-            if trainer.step > 0:
+            if trainer.step > 0 and is_main:
                 save("model_autosave.pt")
                 logger.log(f"Autosaved state at step {trainer.step}")
         except Exception as e:  # never mask the original exception

@@ -41,6 +41,7 @@ from torch import nn
 from pointnet2_tpu_torch import ops
 from pointnet2_tpu_torch.config import Config
 from pointnet2_tpu_torch.nn.layers import BatchNorm, Momentum, dense
+from pointnet2_tpu_torch.parallel import multihost
 from pointnet2_tpu_torch.nn.pointnet import (
     Certificates,
     FeaturePropagation,
@@ -205,12 +206,24 @@ class PointNet2SemSeg(nn.Module):
         return dense(self.fc2, net)  # float32 logits: the input meets the float32 weights
 
     def _dropout(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-        """Zero each element with probability ``dropout_rate``, scale the rest by 1/keep."""
+        """Zero each element with probability ``dropout_rate``, scale the rest by 1/keep.
+        Under a process group of more than one rank the rows of ``x`` are this
+        rank's block of the global (micro)batch, the ranks' blocks equal in size."""
         if generator is None:
             if self._generator is None or self._generator.device != x.device:
                 self._generator = torch.Generator(device=x.device).manual_seed(0)
             generator = self._generator
-        keep = torch.rand(x.shape, generator=generator, device=x.device) >= self.dropout_rate
+        shard = multihost.data_parallel()
+        if shard is None:
+            draw = torch.rand(x.shape, generator=generator, device=x.device)
+        else:
+            # The global batch's mask, of which this rank keeps its rows: one
+            # process drawing for the whole batch draws the same.
+            rank, world = shard
+            b = x.shape[0]
+            draw = torch.rand((world * b, *x.shape[1:]), generator=generator, device=x.device)
+            draw = draw[rank * b : (rank + 1) * b]
+        keep = draw >= self.dropout_rate
         return torch.where(keep, x / (1.0 - self.dropout_rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

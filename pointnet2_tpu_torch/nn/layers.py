@@ -14,6 +14,13 @@ stages of selective mode and pick its own types for reductions: a
 its float32 weights cast to bfloat16 at use (the gradients come back to the
 float32 weights through the casts), and ``BatchNorm`` takes its statistics
 and applies them in float32 over a bfloat16 input, and casts its output back.
+
+Under a process group of more than one rank (``parallel.multihost``) a
+train-mode ``BatchNorm`` takes its statistics over the global batch, as the
+JAX step does over its mesh-sharded batch: each rank's sums, sums of
+squares and row count are summed over the ranks, differentiably (the
+backward sums the cotangents over the ranks), and every rank's moving
+statistics advance identically.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pointnet2_tpu_torch.parallel import multihost
 
 Momentum = Union[float, torch.Tensor]
 
@@ -55,8 +63,11 @@ class BatchNorm(nn.Module):
             if momentum is None:
                 raise ValueError("BatchNorm in train mode needs the momentum of this step")
             axes = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=axes)
-            var = (x * x).mean(dim=axes) - mean * mean
+            if multihost.data_parallel() is None:
+                mean = x.mean(dim=axes)
+                var = (x * x).mean(dim=axes) - mean * mean
+            else:
+                mean, var = _global_moments(x, axes)
             with torch.no_grad():
                 self.mean.copy_(self.mean * momentum + mean * (1.0 - momentum))
                 self.var.copy_(self.var * momentum + var * (1.0 - momentum))
@@ -64,6 +75,15 @@ class BatchNorm(nn.Module):
             mean, var = self.mean, self.var
         inv = torch.rsqrt(var + self.epsilon) * self.scale
         return ((x - mean) * inv + self.bias).to(dtype)
+
+
+def _global_moments(x: torch.Tensor, axes: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean and ``mean(x²) − mean(x)²`` over ``axes`` of the batch of every rank."""
+    c = x.shape[-1]
+    rows = x.new_full((1,), x.numel() // c)
+    sums = multihost.all_reduce_sum(torch.cat([x.sum(dim=axes), (x * x).sum(dim=axes), rows]))
+    mean = sums[:c] / sums[2 * c]
+    return mean, sums[c : 2 * c] / sums[2 * c] - mean * mean
 
 
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:

@@ -19,7 +19,9 @@ Engines of ``densify_labels``:
   color lookup in PyTorch on the device (the JAX package computes them
   outside any Pallas kernel as well). It never falls back: a CUDA failure
   raises;
-- ``sharded`` is not ported: ROADMAP queue 1 item 10.
+- ``sharded``: the device engine with the dense cloud split over the
+  devices of a mesh (``parallel.sharded_ops.densify_labels_sharded``; by
+  default every visible card).
 
 The device engine's plain version is the same function with
 ``impl="torch"`` (``ops.core.knn``), which sorts a (queries, sparse) matrix
@@ -28,7 +30,7 @@ and so takes the dense cloud in chunks of ``PLAIN_PAIRS`` pairs.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -97,6 +99,7 @@ def densify_labels_device(
     knn: int = 3,
     device: Optional[str | torch.device] = None,
     impl: Optional[str] = None,
+    chunk: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Densification on ``device``: (labels (N,) int32, colors (N, 3) uint8) there.
 
@@ -104,7 +107,8 @@ def densify_labels_device(
     ``dense_points`` (N, 3) are tensors or arrays; what is not on ``device``
     goes there, the dense cloud a chunk at a time. ``device=None`` means CUDA,
     which must be present. ``impl`` goes to ``ops.knn``: None runs row 3's
-    kernel on a CUDA device, ``"torch"`` the plain version.
+    kernel on a CUDA device, ``"torch"`` the plain version. ``chunk``: dense
+    points a kNN call (default ``device_chunk``).
     """
     dev = resolve_device(device)
     sparse = torch.as_tensor(sparse_points).to(dev, torch.float32).contiguous()
@@ -115,7 +119,7 @@ def densify_labels_device(
         raise ValueError(f"densify needs a non-empty sparse cloud with a label a point, got {m} points, "
                          f"{labels.shape[0]} labels")
     k = int(min(knn, m))
-    step = device_chunk(k, m, ops._use_kernel(impl, sparse) and sparse.is_cuda)
+    step = chunk or device_chunk(k, m, ops._use_kernel(impl, sparse) and sparse.is_cuda)
     out = torch.empty(n, dtype=torch.int32, device=dev)
     for start in range(0, n, step):
         chunk = dense[start : start + step].to(dev, torch.float32).contiguous()
@@ -132,18 +136,16 @@ def densify_labels(
     knn: int = 3,
     engine: str = "auto",
     device: Optional[str | torch.device] = None,
+    mesh: Optional[Sequence[str | torch.device]] = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Returns (dense_labels (N,) int32, dense_colors (N, 3) uint8) on the host.
 
     ``knn`` is clamped to the sparse count. ``device`` is the ``device``
-    engine's (None: CUDA, which must be present).
+    engine's (None: CUDA, which must be present); ``mesh`` the ``sharded``
+    engine's devices (None: every visible card).
     """
     if engine not in ENGINES:
         raise ValueError(f"unknown densify engine {engine!r}, expected one of {ENGINES}")
-    if engine == "sharded":
-        raise NotImplementedError(
-            "the sharded densify engine is not ported yet: ROADMAP.md queue 1 item 10 (multi-process)"
-        )
     sparse_points = np.ascontiguousarray(sparse_points, np.float32)
     sparse_labels = np.ascontiguousarray(sparse_labels, np.int32)
     dense_points = np.ascontiguousarray(dense_points, np.float32)
@@ -158,6 +160,12 @@ def densify_labels(
 
     if engine == "device":
         labels = densify_labels_device(sparse_points, sparse_labels, dense_points, knn, device)[0].cpu().numpy()
+        return labels, LABEL_COLORS_UINT8[labels]
+
+    if engine == "sharded":
+        from pointnet2_tpu_torch.parallel.sharded_ops import densify_labels_sharded
+
+        labels = densify_labels_sharded(sparse_points, sparse_labels, dense_points, knn, mesh)
         return labels, LABEL_COLORS_UINT8[labels]
 
     from scipy.spatial import cKDTree

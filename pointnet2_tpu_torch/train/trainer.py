@@ -26,6 +26,14 @@ Counterpart of ``pointnet2_tpu/train/trainer.py``:
   carries one index set a grouping scale at MSG's dense levels;
 - ``eval_step`` is the chunked eval forward of ``infer`` plus loss and counts
   (``:528-548``);
+- under a process group (``parallel.multihost``: one process a device) a
+  step takes this rank's block of the global batch, with the global batch's
+  BatchNorm statistics and dropout masks (``nn.layers``, the model's head),
+  the loss over the global count of non-zero weights, the gradients summed
+  over the ranks before the update and the global metrics: every rank takes
+  the one-process step on the global batch, as the JAX step does on a batch
+  sharded over processes (root ``train.py:353-364``); the eval step's
+  metrics are global too;
 - with calibrated windows (``bq_window``, ``fp_window``) every step and eval
   step also reports ``window_ok``, the AND of the step's certificates;
   ``predict_step_checked`` and ``check_bq_window`` run the eval forward and
@@ -69,6 +77,7 @@ from pointnet2_tpu_torch.models.pointnet2_seg import (
     weighted_ce_sum,
 )
 from pointnet2_tpu_torch.nn.fold import fold_batch_norm
+from pointnet2_tpu_torch.parallel import multihost
 from pointnet2_tpu_torch.utils.metrics import confusion_matrix
 
 
@@ -252,31 +261,52 @@ class Trainer:
         Returns ``loss``, ``accuracy`` and ``confusion`` as tensors on the
         device, and the step's ``learning_rate`` and ``bn_decay`` as floats;
         with windows also ``window_ok``, a 0-d bool tensor on the device.
+
+        Under a process group (``parallel.multihost``) ``batch`` is this
+        rank's block of the global batch, every rank's the same size: the loss
+        is divided by the global count of non-zero weights, the gradients are
+        summed over the ranks before the update, and the metrics are the
+        global batch's, so every rank takes the one-process step on the
+        global batch.
         """
         points, labels, weights = self._to_device(batch)
         if generator is None and self.dropout_seed is not None:
             generator = step_generator(self.dropout_seed, self.step, self.device)
         lr = self.lr_schedule(self.step)
         bn_momentum = self.bn_schedule(self.step)
+        distributed = multihost.active()
         self.train_model.train()
         self.optimizer.zero_grad(set_to_none=True)
         certificates: list = []
         if self.accum_steps > 1:
-            metrics, bn_momentum = self._accumulate(
+            sums, bn_momentum = self._accumulate(
                 points, labels, weights, bn_momentum, generator, certificates
             )
+            sums["ok"] = all_ok(certificates, self.device)
+            if distributed:
+                sums = _reduce_sums(sums)
+            self._finish_gradients(distributed, sums["nonzero"].clamp_min(1.0))
+            metrics = _metrics_of(sums)
         else:
             logits = self.train_model(
                 points, bn_momentum=bn_momentum, generator=generator, certificates=certificates
             )
-            loss = weighted_ce_loss(logits, labels, weights)
-            loss.backward()
-            preds = logits.detach().argmax(dim=-1)
-            metrics = {
-                "loss": loss.detach(),
-                "accuracy": (preds == labels).float().mean(),
-                "confusion": confusion_matrix(labels, preds, self.num_classes),
-            }
+            if distributed:
+                ce, nonzero = weighted_ce_sum(logits, labels, weights)
+                (ce / multihost.all_reduce_(nonzero.clone()).clamp_min(1.0)).backward()
+                sums = _reduce_sums(_step_sums(logits, labels, ce, nonzero, self.num_classes, certificates))
+                self._finish_gradients(distributed)
+                metrics = _metrics_of(sums)
+            else:
+                loss = weighted_ce_loss(logits, labels, weights)
+                loss.backward()
+                preds = logits.detach().argmax(dim=-1)
+                sums = {"ok": all_ok(certificates, self.device)}
+                metrics = {
+                    "loss": loss.detach(),
+                    "accuracy": (preds == labels).float().mean(),
+                    "confusion": confusion_matrix(labels, preds, self.num_classes),
+                }
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
@@ -284,14 +314,27 @@ class Trainer:
         metrics["learning_rate"] = lr
         metrics["bn_decay"] = bn_momentum
         if self.windows_on:
-            metrics["window_ok"] = all_ok(certificates, self.device)
+            metrics["window_ok"] = sums["ok"]
         return metrics
 
+    def _finish_gradients(self, distributed: bool, denom: Optional[torch.Tensor] = None) -> None:
+        """Sum ``.grad`` over the ranks (one collective of every gradient,
+        flattened) and divide it by ``denom``, where given."""
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        if distributed:
+            flat = multihost.all_reduce_(torch.cat([g.reshape(-1) for g in grads]))
+            for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+                g.copy_(part.view_as(g))
+        if denom is not None:
+            for g in grads:
+                g.div_(denom)
+
     def _accumulate(self, points, labels, weights, bn_momentum, generator, certificates):
-        """Forward and backward over the strided microbatches; leaves the
-        normalised gradient sum in ``.grad``. Returns the metrics and the
-        momentum each microbatch's BatchNorm was given; the window
-        certificates go to ``certificates`` (the hoisted geometry's as one)."""
+        """Forward and backward over the strided microbatches; leaves the sum
+        of the microbatches' unnormalised gradients in ``.grad``. Returns this
+        batch's sums (``_step_sums``) and the momentum each microbatch's
+        BatchNorm was given; the window certificates go to ``certificates``
+        (the hoisted geometry's as one)."""
         g = self.accum_steps
         b, n = labels.shape
         if b % g:
@@ -330,16 +373,9 @@ class Trainer:
             nonzero_sum += nonzero
             correct += (preds == labels[j::g]).sum()
             confusion += confusion_matrix(labels[j::g], preds, self.num_classes)
-        denom = nonzero_sum.clamp_min(1.0)
-        for p in self.model.parameters():
-            if p.grad is not None:
-                p.grad.div_(denom)
-        metrics = {
-            "loss": ce_sum / denom,
-            "accuracy": correct / float(b * n),
-            "confusion": confusion,
-        }
-        return metrics, bn_momentum
+        sums = {"ce": ce_sum, "nonzero": nonzero_sum, "correct": correct, "points": float(b * n),
+                "confusion": confusion}
+        return sums, bn_momentum
 
     def infer_forward(self):
         """The eval forward as ``chunked_logits`` calls it: ``infer_model`` in
@@ -353,19 +389,27 @@ class Trainer:
 
     def eval_step(self, batch: Mapping) -> dict:
         """Eval-mode forward in chunks of ``infer_chunk`` clouds: loss, accuracy,
-        confusion, preds, and with windows ``window_ok``."""
+        confusion, preds, and with windows ``window_ok``. Under a process group
+        the loss, accuracy, confusion and ``window_ok`` are the global batch's
+        (each rank's ``preds`` its own rows)."""
         points, labels, weights = self._to_device(batch)
         certificates: list = []
         logits = chunked_logits(self.infer_forward(), points, self.infer_chunk, certificates)
         preds = logits.argmax(dim=-1)
-        metrics = {
-            "loss": weighted_ce_loss(logits, labels, weights),
-            "accuracy": (preds == labels).float().mean(),
-            "confusion": confusion_matrix(labels, preds, self.num_classes),
-            "preds": preds,
-        }
+        if multihost.active():
+            ce, nonzero = weighted_ce_sum(logits, labels, weights)
+            sums = _reduce_sums(_step_sums(logits, labels, ce, nonzero, self.num_classes, certificates))
+            metrics = _metrics_of(sums)
+        else:
+            sums = {"ok": all_ok(certificates, self.device)}
+            metrics = {
+                "loss": weighted_ce_loss(logits, labels, weights),
+                "accuracy": (preds == labels).float().mean(),
+                "confusion": confusion_matrix(labels, preds, self.num_classes),
+            }
+        metrics["preds"] = preds
         if self.windows_on:
-            metrics["window_ok"] = all_ok(certificates, self.device)
+            metrics["window_ok"] = sums["ok"]
         return metrics
 
     def predict_step_checked(self, points) -> tuple[torch.Tensor, torch.Tensor]:
@@ -386,6 +430,41 @@ class Trainer:
         certificates: list = []
         chunked_logits(self.infer_forward(), x, 0, certificates)
         return bool(all_ok(certificates, self.device))
+
+
+def _step_sums(logits, labels, ce, nonzero, num_classes: int, certificates: list) -> dict:
+    """A batch's sums from its logits: the weighted cross entropy and the
+    count of non-zero weights (``weighted_ce_sum``), correct points, points,
+    the confusion matrix and the AND of the window certificates."""
+    preds = logits.detach().argmax(dim=-1)
+    return {"ce": ce.detach(), "nonzero": nonzero, "correct": (preds == labels).sum().float(),
+            "points": float(labels.numel()), "confusion": confusion_matrix(labels, preds, num_classes),
+            "ok": all_ok(certificates, logits.device)}
+
+
+def _metrics_of(sums: dict) -> dict:
+    """The loss (the weighted cross entropy over the count of non-zero
+    weights), accuracy and confusion of a batch's sums."""
+    return {"loss": sums["ce"] / sums["nonzero"].clamp_min(1.0), "accuracy": sums["correct"] / sums["points"],
+            "confusion": sums["confusion"]}
+
+
+def _reduce_sums(sums: dict) -> dict:
+    """``_step_sums`` summed over the ranks in one float64 collective (the
+    counts are exact there; ``ok`` becomes the AND over the ranks); the
+    float sums come back float32, the confusion int64."""
+    confusion = sums["confusion"]
+    scalars = [sums["ce"], sums["nonzero"], sums["correct"]]
+    flat = torch.cat([
+        torch.stack([t.double() for t in scalars]),
+        torch.tensor([sums["points"]], dtype=torch.float64, device=confusion.device),
+        (~sums["ok"]).double().reshape(1),
+        confusion.double().reshape(-1),
+    ])
+    flat = multihost.all_reduce_(flat)
+    ce, nonzero, correct, points, not_ok = flat[:5].float()
+    return {"ce": ce, "nonzero": nonzero, "correct": correct, "points": points,
+            "confusion": flat[5:].to(torch.int64).reshape(confusion.shape), "ok": not_ok == 0}
 
 
 def _micro(leaf, j: int, g: int):

@@ -6,8 +6,8 @@ the small widths of ``tests/test_predict_cli.py``: 512 points, batch 2, SA
 
 - The train CLI: its log, scalars and checkpoints; ``--resume`` continuing
   the step; ``--bq_window auto``; the abort on a failed window certificate;
-  the refusal of every flag of a mode not ported, naming its ROADMAP item;
-  CUDA as the default device.
+  CUDA as the default device (the multi-process and sharded modes are
+  ``tests/test_torch_dist_cli.py``'s).
 - The predict CLI against the root ``predict.py``, both run once on the same
   validation scenes from the same weights: the JAX side saves its
   ``init_state`` with orbax, the port gets the same variables through
@@ -28,7 +28,6 @@ import numpy as np
 import pytest
 import torch
 
-from pointnet2_tpu_torch.cli import NOT_PORTED_FLAGS
 from pointnet2_tpu_torch.cli import predict as cli_predict
 from pointnet2_tpu_torch.cli import train as cli_train
 from pointnet2_tpu_torch.config import Config
@@ -139,29 +138,7 @@ def test_train_cli_aborts_on_a_failed_certificate(scenes, tmp_path, monkeypatch,
     assert "Autosaved state" in (tmp_path / "log" / "log_train.txt").read_text()
 
 
-_REFUSED = {
-    "train": [("--dist_coordinator", "localhost:1234", "item 10"),
-              ("--dist_num_processes", "2", "item 10"), ("--dist_process_id", "1", "item 10"),
-              ("--dist_sampling", "replicated", "item 10")],
-    "predict": [("--sharded", None, "item 10"),
-                ("--dist_coordinator", "localhost:1234", "item 10"), ("--dist_num_processes", "2", "item 10"),
-                ("--dist_process_id", "1", "item 10")],
-}
 _MAINS = {"train": cli_train.main, "predict": cli_predict.main}
-
-
-@pytest.mark.parametrize("cli,flag,value,item", [(cli, *case) for cli, cases in _REFUSED.items() for case in cases])
-def test_cli_refuses_a_flag_not_ported_naming_its_item(cli, flag, value, item):
-    argv = ["--device", "cpu", flag] + ([] if value is None else [value])
-    if cli == "predict":
-        argv += ["--ckpt", "unused.pt"]
-    with pytest.raises(NotImplementedError, match=f"{flag}.*ROADMAP.md queue 1 {item} "):
-        _MAINS[cli](argv)
-
-
-def test_every_refused_flag_is_tested():
-    tested = {flag.lstrip("-") for cases in _REFUSED.values() for flag, _, _ in cases}
-    assert tested == set(NOT_PORTED_FLAGS)
 
 
 @pytest.mark.parametrize("cli", ["train", "predict"])

@@ -1,7 +1,7 @@
 """The port's densification against the JAX package's and the NumPy oracle, on the CPU.
 
 Every engine the CPU has (``scipy``, ``native``, ``device`` on the plain
-path, ``auto``) must give ``pointnet2_tpu.ops.densify.densify_labels``'s
+path, ``auto``, ``sharded`` over CPU shards) must give ``pointnet2_tpu.ops.densify.densify_labels``'s
 labels and ``reference.densify_labels_np``'s, exactly: labels are integers
 and the inputs hold no distance ties, so any difference is a fault. The
 JAX side runs its ``scipy`` and ``device`` engines only: its ``native``
@@ -25,7 +25,8 @@ from pointnet2_tpu_torch.ops import densify
 from pointnet2_tpu_torch.ops.densify import densify_labels, densify_labels_device
 from pointnet2_tpu_torch.utils import colors
 
-ENGINES = ["scipy", "native", "device", "auto"]
+ENGINES = ["scipy", "native", "device", "auto", "sharded"]
+SHARDS = ("cpu",) * 3  # the sharded engine's mesh: three shards, the dense cloud padded to 384 a shard
 
 
 def _problem(seed, ns=300, nd=1000):
@@ -37,7 +38,8 @@ def _problem(seed, ns=300, nd=1000):
 
 
 def _port(engine, sparse, labels, dense, knn):
-    return densify_labels(sparse, labels, dense, knn=knn, engine=engine, device="cpu")
+    return densify_labels(sparse, labels, dense, knn=knn, engine=engine, device="cpu",
+                          mesh=SHARDS if engine == "sharded" else None)
 
 
 @pytest.mark.parametrize("knn", [1, 3, 5])
@@ -117,9 +119,17 @@ def test_colors_equal_the_jax_table():
         colors.colorize_point_cloud(pts, labels[:2])
 
 
-def test_sharded_engine_names_its_item_and_unknown_engines_raise():
+def test_sharded_engine_names_its_item_and_unknown_engines_raise(monkeypatch):
+    """The sharded engine answers with the device engine's labels, over any
+    mesh; its default mesh is every visible card, and raises without one."""
     sparse, labels, dense = _problem(3, ns=20, nd=20)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
+    want = densify_labels(sparse, labels, dense, engine="device", device="cpu")
+    for mesh in (("cpu",), ("cpu",) * 2, ("cpu",) * 8):
+        got = densify_labels(sparse, labels, dense, engine="sharded", mesh=mesh)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device is visible"):
         densify_labels(sparse, labels, dense, engine="sharded")
     with pytest.raises(ValueError, match="unknown densify engine"):
         densify_labels(sparse, labels, dense, engine="gpu")
@@ -286,8 +296,9 @@ def test_interpolate_cli_writes_the_root_scripts_files_and_metrics(both_interpol
 def test_interpolate_cli_refuses_sharded_and_needs_cuda_for_the_device_engine(monkeypatch):
     from pointnet2_tpu_torch.cli import interpolate as cli_interpolate
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
-        cli_interpolate.main(["--engine", "sharded"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # --engine sharded answers over every visible card, and there is none here.
+    with pytest.raises(RuntimeError, match="no CUDA device is visible"):
+        cli_interpolate.main(["--engine", "sharded"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_interpolate.main(["--engine", "device"])
