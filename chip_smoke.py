@@ -196,13 +196,15 @@ non-zero and prints no result):
    each process a subprocess started by ``parallel.launch.run_ranks`` within
    ``DIST_TIMEOUT_S`` (a rank that fails or hangs fails the phase):
    (a) ``tools.dist_step`` on 2 processes of this card (gloo), 8 rows each of
-   one seeded 16 x 8192 x 6 batch, dropout on, one Adam step, against the
+   a seeded 16 x 8192 x 6 batch, dropout on, one Adam step, against the
    one-process step on the 16 rows in this process: on the kernels in
-   float32 (loss within 1e-5 relative, moving statistics within atol + rtol
-   1e-5, the gradients' relative L2 within 5e-2, each process's launches
-   ``step_launches()``, both processes' states equal bit for bit) and on the
-   plain versions in float64 (loss 1e-6, every gradient within 1e-6 of its
-   max abs, statistics a tenth of the float32 limit); (b) a group of one over
+   float32 on 3 batches (loss within 1e-5 relative, moving statistics within
+   atol + rtol 1e-5, the gradients' relative L2 within 5e-2, each process's
+   launches ``step_launches()``, both processes' states equal bit for bit),
+   once more with each process's BatchNorm on its own rows, a control that
+   the gradient gate must refuse, and on the plain versions in float64
+   (loss 1e-6, every gradient within 1e-6 of its max abs, statistics a
+   tenth of the float32 limit); (b) a group of one over
    NCCL, under deterministic algorithms, bit for bit the plain ``Trainer``
    step taken after it in the same process; (c) ``cli.train`` on 2 processes
    (``--dist_sampling replicated --seed 0``) on the ``cli`` phase's scenes,
@@ -213,7 +215,8 @@ non-zero and prints no result):
    measured; (d) ``cli.predict --sharded`` (every visible card) and
    ``cli.predict`` on 2 processes against the one-process predict CLI:
    every ``.labels`` file equal byte for byte, the gathered confusion matrix
-   exact, process 0 alone printing it; (e) ``parallel.knn_sharded`` over
+   exact, process 0 alone printing it, and the samples a second over each
+   run's scene loop, sampling included; (e) ``parallel.knn_sharded`` over
    ``[cuda:0]`` and ``[cuda:0, cuda:0]`` on the densify phase's first scene,
    bit for bit ``ops.knn`` with row 3 once a shard, and ``cli.interpolate
    --engine sharded`` on the densify phase's scenes, the ``--engine
@@ -316,7 +319,7 @@ from pointnet2_tpu_torch.ops.cuda import fps as cuda_fps
 from pointnet2_tpu_torch.ops.cuda import interpolate as cuda_interp
 from pointnet2_tpu_torch.ops.cuda import wingather as cuda_gather
 from pointnet2_tpu_torch.parallel import knn_sharded
-from pointnet2_tpu_torch.parallel.launch import dist_flags, run_ranks
+from pointnet2_tpu_torch.parallel.launch import run_ranks
 from pointnet2_tpu_torch.tools import export_model as export_cli
 from pointnet2_tpu_torch.tools import dist_step, op_bench, parity, scenes, stage_bench
 from pointnet2_tpu_torch.train import Trainer, load_model_state, restore_checkpoint, save_checkpoint
@@ -2118,10 +2121,14 @@ DIST_STATS_TOL = 1e-5  # moving statistics: atol and rtol
 # In float32 the processes' BatchNorm sums round otherwise than one process's
 # and ReLU flips follow, so a gradient element may move by 7e-2 of its max
 # abs (PERF.md, PR 15): the gate there is the relative L2 of every
-# gradient together, as between the JAX package and the port
-# (tests/test_torch_train.py); float64 holds every gradient to 1e-6.
+# gradient together, its limit set between the sound steps' readings on
+# DIST_F32_BATCHES batches and the DIST_CONTROL step's (each rank's
+# BatchNorm on its own rows), which must exceed it; float64 holds every
+# gradient to 1e-6.
 DIST_F32_TOL = {"loss": 1e-5, "grads": ("grad_rel_l2", 5e-2), "stats": 1.0}
 DIST_F64_TOL = {"loss": 1e-6, "grads": ("worst_grad_err_of_max_abs", 1e-6), "stats": 0.1}
+DIST_F32_BATCHES = 3
+DIST_CONTROL = "rank_batch_norm"
 # The train CLI over processes is held to the one-process run at a learning
 # rate of 1e-5: at semantic.json's 1e-3 training amplifies the float32
 # rounding of the split sums by some 30 times a step (PERF.md, PR 15), and
@@ -2129,16 +2136,6 @@ DIST_F64_TOL = {"loss": 1e-6, "grads": ("worst_grad_err_of_max_abs", 1e-6), "sta
 DIST_CLI_LOSS_RTOL = 1e-4
 DIST_CLI_LR = 1e-5
 DIST_SOLO_BACKEND = "nccl"  # the group of one: the only NCCL group one card can form
-# A rank of a CLI: runs its ``main`` on the arguments after the output path
-# and writes its summary there, with the kernels' launches over the run.
-CLI_RANK = (
-    "import json, sys\n"
-    "from pointnet2_tpu_torch.cli import {module}\n"
-    "from pointnet2_tpu_torch.ops import cuda\n"
-    "summary = {module}.main(sys.argv[2:])\n"
-    "summary['launches'] = dict(cuda.LAUNCHES)\n"
-    "json.dump(summary, open(sys.argv[1], 'w'), default=lambda o: o.tolist())\n"
-)
 
 
 def _dist_ranks(argv_of, world: int = DIST_RANKS) -> list[str]:
@@ -2147,9 +2144,8 @@ def _dist_ranks(argv_of, world: int = DIST_RANKS) -> list[str]:
 
 def _cli_ranks(module: str, out: pathlib.Path, argv: list) -> tuple[list, list]:
     """``DIST_RANKS`` processes of the CLI ``module`` (on this card, gloo): their summaries and outputs."""
-    outputs = _dist_ranks(lambda r, c: [sys.executable, "-c", CLI_RANK.format(module=module), f"{out}.rank{r}.json",
-                                        *argv, *dist_flags(r, DIST_RANKS, c)])
-    return [json.loads(pathlib.Path(f"{out}.rank{r}.json").read_text()) for r in range(DIST_RANKS)], outputs
+    return dist_step.run_cli_ranks(module, out, argv, DIST_RANKS, timeout=DIST_TIMEOUT_S,
+                                   group_timeout=DIST_GROUP_TIMEOUT_S, cwd=ROOT)
 
 
 def _sum_launches(*counts: dict) -> dict:
@@ -2179,7 +2175,8 @@ def _two_process_steps(cfg: Config, cases: list, tmp: pathlib.Path) -> list[tupl
         for rank in ranks:
             if rank["backend"] != "gloo" or rank["world"] != DIST_RANKS:
                 raise AssertionError(f"rank {rank['rank']} ran {rank['backend']} in a group of {rank['world']}")
-            if not all(torch.equal(v, ranks[0]["state"][k]) for k, v in rank["state"].items()):
+            if case.get("control") is None and not all(
+                    torch.equal(v, ranks[0]["state"][k]) for k, v in rank["state"].items()):
                 raise AssertionError(f"rank {rank['rank']} holds another state than rank 0 after the step")
         got = ranks[0]
         stats = {k: v for k, v in ref["state"].items() if k.endswith(".mean") or k.endswith(".var")}
@@ -2211,20 +2208,30 @@ def _two_process_steps(cfg: Config, cases: list, tmp: pathlib.Path) -> list[tupl
 def _dist_step_phase(cfg: Config, seed: int, tmp: pathlib.Path) -> tuple[dict, dict]:
     """(a) One Adam step of 2 processes on this card (gloo), 8 rows of a 16-cloud
     batch each, dropout on, held to the one-process step on the 16 rows here:
-    on the kernels in float32, and on the plain versions in float64;
-    (b) one step of a group of one over NCCL, bit for bit the plain Trainer step."""
+    on the kernels in float32 on ``DIST_F32_BATCHES`` batches, then the
+    ``DIST_CONTROL`` step, which the float32 gradient gate must refuse, and on
+    the plain versions in float64; (b) one step of a group of one over NCCL,
+    bit for bit the plain Trainer step."""
     case = dict(arch="ssg", accum_steps=1, dropout_rate=0.5, weights_seed=seed, batch_seed=seed + 300, steps=1)
-    (step, ranks, ref), (float64, _, _) = _two_process_steps(
-        cfg, [case, {**case, "dtype": "float64", "ops_impl": "torch"}], tmp
+    sound = [{**case, "batch_seed": case["batch_seed"] + i} for i in range(DIST_F32_BATCHES)]
+    *steps, control, (float64, _, _) = _two_process_steps(
+        cfg, [*sound, {**case, "control": DIST_CONTROL}, {**case, "dtype": "float64", "ops_impl": "torch"}], tmp
     )
-    for rank in ranks:
-        _expect_launches(rank["launches"], step_launches(), f"rank {rank['rank']}'s train step")
-    _expect_launches(ref["launches"], step_launches(), "the one-process train step")
-    step["launches_a_rank"] = ranks[0]["launches"]
-    for what, gaps, tol in (("float32", step, DIST_F32_TOL), ("float64", float64, DIST_F64_TOL)):
+    for _, ranks, ref in [*steps, control]:
+        for rank in ranks:
+            _expect_launches(rank["launches"], step_launches(), f"rank {rank['rank']}'s train step")
+        _expect_launches(ref["launches"], step_launches(), "the one-process train step")
+    steps[0][0]["launches_a_rank"] = steps[0][1][0]["launches"]
+    for what, gaps, tol in [("float32", gaps, DIST_F32_TOL) for gaps, _, _ in steps] + [
+            ("float64", float64, DIST_F64_TOL)]:
         if gaps["loss_rel_err"] > tol["loss"] or gaps[tol["grads"][0]] > tol["grads"][1] \
                 or gaps["stats_err_of_limit"] > tol["stats"]:
             raise AssertionError(f"the {what} 2-process step is beyond its gates {tol}: {gaps}")
+    measure, limit = DIST_F32_TOL["grads"]
+    if control[0][measure] <= limit:
+        raise AssertionError(f"the float32 gradient gate ({measure} <= {limit}) passes the {DIST_CONTROL} "
+                             f"control: {control[0]}")
+    launches = _sum_launches(*(r["launches"] for _, ranks, _ in [*steps, control] for r in ranks))
 
     spec = tmp / "nccl.json"
     spec.write_text(json.dumps({"config": dataclasses.asdict(cfg), "device": DEVICE, "backend": DIST_SOLO_BACKEND,
@@ -2242,8 +2249,9 @@ def _dist_step_phase(cfg: Config, seed: int, tmp: pathlib.Path) -> tuple[dict, d
                              f"{plain['losses']}, {unequal[:5]}")
     nccl = {"backend": DIST_SOLO_BACKEND, "world": 1, "bit_equal": True, "loss": dist_run["losses"][0],
             "step_ms": dist_run["step_ms"][0], "plain_step_ms": plain["step_ms"][0]}
-    record = {"step": step, "step_float64": float64, "nccl_world_1": nccl}
-    return record, _sum_launches(*(r["launches"] for r in ranks), dist_run["launches"])
+    record = {"steps": [gaps for gaps, _, _ in steps], "step_control": control[0], "step_float64": float64,
+              "nccl_world_1": nccl}
+    return record, _sum_launches(launches, dist_run["launches"])
 
 
 def _train_pair(seed: int, tmp: pathlib.Path, name: str,
@@ -2350,6 +2358,10 @@ def _dist_cli_phase(seed: int, tmp: pathlib.Path) -> tuple[dict, dict]:
         "samples_per_s": plain["samples"] / sum(plain["batch_seconds"]),
         "sharded_samples_per_s": sharded["samples"] / sum(sharded["batch_seconds"]),
         "process_samples": [rank["samples"] for rank in ranks],
+        # Over the whole scene loop, sampling included: every process draws every scene's samples.
+        "wall_samples_per_s": plain["samples"] / plain["seconds"],
+        "two_process_wall_samples_per_s": sum(r["samples"] for r in ranks) / max(r["seconds"] for r in ranks),
+        "sample_seconds": plain["sample_seconds"], "process_sample_seconds": [r["sample_seconds"] for r in ranks],
     }
     return ({"train_cli": train, "train_cli_semantic_lr": measured, "predict_cli": predict},
             _sum_launches(train_launches, sharded_launches, *(r["launches"] for r in ranks)))

@@ -90,9 +90,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Run the prediction; returns the samples labelled, each batch's seconds
-    (sampling excluded, the labels' read back included), the files written
-    and the confusion matrix over every process's points (None for the
-    test set)."""
+    (sampling excluded, the labels' read back included), the seconds spent
+    drawing samples (every scene's, in every process) and over the scenes in
+    all, the files written and the confusion matrix over every process's
+    points (None for the test set)."""
     np.random.seed(0)
     parser = build_parser()
     flags = parser.parse_args(argv)
@@ -169,7 +170,9 @@ def _predict(flags: argparse.Namespace, device: torch.device, mesh) -> dict:
 
     batch_size = flags.batch_size
     cm = ConfusionMatrix(dataset.num_classes)
-    summary: dict = {"samples": 0, "batch_seconds": [], "outputs": [], "processes": nproc, "confusion": None}
+    summary: dict = {"samples": 0, "batch_seconds": [], "sample_seconds": 0.0, "outputs": [], "processes": nproc,
+                     "confusion": None}
+    start = time.perf_counter()
     for index, file_data in enumerate(dataset.list_file_data):
         # Every process draws every scene's samples, so that the shared stream
         # gives each scene what a one-process run draws for it; a process
@@ -182,9 +185,11 @@ def _predict(flags: argparse.Namespace, device: torch.device, mesh) -> dict:
 
         for batch_index in range(int(np.ceil(flags.num_samples / batch_size))):
             current = min(batch_size, flags.num_samples - batch_index * batch_size)
+            s = time.perf_counter()
             centered, raw, gt_labels, colors = file_data.sample_batch(
                 batch_size=current, num_points_per_sample=cfg.num_point
             )
+            summary["sample_seconds"] += time.perf_counter() - s
             if not mine:
                 continue
             inputs = np.concatenate((centered, colors), axis=-1) if cfg.use_color else centered
@@ -221,6 +226,7 @@ def _predict(flags: argparse.Namespace, device: torch.device, mesh) -> dict:
         print(f"Exported sparse labels to {labels_path}")
         summary["outputs"].append((pcd_path, labels_path))
 
+    summary["seconds"] = time.perf_counter() - start
     if flags.set != "test":
         # One collective at the end: the matrix is a sum over points, so the
         # processes' matrices add up to a one-process run's.

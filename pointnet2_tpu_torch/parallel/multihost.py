@@ -132,7 +132,10 @@ def barrier() -> None:
 
 
 def all_reduce_(t: torch.Tensor, op: dist.ReduceOp = dist.ReduceOp.SUM) -> torch.Tensor:
-    """``t`` reduced over the group in place (through host memory over gloo for a CUDA tensor)."""
+    """``t`` reduced over the group in place (through host memory over gloo for
+    a CUDA tensor); ``t`` itself without a group."""
+    if not active():
+        return t
     if t.is_cuda and dist.get_backend() == "gloo":
         host = t.cpu()
         dist.all_reduce(host, op)

@@ -1,7 +1,8 @@
-"""Data-parallel train steps on each rank of a group, for holding them to the one-process steps.
+"""One rank of a group: data-parallel train steps, or a CLI, for holding them to one process.
 
     python -m pointnet2_tpu_torch.tools.dist_step --spec SPEC.json --out PREFIX \
         --dist_coordinator localhost:PORT --dist_num_processes 2 --dist_process_id R
+    python -m pointnet2_tpu_torch.tools.dist_step cli {train,predict,...} PREFIX [the CLI's flags]
 
 ``SPEC`` is a JSON object:
 
@@ -14,8 +15,10 @@
 - ``cases``: each ``{"arch", "accum_steps", "dtype"`` ("float32" or
   "float64"), ``"ops_impl"`` (the Trainer's: null for the kernels on a card,
   "torch" for the plain versions, which float64 needs there),
-  ``"dropout_rate", "optimizer", "weights_seed", "batch_seed", "steps"}``
-  (``CASE`` holds the defaults).
+  ``"dropout_rate", "optimizer", "weights_seed", "batch_seed", "steps",
+  "control"}`` (``CASE`` holds the defaults). ``control`` "rank_batch_norm"
+  breaks the step on purpose: each rank's BatchNorm takes its own rows'
+  statistics, the fault that the gates against one process must see.
 
 Every rank joins the group (of any size, one included), takes its rows
 (``multihost.local_rows``) of each case's global batches
@@ -23,16 +26,25 @@ Every rank joins the group (of any size, one included), takes its rows
 ``PREFIX.rank<R>.pt``: ``{"cases": [...], "plain": [...]}``, a record a
 case (``run_case``). ``run_case`` in a process without a group is the
 one-process run of the same case on the global batches: the reference.
+
+``cli MODULE PREFIX ARGS`` runs ``pointnet2_tpu_torch.cli.MODULE``'s
+``main(ARGS)`` and writes its summary, with the kernels' launches over the
+run (``launches``), to ``PREFIX.rank<R>.json`` (``R`` from
+``--dist_process_id`` among ``ARGS``, 0 without it); ``run_cli_ranks``
+starts a group of them.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib
 import json
+import pathlib
 import sys
 import time
 from typing import Callable, Optional, Sequence
+from unittest import mock
 
 import torch
 
@@ -41,13 +53,28 @@ from pointnet2_tpu_torch.cli import add_dist_flags
 from pointnet2_tpu_torch.config import Config
 from pointnet2_tpu_torch.ops import cuda
 from pointnet2_tpu_torch.parallel import multihost
-from pointnet2_tpu_torch.parallel.launch import dist_flags
+from pointnet2_tpu_torch.nn import layers
+from pointnet2_tpu_torch.parallel.launch import dist_flags, run_ranks
 from pointnet2_tpu_torch.train import Trainer
 from pointnet2_tpu_torch.train_profile import train_batch
 from pointnet2_tpu_torch.utils.bench import deterministic_algorithms
 
 CASE = dict(arch="ssg", accum_steps=1, dtype="float32", ops_impl=None, dropout_rate=0.5, optimizer="adam",
-            weights_seed=0, batch_seed=0, steps=1)
+            weights_seed=0, batch_seed=0, steps=1, control=None)
+
+
+def _rank_moments(x: torch.Tensor, axes: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``rank_batch_norm`` control's statistics: this rank's rows alone."""
+    mean = x.mean(dim=axes)
+    return mean, (x * x).mean(dim=axes) - mean * mean
+
+
+def _control(name: Optional[str]):
+    if name is None:
+        return contextlib.nullcontext()
+    if name == "rank_batch_norm":
+        return mock.patch.object(layers, "_global_moments", _rank_moments)
+    raise ValueError(f"unknown control {name!r}")
 
 
 def run_case(cfg: Config, case: dict, device: torch.device, deterministic: bool = False) -> dict:
@@ -71,7 +98,7 @@ def run_case(cfg: Config, case: dict, device: torch.device, deterministic: bool 
                for i in range(case["steps"])]
     losses, accuracies, step_ms = [], [], []
     cuda.reset_launches()
-    with deterministic_algorithms() if deterministic else contextlib.nullcontext():
+    with deterministic_algorithms() if deterministic else contextlib.nullcontext(), _control(case["control"]):
         for batch in batches:
             t0 = time.perf_counter()
             metrics = trainer.train_step(batch)
@@ -103,7 +130,33 @@ def rank_argv(spec: str, out: str, world: int) -> Callable[[int, str], list[str]
     ]
 
 
+def cli_rank(module: str, out: str, argv: Sequence[str]) -> None:
+    """The ``cli`` mode (see the module docstring)."""
+    argv = list(argv)
+    summary = importlib.import_module(f"pointnet2_tpu_torch.cli.{module}").main(argv)
+    summary["launches"] = dict(cuda.LAUNCHES)
+    rank = int(argv[argv.index("--dist_process_id") + 1]) if "--dist_process_id" in argv else 0
+    pathlib.Path(f"{out}.rank{rank}.json").write_text(json.dumps(summary, default=lambda o: o.tolist()))
+
+
+def run_cli_ranks(module: str, out: str | pathlib.Path, argv: Sequence[str], world: int,
+                  **run_ranks_kw) -> tuple[list[dict], list[str]]:
+    """``world`` processes of the CLI ``module`` on ``argv`` plus each one's
+    ``--dist_*`` flags (``parallel.launch.run_ranks``, which takes
+    ``run_ranks_kw``): each process's summary and output, in rank order."""
+    outputs = run_ranks(
+        lambda rank, coordinator: [sys.executable, "-m", "pointnet2_tpu_torch.tools.dist_step", "cli", module,
+                                   str(out), *argv, *dist_flags(rank, world, coordinator)],
+        world, **run_ranks_kw,
+    )
+    return [json.loads(pathlib.Path(f"{out}.rank{r}.json").read_text()) for r in range(world)], outputs
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["cli"]:
+        cli_rank(argv[1], argv[2], argv[3:])
+        return 0
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--spec", required=True, help="the JSON spec (see the module docstring)")
     parser.add_argument("--out", required=True, help="prefix of this rank's .pt file")

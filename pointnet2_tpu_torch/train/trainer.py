@@ -73,7 +73,6 @@ from pointnet2_tpu_torch.models.pointnet2_seg import (
     Window,
     model_class,
     precompute_geometry,
-    weighted_ce_loss,
     weighted_ce_sum,
 )
 from pointnet2_tpu_torch.nn.fold import fold_batch_norm
@@ -274,7 +273,6 @@ class Trainer:
             generator = step_generator(self.dropout_seed, self.step, self.device)
         lr = self.lr_schedule(self.step)
         bn_momentum = self.bn_schedule(self.step)
-        distributed = multihost.active()
         self.train_model.train()
         self.optimizer.zero_grad(set_to_none=True)
         certificates: list = []
@@ -283,30 +281,17 @@ class Trainer:
                 points, labels, weights, bn_momentum, generator, certificates
             )
             sums["ok"] = all_ok(certificates, self.device)
-            if distributed:
-                sums = _reduce_sums(sums)
-            self._finish_gradients(distributed, sums["nonzero"].clamp_min(1.0))
-            metrics = _metrics_of(sums)
+            sums = _reduce_sums(sums)
+            self._finish_gradients(sums["nonzero"].clamp_min(1.0))
         else:
             logits = self.train_model(
                 points, bn_momentum=bn_momentum, generator=generator, certificates=certificates
             )
-            if distributed:
-                ce, nonzero = weighted_ce_sum(logits, labels, weights)
-                (ce / multihost.all_reduce_(nonzero.clone()).clamp_min(1.0)).backward()
-                sums = _reduce_sums(_step_sums(logits, labels, ce, nonzero, self.num_classes, certificates))
-                self._finish_gradients(distributed)
-                metrics = _metrics_of(sums)
-            else:
-                loss = weighted_ce_loss(logits, labels, weights)
-                loss.backward()
-                preds = logits.detach().argmax(dim=-1)
-                sums = {"ok": all_ok(certificates, self.device)}
-                metrics = {
-                    "loss": loss.detach(),
-                    "accuracy": (preds == labels).float().mean(),
-                    "confusion": confusion_matrix(labels, preds, self.num_classes),
-                }
+            ce, nonzero = weighted_ce_sum(logits, labels, weights)
+            (ce / multihost.all_reduce_(nonzero.clone()).clamp_min(1.0)).backward()
+            sums = _reduce_sums(_step_sums(logits, labels, ce, nonzero, self.num_classes, certificates))
+            self._finish_gradients()
+        metrics = _metrics_of(sums)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
@@ -317,11 +302,11 @@ class Trainer:
             metrics["window_ok"] = sums["ok"]
         return metrics
 
-    def _finish_gradients(self, distributed: bool, denom: Optional[torch.Tensor] = None) -> None:
-        """Sum ``.grad`` over the ranks (one collective of every gradient,
-        flattened) and divide it by ``denom``, where given."""
+    def _finish_gradients(self, denom: Optional[torch.Tensor] = None) -> None:
+        """Sum ``.grad`` over the ranks of a group (one collective of every
+        gradient, flattened) and divide it by ``denom``, where given."""
         grads = [p.grad for p in self.model.parameters() if p.grad is not None]
-        if distributed:
+        if multihost.active():
             flat = multihost.all_reduce_(torch.cat([g.reshape(-1) for g in grads]))
             for g, part in zip(grads, flat.split([g.numel() for g in grads])):
                 g.copy_(part.view_as(g))
@@ -396,17 +381,9 @@ class Trainer:
         certificates: list = []
         logits = chunked_logits(self.infer_forward(), points, self.infer_chunk, certificates)
         preds = logits.argmax(dim=-1)
-        if multihost.active():
-            ce, nonzero = weighted_ce_sum(logits, labels, weights)
-            sums = _reduce_sums(_step_sums(logits, labels, ce, nonzero, self.num_classes, certificates))
-            metrics = _metrics_of(sums)
-        else:
-            sums = {"ok": all_ok(certificates, self.device)}
-            metrics = {
-                "loss": weighted_ce_loss(logits, labels, weights),
-                "accuracy": (preds == labels).float().mean(),
-                "confusion": confusion_matrix(labels, preds, self.num_classes),
-            }
+        ce, nonzero = weighted_ce_sum(logits, labels, weights)
+        sums = _reduce_sums(_step_sums(logits, labels, ce, nonzero, self.num_classes, certificates))
+        metrics = _metrics_of(sums)
         metrics["preds"] = preds
         if self.windows_on:
             metrics["window_ok"] = sums["ok"]
@@ -450,9 +427,12 @@ def _metrics_of(sums: dict) -> dict:
 
 
 def _reduce_sums(sums: dict) -> dict:
-    """``_step_sums`` summed over the ranks in one float64 collective (the
-    counts are exact there; ``ok`` becomes the AND over the ranks); the
-    float sums come back float32, the confusion int64."""
+    """``_step_sums`` summed over the ranks of a group in one float64
+    collective (the counts are exact there; ``ok`` becomes the AND over the
+    ranks); the float sums come back in the cross entropy's type, the
+    confusion int64. Without a group, ``sums`` itself."""
+    if not multihost.active():
+        return sums
     confusion = sums["confusion"]
     scalars = [sums["ce"], sums["nonzero"], sums["correct"]]
     flat = torch.cat([
@@ -462,7 +442,7 @@ def _reduce_sums(sums: dict) -> dict:
         confusion.double().reshape(-1),
     ])
     flat = multihost.all_reduce_(flat)
-    ce, nonzero, correct, points, not_ok = flat[:5].float()
+    ce, nonzero, correct, points, not_ok = flat[:5].to(sums["ce"].dtype)
     return {"ce": ce, "nonzero": nonzero, "correct": correct, "points": points,
             "confusion": flat[5:].to(torch.int64).reshape(confusion.shape), "ok": not_ok == 0}
 

@@ -2,9 +2,10 @@
 
 Fabricated Semantic3D scenes of 1200 points at ``test_torch_train.SMALL``'s
 widths (4 x 256 points a batch: 10 train steps and 7 eval batches an
-epoch). Each rank is a subprocess (``tests/torch_dist_worker.py``, which
-runs the CLI's ``main`` and writes its summary) started by ``run_ranks``
-with its own deadline; the one-process runs are made in this process.
+epoch). Each rank is a subprocess (``tools.dist_step``'s ``cli`` mode, which
+runs the CLI's ``main`` and writes its summary) started by
+``parallel.launch.run_ranks`` with its own deadline; the one-process runs
+are made in this process.
 
 - ``cli.train --dist_sampling replicated --seed 0`` on 2 processes against
   ``cli.train --seed 0`` (Adam at a learning rate of 1e-5): the same global
@@ -30,7 +31,6 @@ with its own deadline; the one-process runs are made in this process.
 import dataclasses
 import json
 import pathlib
-import sys
 
 import numpy as np
 import pytest
@@ -42,12 +42,11 @@ from pointnet2_tpu_torch.cli import train as cli_train
 from pointnet2_tpu_torch.config import Config
 from pointnet2_tpu_torch.data.io import write_labels, write_pcd
 from pointnet2_tpu_torch.data.semantic3d import train_file_prefixes, validation_file_prefixes
-from pointnet2_tpu_torch.parallel.launch import dist_flags, run_ranks
 from pointnet2_tpu_torch.tools import scenes as fabricated
+from pointnet2_tpu_torch.tools.dist_step import run_cli_ranks
 from pointnet2_tpu_torch.train import Trainer, restore_checkpoint
 from test_torch_train import SMALL
 
-WORKER = str(pathlib.Path(__file__).with_name("torch_dist_worker.py"))
 SCENE_POINTS = 1200
 STEPS = 9 * SCENE_POINTS // (SMALL["batch_size"] * SMALL["num_point"])
 # At semantic.json's 1e-3 this tiny model's two runs part by about ten times
@@ -66,13 +65,8 @@ def _write_config(path: pathlib.Path, **kw) -> str:
 
 def _cli_ranks(module: str, out: pathlib.Path, argv: list, world: int = 2) -> tuple[list, list]:
     """``world`` ranks of the CLI ``module`` on the CPU: their summaries and outputs."""
-    outputs = run_ranks(
-        lambda r, c: [sys.executable, WORKER, "cli", module, str(out), *argv, "--device", "cpu",
-                      *dist_flags(r, world, c)],
-        world, timeout=300, group_timeout=60, env={"OMP_NUM_THREADS": "2"},
-    )
-    summaries = [json.loads(pathlib.Path(f"{out}.rank{r}.json").read_text()) for r in range(world)]
-    return summaries, outputs
+    return run_cli_ranks(module, out, [*argv, "--device", "cpu"], world, timeout=300, group_timeout=60,
+                         env={"OMP_NUM_THREADS": "2"})
 
 
 @pytest.fixture(scope="module")

@@ -28,7 +28,9 @@ and the data-parallel train step, against the JAX package and the one-process po
   (measured 6e-15).
   Both ranks must hold the same state bit for bit. One float64 case, dropout
   off, is held to the JAX ``Trainer.train_step`` on the global batch. A
-  group of one rank takes the plain step bit for bit.
+  group of one rank takes the plain step bit for bit. A control step, each
+  rank's BatchNorm on its own rows (``tools.dist_step``'s
+  ``rank_batch_norm``), must fail the float32 loss and gradient gates.
 
 Every multi-process run bounds its own time (``run_ranks``: 240 s, a group
 timeout of 60 s), and a rank that fails or hangs fails its test.
@@ -188,11 +190,13 @@ FLOAT32_CASES = [dict(arch=arch, accum_steps=g, batch_seed=20 + g) for arch in (
 FLOAT64_CASES = [dict(arch=arch, accum_steps=g, dtype="float64", optimizer="momentum", steps=2, batch_seed=30 + g)
                  for arch in ("ssg", "msg") for g in (1, 2)]
 JAX_CASE = dict(dtype="float64", optimizer="momentum", dropout_rate=0.0, weights_seed=4, batch_seed=40)
-CASES = FLOAT32_CASES + FLOAT64_CASES + [JAX_CASE]
+CONTROL_CASES = [dict(arch=arch, control="rank_batch_norm", batch_seed=60) for arch in ("ssg", "msg")]
+CASES = FLOAT32_CASES + FLOAT64_CASES + [JAX_CASE] + CONTROL_CASES
 
 
 def _case_id(case):
-    return f"{case.get('arch', 'ssg')}-accum{case.get('accum_steps', 1)}-{case.get('dtype', 'float32')}"
+    control = f"-{case['control']}" if case.get("control") else ""
+    return f"{case.get('arch', 'ssg')}-accum{case.get('accum_steps', 1)}-{case.get('dtype', 'float32')}{control}"
 
 
 @pytest.fixture(scope="module")
@@ -233,6 +237,17 @@ def test_two_process_step_float32_equals_the_one_process_step(two_ranks, case):
     # A logit tie broken the other way moves one count; rows (labels) never move.
     np.testing.assert_array_equal(got["confusion"].sum(1), want["confusion"].sum(1))
     assert int((got["confusion"] - want["confusion"]).abs().sum()) <= 4
+
+
+@pytest.mark.parametrize("case", CONTROL_CASES, ids=_case_id)
+def test_the_float32_gates_refuse_per_rank_batch_norm_statistics(two_ranks, case):
+    """The control: each rank's BatchNorm takes its own rows' statistics (the
+    gradients still summed, the loss over the global count). The float32
+    test's loss and gradient gates must each refuse it."""
+    got = two_ranks[0][CASES.index(case)]
+    want = run_case(Config(**SMALL), case, torch.device("cpu"))
+    assert abs(got["losses"][0] - want["losses"][0]) > 1e-5 * abs(want["losses"][0])
+    assert _rel_l2(got["grads"], want["grads"]) > 5e-2
 
 
 @pytest.mark.parametrize("case", FLOAT64_CASES, ids=_case_id)

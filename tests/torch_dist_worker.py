@@ -1,18 +1,14 @@
-"""One rank of the port's multi-process CPU tests (gloo), started by
-``pointnet2_tpu_torch.parallel.launch.run_ranks``.
+"""One rank of the port's multi-process CPU tests of the group's helpers
+(gloo), started by ``pointnet2_tpu_torch.parallel.launch.run_ranks``.
 
     python tests/torch_dist_worker.py collectives OUT --dist_coordinator HOST:PORT \
         --dist_num_processes W --dist_process_id R
-    python tests/torch_dist_worker.py cli {train,predict} OUT [the CLI's flags, --dist_* among them]
 
-``collectives`` exercises ``parallel.multihost`` and the train CLI's window
-gather in a group and writes ``OUT.rank<R>.json``; ``cli`` runs the port's
-CLI ``main`` and writes its summary to ``OUT.rank<R>.json`` (``R`` from
-``--dist_process_id``, 0 without it).
+It exercises ``parallel.multihost`` and the train CLI's window gather in a
+group and writes ``OUT.rank<R>.json``.
 """
 
 import argparse
-import importlib
 import json
 import sys
 
@@ -60,15 +56,6 @@ def collectives(out: str, argv) -> None:
         json.dump(res, f)
 
 
-def cli(module: str, out: str, argv) -> None:
-    summary = importlib.import_module(f"pointnet2_tpu_torch.cli.{module}").main(argv)
-    rank = int(argv[argv.index("--dist_process_id") + 1]) if "--dist_process_id" in argv else 0
-    with open(f"{out}.rank{rank}.json", "w") as f:
-        json.dump(summary, f, default=lambda o: o.tolist())
-
-
 if __name__ == "__main__":
-    if sys.argv[1] == "collectives":
-        collectives(sys.argv[2], sys.argv[3:])
-    else:
-        cli(sys.argv[2], sys.argv[3], sys.argv[4:])
+    assert sys.argv[1] == "collectives", sys.argv[1]
+    collectives(sys.argv[2], sys.argv[3:])
