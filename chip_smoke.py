@@ -179,6 +179,27 @@ non-zero and prints no result):
    (medians over the steps after the first), beside the train phase's median
    (``Trainer.train_step`` fed by hand) and the host ms one train batch takes
    to sample with no other thread running, and predict's samples/s.
+7b. Prep: the front of the program. Raw scenes (``tools.scenes.
+   fabricate_raw``: ``.txt`` rows ``x y z intensity r g b`` at the CLI
+   phase's size, with ``.labels`` of which a fiftieth are 0 for the train
+   and validation prefixes, none for the test prefixes) through
+   ``cli.preprocess.main`` and ``cli.downsample.main`` (0.05 m voxels); a
+   second run of each must skip every scene, every labelled scene lose at
+   least its label-0 points and get a ``.labels`` of one label a voxel, a
+   test scene a ``.pcd`` only. Then one ``cli.train`` epoch from the
+   downsampled scenes and ``cli.predict`` on its ``model.pt``, held as in
+   phase 7 (launch counts, ``.pcd`` bit for bit, ``.labels`` >= 99.99 % of
+   the plain path's). Then one raw scan of 2 000 000 points
+   (``tools.scenes.dense_scene``) added beside the finished scenes (linked
+   in, so skipped): its host seconds and Mpoints/s through each entry point.
+7c. Convert: a seeded SSG tree (``convert.init_variables``, random moving
+   statistics) written as a reference TF ``.npz`` (``convert.
+   flax_to_tf_vars``, 134 variables), converted by
+   ``tools.convert_checkpoint.main`` on the card (its shape check one eval
+   chunk: rows 1-4 as ``chunk_launches``); the ``.pt`` must hold
+   ``from_flax_variables`` of the tree bit for bit, at step 0 with an empty
+   optimizer state. ``cli.predict --ckpt`` on it, held as in phase 7, and
+   one ``cli.train --resume`` epoch from it, which must resume at step 0.
 8. Densify: ``cli.interpolate`` on fabricated validation scenes
    (``tools.scenes.fabricate_dense``), the first a Semantic3D-like scan of
    2 000 000 points with 250 000 labelled sparse points drawn from it, the
@@ -212,11 +233,18 @@ non-zero and prints no result):
    checkpoints (process 0's), ``[proc 1]`` lines, each process's launches
    its steps' and eval chunks', every step's loss within 1e-4 relative at a
    learning rate of 1e-5, and the same pair at semantic.json's rate
-   measured; (d) ``cli.predict --sharded`` (every visible card) and
-   ``cli.predict`` on 2 processes against the one-process predict CLI:
-   every ``.labels`` file equal byte for byte, the gathered confusion matrix
-   exact, process 0 alone printing it, and the samples a second over each
-   run's scene loop, sampling included; (e) ``parallel.knn_sharded`` over
+   measured; (d) ``cli.predict --sharded`` (every visible card) against the
+   one-process predict CLI, every ``.labels`` file equal byte for byte; and
+   ``cli.predict`` on 2 processes, process r walking the scenes ``r::2`` on
+   its own fresh stream as the JAX script's processes do, against a
+   one-process run of rank r's scenes (``multihost``'s process index and
+   count stood in, no group): each ``.pcd`` bit for bit, the ``.labels`` on
+   >= 99.99 % of points, the gathered confusion matrix the sum of the rank
+   runs', process 0 alone printing it, process 1's first scene not the
+   one-process run's, and the samples a second over each run's scene loop,
+   sampling included, beside the one-process run's in this (warm) process
+   and in a fresh process of its own (its files this process's run's byte
+   for byte); (e) ``parallel.knn_sharded`` over
    ``[cuda:0]`` and ``[cuda:0, cuda:0]`` on the densify phase's first scene,
    bit for bit ``ops.knn`` with row 3 once a shard, and ``cli.interpolate
    --engine sharded`` on the densify phase's scenes, the ``--engine
@@ -263,19 +291,20 @@ non-zero and prints no result):
 Output: one JSON line a kernel and shape, one for each driven path (predict,
 train, predict_windows, train_windows, predict_bf16, train_bf16, their MSG
 counterparts predict_msg, train_msg, predict_windows_msg,
-train_windows_msg, predict_msg_bf16, train_msg_bf16, then cli,
-op_surface, densify, dist, kitti, export, serve; the
+train_windows_msg, predict_msg_bf16, train_msg_bf16, then cli, prep,
+convert, op_surface, densify, dist, kitti, export, serve; the
 parity sweep's lines and the stage bench's lines inside op_surface), the
 ``nvidia-smi`` line, one ``{"kernels": [...]}`` line, and last ``{"ok":
 true, "device": {...}}``. Each path's launch counts are reset just before it
-and read just after (the CLI phase's three runs and the KITTI phase's two
-each apart; the dist phase's processes count their own and report them);
+and read just after (the CLI phase's runs, the prep and convert phases'
+and the KITTI phase's two each apart; the dist phase's processes count their own and report them);
 the ``kernels`` line sums them.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib
 import io
@@ -300,14 +329,22 @@ from torch.profiler import ProfilerActivity, profile
 
 from pointnet2_tpu_torch import convert, native, ops, predict_profile
 from pointnet2_tpu_torch.cli import cli_mesh
+from pointnet2_tpu_torch.cli import downsample as cli_downsample
 from pointnet2_tpu_torch.cli import interpolate as cli_interpolate
 from pointnet2_tpu_torch.cli import kitti_predict as cli_kitti
 from pointnet2_tpu_torch.cli import predict as cli_predict
+from pointnet2_tpu_torch.cli import preprocess as cli_preprocess
 from pointnet2_tpu_torch.cli import serve as cli_serve
 from pointnet2_tpu_torch.cli import train as cli_train
 from pointnet2_tpu_torch.config import Config
 from pointnet2_tpu_torch.data.io import load_labels, read_pcd
-from pointnet2_tpu_torch.data.semantic3d import SemanticDataset, validation_file_prefixes
+from pointnet2_tpu_torch.data.semantic3d import (
+    SemanticDataset,
+    all_file_prefixes,
+    test_file_prefixes,
+    train_file_prefixes,
+    validation_file_prefixes,
+)
 from pointnet2_tpu_torch.export import load_exported
 from pointnet2_tpu_torch.infer import Predictor, full_float32
 from pointnet2_tpu_torch.models.pointnet2_seg import SA_MLPS, msg_scales
@@ -318,8 +355,9 @@ from pointnet2_tpu_torch.ops.cuda import build
 from pointnet2_tpu_torch.ops.cuda import fps as cuda_fps
 from pointnet2_tpu_torch.ops.cuda import interpolate as cuda_interp
 from pointnet2_tpu_torch.ops.cuda import wingather as cuda_gather
-from pointnet2_tpu_torch.parallel import knn_sharded
+from pointnet2_tpu_torch.parallel import knn_sharded, multihost
 from pointnet2_tpu_torch.parallel.launch import run_ranks
+from pointnet2_tpu_torch.tools import convert_checkpoint as convert_cli
 from pointnet2_tpu_torch.tools import export_model as export_cli
 from pointnet2_tpu_torch.tools import dist_step, op_bench, parity, scenes, stage_bench
 from pointnet2_tpu_torch.train import Trainer, load_model_state, restore_checkpoint, save_checkpoint
@@ -395,6 +433,7 @@ CLI_SAMPLES, CLI_PREDICT_BATCH = 16, 8
 # scan's crop, with a sparse cloud of predict's samples' size; the other five smaller.
 DENSE_POINTS, SPARSE_POINTS = 2_000_000, 250_000
 SMALL_DENSE, SMALL_SPARSE = 20_000, 2_500
+PREP_POINTS = DENSE_POINTS  # the prep phase's raw scan, at the densify phase's scene size
 DENSIFY_SUBSET = 65_536  # dense points held bit for bit against the plain version
 NATIVE_AGREEMENT = 0.9999
 # The KITTI phase: a drive of HDL-64E-sized sweeps.
@@ -1741,18 +1780,21 @@ def train_bf16_phase(
     return launches
 
 
-def _cli_train(cfg_path: pathlib.Path, seed: int, windows: list, precision: tuple = (), arch: str = "ssg") -> dict:
+def _cli_train(cfg_path: pathlib.Path, seed: int, windows: list, precision: tuple = (), arch: str = "ssg",
+               resume: Optional[pathlib.Path] = None) -> dict:
     """One run of the train CLI on the card (``--arch arch``), its launch counts
     reset just before it and read just after, held to the counts its steps and
     eval chunks imply; then every checkpoint it wrote restored into a fresh
     Trainer of that arch. ``precision``: ``--train_dtype bfloat16`` and its
     ``--bf16_min_width``, whose steps launch rows 4 and 5's bfloat16 instances
-    (the eval chunks stay float32)."""
+    (the eval chunks stay float32). ``resume``: a checkpoint at step 0 that
+    the run continues from (``--resume``)."""
     torch.cuda.synchronize()
     cuda.reset_launches()
     t0 = time.perf_counter()
     summary = cli_train.main(
-        ["--config_file", str(cfg_path), "--seed", str(seed), "--arch", arch, *windows, *precision]
+        ["--config_file", str(cfg_path), "--seed", str(seed), "--arch", arch, *windows, *precision,
+         *(["--resume", str(resume)] if resume else [])]
     )
     seconds = time.perf_counter() - t0
     launches = dict(cuda.LAUNCHES)
@@ -1760,6 +1802,9 @@ def _cli_train(cfg_path: pathlib.Path, seed: int, windows: list, precision: tupl
     steps, chunks = epoch["train_batches"], epoch["val_batches"] * (BATCH // CHUNK)
     if steps < 1 or chunks < 1 or summary["step"] != steps:
         raise AssertionError(f"the train CLI ran {steps} steps and {chunks} eval chunks (step {summary['step']})")
+    if resume and f"resumed from {resume} at step 0" not in (pathlib.Path(Config.from_json(cfg_path).logdir)
+                                                               / "log_train.txt").read_text():
+        raise AssertionError(f"the train CLI did not resume from {resume} at step 0")
     # A bf16 run's eval chunks stay float32.
     step, chunk = step_launches(arch, bool(windows), bool(precision)), chunk_launches(arch, bool(windows))
     _expect_launches(
@@ -1828,6 +1873,46 @@ def _plain_labels(cfg: Config, ckpt: pathlib.Path, out_dir: pathlib.Path, **mode
     return {"label_agreement": agree / total, "points": total}
 
 
+def _cli_predict(cfg_path: pathlib.Path, ckpt: pathlib.Path, out_dir: pathlib.Path, arch: str = "ssg",
+                 bf16: bool = False) -> dict:
+    """One run of the predict CLI on the card over the validation split
+    (``CLI_SAMPLES`` a scene in batches of ``CLI_PREDICT_BATCH``, ``--arch
+    arch``, ``--dtype bfloat16`` with ``bf16``), its launch counts reset just
+    before it and read just after, held to ``chunk_launches`` a batch, and its
+    files held to the plain path in the same mode (``_plain_labels``)."""
+    mode = {**({"arch": arch} if arch != "ssg" else {}), **({"dtype": "bfloat16"} if bf16 else {})}
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    summary = cli_predict.main([
+        "--ckpt", str(ckpt), "--set", "validation", "--config_file", str(cfg_path),
+        "--num_samples", str(CLI_SAMPLES), "--batch_size", str(CLI_PREDICT_BATCH), "--output_dir", str(out_dir),
+        *(f"--{flag}={value}" for flag, value in mode.items()),
+    ])
+    launches = dict(cuda.LAUNCHES)
+    batches = len(summary["batch_seconds"])
+    _expect_launches(launches, scaled(chunk_launches(arch, bf16=bf16), batches),
+                     f"the predict CLI {mode}: {batches} batches of {CLI_PREDICT_BATCH}")
+    seconds = summary["batch_seconds"]
+    return {
+        **mode,
+        "samples": summary["samples"],
+        "batches": batches,
+        "batch_seconds": seconds,
+        "samples_per_s": summary["samples"] / sum(seconds),
+        "samples_per_s_after_first": (summary["samples"] - CLI_PREDICT_BATCH) / sum(seconds[1:]),
+        **_plain_labels(Config.from_json(cfg_path), ckpt, out_dir, **mode),
+        "launches": launches,
+    }
+
+
+def _cli_config(tmp: pathlib.Path, name: str, data_path: pathlib.Path) -> pathlib.Path:
+    """A copy of ``semantic.json`` with only ``data_path``, ``logdir`` (``tmp/name``) and ``max_epoch = 1`` changed."""
+    path = tmp / f"{name}.json"
+    raw_cfg = json.loads((ROOT / "semantic.json").read_text())
+    path.write_text(json.dumps({**raw_cfg, "data_path": str(data_path), "logdir": str(tmp / name), "max_epoch": 1}))
+    return path
+
+
 def cli_phase(seed: int, card: str, train_median_ms: float) -> dict:
     """The port's entry points as a user runs them: the train CLI on
     fabricated scenes from a copy of ``semantic.json`` with only
@@ -1836,7 +1921,6 @@ def cli_phase(seed: int, card: str, train_median_ms: float) -> dict:
     exact run's ``model.pt`` over the validation split, held against the
     plain path; the same pair in the bf16 modes and with ``--arch msg``.
     Returns each run's launch counts."""
-    raw_cfg = json.loads((ROOT / "semantic.json").read_text())
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
         tmp = pathlib.Path(tmp)
@@ -1845,100 +1929,28 @@ def cli_phase(seed: int, card: str, train_median_ms: float) -> dict:
         runs, cfg_paths = {}, {}
         for name, windows in (("cli_train", []),
                               ("cli_train_windows", ["--bq_window", str(BQ_WINDOW), "--fp_window", str(FP_WINDOW)])):
-            cfg_paths[name] = tmp / f"{name}.json"
-            cfg_paths[name].write_text(json.dumps(
-                {**raw_cfg, "data_path": str(tmp / "scenes"), "logdir": str(tmp / name), "max_epoch": 1}
-            ))
+            cfg_paths[name] = _cli_config(tmp, name, tmp / "scenes")
             runs[name] = _cli_train(cfg_paths[name], seed, windows)
             torch.cuda.empty_cache()
-
-        cfg = Config.from_json(cfg_paths["cli_train"])
-        ckpt = pathlib.Path(cfg.logdir) / "model.pt"
-        out_dir = tmp / "sparse"
-        torch.cuda.synchronize()
-        cuda.reset_launches()
-        summary = cli_predict.main([
-            "--ckpt", str(ckpt), "--set", "validation", "--config_file", str(cfg_paths["cli_train"]),
-            "--num_samples", str(CLI_SAMPLES), "--batch_size", str(CLI_PREDICT_BATCH), "--output_dir", str(out_dir),
-        ])
-        launches = dict(cuda.LAUNCHES)
-        batches = len(summary["batch_seconds"])
-        _expect_launches(launches, scaled(chunk_launches(), batches),
-                         f"the predict CLI: {batches} batches of {CLI_PREDICT_BATCH}")
-        seconds = summary["batch_seconds"]
-        predict = {
-            "samples": summary["samples"],
-            "batches": batches,
-            "batch_seconds": seconds,
-            "samples_per_s": summary["samples"] / sum(seconds),
-            "samples_per_s_after_first": (summary["samples"] - CLI_PREDICT_BATCH) / sum(seconds[1:]),
-            **_plain_labels(cfg, ckpt, out_dir),
-            "launches": launches,
-        }
+        predict = _cli_predict(cfg_paths["cli_train"], tmp / "cli_train" / "model.pt", tmp / "sparse")
         # The bf16 modes through the same entry points: one mixed-precision
         # train epoch, then the bf16 predict CLI on its float32 checkpoint.
         name = "cli_train_bf16"
-        cfg_paths[name] = tmp / f"{name}.json"
-        cfg_paths[name].write_text(json.dumps(
-            {**raw_cfg, "data_path": str(tmp / "scenes"), "logdir": str(tmp / name), "max_epoch": 1}
-        ))
+        cfg_paths[name] = _cli_config(tmp, name, tmp / "scenes")
         runs[name] = _cli_train(cfg_paths[name], seed, [], BF16_CLI_TRAIN)
         torch.cuda.empty_cache()
-        bf16_ckpt = pathlib.Path(Config.from_json(cfg_paths[name]).logdir) / "model.pt"
-        torch.cuda.synchronize()
-        cuda.reset_launches()
-        bf16_summary = cli_predict.main([
-            "--ckpt", str(bf16_ckpt), "--set", "validation", "--config_file", str(cfg_paths[name]),
-            "--num_samples", str(CLI_SAMPLES), "--batch_size", str(CLI_PREDICT_BATCH),
-            "--output_dir", str(tmp / "sparse_bf16"), "--dtype", "bfloat16",
-        ])
-        bf16_launches = dict(cuda.LAUNCHES)
-        bf16_batches = len(bf16_summary["batch_seconds"])
-        _expect_launches(bf16_launches, scaled(chunk_launches(bf16=True), bf16_batches),
-                         f"the bf16 predict CLI: {bf16_batches} batches of {CLI_PREDICT_BATCH}")
-        predict_bf16 = {
-            "dtype": "bfloat16",
-            "samples": bf16_summary["samples"],
-            "batches": bf16_batches,
-            "batch_seconds": bf16_summary["batch_seconds"],
-            "samples_per_s": bf16_summary["samples"] / sum(bf16_summary["batch_seconds"]),
-            **_plain_labels(Config.from_json(cfg_paths[name]), bf16_ckpt, tmp / "sparse_bf16", dtype="bfloat16"),
-            "launches": bf16_launches,
-        }
-
+        predict_bf16 = _cli_predict(cfg_paths[name], tmp / name / "model.pt", tmp / "sparse_bf16", bf16=True)
         # The MSG model through the same entry points: one exact train epoch
         # with --arch msg, then the predict CLI with --arch msg on its model.pt.
         name = "cli_train_msg"
-        cfg_paths[name] = tmp / f"{name}.json"
-        cfg_paths[name].write_text(json.dumps(
-            {**raw_cfg, "data_path": str(tmp / "scenes"), "logdir": str(tmp / name), "max_epoch": 1}
-        ))
+        cfg_paths[name] = _cli_config(tmp, name, tmp / "scenes")
         runs[name] = _cli_train(cfg_paths[name], seed, [], arch="msg")
         torch.cuda.empty_cache()
-        msg_ckpt = pathlib.Path(Config.from_json(cfg_paths[name]).logdir) / "model.pt"
-        torch.cuda.synchronize()
-        cuda.reset_launches()
-        msg_summary = cli_predict.main([
-            "--ckpt", str(msg_ckpt), "--set", "validation", "--config_file", str(cfg_paths[name]),
-            "--num_samples", str(CLI_SAMPLES), "--batch_size", str(CLI_PREDICT_BATCH),
-            "--output_dir", str(tmp / "sparse_msg"), "--arch", "msg",
-        ])
-        msg_launches = dict(cuda.LAUNCHES)
-        msg_batches = len(msg_summary["batch_seconds"])
-        _expect_launches(msg_launches, scaled(chunk_launches("msg"), msg_batches),
-                         f"the msg predict CLI: {msg_batches} batches of {CLI_PREDICT_BATCH}")
-        predict_msg = {
-            "arch": "msg",
-            "samples": msg_summary["samples"],
-            "batches": msg_batches,
-            "batch_seconds": msg_summary["batch_seconds"],
-            "samples_per_s": msg_summary["samples"] / sum(msg_summary["batch_seconds"]),
-            **_plain_labels(Config.from_json(cfg_paths[name]), msg_ckpt, tmp / "sparse_msg", arch="msg"),
-            "launches": msg_launches,
-        }
+        predict_msg = _cli_predict(cfg_paths[name], tmp / name / "model.pt", tmp / "sparse_msg", arch="msg")
 
         # The sampler alone, on this thread with no other running: what one
         # batch of the train split costs the host.
+        cfg = Config.from_json(cfg_paths["cli_train"])
         train_ds = SemanticDataset(cfg.num_point, "train", bool(cfg.use_color), cfg.box_size_x, cfg.box_size_y,
                                    cfg.data_path, seed=seed)
         sampler_ms = []
@@ -1960,8 +1972,133 @@ def cli_phase(seed: int, card: str, train_median_ms: float) -> dict:
         "phase_seconds": time.perf_counter() - t0,
         "card": card,
     })
-    return {**{name: run["launches"] for name, run in runs.items()}, "cli_predict": launches,
-            "cli_predict_bf16": bf16_launches, "cli_predict_msg": msg_launches}
+    return {**{name: run["launches"] for name, run in runs.items()}, "cli_predict": predict["launches"],
+            "cli_predict_bf16": predict_bf16["launches"], "cli_predict_msg": predict_msg["launches"]}
+
+
+def _host_rate(points: int, seconds: float) -> dict:
+    return {"points": points, "seconds": seconds, "mpoints_per_s": points / seconds / 1e6}
+
+
+def prep_phase(seed: int, card: str, tmp: pathlib.Path) -> tuple[dict, pathlib.Path]:
+    """The front of the program, as a user runs it: raw scenes
+    (``tools.scenes.fabricate_raw``: the train and validation prefixes with
+    labels, the test prefixes without) through ``cli.preprocess`` and
+    ``cli.downsample``, each run twice (the second skips every scene); one
+    train CLI epoch from the downsampled scenes and the predict CLI on its
+    ``model.pt``, held as the ``cli`` phase holds them. Then one raw scene of
+    ``PREP_POINTS`` (``tools.scenes.dense_scene``) through both entry points
+    beside the finished others (linked in, so they are skipped): their host
+    seconds and Mpoints/s. Returns the train and predict runs' launches and
+    the config of the downsampled scenes."""
+    t0 = time.perf_counter()
+    raw, down = tmp / "raw", tmp / "downsampled"
+    raw.mkdir()
+    scenes.fabricate_raw(raw, seed, train_file_prefixes + validation_file_prefixes)
+    scenes.fabricate_raw(raw, seed + 1, test_file_prefixes, with_labels=False)
+    dirs = ["--raw_dir", str(raw), "--downsampled_dir", str(down)]
+    pre = cli_preprocess.main(dirs[:2])
+    ds = cli_downsample.main(dirs)
+    if pre["converted"] != all_file_prefixes or ds["downsampled"] != all_file_prefixes:
+        raise AssertionError(f"preprocess converted {pre['converted']}, downsample did {ds['downsampled']}")
+    again = [cli_preprocess.main(dirs[:2]), cli_downsample.main(dirs)]
+    if any(run["skipped"] != all_file_prefixes for run in again):
+        raise AssertionError("a second run of preprocess or downsample did not skip every scene")
+    for prefix, points, sparse in zip(all_file_prefixes, ds["points"], ds["sparse_points"]):
+        labelled = prefix not in test_file_prefixes
+        unlabelled = int((load_labels(raw / f"{prefix}.labels") == 0).sum()) if labelled else 0
+        if sparse > points - unlabelled or not 0 < sparse or (down / f"{prefix}.labels").is_file() != labelled:
+            raise AssertionError(f"{prefix}: {points} raw points ({unlabelled} unlabelled) downsampled to {sparse}")
+        if labelled and len(load_labels(down / f"{prefix}.labels")) != sparse:
+            raise AssertionError(f"{prefix}: the downsampled labels are not one a point")
+    prep_seconds = time.perf_counter() - t0
+
+    cfg_path = _cli_config(tmp, "prep_train", down)
+    train = _cli_train(cfg_path, seed, [])
+    torch.cuda.empty_cache()
+    predict = _cli_predict(cfg_path, tmp / "prep_train" / "model.pt", tmp / "prep_sparse")
+
+    # One scan-sized scene added to the finished set: only it is converted and downsampled.
+    big_raw, big_down = tmp / "big_raw", tmp / "big_downsampled"
+    big_raw.mkdir()
+    big_down.mkdir()
+    big = validation_file_prefixes[0]
+    for prefix in all_file_prefixes:
+        if prefix != big:
+            (big_raw / f"{prefix}.pcd").symlink_to(raw / f"{prefix}.pcd")
+            (big_down / f"{prefix}.pcd").symlink_to(down / f"{prefix}.pcd")
+    rng = np.random.RandomState(seed + 2)
+    pts, labels = scenes.dense_scene(rng, PREP_POINTS)
+    scenes.write_raw_scene(big_raw, big, pts, labels, rng)
+    big_pre = cli_preprocess.main(["--raw_dir", str(big_raw)])
+    big_ds = cli_downsample.main(["--raw_dir", str(big_raw), "--downsampled_dir", str(big_down)])
+    if big_pre["converted"] != [big] or big_ds["downsampled"] != [big] or big_pre["points"] != [PREP_POINTS]:
+        raise AssertionError(f"the added scene: preprocess {big_pre}, downsample {big_ds}")
+    emit({
+        "phase": "prep",
+        "scenes": len(all_file_prefixes),
+        "preprocess": _host_rate(sum(pre["points"]), sum(pre["seconds"])),
+        "downsample": {**_host_rate(sum(ds["points"]), sum(ds["seconds"])), "sparse_points": sum(ds["sparse_points"])},
+        "second_runs_skipped": [len(run["skipped"]) for run in again],
+        "train": train,
+        "predict": predict,
+        "scan_scene": {
+            "preprocess": _host_rate(PREP_POINTS, big_pre["seconds"][0]),
+            "downsample": {**_host_rate(PREP_POINTS, big_ds["seconds"][0]), "sparse_points": big_ds["sparse_points"][0],
+                           "voxel_size": 0.05},
+        },
+        "prep_seconds": prep_seconds,
+        "phase_seconds": time.perf_counter() - t0,
+        "card": card,
+    })
+    return {"prep_train": train["launches"], "prep_predict": predict["launches"]}, cfg_path
+
+
+def convert_phase(seed: int, card: str, tmp: pathlib.Path, cfg_path: pathlib.Path) -> dict:
+    """A reference TF checkpoint through the port: a seeded SSG tree
+    (``convert.init_variables``, random moving statistics) written as a
+    TF-named ``.npz`` (``convert.flax_to_tf_vars``), converted by
+    ``tools.convert_checkpoint`` on the card (one eval chunk: rows 1-4 once
+    each), its ``.pt`` holding ``from_flax_variables`` of the tree bit for
+    bit at step 0 with an empty optimizer state; then the predict CLI on it,
+    held to the plain path, and one train CLI epoch ``--resume``d from it at
+    step 0. Returns the three runs' launches."""
+    t0 = time.perf_counter()
+    variables = convert.init_variables(Config.from_json(cfg_path), seed=seed + 5, bn_stats="random")
+    npz, pt = tmp / "reference.npz", tmp / "converted.pt"
+    tf_vars = convert.flax_to_tf_vars(variables)
+    np.savez(npz, **tf_vars)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    converted = convert_cli.main(["--tf_ckpt", str(npz), "--out", str(pt), "--config_file", str(cfg_path)])
+    launches = dict(cuda.LAUNCHES)
+    seconds = time.perf_counter() - t0
+    _expect_launches(launches, chunk_launches(), "tools.convert_checkpoint's shape check: one eval chunk")
+    ckpt = torch.load(pt, map_location="cpu", weights_only=True)
+    want = convert.from_flax_variables(variables)
+    if ckpt["step"] != 0 or ckpt["optimizer"]["state"] or set(ckpt["model"]) != set(want) or not all(
+            torch.equal(ckpt["model"][k], v) for k, v in want.items()):
+        raise AssertionError("the converted checkpoint is not the tree's state_dict at step 0")
+    predict = _cli_predict(cfg_path, pt, tmp / "convert_sparse")
+    torch.cuda.empty_cache()
+    resume = _cli_train(_cli_config(tmp, "convert_resume", Config.from_json(cfg_path).data_path), seed, [],
+                        resume=pt)
+    emit({
+        "phase": "convert",
+        "tf_variables": len(tf_vars),
+        "tensors": converted["tensors"],
+        "state_bit_equal": True,
+        "convert_seconds": converted["convert_seconds"],
+        "forward_seconds": converted["forward_seconds"],
+        "seconds": seconds,
+        "launches": launches,
+        "predict": predict,
+        "resume": resume,
+        "phase_seconds": time.perf_counter() - t0,
+        "card": card,
+    })
+    return {"convert": launches, "convert_predict": predict["launches"], "convert_resume": resume["launches"]}
+
 
 def chunked_plain_knn(xyz1: torch.Tensor, xyz2: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """``ops.core.knn`` over the queries in chunks, as the densify engine's plain
@@ -2142,10 +2279,24 @@ def _dist_ranks(argv_of, world: int = DIST_RANKS) -> list[str]:
     return run_ranks(argv_of, world, timeout=DIST_TIMEOUT_S, group_timeout=DIST_GROUP_TIMEOUT_S, cwd=ROOT)
 
 
-def _cli_ranks(module: str, out: pathlib.Path, argv: list) -> tuple[list, list]:
-    """``DIST_RANKS`` processes of the CLI ``module`` (on this card, gloo): their summaries and outputs."""
-    return dist_step.run_cli_ranks(module, out, argv, DIST_RANKS, timeout=DIST_TIMEOUT_S,
+def _cli_ranks(module: str, out: pathlib.Path, argv: list, world: int = DIST_RANKS) -> tuple[list, list]:
+    """``world`` processes of the CLI ``module`` (on this card, gloo; one
+    process forms no group): their summaries and outputs."""
+    return dist_step.run_cli_ranks(module, out, argv, world, timeout=DIST_TIMEOUT_S,
                                    group_timeout=DIST_GROUP_TIMEOUT_S, cwd=ROOT)
+
+
+@contextlib.contextmanager
+def _as_rank(rank: int, world: int):
+    """``multihost``'s process index and count stand in for rank ``rank`` of
+    ``world``, with no group: a one-process CLI run then walks that rank's
+    scenes, and its confusion matrix is that rank's alone."""
+    saved = multihost.process_index, multihost.process_count
+    multihost.process_index, multihost.process_count = (lambda: rank), (lambda: world)
+    try:
+        yield
+    finally:
+        multihost.process_index, multihost.process_count = saved
 
 
 def _sum_launches(*counts: dict) -> dict:
@@ -2316,8 +2467,9 @@ def _dist_cli_phase(seed: int, tmp: pathlib.Path) -> tuple[dict, dict]:
     """(c) ``cli.train`` on 2 processes (replicated sampling, ``--seed``)
     against the one-process run, at ``DIST_CLI_LR`` (every step's loss within
     ``DIST_CLI_LOSS_RTOL``) and at semantic.json's learning rate (measured);
-    (d) ``cli.predict --sharded`` and on 2 processes against the one-process
-    predict CLI."""
+    (d) ``cli.predict --sharded`` against the one-process predict CLI, and
+    ``cli.predict`` on 2 processes against a one-process run of each rank's
+    scenes (``_as_rank``)."""
     (tmp / "scenes").mkdir()
     scenes.fabricate(tmp / "scenes", seed)
     train, train_launches, cfg_path = _train_pair(seed, tmp, "train", DIST_CLI_LR)
@@ -2338,33 +2490,68 @@ def _dist_cli_phase(seed: int, tmp: pathlib.Path) -> tuple[dict, dict]:
     batches = len(sharded["batch_seconds"])
     _expect_launches(sharded_launches, scaled(chunk_launches(), batches), f"predict --sharded: {batches} batches")
     ranks, rank_outputs = _cli_ranks("predict", tmp / "predict", common + ["--output_dir", str(tmp / "two")])
+    # The one-process run again in a fresh process of its own, as each rank
+    # runs: the wall rates compare processes that pay the same first calls.
+    (fresh,), _ = _cli_ranks("predict", tmp / "fresh", common + ["--output_dir", str(tmp / "fresh")], world=1)
     prefixes = [pathlib.Path(labels).stem for _, labels in plain["outputs"]]
     for prefix in prefixes:
-        want_labels = (tmp / "plain" / f"{prefix}.labels").read_bytes()
-        if (tmp / "sharded" / f"{prefix}.labels").read_bytes() != want_labels:
+        if (tmp / "sharded" / f"{prefix}.labels").read_bytes() != (tmp / "plain" / f"{prefix}.labels").read_bytes():
             raise AssertionError(f"predict --sharded labelled {prefix} otherwise than the plain predict CLI")
-        if (tmp / "two" / f"{prefix}.labels").read_bytes() != want_labels:
-            raise AssertionError(f"the 2-process predict CLI labelled {prefix} otherwise than one process")
-    for r, rank in enumerate(ranks):
+        for suffix in (".pcd", ".labels"):
+            if (tmp / "fresh" / f"{prefix}{suffix}").read_bytes() != (tmp / "plain" / f"{prefix}{suffix}").read_bytes():
+                raise AssertionError(f"the one-process predict CLI wrote another {prefix}{suffix} in a fresh process")
+    _expect_launches(fresh["launches"], scaled(chunk_launches(), len(fresh["batch_seconds"])),
+                     "the one-process predict CLI in a fresh process")
+    # Each rank held to a one-process run that draws that rank's scenes on a fresh stream.
+    alone = []
+    for r in range(DIST_RANKS):
+        with _as_rank(r, DIST_RANKS):
+            alone.append(cli_predict.main(common + ["--output_dir", str(tmp / f"rank{r}")]))
+    agree = total = 0
+    for r, (rank, solo) in enumerate(zip(ranks, alone)):
         mine = [pathlib.Path(labels).stem for _, labels in rank["outputs"]]
-        if mine != prefixes[r::DIST_RANKS] or not np.array_equal(rank["confusion"], plain["confusion"]):
-            raise AssertionError(f"predict process {r} wrote {mine}; its gathered matrix is not the one-process one")
+        if mine != prefixes[r::DIST_RANKS] or mine != [pathlib.Path(labels).stem for _, labels in solo["outputs"]]:
+            raise AssertionError(f"predict process {r} wrote {mine}, its one-process stand-in {solo['outputs']}")
+        for prefix in mine:
+            if (tmp / "two" / f"{prefix}.pcd").read_bytes() != (tmp / f"rank{r}" / f"{prefix}.pcd").read_bytes():
+                raise AssertionError(f"predict process {r} drew {prefix}'s samples otherwise than rank {r} alone")
+            got, want = load_labels(tmp / "two" / f"{prefix}.labels"), load_labels(tmp / f"rank{r}" / f"{prefix}.labels")
+            if got.shape != want.shape:
+                raise AssertionError(f"{prefix}.labels: {got.shape} labels, want {want.shape}")
+            agree += int((got == want).sum())
+            total += want.size
         _expect_launches(rank["launches"], scaled(chunk_launches(), len(rank["batch_seconds"])),
                          f"predict process {r}")
+    if agree < 0.9999 * total:
+        raise AssertionError(f"the 2-process predict CLI's labels agree with its ranks alone on {agree} of {total}")
+    summed = sum(np.asarray(solo["confusion"]) for solo in alone)
+    if not all(np.array_equal(rank["confusion"], summed) for rank in ranks):
+        raise AssertionError("the gathered confusion matrix is not the sum of the ranks' matrices")
     if "Confusion matrix" not in rank_outputs[0] or "Confusion matrix" in rank_outputs[1]:
         raise AssertionError("the gathered metrics are not printed by process 0 alone")
+    # Process 1 starts its first scene on a fresh stream, not after scene 0's samples.
+    first = prefixes[1]
+    if (tmp / "two" / f"{first}.pcd").read_bytes() == (tmp / "plain" / f"{first}.pcd").read_bytes():
+        raise AssertionError(f"predict process 1 drew {first} as the one-process run does, after scene 0")
     predict = {
-        "sharded_devices": len(cli_mesh(DEVICE)), "labels_bit_equal": True, "confusion_exact": True,
+        "sharded_devices": len(cli_mesh(DEVICE)), "sharded_labels_bit_equal": True,
+        "rank_pcd_bit_equal": True, "rank_label_agreement": agree / total, "confusion_is_rank_sum": True,
         "samples_per_s": plain["samples"] / sum(plain["batch_seconds"]),
         "sharded_samples_per_s": sharded["samples"] / sum(sharded["batch_seconds"]),
         "process_samples": [rank["samples"] for rank in ranks],
-        # Over the whole scene loop, sampling included: every process draws every scene's samples.
+        # Over the whole scene loop, sampling included: each process draws its own scenes' samples.
+        # This process is warm from the earlier phases; the fresh one and the ranks are not.
         "wall_samples_per_s": plain["samples"] / plain["seconds"],
+        "fresh_wall_samples_per_s": fresh["samples"] / fresh["seconds"],
         "two_process_wall_samples_per_s": sum(r["samples"] for r in ranks) / max(r["seconds"] for r in ranks),
-        "sample_seconds": plain["sample_seconds"], "process_sample_seconds": [r["sample_seconds"] for r in ranks],
+        "sample_seconds": plain["sample_seconds"], "fresh_sample_seconds": fresh["sample_seconds"],
+        "process_sample_seconds": [r["sample_seconds"] for r in ranks],
+        "seconds": plain["seconds"], "fresh_seconds": fresh["seconds"], "process_seconds": [r["seconds"] for r in ranks],
+        "batch_seconds": plain["batch_seconds"], "fresh_batch_seconds": fresh["batch_seconds"],
+        "process_batch_seconds": [r["batch_seconds"] for r in ranks],
     }
     return ({"train_cli": train, "train_cli_semantic_lr": measured, "predict_cli": predict},
-            _sum_launches(train_launches, sharded_launches, *(r["launches"] for r in ranks)))
+            _sum_launches(train_launches, sharded_launches, fresh["launches"], *(r["launches"] for r in ranks)))
 
 
 def _dist_densify_phase(seed: int, tmp: pathlib.Path) -> tuple[dict, dict]:
@@ -2875,6 +3062,12 @@ def main(argv=None) -> int:
     paths["train_msg_bf16"] = train_bf16_phase(cfg, SEED, card, msg_train_row, arch="msg", steps=MSG_BF16_STEPS)
     torch.cuda.empty_cache()
     paths.update(cli_phase(SEED, card, train_row["median_ms"]))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prep_") as tmp:
+        prep_launches, prep_cfg = prep_phase(SEED, card, pathlib.Path(tmp))
+        paths.update(prep_launches)
+        torch.cuda.empty_cache()
+        paths.update(convert_phase(SEED, card, pathlib.Path(tmp), prep_cfg))
     torch.cuda.empty_cache()
     paths["op_surface"] = op_surface_phase(card)
     torch.cuda.empty_cache()

@@ -1,17 +1,25 @@
-"""The port's command-line entry points, counterparts of the root ``train.py``,
-``predict.py``, ``interpolate.py`` and ``kitti_predict.py``.
+"""The port's command-line entry points, counterparts of the root ``preprocess.py``,
+``downsample.py``, ``train.py``, ``predict.py``, ``interpolate.py``, ``kitti_predict.py`` and ``serve.py``.
 
+    python -m pointnet2_tpu_torch.cli.preprocess [--raw_dir dataset/semantic_raw]
+    python -m pointnet2_tpu_torch.cli.downsample [--voxel_size 0.05]
     python -m pointnet2_tpu_torch.cli.train --config_file semantic.json
     python -m pointnet2_tpu_torch.cli.predict --ckpt log/semantic/model.pt
     python -m pointnet2_tpu_torch.cli.interpolate --set validation [--engine device]
     python -m pointnet2_tpu_torch.cli.kitti_predict --ckpt log/semantic/model.pt --kitti_root DIR --save
+    python -m pointnet2_tpu_torch.cli.serve --artifact result/export
 
-Each takes the JAX script's flags by the same names, and ``--device``: CUDA
-by default, which must be present (``--device cpu`` runs the plain versions
-of the operators, for tests; ``interpolate`` uses it for ``--engine device``
-and ``--engine sharded`` only). ``train`` and ``predict`` run over several
-processes with ``--dist_coordinator``, ``--dist_num_processes`` and
-``--dist_process_id`` (``parallel.multihost``: one process a device).
+Each takes the JAX script's flags by the same names. ``preprocess`` and
+``downsample`` are host work and take no more; the others take
+``--device``: CUDA by default, which must be present (``--device cpu`` runs
+the plain versions of the operators, for tests; ``interpolate`` uses it for
+``--engine device`` and ``--engine sharded`` only). ``train`` and
+``predict`` run over several processes with ``--dist_coordinator``,
+``--dist_num_processes`` and ``--dist_process_id`` (``parallel.multihost``:
+one process a device). The tools beside them (``pointnet2_tpu_torch.tools``)
+include ``convert_checkpoint`` (a reference TF checkpoint to the port's
+``.pt``; ``--device``, CUDA by default) and ``scalars_to_tb`` (a run's
+``scalars.jsonl`` to TensorBoard event files; needs ``tensorboardX``).
 """
 
 from __future__ import annotations

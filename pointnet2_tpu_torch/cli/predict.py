@@ -20,10 +20,10 @@ the CPU alone), a copy of the model on each; ``--batch_size`` must divide by
 their count, and a short last batch is padded with copies of its clouds.
 With ``--dist_coordinator``, ``--dist_num_processes`` and
 ``--dist_process_id`` process I of P labels the scenes ``I::P`` on its own
-device (``parallel.multihost``); every process still draws every scene's
-samples in order, so each scene gets the samples, and the labels, of a
-one-process run. The confusion matrices are gathered, and process 0 prints
-the global metrics.
+device (``parallel.multihost``), drawing only their samples from its own
+``SemanticDataset(seed=0)``, as each process of the JAX script does: process
+I starts its first scene on a fresh stream. The confusion matrices are
+gathered, and process 0 prints the global metrics.
 """
 
 from __future__ import annotations
@@ -91,9 +91,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Run the prediction; returns the samples labelled, each batch's seconds
     (sampling excluded, the labels' read back included), the seconds spent
-    drawing samples (every scene's, in every process) and over the scenes in
-    all, the files written and the confusion matrix over every process's
-    points (None for the test set)."""
+    drawing this process's samples and over its scenes in all, the files
+    written and the confusion matrix over every process's points (None for
+    the test set)."""
     np.random.seed(0)
     parser = build_parser()
     flags = parser.parse_args(argv)
@@ -173,13 +173,8 @@ def _predict(flags: argparse.Namespace, device: torch.device, mesh) -> dict:
     summary: dict = {"samples": 0, "batch_seconds": [], "sample_seconds": 0.0, "outputs": [], "processes": nproc,
                      "confusion": None}
     start = time.perf_counter()
-    for index, file_data in enumerate(dataset.list_file_data):
-        # Every process draws every scene's samples, so that the shared stream
-        # gives each scene what a one-process run draws for it; a process
-        # labels and writes its scenes alone.
-        mine = index % nproc == pid
-        if mine:
-            print(f"Processing {file_data.file_path_without_ext}" + (f" (process {pid})" if nproc > 1 else ""))
+    for file_data in dataset.list_file_data[pid::nproc]:
+        print(f"Processing {file_data.file_path_without_ext}" + (f" (process {pid})" if nproc > 1 else ""))
         points_collector: list[np.ndarray] = []
         pd_labels_collector: list[np.ndarray] = []
 
@@ -190,8 +185,6 @@ def _predict(flags: argparse.Namespace, device: torch.device, mesh) -> dict:
                 batch_size=current, num_points_per_sample=cfg.num_point
             )
             summary["sample_seconds"] += time.perf_counter() - s
-            if not mine:
-                continue
             inputs = np.concatenate((centered, colors), axis=-1) if cfg.use_color else centered
             # The JAX script pads a short last batch to batch_size for its one
             # compiled shape. Not here: in eval mode each cloud is labelled on
@@ -214,8 +207,6 @@ def _predict(flags: argparse.Namespace, device: torch.device, mesh) -> dict:
             pd_labels_collector.extend(pred)
             if flags.set != "test":
                 cm.increment_from_list(gt_labels.flatten(), pred.flatten())
-        if not mine:
-            continue
 
         prefix = os.path.basename(file_data.file_path_without_ext)
         pcd_path = os.path.join(flags.output_dir, prefix + ".pcd")
@@ -229,7 +220,7 @@ def _predict(flags: argparse.Namespace, device: torch.device, mesh) -> dict:
     summary["seconds"] = time.perf_counter() - start
     if flags.set != "test":
         # One collective at the end: the matrix is a sum over points, so the
-        # processes' matrices add up to a one-process run's.
+        # sum of the processes' matrices counts every scene's.
         total = ConfusionMatrix(dataset.num_classes)
         total.increment_from_matrix(multihost.allgather_host(np.asarray(cm.confusion_matrix, np.int64)).sum(axis=0))
         summary["confusion"] = np.asarray(total.confusion_matrix)

@@ -12,6 +12,13 @@ fewer points repeats its lowest-x points, a step in density along x that
 needs wider calibrated windows than the data's. ``chip_smoke.py``'s CLI
 phase trains and predicts on these scenes.
 
+``fabricate_raw`` writes raw Semantic3D scenes, what ``cli.preprocess``
+and ``cli.downsample`` read: for each prefix a ``.txt`` of ``x y z
+intensity r g b`` rows (integer intensity and colours; ``x y z intensity``
+without colours) and, unless it is a test scene, a ``.labels`` file of one
+integer a row, a fiftieth of them 0 (unlabelled, which downsampling drops).
+``write_raw_scene`` writes one such scene from given points and labels.
+
 ``fabricate_dense`` writes what ``cli.interpolate`` reads for a split: each
 scene's raw dense cloud and its labels (``gt_dir``) and a sparse labelled
 cloud (``sparse_dir``), a subset of the dense points, as ``cli.predict``'s
@@ -36,6 +43,7 @@ import json
 import pathlib
 import sys
 import tempfile
+from typing import Optional
 
 import numpy as np
 import torch
@@ -64,9 +72,55 @@ def fabricate(data_dir: pathlib.Path, seed: int) -> None:
     n = SCENE_POINTS
     for prefix in train_file_prefixes + validation_file_prefixes:
         pts = rng.rand(n, 3) * SCENE_M
-        labels = 1 + (pts[:, 2] / SCENE_M[2] * 4).astype(np.int64) + 4 * (pts[:, 0] > SCENE_M[0] / 2)
         write_pcd(data_dir / f"{prefix}.pcd", pts, rng.rand(n, 3))
-        write_labels(data_dir / f"{prefix}.labels", labels)
+        write_labels(data_dir / f"{prefix}.labels", _band_labels(pts))
+
+
+RAW_COLORS = np.array([[128, 128, 128], [170, 160, 150], [90, 140, 60], [40, 110, 40], [120, 170, 80],
+                       [200, 60, 50], [150, 150, 170], [240, 240, 240], [30, 60, 200]])  # a base colour a label
+UNLABELLED_SHARE = 0.02
+
+
+def write_raw_scene(raw_dir: pathlib.Path, prefix: str, pts: np.ndarray, labels: np.ndarray,
+                    rng: np.random.RandomState, colors: bool = True, with_labels: bool = True) -> None:
+    """``<prefix>.txt`` with 4 decimals a coordinate, an integer intensity in
+    [-100, 100) and, with ``colors``, a colour near its label's base; and with
+    ``with_labels`` ``<prefix>.labels``, ``UNLABELLED_SHARE`` of them 0."""
+    n = len(pts)
+    intensity = rng.randint(-100, 100, n)
+    rows = [pts, intensity[:, None]]
+    fmt = "%.4f %.4f %.4f %d"
+    if colors:
+        rows.append(np.clip(RAW_COLORS[labels] + rng.randint(-20, 20, (n, 3)), 0, 255))
+        fmt += " %d %d %d"
+    _write_rows(raw_dir / f"{prefix}.txt", np.column_stack(rows), fmt)
+    if with_labels:
+        labels = labels.copy()
+        labels[rng.rand(n) < UNLABELLED_SHARE] = 0
+        _write_rows(raw_dir / f"{prefix}.labels", labels[:, None], "%d")
+
+
+def _write_rows(path: pathlib.Path, rows: np.ndarray, fmt: str, block: int = 10_000) -> None:
+    """What ``np.savetxt(path, rows, fmt=fmt)`` writes, a block of rows a format operation."""
+    with open(path, "w") as f:
+        for i in range(0, len(rows), block):
+            part = rows[i : i + block]
+            f.write((fmt + "\n") * len(part) % tuple(part.ravel().tolist()))
+
+
+def fabricate_raw(raw_dir: pathlib.Path, seed: int, prefixes, points: Optional[int] = None, colors: bool = True,
+                  with_labels: bool = True) -> None:
+    """A raw scene a prefix: ``points`` points (``SCENE_POINTS`` by default)
+    uniform in ``SCENE_M`` with ``fabricate``'s labels, through ``write_raw_scene``."""
+    rng = np.random.RandomState(seed)
+    for prefix in prefixes:
+        pts = rng.rand(points or SCENE_POINTS, 3) * SCENE_M
+        write_raw_scene(raw_dir, prefix, pts, _band_labels(pts), rng, colors, with_labels)
+
+
+def _band_labels(pts: np.ndarray) -> np.ndarray:
+    """Labels 1..8 from four height bands and the two halves of x."""
+    return 1 + (pts[:, 2] / SCENE_M[2] * 4).astype(np.int64) + 4 * (pts[:, 0] > SCENE_M[0] / 2)
 
 
 def dense_scene(rng: np.random.RandomState, n: int) -> tuple[np.ndarray, np.ndarray]:

@@ -1,10 +1,11 @@
-"""Run logging: text log, progress bar, JSONL scalar history.
+"""Run logging: text log, progress bar, JSONL scalar history, TensorBoard export.
 
 An own copy of ``pointnet2_tpu/utils/logging.py`` (the port imports nothing of
 the JAX package): ``log_train.txt`` and ``scalars.jsonl`` are written the
-same way. ``export_tensorboard``, which turns the JSONL history into
-TensorBoard event files with ``tensorboardX``, is not ported yet (ROADMAP
-queue 1 item 5's remainder); it reads these files as they are.
+same way, and ``export_tensorboard`` turns the JSONL history into
+TensorBoard event files with ``tensorboardX``, one run directory a tag.
+``tensorboardX`` is imported only by that function; where it is absent
+(the H100 machine has none) the function raises ``ImportError``.
 """
 
 from __future__ import annotations
@@ -64,3 +65,46 @@ def update_progress(progress, bar_length: int = 10) -> None:
     filled = round(frac * bar_length)
     sys.stdout.write(f"\rProgress: [{'#' * filled}{'-' * (bar_length - filled)}] {frac * 100:g}%")
     sys.stdout.flush()
+
+
+def export_tensorboard(logdir: str | pathlib.Path, out_dir: str | pathlib.Path | None = None) -> list[pathlib.Path]:
+    """Convert ``<logdir>/scalars.jsonl`` into TensorBoard event files, one
+    run a tag: ``<out>/<tag>/events.*`` (``out`` defaults to ``<logdir>/tb``),
+    the reference's per-split FileWriters (train.py:400-407), so that
+    ``tensorboard --logdir <logdir>/tb`` shows them. Returns the run
+    directories in the order their tags first appear."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError as e:
+        raise ImportError(
+            "export_tensorboard needs tensorboardX (pip install tensorboardX); scalars.jsonl is plain JSON lines"
+        ) from e
+
+    logdir = pathlib.Path(logdir)
+    out = pathlib.Path(out_dir) if out_dir else logdir / "tb"
+    scalars_path = logdir / "scalars.jsonl"
+    if not scalars_path.is_file():
+        raise FileNotFoundError(scalars_path)
+    writers: dict = {}
+    written: list[pathlib.Path] = []
+    try:
+        with open(scalars_path) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                rec = json.loads(line)
+                tag = rec.pop("tag", "default")
+                step = int(rec.pop("step", 0))
+                walltime = rec.pop("time", None)
+                if tag not in writers:
+                    run_dir = out / tag
+                    run_dir.mkdir(parents=True, exist_ok=True)
+                    writers[tag] = SummaryWriter(logdir=str(run_dir))
+                    written.append(run_dir)
+                for key, value in rec.items():
+                    writers[tag].add_scalar(key, float(value), step, walltime=walltime)
+    finally:
+        for w in writers.values():
+            w.close()
+    return written

@@ -20,31 +20,44 @@ are made in this process.
   the step. ``--dist_sampling sharded``: each process's seed
   ``seed + 9973 * process`` and its batch of ``batch_size / 2``, and ``auto``
   windows agreed by every process.
-- ``cli.predict`` on 2 processes: each writes its scenes (``pid::2``), every
-  ``.pcd`` and ``.labels`` equal byte for byte to the one-process run's, and
-  the gathered confusion matrix equal to its matrix. ``--sharded`` over 2, 3
-  and 4 CPU shards (``cli_mesh`` patched): the labels of the unsharded run,
-  a short last batch (padded over 4 shards) included.
+- ``cli.predict`` on 2 processes: process p walks the scenes ``p::2`` on its
+  own fresh ``seed=0`` stream, as process p of the root ``predict.py`` does.
+  Its files are held to the root script run in this process as rank p of 2
+  (``jax.process_index``/``process_count`` answering the script's own calls,
+  ``multihost_utils.process_allgather`` standing in for the gather): each
+  ``.pcd`` byte for byte, the ``.labels`` as ``tests/test_torch_cli.py``
+  holds the one-process CLI's; and to the port's CLI run in this process as
+  rank p (``multihost``'s index and count patched, no group): every file
+  byte for byte, the gathered confusion matrix the sum of those runs'
+  matrices. Process 1's first scene is drawn otherwise than in a one-process
+  run, which draws it after scene 0's samples. ``--sharded`` over 2, 3 and
+  4 CPU shards (``cli_mesh`` patched): the labels of the unsharded run, a
+  short last batch (padded over 4 shards) included.
 - ``cli.interpolate --engine sharded`` over two CPU shards: the device engine's files.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import pathlib
+import sys
 
 import numpy as np
 import pytest
 import torch
 
+from pointnet2_tpu_torch import convert
 from pointnet2_tpu_torch.cli import interpolate as cli_interpolate
 from pointnet2_tpu_torch.cli import predict as cli_predict
 from pointnet2_tpu_torch.cli import train as cli_train
 from pointnet2_tpu_torch.config import Config
-from pointnet2_tpu_torch.data.io import write_labels, write_pcd
+from pointnet2_tpu_torch.data.io import load_labels, write_labels, write_pcd
 from pointnet2_tpu_torch.data.semantic3d import train_file_prefixes, validation_file_prefixes
+from pointnet2_tpu_torch.parallel import multihost
 from pointnet2_tpu_torch.tools import scenes as fabricated
 from pointnet2_tpu_torch.tools.dist_step import run_cli_ranks
-from pointnet2_tpu_torch.train import Trainer, restore_checkpoint
+from pointnet2_tpu_torch.train import Trainer, load_model_state, restore_checkpoint
 from test_torch_train import SMALL
 
 SCENE_POINTS = 1200
@@ -53,6 +66,7 @@ STEPS = 9 * SCENE_POINTS // (SMALL["batch_size"] * SMALL["num_point"])
 # a step (measured with Adam: 5e-6 at step 2, 7e-4 at step 3, 1.9e-2 at step
 # 7); at 1e-5 they stay within 2e-5 over the epoch.
 LEARNING_RATE = 1e-5
+LABEL_AGREEMENT = 0.9999  # the port's labels against the root predict.py's, as in tests/test_torch_cli.py
 
 torch.set_num_threads(2)
 
@@ -171,19 +185,112 @@ def one_process_predict(one_process, tmp_path_factory):
     return argv, out, cli_predict.main(argv + ["--output_dir", str(out)])
 
 
-def test_two_process_predict_splits_the_scenes_and_gathers_the_matrix(one_process_predict, tmp_path):
-    argv, want_dir, want = one_process_predict
+@pytest.fixture(scope="module")
+def two_process_predict(one_process_predict, tmp_path_factory):
+    argv, _, _ = one_process_predict
+    base = tmp_path_factory.mktemp("predict_two")
     argv = [a for a in argv if a != "--device" and a != "cpu"]
-    summaries, outputs = _cli_ranks("predict", tmp_path / "summary", argv + ["--output_dir", str(tmp_path / "out")])
+    summaries, outputs = _cli_ranks("predict", base / "summary", argv + ["--output_dir", str(base / "out")])
+    return base / "out", summaries, outputs
+
+
+def _root_predict_as_rank(rank: int, world: int, argv: list, out_dir: pathlib.Path, monkeypatch) -> np.ndarray:
+    """The root ``predict.py`` in this process as rank ``rank`` of ``world``;
+    returns the confusion matrix it hands to the gather. Only the script's
+    own calls of ``jax.process_index``/``process_count`` see the rank: orbax's
+    restore asks them too and wants a distributed client when the count is
+    above 1."""
+    import jax
+    from jax.experimental import multihost_utils
+
+    def for_the_script(value, real):
+        return lambda: value if sys._getframe(1).f_globals.get("__name__") == "predict" else real()
+
+    gathered = []
+
+    def process_allgather(x):
+        gathered.append(np.asarray(x))
+        return np.asarray(x)[None]
+
+    with monkeypatch.context() as mp:
+        mp.setattr(jax, "process_index", for_the_script(rank, jax.process_index))
+        mp.setattr(jax, "process_count", for_the_script(world, jax.process_count))
+        mp.setattr(multihost_utils, "process_allgather", process_allgather)
+        mp.setattr(sys, "argv", ["predict.py", *argv, "--output_dir", str(out_dir)])
+        import predict
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            predict.main()
+    (matrix,) = gathered
+    return matrix
+
+
+def _port_predict_as_rank(rank: int, world: int, argv: list, out_dir: pathlib.Path, monkeypatch) -> dict:
+    """The port's predict CLI in this process, with no group, as rank ``rank`` of ``world``."""
+    with monkeypatch.context() as mp:
+        mp.setattr(multihost, "process_index", lambda: rank)
+        mp.setattr(multihost, "process_count", lambda: world)
+        return cli_predict.main(argv + ["--output_dir", str(out_dir)])
+
+
+@pytest.fixture(scope="module")
+def orbax_checkpoint(one_process, tmp_path_factory):
+    """The one-process run's ``model.pt`` as the JAX package's orbax checkpoint."""
+    import jax
+
+    from pointnet2_tpu.config import Config as JaxConfig
+    from pointnet2_tpu.train.trainer import Trainer as JaxTrainer
+    from pointnet2_tpu.train.trainer import save_checkpoint as jax_save_checkpoint
+
+    base, cfg_path, _ = one_process
+    variables = convert.to_flax_variables(load_model_state(base / "log" / "model.pt"))
+    state = JaxTrainer(cfg=JaxConfig.from_json(cfg_path)).init_state(jax.random.PRNGKey(0))
+    state = state.replace(params=variables["params"], batch_stats=variables["batch_stats"])
+    path = tmp_path_factory.mktemp("orbax") / "model"
+    jax_save_checkpoint(str(path), state)
+    return path
+
+
+def test_two_process_predict_splits_the_scenes_and_gathers_the_matrix(
+        one_process_predict, two_process_predict, orbax_checkpoint, tmp_path, monkeypatch):
+    argv, _, _ = one_process_predict
+    out, summaries, outputs = two_process_predict
+    port_argv = argv
+    root_argv = [a for a in argv if a not in ("--device", "cpu")]
+    root_argv[root_argv.index("--ckpt") + 1] = str(orbax_checkpoint)
+    rank_matrices = []
     for rank, summary in enumerate(summaries):
+        mine = validation_file_prefixes[rank::2]
         names = [pathlib.Path(p).stem for pair in summary["outputs"] for p in pair]
-        assert names == [prefix for prefix in validation_file_prefixes[rank::2] for _ in range(2)]
-        assert summary["confusion"] == want["confusion"].tolist()
+        assert names == [prefix for prefix in mine for _ in range(2)]
+        alone = _port_predict_as_rank(rank, 2, port_argv, tmp_path / f"port{rank}", monkeypatch)
+        rank_matrices.append(alone["confusion"])
+        root_matrix = _root_predict_as_rank(rank, 2, root_argv, tmp_path / f"root{rank}", monkeypatch)
+        got, want = [], []
+        for prefix in mine:
+            for suffix in (".pcd", ".labels"):
+                assert (out / f"{prefix}{suffix}").read_bytes() == (tmp_path / f"port{rank}" / f"{prefix}{suffix}").read_bytes()
+            assert (out / f"{prefix}.pcd").read_bytes() == (tmp_path / f"root{rank}" / f"{prefix}.pcd").read_bytes()
+            got.append(load_labels(out / f"{prefix}.labels"))
+            want.append(load_labels(tmp_path / f"root{rank}" / f"{prefix}.labels"))
+        got, want = np.concatenate(got), np.concatenate(want)
+        assert got.shape == want.shape == (len(mine) * 6 * SMALL["num_point"],)
+        assert (got == want).mean() >= LABEL_AGREEMENT
+        if np.array_equal(got, want):
+            np.testing.assert_array_equal(alone["confusion"], root_matrix)
+    for summary in summaries:
+        np.testing.assert_array_equal(summary["confusion"], sum(rank_matrices))
     assert "Confusion matrix" in outputs[0] and "Confusion matrix" not in outputs[1]
-    for prefix in validation_file_prefixes:
-        for suffix in (".pcd", ".labels"):
-            name = f"{prefix}{suffix}"
-            assert (tmp_path / "out" / name).read_bytes() == (want_dir / name).read_bytes()
+
+
+def test_two_process_predict_draws_each_ranks_scenes_on_a_fresh_stream(one_process_predict, two_process_predict):
+    """Process 1 starts its first scene on a fresh stream; a one-process run
+    draws that scene after scene 0's samples, so the two differ."""
+    _, want_dir, want = one_process_predict
+    out, summaries, _ = two_process_predict
+    first = validation_file_prefixes[1]
+    assert (out / f"{first}.pcd").read_bytes() != (want_dir / f"{first}.pcd").read_bytes()
+    assert [s["samples"] for s in summaries] == [6 * 3, 6 * 3] and want["samples"] == 6 * 6
 
 
 @pytest.mark.parametrize("shards,batch", [(2, 4), (4, 4), (3, 3)])

@@ -50,7 +50,9 @@ def test_importing_the_port_loads_no_jax():
             "pointnet2_tpu_torch.utils.render", "pointnet2_tpu_torch.cli.interpolate",
             "pointnet2_tpu_torch.cli.kitti_predict", "pointnet2_tpu_torch.ops.library",
             "pointnet2_tpu_torch.export", "pointnet2_tpu_torch.serving", "pointnet2_tpu_torch.cli.serve",
-            "pointnet2_tpu_torch.tools.export_model"} <= set(mods)
+            "pointnet2_tpu_torch.tools.export_model", "pointnet2_tpu_torch.cli.preprocess",
+            "pointnet2_tpu_torch.cli.downsample", "pointnet2_tpu_torch.tools.convert_checkpoint",
+            "pointnet2_tpu_torch.tools.scalars_to_tb"} <= set(mods)
 
 
 _FORBIDDEN = re.compile(
