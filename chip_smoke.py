@@ -131,6 +131,33 @@ non-zero and prints no result):
    both arches carry the device ms of a request and SA1's share of one
    chunk's forward (CUDA events, ``sa1_share``); the train lines the device
    ms of a step.
+5d. SA tails (``sa_tails``): the last modules of the port. (a) The
+   reference's plain SA layout, ``PointNet2SemSeg(pre_project=False)``, on
+   the seeded weights carried into it through the reference's TF names
+   (``flax_to_tf_vars``, ``tf_vars_to_flax(pre_project=False)``): one eval
+   chunk of 8 clouds (rows 1-4 as ``chunk_launches``) held to its plain path
+   and to the pre-projected model on the same weights (labels >= 99.99 %,
+   logits within 1e-3); a windowed chunk (3072 / 512: the calibrated ball
+   query at SA1, the windowed 3-NN at FP4) whose eight certificates hold and
+   whose logits are the exact chunk's within 1e-4; a dropout-free train step
+   at B=16 held to its plain path with the train phase's gates; 3 timed
+   steps (rows 1-5 as ``step_launches``), then ms a 16-cloud request and a
+   step beside the pre-projected model's, in turns. (b) kNN grouping
+   (``SetAbstraction(use_knn=True)``) at SA1-SA4's shapes, B=16, k = 32, the
+   list route of row 3: centroids and indices equal to the plain path's bit
+   for bit, features within 1e-4 of their max abs, row 3 timed at each shape
+   beside its bound; then a train step of the model with every level so
+   grouped (FPS 4, row 3 8, rows 4 and 5 4 each, no ball query) held to its
+   plain path. (c) The other SA options at SA1's shape in both layouts (the
+   pooling modes avg, weighted_avg, max_and_avg; mlp2; use_xyz=False;
+   use_bn=False) and group_all at SA4's input (64 points), each against its
+   plain path within 1e-4 of the output's max abs. (d) The calibration tool
+   ``tools.bq_window_calibrate.main`` on the ``cli`` phase's fabricated
+   scenes (one batch of 8 clouds: FPS 4 times): its windows and spans those
+   of its plain version on the same batches. (e) ``cli.colorize`` and
+   ``write_html_viewer`` on this host: the ``_colored.pcd`` byte for byte the
+   plain path's (``write_pcd`` of ``colorize_point_cloud``), the page the
+   same twice and holding the cloud and its colours.
 6. Op surface: the index-only FPS (``farthest_point_sample``) at the four SA
    shapes of both batches, equal to its plain version and to the fused
    kernel's indices; the round-1 windowed ball query (``ops.ball_query(
@@ -291,7 +318,7 @@ non-zero and prints no result):
 Output: one JSON line a kernel and shape, one for each driven path (predict,
 train, predict_windows, train_windows, predict_bf16, train_bf16, their MSG
 counterparts predict_msg, train_msg, predict_windows_msg,
-train_windows_msg, predict_msg_bf16, train_msg_bf16, then cli, prep,
+train_windows_msg, predict_msg_bf16, train_msg_bf16, sa_tails, then cli, prep,
 convert, op_surface, densify, dist, kitti, export, serve; the
 parity sweep's lines and the stage bench's lines inside op_surface), the
 ``nvidia-smi`` line, one ``{"kernels": [...]}`` line, and last ``{"ok":
@@ -304,7 +331,9 @@ the ``kernels`` line sums them.
 from __future__ import annotations
 
 import argparse
+import base64
 import contextlib
+import copy
 import dataclasses
 import importlib
 import io
@@ -329,6 +358,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from pointnet2_tpu_torch import convert, native, ops, predict_profile
 from pointnet2_tpu_torch.cli import cli_mesh
+from pointnet2_tpu_torch.cli import colorize as cli_colorize
 from pointnet2_tpu_torch.cli import downsample as cli_downsample
 from pointnet2_tpu_torch.cli import interpolate as cli_interpolate
 from pointnet2_tpu_torch.cli import kitti_predict as cli_kitti
@@ -337,7 +367,7 @@ from pointnet2_tpu_torch.cli import preprocess as cli_preprocess
 from pointnet2_tpu_torch.cli import serve as cli_serve
 from pointnet2_tpu_torch.cli import train as cli_train
 from pointnet2_tpu_torch.config import Config
-from pointnet2_tpu_torch.data.io import load_labels, read_pcd
+from pointnet2_tpu_torch.data.io import load_labels, read_pcd, write_labels, write_pcd
 from pointnet2_tpu_torch.data.semantic3d import (
     SemanticDataset,
     all_file_prefixes,
@@ -348,6 +378,7 @@ from pointnet2_tpu_torch.data.semantic3d import (
 from pointnet2_tpu_torch.export import load_exported
 from pointnet2_tpu_torch.infer import Predictor, full_float32
 from pointnet2_tpu_torch.models.pointnet2_seg import SA_MLPS, msg_scales
+from pointnet2_tpu_torch.nn.pointnet import SetAbstraction
 from pointnet2_tpu_torch.ops.calibrate import calibrate_model_windows
 from pointnet2_tpu_torch.ops import core, cuda, densify
 from pointnet2_tpu_torch.ops.cuda import ballquery as cuda_ballquery
@@ -357,12 +388,15 @@ from pointnet2_tpu_torch.ops.cuda import interpolate as cuda_interp
 from pointnet2_tpu_torch.ops.cuda import wingather as cuda_gather
 from pointnet2_tpu_torch.parallel import knn_sharded, multihost
 from pointnet2_tpu_torch.parallel.launch import run_ranks
+from pointnet2_tpu_torch.tools import bq_window_calibrate as calibrate_cli
 from pointnet2_tpu_torch.tools import convert_checkpoint as convert_cli
 from pointnet2_tpu_torch.tools import export_model as export_cli
 from pointnet2_tpu_torch.tools import dist_step, op_bench, parity, scenes, stage_bench
 from pointnet2_tpu_torch.train import Trainer, load_model_state, restore_checkpoint, save_checkpoint
 from pointnet2_tpu_torch.train_profile import train_batch
 from pointnet2_tpu_torch.utils.bench import bound, card_line, cuda_ms, deterministic_algorithms, device_ms
+from pointnet2_tpu_torch.utils.colors import colorize_point_cloud
+from pointnet2_tpu_torch.utils.html_viewer import write_html_viewer
 
 # The package's ``knn`` is the wrapper function; the module is reached by name.
 cuda_knn = importlib.import_module("pointnet2_tpu_torch.ops.cuda.knn")
@@ -1293,14 +1327,17 @@ def _expect_launches(launches: dict, want: dict, what: str) -> None:
         raise AssertionError(f"{what}: launches {got}, want {want}")
 
 
-def _one_step(cfg: Config, impl, batch: dict, seed: int, **options):
+def _one_step(cfg: Config, impl, batch: dict, seed: int, prepare=None, **options):
     """Loss and parameter gradients of one dropout-free step from seeded
     weights, under PyTorch's deterministic algorithms (for the comparisons
     of two paths; the timed steps run without them). ``options``: the
-    Trainer's windows or precision mode."""
+    Trainer's windows, precision mode or layout; ``prepare``, called on the
+    model before the step."""
     with deterministic_algorithms():
         trainer = Trainer(cfg, ops_impl=impl, dropout_rate=0.0, device=DEVICE, **options)
         trainer.init_state(seed, bn_stats="random")
+        if prepare is not None:
+            prepare(trainer.model)
         loss = trainer.train_step(batch)["loss"]
         grads = {name: p.grad.clone() for name, p in trainer.model.named_parameters()}
         torch.cuda.synchronize()
@@ -1778,6 +1815,308 @@ def train_bf16_phase(
         "card": card,
     })
     return launches
+
+
+# -- phase 5d: the SA tails ----------------------------------------------------
+
+SA_TAILS_STEPS = 3  # timed train steps of each layout, in turns
+SA_TAILS_REQUESTS = 2  # timed 16-cloud requests of each layout, in turns
+MODE_TOL = 1e-4  # an SA option's kernel path against its plain path, of the plain output's max abs
+CALIBRATE_BATCHES = 1  # of CHUNK clouds: the FP oracle takes some 0.4 s a cloud on the host
+# The SA options held at SA1's shape, each in both layouts: (name, SetAbstraction keywords).
+SA_MODES = (
+    ("avg", dict(pooling="avg")),
+    ("weighted_avg", dict(pooling="weighted_avg")),
+    ("max_and_avg", dict(pooling="max_and_avg")),
+    ("mlp2", dict(mlp2=[64, 32])),
+    ("no_xyz", dict(use_xyz=False)),
+    ("no_bn", dict(use_bn=False)),
+)
+
+
+def plain_layout_state(cfg: Config, seed: int) -> tuple[dict, dict]:
+    """The seeded weights of ``seeded_state`` in the plain SA layout (carried
+    through the reference's TF names, ``flax_to_tf_vars`` then
+    ``tf_vars_to_flax(pre_project=False)``) and in the pre-projected one."""
+    tree = convert.init_variables(cfg, num_classes=9, seed=seed, bn_stats="random")
+    plain = convert.tf_vars_to_flax(convert.flax_to_tf_vars(tree), pre_project=False)
+    return convert.from_flax_variables(plain), convert.from_flax_variables(tree)
+
+
+def _seeded_module(module: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """``module`` on the card in eval mode, with seeded parameters (kernels
+    N(0, 1/fan_in)) and moving statistics that do real work."""
+    rng = np.random.RandomState(seed)
+    state = {}
+    for name, t in module.state_dict().items():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "var":
+            value = rng.uniform(0.5, 2.0, t.shape)
+        elif leaf == "scale":
+            value = rng.uniform(0.5, 1.5, t.shape)
+        elif t.dim() == 1:  # biases and means
+            value = rng.normal(0.0, 0.1, t.shape)
+        else:  # nn.Linear's weight is (out, in), w0 (in, out)
+            value = rng.normal(0.0, 1.0 / np.sqrt(t.shape[1] if leaf == "weight" else t.shape[0]), t.shape)
+        state[name] = torch.tensor(value, dtype=torch.float32)
+    module.load_state_dict(state)
+    return module.to(DEVICE).eval()
+
+
+def _kernel_vs_plain(what: str, module: SetAbstraction, xyz: torch.Tensor, points: Optional[torch.Tensor],
+                     seed: int) -> dict:
+    """``module``'s eval forward on the kernels against the same module on the
+    plain versions: centroids and indices equal, features within ``MODE_TOL``
+    of the plain output's max abs, or raise."""
+    kernel = _seeded_module(module, seed)
+    plain = copy.deepcopy(kernel)
+    plain.ops_impl = "torch"
+    with torch.no_grad():
+        got, want = kernel(xyz, points), plain(xyz, points)
+    err = max_abs(got[1], want[1]) / max(float(want[1].abs().max()), 1e-30)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])) or not err <= MODE_TOL:
+        raise AssertionError(f"{what}: the kernel path and the plain path disagree (feature error {err} of max abs)")
+    if not torch.isfinite(got[1]).all() or got[1].shape[-1] != module.out_features:
+        raise AssertionError(f"{what}: features of shape {tuple(got[1].shape)}, finite {bool(torch.isfinite(got[1]).all())}")
+    return {"err_of_max_abs": err, "shape": list(got[1].shape)}
+
+
+def _knn_grouping(model: torch.nn.Module) -> None:
+    """Every SA level of ``model`` groups the nsample nearest points in place of its ball."""
+    for i in range(4):
+        getattr(model, f"sa{i + 1}").use_knn = True
+
+
+def _in_turns(fns: dict, rounds: int) -> dict:
+    """Host ms of each call of ``fns`` (name -> call ending in a synchronise),
+    ``rounds`` times in the turns a, b, b, a."""
+    times = {name: [] for name in fns}
+    order = list(fns)
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            t0 = time.perf_counter()
+            fns[name]()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _html_payload(html: str, kind: str) -> bytes:
+    """The base64 array the viewer's page decodes as ``kind`` (Float32Array or Uint8Array)."""
+    end = html.index(f'", {kind})')
+    return base64.b64decode(html[html.rindex('decode("', 0, end) + len('decode("'):end])
+
+
+def sa_tails_phase(cfg: Config, seed: int, card: str, report: Report) -> dict:
+    """The last modules of the port on the card: (a) ``PointNet2SemSeg(
+    pre_project=False)``, the reference's plain SA layout, at full width; (b)
+    kNN grouping at SA1-SA4's shapes (row 3's list route, k = 32) and a train
+    step of a model that groups so; (c) the other SA options at SA1's shape;
+    (d) the window-calibration tool; (e) the colorize CLI and the HTML
+    viewer. Returns the launch counts of (a)'s eval chunk, timed train steps
+    and windowed chunk, (b)'s train step and (d)'s run."""
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    plain_sd, pre_sd = plain_layout_state(cfg, seed)
+    paths, row = {}, {"phase": "sa_tails"}
+
+    # (a) The plain layout: one eval chunk against its plain path and against
+    # the pre-projected model on the same weights.
+    x = clouds(CHUNK, cfg, seed + 1)
+    layouts = {
+        "plain": Predictor(cfg, plain_sd, infer_chunk=CHUNK, device=DEVICE, pre_project=False),
+        "plain_torch": Predictor(cfg, plain_sd, infer_chunk=CHUNK, device=DEVICE, impl="torch", pre_project=False),
+        "pre_projected": Predictor(cfg, pre_sd, infer_chunk=CHUNK, device=DEVICE),
+    }
+    layouts["plain"].infer_logits(x)  # warm-up
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    logits = layouts["plain"].infer_logits(x)
+    torch.cuda.synchronize()
+    paths["sa_tails_eval"] = dict(cuda.LAUNCHES)
+    _expect_launches(paths["sa_tails_eval"], chunk_launches(), "plain-layout eval chunk")
+    if logits.shape != (CHUNK, cfg.num_point, 9) or not torch.isfinite(logits).all():
+        raise AssertionError(f"plain layout: bad logits, shape {tuple(logits.shape)}")
+    eval_gates = {}
+    for ref in ("plain_torch", "pre_projected"):
+        ref_logits = layouts[ref].infer_logits(x)
+        agree = float((logits.argmax(-1) == ref_logits.argmax(-1)).float().mean())
+        err = max_abs(logits, ref_logits)
+        if agree < 0.9999 or err > 1e-3:
+            raise AssertionError(f"plain layout vs {ref}: label agreement {agree}, max abs logit diff {err}")
+        eval_gates[ref] = {"label_agreement": agree, "max_abs_logit_diff": err}
+    requests = [clouds(BATCH, cfg, seed + 2 + i) for i in range(SA_TAILS_REQUESTS)]
+    request_ms = _in_turns(
+        {name: (lambda p=layouts[name]: [p.predict_step(r) for r in requests]) for name in ("plain", "pre_projected")},
+        2,
+    )
+    row["eval"] = {**eval_gates, "ms_per_request": {
+        name: [ms / SA_TAILS_REQUESTS for ms in times] for name, times in request_ms.items()
+    }}
+
+    # The plain layout's windowed chunk: certificates and the exact path's logits.
+    windowed = Predictor(cfg, plain_sd, infer_chunk=CHUNK, device=DEVICE, bq_window=BQ_WINDOW, fp_window=FP_WINDOW,
+                         pre_project=False)
+    windowed.infer_logits(x)  # warm-up
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    certificates: list = []
+    win_logits = windowed.infer_logits(x, certificates)
+    torch.cuda.synchronize()
+    paths["sa_tails_windows"] = dict(cuda.LAUNCHES)
+    _expect_launches(
+        paths["sa_tails_windows"],
+        {name: n for name, n in step_launches(windows=True).items() if name != "three_interpolate_grad"},
+        "plain-layout windowed eval chunk",
+    )
+    names = [name for name, _ in certificates]
+    held = [bool(ok) for _, ok in certificates]
+    win_err = max_abs(win_logits, logits)
+    if names != ["bq_window_ok"] * 4 + ["fp_window_ok"] * 4 or not all(held) or win_err > WINDOW_LOGIT_TOL:
+        raise AssertionError(f"plain-layout windows: certificates {list(zip(names, held))}, logit diff {win_err}")
+    row["windows"] = {"bq_window": BQ_WINDOW, "fp_window": FP_WINDOW, "certificates": held,
+                      "max_abs_logit_diff_vs_exact": win_err}
+    del layouts, windowed
+
+    # The plain layout's train step: kernel path against plain path, then
+    # timed steps beside the pre-projected model's, in turns.
+    batches = [train_batch(cfg, BATCH, seed + 200 + i) for i in range(1 + SA_TAILS_STEPS)]
+    step = _one_step(cfg, None, batches[0], seed, pre_project=False)
+    if not np.isfinite(step[0]):
+        raise AssertionError(f"plain-layout train loss not finite: {step[0]}")
+    train_gates = _compare_steps("plain layout kernel path vs plain path", step,
+                                 _one_step(cfg, "torch", batches[0], seed, pre_project=False))
+    del step
+    trainers = {name: Trainer(cfg, device=DEVICE, pre_project=name == "pre_projected")
+                for name in ("plain", "pre_projected")}
+    for trainer in trainers.values():
+        trainer.init_state(seed, bn_stats="random")
+        trainer.train_step(batches[0])  # warm-up
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    plain_losses = [float(trainers["plain"].train_step(b)["loss"]) for b in batches[1:]]
+    torch.cuda.synchronize()
+    paths["sa_tails_train"] = dict(cuda.LAUNCHES)
+    _expect_launches(paths["sa_tails_train"], scaled(step_launches(), SA_TAILS_STEPS),
+                     f"{SA_TAILS_STEPS} plain-layout train steps")
+    if not all(np.isfinite(plain_losses)):
+        raise AssertionError(f"plain-layout train losses not finite: {plain_losses}")
+    step_ms = _in_turns(
+        {name: (lambda t=trainer: t.train_step(batches[1])) for name, trainer in trainers.items()}, SA_TAILS_STEPS + 1
+    )
+    row["train"] = {**train_gates, "losses": plain_losses, "ms_per_step": step_ms}
+    del trainers
+    torch.cuda.empty_cache()
+
+    # (b) kNN grouping at SA1-SA4's shapes (B=16, k = nsample = 32: the list route).
+    xb = torch.from_numpy(clouds(BATCH, cfg, seed + 700)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 700)
+    xyzs, feats = [xb[..., :3].contiguous()], [xb[..., 3:6]]
+    widths = [3] + [mlp[-1] for mlp in SA_MLPS]
+    sms = cuda_ballquery.num_sms(dev.index or 0)
+    knn_levels = []
+    for i, (spec, mlp) in enumerate(zip(cfg.sa_layers, SA_MLPS)):
+        src, k = xyzs[-1], spec.nsample
+        module = SetAbstraction(spec.npoint, spec.radius, k, mlp, widths[i], use_knn=True, leaf_inputs=i == 0)
+        level = _kernel_vs_plain(f"SA{i + 1} kNN grouping", module, src, feats[-1], seed + 710 + i)
+        cent = ops.fps_centroids(src, spec.npoint, impl="cuda")[1].contiguous()
+        got, want = cuda.knn(src, cent, k), core.knn(src, cent, k)
+        b, n, m = src.shape[0], src.shape[1], cent.shape[1]
+        report.add(
+            "knn", b, f"SA{i + 1} kNN grouping Nq={m} M={n} k={k}",
+            lambda src=src, cent=cent, k=k: cuda.knn(src, cent, k),
+            lambda src=src, cent=cent, k=k: core.knn(src, cent, k),
+            *op_bench.work_knn(b, m, n, k), err=max_abs(got[0], want[0]),
+            match=torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            info={"plan": cuda_knn.plan(b, m, n, k, sms), "case": "sa_knn"}, plain_timing=FEW,
+        )
+        knn_levels.append({**level, "kernel_ms": report.rows[-1]["kernel_ms"], "plan": report.rows[-1]["plan"]})
+        xyzs.append(cent)
+        feats.append(torch.rand((b, m, mlp[-1]), generator=gen, device=dev))
+    # The hoisted geometry is the ball query's: the kNN-grouped model groups on its own.
+    knn_options = dict(prepare=_knn_grouping, hoist_geometry=False)
+    cuda.reset_launches()
+    knn_step = _one_step(cfg, None, batches[0], seed, **knn_options)
+    paths["sa_tails_knn_train"] = dict(cuda.LAUNCHES)
+    if not np.isfinite(knn_step[0]):
+        raise AssertionError(f"kNN-grouping train loss not finite: {knn_step[0]}")
+    _expect_launches(paths["sa_tails_knn_train"], {**step_launches(), "ball_query": 0, "knn": 8},
+                     "kNN-grouping train step")
+    knn_gates = _compare_steps("kNN grouping kernel path vs plain path", knn_step,
+                               _one_step(cfg, "torch", batches[0], seed, **knn_options))
+    row["knn"] = {"levels": knn_levels, "sa1_list_route_ms": knn_levels[0]["kernel_ms"], "train_step": knn_gates}
+    del knn_step
+
+    # (c) The other options at SA1's shape, each in both layouts, and group_all at SA4's input.
+    spec, mlp = cfg.sa_layers[0], SA_MLPS[0]
+    modes = {}
+    for name, options in SA_MODES:
+        for pre_project in (True, False):
+            module = SetAbstraction(spec.npoint, spec.radius, spec.nsample, mlp, 3, pre_project=pre_project, **options)
+            layout = "pre_projected" if pre_project else "plain"
+            modes[f"{name}_{layout}"] = _kernel_vs_plain(f"SA1 {name} ({layout})", module, xyzs[0], feats[0],
+                                                         seed + 720)
+    modes["group_all"] = _kernel_vs_plain(
+        "group_all at SA4's input", SetAbstraction(1, 0.0, xyzs[3].shape[1], SA_MLPS[3], widths[3], group_all=True),
+        xyzs[3], feats[3], seed + 730,
+    )
+    row["modes"] = modes
+    del xb, xyzs, feats
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sa_tails_") as tmp:
+        tmp = pathlib.Path(tmp)
+        (tmp / "scenes").mkdir()
+        scenes.fabricate(tmp / "scenes", seed)
+        # (d) The calibration tool through its entry point, against its plain version.
+        cfg_path = _cli_config(tmp, "calibrate", tmp / "scenes")
+        argv = ["--data_path", str(tmp / "scenes"), "--config_file", str(cfg_path),
+                "--num_batches", str(CALIBRATE_BATCHES), "--batch_size", str(CHUNK)]
+        cuda.reset_launches()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            tool = calibrate_cli.main(argv)
+        paths["sa_tails_calibrate"] = dict(cuda.LAUNCHES)
+        _expect_launches(paths["sa_tails_calibrate"], {"fps_centroids": 4 * CALIBRATE_BATCHES}, "calibration tool")
+        flags = calibrate_cli.build_parser().parse_args(argv)
+        tool_cfg = Config.from_json(cfg_path)
+        spans, fp_spans = calibrate_cli.level_spans(flags, tool_cfg, dev, impl="torch")
+        want = calibrate_cli.windows(spans, fp_spans, tool_cfg, flags.margin)
+        if (tool["bq_window"], tool["fp_window"]) != want or (tool["spans"], tool["fp_spans"]) != (spans, fp_spans):
+            raise AssertionError(f"calibration tool: windows {tool['bq_window'], tool['fp_window']} and spans "
+                                 f"{tool['spans'], tool['fp_spans']}, its plain version {want}, {spans, fp_spans}")
+        row["calibrate"] = {"bq_window": tool["bq_window"], "fp_window": tool["fp_window"],
+                            "table": printed.getvalue().splitlines()}
+
+        # (e) The file tools on this host: colorize's files and the viewer's page.
+        prefix = validation_file_prefixes[0]
+        cloud = read_pcd(tmp / "scenes" / f"{prefix}.pcd")
+        labels = load_labels(tmp / "scenes" / f"{prefix}.labels")
+        (tmp / "sparse").mkdir()
+        write_pcd(tmp / "sparse" / f"{prefix}.pcd", cloud.points)
+        write_labels(tmp / "sparse" / f"{prefix}.labels", labels)
+        with contextlib.redirect_stdout(io.StringIO()):
+            colored = cli_colorize.main(["--input_dir", str(tmp / "sparse"), "--output_dir", str(tmp / "colored")])
+        colors = colorize_point_cloud(cloud.points, labels)
+        write_pcd(tmp / "plain_colored.pcd", cloud.points, colors)
+        if [pathlib.Path(p).name for p in colored] != [f"{prefix}_colored.pcd"] or (
+            pathlib.Path(colored[0]).read_bytes() != (tmp / "plain_colored.pcd").read_bytes()
+        ):
+            raise AssertionError(f"cli.colorize wrote {colored}, not the plain path's file")
+        html = [pathlib.Path(write_html_viewer(cloud.points, colors, tmp / f"{i}.html", title=prefix)).read_text()
+                for i in range(2)]
+        shown = (np.frombuffer(_html_payload(html[0], "Float32Array"), np.float32),
+                 np.frombuffer(_html_payload(html[0], "Uint8Array"), np.uint8))
+        if html[0] != html[1] or not np.array_equal(shown[0], cloud.points.astype(np.float32).ravel()) or (
+            not np.array_equal(shown[1], np.clip(np.round(colors * 255.0), 0, 255).astype(np.uint8).ravel())
+        ):
+            raise AssertionError("write_html_viewer: the page does not hold the cloud and its colours")
+        row["files"] = {"colorize": pathlib.Path(colored[0]).name, "points": len(cloud.points),
+                        "html_bytes": len(html[0])}
+
+    row.update({"launches": paths, "phase_seconds": time.perf_counter() - t0, "card": card})
+    emit(row)
+    return paths
 
 
 def _cli_train(cfg_path: pathlib.Path, seed: int, windows: list, precision: tuple = (), arch: str = "ssg",
@@ -3060,6 +3399,8 @@ def main(argv=None) -> int:
     paths.update(predict_bf16_phase(cfg, REQUESTS, BATCH, SEED, card, arch="msg", modes=MSG_BF16_MODES))
     torch.cuda.empty_cache()
     paths["train_msg_bf16"] = train_bf16_phase(cfg, SEED, card, msg_train_row, arch="msg", steps=MSG_BF16_STEPS)
+    torch.cuda.empty_cache()
+    paths.update(sa_tails_phase(cfg, SEED, card, report))
     torch.cuda.empty_cache()
     paths.update(cli_phase(SEED, card, train_row["median_ms"]))
     torch.cuda.empty_cache()

@@ -1,5 +1,6 @@
 """The port's command-line entry points, counterparts of the root ``preprocess.py``,
-``downsample.py``, ``train.py``, ``predict.py``, ``interpolate.py``, ``kitti_predict.py`` and ``serve.py``.
+``downsample.py``, ``train.py``, ``predict.py``, ``interpolate.py``, ``kitti_predict.py``, ``serve.py``,
+``visualize.py``, ``colorize.py`` and ``kitti_visualize.py``.
 
     python -m pointnet2_tpu_torch.cli.preprocess [--raw_dir dataset/semantic_raw]
     python -m pointnet2_tpu_torch.cli.downsample [--voxel_size 0.05]
@@ -8,9 +9,13 @@
     python -m pointnet2_tpu_torch.cli.interpolate --set validation [--engine device]
     python -m pointnet2_tpu_torch.cli.kitti_predict --ckpt log/semantic/model.pt --kitti_root DIR --save
     python -m pointnet2_tpu_torch.cli.serve --artifact result/export
+    python -m pointnet2_tpu_torch.cli.visualize --pcd FILE [--labels FILE] [--stats] [--html FILE]
+    python -m pointnet2_tpu_torch.cli.colorize [--input_dir result/sparse]
+    python -m pointnet2_tpu_torch.cli.kitti_visualize --kitti_root DIR
 
-Each takes the JAX script's flags by the same names. ``preprocess`` and
-``downsample`` are host work and take no more; the others take
+Each takes the JAX script's flags by the same names. ``preprocess``,
+``downsample`` and the three visualizers are host work and take no more
+(the PNGs need matplotlib, imported only to draw); the others take
 ``--device``: CUDA by default, which must be present (``--device cpu`` runs
 the plain versions of the operators, for tests; ``interpolate`` uses it for
 ``--engine device`` and ``--engine sharded`` only). ``train`` and
@@ -18,7 +23,9 @@ the plain versions of the operators, for tests; ``interpolate`` uses it for
 ``--dist_num_processes`` and ``--dist_process_id`` (``parallel.multihost``:
 one process a device). The tools beside them (``pointnet2_tpu_torch.tools``)
 include ``convert_checkpoint`` (a reference TF checkpoint to the port's
-``.pt``; ``--device``, CUDA by default) and ``scalars_to_tb`` (a run's
+``.pt``; ``--device``, CUDA by default), ``bq_window_calibrate`` (the
+windows to pass as ``--bq_window``/``--fp_window``; ``--device``, CUDA by
+default) and ``scalars_to_tb`` (a run's
 ``scalars.jsonl`` to TensorBoard event files; needs ``tensorboardX``).
 """
 

@@ -2,8 +2,9 @@
 
 The JAX model's ``model.init`` returns ``{"params": ..., "batch_stats": ...}``;
 with its leaves as numpy arrays, ``from_flax_variables`` maps it onto the
-port's ``PointNet2SemSeg`` or ``PointNet2SemSegMSG`` (a tree whose ``sa1``
-holds ``scale0``) by name:
+port's ``PointNet2SemSeg`` (its SA levels pre-projected, ``sa{i}/w0``, or in
+the plain layout of ``pre_project=False``, ``sa{i}/mlp/dense_j``) or
+``PointNet2SemSegMSG`` (a tree whose ``sa1`` holds ``scale0``) by name:
 
 - ``params/<path>/kernel`` (in, out) -> ``<path>.weight`` (out, in), transposed
   for ``nn.Linear``;
@@ -16,7 +17,8 @@ Every leaf is consumed exactly once: a missing or a leftover leaf raises.
 ``init_variables`` builds a tree in the same flax layout from a seed, so a run
 needs neither JAX nor a checkpoint: with flax's moving statistics (mean 0,
 variance 1) by default, as a fresh JAX ``init_state`` has them, or with
-``bn_stats="random"`` ones for checks in which BatchNorm must do real work.
+``bn_stats="random"`` ones for checks in which BatchNorm must do real work; with
+``pre_project=False`` the same weights in the plain layout.
 
 Reference TF checkpoints: own numpy copies of ``pointnet2_tpu/convert.py``'s
 ``read_tf_checkpoint``, ``tf_vars_to_flax``, ``to_preprojected``,
@@ -33,7 +35,7 @@ with each SA block rewritten into the pre-projected layout (``w0``, ``b0``,
 ``bn0``, ``mlp_rest``) that ``from_flax_variables`` reads. The reference
 model is SSG only: an MSG tree raises ``KeyError: 'mlp'``, as the JAX
 functions do. ``state_dict_from_tf`` chains the conversion into
-``from_flax_variables``. A checkpoint is read from an ``.npz`` archive of
+``from_flax_variables``, in either SA layout. A checkpoint is read from an ``.npz`` archive of
 ``{tf_variable_name: array}`` (one line in any TF1 environment:
 ``np.savez("ref.npz", **{v.op.name: sess.run(v) for v in
 tf.global_variables()})``); any other path needs ``tensorflow``, imported
@@ -98,26 +100,32 @@ def state_dict_from_flax(variables: Mapping, module: nn.Module) -> dict[str, tor
     return out
 
 
-def _template(use_color: bool, num_classes: int, arch: str = "ssg") -> nn.Module:
+def _template(use_color: bool, num_classes: int, arch: str = "ssg", pre_project: bool = True) -> nn.Module:
     """The port model on the meta device: names and shapes, no storage."""
     with torch.device("meta"):
-        return model_class(arch)(num_classes=num_classes, use_color=use_color)
+        return model_class(arch)(num_classes=num_classes, use_color=use_color, pre_project=pre_project)
 
 
 def from_flax_variables(variables: Mapping) -> dict[str, torch.Tensor]:
-    """A ``PointNet2SemSeg`` or ``PointNet2SemSegMSG`` state_dict from the JAX
-    model's variables.
+    """A ``PointNet2SemSeg`` (either SA layout) or ``PointNet2SemSegMSG``
+    state_dict from the JAX model's variables.
 
-    The arch, colour input and the class count are read off the tree (an MSG
-    tree's ``sa1`` holds ``scale0``; SA1's ``w0`` has 6 or 3 input rows;
+    The arch, the layout, colour input and the class count are read off the
+    tree (an MSG tree's ``sa1`` holds ``scale0``, a plain one's ``mlp``; SA1's
+    first kernel, ``w0`` or ``mlp/dense_0/kernel``, has 6 or 3 input rows;
     ``fc2/kernel`` has num_classes columns).
     """
     params = variables["params"]
-    arch = "msg" if "scale0" in params["sa1"] else "ssg"
-    sa1 = params["sa1"]["scale0"] if arch == "msg" else params["sa1"]
-    use_color = np.shape(sa1["w0"])[0] == 6
+    sa1 = params["sa1"]
+    arch = "msg" if "scale0" in sa1 else "ssg"
+    pre_project = "mlp" not in sa1
+    if arch == "msg":
+        first = sa1["scale0"]["w0"]
+    else:
+        first = sa1["w0"] if pre_project else sa1["mlp"]["dense_0"]["kernel"]
+    use_color = np.shape(first)[0] == 6
     num_classes = np.shape(params["fc2"]["kernel"])[1]
-    return state_dict_from_flax(variables, _template(use_color, num_classes, arch))
+    return state_dict_from_flax(variables, _template(use_color, num_classes, arch, pre_project))
 
 
 def to_flax_variables(state_dict: Mapping[str, torch.Tensor]) -> dict:
@@ -143,10 +151,16 @@ BN_STATS = ("flax", "random")
 
 
 def init_variables(
-    cfg: Config, num_classes: int = 9, seed: int = 0, bn_stats: str = "flax", arch: str = "ssg"
+    cfg: Config, num_classes: int = 9, seed: int = 0, bn_stats: str = "flax", arch: str = "ssg",
+    pre_project: bool = True,
 ) -> dict:
     """Seeded weights in the flax layout of the ``arch`` model's ``init``
     (``PointNet2SemSeg`` or ``PointNet2SemSegMSG``).
+
+    ``pre_project=False`` gives the same weights in the plain SA layout of
+    ``PointNet2SemSeg(pre_project=False)`` (SSG only): the pre-projected tree
+    carried through ``flax_to_tf_vars`` and ``tf_vars_to_flax(pre_project=False)``,
+    so that both layouts of a seed compute the same function.
 
     Xavier-uniform kernels (as the flax model initialises them), zero biases,
     unit scales, and moving statistics as ``bn_stats`` asks: ``"flax"``, the
@@ -183,6 +197,9 @@ def init_variables(
         for part in path[:-1]:
             node = node.setdefault(part, {})
         node[leaf] = value.astype(np.float32)
+    if not pre_project:
+        _template(bool(cfg.use_color), num_classes, arch, pre_project)  # raises for MSG
+        return tf_vars_to_flax(flax_to_tf_vars(tree), pre_project=False)
     return tree
 
 
@@ -352,8 +369,9 @@ def convert_checkpoint(tf_ckpt_path: str, pre_project: bool = True) -> dict:
     return tf_vars_to_flax(read_tf_checkpoint(tf_ckpt_path), pre_project=pre_project)
 
 
-def state_dict_from_tf(tf_ckpt_path: str) -> dict[str, torch.Tensor]:
+def state_dict_from_tf(tf_ckpt_path: str, pre_project: bool = True) -> dict[str, torch.Tensor]:
     """The port's SSG ``state_dict`` of a reference TF checkpoint (or .npz):
-    ``convert_checkpoint`` in the pre-projected layout, then
+    ``convert_checkpoint`` in the pre-projected layout (``pre_project=False``:
+    the plain one, for ``PointNet2SemSeg(pre_project=False)``), then
     ``from_flax_variables`` (every leaf once; a missing or leftover one raises)."""
-    return from_flax_variables(convert_checkpoint(tf_ckpt_path, pre_project=True))
+    return from_flax_variables(convert_checkpoint(tf_ckpt_path, pre_project=pre_project))

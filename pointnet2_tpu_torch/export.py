@@ -59,6 +59,7 @@ def export_model(trainer, path: str, *, batch: Optional[int] = None, output: str
         cfg, trainer.model.state_dict(), num_classes=trainer.num_classes, infer_chunk=trainer.infer_chunk,
         device=trainer.device, impl=trainer.ops_impl, bq_window=trainer.bq_window, fp_window=trainer.fp_window,
         dtype=trainer.infer_dtype, bf16_min_width=trainer.bf16_min_width, arch=trainer.arch,
+        pre_project=trainer.pre_project,
     )
     forward = ServedForward(predictor.model, predictor.infer_chunk if batch else 0, output, checked)
     example = torch.zeros(

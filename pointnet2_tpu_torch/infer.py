@@ -116,7 +116,8 @@ class Predictor:
     kernels on a CUDA device, "torch" the plain versions (for comparisons).
     ``bq_window``/``fp_window`` are the model's calibrated windows.
     ``dtype`` ("float32" or "bfloat16") and ``bf16_min_width`` are the
-    precision mode (see the module docstring).
+    precision mode (see the module docstring). ``pre_project=False`` builds
+    the SSG model in the plain SA layout, whose state_dict it must be given.
     """
 
     def __init__(
@@ -132,6 +133,7 @@ class Predictor:
         dtype: str = "float32",
         bf16_min_width: Optional[int] = None,
         arch: str = "ssg",
+        pre_project: bool = True,
     ):
         model_cls = model_class(arch)
         precision = compute_dtype(dtype, "dtype")
@@ -143,7 +145,7 @@ class Predictor:
         model = model_cls(
             cfg, num_classes, bool(cfg.use_color), ops_impl=impl,
             bq_window=bq_window, fp_window=fp_window,
-            compute_dtype=precision, compute_dtype_min_width=bf16_min_width,
+            compute_dtype=precision, compute_dtype_min_width=bf16_min_width, pre_project=pre_project,
         )
         model.load_state_dict(state_dict if precision is None else fold_batch_norm(state_dict))
         self.model = model.to(self.device).eval()

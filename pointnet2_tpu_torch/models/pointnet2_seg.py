@@ -22,6 +22,12 @@ the parameter-free neighbour structure of a batch ahead of the forward;
 ``weighted_ce_sum``/``weighted_ce_loss`` (``:411-441``) are the weighted cross
 entropy divided by the number of non-zero weights.
 
+``pre_project=False`` (``:45``, ``:130``) builds every SA level of the SSG
+model in the reference's own layout (``nn.pointnet.sample_and_group``: the
+raw ``[xyz offsets, features]`` rows grouped first, then the whole MLP,
+``sa{i}.mlp.dense_j``/``bn_j``); with ``bq_window`` its ball query goes
+through the calibrated operator. ``convert`` maps both layouts.
+
 ``compute_dtype`` and ``compute_dtype_min_width`` (``:46-62``, ``:98-106``)
 are the bf16 precision modes: the MLP path of every stage, or with the
 threshold only of the stages whose narrowest MLP width reaches it, computes
@@ -75,6 +81,10 @@ class PointNet2SemSeg(nn.Module):
     path; with ``compute_dtype_min_width`` only the stages whose narrowest
     MLP width is at least that run in it (``fc1`` counts as a stage of width
     128), the others in float32. ``fc2`` always gives float32 logits.
+
+    ``pre_project`` (default True) picks the SA levels' layout: False is the
+    reference's, which groups the raw rows first (SSG only: the MSG model,
+    like the JAX one, has the pre-projected layout alone).
     """
 
     def __init__(
@@ -89,9 +99,13 @@ class PointNet2SemSeg(nn.Module):
         fp_window: Window = None,
         compute_dtype: Optional[torch.dtype] = None,
         compute_dtype_min_width: Optional[int] = None,
+        pre_project: bool = True,
     ):
         super().__init__()
         cfg = config or Config()
+        if not pre_project and self.msg_levels:
+            raise ValueError("the MSG model has the pre-projected layout only (pre_project=True)")
+        self.pre_project = bool(pre_project)
         self.use_color = bool(use_color)
         if not 0.0 <= dropout_rate < 1.0:
             raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
@@ -134,7 +148,10 @@ class PointNet2SemSeg(nn.Module):
                 stages.append(half + mlp)
                 widths.append(half[-1] + mlp[-1])
             else:
-                module = SetAbstraction(spec.npoint, spec.radius, spec.nsample, mlp, widths[-1], ops_impl, **kw)
+                module = SetAbstraction(
+                    spec.npoint, spec.radius, spec.nsample, mlp, widths[-1], ops_impl, pre_project=self.pre_project,
+                    **kw,
+                )
                 stages.append(mlp)
                 widths.append(mlp[-1])
             self.add_module(f"sa{i + 1}", module)

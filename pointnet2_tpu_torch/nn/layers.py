@@ -98,21 +98,28 @@ class SharedMLP(nn.Module):
     """Per-point MLP: [Linear -> BatchNorm -> ReLU] for each width, on the last axis.
 
     Layers are named ``dense_{i}`` and ``bn_{i}``, as in the flax module.
-    ``dtype`` is the compute type of the linear layers (``dense``); the
-    parameters stay float32.
+    ``use_bn=False`` leaves the BatchNorms out: each linear layer, with its
+    bias, goes straight into its ReLU. ``dtype`` is the compute type of the
+    linear layers (``dense``); the parameters stay float32.
     """
 
-    def __init__(self, in_features: int, features: Sequence[int], dtype: Optional[torch.dtype] = None):
+    def __init__(
+        self, in_features: int, features: Sequence[int], dtype: Optional[torch.dtype] = None, use_bn: bool = True
+    ):
         super().__init__()
         self.depth = len(features)
         self.dtype = dtype
+        self.use_bn = use_bn
         for i, f in enumerate(features):
             self.add_module(f"dense_{i}", nn.Linear(in_features, f))
-            self.add_module(f"bn_{i}", BatchNorm(f))
+            if use_bn:
+                self.add_module(f"bn_{i}", BatchNorm(f))
             in_features = f
 
     def forward(self, x: torch.Tensor, bn_momentum: Optional[Momentum] = None) -> torch.Tensor:
         for i in range(self.depth):
             x = dense(getattr(self, f"dense_{i}"), x, self.dtype)
-            x = torch.relu(getattr(self, f"bn_{i}")(x, bn_momentum))
+            if self.use_bn:
+                x = getattr(self, f"bn_{i}")(x, bn_momentum)
+            x = torch.relu(x)
         return x

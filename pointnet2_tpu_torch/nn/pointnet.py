@@ -3,11 +3,11 @@
 Counterpart of ``pointnet2_tpu/nn/pointnet.py`` for the SSG and MSG models,
 eval and train:
 
-- ``SetAbstraction`` is the pre-projected path (``:239-391``) with max
-  pooling. The first MLP layer's linear part runs over all N points before
-  grouping, and the centre's xyz projection is subtracted after it:
+- ``SetAbstraction``'s default is the pre-projected path (``:239-391``).
+  The first MLP layer's linear part runs over all N points before grouping,
+  and the centre's xyz projection is subtracted after it:
   ``group(inputs @ w0 + b0, idx) - new_xyz @ w0[:3]``, then ``bn0``, ReLU,
-  ``mlp_rest`` and the max over each group. With ``leaf_inputs`` (the raw
+  ``mlp_rest`` and the pooling over each group. With ``leaf_inputs`` (the raw
   cloud, which needs no gradient) the train forward gathers the raw channels,
   subtracts the centre and projects after (``:335-355``), so the backward
   needs no scatter into the cloud; the eval forward takes
@@ -44,8 +44,18 @@ x-sorted query order, un-permuting only the pooled output. Each windowed
 level appends ``("bq_window_ok", ok)`` or ``("fp_window_ok", ok)`` to the
 ``certificates`` list it is given, where flax sows them.
 
-Other pooling modes, kNN grouping and ``group_all`` are not ported: no
-model of the JAX package uses them.
+The options of the JAX module (``:131-391``) are all here, though no model
+of either package uses most of them: ``pre_project=False``, the reference's
+own layout (``sample_and_group``: one gather of ``[xyz, features]``, the rows
+``[xyz offsets, features]``, a ``SharedMLP`` named ``mlp``), which
+``PointNet2SemSeg(pre_project=False)`` runs; ``use_knn`` (the ``nsample``
+nearest points in place of the ball); ``group_all`` (one group of every
+point around the origin, ``sample_and_group_all``); ``mlp2``, a
+``SharedMLP`` after the pooling; the pooling modes of ``pool``;
+``use_xyz=False`` (the features alone, no offsets); and ``use_bn=False``
+(no BatchNorm anywhere in the module). The branches follow the JAX order:
+``group_all`` first, then the pre-projected path where it applies, else the
+plain one.
 """
 
 from __future__ import annotations
@@ -62,6 +72,9 @@ from pointnet2_tpu_torch.nn.layers import BatchNorm, Momentum, SharedMLP
 Certificates = List[Tuple[str, torch.Tensor]]
 
 
+POOLINGS = ("max", "avg", "weighted_avg", "max_and_avg")
+
+
 @torch.no_grad()
 def ball_query(xyz, new_xyz, radius: float, nsample: int, window: Optional[int], impl: Optional[str],
                certificates: Optional[Certificates]) -> torch.Tensor:
@@ -75,12 +88,102 @@ def ball_query(xyz, new_xyz, radius: float, nsample: int, window: Optional[int],
     return idx
 
 
+@torch.no_grad()
+def group_indices(xyz, new_xyz, radius: float, nsample: int, use_knn: bool, window: Optional[int],
+                  impl: Optional[str], certificates: Optional[Certificates]) -> torch.Tensor:
+    """(B, M, nsample) indices: the ``nsample`` nearest points with ``use_knn``
+    (``ops.knn``; the window does not apply), else ``ball_query``."""
+    if use_knn:
+        return ops.knn(xyz, new_xyz, nsample, impl=impl)[1]
+    return ball_query(xyz, new_xyz, radius, nsample, window, impl, certificates)
+
+
+def sample_and_group(
+    xyz: torch.Tensor,
+    points: Optional[torch.Tensor],
+    npoint: int,
+    radius: float,
+    nsample: int,
+    use_knn: bool = False,
+    use_xyz: bool = True,
+    impl: Optional[str] = None,
+    window: Optional[int] = None,
+    certificates: Optional[Certificates] = None,
+    geometry: Optional[Mapping[str, torch.Tensor]] = None,
+):
+    """FPS centroids, ball-query (or kNN) groups and the offsets from each
+    centre (``:33-92``): ``(new_xyz, new_points, idx, grouped_xyz)`` of shapes
+    (B, npoint, 3), (B, npoint, nsample, 3 + C) (C alone without ``use_xyz``;
+    the offsets alone without features), (B, npoint, nsample) and
+    (B, npoint, nsample, 3). One gather of ``[xyz, points]`` gives both the
+    offsets and the features. ``geometry``: ``{"new_xyz", "idx"}`` computed
+    beforehand, or ``{"new_xyz"}`` alone, which skips FPS only."""
+    if geometry is not None and "idx" in geometry:
+        new_xyz, idx = geometry["new_xyz"], geometry["idx"]
+    else:
+        if geometry is not None:
+            new_xyz = geometry["new_xyz"]
+        else:
+            _, new_xyz = ops.fps_centroids(xyz, npoint, impl=impl)
+        idx = group_indices(xyz, new_xyz, radius, nsample, use_knn, window, impl, certificates)
+    if points is None:
+        grouped_xyz = ops.group_points(xyz, idx) - new_xyz[:, :, None, :]
+        return new_xyz, grouped_xyz, idx, grouped_xyz
+    grouped_all = ops.group_points(torch.cat([xyz, points.to(xyz.dtype)], dim=-1), idx)
+    grouped_xyz = grouped_all[..., :3] - new_xyz[:, :, None, :]
+    grouped_points = grouped_all[..., 3:].to(points.dtype)
+    new_points = torch.cat([grouped_xyz, grouped_points], dim=-1) if use_xyz else grouped_points
+    return new_xyz, new_points, idx, grouped_xyz
+
+
+def sample_and_group_all(xyz: torch.Tensor, points: Optional[torch.Tensor], use_xyz: bool = True):
+    """One group of every point, centred on the origin (``:95-110``): the
+    outputs of ``sample_and_group`` with npoint 1 and nsample N, the rows
+    ``[xyz, points]`` (``points`` alone without ``use_xyz``)."""
+    b, n, _ = xyz.shape
+    new_xyz = xyz.new_zeros((b, 1, 3))
+    idx = torch.arange(n, dtype=torch.int32, device=xyz.device).expand(b, 1, n)
+    grouped_xyz = xyz[:, None]
+    if points is None:
+        return new_xyz, grouped_xyz, idx, grouped_xyz
+    new_points = torch.cat([xyz, points], dim=-1) if use_xyz else points
+    return new_xyz, new_points[:, None], idx, grouped_xyz
+
+
+def pool(new_points: torch.Tensor, grouped_xyz: Optional[torch.Tensor], pooling: str) -> torch.Tensor:
+    """Pooling over each group (axis 2, ``:113-128``): ``max``, ``avg``,
+    ``weighted_avg`` (weights ``exp(-5 |offset|)`` normalised over the group;
+    needs ``grouped_xyz``) or ``max_and_avg`` (the mean, then the max, side
+    by side)."""
+    if pooling == "max":
+        return new_points.amax(dim=2)
+    if pooling == "avg":
+        return new_points.mean(dim=2)
+    if pooling == "weighted_avg":
+        dists = torch.sqrt((grouped_xyz * grouped_xyz).sum(dim=-1, keepdim=True))
+        exp_dists = torch.exp(-dists * 5.0)
+        weights = exp_dists / exp_dists.sum(dim=2, keepdim=True)
+        return (new_points * weights).sum(dim=2)
+    if pooling == "max_and_avg":
+        return torch.cat([new_points.mean(dim=2), new_points.amax(dim=2)], dim=-1)
+    raise ValueError(f"unknown pooling {pooling!r}, expected one of {POOLINGS}")
+
+
 class SetAbstraction(nn.Module):
     """(B, N, 3) xyz + (B, N, C) features -> (B, npoint, 3) centroids,
-    (B, npoint, mlp[-1]) pooled features and (B, npoint, nsample) group indices.
+    (B, npoint, ``out_features``) pooled features and (B, npoint, nsample)
+    group indices (with ``group_all``: one centroid at the origin, and every
+    point in its group).
 
-    ``in_features`` is C (0 when there are no features). Parameters keep the
-    flax layout: ``w0`` is (3 + C, mlp[0]) and is applied as ``x @ w0``.
+    ``in_features`` is C (0 when there are no features). The grouped rows are
+    ``[xyz offsets, features]``, 3 + C wide, or C without ``use_xyz`` (the
+    offsets alone when there are no features). Parameters keep the flax
+    layout: on the pre-projected path ``w0`` (rows, mlp[0]) applied as
+    ``x @ w0``, ``b0``, ``bn0`` and ``mlp_rest``; on the plain path
+    (``pre_project=False`` or ``group_all``) a ``SharedMLP`` ``mlp``; and
+    ``mlp2`` after the pooling where it is given. ``use_bn=False`` drops every
+    BatchNorm. With ``use_knn`` the groups are the ``nsample`` nearest points
+    and ``bq_window`` does not apply.
     """
 
     def __init__(
@@ -94,24 +197,53 @@ class SetAbstraction(nn.Module):
         leaf_inputs: bool = False,
         bq_window: Optional[int] = None,
         compute_dtype: Optional[torch.dtype] = None,
+        *,
+        mlp2: Optional[Sequence[int]] = None,
+        group_all: bool = False,
+        pooling: str = "max",
+        use_knn: bool = False,
+        use_xyz: bool = True,
+        use_bn: bool = True,
+        pre_project: bool = True,
     ):
         super().__init__()
+        if pooling not in POOLINGS:
+            raise ValueError(f"unknown pooling {pooling!r}, expected one of {POOLINGS}")
         self.npoint = npoint
         self.radius = radius
         self.nsample = nsample
         self.ops_impl = ops_impl
         self.leaf_inputs = leaf_inputs
         self.bq_window = bq_window
-        f0 = mlp[0]
-        self.w0 = nn.Parameter(torch.empty(3 + in_features, f0))
-        self.b0 = nn.Parameter(torch.zeros(f0))
-        self.bn0 = BatchNorm(f0)
-        self.mlp_rest = SharedMLP(f0, mlp[1:])
+        self.group_all = group_all
+        self.pooling = pooling
+        self.use_knn = use_knn
+        self.use_xyz = use_xyz
+        self.use_bn = use_bn
+        width = in_features + (3 if use_xyz or not in_features else 0)
+        # The JAX module's test (``:209``): with neither offsets nor features
+        # there is nothing to project first.
+        self.pre_projected = not group_all and pre_project and bool(mlp) and (use_xyz or in_features > 0)
+        if self.pre_projected:
+            f0 = mlp[0]
+            self.w0 = nn.Parameter(torch.empty(width, f0))
+            self.b0 = nn.Parameter(torch.zeros(f0))
+            if use_bn:
+                self.bn0 = BatchNorm(f0)
+            self.mlp_rest = SharedMLP(f0, mlp[1:], use_bn=use_bn)
+        else:
+            self.mlp = SharedMLP(width, mlp, use_bn=use_bn)
+        pooled = (mlp[-1] if mlp else width) * (2 if pooling == "max_and_avg" else 1)
+        self.mlp2 = SharedMLP(pooled, mlp2, use_bn=use_bn) if mlp2 else None
+        self.out_features = mlp2[-1] if mlp2 else pooled
         self.set_compute_dtype(compute_dtype)
 
     def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> None:
         self.compute_dtype = dtype
-        self.mlp_rest.dtype = dtype
+        for name in ("mlp_rest", "mlp", "mlp2"):
+            part = getattr(self, name, None)
+            if part is not None:
+                part.dtype = dtype
 
     def forward(
         self,
@@ -121,11 +253,31 @@ class SetAbstraction(nn.Module):
         geometry: Optional[Mapping[str, torch.Tensor]] = None,
         certificates: Optional[Certificates] = None,
     ):
+        if geometry is not None and (self.group_all or (self.use_knn and "idx" in geometry)):
+            # Precomputed indices are the ball query's (models.precompute_geometry):
+            # in place of kNN or group-all indices they would change the function.
+            raise ValueError(
+                "precomputed geometry is only valid for the ball-query SSG "
+                f"path (got group_all={self.group_all}, use_knn={self.use_knn})"
+            )
+        if self.group_all:
+            new_xyz, new_points, idx, grouped_xyz = sample_and_group_all(xyz, points, self.use_xyz)
+        elif self.pre_projected:
+            return self._pre_projected(xyz, points, bn_momentum, geometry, certificates)
+        else:
+            new_xyz, new_points, idx, grouped_xyz = sample_and_group(
+                xyz, points, self.npoint, self.radius, self.nsample, self.use_knn, self.use_xyz,
+                self.ops_impl, self.bq_window, certificates, geometry,
+            )
+        h = self.mlp(new_points, bn_momentum)
+        return new_xyz, self._after_pool(pool(h, grouped_xyz, self.pooling), bn_momentum), idx
+
+    def _pre_projected(self, xyz, points, bn_momentum, geometry, certificates):
         if points is None:
             inputs = xyz
         else:  # a bfloat16 stage's features widened: the projection runs in float32
             dtype = torch.promote_types(xyz.dtype, points.dtype)
-            inputs = torch.cat([xyz.to(dtype), points.to(dtype)], dim=-1)
+            inputs = torch.cat([xyz.to(dtype), points.to(dtype)], dim=-1) if self.use_xyz else points.to(dtype)
         if geometry is not None:
             new_xyz = geometry["new_xyz"]
         else:
@@ -137,36 +289,55 @@ class SetAbstraction(nn.Module):
             # grouping, fused or not, still runs here.
             if self.fused_window():
                 return self._fused_window(xyz, inputs, new_xyz, bn_momentum, certificates)
-            idx = ball_query(xyz, new_xyz, self.radius, self.nsample, self.bq_window, self.ops_impl, certificates)
+            idx = group_indices(
+                xyz, new_xyz, self.radius, self.nsample, self.use_knn, self.bq_window, self.ops_impl, certificates
+            )
         if self.leaf_inputs and self.training:
             # (x - c) @ w0[:3] in place of x @ w0[:3] - c @ w0[:3]: equal up to
             # float32 reassociation, and nothing is scattered back into the cloud.
             grouped_in = ops.group_points(inputs, idx)  # (B, M, K, cin)
-            grouped_in = torch.cat(
-                [grouped_in[..., :3] - new_xyz[:, :, None, :], grouped_in[..., 3:]], dim=-1
-            )
+            if self.use_xyz:
+                grouped_in = torch.cat(
+                    [grouped_in[..., :3] - new_xyz[:, :, None, :], grouped_in[..., 3:]], dim=-1
+                )
             h = grouped_in @ self.w0 + self.b0
         else:
             if self.leaf_inputs:
-                grouped = ops.project_group_leaf(inputs, self.w0, self.b0, idx)
+                h = ops.project_group_leaf(inputs, self.w0, self.b0, idx)
             else:
                 zp = inputs @ self.w0 + self.b0  # (B, N, f0): layer-1 linear over all points
-                grouped = ops.group_points(zp, idx)
-            zq = new_xyz @ self.w0[:3]  # the centres' xyz projection, no bias
-            h = grouped - zq[:, :, None, :]
-        h = self._cast(torch.relu(self.bn0(h, bn_momentum)))
-        h = self.mlp_rest(h, bn_momentum)
-        return new_xyz, h.amax(dim=2), idx
+                h = ops.group_points(zp, idx)
+            if self.use_xyz:
+                zq = new_xyz @ self.w0[:3]  # the centres' xyz projection, no bias
+                h = h - zq[:, :, None, :]
+        h = self._rest(h, bn_momentum)
+        grouped_xyz = None
+        if self.pooling == "weighted_avg":
+            grouped_xyz = ops.group_points(xyz, idx) - new_xyz[:, :, None, :]
+        return new_xyz, self._after_pool(pool(h, grouped_xyz, self.pooling), bn_momentum), idx
 
     def fused_window(self) -> bool:
         """Whether the grouping takes the fused windowed path: eval only
         (train-mode BatchNorm's batch statistics would sum in another order
         over permuted rows), and only without autograd (the gather kernel has
-        no backward)."""
-        return self.bq_window is not None and not self.training and not torch.is_grad_enabled()
+        no backward); never for kNN groups, nor for ``weighted_avg``, which
+        needs the offsets in the original order (``:282-288``)."""
+        return (
+            self.bq_window is not None and not self.training and not torch.is_grad_enabled()
+            and not self.use_knn and self.pooling != "weighted_avg"
+        )
 
     def _cast(self, h: torch.Tensor) -> torch.Tensor:
         return h if self.compute_dtype is None else h.to(self.compute_dtype)
+
+    def _rest(self, h: torch.Tensor, bn_momentum) -> torch.Tensor:
+        """``bn0`` (with ``use_bn``), ReLU, the cast to the stage's type, ``mlp_rest``."""
+        if self.use_bn:
+            h = self.bn0(h, bn_momentum)
+        return self.mlp_rest(self._cast(torch.relu(h)), bn_momentum)
+
+    def _after_pool(self, h: torch.Tensor, bn_momentum) -> torch.Tensor:
+        return h if self.mlp2 is None else self.mlp2(h, bn_momentum)
 
     def _fused_window(self, xyz, inputs, new_xyz, bn_momentum, certificates: Optional[Certificates]):
         """The eval forward through ``ops.project_group_calibrated``: the grouped
@@ -179,13 +350,14 @@ class SetAbstraction(nn.Module):
         )
         if certificates is not None:
             certificates.append(("bq_window_ok", ok))
-        centers = new_xyz if qperm is None else ops.gather_points(new_xyz, qperm)
-        h = grouped - (centers @ self.w0[:3])[:, :, None, :]
-        h = self._cast(torch.relu(self.bn0(h, bn_momentum)))
-        new_points = self.mlp_rest(h, bn_momentum).amax(dim=2)
+        h = grouped
+        if self.use_xyz:
+            centers = new_xyz if qperm is None else ops.gather_points(new_xyz, qperm)
+            h = grouped - (centers @ self.w0[:3])[:, :, None, :]
+        new_points = pool(self._rest(h, bn_momentum), None, self.pooling)
         if inv_q is not None:
             new_points = ops.gather_points(new_points, inv_q)
-        return new_xyz, new_points, idx
+        return new_xyz, self._after_pool(new_points, bn_momentum), idx
 
 
 class SetAbstractionMSG(nn.Module):
@@ -203,8 +375,10 @@ class SetAbstractionMSG(nn.Module):
     one gather of ``[xyz, points]`` a scale, the rows ``[features, xyz
     offsets]`` (in that order) into a ``SharedMLP`` named ``mlp_{i}``.
 
-    ``bq_window`` is shared by the scales (calibrated for the largest
-    radius); without the fused path each scale appends its own certificate.
+    ``use_xyz=False`` groups the features alone and ``use_bn=False`` drops
+    every BatchNorm, in either layout. ``bq_window`` is shared by the scales
+    (calibrated for the largest radius); without the fused path each scale
+    appends its own certificate.
     ``geometry`` is ``{"new_xyz", "idx"}`` with ``idx`` a tuple, one index set
     a scale (``models.precompute_geometry(arch="msg")``).
     """
@@ -221,6 +395,8 @@ class SetAbstractionMSG(nn.Module):
         bq_window: Optional[int] = None,
         compute_dtype: Optional[torch.dtype] = None,
         pre_project: bool = True,
+        use_xyz: bool = True,
+        use_bn: bool = True,
     ):
         super().__init__()
         self.npoint = npoint
@@ -228,14 +404,16 @@ class SetAbstractionMSG(nn.Module):
         self.ops_impl = ops_impl
         self.bq_window = bq_window
         self.pre_project = pre_project
+        self.use_xyz = use_xyz
+        width = in_features + (3 if use_xyz or not in_features else 0)
         for i, ((radius, nsample), mlp) in enumerate(zip(self.scales, mlp_list)):
             if pre_project:
                 self.add_module(f"scale{i}", SetAbstraction(
                     npoint, radius, nsample, mlp, in_features, ops_impl, leaf_inputs=leaf_inputs,
-                    bq_window=bq_window,
+                    bq_window=bq_window, use_xyz=use_xyz, use_bn=use_bn,
                 ))
             else:
-                self.add_module(f"mlp_{i}", SharedMLP(3 + in_features, mlp))
+                self.add_module(f"mlp_{i}", SharedMLP(width, mlp, use_bn=use_bn))
         self.set_compute_dtype(compute_dtype)
 
     def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> None:
@@ -284,28 +462,33 @@ class SetAbstractionMSG(nn.Module):
 
     def _literal(self, i, xyz, points, new_xyz, idx, bn_momentum) -> torch.Tensor:
         """Scale i in the literal layout: one gather of ``[xyz, points]``, the
-        rows ``[features, xyz offsets]``, the MLP, the max over each group."""
+        rows ``[features, xyz offsets]`` (the features alone without
+        ``use_xyz``), the MLP, the max over each group."""
         if points is None:
             grouped = ops.group_points(xyz, idx) - new_xyz[:, :, None, :]
         else:
             grouped_all = ops.group_points(torch.cat([xyz, points.to(xyz.dtype)], dim=-1), idx)
-            offsets = grouped_all[..., :3] - new_xyz[:, :, None, :]
-            grouped = torch.cat([grouped_all[..., 3:].to(points.dtype), offsets], dim=-1)
+            features = grouped_all[..., 3:].to(points.dtype)
+            if self.use_xyz:
+                grouped = torch.cat([features, grouped_all[..., :3] - new_xyz[:, :, None, :]], dim=-1)
+            else:
+                grouped = features
         return getattr(self, f"mlp_{i}")(grouped, bn_momentum).amax(dim=2)
 
 
 class FeaturePropagation(nn.Module):
     """Interpolate (B, M, C2) coarse features onto (B, N, 3) dense points,
-    concatenate the (B, N, C1) skip features, and apply a shared MLP."""
+    concatenate the (B, N, C1) skip features, and apply a shared MLP (without
+    BatchNorms with ``use_bn=False``; the JAX module has no ``use_xyz``)."""
 
     def __init__(
         self, in_features: int, mlp: Sequence[int], ops_impl: Optional[str] = None,
-        fp_window: Optional[int] = None, compute_dtype: Optional[torch.dtype] = None,
+        fp_window: Optional[int] = None, compute_dtype: Optional[torch.dtype] = None, use_bn: bool = True,
     ):
         super().__init__()
         self.ops_impl = ops_impl
         self.fp_window = fp_window
-        self.mlp = SharedMLP(in_features, mlp)
+        self.mlp = SharedMLP(in_features, mlp, use_bn=use_bn)
         self.set_compute_dtype(compute_dtype)
 
     def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> None:

@@ -1,10 +1,11 @@
 """Where the predict path's time goes on the GPU: a torch.profiler breakdown.
 
-    python -m pointnet2_tpu_torch.predict_profile [--dtype bfloat16 [--bf16_min_width 128]]
+    python -m pointnet2_tpu_torch.predict_profile [--arch ssg|msg] [--dtype bfloat16 [--bf16_min_width 128]]
         [--bq_window W] [--fp_window W] [--out FILE]
 
 Builds the same ``Predictor`` as ``chip_smoke.py`` (full ``semantic.json``
-width, weights from ``convert.init_variables(seed=0, bn_stats="random")``; with the calibrated
+width, weights from ``convert.init_variables(seed=0, bn_stats="random")``
+of the ``--arch`` model, SSG or MSG, through ``models.model_class``; with the calibrated
 windows given, through ``predict_step_checked``; with ``--dtype bfloat16``
 in the bf16 inference mode), answers one warm-up
 request, then profiles 3 requests of 16 clouds with CPU and CUDA
@@ -33,6 +34,7 @@ from torch.profiler import ProfilerActivity, profile
 from pointnet2_tpu_torch import convert
 from pointnet2_tpu_torch.config import Config
 from pointnet2_tpu_torch.infer import Predictor
+from pointnet2_tpu_torch.models.pointnet2_seg import ARCHES
 from pointnet2_tpu_torch.utils.bench import KERNEL_SYMBOLS, event_device_us
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -107,15 +109,18 @@ def main(argv=None) -> int:
     ap.add_argument("--fp_window", type=int, default=None, help="calibrated 3-NN window")
     ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"], help="Predictor dtype")
     ap.add_argument("--bf16_min_width", type=int, default=None, help="Predictor bf16_min_width")
+    ap.add_argument("--arch", default="ssg", choices=sorted(ARCHES), help="the model (models.model_class)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("predict_profile: needs a CUDA device", file=sys.stderr)
         return 1
 
     cfg = Config.from_json(ROOT / "semantic.json")
-    sd = convert.from_flax_variables(convert.init_variables(cfg, num_classes=9, seed=0, bn_stats="random"))
+    sd = convert.from_flax_variables(
+        convert.init_variables(cfg, num_classes=9, seed=0, bn_stats="random", arch=args.arch)
+    )
     predictor = Predictor(cfg, sd, infer_chunk=8, bq_window=args.bq_window, fp_window=args.fp_window,
-                          dtype=args.dtype, bf16_min_width=args.bf16_min_width)
+                          dtype=args.dtype, bf16_min_width=args.bf16_min_width, arch=args.arch)
     step = predictor.predict_step_checked if args.bq_window or args.fp_window else predictor.predict_step
     rng = np.random.RandomState(1)
     inputs = []
@@ -135,6 +140,7 @@ def main(argv=None) -> int:
         wall_ms = (time.perf_counter() - t0) * 1e3
 
     result = {
+        "arch": args.arch,
         "requests": REQUESTS,
         "batch": BATCH,
         "bq_window": args.bq_window,

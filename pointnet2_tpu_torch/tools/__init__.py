@@ -17,6 +17,9 @@ plain versions (``--small`` for small shapes) and measures no time.
                   backward and the windowed ball queries by kernel name,
                   through the op API only, so that one copy reads an older
                   tree of the port beside a newer one; card only.
+- ``bq_window_calibrate`` (``tools/bq_window_calibrate.py``, flag for flag,
+                  the same table, plus ``--device``): the ball-query and
+                  3-NN windows each level of sampled training batches needs.
 - ``scenes``      (no counterpart): fabricated Semantic3D scenes for the
                   CLIs (``chip_smoke.py`` trains on them), and the widest
                   calibrated windows the train CLI's seeded batches need there.

@@ -143,6 +143,8 @@ class Trainer:
     a per-level 4-sequence). ``train_dtype``, ``infer_dtype`` and
     ``bf16_min_width`` are the precision modes (see the module docstring).
     ``arch`` is the model: "ssg" or "msg"; another name raises ValueError.
+    ``pre_project=False`` builds the SSG model in the plain SA layout (the
+    reference's; ``init_state`` then gives the same seeded weights in it).
     """
 
     def __init__(
@@ -163,6 +165,7 @@ class Trainer:
         train_dtype: str = "float32",
         bf16_min_width: Optional[int] = None,
         arch: str = "ssg",
+        pre_project: bool = True,
     ):
         model = model_class(arch)
         if accum_steps < 1:
@@ -181,6 +184,7 @@ class Trainer:
         full_float32()
         self.cfg = cfg
         self.arch = arch
+        self.pre_project = pre_project
         self.bq_window = norm_window("bq_window", bq_window)
         self.fp_window = norm_window("fp_window", fp_window)
         self.num_classes = num_classes
@@ -195,7 +199,7 @@ class Trainer:
         self.bn_schedule = bn_momentum_schedule(cfg)
         self.model = model(
             cfg, num_classes, bool(cfg.use_color), ops_impl=ops_impl, dropout_rate=dropout_rate,
-            bq_window=self.bq_window, fp_window=self.fp_window,
+            bq_window=self.bq_window, fp_window=self.fp_window, pre_project=pre_project,
         ).to(self.device)
         self.infer_dtype, self.train_dtype, self.bf16_min_width = infer_dtype, train_dtype, bf16_min_width
         self.infer_model, self.train_model = (
@@ -224,7 +228,9 @@ class Trainer:
         not the identity, for checks in which eval BatchNorm must do real work.
         """
         self.load_variables(
-            convert.init_variables(self.cfg, self.num_classes, seed, bn_stats=bn_stats, arch=self.arch)
+            convert.init_variables(
+                self.cfg, self.num_classes, seed, bn_stats=bn_stats, arch=self.arch, pre_project=self.pre_project
+            )
         )
 
     def load_variables(self, variables: Mapping) -> None:

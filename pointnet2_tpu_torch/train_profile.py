@@ -1,10 +1,11 @@
 """Where the train step's time goes on the GPU: a torch.profiler breakdown.
 
-    python -m pointnet2_tpu_torch.train_profile [--accum G] [--dtype bfloat16 [--bf16_min_width 128]]
+    python -m pointnet2_tpu_torch.train_profile [--arch ssg|msg] [--accum G] [--dtype bfloat16 [--bf16_min_width 128]]
         [--bq_window W] [--fp_window W] [--out FILE]
 
 Builds the same ``Trainer`` as ``chip_smoke.py``'s train phase (full
-``semantic.json`` width, Adam, weights from ``convert.init_variables(seed=0, bn_stats="random")``,
+``semantic.json`` width, Adam, the ``--arch`` model, SSG or MSG, with
+weights from ``convert.init_variables(seed=0, bn_stats="random")``,
 batches of 16 clouds with seeded labels and weights), takes two warm-up
 steps, then profiles 3 steps with CPU and CUDA activities. Prints one JSON
 object: the wall time of the window and per step, the device time summed
@@ -29,6 +30,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from pointnet2_tpu_torch.config import Config
+from pointnet2_tpu_torch.models.pointnet2_seg import ARCHES
 from pointnet2_tpu_torch.predict_profile import ROOT, summarise
 from pointnet2_tpu_torch.train import Trainer
 
@@ -56,6 +58,7 @@ def main(argv=None) -> int:
     ap.add_argument("--fp_window", type=int, default=None, help="calibrated 3-NN window")
     ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"], help="Trainer train_dtype")
     ap.add_argument("--bf16_min_width", type=int, default=None, help="Trainer bf16_min_width")
+    ap.add_argument("--arch", default="ssg", choices=sorted(ARCHES), help="the Trainer's arch (models.model_class)")
     ap.add_argument("--out", type=pathlib.Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -64,7 +67,7 @@ def main(argv=None) -> int:
 
     cfg = Config.from_json(ROOT / "semantic.json")
     trainer = Trainer(cfg, accum_steps=args.accum, bq_window=args.bq_window, fp_window=args.fp_window,
-                      train_dtype=args.dtype, bf16_min_width=args.bf16_min_width)
+                      train_dtype=args.dtype, bf16_min_width=args.bf16_min_width, arch=args.arch)
     trainer.init_state(seed=0, bn_stats="random")
     batches = [train_batch(cfg, BATCH, 1 + i) for i in range(WARMUP + STEPS)]
     for batch in batches[:WARMUP]:
@@ -80,6 +83,7 @@ def main(argv=None) -> int:
         wall_ms = (time.perf_counter() - t0) * 1e3
 
     result = {
+        "arch": args.arch,
         "steps": STEPS,
         "batch": BATCH,
         "accum_steps": args.accum,

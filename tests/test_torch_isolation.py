@@ -52,7 +52,10 @@ def test_importing_the_port_loads_no_jax():
             "pointnet2_tpu_torch.export", "pointnet2_tpu_torch.serving", "pointnet2_tpu_torch.cli.serve",
             "pointnet2_tpu_torch.tools.export_model", "pointnet2_tpu_torch.cli.preprocess",
             "pointnet2_tpu_torch.cli.downsample", "pointnet2_tpu_torch.tools.convert_checkpoint",
-            "pointnet2_tpu_torch.tools.scalars_to_tb"} <= set(mods)
+            "pointnet2_tpu_torch.tools.scalars_to_tb", "pointnet2_tpu_torch.nn.extras",
+            "pointnet2_tpu_torch.utils.html_viewer", "pointnet2_tpu_torch.cli.visualize",
+            "pointnet2_tpu_torch.cli.colorize", "pointnet2_tpu_torch.cli.kitti_visualize",
+            "pointnet2_tpu_torch.tools.bq_window_calibrate"} <= set(mods)
 
 
 _FORBIDDEN = re.compile(
