@@ -216,7 +216,12 @@ non-zero and prints no result):
    test scene a ``.pcd`` only. Then one ``cli.train`` epoch from the
    downsampled scenes and ``cli.predict`` on its ``model.pt``, held as in
    phase 7 (launch counts, ``.pcd`` bit for bit, ``.labels`` >= 99.99 % of
-   the plain path's). Then one raw scan of 2 000 000 points
+   the plain path's). Then the chain's last steps on the test split:
+   ``cli.predict --set test`` (launch counts as phase 7's),
+   ``cli.interpolate --set test`` onto the raw clouds and ``cli.renamer``:
+   every test scene's dense labels under its submission name
+   (``marketsquarefeldkirch4.labels`` ...), one label a raw point. Then one
+   raw scan of 2 000 000 points
    (``tools.scenes.dense_scene``) added beside the finished scenes (linked
    in, so skipped): its host seconds and Mpoints/s through each entry point.
 7c. Convert: a seeded SSG tree (``convert.init_variables``, random moving
@@ -314,12 +319,35 @@ non-zero and prints no result):
    2 cm band of x (its certificate fails) and one box cloud, coalesced into
    one round: 503 for the first, 200 with the Predictor's labels for the
    second. Requests, clouds/s, p50/p95 latency and the mean device batch.
+12. Soak: the last entry points. (a) ``cli.benchmark`` on ``semantic.json``,
+   exact and with ``--bq_window 3072 --fp_window 512``: the certificates
+   hold on its B = 64 batch, its Chrome trace and ``gpu-profile.txt`` are
+   written and the table names rows 1-4's ``pn2_*`` kernels (and rows 8-10's
+   with the windows), every batch time of the sweep is finite and positive,
+   and the labels of its B = 1, 2 and 4 forwards (run whole: the chunk of 8
+   does not divide them) equal a plain ``Predictor``'s on the same clouds on
+   >= 99.99 % of points, the kernel path's logits within 1e-3 of the plain
+   path's; rows 1-4 at B = 1, 2 and 4 x 8192 are held as in phase 2 (their
+   plain versions timed with 3 single calls). (c) ``tools.train_soak
+   --epochs 6 --accum_steps 4 --bq_window auto --fp_window auto
+   --train_dtype bfloat16 --bf16_min_width 128``: 126 steps and two
+   evaluations; every loss finite, epoch 5's train loss <= 1.0, the step-126
+   evaluation's accuracy >= 0.90, ``model.pt`` restored (the CLI aborts
+   when a certificate fails). (d) ``tools.bf16_train_soak --steps 60
+   --eval_batches 4 --min_width 128``: three modes, every loss, accuracy
+   and mIoU finite; its CONVERGENCE lines printed, not gated. The soaks
+   together must launch rows 1-5 in both precisions, and rows 7-9 where
+   (c)'s ball-query window engaged, row 10 where its FP window did. (b) On
+   a batch of (c)'s scenes, rows 1-5 (float32 and bfloat16) at the soak's
+   shapes, a micro-batch of 4 and the batch of 16 clouds of 2048 points (SA
+   512/128/32/8), and rows 7-9 at (c)'s ball-query window, row 10 at its FP
+   window where that engaged: each as phases 2 and 5 hold it.
 
 Output: one JSON line a kernel and shape, one for each driven path (predict,
 train, predict_windows, train_windows, predict_bf16, train_bf16, their MSG
 counterparts predict_msg, train_msg, predict_windows_msg,
 train_windows_msg, predict_msg_bf16, train_msg_bf16, sa_tails, then cli, prep,
-convert, op_surface, densify, dist, kitti, export, serve; the
+convert, op_surface, densify, dist, kitti, export, serve, soak; the
 parity sweep's lines and the stage bench's lines inside op_surface), the
 ``nvidia-smi`` line, one ``{"kernels": [...]}`` line, and last ``{"ok":
 true, "device": {...}}``. Each path's launch counts are reset just before it
@@ -357,6 +385,7 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from pointnet2_tpu_torch import convert, native, ops, predict_profile
+from pointnet2_tpu_torch.cli import benchmark as cli_benchmark
 from pointnet2_tpu_torch.cli import cli_mesh
 from pointnet2_tpu_torch.cli import colorize as cli_colorize
 from pointnet2_tpu_torch.cli import downsample as cli_downsample
@@ -364,6 +393,7 @@ from pointnet2_tpu_torch.cli import interpolate as cli_interpolate
 from pointnet2_tpu_torch.cli import kitti_predict as cli_kitti
 from pointnet2_tpu_torch.cli import predict as cli_predict
 from pointnet2_tpu_torch.cli import preprocess as cli_preprocess
+from pointnet2_tpu_torch.cli import renamer as cli_renamer
 from pointnet2_tpu_torch.cli import serve as cli_serve
 from pointnet2_tpu_torch.cli import train as cli_train
 from pointnet2_tpu_torch.config import Config
@@ -391,7 +421,7 @@ from pointnet2_tpu_torch.parallel.launch import run_ranks
 from pointnet2_tpu_torch.tools import bq_window_calibrate as calibrate_cli
 from pointnet2_tpu_torch.tools import convert_checkpoint as convert_cli
 from pointnet2_tpu_torch.tools import export_model as export_cli
-from pointnet2_tpu_torch.tools import dist_step, op_bench, parity, scenes, stage_bench
+from pointnet2_tpu_torch.tools import bf16_train_soak, dist_step, op_bench, parity, scenes, stage_bench, train_soak
 from pointnet2_tpu_torch.train import Trainer, load_model_state, restore_checkpoint, save_checkpoint
 from pointnet2_tpu_torch.train_profile import train_batch
 from pointnet2_tpu_torch.utils.bench import bound, card_line, cuda_ms, deterministic_algorithms, device_ms
@@ -561,6 +591,9 @@ class Report:
     def __init__(self, card: str):
         self.card = card
         self.rows: list[dict] = []
+        # ``cuda_ms`` arguments for every plain version a row does not time
+        # otherwise (None: ``cuda_ms``'s defaults).
+        self.plain_timing: Optional[dict] = None
 
     def add(self, kernel, batch, shape, run, plain, nbytes, nops, err, match, library=None, extra=None,
             info=None, plain_timing=None):
@@ -577,7 +610,7 @@ class Report:
             "shape": f"B={batch} {shape}",
             "kernel_ms": kernel_ms,
             "launches": cuda.LAUNCHES[kernel] - before,  # the timed calls really ran the kernel
-            "plain_ms": cuda_ms(plain, **(plain_timing or {})),
+            "plain_ms": cuda_ms(plain, **(plain_timing or self.plain_timing or {})),
             "library_ms": None if library is None else cuda_ms(library),
             "bound_ms": bound_ms,
             "bound_by": bound_by,
@@ -626,11 +659,12 @@ class Report:
         return {"kernels": out}
 
 
-def kernel_phase(cfg: Config, seed: int, report: Report, b: int) -> list:
-    """Every forward kernel at every shape a batch of ``b`` clouds gives it,
-    against its plain version. Returns the five levels' coordinates."""
+def kernel_phase(cfg: Config, seed: int, report: Report, b: int, x: Optional[np.ndarray] = None) -> list:
+    """Every forward kernel at every shape a batch of ``b`` clouds gives it
+    (``x``, or the smoke clouds of ``seed``), against its plain version.
+    Returns the five levels' coordinates."""
     dev = torch.device(DEVICE)
-    x = torch.from_numpy(clouds(b, cfg, seed)).to(dev)
+    x = torch.from_numpy(clouds(b, cfg, seed) if x is None else x).to(dev)
     levels = [x[..., :3].contiguous()]
     for spec in cfg.sa_layers:
         src = levels[-1]
@@ -931,11 +965,15 @@ def bf16_kernel_phase(levels: list, seed: int, report: Report, skips=FP_SKIP_CHA
         )
 
 
-def window_kernel_phase(cfg: Config, seed: int, report: Report, b: int, arch: str = "ssg") -> None:
+def window_kernel_phase(cfg: Config, seed: int, report: Report, b: int, arch: str = "ssg",
+                        x: Optional[np.ndarray] = None, bq_window: int = BQ_WINDOW,
+                        fp_window: Optional[int] = FP_WINDOW) -> None:
     """The four calibrated-window kernels at the shapes a batch of ``b`` gives
-    them, each against its plain version on the same sorted inputs, and the
-    whole calibrated ops (sorts, window starts, certificate) on the kernel
-    path against the plain path, with a window that fits and one too small.
+    them (``x``, or the smoke clouds of ``seed``) at the windows ``bq_window``
+    and ``fp_window`` (None: row 10 not held), each against its plain version
+    on the same sorted inputs, and the whole calibrated ops (sorts, window
+    starts, certificate) on the kernel path against the plain path, with a
+    window that fits and one too small.
 
     Every row runs at both batches: row 7 (the windowed ball query of the
     train forward), rows 8 and 9 (the fused eval grouping), row 10 (FP4's
@@ -944,17 +982,17 @@ def window_kernel_phase(cfg: Config, seed: int, report: Report, b: int, arch: st
     has no MSG shape of its own.
     """
     dev = torch.device(DEVICE)
-    x = torch.from_numpy(clouds(b, cfg, seed)).to(dev)
+    x = torch.from_numpy(clouds(b, cfg, seed) if x is None else x).to(dev)
     xyz = x[..., :3].contiguous()
     sa1, n = cfg.sa_layers[0], cfg.num_point
     m, ns, r, f0 = sa1.npoint, sa1.nsample, sa1.radius, SA_MLPS[0][0]
     if arch == "msg":
         (r, ns), f0 = msg_scales(sa1)[0], f0 // 2
     _, cent = ops.fps_centroids(xyz, m, impl="cuda")
-    w = core.round_up(BQ_WINDOW, core.LANES)
+    w = core.round_up(bq_window, core.LANES)
     perm, xs, _, qs, lo, ok = core.ball_query_window_plan(xyz, cent, r, w)
     if not bool(ok):
-        raise AssertionError(f"bq_window={BQ_WINDOW} does not certify SA1 on the smoke clouds")
+        raise AssertionError(f"bq_window={bq_window} does not certify SA1 on the smoke clouds")
     tiles = lo.shape[1]
     first, last = core.ball_query_tile_spans(xs, qs, lo, r, w)
     pairs = int((last - first).sum())  # the columns of each query's x-span: all that can hit
@@ -982,7 +1020,7 @@ def window_kernel_phase(cfg: Config, seed: int, report: Report, b: int, arch: st
         err=0.0,
         match=all(torch.equal(g, h) for g, h in zip(got, want)),
         extra={
-            "op_ms": lambda: ops.ball_query_calibrated(xyz, cent, r, ns, BQ_WINDOW, impl="cuda"),
+            "op_ms": lambda: ops.ball_query_calibrated(xyz, cent, r, ns, bq_window, impl="cuda"),
             "exact_op_ms": lambda: ops.ball_query(xyz, cent, r, ns, impl="cuda"),
         },
         info=bq_info,
@@ -991,7 +1029,7 @@ def window_kernel_phase(cfg: Config, seed: int, report: Report, b: int, arch: st
         "ball_query_calibrated",
         lambda win: ops.ball_query_calibrated(xyz, cent, r, ns, win, impl="cuda"),
         lambda win: ops.ball_query_calibrated(xyz, cent, r, ns, win, impl="torch"),
-        (BQ_WINDOW, SMALL_BQ_WINDOW), {BQ_WINDOW: True, SMALL_BQ_WINDOW: False},
+        (bq_window, SMALL_BQ_WINDOW), {bq_window: True, SMALL_BQ_WINDOW: False},
     )
 
     got = cuda.ball_query_tiles_pos(xs, perm, qs, lo, r, ns, w)
@@ -1008,7 +1046,7 @@ def window_kernel_phase(cfg: Config, seed: int, report: Report, b: int, arch: st
         err=0.0,
         match=all(torch.equal(g, h) for g, h in zip(got, want)),
         extra={
-            "op_ms": lambda: ops.project_group_calibrated(x, w0, b0, xyz, cent, r, ns, BQ_WINDOW, impl="cuda"),
+            "op_ms": lambda: ops.project_group_calibrated(x, w0, b0, xyz, cent, r, ns, bq_window, impl="cuda"),
             "exact_op_ms": lambda: ops.project_group_leaf(
                 x, w0, b0, ops.ball_query(xyz, cent, r, ns, impl="cuda")[0]
             ),
@@ -1019,17 +1057,17 @@ def window_kernel_phase(cfg: Config, seed: int, report: Report, b: int, arch: st
         "project_group_calibrated",
         lambda win: ops.project_group_calibrated(x, w0, b0, xyz, cent, r, ns, win, impl="cuda"),
         lambda win: ops.project_group_calibrated(x, w0, b0, xyz, cent, r, ns, win, impl="torch"),
-        (BQ_WINDOW, SMALL_BQ_WINDOW), {BQ_WINDOW: True, SMALL_BQ_WINDOW: False},
+        (bq_window, SMALL_BQ_WINDOW), {bq_window: True, SMALL_BQ_WINDOW: False},
     )
 
     pos = got[1]
     zp_s = ops.gather_points(x, perm) @ w0 + b0  # the projected sorted cloud, as the fused op makes it
     gather_rows(report, b, n, zp_s, lo, pos)
-    if arch != "ssg":
+    if arch != "ssg" or fp_window is None:
         return
 
     # FP4: the dense cloud's 3-NN among SA1's centroids.
-    wf = core.round_up(FP_WINDOW, core.LANES)
+    wf = core.round_up(fp_window, core.LANES)
     fperm, fxs, _, fqs, flo = core.knn_window_plan(cent, xyz, wf)
     got = cuda.knn_tiles(fxs, fperm, fqs, flo, 3, wf)
     want = core.knn_tiles(fxs, fperm, fqs, flo, 3, wf)
@@ -1043,7 +1081,7 @@ def window_kernel_phase(cfg: Config, seed: int, report: Report, b: int, arch: st
         err=max_abs(got[0], want[0]),
         match=torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
         extra={
-            "op_ms": lambda: ops.three_nn_calibrated(xyz, cent, FP_WINDOW, impl="cuda"),
+            "op_ms": lambda: ops.three_nn_calibrated(xyz, cent, fp_window, impl="cuda"),
             "exact_op_ms": lambda: ops.three_nn(xyz, cent, impl="cuda"),
         },
         info={"blocks": flo.numel(), "pairs": pairs, "window_pairs": b * nq * wf,
@@ -1053,7 +1091,7 @@ def window_kernel_phase(cfg: Config, seed: int, report: Report, b: int, arch: st
         "three_nn_calibrated",
         lambda win: ops.three_nn_calibrated(xyz, cent, win, impl="cuda"),
         lambda win: ops.three_nn_calibrated(xyz, cent, win, impl="torch"),
-        (FP_WINDOW, SMALL_FP_WINDOW), {FP_WINDOW: True},
+        (fp_window, SMALL_FP_WINDOW), {fp_window: True},
     )
 
 
@@ -2356,6 +2394,7 @@ def prep_phase(seed: int, card: str, tmp: pathlib.Path) -> tuple[dict, pathlib.P
     train = _cli_train(cfg_path, seed, [])
     torch.cuda.empty_cache()
     predict = _cli_predict(cfg_path, tmp / "prep_train" / "model.pt", tmp / "prep_sparse")
+    submission, test_launches = _submission_chain(cfg_path, tmp / "prep_train" / "model.pt", raw, tmp)
 
     # One scan-sized scene added to the finished set: only it is converted and downsampled.
     big_raw, big_down = tmp / "big_raw", tmp / "big_downsampled"
@@ -2381,6 +2420,7 @@ def prep_phase(seed: int, card: str, tmp: pathlib.Path) -> tuple[dict, pathlib.P
         "second_runs_skipped": [len(run["skipped"]) for run in again],
         "train": train,
         "predict": predict,
+        "submission": submission,
         "scan_scene": {
             "preprocess": _host_rate(PREP_POINTS, big_pre["seconds"][0]),
             "downsample": {**_host_rate(PREP_POINTS, big_ds["seconds"][0]), "sparse_points": big_ds["sparse_points"][0],
@@ -2390,7 +2430,42 @@ def prep_phase(seed: int, card: str, tmp: pathlib.Path) -> tuple[dict, pathlib.P
         "phase_seconds": time.perf_counter() - t0,
         "card": card,
     })
-    return {"prep_train": train["launches"], "prep_predict": predict["launches"]}, cfg_path
+    return {"prep_train": train["launches"], "prep_predict": predict["launches"],
+            "prep_predict_test": test_launches}, cfg_path
+
+
+def _submission_chain(cfg_path: pathlib.Path, ckpt: pathlib.Path, raw: pathlib.Path,
+                      tmp: pathlib.Path) -> tuple[dict, dict]:
+    """The chain's last steps on the test split: ``cli.predict --set test``
+    (its launches reset just before it and held to ``chunk_launches`` a
+    batch), ``cli.interpolate --set test`` onto the raw clouds, then
+    ``cli.renamer``: every test scene's dense labels must carry its
+    submission name, one label a raw point, and no other file be renamed."""
+    sparse, dense = tmp / "prep_sparse_test", tmp / "prep_dense_test"
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    summary = cli_predict.main([
+        "--ckpt", str(ckpt), "--set", "test", "--config_file", str(cfg_path), "--num_samples", str(CLI_SAMPLES),
+        "--batch_size", str(CLI_PREDICT_BATCH), "--output_dir", str(sparse),
+    ])
+    launches = dict(cuda.LAUNCHES)
+    batches = len(summary["batch_seconds"])
+    _expect_launches(launches, scaled(chunk_launches(), batches), f"the predict CLI on the test split: {batches} batches")
+    t0 = time.perf_counter()
+    cli_interpolate.main(["--set", "test", "--sparse_dir", str(sparse), "--gt_dir", str(raw), "--dense_dir", str(dense)])
+    interpolate_s = time.perf_counter() - t0
+    renamed = cli_renamer.main(["--dense_dir", str(dense)])
+    if len(renamed["moved"]) != len(test_file_prefixes):
+        raise AssertionError(f"the renamer moved {len(renamed['moved'])} files of {len(test_file_prefixes)} test scenes")
+    for prefix in test_file_prefixes:
+        name = cli_renamer.conversion_dict[f"{prefix}.labels"]
+        if (dense / f"{prefix}.labels").exists() or not (dense / name).is_file():
+            raise AssertionError(f"{prefix}: its dense labels are not named {name}")
+        if len(load_labels(dense / name)) != len(read_pcd(raw / f"{prefix}.pcd").points):
+            raise AssertionError(f"{name}: not one label a raw point")
+    return {"test_scenes": len(test_file_prefixes), "predict_batches": batches, "interpolate_seconds": interpolate_s,
+            "renamed": len(renamed["moved"]), "left": len(renamed["unknown"]),
+            "submission_files": sorted(pathlib.Path(dst).name for _, dst in renamed["moved"])}, launches
 
 
 def convert_phase(seed: int, card: str, tmp: pathlib.Path, cfg_path: pathlib.Path) -> dict:
@@ -3336,6 +3411,208 @@ def serve_phase(cfg: Config, seed: int, card: str, root: pathlib.Path, state: di
     return launches
 
 
+# Phase 12, soak: the benchmark entry point and the two training soaks.
+BENCH_WHOLE = (1, 2, 4)  # the sweep's batches the Predictor runs whole (infer_chunk 8 does not divide them)
+BENCH_KERNEL_NAMES = ("pn2_fps_centroids", "pn2_ball_query", "pn2_knn", "pn2_three_interpolate")
+BENCH_WINDOW_KERNEL_NAMES = ("pn2_ball_query_tiles_pos", "pn2_window_gather", "pn2_knn_tiles")
+SOAK_EPOCHS = 6  # 126 steps and two evaluations
+SOAK_FLAGS = ("--accum_steps", "4", "--bq_window", "auto", "--fp_window", "auto", "--train_dtype", "bfloat16",
+              "--bf16_min_width", "128")
+SOAK_MICRO = 4  # clouds a micro-batch under --accum_steps 4
+SOAK_LOSS_BY_EPOCH_5 = 1.0  # the JAX soaks read 0.47-0.69 there
+SOAK_EVAL_ACCURACY = 0.90  # the JAX soaks read 0.952-0.966 at step 126
+PRECISION_STEPS, PRECISION_EVAL_BATCHES, PRECISION_MIN_WIDTH = 60, 4, 128
+
+
+def _bench_run(cfg: Config, trace_dir: pathlib.Path, windows: tuple) -> tuple[dict, dict]:
+    """``cli.benchmark`` on ``semantic.json`` (``windows``: its window flags),
+    its launches reset just before it and read just after; the files, the
+    report's kernels and every time held; then the labels of the B = 1, 2
+    and 4 forwards against the plain path on the same clouds (labels >=
+    99.99 %, the kernel path's logits within 1e-3 of the plain path's), and
+    rows 1-4 at those batches against their plain versions."""
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    summary = cli_benchmark.main(["--config_file", str(ROOT / "semantic.json"), "--trace_dir", str(trace_dir),
+                                  *windows])
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    windowed = bool(windows)
+    if windowed and summary["certified"] is not True:
+        raise AssertionError("the windowed benchmark profiled without its certificates")
+    for path in (summary["trace"], summary["report"]):
+        if not pathlib.Path(path).is_file() or pathlib.Path(path).stat().st_size == 0:
+            raise AssertionError(f"the benchmark wrote no {path}")
+    names = {row.name for row in summary["rows"] if row.line == "device"}
+    want = BENCH_KERNEL_NAMES + (BENCH_WINDOW_KERNEL_NAMES if windowed else ())
+    if not set(want) <= names:
+        raise AssertionError(f"the benchmark's report lacks {sorted(set(want) - names)}")
+    times = [summary["profiled"]["batch_time"]] + [rec["batch_time"] for rec in summary["sweep"]]
+    if not all(np.isfinite(t) and t > 0 for t in times):
+        raise AssertionError(f"the benchmark's batch times {times}")
+
+    sd = convert.from_flax_variables(convert.init_variables(cfg, 9, seed=0))
+    mode = {"bq_window": BQ_WINDOW, "fp_window": FP_WINDOW} if windowed else {}
+    kernel = Predictor(cfg, sd, device=DEVICE, **mode)
+    plain = Predictor(cfg, sd, device=DEVICE, impl="torch", **mode)
+    data = cli_benchmark.data_stream(cfg, windowed)
+    data(cli_benchmark.PROFILE_BATCH)  # the stream's first draw, the profiled batch
+    held = []
+    for rec in summary["sweep"]:
+        if rec["batch"] not in BENCH_WHOLE:
+            break
+        x = data(rec["batch"])
+        logits, ref = kernel.infer_logits(x), plain.infer_logits(x)
+        ref_labels = ref.argmax(-1).int().cpu().numpy()
+        agree = float((rec["labels"] == ref_labels).mean())
+        if agree < 0.9999 or max_abs(logits, ref) > 1e-3 or not np.array_equal(
+                rec["labels"], logits.argmax(-1).int().cpu().numpy()):
+            raise AssertionError(f"the benchmark's B={rec['batch']} labels agree with the plain path on {agree}, "
+                                 f"logits {max_abs(logits, ref)} off")
+        held.append({"batch": rec["batch"], "label_agreement": agree, "max_abs_logit_err": max_abs(logits, ref)})
+    if [h["batch"] for h in held] != list(BENCH_WHOLE):
+        raise AssertionError(f"the sweep ran {[rec['batch'] for rec in summary['sweep']]}")
+    return {
+        "windows": list(windows),
+        "seconds": seconds,
+        "report_ops": len(summary["rows"]),
+        "top": [{"name": r.name[:80], "count": r.count, "total_ms": r.total_ms} for r in summary["rows"][:8]],
+        "profiled": summary["profiled"],
+        "sweep": [{k: v for k, v in rec.items() if k != "labels"} for rec in summary["sweep"]],
+        "held": held,
+    }, launches
+
+
+def _soak_batch(cfg: Config, tmp: pathlib.Path) -> np.ndarray:
+    """One train batch of the soak's scenes (``tools.train_soak``'s, seed 0):
+    the shapes and geometry its steps give the kernels."""
+    data_dir = tmp / "soak_scenes"
+    data_dir.mkdir()
+    train_soak.fabricate(str(data_dir), 80_000)
+    ds = SemanticDataset(cfg.num_point, "train", bool(cfg.use_color), cfg.box_size_x, cfg.box_size_y, str(data_dir),
+                         seed=0)
+    return ds.sample_batch_in_all_files(cfg.batch_size, True)[0].astype(np.float32)
+
+
+def soak_phase(cfg: Config, seed: int, card: str, report: Report) -> dict:
+    """Phase 12: (a) ``cli.benchmark`` on ``semantic.json``, exact and with
+    the windows (3072 / 512): ``_bench_run``'s gates, and rows 1-4 at B = 1,
+    2 and 4 x 8192 against their plain versions; (c) ``tools.train_soak``
+    for ``SOAK_EPOCHS`` epochs in ``SOAK_FLAGS``: finite losses, epoch 5's
+    train loss <= 1.0, the step-126 evaluation's accuracy >= 0.90, its
+    ``model.pt`` restored; (d) ``tools.bf16_train_soak`` for
+    ``PRECISION_STEPS`` steps and ``PRECISION_EVAL_BATCHES`` evaluation
+    batches, with ``--min_width 128``: all three modes' losses, accuracies and
+    mIoUs finite (its CONVERGENCE lines printed, not gated); (b) rows 1-5 (float32 and
+    bfloat16) at the soak's shapes (a micro-batch of 4 and the batch of 16
+    clouds of 2048 points, SA 512/128/32/8) and rows 7-10 at the windows (c)
+    calibrated (row 10 only where its FP window engaged), on a batch of the
+    soak's scenes, against their plain versions. Returns the ``benchmark`` and ``soak`` paths' launches (the
+    soaks' together)."""
+    t0 = time.perf_counter()
+    report.plain_timing = FEW  # the plain FPS at SA1 takes some 200 ms a call
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_soak_") as tmp:
+        tmp = pathlib.Path(tmp)
+        bench, bench_launches = {}, []
+        for name, windows in (("exact", ()), ("windowed", ("--bq_window", str(BQ_WINDOW),
+                                                           "--fp_window", str(FP_WINDOW)))):
+            bench[name], launches = _bench_run(cfg, tmp / f"trace_{name}", windows)
+            bench_launches.append(launches)
+            torch.cuda.empty_cache()
+        for b in BENCH_WHOLE:
+            kernel_phase(cfg, seed, report, b)
+        torch.cuda.empty_cache()
+
+        # (c) The soak through the train CLI.
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        t1 = time.perf_counter()
+        soak = train_soak.main(["--epochs", str(SOAK_EPOCHS), "--out", str(tmp / "soak"), *SOAK_FLAGS])
+        soak_s = time.perf_counter() - t1
+        soak_launches = dict(cuda.LAUNCHES)
+        summary = soak["train_summary"]
+        losses = [loss for epoch in summary["epochs"] for loss in epoch["losses"]]
+        train, val = soak["train"], soak["validation"]
+        if len(train) != SOAK_EPOCHS or not all(np.isfinite(losses)) or not np.isfinite(
+                [r["loss"] for r in train]).all():
+            raise AssertionError(f"the soak logged {len(train)} epochs; losses {losses}")
+        if train[5]["loss"] > SOAK_LOSS_BY_EPOCH_5:
+            raise AssertionError(f"the soak's epoch-5 train loss is {train[5]['loss']}")
+        steps = summary["step"]
+        if not val or val[-1]["step"] != steps or val[-1]["accuracy"] < SOAK_EVAL_ACCURACY:
+            raise AssertionError(f"the soak's evaluations: {[(v['step'], v['accuracy']) for v in val]}")
+        soak_cfg = train_soak.soak_config("")
+        bq, fp = summary["bq_window"], summary["fp_window"]
+        restored = Trainer(soak_cfg, device=DEVICE, bq_window=bq, fp_window=fp)
+        restore_checkpoint(tmp / "soak" / "model.pt", restored)  # written at epoch 0 (every 10 epochs)
+        if restored.step != summary["epochs"][0]["train_batches"] or not restored.optimizer.state:
+            raise AssertionError(f"the soak's model.pt restored at step {restored.step}")
+        del restored
+        torch.cuda.empty_cache()
+
+        # (d) The precision soak.
+        cuda.reset_launches()
+        t1 = time.perf_counter()
+        precision_flags = ["--steps", str(PRECISION_STEPS), "--eval_batches", str(PRECISION_EVAL_BATCHES),
+                           "--min_width", str(PRECISION_MIN_WIDTH)]
+        precision = bf16_train_soak.main(precision_flags)
+        precision_s = time.perf_counter() - t1
+        precision_launches = dict(cuda.LAUNCHES)
+        modes = [name for name in precision if name != "convergence"]
+        if len(modes) != 3 or not all(
+                len(precision[m]["losses"]) == PRECISION_STEPS and np.isfinite(precision[m]["losses"]).all()
+                and np.isfinite([precision[m]["accuracy"], precision[m]["miou"]]).all() for m in modes):
+            raise AssertionError(f"the precision soak ran {modes}")
+        soak_path = _sum_launches(soak_launches, precision_launches)
+        want = ["fps_centroids", "ball_query", "knn", "three_interpolate", "three_interpolate_grad",
+                "three_interpolate_bf16", "three_interpolate_grad_bf16"]
+        want += ["ball_query_sliced", "ball_query_sliced_pos", "window_gather"] if bq is not None else []
+        want += ["knn_sliced"] if fp is not None else []
+        if any(soak_path.get(name, 0) == 0 for name in want):
+            raise AssertionError(f"the soaks launched {soak_path}, want every one of {want}")
+        torch.cuda.empty_cache()
+
+        # (b) The kernels at the soak's shapes, on a batch of its scenes.
+        x16 = _soak_batch(soak_cfg, tmp)
+        for b, x in ((SOAK_MICRO, np.ascontiguousarray(x16[::16 // SOAK_MICRO])), (soak_cfg.batch_size, x16)):
+            levels = kernel_phase(soak_cfg, seed, report, b, x=x)
+            grad_kernel_phase(levels, seed, report)
+            bf16_kernel_phase(levels, seed, report)
+            if bq is not None:
+                window_kernel_phase(soak_cfg, seed, report, b, x=x, bq_window=bq, fp_window=fp)
+            del levels
+        torch.cuda.empty_cache()
+    report.plain_timing = None
+    emit({
+        "phase": "soak",
+        "benchmark": bench,
+        "train_soak": {
+            "flags": ["--epochs", str(SOAK_EPOCHS), *SOAK_FLAGS],
+            "seconds": soak_s,
+            "steps": steps,
+            "bq_window": bq,
+            "fp_window": fp,
+            "train": [{k: r[k] for k in ("step", "loss", "accuracy", "learning_rate", "bn_decay")} for r in train],
+            "validation": [{k: r[k] for k in ("step", "accuracy", "miou")} for r in val],
+            "checkpoints": soak["checkpoints"],
+            "median_step_ms": [statistics.median(e["step_ms"][1:]) for e in summary["epochs"]],
+            "launches": soak_launches,
+        },
+        "precision_soak": {
+            "flags": precision_flags,
+            "seconds": precision_s,
+            **{m: {"final_loss": precision[m]["losses"][-1], "accuracy": precision[m]["accuracy"],
+                   "miou": precision[m]["miou"]} for m in modes},
+            "convergence": precision["convergence"],
+            "launches": precision_launches,
+        },
+        "phase_seconds": time.perf_counter() - t0,
+        "card": card,
+    })
+    return {"benchmark": _sum_launches(*bench_launches), "soak": soak_path}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None, help="also write every record here as JSON")
@@ -3422,6 +3699,8 @@ def main(argv=None) -> int:
         paths["export"], served_state = export_phase(cfg, SEED, card, pathlib.Path(export_root))
         torch.cuda.empty_cache()
         paths["serve"] = serve_phase(cfg, SEED, card, pathlib.Path(export_root), served_state)
+    torch.cuda.empty_cache()
+    paths.update(soak_phase(cfg, SEED, card, report))
     kernels = report.kernels_line(paths)
 
     if args.out is not None:

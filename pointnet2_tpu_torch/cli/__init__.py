@@ -1,20 +1,22 @@
 """The port's command-line entry points, counterparts of the root ``preprocess.py``,
-``downsample.py``, ``train.py``, ``predict.py``, ``interpolate.py``, ``kitti_predict.py``, ``serve.py``,
-``visualize.py``, ``colorize.py`` and ``kitti_visualize.py``.
+``downsample.py``, ``train.py``, ``predict.py``, ``interpolate.py``, ``renamer.py``, ``kitti_predict.py``,
+``serve.py``, ``benchmark.py``, ``visualize.py``, ``colorize.py`` and ``kitti_visualize.py``.
 
     python -m pointnet2_tpu_torch.cli.preprocess [--raw_dir dataset/semantic_raw]
     python -m pointnet2_tpu_torch.cli.downsample [--voxel_size 0.05]
     python -m pointnet2_tpu_torch.cli.train --config_file semantic.json
     python -m pointnet2_tpu_torch.cli.predict --ckpt log/semantic/model.pt
     python -m pointnet2_tpu_torch.cli.interpolate --set validation [--engine device]
+    python -m pointnet2_tpu_torch.cli.renamer [--dense_dir result/dense]
     python -m pointnet2_tpu_torch.cli.kitti_predict --ckpt log/semantic/model.pt --kitti_root DIR --save
     python -m pointnet2_tpu_torch.cli.serve --artifact result/export
+    python -m pointnet2_tpu_torch.cli.benchmark [--ckpt log/semantic/model.pt] [--bq_window 3072 --fp_window 512]
     python -m pointnet2_tpu_torch.cli.visualize --pcd FILE [--labels FILE] [--stats] [--html FILE]
     python -m pointnet2_tpu_torch.cli.colorize [--input_dir result/sparse]
     python -m pointnet2_tpu_torch.cli.kitti_visualize --kitti_root DIR
 
 Each takes the JAX script's flags by the same names. ``preprocess``,
-``downsample`` and the three visualizers are host work and take no more
+``downsample``, ``renamer`` and the three visualizers are host work and take no more
 (the PNGs need matplotlib, imported only to draw); the others take
 ``--device``: CUDA by default, which must be present (``--device cpu`` runs
 the plain versions of the operators, for tests; ``interpolate`` uses it for

@@ -90,5 +90,8 @@ class Config:
             raise ValueError(f"unknown config keys in {path}: {sorted(unknown)}")
         return cls(**raw)
 
+    def to_json(self, path: str | pathlib.Path) -> None:
+        pathlib.Path(path).write_text(json.dumps(dataclasses.asdict(self), indent=4) + "\n")
+
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

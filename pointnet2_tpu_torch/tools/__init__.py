@@ -20,6 +20,12 @@ plain versions (``--small`` for small shapes) and measures no time.
 - ``bq_window_calibrate`` (``tools/bq_window_calibrate.py``, flag for flag,
                   the same table, plus ``--device``): the ball-query and
                   3-NN windows each level of sampled training batches needs.
+- ``train_soak``  (``tools/train_soak.py``, flag for flag, plus ``--device``):
+                  fabricated scenes, the soak configuration trained through
+                  ``cli.train``, the JAX tool's summary lines.
+- ``bf16_train_soak`` (``tools/bf16_train_soak.py``, plus ``--device``):
+                  float32, bfloat16 and selective bfloat16 trained on one
+                  pre-sampled stream; the CONVERGENCE lines.
 - ``scenes``      (no counterpart): fabricated Semantic3D scenes for the
                   CLIs (``chip_smoke.py`` trains on them), and the widest
                   calibrated windows the train CLI's seeded batches need there.

@@ -1,8 +1,12 @@
-"""The port's one timer and one bound, for ``chip_smoke.py`` and the tools.
+"""The port's timers and one bound, for ``chip_smoke.py`` and the tools.
 
-The counterpart of ``pointnet2_tpu/utils/bench.py`` (``slope_time``), whose
-hazards are the TPU's (a 26 ms dispatch, ``block_until_ready`` returning
-early). On the card a kernel's time is CUDA events around a run of launches:
+The counterpart of ``pointnet2_tpu/utils/bench.py``. ``slope_time`` is its
+``slope_time``: the time of a step from the slope between two chains of
+steps, each step's output folded into the next step's input, so that no
+step can be skipped and fixed costs (a launch queue filling, a final read)
+cancel. The JAX function's other hazards are the TPU's (a 26 ms dispatch,
+``block_until_ready`` returning early). On the card a kernel's time is CUDA
+events around a run of launches:
 
 - ``cuda_ms``: the median over ``reps`` runs of ``inner`` calls in a row,
   after ``warmup`` calls, of the device time between two events divided by
@@ -25,8 +29,8 @@ early). On the card a kernel's time is CUDA events around a run of launches:
   700 W; a card set to a lower power limit runs slower, so every record
   carries ``card_line()`` beside it.
 
-Nothing here runs on the CPU: ``cuda_ms`` needs a CUDA device and raises
-without one.
+Only ``slope_time`` runs on the CPU (on the host's clock, for tests):
+``cuda_ms`` and ``device_ms`` need a CUDA device and raise without one.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from __future__ import annotations
 import contextlib
 import statistics
 import subprocess
+import time
 import warnings
 
 import torch
@@ -77,6 +82,49 @@ def cuda_ms(fn, reps: int = 10, inner: int = 5, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def slope_time(step_fn, x: torch.Tensor, K0: int = 2, K1: int = 10, reps: int = 3) -> float:
+    """Median seconds a call of ``step_fn``, from chains of K0 and of K1 calls.
+
+    ``step_fn``: carry -> tensor (any shape); ``x``, a floating tensor, is
+    the first carry and the timed input. Each output is folded into the next
+    carry by ``c + out.sum() * 1e-38`` (the carry's value does not change; the
+    next call waits for this one's output). Each chain runs once to warm up;
+    then ``reps`` times, on a distinct input each repetition (``x + (i + 1) *
+    1e-7``), each chain ending in one read of the carry's sum. Returns
+    (median t(K1) - median t(K0)) / (K1 - K0), as the JAX function does: CUDA
+    events on the carry's device when it is a card (synchronised before each
+    chain), the host's clock on the CPU.
+    """
+    on_card = x.device.type == "cuda"
+    eps = torch.tensor(1e-38, dtype=torch.float32, device=x.device)
+
+    def chain(c: torch.Tensor, k: int) -> float:
+        if on_card:
+            torch.cuda.synchronize(x.device)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+        else:
+            t0 = time.perf_counter()
+        for _ in range(k):
+            out = step_fn(c)
+            c = c + (out.sum().float() * eps).to(c.dtype)
+        float(c.sum())
+        if on_card:
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / 1e3
+        return time.perf_counter() - t0
+
+    chain(x, K0)
+    chain(x, K1)  # warm
+    t0s, t1s = [], []
+    for i in range(reps):
+        xi = x + (i + 1) * 1e-7
+        t0s.append(chain(xi, K0))
+        t1s.append(chain(xi, K1))
+    return (statistics.median(t1s) - statistics.median(t0s)) / (K1 - K0)
 
 
 def event_device_us(event) -> float:

@@ -55,7 +55,9 @@ def test_importing_the_port_loads_no_jax():
             "pointnet2_tpu_torch.tools.scalars_to_tb", "pointnet2_tpu_torch.nn.extras",
             "pointnet2_tpu_torch.utils.html_viewer", "pointnet2_tpu_torch.cli.visualize",
             "pointnet2_tpu_torch.cli.colorize", "pointnet2_tpu_torch.cli.kitti_visualize",
-            "pointnet2_tpu_torch.tools.bq_window_calibrate"} <= set(mods)
+            "pointnet2_tpu_torch.tools.bq_window_calibrate", "pointnet2_tpu_torch.cli.benchmark",
+            "pointnet2_tpu_torch.cli.renamer", "pointnet2_tpu_torch.utils.op_report",
+            "pointnet2_tpu_torch.tools.train_soak", "pointnet2_tpu_torch.tools.bf16_train_soak"} <= set(mods)
 
 
 _FORBIDDEN = re.compile(
