@@ -52,6 +52,23 @@ non-zero and prints no result):
    whose skips are SA2's and SA1's two scales concatenated (192 and 96
    channels; the backward reading 448- and 352-wide cotangents), and rows
    7-9 (phase 5's checks) at SA1's first scale: row 9 on rows of 16 floats.
+2b. Probes: the four kernels of the TPU design probes ported so far
+   (``ops.cuda.probes``: ``fps_remask`` and ``fps_packed`` in
+   ``csrc/fps_probes.cu``, ``knn_argmin`` and ``knn_tracked`` in
+   ``csrc/knn_probes.cu``), each equal bit for bit to its plain version (the
+   probe tool's) and the FPS ones to row 6's indices, at the probes' own
+   shapes (FPS 64 x 8192 -> 1024, remask True and False, G = 2, 4, 8; kNN
+   64 clouds, 8192 queries, 1024 references, k = 3) and at edge shapes: npoint
+   = N = 1000 with B = 12 (no multiple of a warp's points, of 128 or of G =
+   8), integer coordinates (ties), kNN k = 1, 16 and 32 at SA1's grouping
+   (B = 16, 1024 queries, 8192 references). Bounds: row 6's (10 operations
+   a point and step, ``chain_ms`` of ``pn2_fps_barrier_chain`` at the
+   planned cluster size beside it, and row 6's own time) and row 3's (9
+   operations a pair, ``pn2_knn`` at the same shape beside it). Then the
+   ``probes`` path: the three tools' ``main`` on the card at their own
+   shapes (``python -m pointnet2_tpu_torch.tools.fps_mask_probe``,
+   ``.fps_packed_probe``, ``.knn_variant_probe``), whose launches must
+   include all four kernels.
 3. Predict: a ``Predictor`` at full ``semantic.json`` width with seeded
    weights (``convert.init_variables``) answers 3 requests of 16 clouds of
    8192 points (after one warm-up request). The launch counts, reset just before,
@@ -343,8 +360,8 @@ non-zero and prints no result):
    512/128/32/8), and rows 7-9 at (c)'s ball-query window, row 10 at its FP
    window where that engaged: each as phases 2 and 5 hold it.
 
-Output: one JSON line a kernel and shape, one for each driven path (predict,
-train, predict_windows, train_windows, predict_bf16, train_bf16, their MSG
+Output: one JSON line a kernel and shape, one for each driven path (probes,
+predict, train, predict_windows, train_windows, predict_bf16, train_bf16, their MSG
 counterparts predict_msg, train_msg, predict_windows_msg,
 train_windows_msg, predict_msg_bf16, train_msg_bf16, sa_tails, then cli, prep,
 convert, op_surface, densify, dist, kitti, export, serve, soak; the
@@ -415,6 +432,7 @@ from pointnet2_tpu_torch.ops.cuda import ballquery as cuda_ballquery
 from pointnet2_tpu_torch.ops.cuda import build
 from pointnet2_tpu_torch.ops.cuda import fps as cuda_fps
 from pointnet2_tpu_torch.ops.cuda import interpolate as cuda_interp
+from pointnet2_tpu_torch.ops.cuda import probes as cuda_probes
 from pointnet2_tpu_torch.ops.cuda import wingather as cuda_gather
 from pointnet2_tpu_torch.parallel import knn_sharded, multihost
 from pointnet2_tpu_torch.parallel.launch import run_ranks
@@ -422,6 +440,7 @@ from pointnet2_tpu_torch.tools import bq_window_calibrate as calibrate_cli
 from pointnet2_tpu_torch.tools import convert_checkpoint as convert_cli
 from pointnet2_tpu_torch.tools import export_model as export_cli
 from pointnet2_tpu_torch.tools import bf16_train_soak, dist_step, op_bench, parity, scenes, stage_bench, train_soak
+from pointnet2_tpu_torch.tools import fps_mask_probe, fps_packed_probe, knn_variant_probe
 from pointnet2_tpu_torch.train import Trainer, load_model_state, restore_checkpoint, save_checkpoint
 from pointnet2_tpu_torch.train_profile import train_batch
 from pointnet2_tpu_torch.utils.bench import bound, card_line, cuda_ms, deterministic_algorithms, device_ms
@@ -476,6 +495,11 @@ KERNELS = {
     "ball_query_windowed": (
         "pointnet2_tpu_torch/csrc/window_bq.cuh", "pointnet2_tpu/ops/pallas/ballquery.py:80",
     ),
+    # The TPU design probes' kernels, by the probe's pallas_call site (the probes path).
+    "fps_remask": ("pointnet2_tpu_torch/csrc/fps_probes.cu", "tools/fps_mask_probe.py:79"),
+    "fps_packed": ("pointnet2_tpu_torch/csrc/fps_probes.cu", "tools/fps_packed_probe.py:112"),
+    "knn_argmin": ("pointnet2_tpu_torch/csrc/knn_probes.cu", "tools/knn_variant_probe.py:76"),
+    "knn_tracked": ("pointnet2_tpu_torch/csrc/knn_probes.cu", "tools/knn_variant_probe.py:153"),
 }
 INTERPOLATE_KERNELS = ("three_interpolate", "three_interpolate_grad")
 # The production windows (bench.py's Trainer(bq_window=3072) and its fp_window=512
@@ -1229,6 +1253,93 @@ def repaired_phase(cfg: Config, seed: int, report: Report) -> None:
         bq_rows("window past shared memory", wide, wide_q, 0.2, ns, 16384)
     knn_tiles_row("FP4 shape", cent, xyz, 32, core.round_up(FP_WINDOW, core.LANES))
     knn_tiles_row("window past shared memory", wide, wide_q, 3, 16384)
+
+
+# The probes phase (2b): the TPU design probes' four kernels and their tools.
+PROBE_FPS = (  # (label, B, N, npoint, integer coordinates)
+    ("probe shape", 64, 8192, 1024, False),
+    ("npoint = N, B not a multiple of 8", 12, 1000, 1000, False),
+    ("integer coordinates (ties)", 16, 8192, 1024, True),
+)
+PROBE_KNN = (  # (label, B, queries, references, k, integer coordinates)
+    ("probe shape (FP4 3-NN)", 64, 8192, 1024, 3, False),
+    ("SA1 grouping", 16, 1024, 8192, 1, False),
+    ("SA1 grouping", 16, 1024, 8192, 16, False),
+    ("SA1 grouping", 16, 1024, 8192, 32, False),
+    ("integer coordinates (ties)", 8, 1000, 1000, 16, True),
+)
+PROBE_KERNELS = ("fps_remask", "fps_packed", "knn_argmin", "knn_tracked")
+
+
+def probes_phase(seed: int, report: Report) -> dict:
+    """Phase 2b: the four probe kernels (``ops.cuda.probes``), each against
+    its plain version (the probe tool's) on the card, indices and distances
+    bit for bit, at ``PROBE_FPS`` and ``PROBE_KNN``; then the path: the three
+    probe tools' ``main`` on the card at their own shapes. Returns the path's
+    launch counts, reset just before the tools and read just after."""
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    rng = np.random.RandomState(seed + 700)
+
+    def cloud(b, n, integer, scale=10.0):
+        x = rng.rand(b, n, 3) * scale
+        return torch.from_numpy((np.round(x) if integer else x).astype(np.float32)).to(dev)
+
+    for label, b, n, npoint, integer in PROBE_FPS:
+        xyz = cloud(b, n, integer, 8.0 if integer else 10.0)
+        row6 = cuda.farthest_point_sample(xyz, npoint)
+        work = op_bench.work_fps(b, n, npoint, rows=False)
+        route6 = cuda_fps.planned_route(xyz, npoint, rows=False)
+        for remask in (True, False):
+            got, want = cuda.fps_remask(xyz, npoint, remask), fps_mask_probe.fps_remask_plain(xyz, npoint, remask)
+            report.add(
+                "fps_remask", b, f"{label} N={n} npoint={npoint} remask={remask}",
+                lambda r=remask: cuda.fps_remask(xyz, npoint, r),
+                lambda r=remask: fps_mask_probe.fps_remask_plain(xyz, npoint, r), *work,
+                err=0.0, match=torch.equal(got, want) and torch.equal(got, row6), plain_timing=FEW,
+                extra={"row6_ms": lambda: cuda.farthest_point_sample(xyz, npoint),
+                       "chain_ms": lambda: cuda_fps.barrier_chain(b, npoint, route6)},
+                info={"plan": route6, "case": "probes"},
+            )
+        for g in fps_packed_probe.SHAPES["groups"]:
+            route = cuda_probes.packed_route(xyz, npoint, g)
+            got, want = cuda.fps_packed(xyz, npoint, g), fps_packed_probe.fps_packed_plain(xyz, npoint, g)
+            report.add(
+                "fps_packed", b, f"{label} N={n} npoint={npoint} G={g}",
+                lambda g=g: cuda.fps_packed(xyz, npoint, g),
+                lambda g=g: fps_packed_probe.fps_packed_plain(xyz, npoint, g), *work,
+                err=0.0, match=torch.equal(got, want) and torch.equal(got, row6), plain_timing=FEW,
+                extra={"row6_ms": lambda: cuda.farthest_point_sample(xyz, npoint),
+                       "chain_ms": lambda g=g, route=route: cuda_fps.barrier_chain(-(-b // g), npoint, route)},
+                info={"plan": route, "row6_plan": route6, "case": "probes"},
+            )
+
+    for label, b, nq, m, k, integer in PROBE_KNN:
+        refs, queries = cloud(b, m, integer, 8.0), cloud(b, nq, integer, 8.0)
+        for name, plain in (("knn_argmin", knn_variant_probe.knn_argmin_plain),
+                            ("knn_tracked", knn_variant_probe.knn_tracked_plain)):
+            fn = getattr(cuda, name)
+            got, want = fn(refs, queries, k), plain(refs, queries, k)
+            report.add(
+                name, b, f"{label} Nq={nq} M={m} k={k}",
+                lambda fn=fn: fn(refs, queries, k), lambda plain=plain: plain(refs, queries, k),
+                *op_bench.work_knn(b, nq, m, k), err=max_abs(got[0], want[0]),
+                match=torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), plain_timing=FEW,
+                extra={"pn2_knn_ms": lambda: cuda.knn(refs, queries, k)},
+                info={"warps": cuda_probes.knn_warps(m), "case": "probes"},
+            )
+    torch.cuda.empty_cache()
+
+    cuda.reset_launches()
+    tools = {"fps_mask_probe": fps_mask_probe.main([]), "fps_packed_probe": fps_packed_probe.main([]),
+             "knn_variant_probe": knn_variant_probe.main([])}
+    launches = dict(cuda.LAUNCHES)
+    missing = [name for name in PROBE_KERNELS if launches.get(name, 0) == 0]
+    if missing:
+        raise AssertionError(f"the probe tools launched no {missing}: {launches}")
+    emit({"phase": "probes", "tools": tools, "launches": launches, "phase_seconds": time.perf_counter() - t0,
+          "card": report.card})
+    return launches
 
 
 def no_host_read(fn):
@@ -3651,9 +3762,10 @@ def main(argv=None) -> int:
     op_surface_kernel_phase(cfg, train_levels, report)
     windowed_stress_phase(cfg, SEED, report)
     repaired_phase(cfg, SEED, report)
+    probes_launches = probes_phase(SEED, report)
     del chunk_levels, train_levels
     torch.cuda.empty_cache()
-    paths = {"predict": predict_phase(cfg, REQUESTS, BATCH, SEED, card)}
+    paths = {"probes": probes_launches, "predict": predict_phase(cfg, REQUESTS, BATCH, SEED, card)}
     torch.cuda.empty_cache()
     paths["train"], train_row = train_phase(cfg, SEED, card)
     torch.cuda.empty_cache()

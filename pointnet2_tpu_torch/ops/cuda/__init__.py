@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels for Hopper (``sm_90a``), one per Pallas kernel on the path.
+"""Hand-written CUDA kernels for Hopper (``sm_90a``), one per Pallas kernel on the path,
+and the four of the TPU design probes ported so far (``probes``).
 
 Sources are in ``pointnet2_tpu_torch/csrc/``; ``build`` compiles them with
 ``nvcc`` on first use. Each wrapper takes CUDA tensors only and counts its
@@ -15,6 +16,7 @@ from pointnet2_tpu_torch.ops.cuda.common import LAUNCHES, reset_launches
 from pointnet2_tpu_torch.ops.cuda.fps import farthest_point_sample, fps_centroids
 from pointnet2_tpu_torch.ops.cuda.interpolate import three_interpolate, three_interpolate_grad
 from pointnet2_tpu_torch.ops.cuda.knn import knn, knn_tiles
+from pointnet2_tpu_torch.ops.cuda.probes import fps_packed, fps_remask, knn_argmin, knn_tracked
 from pointnet2_tpu_torch.ops.cuda.wingather import ball_query_tiles_pos, window_gather
 
 __all__ = [
@@ -31,4 +33,8 @@ __all__ = [
     "knn_tiles",
     "three_interpolate",
     "three_interpolate_grad",
+    "fps_remask",
+    "fps_packed",
+    "knn_argmin",
+    "knn_tracked",
 ]

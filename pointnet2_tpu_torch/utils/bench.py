@@ -61,6 +61,11 @@ KERNEL_SYMBOLS = {
     "window_gather": "window_gather_kernel",
     "knn_sliced": "knn_tiles_kernel",
     "ball_query_windowed": "ball_query_windowed_kernel",
+    # The design probes (ops/cuda/probes.py).
+    "fps_remask": "fps_remask_kernel",
+    "fps_packed": "fps_packed_kernel",
+    "knn_argmin": "knn_argmin_kernel",
+    "knn_tracked": "knn_tracked_kernel",
 }
 
 

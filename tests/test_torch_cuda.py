@@ -1323,3 +1323,30 @@ def test_device_ms_times_by_events_when_the_profiler_records_no_kernel(cuda_devi
     with pytest.warns(RuntimeWarning, match="no device time for knn"):
         ms = bench.device_ms(lambda: ops.knn(xyz1, xyz2, 3, impl="cuda"), "knn", calls=3, tries=2)
     assert 0.0 < ms < 1e3
+
+
+@pytest.mark.parametrize("integer", [False, True], ids=["random", "integer"])
+def test_probe_kernels_equal_their_plain_versions(cuda_device, integer):
+    """The four TPU-probe kernels (``ops.cuda.probes``) against the probe
+    tools' plain versions, bit for bit, and the FPS ones against row 6:
+    B = 12 (no multiple of G = 8), npoint = N = 1000, k up to 32."""
+    from pointnet2_tpu_torch.tools import fps_mask_probe, fps_packed_probe, knn_variant_probe
+
+    def cloud(seed, b, n):
+        x = np.random.RandomState(seed).rand(b, n, 3) * 8.0
+        return torch.from_numpy((np.round(x) if integer else x).astype(np.float32)).to(cuda_device)
+
+    xyz = cloud(0, 12, 1000)
+    row6 = cuda.farthest_point_sample(xyz, 1000)
+    for remask in (True, False):
+        got = cuda.fps_remask(xyz, 1000, remask)
+        assert torch.equal(got, fps_mask_probe.fps_remask_plain(xyz, 1000, remask)) and torch.equal(got, row6)
+    for g in (2, 4, 8):
+        got = cuda.fps_packed(xyz, 1000, g)
+        assert torch.equal(got, fps_packed_probe.fps_packed_plain(xyz, 1000, g)) and torch.equal(got, row6)
+    refs, queries = cloud(1, 3, 1000), cloud(2, 3, 700)
+    for k in (1, 3, 16, 32):
+        for name, plain in (("knn_argmin", knn_variant_probe.knn_argmin_plain),
+                            ("knn_tracked", knn_variant_probe.knn_tracked_plain)):
+            got, want = getattr(cuda, name)(refs, queries, k), plain(refs, queries, k)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (name, k)
