@@ -52,8 +52,8 @@ non-zero and prints no result):
    whose skips are SA2's and SA1's two scales concatenated (192 and 96
    channels; the backward reading 448- and 352-wide cotangents), and rows
    7-9 (phase 5's checks) at SA1's first scale: row 9 on rows of 16 floats.
-2b. Probes: the four kernels of the TPU design probes ported so far
-   (``ops.cuda.probes``: ``fps_remask`` and ``fps_packed`` in
+2b. Probes: the eight kernels of the TPU design probes ported so far: the
+   FPS and kNN ones (``ops.cuda.probes``: ``fps_remask`` and ``fps_packed`` in
    ``csrc/fps_probes.cu``, ``knn_argmin`` and ``knn_tracked`` in
    ``csrc/knn_probes.cu``), each equal bit for bit to its plain version (the
    probe tool's) and the FPS ones to row 6's indices, at the probes' own
@@ -65,10 +65,25 @@ non-zero and prints no result):
    a point and step, ``chain_ms`` of ``pn2_fps_barrier_chain`` at the
    planned cluster size beside it, and row 6's own time) and row 3's (9
    operations a pair, ``pn2_knn`` at the same shape beside it). Then the
-   ``probes`` path: the three tools' ``main`` on the card at their own
-   shapes (``python -m pointnet2_tpu_torch.tools.fps_mask_probe``,
-   ``.fps_packed_probe``, ``.knn_variant_probe``), whose launches must
-   include all four kernels.
+   four ball-query probe kernels (``ops.cuda.bq_probes``, all in
+   ``csrc/bq_probes.cu``), each equal bit for bit to its plain version, at
+   the probes' own shapes (B = 8, N = 8192, M = 1024, nsample 32, r = 0.1)
+   and at an edge shape (integer-grid coordinates, ties; an odd N; nsample
+   40, past a warp's slots): ``bq_keys`` with int32 and int16 keys and
+   ``bq_fat`` at tm = 128 and 256, also equal to row 2 and, on the first two
+   clouds, to ``ops.reference.ball_query_np``; the pre-cut kernel at the
+   cond probe's 3072-column windows (``bq_precut_cond``: they fit, so it
+   equals row 2 and the oracle), behind its device-read guard there (equal)
+   and at 1024 columns (they do not fit: zeros), and at the decomposition
+   probe's 2048-column windows (``bq_precut_decomp``: most tiles do not fit;
+   equal to row 7 reading the same windows in place). Bounds: row 2's (9
+   operations a scanned pair) and row 7's (9 a pair of each query's x-span
+   in its window), with row 2, row 7 in place, the cut and the sorts timed
+   beside. Then the ``probes`` path: the seven tools' ``main`` on the card
+   at their own shapes (``python -m pointnet2_tpu_torch.tools.fps_mask_probe``,
+   ``.fps_packed_probe``, ``.knn_variant_probe``, ``.bq_i16_probe``,
+   ``.bq_fat_probe``, ``.bq_cond_probe``, ``.bq_sliced_decomp_probe``),
+   whose launches must include all eight probe kernels.
 3. Predict: a ``Predictor`` at full ``semantic.json`` width with seeded
    weights (``convert.init_variables``) answers 3 requests of 16 clouds of
    8192 points (after one warm-up request). The launch counts, reset just before,
@@ -427,8 +442,9 @@ from pointnet2_tpu_torch.infer import Predictor, full_float32
 from pointnet2_tpu_torch.models.pointnet2_seg import SA_MLPS, msg_scales
 from pointnet2_tpu_torch.nn.pointnet import SetAbstraction
 from pointnet2_tpu_torch.ops.calibrate import calibrate_model_windows
-from pointnet2_tpu_torch.ops import core, cuda, densify
+from pointnet2_tpu_torch.ops import core, cuda, densify, reference
 from pointnet2_tpu_torch.ops.cuda import ballquery as cuda_ballquery
+from pointnet2_tpu_torch.ops.cuda import bq_probes as cuda_bq_probes
 from pointnet2_tpu_torch.ops.cuda import build
 from pointnet2_tpu_torch.ops.cuda import fps as cuda_fps
 from pointnet2_tpu_torch.ops.cuda import interpolate as cuda_interp
@@ -440,6 +456,7 @@ from pointnet2_tpu_torch.tools import bq_window_calibrate as calibrate_cli
 from pointnet2_tpu_torch.tools import convert_checkpoint as convert_cli
 from pointnet2_tpu_torch.tools import export_model as export_cli
 from pointnet2_tpu_torch.tools import bf16_train_soak, dist_step, op_bench, parity, scenes, stage_bench, train_soak
+from pointnet2_tpu_torch.tools import bq_cond_probe, bq_fat_probe, bq_i16_probe, bq_sliced_decomp_probe
 from pointnet2_tpu_torch.tools import fps_mask_probe, fps_packed_probe, knn_variant_probe
 from pointnet2_tpu_torch.train import Trainer, load_model_state, restore_checkpoint, save_checkpoint
 from pointnet2_tpu_torch.train_profile import train_batch
@@ -500,6 +517,11 @@ KERNELS = {
     "fps_packed": ("pointnet2_tpu_torch/csrc/fps_probes.cu", "tools/fps_packed_probe.py:112"),
     "knn_argmin": ("pointnet2_tpu_torch/csrc/knn_probes.cu", "tools/knn_variant_probe.py:76"),
     "knn_tracked": ("pointnet2_tpu_torch/csrc/knn_probes.cu", "tools/knn_variant_probe.py:153"),
+    "bq_keys": ("pointnet2_tpu_torch/csrc/bq_probes.cu", "tools/bq_i16_probe.py:88"),
+    "bq_fat": ("pointnet2_tpu_torch/csrc/bq_probes.cu", "tools/bq_fat_probe.py:110"),
+    # One kernel (pn2_ball_query_precut) at the two probe sites that launch it.
+    "bq_precut_cond": ("pointnet2_tpu_torch/csrc/bq_probes.cu", "tools/bq_cond_probe.py:62"),
+    "bq_precut_decomp": ("pointnet2_tpu_torch/csrc/bq_probes.cu", "tools/bq_sliced_decomp_probe.py:69"),
 }
 INTERPOLATE_KERNELS = ("three_interpolate", "three_interpolate_grad")
 # The production windows (bench.py's Trainer(bq_window=3072) and its fp_window=512
@@ -1268,13 +1290,126 @@ PROBE_KNN = (  # (label, B, queries, references, k, integer coordinates)
     ("SA1 grouping", 16, 1024, 8192, 32, False),
     ("integer coordinates (ties)", 8, 1000, 1000, 16, True),
 )
-PROBE_KERNELS = ("fps_remask", "fps_packed", "knn_argmin", "knn_tracked")
+PROBE_BQ_EDGE = dict(b=4, n=1001, m=300, nsample=40, radius=0.15)  # integer-grid coordinates (ties)
+PROBE_BQ_NOT_FITTING = 1024  # the cond probe's shape with windows its tiles do not fit
+PROBE_KERNELS = ("fps_remask", "fps_packed", "knn_argmin", "knn_tracked",
+                 "bq_keys", "bq_fat", "bq_precut_cond", "bq_precut_decomp")
+
+
+def bq_exact_rows(report: Report, label: str, x1: np.ndarray, x2: np.ndarray, r: float, ns: int) -> None:
+    """``bq_keys`` (int32, int16 keys) and ``bq_fat`` (tm 128, 256) on one cloud
+    batch, each equal to its plain version, to row 2 and to the oracle on the
+    first two clouds; row 2's bound (9 operations a scanned pair)."""
+    dev = torch.device(DEVICE)
+    xyz1, xyz2 = torch.from_numpy(x1).to(dev), torch.from_numpy(x2).to(dev)
+    b, n, _ = x1.shape
+    m = x2.shape[1]
+    row2 = cuda.ball_query(xyz1, xyz2, r, ns)
+    oracle = reference.ball_query_np(x1[:2], x2[:2], r, ns)
+    work = op_bench.work_ball_query(b, n, m, ns, int(op_bench.scanned_pairs(*row2, n, ns).sum()))
+    variants = [("bq_keys", f"keys=int{16 if i16 else 32}", lambda i16=i16: cuda.bq_keys(xyz1, xyz2, r, ns, i16),
+                 lambda i16=i16: bq_i16_probe.bq_keys_plain(xyz1, xyz2, r, ns, i16),
+                 {"warps": cuda_bq_probes.key_warps(n, i16)}) for i16 in (False, True)]
+    variants += [("bq_fat", f"tm={tm}", lambda tm=tm: cuda.bq_fat(xyz1, xyz2, r, ns, tm),
+                  lambda tm=tm: bq_fat_probe.bq_fat_plain(xyz1, xyz2, r, ns, tm), {"tm": tm}) for tm in (128, 256)]
+    for name, variant, run, plain, info in variants:
+        got, want = run(), plain()
+        exact = bq_i16_probe.same(got, row2) and bq_i16_probe.oracle_exact(got, oracle, 2)
+        report.add(
+            name, b, f"{label} N={n} M={m} nsample={ns} r={r} {variant}", run, plain, *work, err=0.0,
+            match=bq_i16_probe.same(got, want) and exact, plain_timing=FEW,
+            extra={"row2_ms": lambda: cuda.ball_query(xyz1, xyz2, r, ns)},
+            info={**info, "device_ms": device_ms(run, name),
+                  "row2_device_ms": device_ms(lambda: cuda.ball_query(xyz1, xyz2, r, ns), "ball_query"),
+                  "case": "probes"},
+        )
+
+
+def precut_row(report: Report, name: str, label: str, xyz1, xyz2, r: float, ns: int, w: int, guard: bool,
+               fits_expected: bool) -> None:
+    """The pre-cut kernel at ``name``'s site on ``bq_cond_probe.precut_plan``'s
+    windows (``guard``: behind the device-read predicate), equal to its plain
+    version and to row 7 reading the same windows in place; where the windows
+    fit, its outputs in query order equal row 2's and the oracle's on the
+    first two clouds, and where they do not the guarded outputs are zeros.
+    Row 7's bound (9 operations a pair of each query's x-span in its window;
+    a failed guard writes the outputs only)."""
+    b, n, _ = xyz1.shape
+    plan = bq_cond_probe.precut_plan(xyz1, xyz2, r, w)
+    fits = bq_cond_probe.fits_of(plan, w)
+    if bool(fits) != fits_expected:
+        raise AssertionError(f"{name} at W={w}: the windows fit={bool(fits)}, expected {fits_expected}")
+    t, tm = plan["q_tiles"].shape[1:3]
+    m = t * tm
+    qs = plan["q_tiles"].reshape(b, m, 3)
+    kernel = cuda.bq_precut_cond if name == "bq_precut_cond" else cuda.bq_precut_decomp
+    args = (plan["win"], plan["permw"], plan["q_tiles"], n, r, ns)
+    extra_args = {"fits": fits} if guard else {}
+    got = kernel(*args, **extra_args)
+    match = bq_i16_probe.same(got, bq_cond_probe.precut_plain(*args, **extra_args))
+    row7 = lambda: cuda.ball_query_tiles(plan["xs"], plan["perm"], qs, plan["lo"], r, ns, w)
+    if guard and not fits_expected:
+        match = match and not any(bool(g.any()) for g in got)
+        work = (b * t * tm * (ns + 1) * 4 + 4, 0)
+    else:
+        idx7, cnt7 = row7()
+        match = match and torch.equal(got[0].reshape(b, m, ns), idx7) and torch.equal(got[1].reshape(b, m), cnt7)
+        if fits_expected:
+            ordered = bq_cond_probe.in_query_order(plan, *got)
+            oracle = reference.ball_query_np(xyz1[:2].cpu().numpy(), xyz2[:2].cpu().numpy(), r, ns)
+            match = (match and bq_i16_probe.same(ordered, cuda.ball_query(xyz1, xyz2, r, ns))
+                     and bq_i16_probe.oracle_exact(ordered, oracle, 2))
+        first, last = core.ball_query_tile_spans(plan["xs"], qs, plan["lo"], r, w)
+        work = op_bench.work_ball_query_precut(b, t, tm, w, ns, int((last - first).sum()))
+    xs_t = plan["xs"].transpose(1, 2).contiguous()
+    report.add(
+        name, b, f"{label} N={n} M={m} nsample={ns} r={r} W={w}{' guard' if guard else ''}",
+        lambda: kernel(*args, **extra_args), lambda: bq_cond_probe.precut_plain(*args, **extra_args), *work,
+        err=0.0, match=match, plain_timing=FEW,
+        extra={"row7_in_place_ms": row7, "row2_ms": lambda: cuda.ball_query(xyz1, xyz2, r, ns),
+               "cut_ms": lambda: bq_cond_probe.cut(xs_t, plan["lo"], w),
+               "sorts_ms": lambda: bq_sliced_decomp_probe.sorts_only(xyz1, xyz2, r, w)},
+        info={"fits": bool(fits), "tiles_fit": int(((plan["hi"] - plan["lo"]) <= w).sum()), "tiles": b * t,
+              "route": cuda_bq_probes.precut_route(b, t, tm, w, xyz1.device.index),
+              "device_ms": device_ms(lambda: kernel(*args, **extra_args), name),
+              "row7_in_place_device_ms": device_ms(row7, "ball_query_sliced"), "case": "probes"},
+    )
+
+
+def bq_probe_rows(report: Report) -> None:
+    """The four ball-query probe kernels at the probes' own shapes and at
+    ``PROBE_BQ_EDGE``: ``bq_keys``, ``bq_fat``, and the pre-cut kernel at
+    both of its sites."""
+    dev = torch.device(DEVICE)
+    s = bq_i16_probe.SHAPES
+    x1, x2, _, _ = bq_i16_probe.probe_clouds(s, torch.device("cpu"))
+    bq_exact_rows(report, "probe shape", x1, x2, s["radius"], s["nsample"])
+    e = PROBE_BQ_EDGE
+    rng = np.random.RandomState(SEED + 720)
+    grid = lambda b, n: (np.round(rng.rand(b, n, 3) * 16) / 16).astype(np.float32)
+    bq_exact_rows(report, "integer grid (ties)", grid(e["b"], e["n"]), grid(e["b"], e["m"]), e["radius"], e["nsample"])
+
+    c = bq_cond_probe.SHAPES
+    b, n, m, ns, r = (c[k] for k in ("b", "n", "m", "nsample", "radius"))
+    cloud = np.random.RandomState(0).rand(b, n, 3).astype(np.float32)
+    xyz1 = torch.from_numpy(cloud).to(dev)
+    xyz2 = torch.from_numpy(np.ascontiguousarray(cloud[:, :: n // m][:, :m])).to(dev)
+    precut_row(report, "bq_precut_cond", "probe shape", xyz1, xyz2, r, ns, c["window"], False, True)
+    precut_row(report, "bq_precut_cond", "probe shape", xyz1, xyz2, r, ns, c["window"], True, True)
+    precut_row(report, "bq_precut_cond", "not fitting", xyz1, xyz2, r, ns, PROBE_BQ_NOT_FITTING, True, False)
+    precut_row(report, "bq_precut_decomp", "probe shape", xyz1, xyz2, r, ns,
+               bq_sliced_decomp_probe.SHAPES["window"], False, False)
+    ties = torch.from_numpy(grid(2, 4096)).to(dev)
+    ties_q = ties[:, ::4].contiguous()
+    precut_row(report, "bq_precut_cond", "integer grid (ties)", ties, ties_q, 0.05, 40, 1536, True, True)
+    precut_row(report, "bq_precut_decomp", "integer grid (ties)", ties, ties_q, 0.05, 40, 512, False, False)
 
 
 def probes_phase(seed: int, report: Report) -> dict:
-    """Phase 2b: the four probe kernels (``ops.cuda.probes``), each against
-    its plain version (the probe tool's) on the card, indices and distances
-    bit for bit, at ``PROBE_FPS`` and ``PROBE_KNN``; then the path: the three
+    """Phase 2b: the eight probe kernels (``ops.cuda.probes``,
+    ``ops.cuda.bq_probes``), each against its plain version (the probe
+    tool's) on the card, indices and distances bit for bit, at ``PROBE_FPS``,
+    ``PROBE_KNN`` and ``bq_probe_rows``' shapes; then the path: the seven
     probe tools' ``main`` on the card at their own shapes. Returns the path's
     launch counts, reset just before the tools and read just after."""
     t0 = time.perf_counter()
@@ -1328,11 +1463,14 @@ def probes_phase(seed: int, report: Report) -> dict:
                 extra={"pn2_knn_ms": lambda: cuda.knn(refs, queries, k)},
                 info={"warps": cuda_probes.knn_warps(m), "case": "probes"},
             )
+    bq_probe_rows(report)
     torch.cuda.empty_cache()
 
     cuda.reset_launches()
     tools = {"fps_mask_probe": fps_mask_probe.main([]), "fps_packed_probe": fps_packed_probe.main([]),
-             "knn_variant_probe": knn_variant_probe.main([])}
+             "knn_variant_probe": knn_variant_probe.main([]), "bq_i16_probe": bq_i16_probe.main([]),
+             "bq_fat_probe": bq_fat_probe.main([]), "bq_cond_probe": bq_cond_probe.main([]),
+             "bq_sliced_decomp_probe": bq_sliced_decomp_probe.main([])}
     launches = dict(cuda.LAUNCHES)
     missing = [name for name in PROBE_KERNELS if launches.get(name, 0) == 0]
     if missing:

@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``), one per Pallas kernel on the path,
-and the four of the TPU design probes ported so far (``probes``).
+and the eight of the TPU design probes ported so far (``probes``: FPS and
+kNN; ``bq_probes``: the ball queries).
 
 Sources are in ``pointnet2_tpu_torch/csrc/``; ``build`` compiles them with
 ``nvcc`` on first use. Each wrapper takes CUDA tensors only and counts its
@@ -12,6 +13,7 @@ over the ``pn2`` operators.
 """
 
 from pointnet2_tpu_torch.ops.cuda.ballquery import ball_query, ball_query_tiles, ball_query_window_tiles
+from pointnet2_tpu_torch.ops.cuda.bq_probes import bq_fat, bq_keys, bq_precut_cond, bq_precut_decomp
 from pointnet2_tpu_torch.ops.cuda.common import LAUNCHES, reset_launches
 from pointnet2_tpu_torch.ops.cuda.fps import farthest_point_sample, fps_centroids
 from pointnet2_tpu_torch.ops.cuda.interpolate import three_interpolate, three_interpolate_grad
@@ -37,4 +39,8 @@ __all__ = [
     "fps_packed",
     "knn_argmin",
     "knn_tracked",
+    "bq_keys",
+    "bq_fat",
+    "bq_precut_cond",
+    "bq_precut_decomp",
 ]

@@ -146,6 +146,15 @@ def work_ball_query_tiles(b, n, m, tiles, nsample, outs: int, pairs: int) -> tup
     return b * n * 16 + b * m * 12 + b * tiles * 4 + b * m * (outs * nsample + 1) * 4, 9 * pairs
 
 
+def work_ball_query_precut(b, t, tm, w, nsample, pairs: int) -> tuple[float, float]:
+    """(bytes, operations) of the ball query on cut windows (the probes'
+    pre-cut kernel): each tile's window, three coordinates and an original
+    index a column, and its sorted queries read, idx and cnt written; 9
+    operations a pair of each query's x-span over its window
+    (``ops.core.ball_query_tile_spans``)."""
+    return b * t * w * 16 + b * t * tm * 12 + b * t * tm * (nsample + 1) * 4, 9 * pairs
+
+
 def tiles_routes(tm: int) -> list[tuple[int, int]]:
     """The windowed ball query's routes at a tile of ``tm`` queries: split
     1 to 32 with a warp a query up to 16, and 8-warp blocks at split 4 and 8."""

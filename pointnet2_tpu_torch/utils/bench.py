@@ -61,11 +61,16 @@ KERNEL_SYMBOLS = {
     "window_gather": "window_gather_kernel",
     "knn_sliced": "knn_tiles_kernel",
     "ball_query_windowed": "ball_query_windowed_kernel",
-    # The design probes (ops/cuda/probes.py).
+    # The design probes (ops/cuda/probes.py, ops/cuda/bq_probes.py).
     "fps_remask": "fps_remask_kernel",
     "fps_packed": "fps_packed_kernel",
     "knn_argmin": "knn_argmin_kernel",
     "knn_tracked": "knn_tracked_kernel",
+    "bq_keys": "bq_keys_kernel",  # <kI16>
+    "bq_fat": "bq_fat_kernel",  # <kTm>
+    # Both probe sites of the one pre-cut kernel (<kSlots>).
+    "bq_precut_cond": "ball_query_precut_kernel",
+    "bq_precut_decomp": "ball_query_precut_kernel",
 }
 
 

@@ -1350,3 +1350,52 @@ def test_probe_kernels_equal_their_plain_versions(cuda_device, integer):
                             ("knn_tracked", knn_variant_probe.knn_tracked_plain)):
             got, want = getattr(cuda, name)(refs, queries, k), plain(refs, queries, k)
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (name, k)
+
+
+@pytest.mark.parametrize("integer", [False, True], ids=["random", "integer"])
+def test_bq_probe_kernels_equal_their_plain_versions(cuda_device, integer):
+    """The four ball-query probe kernels (``ops.cuda.bq_probes``) against the
+    probe tools' plain versions, bit for bit: ``bq_keys`` at both widths and
+    ``bq_fat`` at both tiles also against row 2 (N = 1000: an odd int16 word
+    of 500; M = 300: a partial tile; nsample 8 and 40, past a warp's slots);
+    the pre-cut kernel on windows that fit (equal to row 2), on windows that
+    do not (equal to row 7 in place at the same starts), and behind its guard
+    (zeros where the windows do not fit)."""
+    from pointnet2_tpu_torch.tools import bq_cond_probe, bq_fat_probe, bq_i16_probe
+
+    def cloud(seed, b, n):
+        x = np.random.RandomState(seed).rand(b, n, 3)
+        return torch.from_numpy((np.round(x * 16) / 16 if integer else x).astype(np.float32)).to(cuda_device)
+
+    xyz1, xyz2 = cloud(0, 3, 1000), cloud(1, 3, 300)
+    for ns in (8, 40):
+        row2 = cuda.ball_query(xyz1, xyz2, 0.15, ns)
+        for i16 in (False, True):
+            got = cuda.bq_keys(xyz1, xyz2, 0.15, ns, i16)
+            want = bq_i16_probe.bq_keys_plain(xyz1, xyz2, 0.15, ns, i16)
+            assert all(torch.equal(g, w) and torch.equal(g, r) for g, w, r in zip(got, want, row2)), (ns, i16)
+        for tm in (128, 256):
+            got = cuda.bq_fat(xyz1, xyz2, 0.15, ns, tm)
+            want = bq_fat_probe.bq_fat_plain(xyz1, xyz2, 0.15, ns, tm)
+            assert all(torch.equal(g, w) and torch.equal(g, r) for g, w, r in zip(got, want, row2)), (ns, tm)
+    xyz1 = cloud(2, 2, 4096)
+    xyz2 = xyz1[:, ::4].contiguous()
+    for w, fits in ((1536, True), (512, False)):
+        plan = bq_cond_probe.precut_plan(xyz1, xyz2, 0.05, w)
+        assert bool(bq_cond_probe.fits_of(plan, w)) == fits
+        guard = bq_cond_probe.fits_of(plan, w)
+        for ns in (8, 40):
+            args = (plan["win"], plan["permw"], plan["q_tiles"], 4096, 0.05, ns)
+            got = cuda.bq_precut_cond(*args)
+            assert all(torch.equal(g, p) for g, p in zip(got, bq_cond_probe.precut_plain(*args)))
+            assert all(torch.equal(g, p) for g, p in zip(cuda.bq_precut_decomp(*args), got))
+            row7 = cuda.ball_query_tiles(plan["xs"], plan["perm"], plan["q_tiles"].reshape(2, 1024, 3),
+                                         plan["lo"], 0.05, ns, w)
+            assert torch.equal(got[0].reshape(2, 1024, ns), row7[0]) and torch.equal(got[1].reshape(2, 1024), row7[1])
+            guarded = cuda.bq_precut_cond(*args, fits=guard)
+            if fits:
+                assert all(torch.equal(g, p) for g, p in zip(guarded, got))
+                exact = bq_cond_probe.in_query_order(plan, *got)
+                assert all(torch.equal(g, r) for g, r in zip(exact, cuda.ball_query(xyz1, xyz2, 0.05, ns)))
+            else:
+                assert not any(bool(g.any()) for g in guarded)

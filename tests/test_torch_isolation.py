@@ -59,7 +59,10 @@ def test_importing_the_port_loads_no_jax():
             "pointnet2_tpu_torch.cli.renamer", "pointnet2_tpu_torch.utils.op_report",
             "pointnet2_tpu_torch.tools.train_soak", "pointnet2_tpu_torch.tools.bf16_train_soak",
             "pointnet2_tpu_torch.ops.cuda.probes", "pointnet2_tpu_torch.tools.fps_mask_probe",
-            "pointnet2_tpu_torch.tools.fps_packed_probe", "pointnet2_tpu_torch.tools.knn_variant_probe"} <= set(mods)
+            "pointnet2_tpu_torch.tools.fps_packed_probe", "pointnet2_tpu_torch.tools.knn_variant_probe",
+            "pointnet2_tpu_torch.ops.cuda.bq_probes", "pointnet2_tpu_torch.tools.bq_i16_probe",
+            "pointnet2_tpu_torch.tools.bq_fat_probe", "pointnet2_tpu_torch.tools.bq_cond_probe",
+            "pointnet2_tpu_torch.tools.bq_sliced_decomp_probe"} <= set(mods)
 
 
 _FORBIDDEN = re.compile(
@@ -117,7 +120,7 @@ def test_impl_cuda_on_a_cpu_tensor_raises(op):
     "name", ["fps_centroids", "ball_query", "knn", "three_interpolate", "three_interpolate_grad",
              "ball_query_tiles", "ball_query_tiles_pos", "window_gather", "knn_tiles",
              "farthest_point_sample", "ball_query_window_tiles", "fps_remask", "fps_packed", "knn_argmin",
-             "knn_tracked"]
+             "knn_tracked", "bq_keys", "bq_fat", "bq_precut_cond", "bq_precut_decomp"]
 )
 def test_kernel_wrappers_refuse_cpu_tensors(name):
     """Called directly, a wrapper never runs a plain version in the kernel's place."""
@@ -145,6 +148,12 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
         "fps_packed": (xyz, 8, 2),
         "knn_argmin": (xyz, xyz, 3),
         "knn_tracked": (xyz, xyz, 3),
+        "bq_keys": (xyz, xyz, 0.5, 4, True),
+        "bq_fat": (xyz, xyz, 0.5, 4, 128),
+        "bq_precut_cond": (torch.rand(1, 1, 3, 128), torch.zeros(1, 1, 1, 128, dtype=torch.int32),
+                           torch.rand(1, 1, 128, 3), 512, 0.1, 4, torch.ones((), dtype=torch.int32)),
+        "bq_precut_decomp": (torch.rand(1, 1, 3, 128), torch.zeros(1, 1, 1, 128, dtype=torch.int32),
+                             torch.rand(1, 1, 128, 3), 512, 0.1, 4),
     }[name]
     before = dict(cuda.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA"):
@@ -210,7 +219,8 @@ def test_build_names_its_flags_and_library_by_source_hash():
     from pointnet2_tpu_torch.ops.cuda import build
 
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS and "-fmad=false" in build.NVCC_FLAGS
-    assert {"fps", "ballquery", "knn", "interpolate", "wingather", "fps_probes", "knn_probes"} <= set(build.SOURCES)
+    assert {"fps", "ballquery", "knn", "interpolate", "wingather", "fps_probes", "knn_probes",
+            "bq_probes"} <= set(build.SOURCES)
     paths = {name: build.library_path(name) for name in build.SOURCES}
     assert len(set(paths.values())) == len(build.SOURCES)
     for name, path in paths.items():
