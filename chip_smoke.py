@@ -52,7 +52,7 @@ non-zero and prints no result):
    whose skips are SA2's and SA1's two scales concatenated (192 and 96
    channels; the backward reading 448- and 352-wide cotangents), and rows
    7-9 (phase 5's checks) at SA1's first scale: row 9 on rows of 16 floats.
-2b. Probes: the eight kernels of the TPU design probes ported so far: the
+2b. Probes: the twelve kernels of the TPU design probes ported so far: the
    FPS and kNN ones (``ops.cuda.probes``: ``fps_remask`` and ``fps_packed`` in
    ``csrc/fps_probes.cu``, ``knn_argmin`` and ``knn_tracked`` in
    ``csrc/knn_probes.cu``), each equal bit for bit to its plain version (the
@@ -79,11 +79,24 @@ non-zero and prints no result):
    equal to row 7 reading the same windows in place). Bounds: row 2's (9
    operations a scanned pair) and row 7's (9 a pair of each query's x-span
    in its window), with row 2, row 7 in place, the cut and the sorts timed
-   beside. Then the ``probes`` path: the seven tools' ``main`` on the card
-   at their own shapes (``python -m pointnet2_tpu_torch.tools.fps_mask_probe``,
+   beside. Then the four gather probe kernels (``ops.cuda.gather_probes``,
+   all in ``csrc/gather_probes.cu``), each equal bit for bit to its plain
+   version, to ``group_points`` (the port's grouping gather, which is their
+   ``library_ms``) and to row 9 (``window_gather``), at the probes' own
+   shapes: ``gather_rows`` at 64 clouds of 8192 x 64 floats, 32768 rows a
+   cloud; ``gather_rows_staged`` and ``gather_window_staged`` (unroll 4, 8,
+   16; row 9 at window starts kblk * W) in the ``sp_gather_probe`` regimes
+   (eval32, eval, train); ``gather_fused_idx`` at 8 x 8192 x 32, its emitted
+   indices equal to its input; and at edge shapes: 5 clouds (no multiple of
+   8), 3 channels (no 16-byte vectors), and a window kernel whose last tile's
+   second block is clamped. Bounds: bytes (the output written, each distinct
+   source row read, the indices read once; and written once more by the
+   fused kernel). Then the ``probes`` path: the ten tools' ``main`` on the
+   card at their own shapes (``python -m pointnet2_tpu_torch.tools.fps_mask_probe``,
    ``.fps_packed_probe``, ``.knn_variant_probe``, ``.bq_i16_probe``,
-   ``.bq_fat_probe``, ``.bq_cond_probe``, ``.bq_sliced_decomp_probe``),
-   whose launches must include all eight probe kernels.
+   ``.bq_fat_probe``, ``.bq_cond_probe``, ``.bq_sliced_decomp_probe``,
+   ``.gather_probe``, ``.sp_gather_probe``, ``.fused_gather_probe``), whose
+   launches must include all twelve probe kernels.
 3. Predict: a ``Predictor`` at full ``semantic.json`` width with seeded
    weights (``convert.init_variables``) answers 3 requests of 16 clouds of
    8192 points (after one warm-up request). The launch counts, reset just before,
@@ -447,6 +460,7 @@ from pointnet2_tpu_torch.ops.cuda import ballquery as cuda_ballquery
 from pointnet2_tpu_torch.ops.cuda import bq_probes as cuda_bq_probes
 from pointnet2_tpu_torch.ops.cuda import build
 from pointnet2_tpu_torch.ops.cuda import fps as cuda_fps
+from pointnet2_tpu_torch.ops.cuda import gather_probes as cuda_gather_probes
 from pointnet2_tpu_torch.ops.cuda import interpolate as cuda_interp
 from pointnet2_tpu_torch.ops.cuda import probes as cuda_probes
 from pointnet2_tpu_torch.ops.cuda import wingather as cuda_gather
@@ -457,6 +471,7 @@ from pointnet2_tpu_torch.tools import convert_checkpoint as convert_cli
 from pointnet2_tpu_torch.tools import export_model as export_cli
 from pointnet2_tpu_torch.tools import bf16_train_soak, dist_step, op_bench, parity, scenes, stage_bench, train_soak
 from pointnet2_tpu_torch.tools import bq_cond_probe, bq_fat_probe, bq_i16_probe, bq_sliced_decomp_probe
+from pointnet2_tpu_torch.tools import fused_gather_probe, gather_probe, sp_gather_probe
 from pointnet2_tpu_torch.tools import fps_mask_probe, fps_packed_probe, knn_variant_probe
 from pointnet2_tpu_torch.train import Trainer, load_model_state, restore_checkpoint, save_checkpoint
 from pointnet2_tpu_torch.train_profile import train_batch
@@ -522,6 +537,10 @@ KERNELS = {
     # One kernel (pn2_ball_query_precut) at the two probe sites that launch it.
     "bq_precut_cond": ("pointnet2_tpu_torch/csrc/bq_probes.cu", "tools/bq_cond_probe.py:62"),
     "bq_precut_decomp": ("pointnet2_tpu_torch/csrc/bq_probes.cu", "tools/bq_sliced_decomp_probe.py:69"),
+    "gather_rows": ("pointnet2_tpu_torch/csrc/gather_probes.cu", "tools/gather_probe.py:40"),
+    "gather_rows_staged": ("pointnet2_tpu_torch/csrc/gather_probes.cu", "tools/sp_gather_probe.py:75"),
+    "gather_window_staged": ("pointnet2_tpu_torch/csrc/gather_probes.cu", "tools/sp_gather_probe.py:137"),
+    "gather_fused_idx": ("pointnet2_tpu_torch/csrc/gather_probes.cu", "tools/fused_gather_probe.py:46"),
 }
 INTERPOLATE_KERNELS = ("three_interpolate", "three_interpolate_grad")
 # The production windows (bench.py's Trainer(bq_window=3072) and its fp_window=512
@@ -1292,8 +1311,13 @@ PROBE_KNN = (  # (label, B, queries, references, k, integer coordinates)
 )
 PROBE_BQ_EDGE = dict(b=4, n=1001, m=300, nsample=40, radius=0.15)  # integer-grid coordinates (ties)
 PROBE_BQ_NOT_FITTING = 1024  # the cond probe's shape with windows its tiles do not fit
+PROBE_GATHER_EDGE = dict(b=5, n=2048, c=3, m=256, k=16)  # no multiple of 8 clouds, no 16-byte vectors
+# The window kernel's edge: 5 clouds of 3 channels, two tiles of 128 queries;
+# the second tile's base 2048 - 384 lies in the last block, whose neighbour is clamped.
+PROBE_WINDOW_EDGE = dict(n=2048, m=256, k=16, span=384, w=512, tm=128)
 PROBE_KERNELS = ("fps_remask", "fps_packed", "knn_argmin", "knn_tracked",
-                 "bq_keys", "bq_fat", "bq_precut_cond", "bq_precut_decomp")
+                 "bq_keys", "bq_fat", "bq_precut_cond", "bq_precut_decomp",
+                 "gather_rows", "gather_rows_staged", "gather_window_staged", "gather_fused_idx")
 
 
 def bq_exact_rows(report: Report, label: str, x1: np.ndarray, x2: np.ndarray, r: float, ns: int) -> None:
@@ -1405,12 +1429,121 @@ def bq_probe_rows(report: Report) -> None:
     precut_row(report, "bq_precut_decomp", "integer grid (ties)", ties, ties_q, 0.05, 40, 512, False, False)
 
 
+def gather_work(idx: torch.Tensor, n: int, c: int) -> tuple[float, float]:
+    """(bytes, operations) of a gather of (B, R) rows of (B, N, C) points by
+    ``op_bench.work_window_gather``'s count with no window starts: each
+    distinct source row read once, the indices read once, the output
+    written once."""
+    b = idx.shape[0]
+    rows = (idx.long() + torch.arange(b, device=idx.device)[:, None] * n).reshape(-1)
+    return op_bench.work_window_gather(idx.new_empty(0), rows, c)
+
+
+def gather_rows_row(report: Report, name: str, label: str, pts: torch.Tensor, idx: torch.Tensor, m: int, k: int,
+                    timed: bool = True) -> None:
+    """``gather_rows``, ``gather_rows_staged`` or ``gather_fused_idx`` on one
+    input: equal to its plain version, ``group_points`` and row 9 (one window
+    a cloud at 0) bit for bit; the fused kernel's emitted indices equal to
+    its input. ``timed``: the profiler's device ms beside."""
+    kernel, plain = {
+        "gather_rows": (cuda.gather_rows, gather_probe.gather_rows_plain),
+        "gather_rows_staged": (cuda.gather_rows_staged, sp_gather_probe.sp_row_plain),
+        "gather_fused_idx": (cuda.gather_fused_idx, fused_gather_probe.fused_idx_plain),
+    }[name]
+    b, n, c = pts.shape
+    got, want = kernel(pts, idx), plain(pts, idx)
+    fused = name == "gather_fused_idx"
+    rows = got[0] if fused else got
+    library = gather_probe.group_points(pts, idx, m, k)
+    match = (all(torch.equal(g, w) for g, w in zip(got, want)) if fused else torch.equal(got, want))
+    match = match and torch.equal(rows, library) and torch.equal(rows, gather_probe.row9_at_zero(pts, idx, m, k))
+    if fused:
+        match = match and torch.equal(got[1], idx[:, None, :])
+    nbytes, nops = gather_work(idx, n, c)
+    del got, want, rows, library
+    row9 = lambda: gather_probe.row9_at_zero(pts, idx, m, k)
+    report.add(
+        name, b, f"{label} N={n} C={c} R={m * k}", lambda: kernel(pts, idx), lambda: plain(pts, idx),
+        nbytes + (idx.numel() * 4 if fused else 0), nops, err=0.0, match=match, plain_timing=FEW,
+        library=lambda: gather_probe.group_points(pts, idx, m, k), extra={"row9_ms": row9},
+        info={"route": cuda_gather.planned_route(pts), "case": "probes",
+              **({"device_ms": device_ms(lambda: kernel(pts, idx), name),
+                  "row9_device_ms": device_ms(row9, "window_gather")} if timed else {})},
+    )
+
+
+def window_staged_rows(report: Report, label: str, b: int, c: int, shapes: dict, timed: bool = True) -> None:
+    """``gather_window_staged`` at each unroll on ``sp_gather_probe``'s
+    inputs of one regime: equal to its plain version, ``group_points`` and
+    row 9 at window starts kblk * W bit for bit."""
+    n, m, k, w, tm = (shapes[key] for key in ("n", "m", "k", "w", "tm"))
+    dev = torch.device(DEVICE)
+    pts_np, idx_np, kblk_np = sp_gather_probe.regime_inputs(b, c, shapes)
+    sp_gather_probe.check_window(idx_np, kblk_np, w, tm)
+    pts, idx3, kblk = (torch.from_numpy(a).to(dev) for a in (pts_np, idx_np, kblk_np))
+    lo = kblk * w
+    rel3 = cuda_gather_probes.relative_indices(idx3, kblk, w, tm).view(b, m, k)
+    library = core.group_points(pts, idx3).view(b, m * k, c)
+    want = sp_gather_probe.sp_win_plain(pts, idx3, kblk, w, tm)
+    row9 = lambda: cuda.window_gather(pts, lo, rel3)
+    same9 = torch.equal(row9().view(b, m * k, c), library) and torch.equal(want, library)
+    nbytes, nops = op_bench.work_window_gather(lo, op_bench.gather_source_rows(lo, rel3, n), c)
+    row9_device = device_ms(row9, "window_gather") if timed else None
+    clamped = int((kblk == n // w - 1).sum())
+    for unroll in cuda_gather_probes.WINDOW_UNROLLS:
+        run = lambda u=unroll: cuda.gather_window_staged(pts, idx3, kblk, w, tm, u)
+        got = run()
+        report.add(
+            "gather_window_staged", b, f"{label} N={n} C={c} M={m} K={k} W={w} unroll={unroll}", run,
+            lambda: sp_gather_probe.sp_win_plain(pts, idx3, kblk, w, tm), nbytes, nops, err=0.0,
+            match=same9 and torch.equal(got, want), plain_timing=FEW,
+            library=lambda: core.group_points(pts, idx3), extra={"row9_ms": row9},
+            info={"unroll": unroll, "vec": cuda_gather.planned_route(pts)[0], "tiles_clamped": clamped,
+                  "shared_bytes": cuda_gather_probes.window_shared_bytes(w, tm * k), "case": "probes",
+                  **({"device_ms": device_ms(run, "gather_window_staged"), "row9_device_ms": row9_device}
+                     if timed else {})},
+        )
+        del got
+
+
+def gather_probe_rows(report: Report) -> None:
+    """The four gather probe kernels at the probes' own shapes and regimes,
+    then at the edges (``PROBE_GATHER_EDGE``, ``PROBE_WINDOW_EDGE``)."""
+    dev = torch.device(DEVICE)
+    s = gather_probe.SHAPES
+    pts, idx = gather_probe.probe_inputs(s, dev)
+    gather_rows_row(report, "gather_rows", "probe shape", pts, idx, s["m"], s["k"])
+    del pts, idx
+    torch.cuda.empty_cache()
+    sp = sp_gather_probe.SHAPES
+    for name, regime in sp["regimes"].items():
+        b, c = regime["b"], regime["c"]
+        pts_np, idx_np, _ = sp_gather_probe.regime_inputs(b, c, sp)
+        pts, idx = torch.from_numpy(pts_np).to(dev), torch.from_numpy(idx_np.reshape(b, -1)).to(dev)
+        if name == "eval":  # the indices read from memory beside staged, at the same shape
+            gather_rows_row(report, "gather_rows", f"{name} regime", pts, idx, sp["m"], sp["k"])
+        gather_rows_row(report, "gather_rows_staged", f"{name} regime", pts, idx, sp["m"], sp["k"])
+        window_staged_rows(report, f"{name} regime", b, c, sp)
+    f = fused_gather_probe.SHAPES
+    pts, idx = fused_gather_probe.probe_inputs(f, dev)
+    gather_rows_row(report, "gather_fused_idx", "probe shape", pts, idx, f["r"], 1)
+    e = PROBE_GATHER_EDGE
+    rng = np.random.RandomState(SEED + 740)
+    for c in (e["c"], 64):
+        pts = torch.from_numpy(rng.rand(e["b"], e["n"], c).astype(np.float32)).to(dev)
+        idx = torch.from_numpy(rng.randint(0, e["n"], (e["b"], e["m"] * e["k"])).astype(np.int32)).to(dev)
+        for name in ("gather_rows", "gather_rows_staged", "gather_fused_idx"):
+            gather_rows_row(report, name, "edge", pts, idx, e["m"], e["k"], timed=False)
+    window_staged_rows(report, "edge, last block clamped", e["b"], e["c"], PROBE_WINDOW_EDGE, timed=False)
+
+
 def probes_phase(seed: int, report: Report) -> dict:
-    """Phase 2b: the eight probe kernels (``ops.cuda.probes``,
-    ``ops.cuda.bq_probes``), each against its plain version (the probe
-    tool's) on the card, indices and distances bit for bit, at ``PROBE_FPS``,
-    ``PROBE_KNN`` and ``bq_probe_rows``' shapes; then the path: the seven
-    probe tools' ``main`` on the card at their own shapes. Returns the path's
+    """Phase 2b: the twelve probe kernels (``ops.cuda.probes``,
+    ``ops.cuda.bq_probes``, ``ops.cuda.gather_probes``), each against its
+    plain version (the probe tool's) on the card, bit for bit, at
+    ``PROBE_FPS``, ``PROBE_KNN``, ``bq_probe_rows``' and
+    ``gather_probe_rows``' shapes; then the path: the ten probe tools'
+    ``main`` on the card at their own shapes. Returns the path's
     launch counts, reset just before the tools and read just after."""
     t0 = time.perf_counter()
     dev = torch.device(DEVICE)
@@ -1465,12 +1598,17 @@ def probes_phase(seed: int, report: Report) -> dict:
             )
     bq_probe_rows(report)
     torch.cuda.empty_cache()
+    gather_probe_rows(report)
+    torch.cuda.empty_cache()
 
     cuda.reset_launches()
     tools = {"fps_mask_probe": fps_mask_probe.main([]), "fps_packed_probe": fps_packed_probe.main([]),
              "knn_variant_probe": knn_variant_probe.main([]), "bq_i16_probe": bq_i16_probe.main([]),
              "bq_fat_probe": bq_fat_probe.main([]), "bq_cond_probe": bq_cond_probe.main([]),
              "bq_sliced_decomp_probe": bq_sliced_decomp_probe.main([])}
+    torch.cuda.empty_cache()
+    tools.update(gather_probe=gather_probe.main([]), sp_gather_probe=sp_gather_probe.main([]),
+                 fused_gather_probe=fused_gather_probe.main([]))
     launches = dict(cuda.LAUNCHES)
     missing = [name for name in PROBE_KERNELS if launches.get(name, 0) == 0]
     if missing:

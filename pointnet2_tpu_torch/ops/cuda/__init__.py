@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``), one per Pallas kernel on the path,
-and the eight of the TPU design probes ported so far (``probes``: FPS and
-kNN; ``bq_probes``: the ball queries).
+and the twelve of the TPU design probes ported so far (``probes``: FPS and
+kNN; ``bq_probes``: the ball queries; ``gather_probes``: the gathers).
 
 Sources are in ``pointnet2_tpu_torch/csrc/``; ``build`` compiles them with
 ``nvcc`` on first use. Each wrapper takes CUDA tensors only and counts its
@@ -16,6 +16,9 @@ from pointnet2_tpu_torch.ops.cuda.ballquery import ball_query, ball_query_tiles,
 from pointnet2_tpu_torch.ops.cuda.bq_probes import bq_fat, bq_keys, bq_precut_cond, bq_precut_decomp
 from pointnet2_tpu_torch.ops.cuda.common import LAUNCHES, reset_launches
 from pointnet2_tpu_torch.ops.cuda.fps import farthest_point_sample, fps_centroids
+from pointnet2_tpu_torch.ops.cuda.gather_probes import (
+    gather_fused_idx, gather_rows, gather_rows_staged, gather_window_staged,
+)
 from pointnet2_tpu_torch.ops.cuda.interpolate import three_interpolate, three_interpolate_grad
 from pointnet2_tpu_torch.ops.cuda.knn import knn, knn_tiles
 from pointnet2_tpu_torch.ops.cuda.probes import fps_packed, fps_remask, knn_argmin, knn_tracked
@@ -43,4 +46,8 @@ __all__ = [
     "bq_fat",
     "bq_precut_cond",
     "bq_precut_decomp",
+    "gather_rows",
+    "gather_rows_staged",
+    "gather_window_staged",
+    "gather_fused_idx",
 ]

@@ -25,7 +25,8 @@ PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 
-SOURCES = ("fps", "ballquery", "knn", "interpolate", "wingather", "fps_probes", "knn_probes", "bq_probes")
+SOURCES = ("fps", "ballquery", "knn", "interpolate", "wingather", "fps_probes", "knn_probes", "bq_probes",
+           "gather_probes")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

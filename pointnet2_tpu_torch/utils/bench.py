@@ -71,6 +71,12 @@ KERNEL_SYMBOLS = {
     # Both probe sites of the one pre-cut kernel (<kSlots>).
     "bq_precut_cond": "ball_query_precut_kernel",
     "bq_precut_decomp": "ball_query_precut_kernel",
+    # The gather probes (ops/cuda/gather_probes.py), each <V, kLanes> but the
+    # window kernel, <kVec, kUnroll>.
+    "gather_rows": "gather_rows_kernel",
+    "gather_rows_staged": "gather_rows_staged_kernel",
+    "gather_window_staged": "gather_window_staged_kernel",
+    "gather_fused_idx": "gather_fused_idx_kernel",
 }
 
 

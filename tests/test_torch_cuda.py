@@ -1399,3 +1399,42 @@ def test_bq_probe_kernels_equal_their_plain_versions(cuda_device, integer):
                 assert all(torch.equal(g, r) for g, r in zip(exact, cuda.ball_query(xyz1, xyz2, 0.05, ns)))
             else:
                 assert not any(bool(g.any()) for g in guarded)
+
+
+@pytest.mark.parametrize("c", [64, 32, 8, 3])
+def test_gather_probe_kernels_equal_their_plain_versions(cuda_device, c):
+    """The four gather probe kernels (``ops.cuda.gather_probes``) against the
+    probe tools' plain versions and ``group_points``, bit for bit: B = 5 (not
+    a multiple of 8), C = 3 (no 16-byte vectors) beside the probes' widths;
+    the window kernel at every unroll on x-sorted points whose last tile's
+    second block is clamped, also against row 9 at window starts kblk * W;
+    the fused kernel's emitted indices against its input."""
+    from pointnet2_tpu_torch.ops.cuda.gather_probes import relative_indices
+    from pointnet2_tpu_torch.tools import fused_gather_probe, gather_probe, sp_gather_probe
+
+    b, n, m, k = 5, 2048, 256, 16
+    rng = np.random.RandomState(c)
+    pts = torch.from_numpy(rng.rand(b, n, c).astype(np.float32)).to(cuda_device)
+    idx = torch.from_numpy(rng.randint(0, n, (b, m * k)).astype(np.int32)).to(cuda_device)
+    want = core.group_points(pts, idx.view(b, m, k)).view(b, m * k, c)
+    for kernel, plain in ((cuda.gather_rows, gather_probe.gather_rows_plain),
+                          (cuda.gather_rows_staged, sp_gather_probe.sp_row_plain)):
+        got = kernel(pts, idx)
+        assert torch.equal(got, plain(pts, idx)) and torch.equal(got, want), kernel.__name__
+    rows, emitted = cuda.gather_fused_idx(pts, idx)
+    plain_rows, plain_idx = fused_gather_probe.fused_idx_plain(pts, idx)
+    assert torch.equal(rows, plain_rows) and torch.equal(rows, want)
+    assert torch.equal(emitted, plain_idx) and torch.equal(emitted, idx[:, None, :])
+
+    shapes = dict(n=n, m=m, k=k, span=384, w=512, tm=128)
+    pts_np, idx_np, kblk_np = sp_gather_probe.regime_inputs(b, c, shapes)
+    assert kblk_np[0, -1] == n // 512 - 1
+    sorted_pts, idx3, kblk = (torch.from_numpy(a).to(cuda_device) for a in (pts_np, idx_np, kblk_np))
+    rel = relative_indices(idx3, kblk, 512, 128).view(b, m, k)
+    row9 = cuda.window_gather(sorted_pts, kblk * 512, rel).view(b, m * k, c)
+    window_want = core.group_points(sorted_pts, idx3).view(b, m * k, c)
+    for unroll in (4, 8, 16):
+        got = cuda.gather_window_staged(sorted_pts, idx3, kblk, 512, 128, unroll)
+        assert torch.equal(got, sp_gather_probe.sp_win_plain(sorted_pts, idx3, kblk, 512, 128)), unroll
+        assert torch.equal(got, window_want) and torch.equal(got, row9), unroll
+    torch.cuda.synchronize()

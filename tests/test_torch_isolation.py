@@ -62,7 +62,9 @@ def test_importing_the_port_loads_no_jax():
             "pointnet2_tpu_torch.tools.fps_packed_probe", "pointnet2_tpu_torch.tools.knn_variant_probe",
             "pointnet2_tpu_torch.ops.cuda.bq_probes", "pointnet2_tpu_torch.tools.bq_i16_probe",
             "pointnet2_tpu_torch.tools.bq_fat_probe", "pointnet2_tpu_torch.tools.bq_cond_probe",
-            "pointnet2_tpu_torch.tools.bq_sliced_decomp_probe"} <= set(mods)
+            "pointnet2_tpu_torch.tools.bq_sliced_decomp_probe", "pointnet2_tpu_torch.ops.cuda.gather_probes",
+            "pointnet2_tpu_torch.tools.gather_probe", "pointnet2_tpu_torch.tools.sp_gather_probe",
+            "pointnet2_tpu_torch.tools.fused_gather_probe"} <= set(mods)
 
 
 _FORBIDDEN = re.compile(
@@ -220,7 +222,7 @@ def test_build_names_its_flags_and_library_by_source_hash():
 
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS and "-fmad=false" in build.NVCC_FLAGS
     assert {"fps", "ballquery", "knn", "interpolate", "wingather", "fps_probes", "knn_probes",
-            "bq_probes"} <= set(build.SOURCES)
+            "bq_probes", "gather_probes"} <= set(build.SOURCES)
     paths = {name: build.library_path(name) for name in build.SOURCES}
     assert len(set(paths.values())) == len(build.SOURCES)
     for name, path in paths.items():
