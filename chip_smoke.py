@@ -52,7 +52,7 @@ non-zero and prints no result):
    whose skips are SA2's and SA1's two scales concatenated (192 and 96
    channels; the backward reading 448- and 352-wide cotangents), and rows
    7-9 (phase 5's checks) at SA1's first scale: row 9 on rows of 16 floats.
-2b. Probes: the twelve kernels of the TPU design probes ported so far: the
+2b. Probes: the 14 kernels of the TPU design probes: the
    FPS and kNN ones (``ops.cuda.probes``: ``fps_remask`` and ``fps_packed`` in
    ``csrc/fps_probes.cu``, ``knn_argmin`` and ``knn_tracked`` in
    ``csrc/knn_probes.cu``), each equal bit for bit to its plain version (the
@@ -91,12 +91,25 @@ non-zero and prints no result):
    8), 3 channels (no 16-byte vectors), and a window kernel whose last tile's
    second block is clamped. Bounds: bytes (the output written, each distinct
    source row read, the indices read once; and written once more by the
-   fused kernel). Then the ``probes`` path: the ten tools' ``main`` on the
+   fused kernel). Then the two kernels of the 4-D window grouping probe
+   (``wingather_out4d_probe``): ``bq_precut_pos`` (``csrc/bq_probes.cu``,
+   the pre-cut kernel with window columns) equal bit for bit to its plain
+   version and to row 8 reading the same windows in place (idx, pos, cnt),
+   and ``gather_window_out4d`` (``csrc/gather_probes.cu``) equal bit for bit
+   to its plain version and to row 9 at the same rows (``lo + pos``), at the
+   probe's shape (8 clouds of 8192 points in 8 x 8 x 4.9 m boxes, 1024 FPS
+   centroids, K = 32, C = 32, r = 0.5, W = 3072, wblk 4096) and at edges:
+   queries apart from the cloud (empty balls and balls short of K), a last
+   tile whose second block is clamped, K = 16 and 64, C = 3 (no 16-byte
+   vectors) and 64. Bounds: row 8's (9 operations a pair of each query's
+   x-span; its idx, pos and cnt written) and row 9's (bytes of the rows
+   picked). Then the ``probes`` path: the eleven tools' ``main`` on the
    card at their own shapes (``python -m pointnet2_tpu_torch.tools.fps_mask_probe``,
    ``.fps_packed_probe``, ``.knn_variant_probe``, ``.bq_i16_probe``,
    ``.bq_fat_probe``, ``.bq_cond_probe``, ``.bq_sliced_decomp_probe``,
-   ``.gather_probe``, ``.sp_gather_probe``, ``.fused_gather_probe``), whose
-   launches must include all twelve probe kernels.
+   ``.gather_probe``, ``.sp_gather_probe``, ``.fused_gather_probe``,
+   ``.wingather_out4d_probe``), whose launches must include all 14 probe
+   kernels.
 3. Predict: a ``Predictor`` at full ``semantic.json`` width with seeded
    weights (``convert.init_variables``) answers 3 requests of 16 clouds of
    8192 points (after one warm-up request). The launch counts, reset just before,
@@ -471,7 +484,7 @@ from pointnet2_tpu_torch.tools import convert_checkpoint as convert_cli
 from pointnet2_tpu_torch.tools import export_model as export_cli
 from pointnet2_tpu_torch.tools import bf16_train_soak, dist_step, op_bench, parity, scenes, stage_bench, train_soak
 from pointnet2_tpu_torch.tools import bq_cond_probe, bq_fat_probe, bq_i16_probe, bq_sliced_decomp_probe
-from pointnet2_tpu_torch.tools import fused_gather_probe, gather_probe, sp_gather_probe
+from pointnet2_tpu_torch.tools import fused_gather_probe, gather_probe, sp_gather_probe, wingather_out4d_probe
 from pointnet2_tpu_torch.tools import fps_mask_probe, fps_packed_probe, knn_variant_probe
 from pointnet2_tpu_torch.train import Trainer, load_model_state, restore_checkpoint, save_checkpoint
 from pointnet2_tpu_torch.train_profile import train_batch
@@ -541,6 +554,8 @@ KERNELS = {
     "gather_rows_staged": ("pointnet2_tpu_torch/csrc/gather_probes.cu", "tools/sp_gather_probe.py:75"),
     "gather_window_staged": ("pointnet2_tpu_torch/csrc/gather_probes.cu", "tools/sp_gather_probe.py:137"),
     "gather_fused_idx": ("pointnet2_tpu_torch/csrc/gather_probes.cu", "tools/fused_gather_probe.py:46"),
+    "bq_precut_pos": ("pointnet2_tpu_torch/csrc/bq_probes.cu", "tools/wingather_out4d_probe.py:125"),
+    "gather_window_out4d": ("pointnet2_tpu_torch/csrc/gather_probes.cu", "tools/wingather_out4d_probe.py:186"),
 }
 INTERPOLATE_KERNELS = ("three_interpolate", "three_interpolate_grad")
 # The production windows (bench.py's Trainer(bq_window=3072) and its fp_window=512
@@ -1315,9 +1330,14 @@ PROBE_GATHER_EDGE = dict(b=5, n=2048, c=3, m=256, k=16)  # no multiple of 8 clou
 # The window kernel's edge: 5 clouds of 3 channels, two tiles of 128 queries;
 # the second tile's base 2048 - 384 lies in the last block, whose neighbour is clamped.
 PROBE_WINDOW_EDGE = dict(n=2048, m=256, k=16, span=384, w=512, tm=128)
+# The 4-D grouping's edges: 3 clouds of 2048 points, 1024 queries drawn apart
+# from the cloud (empty balls, balls short of K), W = 512 (wblk 512): the last
+# of the 8 tiles starts in the last block, whose neighbour is clamped.
+PROBE_OUT4D_EDGE = dict(b=3, n=2048, m=1024, window=512, radius=0.3)
 PROBE_KERNELS = ("fps_remask", "fps_packed", "knn_argmin", "knn_tracked",
                  "bq_keys", "bq_fat", "bq_precut_cond", "bq_precut_decomp",
-                 "gather_rows", "gather_rows_staged", "gather_window_staged", "gather_fused_idx")
+                 "gather_rows", "gather_rows_staged", "gather_window_staged", "gather_fused_idx",
+                 "bq_precut_pos", "gather_window_out4d")
 
 
 def bq_exact_rows(report: Report, label: str, x1: np.ndarray, x2: np.ndarray, r: float, ns: int) -> None:
@@ -1537,12 +1557,95 @@ def gather_probe_rows(report: Report) -> None:
     window_staged_rows(report, "edge, last block clamped", e["b"], e["c"], PROBE_WINDOW_EDGE, timed=False)
 
 
+def out4d_rows(report: Report, label: str, inputs, xyz, new_xyz, projections, r: float, k: int,
+               window: int) -> dict:
+    """The 4-D grouping's two kernels on one input, through
+    ``wingather_out4d_probe.window_plan``: ``bq_precut_pos`` on the cut
+    windows against its plain version and row 8 reading them in place (idx,
+    pos, cnt), then ``gather_window_out4d`` on each sorted projection
+    (``projections``: ``(w0, b0)`` pairs) against its plain version, row 9 at
+    the same rows (``lo + pos``) and ``group_points``, all bit for bit. The
+    device ms of the four kernels at the probe's shape are the tool's (the
+    ``probes`` path). Returns the rows' common fields (clamped tiles, empty
+    and short balls)."""
+    b, n, _ = xyz.shape
+    m = new_xyz.shape[1]
+    plan = wingather_out4d_probe.window_plan(inputs, xyz, new_xyz, r, window)
+    t, tm, w, wblk, lo = plan["t"], plan["tm"], plan["w"], plan["wblk"], plan["lo"]
+    win_args = (plan["win"], plan["permw"], plan["q_tiles"], n, r, k)
+    run13 = lambda: cuda.bq_precut_pos(*win_args)
+    plain13 = lambda: wingather_out4d_probe.precut_pos_plain(*win_args)
+    row8 = lambda: cuda.ball_query_tiles_pos(plan["xs"], plan["perm"], plan["qs"], lo, r, k, w)
+    got, want, in_place = run13(), plain13(), row8()
+    match13 = all(torch.equal(g, h) for g, h in zip(got, want)) and all(
+        torch.equal(g.reshape(e.shape), e) for g, e in zip(got, in_place))
+    idx_s, pos_s, cnt_s = got
+    pos = pos_s.reshape(b, m, k)
+    kblk, rel = wingather_out4d_probe.relative_rows(pos_s, lo, wblk)
+    info = {"tiles_clamped": int((kblk == n // wblk - 1).sum()), "empty_balls": int((cnt_s == 0).sum()),
+            "short_balls": int(((cnt_s > 0) & (cnt_s < k)).sum()), "ok": bool(plan["ok"]), "wblk": wblk,
+            "case": "probes"}
+    first, last = core.ball_query_tile_spans(plan["xs"], plan["qs"], lo, r, w)
+    report.add(
+        "bq_precut_pos", b, f"{label} N={n} M={m} K={k} r={r} W={w}", run13, plain13,
+        *op_bench.work_ball_query_precut(b, t, tm, w, k, int((last - first).sum()), outs=2), err=0.0,
+        match=match13, plain_timing=FEW, extra={"row8_in_place_ms": row8},
+        info={**info, "route": cuda_bq_probes.precut_route(b, t, tm, w, xyz.device.index)},
+    )
+    del got, want, in_place
+    rows = lo.long().repeat_interleave(tm, dim=1)[:, :, None] + pos.long()
+    source_rows = op_bench.gather_source_rows(lo, pos, n)
+    for w0, b0 in projections:
+        zp_s = plan["sorted_inputs"] @ w0 + b0
+        c = zp_s.shape[-1]
+        run14 = lambda: cuda.gather_window_out4d(zp_s, rel, kblk, wblk, tm, k)
+        plain14 = lambda: wingather_out4d_probe.window_out4d_plain(zp_s, rel, kblk, wblk, tm, k)
+        row9 = lambda: cuda.window_gather(zp_s, lo, pos)
+        got = run14()
+        match14 = all(torch.equal(got, other) for other in (plain14(), row9(), core.group_points(zp_s, rows)))
+        del got
+        report.add(
+            "gather_window_out4d", b, f"{label} N={n} M={m} K={k} C={c} wblk={wblk}", run14, plain14,
+            *op_bench.work_window_gather(lo, source_rows, c), err=0.0, match=match14, plain_timing=FEW,
+            library=lambda: core.group_points(zp_s, rows), extra={"row9_ms": row9},
+            info={**info, "vec": cuda_gather.planned_route(zp_s)[0],
+                  "shared_bytes": cuda_gather_probes.window_shared_bytes(wblk, tm * k)},
+        )
+    return info
+
+
+def out4d_probe_rows(report: Report) -> None:
+    """``bq_precut_pos`` and ``gather_window_out4d`` at the probe's own shape
+    (``wingather_out4d_probe.SHAPES``), then at ``PROBE_OUT4D_EDGE`` with K
+    = 16 and 64 and C = 3 and 64, each edge holding an empty ball and a
+    clamped block."""
+    dev = torch.device(DEVICE)
+    s = wingather_out4d_probe.SHAPES
+    inputs, w0, b0, xyz = wingather_out4d_probe.probe_inputs(s, dev)
+    new_xyz = ops.fps_centroids(xyz, s["m"])[1]
+    out4d_rows(report, "probe shape", inputs, xyz, new_xyz, [(w0, b0)], s["radius"], s["k"], s["window"])
+    e = PROBE_OUT4D_EDGE
+    rng = np.random.RandomState(SEED + 760)
+    box = np.array(wingather_out4d_probe.BOX, np.float32)
+    xyz = (rng.rand(e["b"], e["n"], 3) * box).astype(np.float32)
+    inputs = torch.from_numpy(np.concatenate([xyz, rng.rand(e["b"], e["n"], 3).astype(np.float32)], -1)).to(dev)
+    new_xyz = torch.from_numpy((rng.rand(e["b"], e["m"], 3) * box).astype(np.float32)).to(dev)
+    xyz = torch.from_numpy(xyz).to(dev)
+    projections = [tuple(torch.from_numpy(a.astype(np.float32) * 0.1).to(dev) for a in (rng.randn(6, c), rng.randn(c)))
+                   for c in (3, 64)]
+    for k in (16, 64):
+        edge = out4d_rows(report, "edge, queries apart", inputs, xyz, new_xyz, projections, e["radius"], k,
+                          e["window"])
+        if not (edge["tiles_clamped"] and edge["empty_balls"] and edge["short_balls"]):
+            raise AssertionError(f"the 4-D grouping's edge misses a clamped block or a short or empty ball: {edge}")
+
+
 def probes_phase(seed: int, report: Report) -> dict:
-    """Phase 2b: the twelve probe kernels (``ops.cuda.probes``,
+    """Phase 2b: the 14 probe kernels (``ops.cuda.probes``,
     ``ops.cuda.bq_probes``, ``ops.cuda.gather_probes``), each against its
     plain version (the probe tool's) on the card, bit for bit, at
-    ``PROBE_FPS``, ``PROBE_KNN``, ``bq_probe_rows``' and
-    ``gather_probe_rows``' shapes; then the path: the ten probe tools'
+    ``PROBE_FPS``, ``PROBE_KNN``, ``bq_probe_rows``', ``gather_probe_rows``'
+    and ``out4d_probe_rows``' shapes; then the path: the eleven probe tools'
     ``main`` on the card at their own shapes. Returns the path's
     launch counts, reset just before the tools and read just after."""
     t0 = time.perf_counter()
@@ -1600,6 +1703,8 @@ def probes_phase(seed: int, report: Report) -> dict:
     torch.cuda.empty_cache()
     gather_probe_rows(report)
     torch.cuda.empty_cache()
+    out4d_probe_rows(report)
+    torch.cuda.empty_cache()
 
     cuda.reset_launches()
     tools = {"fps_mask_probe": fps_mask_probe.main([]), "fps_packed_probe": fps_packed_probe.main([]),
@@ -1608,7 +1713,7 @@ def probes_phase(seed: int, report: Report) -> dict:
              "bq_sliced_decomp_probe": bq_sliced_decomp_probe.main([])}
     torch.cuda.empty_cache()
     tools.update(gather_probe=gather_probe.main([]), sp_gather_probe=sp_gather_probe.main([]),
-                 fused_gather_probe=fused_gather_probe.main([]))
+                 fused_gather_probe=fused_gather_probe.main([]), wingather_out4d_probe=wingather_out4d_probe.main([]))
     launches = dict(cuda.LAUNCHES)
     missing = [name for name in PROBE_KERNELS if launches.get(name, 0) == 0]
     if missing:

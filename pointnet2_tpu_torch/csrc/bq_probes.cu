@@ -10,7 +10,10 @@
 //           in `make_nocond`, :22-84, and behind the `lax.cond` of
 //           `make_dummycond`, :87-131) and tools/bq_sliced_decomp_probe.py:69
 //           (the same kernel in `kernel_only`, :67-89), entry
-//           `pn2_ball_query_precut` (with and without `fits`).
+//           `pn2_ball_query_precut` (with and without `fits`);
+//           tools/wingather_out4d_probe.py:125 (row 8's `_bq_sliced_pos_kernel`
+//           in `project_group_sliced_4d`, :72-197, on windows cut by
+//           `lax.dynamic_slice`, :107-119), entry `pn2_ball_query_precut_pos`.
 //
 // Semantics, all (csrc/ballquery.cu's): a point is in the ball when its
 // float32 difference-form squared distance ((dx*dx + dy*dy) + dz*dz, each
@@ -21,6 +24,10 @@
 // `pn2_bq_fat` are the column indices (the first nsample in dataset order:
 // row 2); those of `pn2_ball_query_precut` are the window columns' original
 // indices, a column counting only where that index is below n (row 7).
+// `pn2_ball_query_precut_pos` also gives each pick's window column (row 8:
+// the TPU kernel's keys are orig * w + column, and the smallest keys are the
+// smallest original indices, which are unique); a slot past the count takes
+// the first pick's column, an empty ball column 0 (wingather.py:91-95).
 //
 // What bounds them on the H100: operations, about 9 a (query, column) pair
 // that can hit (rows 2 and 7). The TPU kernels build each query's whole key
@@ -61,7 +68,11 @@
 // window fits a block's buffer, and each warp scans a query's own span. With
 // a non-null `fits`, a block that reads 0 there writes the other branch's
 // zeros and returns: the device-side form of `lax.cond(fits, sliced, dummy)`,
-// with no host read and no second launch.
+// with no host read and no second launch. `pn2_ball_query_precut_pos` is the
+// same kernel with kWithPos: the scans carry each pick's window column beside
+// its index (window_bq.cuh's `scan_slots` holds it in a lane's register,
+// `scan_list` in the query's position row), padded as row 8 pads
+// (window_bq.cuh:364, :374-378); it takes no guard.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -314,15 +325,16 @@ struct PrecutColumns {
 // Grid (t * split, b), `warps` warps a block; 16 * w bytes of dynamic shared
 // memory when `staged` (w <= kMaxSharedWindow), else none. win (b, t, 3, w),
 // permw (b, t, w), q_tiles (b, t, tm, 3) sorted by x within each tile; fits
-// null or one int; idx (b, t, tm, nsample), cnt (b, t, tm). Block (tile,
-// part) takes queries [part * tm / split, (part + 1) * tm / split) of the
-// tile. kSlots: nsample <= 32, the list in registers; else in the output rows.
-template <bool kSlots>
+// null or one int; idx (and with kWithPos pos) (b, t, tm, nsample), cnt (b,
+// t, tm). Block (tile, part) takes queries [part * tm / split, (part + 1) *
+// tm / split) of the tile. kSlots: nsample <= 32, the list in registers; else
+// in the output rows.
+template <bool kWithPos, bool kSlots>
 __global__ void ball_query_precut_kernel(const float* __restrict__ win, const int* __restrict__ permw,
                                          const float* __restrict__ q_tiles, const int* __restrict__ fits,
                                          int t, int tm, int w, int n, int split, bool staged,
                                          float r2, int nsample, int* __restrict__ idx,
-                                         int* __restrict__ cnt) {
+                                         int* __restrict__ pos, int* __restrict__ cnt) {
   extern __shared__ float4 quads[];
   const int tile = blockIdx.x / split;
   const int part = blockIdx.x - tile * split;
@@ -330,7 +342,10 @@ __global__ void ball_query_precut_kernel(const float* __restrict__ win, const in
   const int per_block = tm / split;
   const size_t q0 = bt * tm + (size_t)part * per_block;
   if (fits != nullptr && *fits == 0) {  // the guard's other branch
-    for (int i = threadIdx.x; i < per_block * nsample; i += blockDim.x) idx[q0 * nsample + i] = 0;
+    for (int i = threadIdx.x; i < per_block * nsample; i += blockDim.x) {
+      idx[q0 * nsample + i] = 0;
+      if (kWithPos) pos[q0 * nsample + i] = 0;
+    }
     for (int i = threadIdx.x; i < per_block; i += blockDim.x) cnt[q0 + i] = 0;
     return;
   }
@@ -364,29 +379,44 @@ __global__ void ball_query_precut_kernel(const float* __restrict__ win, const in
       }
       c = count < nsample ? count : nsample;
       const int first_key = __shfl_sync(kFull, key, 0);
-      if (lane < nsample) idx[q * nsample + lane] = lane < c ? key : (c > 0 ? first_key : 0);
+      const int first_col = kWithPos ? __shfl_sync(kFull, col, 0) : 0;
+      if (lane < nsample) {
+        const bool used = lane < c;
+        idx[q * nsample + lane] = used ? key : (c > 0 ? first_key : 0);
+        if (kWithPos) pos[q * nsample + lane] = used ? col : (c > 0 ? first_col : 0);
+      }
     } else {
       int* out = idx + q * nsample;
-      const int count = staged ? pn2_window::scan_list(shared, cols.x, cols.y, qx, qy, qz, r2, nsample, lane, out)
-                               : pn2_window::scan_list(window, cols.x, cols.y, qx, qy, qz, r2, nsample, lane, out);
+      int* out_pos = kWithPos ? pos + q * nsample : nullptr;
+      const int count =
+          staged ? pn2_window::scan_list<pn2_window::SharedQuads, kWithPos>(shared, cols.x, cols.y, qx, qy, qz, r2,
+                                                                            nsample, lane, out, out_pos)
+                 : pn2_window::scan_list<PrecutColumns, kWithPos>(window, cols.x, cols.y, qx, qy, qz, r2, nsample,
+                                                                  lane, out, out_pos);
       c = count < nsample ? count : nsample;
       const int first_key = c > 0 ? out[0] : 0;
+      const int first_col = kWithPos && c > 0 ? out_pos[0] : 0;
       __syncwarp();
-      for (int s = c + lane; s < nsample; s += 32) out[s] = first_key;
+      for (int s = c + lane; s < nsample; s += 32) {
+        out[s] = first_key;
+        if (kWithPos) out_pos[s] = first_col;
+      }
     }
     if (lane == 0) cnt[q] = c;
   }
 }
 
+template <bool kWithPos>
 cudaError_t launch_precut(const float* win, const int* permw, const float* q_tiles, const int* fits,
                           int b, int t, int tm, int w, int n, float r2, int nsample, int split,
-                          int warps, int* idx, int* cnt, cudaStream_t stream) {
+                          int warps, int* idx, int* pos, int* cnt, cudaStream_t stream) {
   if (b < 1 || b > 65535 || t < 1 || tm < 1 || w < 1 || n < 1 || nsample < 1 || split < 1 ||
       tm % split || warps < 1 || warps > 32 || (long long)t * split > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   const bool staged = w <= kMaxSharedWindow;
   const size_t smem = staged ? (size_t)w * 16 : 0;
-  auto* kernel = nsample <= kMaxSlots ? &ball_query_precut_kernel<true> : &ball_query_precut_kernel<false>;
+  auto* kernel = nsample <= kMaxSlots ? &ball_query_precut_kernel<kWithPos, true>
+                                      : &ball_query_precut_kernel<kWithPos, false>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -394,7 +424,7 @@ cudaError_t launch_precut(const float* win, const int* permw, const float* q_til
   }
   const dim3 grid((unsigned)(t * split), (unsigned)b);
   kernel<<<grid, warps * 32, smem, stream>>>(win, permw, q_tiles, fits, t, tm, w, n, split, staged, r2,
-                                             nsample, idx, cnt);
+                                             nsample, idx, pos, cnt);
   return cudaGetLastError();
 }
 
@@ -444,8 +474,21 @@ int pn2_ball_query_precut(const float* win, const int* permw, const float* q_til
                           int warps, int* idx, int* cnt, int device, void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_precut(win, permw, q_tiles, fits, b, t, tm, w, n, r2, nsample, split, warps, idx,
-                            cnt, (cudaStream_t)stream);
+  return (int)launch_precut<false>(win, permw, q_tiles, fits, b, t, tm, w, n, r2, nsample, split, warps,
+                                   idx, nullptr, cnt, (cudaStream_t)stream);
+}
+
+// The same windows and queries -> idx, pos (b, t, tm, nsample), cnt (b, t,
+// tm) i32: row 8's function on the cut windows, pos each pick's window
+// column (a slot past the count the first pick's, 0 for an empty ball). No
+// guard. Same limits as pn2_ball_query_precut.
+int pn2_ball_query_precut_pos(const float* win, const int* permw, const float* q_tiles, int b, int t, int tm,
+                              int w, int n, float r2, int nsample, int split, int warps, int* idx, int* pos,
+                              int* cnt, int device, void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_precut<true>(win, permw, q_tiles, nullptr, b, t, tm, w, n, r2, nsample, split, warps,
+                                  idx, pos, cnt, (cudaStream_t)stream);
 }
 
 const char* pn2_bq_keys_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
@@ -453,5 +496,9 @@ const char* pn2_bq_keys_error_string(int code) { return cudaGetErrorString((cuda
 const char* pn2_bq_fat_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 const char* pn2_ball_query_precut_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+const char* pn2_ball_query_precut_pos_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
 
 }  // extern "C"

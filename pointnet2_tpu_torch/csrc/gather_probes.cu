@@ -13,7 +13,11 @@
 //           index;
 //           tools/fused_gather_probe.py:46 (`_vmem_idx_gather_kernel`, :27,
 //           through `vmem_idx_gather`, :41), entry `pn2_gather_fused_idx`: the
-//           indices written on chip, emitted, and read back for the copies.
+//           indices written on chip, emitted, and read back for the copies;
+//           tools/wingather_out4d_probe.py:186 (`_window_gather_kernel_4d`,
+//           :53, in `project_group_sliced_4d`, :72), entry
+//           `pn2_gather_window_out4d`: row 9's window gather with the two
+//           window blocks staged, writing (b, m, k, c) by (query, pick).
 //
 // Semantics, all four: a row copy with no arithmetic, so the output equals
 // `take_along_axis` (the port's `group_points`) bit for bit. Every index must
@@ -71,6 +75,22 @@
 // the rows in flight a thread, the card's counterpart of the loop unroll the
 // probe sweeps. PERF.md section 6 has their times beside their bounds and
 // row 9's: on one H100 at 700 W no staging beat row 9.
+//
+// `pn2_gather_window_out4d<kVec>`: the TPU program stages the same two
+// blocks (wblk rows each, the second clamped) and writes each pick as a
+// (1, 1, c) slab at out[0, r / k, r % k, :], its window row rel read from
+// SMEM with an unroll of 4; the caller computes rel = pos + (lo - kblk *
+// wblk) from the ball query's window columns. The card's layout of (b, m, k,
+// c) is the flat (b, t, tm * k, c) one, so what differs from
+// `pn2_gather_window_staged` is the addressing: rel comes in as it is, and
+// the block's warps take one query each (query q of the tile, warp q mod 8),
+// their lanes the query's picks (looping where k > 32; lanes past k idle
+// where k < 32), each warp holding 4 queries in flight (the probe's unroll)
+// and writing its query's (k, 16 bytes) slab a slice: the card's form of the
+// TPU kernel's (1, 1, c) slab a pick. At the probe's shape (n = 8192, a
+// 3072-column window) wblk = 4096, and the two blocks are the whole cloud,
+// 1 MB at c = 32: the window is staged a 16-byte channel slice at a time, as
+// above (128 KB a slice, 16 KB of relative indices).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -249,6 +269,27 @@ __device__ __forceinline__ void store_slice(float* __restrict__ row, int s, int 
   }
 }
 
+// Slice s of the window's 2w rows into `window`: rows [k0 * w, k0 * w + w)
+// of the cloud `src`, then rows [k1 * w, k1 * w + w); kUnroll rows in flight
+// a thread. Every thread of a block of kWinThreads calls it.
+template <bool kVec, int kUnroll>
+__device__ __forceinline__ void stage_window_slice(const float* __restrict__ src, int k0, int k1, int w,
+                                                   int c, int s, float4* __restrict__ window) {
+  for (int j0 = threadIdx.x; j0 < 2 * w; j0 += kWinThreads * kUnroll) {
+    float4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = j0 + u * kWinThreads;
+      if (j < 2 * w) v[u] = load_slice<kVec>(src + (j < w ? k0 * w + j : k1 * w + j - w) * c, s, c);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = j0 + u * kWinThreads;
+      if (j < 2 * w) window[j] = v[u];
+    }
+  }
+}
+
 // Grid (t, b): block (tile, cloud) writes the tile's trk = tm * k output rows.
 // Dynamic shared memory: the window slice, 2w float4, then the trk relative indices.
 template <bool kVec, int kUnroll>
@@ -268,19 +309,7 @@ __global__ void __launch_bounds__(kWinThreads)
   const int slices = (c + 3) / 4;
   for (int s = 0; s < slices; ++s) {
     __syncthreads();  // the relative indices are in place; the last slice's reads are done
-    for (int j0 = threadIdx.x; j0 < 2 * w; j0 += kWinThreads * kUnroll) {
-      float4 v[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int j = j0 + u * kWinThreads;
-        if (j < 2 * w) v[u] = load_slice<kVec>(src + (j < w ? k0 * w + j : k1 * w + j - w) * c, s, c);
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int j = j0 + u * kWinThreads;
-        if (j < 2 * w) window[j] = v[u];
-      }
-    }
+    stage_window_slice<kVec, kUnroll>(src, k0, k1, w, c, s, window);
     __syncthreads();
     for (int r0 = threadIdx.x; r0 < trk; r0 += kWinThreads * kUnroll) {
       float4 v[kUnroll];
@@ -318,6 +347,66 @@ cudaError_t launch_unroll(int unroll, const float* pts, const int* rel, const in
     case 16: return launch_window<kVec, 16>(pts, rel, kblk, b, n, c, tiles, trk, w, out, smem, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// ---- pn2_gather_window_out4d ---------------------------------------------
+
+constexpr int kOut4dUnroll = 4;  // queries in flight a warp: the probe's unroll
+
+// Grid (t, b): block (tile, cloud) writes the tile's tm queries' (k, c) slabs.
+// Dynamic shared memory: the window slice, 2 wblk float4, then the tile's
+// tm * k relative indices. Warp w takes queries w, w + 8, ...; lane l of a
+// query's warp its picks l, l + 32, ...
+template <bool kVec>
+__global__ void __launch_bounds__(kWinThreads)
+    gather_window_out4d_kernel(const float* __restrict__ pts, const int* __restrict__ rel,
+                               const int* __restrict__ kblk, int n, int c, int tiles, int tm, int k,
+                               int wblk, float* __restrict__ out) {
+  constexpr int kWarps = kWinThreads / 32;
+  extern __shared__ float4 window[];
+  const int trk = tm * k;
+  int* rel_s = reinterpret_cast<int*>(window + 2 * wblk);
+  const int tile = blockIdx.y * tiles + blockIdx.x;
+  const int k0 = __ldg(kblk + tile);
+  const int k1 = min(k0 + 1, n / wblk - 1);  // the TPU kernel's edge clamp (map1, :165-166)
+  const float* src = pts + (long long)blockIdx.y * n * c;
+  const long long q_first = (long long)tile * tm;  // the tile's first query of (b, m)
+  float* dst = out + q_first * k * c;
+  for (int i = threadIdx.x; i < trk; i += kWinThreads) rel_s[i] = __ldg(rel + q_first * k + i);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int slices = (c + 3) / 4;
+  for (int s = 0; s < slices; ++s) {
+    __syncthreads();  // the relative indices are in place; the last slice's reads are done
+    stage_window_slice<kVec, kOut4dUnroll>(src, k0, k1, wblk, c, s, window);
+    __syncthreads();
+    for (int q0 = warp; q0 < tm; q0 += kWarps * kOut4dUnroll) {
+      for (int kk = lane; kk < k; kk += 32) {
+        float4 v[kOut4dUnroll];
+#pragma unroll
+        for (int u = 0; u < kOut4dUnroll; ++u) {
+          const int q = q0 + u * kWarps;
+          if (q < tm) v[u] = window[rel_s[q * k + kk]];
+        }
+#pragma unroll
+        for (int u = 0; u < kOut4dUnroll; ++u) {
+          const int q = q0 + u * kWarps;
+          if (q < tm) store_slice<kVec>(dst + ((long long)q * k + kk) * c, s, c, v[u]);
+        }
+      }
+    }
+  }
+}
+
+template <bool kVec>
+cudaError_t launch_out4d(const float* pts, const int* rel, const int* kblk, int b, int n, int c, int t,
+                         int tm, int k, int wblk, float* out, size_t smem, cudaStream_t stream) {
+  auto* kernel = &gather_window_out4d_kernel<kVec>;
+  const cudaError_t err = allow_shared(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((unsigned)t, (unsigned)b), kWinThreads, smem, stream>>>(pts, rel, kblk, n, c, t, tm, k, wblk,
+                                                                        out);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -385,6 +474,32 @@ int pn2_gather_window_staged(const float* pts, const int* rel, const int* kblk, 
   return (int)launch_unroll<false>(unroll, pts, rel, kblk, b, n, c, t, trk, w, out, smem, s);
 }
 
+// pts (b, n, c) f32 sorted by x, rel (b, t, 1, tm * k) i32 window rows in
+// [0, 2 wblk), kblk (b, t) i32 block indices in [0, n / wblk) -> out (b, t *
+// tm, k, c) f32: out[b, tile * tm + q, kk] = pts[b, row of window position
+// rel[b, tile, 0, q * k + kk]], the window being blocks kblk and min(kblk + 1,
+// n / wblk - 1) of wblk rows. vec: c % 4 == 0 and both arrays 16-byte
+// aligned; b <= 65535; n % wblk == 0; 2 wblk * 16 + tm * k * 4 <= 232448
+// bytes. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for arguments it does not take.
+int pn2_gather_window_out4d(const float* pts, const int* rel, const int* kblk, int b, int n, int c, int t,
+                            int tm, int k, int wblk, int vec, float* out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = (size_t)2 * wblk * sizeof(float4) + (size_t)tm * k * sizeof(int);
+  if (b < 1 || b > kMaxGridY || c < 1 || t < 1 || tm < 1 || k < 1 || wblk < 1 || n < wblk || n % wblk ||
+      smem > (size_t)kMaxShared)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec) {
+    const bool aligned = c % 4 == 0 && reinterpret_cast<uintptr_t>(pts) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(out) % 16 == 0;
+    if (!aligned) return (int)cudaErrorInvalidValue;
+    return (int)launch_out4d<true>(pts, rel, kblk, b, n, c, t, tm, k, wblk, out, smem, s);
+  }
+  return (int)launch_out4d<false>(pts, rel, kblk, b, n, c, t, tm, k, wblk, out, smem, s);
+}
+
 const char* pn2_gather_rows_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 const char* pn2_gather_rows_staged_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
@@ -392,6 +507,10 @@ const char* pn2_gather_rows_staged_error_string(int code) { return cudaGetErrorS
 const char* pn2_gather_fused_idx_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 const char* pn2_gather_window_staged_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+const char* pn2_gather_window_out4d_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -1,4 +1,4 @@
-"""Wrappers of ``csrc/bq_probes.cu``: the four ball-query design probes.
+"""Wrappers of ``csrc/bq_probes.cu``: the five ball-query design probes.
 
 - ``bq_keys`` replaces ``tools/bq_i16_probe.py:36`` (``_kernel``, call
   ``:88``): row 2's function by ``nsample`` first-k min sweeps over each
@@ -14,10 +14,15 @@
   ``kernel_only``): one CUDA entry, ``pn2_ball_query_precut``, counted under
   the site that launched it. Row 7's function on windows cut beforehand.
   Plain version: ``tools.bq_cond_probe.precut_plain``.
+- ``bq_precut_pos`` replaces ``tools/wingather_out4d_probe.py:125`` (row 8's
+  ``_bq_sliced_pos_kernel`` in ``project_group_sliced_4d``): the same kernel
+  with each pick's window column, entry ``pn2_ball_query_precut_pos``. Row
+  8's function on windows cut beforehand. Plain version:
+  ``tools.wingather_out4d_probe.precut_pos_plain``.
 
 Each takes CUDA tensors only, counts its launches in ``LAUNCHES`` (``bq_keys``,
-``bq_fat``, ``bq_precut_cond``, ``bq_precut_decomp``) and raises on a shape
-its kernel does not take.
+``bq_fat``, ``bq_precut_cond``, ``bq_precut_decomp``, ``bq_precut_pos``) and
+raises on a shape its kernel does not take.
 """
 
 from __future__ import annotations
@@ -100,14 +105,13 @@ def precut_route(b: int, t: int, tm: int, w: int, device: int) -> tuple[int, int
     return tiles_plan(b, t * tm, tm, w, num_sms(device))
 
 
-def _precut(site: str, win, permw, q_tiles, n: int, radius: float, nsample: int, fits=None):
+def _check_precut(site: str, win, permw, q_tiles, n: int, nsample: int) -> tuple[int, int, int, int]:
+    """Checks shared by the pre-cut entries; returns (b, t, tm, w)."""
     require(win, "win", torch.float32, (None, None, 3, None))
     b, t, _, w = win.shape
     require(permw, "permw", torch.int32, (b, t, 1, w))
     require(q_tiles, "q_tiles", torch.float32, (b, t, None, 3))
     tm = q_tiles.shape[2]
-    if fits is not None:
-        require(fits, "fits", torch.int32, ())
     if not 0 < b <= 65535 or t == 0 or tm == 0 or w == 0 or n <= 0 or nsample <= 0:
         raise ValueError(
             f"{site} needs 1 <= B <= 65535, tiles, queries, a window, N and nsample > 0, got "
@@ -115,6 +119,13 @@ def _precut(site: str, win, permw, q_tiles, n: int, radius: float, nsample: int,
         )
     require_int32_range(site, b, t, 3, w)
     require_int32_range(site, b, t, tm, nsample)
+    return b, t, tm, w
+
+
+def _precut(site: str, win, permw, q_tiles, n: int, radius: float, nsample: int, fits=None):
+    b, t, tm, w = _check_precut(site, win, permw, q_tiles, n, nsample)
+    if fits is not None:
+        require(fits, "fits", torch.int32, ())
     split, warps = precut_route(b, t, tm, w, win.device.index)
     idx = torch.empty((b, t, tm, nsample), dtype=torch.int32, device=win.device)
     cnt = torch.empty((b, t, 1, tm), dtype=torch.int32, device=win.device)
@@ -141,3 +152,24 @@ def bq_precut_cond(win, permw, q_tiles, n: int, radius: float, nsample: int, fit
 def bq_precut_decomp(win, permw, q_tiles, n: int, radius: float, nsample: int):
     """The same kernel with no guard, as ``bq_sliced_decomp_probe``'s site."""
     return _precut("bq_precut_decomp", win, permw, q_tiles, n, radius, nsample)
+
+
+def bq_precut_pos(win, permw, q_tiles, n: int, radius: float, nsample: int):
+    """win (B, T, 3, W), permw (B, T, 1, W) int32 and q_tiles (B, T, tm, 3) as
+    ``bq_precut_cond`` takes them -> idx, pos (B, T, tm, nsample), cnt (B, T,
+    1, tm) int32: row 8's function on the cut windows (``wingather_out4d_probe``'s
+    site), ``pos`` each pick's window column (a slot past the count the first
+    pick's, 0 for an empty ball)."""
+    b, t, tm, w = _check_precut("bq_precut_pos", win, permw, q_tiles, n, nsample)
+    split, warps = precut_route(b, t, tm, w, win.device.index)
+    idx = torch.empty((b, t, tm, nsample), dtype=torch.int32, device=win.device)
+    pos = torch.empty((b, t, tm, nsample), dtype=torch.int32, device=win.device)
+    cnt = torch.empty((b, t, 1, tm), dtype=torch.int32, device=win.device)
+    device, stream = stream_of(win)
+    launch(
+        "bq_precut_pos", "bq_probes", "pn2_ball_query_precut_pos",
+        [PTR, PTR, PTR, INT, INT, INT, INT, INT, FLOAT, INT, INT, INT, PTR, PTR, PTR, INT, PTR],
+        win.data_ptr(), permw.data_ptr(), q_tiles.data_ptr(), b, t, tm, w, n, squared_radius(radius), nsample,
+        split, warps, idx.data_ptr(), pos.data_ptr(), cnt.data_ptr(), device, stream,
+    )
+    return idx, pos, cnt

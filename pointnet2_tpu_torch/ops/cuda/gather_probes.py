@@ -1,4 +1,4 @@
-"""Wrappers of ``csrc/gather_probes.cu``: the four gather design probes.
+"""Wrappers of ``csrc/gather_probes.cu``: the five gather design probes.
 
 Each computes the SA grouping gather, ``out[b, r] = points[b, idx[b, r]]``
 (the port's ``ops.core.group_points``), differing in how the indices reach
@@ -20,6 +20,12 @@ the row copies:
   ``min(FUSED_TILE, R)`` rows, the indices written on chip, emitted as a
   second output and read back for the copies. Plain version:
   ``tools.fused_gather_probe.fused_idx_plain``.
+- ``gather_window_out4d`` replaces ``tools/wingather_out4d_probe.py:186``
+  (``_window_gather_kernel_4d`` in ``project_group_sliced_4d``): row 9's
+  window gather with the tile's two ``wblk``-row blocks staged as
+  ``gather_window_staged`` stages them, taking the window rows ``rel`` the
+  caller computed and writing (B, M, K, C) a warp a query, a lane a pick.
+  Plain version: ``tools.wingather_out4d_probe.window_out4d_plain``.
 
 The row width's route (16-byte vectors or floats, lanes a row) is row 9's
 ``wingather.plan``. Each wrapper takes CUDA tensors only, counts its launches
@@ -144,6 +150,46 @@ def gather_window_staged(points: torch.Tensor, idx: torch.Tensor, kblk: torch.Te
         "gather_window_staged", "gather_probes", "pn2_gather_window_staged",
         [PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, INT, PTR, INT, PTR],
         points.data_ptr(), rel.data_ptr(), kblk.data_ptr(), b, n, c, t, trk, w, int(vec), unroll,
+        out.data_ptr(), device, stream,
+    )
+    return out
+
+
+def gather_window_out4d(zp_s: torch.Tensor, rel: torch.Tensor, kblk: torch.Tensor, wblk: int, tm: int,
+                        k: int) -> torch.Tensor:
+    """zp_s (B, N, C) float32 in x-sorted order, rel (B, T, 1, tm * K) int32
+    window rows in [0, 2 wblk), kblk (B, T) int32 -> (B, T * tm, K, C):
+    ``out[b, t * tm + q, s] = S[rel[b, t, 0, q * K + s]]``, S being blocks
+    kblk and min(kblk + 1, N / wblk - 1) of ``wblk`` rows of ``zp_s[b]``,
+    staged a 16-byte channel slice at a time."""
+    require(zp_s, "zp_s", torch.float32, (None, None, None))
+    b, n, c = zp_s.shape
+    require(rel, "rel", torch.int32, (b, None, 1, None))
+    t, trk = rel.shape[1], rel.shape[3]
+    if tm <= 0 or k <= 0 or trk != tm * k or t == 0:
+        raise ValueError(
+            f"gather_window_out4d needs whole tiles of tm * K = {tm} * {k} relative indices, got rel "
+            f"{tuple(rel.shape)}"
+        )
+    if wblk <= 0 or n % wblk:
+        raise ValueError(f"gather_window_out4d needs N a multiple of wblk, got N={n}, wblk={wblk}")
+    require(kblk, "kblk", torch.int32, (b, t))
+    if window_shared_bytes(wblk, trk) > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"gather_window_out4d: a slice of 2 wblk = {2 * wblk} rows and {trk} relative indices take "
+            f"{window_shared_bytes(wblk, trk)} bytes, past a block's {MAX_SHARED_BYTES}"
+        )
+    if not 0 < b <= MAX_CLOUDS or c == 0:
+        raise ValueError(f"gather_window_out4d needs 1 <= B <= {MAX_CLOUDS} and channels, got {tuple(zp_s.shape)}")
+    require_int32_range("gather_window_out4d", n, c)
+    require_int32_range("gather_window_out4d", trk, c)
+    vec, _ = planned_route(zp_s)
+    out = torch.empty((b, t * tm, k, c), dtype=torch.float32, device=zp_s.device)
+    device, stream = stream_of(zp_s)
+    launch(
+        "gather_window_out4d", "gather_probes", "pn2_gather_window_out4d",
+        [PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, INT, PTR, INT, PTR],
+        zp_s.data_ptr(), rel.data_ptr(), kblk.data_ptr(), b, n, c, t, tm, k, wblk, int(vec),
         out.data_ptr(), device, stream,
     )
     return out

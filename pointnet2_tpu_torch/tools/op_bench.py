@@ -146,13 +146,14 @@ def work_ball_query_tiles(b, n, m, tiles, nsample, outs: int, pairs: int) -> tup
     return b * n * 16 + b * m * 12 + b * tiles * 4 + b * m * (outs * nsample + 1) * 4, 9 * pairs
 
 
-def work_ball_query_precut(b, t, tm, w, nsample, pairs: int) -> tuple[float, float]:
+def work_ball_query_precut(b, t, tm, w, nsample, pairs: int, outs: int = 1) -> tuple[float, float]:
     """(bytes, operations) of the ball query on cut windows (the probes'
     pre-cut kernel): each tile's window, three coordinates and an original
-    index a column, and its sorted queries read, idx and cnt written; 9
-    operations a pair of each query's x-span over its window
+    index a column, and its sorted queries read, ``outs`` int rows of
+    nsample (idx, and pos with window columns) and cnt written; 9 operations
+    a pair of each query's x-span over its window
     (``ops.core.ball_query_tile_spans``)."""
-    return b * t * w * 16 + b * t * tm * 12 + b * t * tm * (nsample + 1) * 4, 9 * pairs
+    return b * t * w * 16 + b * t * tm * 12 + b * t * tm * (outs * nsample + 1) * 4, 9 * pairs
 
 
 def tiles_routes(tm: int) -> list[tuple[int, int]]:

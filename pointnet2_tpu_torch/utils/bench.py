@@ -68,15 +68,18 @@ KERNEL_SYMBOLS = {
     "knn_tracked": "knn_tracked_kernel",
     "bq_keys": "bq_keys_kernel",  # <kI16>
     "bq_fat": "bq_fat_kernel",  # <kTm>
-    # Both probe sites of the one pre-cut kernel (<kSlots>).
-    "bq_precut_cond": "ball_query_precut_kernel",
-    "bq_precut_decomp": "ball_query_precut_kernel",
+    # Both row-7 probe sites of the one pre-cut kernel (<kWithPos, kSlots>),
+    # and its instance with window columns (row 8's probe site).
+    "bq_precut_cond": "ball_query_precut_kernel<false,",
+    "bq_precut_decomp": "ball_query_precut_kernel<false,",
+    "bq_precut_pos": "ball_query_precut_kernel<true,",
     # The gather probes (ops/cuda/gather_probes.py), each <V, kLanes> but the
-    # window kernel, <kVec, kUnroll>.
+    # window kernels, <kVec, kUnroll> and <kVec>.
     "gather_rows": "gather_rows_kernel",
     "gather_rows_staged": "gather_rows_staged_kernel",
     "gather_window_staged": "gather_window_staged_kernel",
     "gather_fused_idx": "gather_fused_idx_kernel",
+    "gather_window_out4d": "gather_window_out4d_kernel",  # <kVec>
 }
 
 

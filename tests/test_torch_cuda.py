@@ -1438,3 +1438,44 @@ def test_gather_probe_kernels_equal_their_plain_versions(cuda_device, c):
         assert torch.equal(got, sp_gather_probe.sp_win_plain(sorted_pts, idx3, kblk, 512, 128)), unroll
         assert torch.equal(got, window_want) and torch.equal(got, row9), unroll
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("k", [16, 32, 64])
+def test_out4d_probe_kernels_equal_their_plain_versions(cuda_device, k):
+    """The 4-D window grouping's two kernels (``bq_precut_pos``,
+    ``gather_window_out4d``) against ``wingather_out4d_probe``'s plain
+    versions, bit for bit, and against rows 8 and 9: the pre-cut windows'
+    idx, pos and cnt equal row 8 reading them in place, and the 4-D gather
+    equals row 9 at rows ``lo + pos``. B = 3 clouds of 2048 points, 1024
+    queries apart from them (empty balls, balls short of K), W = 512 (the
+    last tile's second block clamped); K = 16 and 32 (a lane a slot), 64 (the
+    list in the output rows); C = 3 (no 16-byte vectors) and 32. The whole
+    function equals the port's shipped grouping."""
+    from pointnet2_tpu_torch.tools import wingather_out4d_probe as probe
+
+    rng = np.random.RandomState(k)
+    box = np.array(probe.BOX, np.float32)
+    xyz_np = (rng.rand(3, 2048, 3) * box).astype(np.float32)
+    inputs = torch.from_numpy(np.concatenate([xyz_np, rng.rand(3, 2048, 3).astype(np.float32)], -1)).to(cuda_device)
+    xyz = torch.from_numpy(xyz_np).to(cuda_device)
+    new_xyz = torch.from_numpy((rng.rand(3, 1024, 3) * box).astype(np.float32)).to(cuda_device)
+    plan = probe.window_plan(inputs, xyz, new_xyz, 0.3, 512)
+    args = (plan["win"], plan["permw"], plan["q_tiles"], 2048, 0.3, k)
+    got = cuda.bq_precut_pos(*args)
+    assert all(torch.equal(g, p) for g, p in zip(got, probe.precut_pos_plain(*args)))
+    row8 = cuda.ball_query_tiles_pos(plan["xs"], plan["perm"], plan["qs"], plan["lo"], 0.3, k, 512)
+    assert all(torch.equal(g.reshape(r.shape), r) for g, r in zip(got, row8))
+    assert int((got[2] == 0).sum()) > 0
+    kblk, rel = probe.relative_rows(got[1], plan["lo"], plan["wblk"])
+    assert int(kblk.max()) == 2048 // plan["wblk"] - 1
+    for c in (3, 32):
+        zp_s = plan["sorted_inputs"] @ torch.from_numpy(rng.randn(6, c).astype(np.float32)).to(cuda_device)
+        out = cuda.gather_window_out4d(zp_s, rel, kblk, plan["wblk"], plan["tm"], k)
+        assert torch.equal(out, probe.window_out4d_plain(zp_s, rel, kblk, plan["wblk"], plan["tm"], k)), c
+        assert torch.equal(out, cuda.window_gather(zp_s, plan["lo"], got[1].reshape(3, 1024, k))), c
+    w0 = torch.from_numpy(rng.randn(6, 32).astype(np.float32) * 0.1).to(cuda_device)
+    b0 = torch.zeros(32, device=cuda_device)
+    a = ops.project_group_calibrated(inputs, w0, b0, xyz, new_xyz, 0.3, k, 512)
+    b = probe.project_group_sliced_4d(inputs, w0, b0, xyz, new_xyz, 0.3, k, 512)
+    assert all(torch.equal(x, y) for x, y in zip(a[:5], b[:5])) and bool(a[5]) == bool(b[5])
+    torch.cuda.synchronize()

@@ -64,7 +64,8 @@ def test_importing_the_port_loads_no_jax():
             "pointnet2_tpu_torch.tools.bq_fat_probe", "pointnet2_tpu_torch.tools.bq_cond_probe",
             "pointnet2_tpu_torch.tools.bq_sliced_decomp_probe", "pointnet2_tpu_torch.ops.cuda.gather_probes",
             "pointnet2_tpu_torch.tools.gather_probe", "pointnet2_tpu_torch.tools.sp_gather_probe",
-            "pointnet2_tpu_torch.tools.fused_gather_probe"} <= set(mods)
+            "pointnet2_tpu_torch.tools.fused_gather_probe",
+            "pointnet2_tpu_torch.tools.wingather_out4d_probe"} <= set(mods)
 
 
 _FORBIDDEN = re.compile(
