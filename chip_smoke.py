@@ -89,7 +89,14 @@ non-zero and prints no result):
    (eval32, eval, train); ``gather_fused_idx`` at 8 x 8192 x 32, its emitted
    indices equal to its input; and at edge shapes: 5 clouds (no multiple of
    8), 3 channels (no 16-byte vectors), and a window kernel whose last tile's
-   second block is clamped. Bounds: bytes (the output written, each distinct
+   second block is clamped; then both window kernels (one routine, each
+   tile's span staged by bulk copies over several blocks) at their span edges
+   (``PROBE_SPAN_EDGES``: clamped tiles read past W, C = 3, 64 and 1024, K
+   = 16 and 64, spans of one row, an unaligned array, 12 and 160 tiles,
+   shapes at which the plan's parts do not divide the span and its ring of
+   chunks wraps), each at its plan, equal to its plain version,
+   ``group_points`` and row 9 at the rows named; their rows give the plan,
+   the shared and the staged bytes. Bounds: bytes (the output written, each distinct
    source row read, the indices read once; and written once more by the
    fused kernel). Then the two kernels of the 4-D window grouping probe
    (``wingather_out4d_probe``): ``bq_precut_pos`` (``csrc/bq_probes.cu``,
@@ -1334,6 +1341,25 @@ PROBE_WINDOW_EDGE = dict(n=2048, m=256, k=16, span=384, w=512, tm=128)
 # from the cloud (empty balls, balls short of K), W = 512 (wblk 512): the last
 # of the 8 tiles starts in the last block, whose neighbour is clamped.
 PROBE_OUT4D_EDGE = dict(b=3, n=2048, m=1024, window=512, radius=0.3)
+# Both window gathers' span edges: clouds of N = 2048 in blocks of W = 512,
+# tiles of 128 queries, positions drawn over [0, 2W). Cases (label, B, C, K,
+# first blocks of the tiles, one row a tile, the array 4 bytes off 16-byte
+# alignment), each reaching an edge through the plan on 132 SMs: 12 tiles
+# take 22 parts a tile, which do not divide a span of about 1024 rows; 160
+# tiles one part (t * b past the SMs). Clamped tiles whose positions pass W
+# on the cooperative route (C = 3) and the bulk one (C = 64, K = 64); C =
+# 1024, chunks of 4 rows, so each part's ring wraps; spans of one row; 160
+# tiles of 128-row chunks, the ring wrapping through a span, on the bulk
+# route and, unaligned, the cooperative one.
+PROBE_SPAN_SHAPE = (2048, 512, 128)  # N, W, tm
+PROBE_SPAN_EDGES = (
+    ("edge, clamped past W", 3, 3, 16, (0, 2, 3, 3), False, False),
+    ("edge, clamped past W", 3, 64, 64, (0, 2, 3, 3), False, False),
+    ("edge, 4-row chunks", 3, 1024, 16, (0, 2, 3, 3), False, False),
+    ("edge, one-row spans", 3, 32, 16, (0, 1, 2, 3), True, False),
+    ("edge, 160 tiles", 40, 32, 16, (0, 1, 2, 3), False, False),
+    ("edge, 160 tiles unaligned", 40, 32, 64, (0, 1, 2, 3), False, True),
+)
 PROBE_KERNELS = ("fps_remask", "fps_packed", "knn_argmin", "knn_tracked",
                  "bq_keys", "bq_fat", "bq_precut_cond", "bq_precut_decomp",
                  "gather_rows", "gather_rows_staged", "gather_window_staged", "gather_fused_idx",
@@ -1518,8 +1544,8 @@ def window_staged_rows(report: Report, label: str, b: int, c: int, shapes: dict,
             lambda: sp_gather_probe.sp_win_plain(pts, idx3, kblk, w, tm), nbytes, nops, err=0.0,
             match=same9 and torch.equal(got, want), plain_timing=FEW,
             library=lambda: core.group_points(pts, idx3), extra={"row9_ms": row9},
-            info={"unroll": unroll, "vec": cuda_gather.planned_route(pts)[0], "tiles_clamped": clamped,
-                  "shared_bytes": cuda_gather_probes.window_shared_bytes(w, tm * k), "case": "probes",
+            info={"unroll": unroll, "tiles_clamped": clamped,
+                  **sp_gather_probe.span_info("gather_window_staged", pts, rel3, kblk, w, tm * k), "case": "probes",
                   **({"device_ms": device_ms(run, "gather_window_staged"), "row9_device_ms": row9_device}
                      if timed else {})},
         )
@@ -1555,19 +1581,65 @@ def gather_probe_rows(report: Report) -> None:
         for name in ("gather_rows", "gather_rows_staged", "gather_fused_idx"):
             gather_rows_row(report, name, "edge", pts, idx, e["m"], e["k"], timed=False)
     window_staged_rows(report, "edge, last block clamped", e["b"], e["c"], PROBE_WINDOW_EDGE, timed=False)
+    for case in PROBE_SPAN_EDGES:
+        window_edge_rows(report, *case)
+
+
+def window_edge_rows(report: Report, label: str, b: int, c: int, k: int, kblk_of: tuple, one_row: bool,
+                     unaligned: bool) -> None:
+    """Both window gathers on one edge of their span plan (``PROBE_SPAN_EDGES``):
+    window positions drawn in [0, 2W) over tiles whose first blocks are
+    ``kblk_of`` (a clamped tile's positions past W read its block again),
+    each tile's a single row where ``one_row``, the points 4 bytes past a
+    16-byte boundary where ``unaligned``. Each kernel, at every unroll (P11),
+    equals its plain version, ``group_points`` and row 9 at the rows the
+    positions name, bit for bit; one row a kernel, timed."""
+    n, w, tm = PROBE_SPAN_SHAPE
+    dev = torch.device(DEVICE)
+    t = len(kblk_of)
+    rng = np.random.RandomState(SEED + 780 + c + b + k)
+    values = torch.from_numpy(rng.rand(b * n * c + 1).astype(np.float32)).to(dev)
+    pts = (values[1:] if unaligned else values[:-1]).view(b, n, c)
+    kblk = torch.tensor([kblk_of] * b, dtype=torch.int32, device=dev)
+    rel_np = rng.randint(0, 2 * w, (b, t, 1 if one_row else tm * k))
+    rel = torch.from_numpy(np.broadcast_to(rel_np, (b, t, tm * k)).astype(np.int32).copy()).to(dev)
+    rows = sp_gather_probe.window_rows(rel, kblk, n, w).reshape(b, t * tm, k)
+    want = core.group_points(pts, rows)
+    row9 = cuda.window_gather(pts, torch.zeros((b, t), dtype=torch.int32, device=dev), rows.to(torch.int32))
+    nbytes, nops = gather_work(rows.reshape(b, -1), n, c)
+    idx3 = (kblk.long()[:, :, None] * w + rel.long()).to(torch.int32).reshape(b, t * tm, k)
+    staged = {
+        "gather_window_staged": (
+            lambda u=4: cuda.gather_window_staged(pts, idx3, kblk, w, tm, u).view(want.shape),
+            lambda: sp_gather_probe.sp_win_plain(pts, idx3, kblk, w, tm).view(want.shape),
+            cuda_gather_probes.WINDOW_UNROLLS),
+        "gather_window_out4d": (
+            lambda u=4: cuda.gather_window_out4d(pts, rel[:, :, None], kblk, w, tm, k),
+            lambda: wingather_out4d_probe.window_out4d_plain(pts, rel[:, :, None], kblk, w, tm, k), (4,)),
+    }
+    for name, (run, plain, unrolls) in staged.items():
+        match = torch.equal(plain(), want) and torch.equal(row9, want)
+        match = match and all(torch.equal(run(u), want) for u in unrolls)
+        report.add(
+            name, b, f"{label} N={n} C={c} M={t * tm} K={k} W={w}", run, plain, nbytes, nops, err=0.0,
+            match=match, plain_timing=FEW, library=lambda: core.group_points(pts, rows),
+            extra={"row9_ms": lambda: cuda.window_gather(pts, torch.zeros_like(kblk), rows.to(torch.int32))},
+            info={"tiles_clamped": int((kblk == n // w - 1).sum()), "unaligned": unaligned,
+                  **sp_gather_probe.span_info(name, pts, rel, kblk, w, tm * k), "case": "probes"},
+        )
 
 
 def out4d_rows(report: Report, label: str, inputs, xyz, new_xyz, projections, r: float, k: int,
-               window: int) -> dict:
+               window: int, timed: bool = False) -> dict:
     """The 4-D grouping's two kernels on one input, through
     ``wingather_out4d_probe.window_plan``: ``bq_precut_pos`` on the cut
     windows against its plain version and row 8 reading them in place (idx,
     pos, cnt), then ``gather_window_out4d`` on each sorted projection
     (``projections``: ``(w0, b0)`` pairs) against its plain version, row 9 at
-    the same rows (``lo + pos``) and ``group_points``, all bit for bit. The
-    device ms of the four kernels at the probe's shape are the tool's (the
-    ``probes`` path). Returns the rows' common fields (clamped tiles, empty
-    and short balls)."""
+    the same rows (``lo + pos``) and ``group_points``, all bit for bit.
+    ``timed``: the gather's and row 9's device ms beside (the other kernels'
+    at the probe's shape are the tool's, the ``probes`` path). Returns the
+    rows' common fields (clamped tiles, empty and short balls)."""
     b, n, _ = xyz.shape
     m = new_xyz.shape[1]
     plan = wingather_out4d_probe.window_plan(inputs, xyz, new_xyz, r, window)
@@ -1608,8 +1680,9 @@ def out4d_rows(report: Report, label: str, inputs, xyz, new_xyz, projections, r:
             "gather_window_out4d", b, f"{label} N={n} M={m} K={k} C={c} wblk={wblk}", run14, plain14,
             *op_bench.work_window_gather(lo, source_rows, c), err=0.0, match=match14, plain_timing=FEW,
             library=lambda: core.group_points(zp_s, rows), extra={"row9_ms": row9},
-            info={**info, "vec": cuda_gather.planned_route(zp_s)[0],
-                  "shared_bytes": cuda_gather_probes.window_shared_bytes(wblk, tm * k)},
+            info={**info, **sp_gather_probe.span_info("gather_window_out4d", zp_s, rel, kblk, wblk, tm * k),
+                  **({"device_ms": device_ms(run14, "gather_window_out4d"),
+                      "row9_device_ms": device_ms(row9, "window_gather")} if timed else {})},
         )
     return info
 
@@ -1623,7 +1696,7 @@ def out4d_probe_rows(report: Report) -> None:
     s = wingather_out4d_probe.SHAPES
     inputs, w0, b0, xyz = wingather_out4d_probe.probe_inputs(s, dev)
     new_xyz = ops.fps_centroids(xyz, s["m"])[1]
-    out4d_rows(report, "probe shape", inputs, xyz, new_xyz, [(w0, b0)], s["radius"], s["k"], s["window"])
+    out4d_rows(report, "probe shape", inputs, xyz, new_xyz, [(w0, b0)], s["radius"], s["k"], s["window"], timed=True)
     e = PROBE_OUT4D_EDGE
     rng = np.random.RandomState(SEED + 760)
     box = np.array(wingather_out4d_probe.BOX, np.float32)

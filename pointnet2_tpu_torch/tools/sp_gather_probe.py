@@ -1,6 +1,6 @@
 """Probe: gathers whose indices, or whose window of rows, are staged on chip before the copies.
 
-    python -m pointnet2_tpu_torch.tools.sp_gather_probe [eval32] [eval] [train] [--device cpu]
+    python -m pointnet2_tpu_torch.tools.sp_gather_probe [eval32] [eval] [train] [--device cpu] [--sweep]
 
 The counterpart of the JAX repo's ``tools/sp_gather_probe.py``, at its
 regimes and seed: N = 8192 points sorted by x, M = 1024 queries in tiles of
@@ -14,16 +14,19 @@ into SMEM, rows copied from the VMEM cloud in tiles of 4096) and ``sp_win``
 Here they are ``csrc/gather_probes.cu``'s ``pn2_gather_rows_staged``
 (``ops.cuda.gather_rows_staged``: a tile's indices staged in shared memory
 first) and ``pn2_gather_window_staged`` (``ops.cuda.gather_window_staged``:
-the window staged a 16-byte channel slice at a time, 2W x 16 bytes). The
+each tile's span of whole rows staged by bulk copies over several blocks;
+on the card the tool prints the plan and the bytes staged). The
 tool checks on the host that every relative index lies in [0, 2W), prints
 whether each variant equals ``group_points`` (the JAX tool's ``xla``) and
 row 9 (``window_gather``: at window start 0 for ``sp_row``, at ``kblk * W``
 for ``sp_win``), then three interleaved rounds of every column by
 ``utils.bench.slope_time`` and ``cuda_ms``, each column's GB/s of output,
 and the kernels' device ms by the profiler, with the card's name and power
-limit. On the CPU (``--device cpu``) the plain versions run and no time is
-taken. ``main(argv, shapes=...)`` runs other sizes. A variant that misses
-its reference makes the tool raise.
+limit. ``--sweep`` then times ``sp_win`` at unroll 4 on the card with each
+tile's splits and chunk rows at half, once and twice ``plan``'s
+(``plan_sweep``). On the CPU (``--device cpu``) the plain versions run and
+no time is taken. ``main(argv, shapes=...)`` runs other sizes. A variant
+that misses its reference makes the tool raise.
 
 The plain versions write out the probes' tiling: ``sp_row_plain`` takes
 each tile of 4096 rows in turn; ``sp_win_plain`` builds each tile's (2W, C)
@@ -38,14 +41,15 @@ import numpy as np
 import torch
 
 from pointnet2_tpu_torch.ops import cuda
+from pointnet2_tpu_torch.ops.cuda import gather_probes
 from pointnet2_tpu_torch.ops.cuda.gather_probes import (
-    STAGED_TILE, STAGING, WINDOW_UNROLLS, relative_indices, window_shared_bytes,
+    STAGED_TILE, STAGING, WINDOW_UNROLLS, relative_indices, span_route, window_shared_bytes,
 )
 from pointnet2_tpu_torch.tools.bq_i16_probe import timed_rounds
 from pointnet2_tpu_torch.tools.gather_probe import (
     group_points, kernel_device_ms, report_rates, row9, row9_at_zero, tiled_take,
 )
-from pointnet2_tpu_torch.utils.bench import card_line, require_device
+from pointnet2_tpu_torch.utils.bench import card_line, device_ms, require_device
 
 REGIMES = {  # sp_gather_probe.py:294-302
     "eval32": dict(label="eval SA1 zp regime", b=8, c=32),
@@ -53,6 +57,7 @@ REGIMES = {  # sp_gather_probe.py:294-302
     "train": dict(label="train micro regime", b=4, c=8),
 }
 SHAPES = dict(n=8192, m=1024, k=32, span=3072, w=4096, tm=128, rounds=3, regimes=REGIMES)
+SWEEP = (0.5, 1, 2)  # plan_sweep's factors of the plan's splits and chunk rows
 
 
 def sp_row_plain(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -117,7 +122,86 @@ def check_window(idx: np.ndarray, kblk: np.ndarray, w: int, tm: int) -> None:
         raise AssertionError(f"a relative index leaves [0, 2W): min {rel.min()}, max {rel.max()}, W={w}")
 
 
-def run_regime(name: str, regime: dict, shapes: dict, device: torch.device) -> dict:
+def window_rows(rel: torch.Tensor, kblk: torch.Tensor, n: int, w: int) -> torch.Tensor:
+    """The cloud rows (B, T, trk) int64 that window positions ``rel`` (B, T,
+    ...) name: ``kblk * w + rel`` below w, ``k1 * w + rel - w`` from w, ``k1 =
+    min(kblk + 1, N / w - 1)`` the clamped second block."""
+    k0 = kblk.long()[:, :, None]
+    k1 = torch.clamp(k0 + 1, max=n // w - 1)
+    r = rel.reshape(*kblk.shape, -1).long()
+    return torch.where(r < w, k0 * w + r, k1 * w + r - w)
+
+
+def staged_bytes(rel: torch.Tensor, kblk: torch.Tensor, n: int, w: int, c: int) -> int:
+    """The bytes the window gathers stage: each tile's span of ``window_rows``,
+    ``g_hi - g_lo + 1`` rows of C floats."""
+    g = window_rows(rel, kblk, n, w)
+    return int((g.amax(-1) - g.amin(-1) + 1).sum()) * c * 4
+
+
+def span_info(what: str, points: torch.Tensor, rel: torch.Tensor, kblk: torch.Tensor, w: int, trk: int) -> dict:
+    """What a window gather launches with on ``points`` (the plan reads the
+    SMs of its card): route (``bulk``, ``lanes``), ``plan``, the block's
+    shared bytes, and the bytes it stages (``staged_bytes``)."""
+    n, c = points.shape[1:]
+    vec, lanes, span = span_route(what, points, kblk.numel(), trk)
+    return {"bulk": vec, "lanes": lanes, "plan": span._asdict(),
+            "shared_bytes": window_shared_bytes(c, trk, span.chunk_rows, span.stages),
+            "staged_bytes": staged_bytes(rel, kblk, n, w, c)}
+
+
+def plan_sweep(pts: torch.Tensor, idx3: torch.Tensor, kblk: torch.Tensor, w: int, tm: int, want: torch.Tensor,
+               card: str) -> dict:
+    """Device ms of ``sp_win`` at unroll 4 on CUDA tensors at each (splits,
+    chunk_rows) of ``SWEEP`` times ``plan``'s (the ring's stages are the
+    kernel's), each launch bit for bit with ``want``. Each launch runs with
+    ``gather_probes.plan`` answering that pair, and the module's ``plan`` is
+    put back after. Prints a line a pair; returns ``{"splits x chunk_rows":
+    ms}`` (None where the block's shared memory does not fit), the plan's
+    pair and its gap to the best."""
+    planned = gather_probes.plan
+    trk = tm * idx3.shape[2]
+    base = span_route("gather_window_staged", pts, kblk.numel(), trk)[2]
+    times = {}
+    try:
+        for fs in SWEEP:
+            for fc in SWEEP:
+                span = base._replace(splits=max(1, int(base.splits * fs)), chunk_rows=max(1, int(base.chunk_rows * fc)))
+                gather_probes.plan = lambda *args, span=span: span
+                key = f"{span.splits} x {span.chunk_rows}"
+                run = lambda: sp_win(pts, idx3, kblk, w, tm, 4)
+                try:
+                    got = run()
+                except ValueError:  # the ring and the picks past a block's shared memory
+                    times[key] = None
+                    continue
+                if not torch.equal(got, want):
+                    raise AssertionError(f"sp_win at splits x chunk_rows {key} misses its reference")
+                times[key] = device_ms(run, "gather_window_staged")
+    finally:
+        gather_probes.plan = planned
+    best = min((ms, key) for key, ms in times.items() if ms is not None)
+    mine = f"{base.splits} x {base.chunk_rows}"
+    print("plan sweep, sp_win u4 device ms by splits x chunk rows: "
+          + "  ".join(f"{key} {'-' if ms is None else f'{ms:.5f}'}" for key, ms in times.items())
+          + f" | plan {mine}, best {best[1]}, plan / best {times[mine] / best[0]:.3f} | {card}", flush=True)
+    return {"device_ms": times, "plan": mine, "best": best[1], "plan_over_best": times[mine] / best[0]}
+
+
+def span_line(points: torch.Tensor, rel: torch.Tensor, kblk: torch.Tensor, w: int, trk: int,
+              what: str = "gather_window_staged") -> str:
+    """The window gather's launch on the card, for the tools' lines: its
+    plan, shared memory and staged bytes (empty on the CPU)."""
+    if points.device.type != "cuda":
+        return ""
+    info = span_info(what, points, rel, kblk, w, trk)
+    p = info["plan"]
+    return (f": {p['splits']} blocks a tile, chunks of {p['chunk_rows']} rows, a ring of {p['stages']} "
+            f"({'bulk copies' if info['bulk'] else 'cooperative loads'}; {info['shared_bytes']} bytes of shared "
+            f"memory a block; {info['staged_bytes']} bytes staged)")
+
+
+def run_regime(name: str, regime: dict, shapes: dict, device: torch.device, sweep: bool = False) -> dict:
     b, c = regime["b"], regime["c"]
     n, m, k, span, w, tm = (shapes[key] for key in ("n", "m", "k", "span", "w", "tm"))
     print(f"\n== {name}: {regime['label']}: B={b} N={n} C={c} M={m} K={k} (span {span}, block w {w}, tile {tm}) ==",
@@ -138,8 +222,8 @@ def run_regime(name: str, regime: dict, shapes: dict, device: torch.device) -> d
         got = sp_win(pts, idx3, kblk, w, tm, u)
         exact[f"sp_win/u{u}"] = {"group_points": bool(torch.equal(got, want)),
                                  "row9": bool(torch.equal(got, win_row9))}
-    print(f"sp_row stages each tile's {STAGED_TILE} indices by {STAGING}; sp_win stages 2W x 16 bytes a slice "
-          f"({window_shared_bytes(w, tm * k)} bytes of shared memory with the relative indices)", flush=True)
+    print(f"sp_row stages each tile's {STAGED_TILE} indices by {STAGING}; sp_win stages each tile's span of "
+          f"whole rows, split over blocks{span_line(pts, rel3, kblk, w, tm * k)}", flush=True)
     for variant, e in exact.items():
         print(f"{variant}: exact vs group_points={e['group_points']}; vs row 9={e['row9']}", flush=True)
     if not all(all(e.values()) for e in exact.values()):
@@ -148,6 +232,7 @@ def run_regime(name: str, regime: dict, shapes: dict, device: torch.device) -> d
     summary = {"shape": f"B={b} N={n} C={c} M={m} K={k} W={w} span={span}", "exact": exact}
     if device.type != "cuda":
         return summary
+    summary["span"] = span_info("gather_window_staged", pts, rel3, kblk, w, tm * k)
     card = card_line()
     columns = {
         "group_points": (lambda p: group_points(p, idx, m, k), pts, lambda: group_points(pts, idx, m, k)),
@@ -166,6 +251,8 @@ def run_regime(name: str, regime: dict, shapes: dict, device: torch.device) -> d
                   for u in WINDOW_UNROLLS})
     summary.update(rounds=rounds, card=card, rates=report_rates(rounds, columns, b * m * k * c * 4, b * m * k),
                    device_ms=kernel_device_ms(calls, card))
+    if sweep:
+        summary["sweep"] = plan_sweep(pts, idx3, kblk, w, tm, want, card)
     return summary
 
 
@@ -173,12 +260,13 @@ def main(argv=None, shapes: dict = SHAPES) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("regimes", nargs="*", help=f"any of {', '.join(shapes['regimes'])} (default: all)")
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu: the plain versions, no times")
+    ap.add_argument("--sweep", action="store_true", help="also time sp_win about plan's splits and chunk rows")
     args = ap.parse_args(argv)
     unknown = [r for r in args.regimes if r not in shapes["regimes"]]
     if unknown:
         ap.error(f"unknown regimes {unknown}: choose from {list(shapes['regimes'])}")
     device = require_device(args.device)
-    out = {name: run_regime(name, regime, shapes, device)
+    out = {name: run_regime(name, regime, shapes, device, args.sweep)
            for name, regime in shapes["regimes"].items() if not args.regimes or name in args.regimes}
     if device.type != "cuda":
         print("times: taken on the card only")

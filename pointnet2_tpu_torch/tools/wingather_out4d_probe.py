@@ -18,8 +18,8 @@ are ``csrc/bq_probes.cu``'s ``pn2_ball_query_precut_pos``
 (``ops.cuda.bq_precut_pos``: the pre-cut windows' ball query with each
 pick's window column) and
 ``csrc/gather_probes.cu``'s ``pn2_gather_window_out4d``
-(``ops.cuda.gather_window_out4d``: the window staged a 16-byte channel slice
-at a time, a warp a query, a lane a pick). The card's layout of (B, M, K, C)
+(``ops.cuda.gather_window_out4d``: each tile's span of whole rows staged by
+bulk copies over several blocks, P11's routine). The card's layout of (B, M, K, C)
 is the flat one, so what B changes there is how the kernels are fed and
 address their output. The tool prints both window certificates and whether
 B's grouped rows, indices and counts equal A's, then three interleaved rounds
@@ -46,10 +46,10 @@ import torch
 
 from pointnet2_tpu_torch import ops
 from pointnet2_tpu_torch.ops import core, cuda
-from pointnet2_tpu_torch.ops.cuda.gather_probes import window_shared_bytes
 from pointnet2_tpu_torch.tools.bq_cond_probe import cut
 from pointnet2_tpu_torch.tools.bq_i16_probe import pad_by_first, sweeps, timed_rounds
 from pointnet2_tpu_torch.tools.gather_probe import kernel_device_ms
+from pointnet2_tpu_torch.tools.sp_gather_probe import span_info, span_line
 from pointnet2_tpu_torch.utils.bench import card_line, require_device
 
 BOX = (8.0, 8.0, 4.9)  # wingather_out4d_probe.py:203, metres
@@ -218,21 +218,23 @@ def main(argv=None, shapes: dict = SHAPES) -> dict:
     plan = window_plan(inputs, xyz, new_xyz, r, w)
     summary = {"shape": f"B={b} N={n} M={m} K={k} C={f0} W={plan['w']} wblk={plan['wblk']} r={r}",
                "ok": ok, "exact": exact, "rounds": []}
-    print(f"P14 stages 2 wblk x 16 bytes a slice ({window_shared_bytes(plan['wblk'], plan['tm'] * k)} bytes "
-          f"of shared memory with the relative indices)", flush=True)
+    staging = "P14 stages each tile's span of whole rows, split over blocks"
     if device.type != "cuda":
+        print(staging)
         print("times: taken on the card only")
         return summary
     card = card_line()
+    win_args = (plan["win"], plan["permw"], plan["q_tiles"], n, r, k)
+    idx_s, pos_s, cnt_s = cuda.bq_precut_pos(*win_args)
+    zp_s = plan["sorted_inputs"] @ w0 + b0
+    kblk, rel = relative_rows(pos_s, plan["lo"], plan["wblk"])
+    print(staging + span_line(zp_s, rel, kblk, plan["wblk"], plan["tm"] * k, "gather_window_out4d"), flush=True)
+    summary["span"] = span_info("gather_window_out4d", zp_s, rel, kblk, plan["wblk"], plan["tm"] * k)
     columns = {
         "shipped (T,TRK,C)+reshape": (lambda x: shipped(x)[0][..., :1], inputs, lambda: shipped(inputs)),
         "4D (M,K,C) direct out": (lambda x: out4d(x)[0][..., :1], inputs, lambda: out4d(inputs)),
     }
     rounds = timed_rounds(columns, shapes["rounds"], card)
-    win_args = (plan["win"], plan["permw"], plan["q_tiles"], n, r, k)
-    idx_s, pos_s, cnt_s = cuda.bq_precut_pos(*win_args)
-    zp_s = plan["sorted_inputs"] @ w0 + b0
-    kblk, rel = relative_rows(pos_s, plan["lo"], plan["wblk"])
     pos = pos_s.reshape(b, m, k)
     calls = {
         "P13 bq_precut_pos": ("bq_precut_pos", lambda: cuda.bq_precut_pos(*win_args)),

@@ -74,12 +74,12 @@ KERNEL_SYMBOLS = {
     "bq_precut_decomp": "ball_query_precut_kernel<false,",
     "bq_precut_pos": "ball_query_precut_kernel<true,",
     # The gather probes (ops/cuda/gather_probes.py), each <V, kLanes> but the
-    # window kernels, <kVec, kUnroll> and <kVec>.
+    # window kernels, <kBulk, kLanes, kUnroll> and <kBulk, kLanes>.
     "gather_rows": "gather_rows_kernel",
     "gather_rows_staged": "gather_rows_staged_kernel",
     "gather_window_staged": "gather_window_staged_kernel",
     "gather_fused_idx": "gather_fused_idx_kernel",
-    "gather_window_out4d": "gather_window_out4d_kernel",  # <kVec>
+    "gather_window_out4d": "gather_window_out4d_kernel",
 }
 
 

@@ -1479,3 +1479,79 @@ def test_out4d_probe_kernels_equal_their_plain_versions(cuda_device, k):
     b = probe.project_group_sliced_4d(inputs, w0, b0, xyz, new_xyz, 0.3, k, 512)
     assert all(torch.equal(x, y) for x, y in zip(a[:5], b[:5])) and bool(a[5]) == bool(b[5])
     torch.cuda.synchronize()
+
+
+# The window gathers' span edges: clouds of 2048 rows in blocks of W = 512,
+# tiles of 128 queries, window positions drawn over [0, 2W). (B, C, K, first
+# blocks of the tiles, one row a tile, unaligned rows): clamped tiles whose
+# positions pass W; C = 3 (the cooperative route), 64, 1024 (chunks of 4
+# rows: each part's ring wraps) and 32 through an unaligned array
+# (cooperative again); K = 16 and 64; spans of one row; 12 tiles (22 parts
+# a tile on 132 SMs, not dividing the span) and 160 tiles (one part a tile,
+# the ring wrapping through the span).
+SPAN_EDGES = [
+    (3, 3, 16, (0, 2, 3, 3), False, False),
+    (3, 64, 16, (0, 2, 3, 3), False, False),
+    (3, 64, 64, (0, 2, 3, 3), False, False),
+    (3, 1024, 16, (0, 2, 3, 3), False, False),
+    (3, 32, 16, (0, 1, 2, 3), True, False),
+    (3, 32, 16, (0, 2, 3, 3), False, True),
+    (40, 32, 16, (0, 1, 2, 3), False, False),
+    (40, 32, 64, (0, 1, 2, 3), False, True),
+    (40, 3, 64, (1, 3), False, False),
+]
+# (splits, chunk_rows) that `plan` is made to answer beside its own: parts
+# not dividing the span in chunks of 5 rows, and one-row chunks (the ring
+# wraps at every third row).
+SPAN_PLANS = [None, (3, 5), (7, 1)]
+
+
+@pytest.mark.parametrize("b, c, k, kblk_of, one_row, unaligned", SPAN_EDGES)
+def test_window_gathers_on_the_span_edges(cuda_device, monkeypatch, b, c, k, kblk_of, one_row, unaligned):
+    """``gather_window_staged`` (every unroll) and ``gather_window_out4d``,
+    each at its plan and with ``plan`` answering each ``SPAN_PLANS`` pair,
+    against their plain versions, ``group_points`` and row 9 at the rows
+    the positions name, bit for bit."""
+    from pointnet2_tpu_torch.ops.cuda import gather_probes
+    from pointnet2_tpu_torch.tools import sp_gather_probe, wingather_out4d_probe
+
+    n, w, tm = 2048, 512, 128
+    t = len(kblk_of)
+    rng = np.random.RandomState(b * 1000 + c * 10 + k)
+    values = torch.from_numpy(rng.rand(b * n * c + 1).astype(np.float32)).to(cuda_device)
+    pts = (values[1:] if unaligned else values[:-1]).view(b, n, c)
+    kblk = torch.tensor([kblk_of] * b, dtype=torch.int32, device=cuda_device)
+    rel_np = rng.randint(0, 2 * w, (b, t, 1 if one_row else tm * k))
+    rel = torch.from_numpy(np.broadcast_to(rel_np, (b, t, tm * k)).astype(np.int32).copy()).to(cuda_device)
+    assert gather_probes.span_route("edge", pts, b * t, tm * k)[0] == (c % 4 == 0 and not unaligned)
+    rows = sp_gather_probe.window_rows(rel, kblk, n, w).reshape(b, t * tm, k)
+    want = core.group_points(pts, rows)
+    assert torch.equal(cuda.window_gather(pts, torch.zeros_like(kblk), rows.to(torch.int32)), want)
+    idx3 = (kblk.long()[:, :, None] * w + rel.long()).to(torch.int32).reshape(b, t * tm, k)
+    assert torch.equal(sp_gather_probe.sp_win_plain(pts, idx3, kblk, w, tm).view(want.shape), want)
+    assert torch.equal(wingather_out4d_probe.window_out4d_plain(pts, rel[:, :, None], kblk, w, tm, k), want)
+    planned = gather_probes.plan
+    for pair in SPAN_PLANS:
+        with monkeypatch.context() as patch:
+            if pair is not None:
+                patch.setattr(gather_probes, "plan", lambda *args, pair=pair: planned(*args)._replace(
+                    splits=pair[0], chunk_rows=pair[1]))
+            for unroll in (4, 8, 16):
+                got = cuda.gather_window_staged(pts, idx3, kblk, w, tm, unroll)
+                assert torch.equal(got.view(want.shape), want), (pair, unroll)
+            assert torch.equal(cuda.gather_window_out4d(pts, rel[:, :, None], kblk, w, tm, k), want), pair
+    torch.cuda.synchronize()
+
+
+def test_window_gathers_never_fall_back_on_a_cuda_tensor(cuda_device, monkeypatch):
+    """A launch the kernel refuses raises: the wrappers take no plain path."""
+    from pointnet2_tpu_torch.ops.cuda import gather_probes
+
+    pts = torch.rand(1, 1024, 8, device=cuda_device)
+    idx = torch.zeros((1, 128, 4), dtype=torch.int32, device=cuda_device)
+    kblk = torch.zeros((1, 1), dtype=torch.int32, device=cuda_device)
+    # A ring of 3 x 8000 rows of 32 bytes: past the block's shared memory, which the wrapper is told fits.
+    monkeypatch.setattr(gather_probes, "plan", lambda *args: gather_probes.SpanPlan(1, 8000, 3))
+    monkeypatch.setattr(gather_probes, "window_shared_bytes", lambda *a: 0)
+    with pytest.raises(RuntimeError, match="gather_window_staged kernel failed"):
+        cuda.gather_window_staged(pts, idx, kblk, 256, 128, 4)

@@ -254,6 +254,7 @@ def _stub_launch(monkeypatch) -> list:
     monkeypatch.setattr(gather_probes, "require", _on_cpu)
     monkeypatch.setattr(gather_probes, "stream_of", lambda t: (0, 0))
     monkeypatch.setattr(gather_probes, "launch", lambda *a: seen.append(a))
+    monkeypatch.setattr(gather_probes, "num_sms", lambda device: 132)
     return seen
 
 
@@ -282,7 +283,10 @@ def test_gather_wrappers_pass_every_argument_of_their_c_entry(monkeypatch, call,
     assert len(argtypes) == len(passed) == _c_params(source)[symbol]
     assert f"{symbol}_error_string" in (build.CSRC_DIR / f"{source}.cu").read_text()
     if call == "gather_window_staged":
-        assert tuple(passed[3:11]) == (5, 8192, c, 8, 128 * 32, 4096, vec, 8)
+        # 5 clouds x 8 tiles: 264 // 40 = 6 blocks a tile on 132 SMs.
+        span = gather_probes.plan(40, c, bool(vec), 132)
+        assert span.splits == 6 and span.stages == (3 if vec else 1)
+        assert tuple(passed[3:14]) == (5, 8192, c, 8, 128 * 32, 4096, vec, lanes, 8, span.splits, span.chunk_rows)
         assert out.shape == (5, 1024 * 32, c)
     else:
         tr = {"gather_rows": 2048, "gather_rows_staged": 4096, "gather_fused_idx": 4096}[call]
@@ -300,11 +304,13 @@ def test_window_wrapper_passes_the_relative_indices():
 
 
 @pytest.mark.parametrize("case", ["rows 1000", "staged R 2048", "fused R 6000", "window M % tm", "window N % w",
-                                  "window slice", "window unroll", "window kblk", "B 0", "idx dtype"])
+                                  "window slice", "window unroll", "window kblk", "B 0", "idx dtype",
+                                  "window picks", "window chunk"])
 def test_gather_wrappers_refuse_what_their_kernels_do_not_take(monkeypatch, case):
     monkeypatch.setattr(gather_probes, "launch", lambda *a: pytest.fail("launched"))
     monkeypatch.setattr(gather_probes, "stream_of", lambda t: (0, 0))
     monkeypatch.setattr(gather_probes, "require", _on_cpu)
+    monkeypatch.setattr(gather_probes, "num_sms", lambda device: 132)
     pts = torch.rand(2, 8192, 8)
     idx = lambda r: torch.zeros((2, r), dtype=torch.int32)
     idx3 = torch.zeros((2, 1024, 32), dtype=torch.int32)
@@ -319,9 +325,16 @@ def test_gather_wrappers_refuse_what_their_kernels_do_not_take(monkeypatch, case
                           "M a multiple of tm"),
         "window N % w": (lambda: gather_probes.gather_window_staged(pts[:, :8000], idx3, kblk, 4096, 128, 4),
                          "N of w"),
-        # 2W x 16 bytes + tm * K * 4: 8192 rows take 256 KB alone.
-        "window slice": (lambda: gather_probes.gather_window_staged(torch.rand(2, 16384, 8), idx3, kblk, 8192, 128, 4),
+        # One tile of 1024 x 32 picks: 8 bytes a pick take 256 KB beside the ring.
+        "window slice": (lambda: gather_probes.gather_window_staged(pts, idx3, kblk[:, :1], 4096, 1024, 4),
                          "past a block's 232448"),
+        # 1024 x 128 picks a tile: past what 16-bit positions name.
+        "window picks": (lambda: gather_probes.gather_window_staged(
+            pts, torch.zeros((2, 1024, 128), dtype=torch.int32), kblk[:, :1], 4096, 1024, 4), "16-bit"),
+        # Rows of 20000 floats: a chunk of one row, 80 KB, and the ring of three past a block's 227 KB.
+        "window chunk": (lambda: gather_probes.gather_window_staged(
+            torch.rand(1, 8, 20000), torch.zeros((1, 128, 1), dtype=torch.int32), kblk[:1, :1], 4, 128, 4),
+            "a ring of 3 x 1 rows of 20000 floats"),
         "window unroll": (lambda: gather_probes.gather_window_staged(pts, idx3, kblk, 4096, 128, 2), "unroll in"),
         "window kblk": (lambda: gather_probes.gather_window_staged(pts, idx3, kblk[:, :4], 4096, 128, 4),
                         "kblk must have shape"),
@@ -333,10 +346,129 @@ def test_gather_wrappers_refuse_what_their_kernels_do_not_take(monkeypatch, case
 
 
 def test_window_shared_memory_fits_the_probe_and_stops_past_the_block():
-    """At the probe's W = 4096 and 128 x 32 rows a tile: 128 KB of window
-    slice and 16 KB of relative indices; the largest W that fits is 6752."""
-    assert gather_probes.window_shared_bytes(4096, 4096) == 147456
-    assert gather_probes.window_shared_bytes(6752, 4096) <= 232448 < gather_probes.window_shared_bytes(6753, 4096)
+    """At the probe's 128 x 32 picks a tile and 32 channels: a ring of three
+    chunks of 128 rows (48 KB), 24 bytes of mbarriers, 128 of counts and 8
+    bytes a pick (32 KB), so two blocks share an SM's 228 KB (with 1 KB each
+    reserved); w no longer counts. With that ring the most picks that fit are
+    22893."""
+    span = gather_probes.plan(64, 32, True, 132)
+    assert gather_probes.window_shared_bytes(32, 4096, span.chunk_rows, span.stages) == 82072
+    assert 2 * (82072 + 1024) <= 233472
+    at = lambda trk: gather_probes.window_shared_bytes(32, trk, 128, 3)
+    assert at(22893) <= 232448 < at(22894)
+    assert gather_probes.window_shared_bytes(3, 4096, 1365, 1) == 49288  # the cooperative route's one chunk
+
+
+@pytest.mark.parametrize("tiles, splits", [(64, 4), (32, 8), (160, 1), (264, 1), (1, 32), (100, 2)],
+                         ids=["eval32 and eval", "train", "past the SMs", "a wave", "capped", "rounded down"])
+def test_span_plan_splits_fill_one_wave(tiles, splits):
+    """Blocks a tile: tiles * splits at most two blocks an SM of 132 (one
+    wave), at least one, at most 32."""
+    got = gather_probes.plan(tiles, 32, True, 132)
+    assert got.splits == splits
+    assert got.splits == 1 or tiles * got.splits <= 264
+
+
+@pytest.mark.parametrize("c, bulk, chunk_rows, stages", [(3, False, 1365, 1), (8, True, 512, 3), (32, True, 128, 3),
+                                                         (64, True, 64, 3), (4096, True, 1, 3), (8, False, 512, 1)])
+def test_span_plan_chunks_and_their_shared_memory(c, bulk, chunk_rows, stages):
+    """Chunks of 16 KB (at least a row): a ring of three on the bulk route,
+    one chunk at a time on the cooperative one; at the probe's 4096 picks a
+    tile every chunk fits a block's 232448 bytes."""
+    span = gather_probes.plan(64, c, bulk, 132)
+    assert (span.chunk_rows, span.stages) == (chunk_rows, stages)
+    assert gather_probes.window_shared_bytes(c, 4096, chunk_rows, stages) <= 232448
+
+
+def test_window_rows_name_what_the_plain_versions_read():
+    """``window_rows`` (the kernels' mapping and ``staged_bytes``' spans) against
+    the plain versions' scratch: position rel below W is row kblk * W + rel,
+    from W the clamped second block's; a clamped tile's positions past W read
+    its own block again."""
+    from pointnet2_tpu_torch.tools import wingather_out4d_probe
+
+    b, n, c, w, tm, k = 2, 1024, 3, 256, 128, 2
+    rng = np.random.RandomState(60)
+    pts = torch.from_numpy(rng.rand(b, n, c).astype(np.float32))
+    kblk = torch.tensor([[0, 3], [2, 3]], dtype=torch.int32)
+    rel = torch.from_numpy(rng.randint(0, 2 * w, (b, 2, tm * k)).astype(np.int32))
+    rows = sp_gather_probe.window_rows(rel, kblk, n, w)
+    assert int(rows.max()) < n and int(rows[:, 1].min()) >= 3 * w
+    want = torch.take_along_dim(pts, rows.reshape(b, -1, 1), dim=1)
+    got = wingather_out4d_probe.window_out4d_plain(pts, rel[:, :, None], kblk, w, tm, k)
+    assert torch.equal(got.reshape(b, -1, c), want)
+    idx = (kblk.long()[:, :, None] * w + rel.long()).to(torch.int32).reshape(b, 2 * tm, k)
+    assert torch.equal(sp_gather_probe.sp_win_plain(pts, idx, kblk, w, tm), want)
+    spans = rows.amax(-1) - rows.amin(-1) + 1
+    assert sp_gather_probe.staged_bytes(rel, kblk, n, w, c) == int(spans.sum()) * c * 4
+
+
+def test_span_info_reports_the_plan_and_the_staged_bytes(monkeypatch):
+    """``span_info`` at the ``eval32`` regime's launch on 132 SMs: the bulk
+    route at 8 lanes, ``plan``'s 4 parts of 128-row chunks through a ring of
+    three, its 82072 bytes of shared memory, and each tile's span staged once."""
+    monkeypatch.setattr(gather_probes, "num_sms", lambda device: 132)
+    n, w, tm, k = 1024, 256, 128, 32
+    rng = np.random.RandomState(61)
+    pts = torch.from_numpy(rng.rand(8, n, 32).astype(np.float32))
+    kblk = torch.from_numpy(rng.randint(0, n // w, (8, 8)).astype(np.int32))
+    rel = torch.from_numpy(rng.randint(0, 2 * w, (8, 8, tm * k)).astype(np.int32))
+    info = sp_gather_probe.span_info("gather_window_staged", pts, rel, kblk, w, tm * k)
+    assert (info["bulk"], info["lanes"]) == (True, 8)
+    assert info["plan"] == {"splits": 4, "chunk_rows": 128, "stages": 3} and info["shared_bytes"] == 82072
+    rows = sp_gather_probe.window_rows(rel, kblk, n, w)
+    assert info["staged_bytes"] == int((rows.amax(-1) - rows.amin(-1) + 1).sum()) * 32 * 4
+
+
+def test_plan_sweep_times_each_pair_and_puts_the_plan_back(monkeypatch):
+    """``sp_gather_probe.plan_sweep`` on 64 tiles of 32 channels (``plan``:
+    4 x 128 on 132 SMs): the nine pairs at half, once and twice ``plan``'s
+    splits and chunk rows, each launch answered by its pair (here a stub
+    device time that grows with both), the best and the plan's gap to it,
+    and the module's ``plan`` put back."""
+    monkeypatch.setattr(gather_probes, "num_sms", lambda device: 132)
+
+    def device_ms(run, kernel):
+        run()
+        span = gather_probes.plan(64, 32, True, 132)
+        return span.splits + span.chunk_rows / 1000
+
+    monkeypatch.setattr(sp_gather_probe, "device_ms", device_ms)
+    planned = gather_probes.plan
+    n, w, tm, k = 1024, 256, 128, 4
+    rng = np.random.RandomState(62)
+    pts = torch.from_numpy(rng.rand(8, n, 32).astype(np.float32))
+    kblk = torch.from_numpy(rng.randint(0, n // w, (8, 8)).astype(np.int32))
+    idx3 = (kblk.long()[:, :, None] * w + torch.from_numpy(rng.randint(0, 2 * w, (8, 8, tm * k)))).to(torch.int32)
+    idx3 = idx3.reshape(8, 8 * tm, k)
+    want = sp_gather_probe.sp_win_plain(pts, idx3, kblk, w, tm)
+    got = sp_gather_probe.plan_sweep(pts, idx3, kblk, w, tm, want, "card")
+    assert gather_probes.plan is planned
+    assert list(got["device_ms"]) == [f"{s} x {r}" for s in (2, 4, 8) for r in (64, 128, 256)]
+    assert (got["plan"], got["best"]) == ("4 x 128", "2 x 64")
+    assert got["plan_over_best"] == pytest.approx(4.128 / 2.064)
+
+
+@pytest.mark.parametrize("tiles, c, bulk, wraps, divides", [
+    (12, 3, False, False, False),
+    (12, 64, True, False, False),
+    (12, 1024, True, True, False),
+    (160, 32, True, True, True),
+    (160, 32, False, True, True),
+], ids=["cooperative, 22 parts", "bulk, 22 parts", "4-row chunks", "one part", "one part, cooperative"])
+def test_span_plan_reaches_the_edges_of_the_card_tests(tiles, c, bulk, wraps, divides):
+    """The shapes of the card's span-edge tests (``SPAN_EDGES`` in
+    ``tests/test_torch_cuda.py``, ``PROBE_SPAN_EDGES`` in ``chip_smoke.py``)
+    reach the routine's edges through ``plan`` on 132 SMs: on a span of 1024
+    rows (both W = 512 blocks), each part is ``(span - 1 + splits) // splits``
+    rows as the kernel cuts it; the ring wraps where a part takes more chunks
+    than the ring has stages, and the parts divide the span or leave the last
+    one short."""
+    span = gather_probes.plan(tiles, c, bulk, 132)
+    rows = 1024
+    per = (rows - 1 + span.splits) // span.splits
+    assert (-(-per // span.chunk_rows) > span.stages) == wraps
+    assert (per * span.splits == rows) == divides
 
 
 def test_plain_versions_refuse_partial_tiles_as_the_wrappers_do():

@@ -304,8 +304,7 @@ def _stub(monkeypatch, module, launch) -> None:
     monkeypatch.setattr(module, "require", _on_cpu)
     monkeypatch.setattr(module, "stream_of", lambda t: (0, 0))
     monkeypatch.setattr(module, "launch", launch)
-    if module is bq_probes:
-        monkeypatch.setattr(bq_probes, "num_sms", lambda device: 132)
+    monkeypatch.setattr(module, "num_sms", lambda device: 132)
 
 
 def _probe_shape_tensors():
@@ -344,11 +343,15 @@ def test_out4d_wrappers_pass_every_argument_of_their_c_entry(monkeypatch, call):
         assert tuple(passed[3:8]) == (8, 8, 128, 3072, 8192)
         assert passed[9] == 32 and tuple(passed[10:12]) == bq_probes.precut_route(8, 8, 128, 3072, 0)
     else:
-        assert tuple(passed[3:11]) == (8, 8192, c, 8, 128, 32, 4096, int(c % 4 == 0))
+        vec = c % 4 == 0
+        lanes = 8 if vec else 4  # row 9's plan: 8 vectors of 16 bytes, or 3 floats
+        span = gather_probes.plan(64, c, vec, 132)  # 8 clouds x 8 tiles: 4 blocks a tile
+        assert span.splits == 4
+        assert tuple(passed[3:14]) == (8, 8192, c, 8, 128, 32, 4096, int(vec), lanes, span.splits, span.chunk_rows)
 
 
 @pytest.mark.parametrize("case", ["N % wblk", "tm * K", "slice", "kblk", "rel dtype", "nsample 0", "window 0",
-                                  "permw"])
+                                  "permw", "chunk", "picks"])
 def test_out4d_wrappers_refuse_what_their_kernels_do_not_take(monkeypatch, case):
     for module in (bq_probes, gather_probes):
         _stub(monkeypatch, module, lambda *a: pytest.fail("launched"))
@@ -357,8 +360,14 @@ def test_out4d_wrappers_refuse_what_their_kernels_do_not_take(monkeypatch, case)
     call, match = {
         "N % wblk": (lambda: gather(zp_s[:, :8000], rel, kblk, 4096, 128, 32), "N a multiple of wblk"),
         "tm * K": (lambda: gather(zp_s, rel, kblk, 4096, 128, 16), "tm \\* K"),
-        # 2 wblk x 16 bytes + tm * K * 4: blocks of 8192 rows take 256 KB alone.
-        "slice": (lambda: gather(torch.rand(8, 16384, 32), rel, kblk, 8192, 128, 32), "past a block's 232448"),
+        # 128 x 256 picks a tile: 8 bytes a pick take 256 KB beside the ring.
+        "slice": (lambda: gather(zp_s, torch.zeros(8, 1, 1, 128 * 256, dtype=torch.int32), kblk[:, :1], 4096, 128, 256),
+                  "past a block's 232448"),
+        # Rows of 20000 floats: a chunk of one row, 80 KB, and the ring of three past a block's 227 KB.
+        "chunk": (lambda: gather(torch.rand(1, 8, 20000), torch.zeros(1, 1, 1, 128, dtype=torch.int32), kblk[:1, :1],
+                                 4, 128, 1), "a ring of 3 x 1 rows of 20000 floats"),
+        "picks": (lambda: gather(zp_s[:1], torch.zeros(1, 1, 1, 128 * 1024, dtype=torch.int32), kblk[:1, :1], 4096, 128,
+                                 1024), "16-bit"),
         "kblk": (lambda: gather(zp_s, rel, kblk[:, :4], 4096, 128, 32), "kblk must have shape"),
         "rel dtype": (lambda: gather(zp_s, rel.long(), kblk, 4096, 128, 32), "rel must be"),
         "nsample 0": (lambda: bq_probes.bq_precut_pos(win, permw, q_tiles, 8192, 0.5, 0), "nsample > 0"),
@@ -371,8 +380,11 @@ def test_out4d_wrappers_refuse_what_their_kernels_do_not_take(monkeypatch, case)
 
 def test_out4d_shared_memory_at_the_probes_shape():
     """wblk = 4096 at N = 8192, W = 3072 (the two blocks are the whole
-    cloud): 128 KB of window slice and 16 KB of relative indices; K = 64
-    takes 32 KB of them."""
+    cloud), which no longer counts: P11's plan at the probe's 8 x 8 tiles, a
+    ring of three chunks of 128 rows and 8 bytes a pick, 80 KB at K = 32; K =
+    64 takes 32 KB more and still leaves two blocks an SM."""
     assert core.pick_wblk(8192, 3072) == 4096
-    assert gather_probes.window_shared_bytes(4096, 128 * 32) == 147456
-    assert gather_probes.window_shared_bytes(4096, 128 * 64) == 163840 <= 232448
+    span = gather_probes.plan(64, 32, True, 132)
+    assert span == (4, 128, 3)
+    assert gather_probes.window_shared_bytes(32, 128 * 32, span.chunk_rows, span.stages) == 82072
+    assert gather_probes.window_shared_bytes(32, 128 * 64, span.chunk_rows, span.stages) == 114840 <= 232448 // 2
