@@ -56,14 +56,18 @@ non-zero and prints no result):
    FPS and kNN ones (``ops.cuda.probes``: ``fps_remask`` and ``fps_packed`` in
    ``csrc/fps_probes.cu``, ``knn_argmin`` and ``knn_tracked`` in
    ``csrc/knn_probes.cu``), each equal bit for bit to its plain version (the
-   probe tool's) and the FPS ones to row 6's indices, at the probes' own
-   shapes (FPS 64 x 8192 -> 1024, remask True and False, G = 2, 4, 8; kNN
-   64 clouds, 8192 queries, 1024 references, k = 3) and at edge shapes: npoint
-   = N = 1000 with B = 12 (no multiple of a warp's points, of 128 or of G =
-   8), integer coordinates (ties), kNN k = 1, 16 and 32 at SA1's grouping
-   (B = 16, 1024 queries, 8192 references). Bounds: row 6's (10 operations
-   a point and step, ``chain_ms`` of ``pn2_fps_barrier_chain`` at the
-   planned cluster size beside it, and row 6's own time) and row 3's (9
+   probe tool's), the FPS ones also to row 6's
+   indices and, on two clouds, the oracle's, at the probes' own shapes (FPS
+   64 x 8192 -> 1024, remask True and False, G = 2, 4, 8; kNN 64 clouds,
+   8192 queries, 1024 references, k = 3) and at edge shapes: npoint = N =
+   1000 with B = 12 (padding warps, the C = 1 route, a cluster of G = 8 with
+   four empty groups), N = 8191 (no multiple of C; G = 8 has no route
+   there), npoint = 1 and 2, integer coordinates (ties), kNN k = 1, 16 and
+   32 at SA1's grouping (B = 16, 1024 queries, 8192 references). Bounds:
+   row 6's (10 operations a point and step; at the probe shape the device
+   ms of each kernel, of row 6, of ``pn2_fps_barrier_chain`` at each
+   kernel's route and of the probes' own exchange alone,
+   ``pn2_fps_probe_chain``) and row 3's (9
    operations a pair, ``pn2_knn`` at the same shape beside it). Then the
    four ball-query probe kernels (``ops.cuda.bq_probes``, all in
    ``csrc/bq_probes.cu``), each equal bit for bit to its plain version, at
@@ -1319,9 +1323,12 @@ def repaired_phase(cfg: Config, seed: int, report: Report) -> None:
 
 
 # The probes phase (2b): the TPU design probes' four kernels and their tools.
-PROBE_FPS = (  # (label, B, N, npoint, integer coordinates)
+PROBE_FPS = (  # (label, B, N, npoint, integer coordinates); the first is timed
     ("probe shape", 64, 8192, 1024, False),
     ("npoint = N, B not a multiple of 8", 12, 1000, 1000, False),
+    ("N not a multiple of C", 12, 8191, 256, False),
+    ("npoint = 1", 12, 1000, 1, False),
+    ("npoint = 2", 12, 1000, 2, False),
     ("integer coordinates (ties)", 16, 8192, 1024, True),
 )
 PROBE_KNN = (  # (label, B, queries, references, k, integer coordinates)
@@ -1713,6 +1720,52 @@ def out4d_probe_rows(report: Report) -> None:
             raise AssertionError(f"the 4-D grouping's edge misses a clamped block or a short or empty ball: {edge}")
 
 
+def fps_probe_rows(report: Report, cloud) -> None:
+    """``fps_remask`` (both flags) and ``fps_packed`` (each G) at
+    ``PROBE_FPS``' shapes (``cloud(b, n, integer, scale)`` makes them), each
+    equal bit for bit to its plain version, to row 6 and, on the first two
+    clouds, to the oracle (N = 1000 takes the C = 1 route at every G; B =
+    12, G = 8 leaves 4 groups empty). At the probe shape each row also gives
+    the device ms (``device_ms``) beside row 6's, the chain of its route with
+    row 6's exchange (``chain_ms``) and with the probes' own
+    (``probe_chain_ms``)."""
+    for label, b, n, npoint, integer in PROBE_FPS:
+        xyz = cloud(b, n, integer, 8.0 if integer else 10.0)
+        want6 = cuda.farthest_point_sample(xyz, npoint)
+        oracle = reference.farthest_point_sample_np(xyz[:2].cpu().numpy(), npoint)
+        work = op_bench.work_fps(b, n, npoint, rows=False)
+        route6 = cuda_fps.planned_route(xyz, npoint, rows=False)
+        timed = label == PROBE_FPS[0][0]
+        row6 = lambda: cuda.farthest_point_sample(xyz, npoint)
+        row6_device = device_ms(row6, "farthest_point_sample") if timed else None
+        cases = [("fps_remask", f"remask={r}", 1, route6, lambda r=r: cuda.fps_remask(xyz, npoint, r),
+                  lambda r=r: fps_mask_probe.fps_remask_plain(xyz, npoint, r)) for r in (True, False)]
+        for g in fps_packed_probe.SHAPES["groups"]:
+            if not cuda_probes.packed_candidates(n, g):
+                continue  # G = 8 at N = 8191: no route keeps 1024 points of a cloud a block (the wrapper raises)
+            plain = lambda g=g: fps_packed_probe.fps_packed_plain(xyz, npoint, g)
+            route = cuda_probes.packed_route(xyz, npoint, g)
+            cases.append(("fps_packed", f"G={g}", g, route, lambda g=g: cuda.fps_packed(xyz, npoint, g), plain))
+        for name, variant, g, route, run, plain in cases:
+            got = run()
+            match = (torch.equal(got, plain()) and torch.equal(got, want6)
+                     and bool((got[:2].cpu().numpy() == oracle).all()))
+            info = {"plan": route, "row6_plan": route6, "case": "probes"}
+            if timed:
+                clusters = -(-b // g)
+                info.update(
+                    device_ms=device_ms(run, name), row6_device_ms=row6_device,
+                    chain_ms=device_ms(lambda: cuda_fps.barrier_chain(clusters, npoint, route), "fps_barrier_chain",
+                                       launches=1),
+                    probe_chain_ms=device_ms(lambda: cuda_probes.probe_chain(clusters, npoint, g, route),
+                                             "fps_probe_chain", launches=1),
+                )
+            report.add(
+                name, b, f"{label} N={n} npoint={npoint} {variant}", run, plain, *work, err=0.0, match=match,
+                plain_timing=FEW, extra={"row6_ms": row6}, info=info,
+            )
+
+
 def probes_phase(seed: int, report: Report) -> dict:
     """Phase 2b: the 14 probe kernels (``ops.cuda.probes``,
     ``ops.cuda.bq_probes``, ``ops.cuda.gather_probes``), each against its
@@ -1729,34 +1782,7 @@ def probes_phase(seed: int, report: Report) -> dict:
         x = rng.rand(b, n, 3) * scale
         return torch.from_numpy((np.round(x) if integer else x).astype(np.float32)).to(dev)
 
-    for label, b, n, npoint, integer in PROBE_FPS:
-        xyz = cloud(b, n, integer, 8.0 if integer else 10.0)
-        row6 = cuda.farthest_point_sample(xyz, npoint)
-        work = op_bench.work_fps(b, n, npoint, rows=False)
-        route6 = cuda_fps.planned_route(xyz, npoint, rows=False)
-        for remask in (True, False):
-            got, want = cuda.fps_remask(xyz, npoint, remask), fps_mask_probe.fps_remask_plain(xyz, npoint, remask)
-            report.add(
-                "fps_remask", b, f"{label} N={n} npoint={npoint} remask={remask}",
-                lambda r=remask: cuda.fps_remask(xyz, npoint, r),
-                lambda r=remask: fps_mask_probe.fps_remask_plain(xyz, npoint, r), *work,
-                err=0.0, match=torch.equal(got, want) and torch.equal(got, row6), plain_timing=FEW,
-                extra={"row6_ms": lambda: cuda.farthest_point_sample(xyz, npoint),
-                       "chain_ms": lambda: cuda_fps.barrier_chain(b, npoint, route6)},
-                info={"plan": route6, "case": "probes"},
-            )
-        for g in fps_packed_probe.SHAPES["groups"]:
-            route = cuda_probes.packed_route(xyz, npoint, g)
-            got, want = cuda.fps_packed(xyz, npoint, g), fps_packed_probe.fps_packed_plain(xyz, npoint, g)
-            report.add(
-                "fps_packed", b, f"{label} N={n} npoint={npoint} G={g}",
-                lambda g=g: cuda.fps_packed(xyz, npoint, g),
-                lambda g=g: fps_packed_probe.fps_packed_plain(xyz, npoint, g), *work,
-                err=0.0, match=torch.equal(got, want) and torch.equal(got, row6), plain_timing=FEW,
-                extra={"row6_ms": lambda: cuda.farthest_point_sample(xyz, npoint),
-                       "chain_ms": lambda g=g, route=route: cuda_fps.barrier_chain(-(-b // g), npoint, route)},
-                info={"plan": route, "row6_plan": route6, "case": "probes"},
-            )
+    fps_probe_rows(report, cloud)
 
     for label, b, nq, m, k, integer in PROBE_KNN:
         refs, queries = cloud(b, m, integer, 8.0), cloud(b, nq, integer, 8.0)

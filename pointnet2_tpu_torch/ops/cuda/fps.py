@@ -46,41 +46,33 @@ def slice_points(n: int, cluster: int) -> int:
     return -(-n // cluster)
 
 
-def block_shape(n: int, cluster: int, g: int = 1) -> tuple[int, int] | None:
+def block_shape(n: int, cluster: int) -> tuple[int, int] | None:
     """``(threads, ppt)`` for the slice of ``n`` points one of ``cluster``
     blocks owns: the fewest points a thread for which at most 128 threads
     (one warp a scheduler) hold the slice; past 1024 points, 8 or 16 points
-    a thread on up to 512 threads. None if no block holds the slice.
-
-    ``g``: clouds a cluster (the packed probe kernel, ``ops.cuda.probes``):
-    a thread then holds ``g * ppt`` points, at most ``max(PPTS)``, and the
-    rule reads that count in place of ``ppt``."""
+    a thread on up to 512 threads. None if no block holds the slice."""
     s = slice_points(n, cluster)
     for ppt in PPTS:
-        regs = g * ppt
-        if regs > max(PPTS):
-            break
         threads = max(32, (-(-s // ppt) + 31) // 32 * 32)
-        if threads <= (SMALL_BLOCK if regs < 8 else max_threads(regs)):
+        if threads <= (SMALL_BLOCK if ppt < 8 else max_threads(ppt)):
             return threads, ppt
     return None
 
 
-def candidates(n: int, g: int = 1) -> dict[int, tuple[int, int]]:
+def candidates(n: int) -> dict[int, tuple[int, int]]:
     """Cluster size -> ``(threads, ppt)`` for every route that can take
     ``n`` points: the slice fits one block, and a block keeps at least
     ``MIN_BLOCK_POINTS`` unless C = 1."""
     out = {}
     for c in CLUSTERS:
-        shape = block_shape(n, c, g)
+        shape = block_shape(n, c)
         if shape is not None and (c == 1 or n >= c * MIN_BLOCK_POINTS):
             out[c] = shape
     return out
 
 
-def plan(b: int, n: int, resident: dict[int, int], g: int = 1) -> tuple[int, int, int]:
-    """``(cluster, threads, ppt)`` for ``b`` clouds of ``n`` points
-    (``ceil(b / g)`` clusters of ``g`` clouds each).
+def plan(b: int, n: int, resident: dict[int, int]) -> tuple[int, int, int]:
+    """``(cluster, threads, ppt)`` for ``b`` clouds of ``n`` points.
 
     ``resident`` maps each cluster size of ``candidates(n)`` to how many such
     clusters the card runs at once (0 if none). The route with the fewest
@@ -91,11 +83,11 @@ def plan(b: int, n: int, resident: dict[int, int], g: int = 1) -> tuple[int, int
         raise ValueError(f"FPS needs B > 0 and N > 0, got B={b}, N={n}")
     if n > MAX_POINTS:
         raise ValueError(f"the FPS kernel takes at most {MAX_POINTS} points, got {n}")
-    clusters, best = -(-b // g), None
-    for c, (threads, ppt) in candidates(n, g).items():
+    best = None
+    for c, (threads, ppt) in candidates(n).items():
         if resident.get(c, 0) <= 0:
             continue
-        waves = -(-clusters // resident[c])
+        waves = -(-b // resident[c])
         if best is None or waves < best[0]:
             best = (waves, c, threads, ppt)
     if best is None:

@@ -12,7 +12,10 @@ step. The tool prints whether both give the oracle's indices
 (``ops.reference.farthest_point_sample_np`` on the first 4 clouds) and
 each other's on all 64, then three interleaved rounds of both kernels' times:
 ``utils.bench.slope_time`` (the JAX tool's timer) and ``cuda_ms`` beside
-it, with the card's name and power limit. On the CPU (``--device cpu``)
+it, with the card's name and power limit; then one line of device ms
+(``utils.bench.device_ms``): both kernels, row 6 (``pn2_farthest_point_sample``)
+and ``chain_ms``, row 6's exchange alone (``ops.cuda.fps.barrier_chain``)
+at the route all three launch with. On the CPU (``--device cpu``)
 the plain versions run and no time is taken. ``main(argv, shapes=...)``
 runs another size (the CPU tests do).
 """
@@ -26,7 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from pointnet2_tpu_torch.ops import cuda, reference
-from pointnet2_tpu_torch.utils.bench import card_line, cuda_ms, require_device, slope_time
+from pointnet2_tpu_torch.ops.cuda import fps as cuda_fps
+from pointnet2_tpu_torch.utils.bench import card_line, cuda_ms, device_ms, require_device, slope_time
 
 LANES = 128  # the TPU kernel pads N to whole lanes
 SHAPES = dict(b=64, n=8192, npoint=1024, oracle_clouds=4, rounds=3)
@@ -119,7 +123,13 @@ def main(argv=None, shapes: dict = SHAPES) -> dict:
               f"no-remask {t[False][0]:7.3f} ms (events {t[False][1]:7.3f}) | {card}", flush=True)
         summary["rounds"].append({"remask_ms": t[True][0], "remask_events_ms": t[True][1],
                                   "no_remask_ms": t[False][0], "no_remask_events_ms": t[False][1]})
-    summary["card"] = card
+    route = cuda_fps.planned_route(xyz, m, rows=False)
+    dev = {f"remask={r}": device_ms(lambda r=r: fps_remask(xyz, m, r), "fps_remask") for r in (True, False)}
+    dev["row6"] = device_ms(lambda: cuda.farthest_point_sample(xyz, m), "farthest_point_sample")
+    dev["chain"] = device_ms(lambda: cuda_fps.barrier_chain(b, m, route), "fps_barrier_chain", launches=1)
+    print(f"device: remask {dev['remask=True']:.5f} ms, no-remask {dev['remask=False']:.5f} ms, "
+          f"row 6 {dev['row6']:.5f} ms; chain {dev['chain']:.5f} ms (route {route}) | {card}", flush=True)
+    summary.update(device_ms=dev, route=route, card=card)
     return summary
 
 

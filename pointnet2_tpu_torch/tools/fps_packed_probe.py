@@ -1,6 +1,6 @@
 """Probe: FPS with G clouds served by one program, against row 6's kernel.
 
-    python -m pointnet2_tpu_torch.tools.fps_packed_probe [--device cpu]
+    python -m pointnet2_tpu_torch.tools.fps_packed_probe [--device cpu] [--routes]
 
 The counterpart of the JAX repo's ``tools/fps_packed_probe.py``, at its
 shapes and seed (64 clouds of 8192 points, ``RandomState(0)`` times 10,
@@ -15,10 +15,16 @@ on the first 4 clouds) and row 6's on all 64, then the production
 ``utils.bench.slope_time`` at B = 64, each with its ratio to row 6, the
 ``(cluster, threads, ppt)`` each ran (the card's answer to how many
 clusters of each size it holds at once picks it) and the card's name and
-power limit. Then the same for larger batches (B = 128, 256, 512 of the
-same kind of cloud, one line each): packing can pay only where B passes
-the clusters the card holds at once, which B = 64 does not. On the CPU
-(``--device cpu``) the plain versions run and no time is taken.
+power limit, and one line of device ms (``utils.bench.device_ms``): row
+6 and each G, each with ``chain_ms``, row 6's exchange alone
+(``ops.cuda.fps.barrier_chain``) over the clusters and blocks it launches.
+Then the same for larger batches (B = 128, 256, 512 of the same kind of
+cloud, one line each, device ms beside): packing can pay only where B
+passes the clusters the card holds at once, which B = 64 does not.
+``--routes`` adds a line for each G at B = 64: the device ms of every route
+``ops.cuda.probes.packed_candidates`` offers (the plan made to answer each
+in turn), beside the plan's.
+On the CPU (``--device cpu``) the plain versions run and no time is taken.
 ``main(argv, shapes=...)`` runs another size.
 """
 
@@ -33,7 +39,7 @@ from pointnet2_tpu_torch.ops import core, cuda, reference
 from pointnet2_tpu_torch.ops.cuda import fps as cuda_fps
 from pointnet2_tpu_torch.ops.cuda import probes
 from pointnet2_tpu_torch.tools.fps_mask_probe import fps_steps, lane_planes
-from pointnet2_tpu_torch.utils.bench import card_line, require_device, slope_time
+from pointnet2_tpu_torch.utils.bench import card_line, device_ms, require_device, slope_time
 
 SHAPES = dict(b=64, n=8192, npoint=1024, groups=(2, 4, 8), oracle_clouds=4, sweep=(128, 256, 512))
 
@@ -62,6 +68,7 @@ def fps_packed(xyz: torch.Tensor, npoint: int, g: int) -> torch.Tensor:
 def main(argv=None, shapes: dict = SHAPES) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu: the plain versions, no times")
+    ap.add_argument("--routes", action="store_true", help="also time every route of each G at B = 64")
     args = ap.parse_args(argv)
     device = require_device(args.device)
     on_card = device.type == "cuda"
@@ -106,9 +113,55 @@ def main(argv=None, shapes: dict = SHAPES) -> dict:
         print(f"packed G={g} ({g}/cluster, route {route}): {t:.3f} ms at B={b} ({t0 / t:.2f}x) | {card}", flush=True)
         summary["times_ms"][f"G={g}"] = t
         summary["routes"][f"G={g}"] = route
+    summary["device_ms"] = device_line(xyz, m, shapes["groups"], card)
+    if args.routes:
+        summary["routes_device_ms"] = {g: routes_line(xyz, m, g, base, card) for g in shapes["groups"]}
     summary["sweep"] = {bs: batch_line(x, m, shapes["groups"], card) for bs, x in batches.items()}
     summary["card"] = card
     return summary
+
+
+def device_line(xyz: torch.Tensor, npoint: int, groups, card: str) -> dict:
+    """Device ms of row 6 and each packed G at one batch, each with the
+    chain of its route (row 6's exchange over the same clusters and
+    blocks); one line."""
+    b = xyz.shape[0]
+    runs = {"row6": (lambda: cuda.farthest_point_sample(xyz, npoint), "farthest_point_sample",
+                     cuda_fps.planned_route(xyz, npoint, rows=False), b)}
+    for g in groups:
+        runs[f"G={g}"] = (lambda g=g: cuda.fps_packed(xyz, npoint, g), "fps_packed",
+                          probes.packed_route(xyz, npoint, g), -(-b // g))
+    out = {}
+    for name, (run, kernel, route, clusters) in runs.items():
+        out[name] = {"ms": device_ms(run, kernel), "route": route,
+                     "chain_ms": device_ms(lambda r=route, k=clusters: cuda_fps.barrier_chain(k, npoint, r),
+                                           "fps_barrier_chain", launches=1)}
+    print(f"device at B={b}: " + "; ".join(f"{name} {r['ms']:.5f} ms (route {r['route']}, chain {r['chain_ms']:.5f})"
+                                          for name, r in out.items()) + f" | {card}", flush=True)
+    return out
+
+
+def routes_line(xyz: torch.Tensor, npoint: int, g: int, base: torch.Tensor, card: str) -> dict:
+    """Device ms of ``g`` clouds a cluster on every route of
+    ``packed_candidates``, each held to row 6's indices; one line. Each
+    route runs with ``probes.packed_device_plan`` answering it, and the
+    plan is put back after."""
+    b, n, _ = xyz.shape
+    planned, plan = probes.packed_route(xyz, npoint, g), probes.packed_device_plan
+    out = {}
+    try:
+        for c, (threads, ppt) in probes.packed_candidates(n, g).items():
+            probes.packed_device_plan = lambda *args, r=(c, threads, ppt): r
+            route = probes.packed_route(xyz, npoint, g)
+            run = lambda: cuda.fps_packed(xyz, npoint, g)
+            if not torch.equal(run(), base):
+                raise AssertionError(f"packed G={g} on route {route} misses row 6")
+            out[str(route)] = device_ms(run, "fps_packed")
+    finally:
+        probes.packed_device_plan = plan
+    print(f"routes G={g} at B={b} (plan {planned}): " + "; ".join(f"{r} {ms:.5f} ms" for r, ms in out.items())
+          + f" | {card}", flush=True)
+    return out
 
 
 def batch_line(xyz: torch.Tensor, npoint: int, groups, card: str) -> dict:
@@ -129,6 +182,7 @@ def batch_line(xyz: torch.Tensor, npoint: int, groups, card: str) -> dict:
         for g in groups
     ]
     print(f"B={b}: exact=True; " + "; ".join(parts) + f" | {card}", flush=True)
+    out["device_ms"] = device_line(xyz, npoint, groups, card)
     return out
 
 

@@ -16,9 +16,12 @@ events around a run of launches:
   summed from ``torch.profiler``'s kernel durations. Where the host's side
   of a launch takes longer than the kernel (the small levels), ``cuda_ms``
   measures the host's enqueue rate and this the kernel. The card's tracer
-  now and then records no kernel in a session, and has done so for every
-  session of a call; then the whole call is timed by CUDA events instead,
-  with a warning;
+  loses the first launches of a session (in a process that has run long,
+  up to 4 in most sessions), and now and then a whole session; so a
+  session makes lead-in calls before its timed ones, counts only the
+  launches inside its ``TIMED`` range, and is run again unless it kept
+  every launch issued there (``ops.cuda.LAUNCHES``). When no session comes
+  back whole, the whole call is timed by CUDA events, with a warning;
 - ``deterministic_algorithms``: PyTorch's deterministic algorithms for the
   checks that compare a kernel path with a plain path bit for bit (the
   plain versions' scatters then sum in a fixed order on the card too); no
@@ -51,6 +54,7 @@ KERNEL_SYMBOLS = {
     "fps_centroids": "fps_kernel<true",
     "farthest_point_sample": "fps_kernel<false",
     "fps_barrier_chain": "barrier_chain_kernel",
+    "fps_probe_chain": "fps_probe_chain_kernel",  # <kRec16>: the probes' exchange alone
     "ball_query": "ball_query_kernel(",
     "knn": "knn_kernel",  # knn_kernel<K> (k <= 16) and knn_kernel_list
     "three_interpolate": "three_interpolate_kernel",
@@ -154,16 +158,51 @@ def event_device_us(event) -> float:
     return 0.0
 
 
-def device_ms(fn, kernel: str, calls: int = 20, warmup: int = 2, tries: int = 3) -> float:
+TIMED = "device_ms: the timed calls"  # the profiler range around a session's timed calls
+
+
+def timed_launches(prof, symbol: str) -> tuple[int, float, list[int], int]:
+    """Of a finished ``torch.profiler.profile`` session: the runtime's
+    kernel launches (``cudaLaunchKernel*``) inside its ``TIMED`` range, in
+    order, each matched to its kernel by correlation id. Returns the
+    launches of kernels whose name holds ``symbol``, their summed device us,
+    the places (0 first) of the launches whose kernel the tracer did not
+    keep, and how many launches the range holds."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    ranges = [e.time_range for e in events if e.device_type == DeviceType.CPU and e.name == TIMED]
+    launches = sorted((e for e in events if e.device_type == DeviceType.CPU and "LaunchKernel" in e.name
+                       and any(r.start <= e.time_range.start <= r.end for r in ranges)),
+                      key=lambda e: e.time_range.start)
+    kernels = {e.id: e for e in events if e.device_type != DeviceType.CPU}
+    mine = [kernels[e.id] for e in launches if e.id in kernels and symbol in kernels[e.id].name]
+    lost = [i for i, e in enumerate(launches) if e.id not in kernels]
+    return len(mine), sum(k.time_range.elapsed_us() for k in mine), lost, len(launches)
+
+
+def device_ms(fn, kernel: str, calls: int = 20, warmup: int = 2, tries: int = 3,
+              launches: int | None = None) -> float:
     """Device time of ``kernel``'s launches (``KERNEL_SYMBOLS``) in one call
     of ``fn``, in ms: the profiler's kernel durations over ``calls`` calls.
-    A profiling session that records none of them (the card's tracer has
-    dropped a whole session now and then) is run again, ``tries`` in all;
-    when every session came back empty, the time is ``cuda_ms`` of one call
-    of ``fn`` over ``calls`` runs, all of the call's device work counted,
-    and a ``RuntimeWarning`` says so."""
-    from torch.autograd import DeviceType
+
+    The card's tracer loses the first launches of a session: none or one in
+    a fresh process, up to 4 (once 14) in one that has run long
+    (``tools.profiler_losses``; PERF.md §6). So a session first makes
+    ``lead`` calls (``calls // 4``) and then the ``calls`` timed ones inside
+    a ``TIMED`` range, whose launches alone count (``timed_launches``). It
+    must keep every one of the kernel's launches in that range that was
+    issued: the rise of ``ops.cuda.LAUNCHES[kernel]`` over the timed calls,
+    or ``launches`` a call for a kernel whose wrapper counts none (the FPS
+    chains). A session that keeps fewer, or none, is run again with twice
+    the lead, ``tries`` in all. When no session came back whole, the time
+    is ``cuda_ms`` of one call of ``fn`` over ``calls`` runs, all of the
+    call's device work counted, and a ``RuntimeWarning`` says so, with the
+    launches each short session kept and the places of those it lost."""
+    from torch.autograd.profiler import record_function
     from torch.profiler import ProfilerActivity, profile
+
+    from pointnet2_tpu_torch.ops.cuda.common import LAUNCHES
 
     if not torch.cuda.is_available():
         raise RuntimeError("device_ms times on a CUDA device, and there is none")
@@ -171,22 +210,35 @@ def device_ms(fn, kernel: str, calls: int = 20, warmup: int = 2, tries: int = 3)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    short, lead = [], max(1, calls // 4)
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
+            for _ in range(lead):
                 fn()
-            torch.cuda.synchronize()
-        us = sum(
-            event_device_us(ev) for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA and symbol in ev.key
-        )
-        if us > 0.0:
+            before = LAUNCHES[kernel]
+            with record_function(TIMED):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+        issued = calls * launches if launches is not None else LAUNCHES[kernel] - before
+        seen, us, lost, total = timed_launches(prof, symbol)
+        if us > 0.0 and seen >= issued:
             return us / 1e3 / calls
-    warnings.warn(
-        f"the profiler saw no device time for {kernel} ({symbol!r}) in {tries} sessions; "
-        "timing the whole call by CUDA events instead",
-        RuntimeWarning, stacklevel=2,
-    )
+        if seen:
+            short.append(f"{seen} of {issued} after a lead of {lead} calls (lost at {lost} of {total} launches)")
+        lead *= 2
+    if short:
+        warnings.warn(
+            f"the profiler kept fewer launches of {kernel} ({symbol!r}) than were issued in every one of {tries} "
+            f"sessions: {'; '.join(short)}; timing the whole call by CUDA events instead",
+            RuntimeWarning, stacklevel=2,
+        )
+    else:
+        warnings.warn(
+            f"the profiler saw no device time for {kernel} ({symbol!r}) in {tries} sessions; "
+            "timing the whole call by CUDA events instead",
+            RuntimeWarning, stacklevel=2,
+        )
     return cuda_ms(fn, reps=calls, inner=1, warmup=0)
 
 

@@ -100,3 +100,95 @@ def test_sass_probe_counts_opcodes_by_function():
     first = got["_ZN12_GLOBAL__N_120window_gather_kernelIfLi8ELb0EEEvPKT_PKiS6_iiiiiPS2_"]
     assert first == {"LDC": 1, "S2R": 1, "BRA": 1, "CALL": 1, "STG": 1}
     assert got["_Z5otherv"] == {"EXIT": 1}
+
+
+class _Session:
+    """A stand-in for ``torch.profiler.profile``: each session reports the
+    next (places of the timed launches kept, device us) of ``recorded`` for
+    one kernel, of ``issued`` runtime launches inside the ``TIMED`` range
+    (listed latest first: places go by start time) and two lead-in launches
+    before it whose kernels are lost."""
+
+    def __init__(self, recorded, symbol, issued=5):
+        self.recorded, self.symbol, self.issued = recorded, symbol, issued
+
+    def __call__(self, activities):
+        return self
+
+    def __enter__(self):
+        self.kept, self.us = next(self.recorded)
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def events(self):
+        from torch.autograd import DeviceType
+
+        from pointnet2_tpu_torch.utils import bench
+
+        def event(i, device, name, start, end):
+            return type("Event", (), {"id": i, "device_type": device, "name": name,
+                                      "time_range": type("Range", (), {"start": start, "end": end,
+                                                                       "elapsed_us": lambda self: end - start})()})()
+
+        each = self.us / max(1, len(self.kept))
+        return ([event(0, DeviceType.CPU, bench.TIMED, 0.0, 1000.0)]
+                + [event(-1 - i, DeviceType.CPU, "cudaLaunchKernelExC", -10.0 * (i + 1), 0.0) for i in range(2)]
+                + [event(100 + i, DeviceType.CPU, "cudaLaunchKernelExC", 10.0 * (self.issued - i), 0.0)
+                   for i in range(self.issued)]
+                + [event(100 + i, DeviceType.CUDA, f"{self.symbol}<8, true>(float*)", 0.0, each) for i in self.kept])
+
+
+@pytest.mark.parametrize("counted", [True, False], ids=["launches counted", "launches given"])
+def test_device_ms_runs_a_session_that_lost_launches_again(monkeypatch, counted):
+    """Only the launches of a session's timed calls count (the tracer loses
+    a session's first launches: lead-in calls come first, and what they lose
+    does not matter). A session that keeps fewer of the kernel's timed
+    launches than were issued (the rise of ``ops.cuda.LAUNCHES``, or
+    ``launches`` a call for a kernel whose wrapper counts none) is run again
+    with twice the lead, and the first whole session gives the time. When
+    every session comes back short, or empty, a warning (for short ones,
+    with each one's lead and the places of its lost launches) and the
+    call's time by CUDA events."""
+    import torch
+    import torch.profiler
+
+    from pointnet2_tpu_torch.ops.cuda import common
+    from pointnet2_tpu_torch.utils import bench
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(bench, "cuda_ms", lambda fn, **kw: 7.0)
+    monkeypatch.setattr(common, "LAUNCHES", common.LAUNCHES.copy())
+
+    def call():
+        if counted:
+            common.LAUNCHES["fps_remask"] += 1
+
+    kwargs = {} if counted else {"launches": 1}
+    symbol = bench.KERNEL_SYMBOLS["fps_remask"]
+    monkeypatch.setattr(torch.profiler, "profile",
+                        _Session(iter([((0, 1, 2), 30.0), ((), 0.0), (range(5), 50.0)]), symbol))
+    assert bench.device_ms(call, "fps_remask", calls=5, **kwargs) == pytest.approx(50.0 / 1e3 / 5)
+    monkeypatch.setattr(torch.profiler, "profile",
+                        _Session(iter([((0, 1, 2), 45.0), ((), 0.0), ((1, 2, 3, 4), 48.0)]), symbol))
+    with pytest.warns(RuntimeWarning, match=r"fps_remask .* every one of 3 sessions: 3 of 5 after a lead of 1 "
+                      r"calls \(lost at \[0, 1\] of 5 launches\); 4 of 5 after a lead of 4 calls \(lost at "
+                      r"\[4\] of 5 launches\); timing the whole call by CUDA"):
+        assert bench.device_ms(call, "fps_remask", calls=5, **kwargs) == 7.0
+    monkeypatch.setattr(torch.profiler, "profile", _Session(iter([((), 0.0)] * 3), symbol))
+    with pytest.warns(RuntimeWarning, match="no device time for fps_remask"):
+        assert bench.device_ms(call, "fps_remask", calls=5, **kwargs) == 7.0
+
+
+def test_profiler_losses_runs_on_the_card_only(monkeypatch):
+    """``tools.profiler_losses`` times nothing on the CPU: without a card it
+    raises before any session, as every tool asked for the card does."""
+    import torch
+
+    from pointnet2_tpu_torch.tools import profiler_losses
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profiler_losses.main(["--sessions", "1"])

@@ -1326,24 +1326,48 @@ def test_device_ms_times_by_events_when_the_profiler_records_no_kernel(cuda_devi
 
 
 @pytest.mark.parametrize("integer", [False, True], ids=["random", "integer"])
-def test_probe_kernels_equal_their_plain_versions(cuda_device, integer):
+def test_probe_kernels_equal_their_plain_versions(cuda_device, integer, monkeypatch):
     """The four TPU-probe kernels (``ops.cuda.probes``) against the probe
-    tools' plain versions, bit for bit, and the FPS ones against row 6:
-    B = 12 (no multiple of G = 8), npoint = N = 1000, k up to 32."""
+    tools' plain versions, bit for bit; the FPS ones also against row 6 and
+    the oracle: B = 12 (a cluster of G = 8 with empty groups), npoint = N =
+    1000 (padding warps; the C = 1 route at every G), N = 8191 (no multiple
+    of C), npoint = 1 and 2, N = 16384 (clusters of 16), and at N = 8192
+    every route ``packed_candidates`` offers (the plan monkeypatched, as
+    ``fps_packed_probe --routes`` times them); integer clouds tie across
+    warps, groups and blocks. kNN k up to 32."""
+    from pointnet2_tpu_torch.ops import reference
+    from pointnet2_tpu_torch.ops.cuda import probes
     from pointnet2_tpu_torch.tools import fps_mask_probe, fps_packed_probe, knn_variant_probe
 
     def cloud(seed, b, n):
         x = np.random.RandomState(seed).rand(b, n, 3) * 8.0
         return torch.from_numpy((np.round(x) if integer else x).astype(np.float32)).to(cuda_device)
 
-    xyz = cloud(0, 12, 1000)
-    row6 = cuda.farthest_point_sample(xyz, 1000)
-    for remask in (True, False):
-        got = cuda.fps_remask(xyz, 1000, remask)
-        assert torch.equal(got, fps_mask_probe.fps_remask_plain(xyz, 1000, remask)) and torch.equal(got, row6)
-    for g in (2, 4, 8):
-        got = cuda.fps_packed(xyz, 1000, g)
-        assert torch.equal(got, fps_packed_probe.fps_packed_plain(xyz, 1000, g)) and torch.equal(got, row6)
+    for b, n, npoint in ((12, 1000, 1000), (12, 8191, 300), (12, 1000, 1), (12, 1000, 2), (5, 16384, 64)):
+        xyz = cloud(n + npoint, b, n)
+        row6 = cuda.farthest_point_sample(xyz, npoint)
+        np.testing.assert_array_equal(row6[:2].cpu().numpy(), reference.farthest_point_sample_np(xyz[:2].cpu().numpy(), npoint))
+        for remask in (True, False):
+            got = cuda.fps_remask(xyz, npoint, remask)
+            want = fps_mask_probe.fps_remask_plain(xyz, npoint, remask)
+            assert torch.equal(got, want) and torch.equal(got, row6), (b, n, npoint, remask)
+        for g in probes.GROUPS:
+            if not probes.packed_candidates(n, g):  # G = 8 at N = 8191
+                with pytest.raises(ValueError, match="no FPS route"):
+                    cuda.fps_packed(xyz, npoint, g)
+                continue
+            got = cuda.fps_packed(xyz, npoint, g)
+            want = fps_packed_probe.fps_packed_plain(xyz, npoint, g)
+            assert torch.equal(got, want) and torch.equal(got, row6), (b, n, npoint, g)
+    xyz = cloud(3, 12, 8192)
+    row6 = cuda.farthest_point_sample(xyz, 200)
+    for g in probes.GROUPS:
+        want = fps_packed_probe.fps_packed_plain(xyz, 200, g)
+        for route in probes.packed_candidates(8192, g).items():
+            with monkeypatch.context() as patch:
+                patch.setattr(probes, "packed_device_plan", lambda *args, r=route: (r[0], *r[1]))
+                got = cuda.fps_packed(xyz, 200, g)
+            assert torch.equal(got, want) and torch.equal(got, row6), (g, route)
     refs, queries = cloud(1, 3, 1000), cloud(2, 3, 700)
     for k in (1, 3, 16, 32):
         for name, plain in (("knn_argmin", knn_variant_probe.knn_argmin_plain),

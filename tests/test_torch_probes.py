@@ -166,7 +166,7 @@ def test_wrappers_pass_every_argument_of_their_c_entry(monkeypatch, call):
     monkeypatch.setattr(probes, "stream_of", lambda t: (0, 0))
     monkeypatch.setattr(probes, "launch", lambda *a: seen.append(a))
     monkeypatch.setattr(cuda_fps, "_route", lambda xyz, m, rows, what, route: (*xyz.shape[:2], 8, 128, 8))
-    monkeypatch.setattr(probes, "packed_device_plan", lambda device, b, n, g: (8, 256, 4))
+    monkeypatch.setattr(probes, "packed_device_plan", lambda device, b, n, g: (8, 128, 8))
     xyz = torch.rand(3, 8192, 3)
     args = {"fps_remask": (xyz, 64, True), "fps_packed": (xyz, 64, 2),
             "knn_argmin": (xyz[:, :1024], xyz, 3), "knn_tracked": (xyz[:, :1024], xyz, 32)}[call]
@@ -175,25 +175,107 @@ def test_wrappers_pass_every_argument_of_their_c_entry(monkeypatch, call):
     assert kernel == call and source in build.SOURCES
     assert len(argtypes) == len(passed) == _c_params(source)[symbol]
     assert f"{symbol}_error_string" in (build.CSRC_DIR / f"{source}.cu").read_text()
+    if call == "fps_packed":  # the C entry takes a group's threads: the plan's, not the block's
+        assert passed[5:9] == [2, 8, 128, 8]
+
+
+def test_probe_chain_passes_every_argument_of_its_c_entry(monkeypatch):
+    """``probe_chain`` calls ``pn2_fps_probe_chain`` itself (it counts no
+    launch): its arguments against the C signature, a group's threads."""
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    lib = type("Lib", (), {})()
+    lib.pn2_fps_probe_chain = entry
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: type("Stream", (), {"cuda_stream": 0})())
+    probes.probe_chain(4, 1024, 2, (8, 256, 8))
+    probes.probe_chain(3, 1000, 8, (1, 512, 16), device=1)
+    assert len(calls[0]) == len(entry.argtypes) == _c_params("fps_probes")["pn2_fps_probe_chain"]
+    assert calls[0][:6] == (4, 1024, 2, 8, 128, 0) and calls[1][:6] == (3, 1000, 8, 1, 64, 1)
 
 
 def test_packed_plan_is_row_6s_plan_over_groups():
-    """G = 1 is row 6's plan; a thread holds G x PPT <= 16 points within
-    row 6's block limits, and a point of each cloud; ceil(B / G) clusters
-    are what must be resident."""
+    """G = 1 is row 6's candidates, and row 6's own answers stay as they
+    were; G clouds a cluster place ceil(B / G) clusters by the fewest waves,
+    then the smaller block, then the smaller cluster (row 6: the larger)."""
     for n in (64, 1000, 1024, 4096, 8192, 16384, 65536):
-        assert cuda_fps.candidates(n, 1) == cuda_fps.candidates(n)
-        for g in probes.GROUPS:
-            for c, (threads, ppt) in cuda_fps.candidates(n, g).items():
-                assert c in cuda_fps.CLUSTERS and ppt in cuda_fps.PPTS and threads % 32 == 0
-                assert g * ppt <= max(cuda_fps.PPTS) and 32 <= threads <= cuda_fps.max_threads(g * ppt)
-                assert threads * ppt >= cuda_fps.slice_points(n, c)
-    # A block keeps >= 1024 points and a thread <= 16: G = 8 fits only clusters of 8 at N = 8192.
-    assert cuda_fps.candidates(8192, 8) == {8: (512, 2)}
-    assert cuda_fps.candidates(8192, 2) == {8: (256, 4), 4: (512, 4), 2: (512, 8)}
-    assert cuda_fps.candidates(8192, 16) == {}  # 32 points a thread: no route
-    assert cuda_fps.plan(64, 8192, {8: 4, 4: 16, 2: 40}, g=2) == (2, 512, 8)  # 32 clusters in one wave
-    assert cuda_fps.plan(64, 8192, {8: 40, 4: 40, 2: 40}, g=2) == (8, 256, 4)  # all fit: the larger cluster
+        assert probes.packed_candidates(n, 1) == cuda_fps.candidates(n)
+    assert cuda_fps.candidates(8192) == {8: (128, 8), 4: (256, 8), 2: (512, 8), 1: (512, 16)}
+    assert cuda_fps.candidates(1000) == {1: (128, 8)}
+    assert cuda_fps.plan(64, 8192, {8: 64, 4: 33, 2: 66, 1: 132}) == (8, 128, 8)
+    assert cuda_fps.plan(64, 8192, {8: 16, 4: 64, 2: 66, 1: 132}) == (4, 256, 8)  # 64 clusters of 4 in one wave
+    # A block keeps >= 1024 points of its cloud, as row 6's; G groups of threads fit one block.
+    assert probes.packed_candidates(8192, 8) == {8: (64, 16)}
+    assert probes.packed_candidates(8192, 4) == {8: (128, 8), 4: (128, 16)}
+    assert probes.packed_candidates(8192, 2) == {8: (128, 8), 4: (256, 8), 2: (256, 16)}
+    assert probes.packed_plan(64, 8192, 2, {8: 40, 4: 40, 2: 40}) == (8, 128, 8)  # all fit: blocks of 256
+    assert probes.packed_plan(64, 8192, 2, {8: 31, 4: 32, 2: 32}) == (2, 256, 16)  # one wave; then the smaller cluster
+    assert probes.packed_plan(64, 8192, 4, {8: 30, 4: 30}) == (4, 128, 16)
+    assert probes.packed_plan(12, 1000, 8, {1: 1}) == (1, 64, 16)  # two clusters of one block, two waves
+    # Eight 64-thread groups of 16 points hold 1024 points a cloud: at N = 8191 a block of 8 would
+    # keep fewer than 1024 points of its cloud, and the slice of 4 does not fit.
+    assert probes.packed_candidates(8191, 8) == {} and probes.packed_candidates(8191, 4) == {4: (128, 16)}
+    with pytest.raises(ValueError, match="no FPS route"):
+        probes.packed_plan(12, 8191, 8, {})
+    with pytest.raises(ValueError, match="no FPS route"):
+        probes.packed_plan(64, 8192, 8, {8: 0})
+
+
+@pytest.mark.parametrize("n", [1000, 8192, 16384])
+@pytest.mark.parametrize("g", probes.GROUPS)
+def test_packed_plan_holds_one_clouds_points_a_thread(g, n):
+    """Every route of G clouds at N: threads a group a multiple of 32, G of
+    them within row 6's block limit for PPT (at most 1024), PPT <= 16 points
+    of one cloud a thread, the group's threads holding the block's slice,
+    and >= 1024 points a block past C = 1; the route chosen at B = 64 and at
+    B = 12 for given residency answers (all in one wave: the smallest
+    block, then the smaller cluster; else the one route in one wave)."""
+    shapes = probes.packed_candidates(n, g)
+    assert shapes and (n > 1000 or list(shapes) == [1])
+    for c, (threads, ppt) in shapes.items():
+        assert c in cuda_fps.CLUSTERS and ppt in cuda_fps.PPTS and ppt <= 16
+        assert threads % 32 == 0 and 32 <= threads and g * threads <= cuda_fps.max_threads(ppt) <= 1024
+        assert threads * ppt >= cuda_fps.slice_points(n, c)
+        assert c == 1 or n >= c * cuda_fps.MIN_BLOCK_POINTS
+    largest = max(shapes)
+    for b in (64, 12):
+        clusters = -(-b // g)
+        best = min(shapes, key=lambda c: (shapes[c][0], c))
+        assert probes.packed_plan(b, n, g, {c: clusters for c in shapes}) == (best, *shapes[best])
+        one_wave = {c: clusters - 1 for c in shapes} | {largest: clusters}  # the rest take two
+        assert probes.packed_plan(b, n, g, one_wave)[0] == largest
+
+
+def test_routes_line_times_every_route_and_puts_the_plan_back(monkeypatch):
+    """``fps_packed_probe.routes_line`` at N = 8192, G = 2: each route of
+    ``packed_candidates`` launched with the plan answering it (a stub
+    launch records the route and gives row 6's indices, a stub device time
+    grows with the cluster), and ``probes.packed_device_plan`` put back."""
+    from pointnet2_tpu_torch.ops import cuda
+
+    planned = lambda device, b, n, g: (8, 128, 8)
+    monkeypatch.setattr(probes, "packed_device_plan", planned)
+    monkeypatch.setattr(probes, "require", lambda *a, **k: None)
+    xyz, base, seen = torch.rand(4, 8192, 3), torch.zeros(4, 16, dtype=torch.int32), []
+
+    def fps_packed(x, npoint, g):
+        seen.append(probes.packed_route(x, npoint, g))
+        return base
+
+    monkeypatch.setattr(cuda, "fps_packed", fps_packed)
+    monkeypatch.setattr(fps_packed_probe, "device_ms", lambda run, kernel: run() is base and seen[-1][0] / 10)
+    got = fps_packed_probe.routes_line(xyz, 16, 2, base, "card")
+    assert probes.packed_device_plan is planned
+    assert got == {"(8, 256, 8)": 0.8, "(4, 512, 8)": 0.4, "(2, 512, 16)": 0.2}
+    assert seen == [(8, 256, 8)] * 2 + [(4, 512, 8)] * 2 + [(2, 512, 16)] * 2
+    monkeypatch.setattr(cuda, "fps_packed", lambda x, npoint, g: base + 1)
+    with pytest.raises(AssertionError, match="misses row 6"):
+        fps_packed_probe.routes_line(xyz, 16, 2, base, "card")
+    assert probes.packed_device_plan is planned
 
 
 def test_knn_probe_limits(monkeypatch):
