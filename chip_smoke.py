@@ -72,9 +72,12 @@ non-zero and prints no result):
    four ball-query probe kernels (``ops.cuda.bq_probes``, all in
    ``csrc/bq_probes.cu``), each equal bit for bit to its plain version, at
    the probes' own shapes (B = 8, N = 8192, M = 1024, nsample 32, r = 0.1)
-   and at an edge shape (integer-grid coordinates, ties; an odd N; nsample
-   40, past a warp's slots): ``bq_keys`` with int32 and int16 keys and
-   ``bq_fat`` at tm = 128 and 256, also equal to row 2 and, on the first two
+   at an edge shape (integer-grid coordinates, ties; an odd N, whose clouds
+   the blocks stage by their own loads; nsample 40, past a warp's lanes)
+   and at ``PROBE_BQ_RING`` (B = 2, N = 20000: the cloud through the ring
+   of chunks): ``bq_keys`` with int32 and int16 keys and ``bq_fat`` at tm =
+   128 and 256 (each row's ``plan``: warps, kq and v, or blocks a tile,
+   chunk columns and route), also equal to row 2 and, on the first two
    clouds, to ``ops.reference.ball_query_np``; the pre-cut kernel at the
    cond probe's 3072-column windows (``bq_precut_cond``: they fit, so it
    equals row 2 and the oracle), behind its device-read guard there (equal)
@@ -1339,6 +1342,7 @@ PROBE_KNN = (  # (label, B, queries, references, k, integer coordinates)
     ("integer coordinates (ties)", 8, 1000, 1000, 16, True),
 )
 PROBE_BQ_EDGE = dict(b=4, n=1001, m=300, nsample=40, radius=0.15)  # integer-grid coordinates (ties)
+PROBE_BQ_RING = dict(b=2, n=20000, m=1024)  # the sweep kernels' ring: 20 chunks of 1024 points, 4 slots
 PROBE_BQ_NOT_FITTING = 1024  # the cond probe's shape with windows its tiles do not fit
 PROBE_GATHER_EDGE = dict(b=5, n=2048, c=3, m=256, k=16)  # no multiple of 8 clouds, no 16-byte vectors
 # The window kernel's edge: 5 clouds of 3 channels, two tiles of 128 queries;
@@ -1384,11 +1388,21 @@ def bq_exact_rows(report: Report, label: str, x1: np.ndarray, x2: np.ndarray, r:
     row2 = cuda.ball_query(xyz1, xyz2, r, ns)
     oracle = reference.ball_query_np(x1[:2], x2[:2], r, ns)
     work = op_bench.work_ball_query(b, n, m, ns, int(op_bench.scanned_pairs(*row2, n, ns).sum()))
-    variants = [("bq_keys", f"keys=int{16 if i16 else 32}", lambda i16=i16: cuda.bq_keys(xyz1, xyz2, r, ns, i16),
-                 lambda i16=i16: bq_i16_probe.bq_keys_plain(xyz1, xyz2, r, ns, i16),
-                 {"warps": cuda_bq_probes.key_warps(n, i16)}) for i16 in (False, True)]
-    variants += [("bq_fat", f"tm={tm}", lambda tm=tm: cuda.bq_fat(xyz1, xyz2, r, ns, tm),
-                  lambda tm=tm: bq_fat_probe.bq_fat_plain(xyz1, xyz2, r, ns, tm), {"tm": tm}) for tm in (128, 256)]
+    staged = "whole" if cuda_bq_probes.staged_whole(n) else "ring"
+    variants = []
+    kq, v = cuda_bq_probes.SWEEP_KQ, cuda_bq_probes.SWEEP_V
+    for i16 in (False, True):
+        warps, how = cuda_bq_probes.key_route(xyz1, m, i16)
+        variants.append(("bq_keys", f"keys=int{16 if i16 else 32}", lambda i16=i16: cuda.bq_keys(xyz1, xyz2, r, ns, i16),
+                         lambda i16=i16: bq_i16_probe.bq_keys_plain(xyz1, xyz2, r, ns, i16),
+                         {"plan": {"warps": warps, "kq": kq, "v": v}, "staging": how, "staged": staged}))
+    for tm in (128, 256):
+        cluster, route = cuda_bq_probes.fat_route(xyz1, m, tm)
+        variants.append(("bq_fat", f"tm={tm}", lambda tm=tm: cuda.bq_fat(xyz1, xyz2, r, ns, tm),
+                         lambda tm=tm: bq_fat_probe.bq_fat_plain(xyz1, xyz2, r, ns, tm),
+                         {"tm": tm, "plan": {"blocks_a_tile": cluster, "chunk_columns": cuda_bq_probes.CHUNK_POINTS,
+                                             "route": route},
+                          "warps": tm // (cluster * kq), "staged": staged}))
     for name, variant, run, plain, info in variants:
         got, want = run(), plain()
         exact = bq_i16_probe.same(got, row2) and bq_i16_probe.oracle_exact(got, oracle, 2)
@@ -1455,8 +1469,8 @@ def precut_row(report: Report, name: str, label: str, xyz1, xyz2, r: float, ns: 
 
 def bq_probe_rows(report: Report) -> None:
     """The four ball-query probe kernels at the probes' own shapes and at
-    ``PROBE_BQ_EDGE``: ``bq_keys``, ``bq_fat``, and the pre-cut kernel at
-    both of its sites."""
+    ``PROBE_BQ_EDGE``: ``bq_keys``, ``bq_fat`` (also at ``PROBE_BQ_RING``),
+    and the pre-cut kernel at both of its sites."""
     dev = torch.device(DEVICE)
     s = bq_i16_probe.SHAPES
     x1, x2, _, _ = bq_i16_probe.probe_clouds(s, torch.device("cpu"))
@@ -1465,6 +1479,8 @@ def bq_probe_rows(report: Report) -> None:
     rng = np.random.RandomState(SEED + 720)
     grid = lambda b, n: (np.round(rng.rand(b, n, 3) * 16) / 16).astype(np.float32)
     bq_exact_rows(report, "integer grid (ties)", grid(e["b"], e["n"]), grid(e["b"], e["m"]), e["radius"], e["nsample"])
+    x1, x2, _, _ = bq_i16_probe.probe_clouds({**s, **PROBE_BQ_RING}, torch.device("cpu"))
+    bq_exact_rows(report, "ring (the cloud past a block)", x1, x2, s["radius"], s["nsample"])
 
     c = bq_cond_probe.SHAPES
     b, n, m, ns, r = (c[k] for k in ("b", "n", "m", "nsample", "radius"))

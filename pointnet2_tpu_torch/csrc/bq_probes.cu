@@ -31,34 +31,66 @@
 //
 // What bounds them on the H100: operations, about 9 a (query, column) pair
 // that can hit (rows 2 and 7). The TPU kernels build each query's whole key
-// row and extract the picks by nsample full-width min sweeps over it; the
-// first two entries keep that formulation on purpose (it is what the probes
-// measure), so they sit above row 2's bound by the sweeps.
+// row and extract the picks by nsample full-width min sweeps over it, and
+// the TPU probes vary two things in that formulation: the keys' width
+// (`pn2_bq_keys`: 32 or 16 bits) and the query tile (`pn2_bq_fat`: tm = 128
+// or 256 queries sharing chunk-built keys). Each entry keeps its variable;
+// the rest is designed for the card. Row 2 (csrc/ballquery.cu) computes the
+// same function in about 6-7 times its operation bound, being latency-bound:
+// that is the yardstick, not the bound.
 //
-// Design of `pn2_bq_keys`: one warp a query, its key row in shared memory
-// (the cloud is read from device memory, where the L2 holds it). The warp
-// builds the row: column j's key is j where it is in the ball, else n; then
-// it makes up to nsample passes, each a full-width sweep in which every lane
-// takes the min of its words and `__reduce_min_sync` gives the row's min, the
-// pass's pick; the lane holding that key sets it to n. int32 keys take a word
-// a column; int16 keys two columns a word (low half first), which the sweep
-// folds with the packed 16-bit minima of sm_90 (`__vimin3_u16x2`, two words
-// an instruction; `__vminu2` for an odd last word) and widens to 32 bits for
-// the warp reduction, as the TPU kernel does for its cross-lane step. At
-// N = 8192 a row is 32 KB in int32 and 16 KB in int16: 7 against 14 warps in
-// a block's 227 KB. A sweep that finds n ends the row (every later sweep
-// finds n too); both widths stop by that rule.
+// Design of `pn2_bq_keys` and `pn2_bq_fat`: one body, `sweep`, at one
+// shape: kQ = 2 queries a warp and kV = 4 words of keys a lane (the fastest
+// of the shapes measured on the H100 for both widths and for the fat
+// kernel's two tiles at one grid; PERF.md §6). A block's warps take
+// kQ queries each; the block stages its cloud's coordinates, as
+// they lie (12 bytes a point, so a warp's 32 points at a stride of 3 words
+// share no bank), in chunks of 1024 points: whole where the cloud fits
+// (up to 18 chunks, 216 KB), else through a ring of 4 chunk slots refilled
+// once every warp of the tile is past a slot. Chunks go by TMA bulk copies
+// onto an mbarrier each, all issued at once where the cloud fits, so the
+// warps start on the first chunk while the rest land; a cloud whose chunks
+// are not 16-byte aligned (n % 4 != 0, or an unaligned array) goes by the
+// block's own loads (the launch chooses). No key row is built: a lane holds kV words of keys a
+// query in registers, covering a segment of 32 x kV columns (int32) or 64 x
+// kV (int16, two keys a word, the lower column in the low half). Column j's
+// key is j where it is in the ball, else n. A segment's sweep: each lane
+// takes the least of its words (int16: `__vimin3_u16x2`, three words an
+// instruction, then the halves), `__reduce_min_sync` gives each query's
+// next pick, in dataset order, and the lane holding it clears that key (or
+// half-word: `__vcmpeq2` masks it) to n and folds its words again. A
+// segment ends when a sweep finds n for every query of the warp, and a
+// query at nsample picks (the count is capped: row 2's early stop); the
+// picks are written as found and cnt is their number. So where the TPU
+// kernel made nsample full-width passes, a query here makes one pass over
+// its cloud with a reduction a hit and one a segment.
 //
-// Design of `pn2_bq_fat`: one block of 16 warps a tile of tm queries of one
-// cloud (the TPU kernel's tile, the axis the probe varies). The cloud goes by
-// in 128-column chunks, in order: the block stages the chunk's coordinates,
-// builds the (tm, 128) int32 keys in shared memory (64 KB at tm = 128, 128 KB
-// at 256) and adds each query's in-ball count; then each warp takes its
-// queries, and each query that still needs picks extracts the chunk's hits by
-// min sweeps over its 128 keys until a sweep finds n. The block stops once
-// all tm queries have nsample picks: the count is capped, so the counts and
-// picks are exact (row 2's early stop).
+// `pn2_bq_keys`: a block of `warps` warps, the queries it takes one tile; the
+// width is the only difference between the two instances. `pn2_bq_fat`: a
+// tile of tm queries is a thread-block cluster of 1 to 8 blocks that split
+// them (ops/cuda/bq_probes.py `fat_plan`: the fewest waves by the card's
+// residency answer, then the most blocks; 4 / 8 blocks of 16 warps at tm
+// 128 / 256 on the probe shape, one grid of 256 blocks for both), and each chunk is fetched once
+// for the tile: one bulk copy, issued by the cluster's blocks in turn,
+// multicast to every block (`.multicast::cluster`), each block's mbarrier
+// expecting exactly the bytes that land in it; the blocks' barriers are
+// initialised before a cluster barrier, the ring's slots are released by a
+// cluster barrier, and the cluster ends on one, after every block has
+// waited for every chunk it was sent (a block whose queries are past m, or
+// all done, still counts the bytes).
 //
+// What each limit of the design before this one became (ptxas, sm_90a):
+// the key rows in shared memory, which left 7 or 14 warps a block, are
+// registers: 47 / 50 registers for int32 / int16 keys, 47 for the fat
+// kernel, no spill. The full-width sweeps are
+// segment-wide and stop at nsample. Every query of a block reads the
+// cloud from shared memory, staged once a block (once a tile for the fat
+// kernel), not by three scalar loads a lane from device memory. The fat
+// kernel's 64 or 32 blocks of 16 warps, four block barriers and shared
+// atomics a 128-column chunk, and serial extraction are 256 blocks at the
+// probe shape, no barrier a chunk where the cloud fits, and each warp's own
+// sweeps.
+
 // Design of `pn2_ball_query_precut`: the tiles kernel of window_bq.cuh (rows
 // 7 and 8) on a window that lies apart, (3, w) coordinates and (w) original
 // indices a (cloud, tile): `PrecutColumns` reads them, and the header's
@@ -75,6 +107,8 @@
 // (window_bq.cuh:364, :374-378); it takes no guard.
 
 #include <climits>
+#include <cooperative_groups.h>
+#include <cstdint>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -82,217 +116,349 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
 using pn2_window::dist2;
 using pn2_window::kFull;
 using pn2_window::kMaxSharedWindow;
 using pn2_window::kMaxSlots;
 
 constexpr int kMaxShared = 232448;  // H100: 227 KB of dynamic shared memory a block
-constexpr int kKeysMaxWarps = 16;
-constexpr int kChunk = 128;  // the fat kernel's columns a chunk
-constexpr int kFatWarps = 16;
 
-// ---- pn2_bq_keys ----------------------------------------------------------
+// ---- pn2_bq_keys and pn2_bq_fat: key sweeps in registers over a staged cloud ----
 
-// Grid (ceil(m / warps), b), `warps` warps a block, one query a warp; dynamic
-// shared memory warps * words * 4 bytes, words = n (int32) or ceil(n / 2)
-// (int16, n <= 32767).
-template <bool kI16>
-__global__ void __launch_bounds__(kKeysMaxWarps * 32)
-    bq_keys_kernel(const float* __restrict__ xyz1, const float* __restrict__ xyz2, int n, int m,
-                   float r2, int nsample, int* __restrict__ idx, int* __restrict__ cnt) {
-  extern __shared__ unsigned key_rows[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int words = kI16 ? (n + 1) >> 1 : n;
-  unsigned* row = key_rows + (size_t)warp * words;
-  const int q = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (q >= m) return;  // a whole warp; the block never synchronises
-  const int cloud = blockIdx.y;
-  const size_t at = (size_t)cloud * m + q;
-  const float qx = xyz2[at * 3 + 0];
-  const float qy = xyz2[at * 3 + 1];
-  const float qz = xyz2[at * 3 + 2];
-  const float* pts = xyz1 + (size_t)cloud * n * 3;
+constexpr int kPointBytes = 12;
+constexpr int kChunkPoints = 1024;  // a staged chunk: 12 KB, 16-byte aligned where the cloud is
+constexpr int kChunkBytes = kChunkPoints * kPointBytes;
+constexpr int kMaxWholeChunks = 18;  // a cloud of up to 18432 points is staged whole (216 KB)
+constexpr int kRingSlots = 4;        // past that, a ring of 4 chunks (48 KB)
+constexpr int kSweepMaxWarps = 16;
+constexpr int kQ = 2;  // queries a warp
+constexpr int kV = 4;  // words of keys a lane
 
-  // The keys: word i in lane i mod 32, so a sweep's reads share no bank.
-  int count = 0;
-  for (int base = 0; base < words; base += 32) {
-    const int i = base + lane;
-    if (kI16) {
-      bool in0 = false, in1 = false;
-      if (i < words) {
-        const int j0 = 2 * i, j1 = 2 * i + 1;
-        in0 = dist2(qx, qy, qz, pts[3 * j0], pts[3 * j0 + 1], pts[3 * j0 + 2]) < r2;
-        in1 = j1 < n && dist2(qx, qy, qz, pts[3 * j1], pts[3 * j1 + 1], pts[3 * j1 + 2]) < r2;
-        row[i] = (unsigned)(in0 ? j0 : n) | ((unsigned)(in1 ? j1 : n) << 16);
-      }
-      count += __popc(__ballot_sync(kFull, in0)) + __popc(__ballot_sync(kFull, in1));
-    } else {
-      bool in = false;
-      if (i < words) {
-        in = dist2(qx, qy, qz, pts[3 * i], pts[3 * i + 1], pts[3 * i + 2]) < r2;
-        row[i] = in ? (unsigned)i : (unsigned)n;
-      }
-      count += __popc(__ballot_sync(kFull, in));
-    }
-  }
-  __syncwarp();
+__host__ __device__ inline int sweep_chunks(int n) { return (n + kChunkPoints - 1) / kChunkPoints; }
 
-  int* out = idx + at * nsample;
-  unsigned first = 0u;
-  int picks = 0;
-  for (; picks < nsample; ++picks) {
-    unsigned least;
-    if (kI16) {
-      unsigned acc = 0xffffffffu;
-      int i = lane;
-      for (; i + 32 < words; i += 64) acc = __vimin3_u16x2(acc, row[i], row[i + 32]);
-      if (i < words) acc = __vminu2(acc, row[i]);
-      least = min(acc & 0xffffu, acc >> 16);
-    } else {
-      least = UINT_MAX;
-      for (int i = lane; i < words; i += 32) least = min(least, row[i]);
-    }
-    const unsigned key = __reduce_min_sync(kFull, least);
-    if (key >= (unsigned)n) break;
-    if (picks == 0) first = key;
-    if (lane == 0) out[picks] = (int)key;
-    // The key is its own column: one lane holds it.
-    if (kI16) {
-      const unsigned i = key >> 1;
-      if (lane == (int)(i & 31u)) {
-        const unsigned shift = (key & 1u) * 16u;
-        row[i] = (row[i] & ~(0xffffu << shift)) | ((unsigned)n << shift);
-      }
-    } else if (lane == (int)(key & 31u)) {
-      row[key] = (unsigned)n;
-    }
-    __syncwarp();
-  }
-  for (int s = picks + lane; s < nsample; s += 32) out[s] = (int)first;
-  if (lane == 0) cnt[at] = min(count, nsample);
+__host__ __device__ inline int sweep_slots(int n) {
+  return sweep_chunks(n) <= kMaxWholeChunks ? sweep_chunks(n) : kRingSlots;
 }
 
-template <bool kI16>
-cudaError_t launch_keys(const float* xyz1, const float* xyz2, int b, int n, int m, float r2,
-                        int nsample, int warps, int* idx, int* cnt, cudaStream_t stream) {
-  const size_t words = kI16 ? (size_t)(n + 1) / 2 : (size_t)n;
-  const size_t smem = (size_t)warps * words * 4;
-  if (b < 1 || b > 65535 || n < 1 || m < 1 || nsample < 1 || warps < 1 || warps > kKeysMaxWarps ||
-      smem > (size_t)kMaxShared || (kI16 && n > 32767))
-    return cudaErrorInvalidValue;
-  auto* kernel = &bq_keys_kernel<kI16>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((unsigned)((m + warps - 1) / warps), (unsigned)b);
-  kernel<<<grid, warps * 32, smem, stream>>>(xyz1, xyz2, n, m, r2, nsample, idx, cnt);
-  return cudaGetLastError();
+// The chunk slots, then an mbarrier a slot.
+__host__ __device__ inline size_t sweep_shared_bytes(int n) {
+  return (size_t)sweep_slots(n) * (kChunkBytes + sizeof(uint64_t));
 }
 
-// ---- pn2_bq_fat -----------------------------------------------------------
+__device__ __forceinline__ uint32_t shared_address(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-// Grid (ceil(m / kTm), b), kFatWarps warps a block; dynamic shared memory
-// kTm * kChunk * 4 bytes of keys.
-template <int kTm>
-__global__ void __launch_bounds__(kFatWarps * 32)
-    bq_fat_kernel(const float* __restrict__ xyz1, const float* __restrict__ xyz2, int n, int m,
-                  float r2, int nsample, int* __restrict__ idx, int* __restrict__ cnt) {
-  extern __shared__ int fat_keys[];  // (kTm, kChunk)
-  __shared__ float cx[kChunk], cy[kChunk], cz[kChunk];
-  __shared__ float qx[kTm], qy[kTm], qz[kTm];
-  __shared__ int picks[kTm], hits[kTm], firsts[kTm];
+__device__ __forceinline__ void mbarrier_init(uint64_t* bar) {  // one arrival a phase: thread 0's
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(shared_address(bar)), "r"(1) : "memory");
+}
+
+__device__ __forceinline__ void mbarrier_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = shared_address(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// Thread 0's arrival on its block's `bar`, which is told to expect `bytes`
+// (a peer's multicast may complete some of them first: the phase waits for
+// both).
+__device__ __forceinline__ void expect_bytes(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(shared_address(bar)), "r"(bytes)
+               : "memory");
+}
+
+// One TMA bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from device memory into this block's shared memory, completing on
+// `bar`; with a `mask` of more than one block, into the same place of every
+// block of the cluster in it, each completing on its own `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar,
+                                          uint16_t mask) {
+  if (mask == 1) {
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+                     shared_address(dst)),
+                 "l"(src), "r"(bytes), "r"(shared_address(bar))
+                 : "memory");
+  } else {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster [%0], [%1], %2, [%3], "
+        "%4;" ::"r"(shared_address(dst)),
+        "l"(src), "r"(bytes), "r"(shared_address(bar)), "h"(mask)
+        : "memory");
+  }
+}
+
+struct SweepArgs {
+  const float* xyz1;  // (b, n, 3)
+  const float* xyz2;  // (b, m, 3)
+  int n, m;
+  float r2;
+  int nsample;
+  int tiles;    // tiles a cloud
+  int tm;       // queries a tile, split evenly over the cluster's blocks
+  int cluster;  // blocks a tile (a thread-block cluster where more than 1)
+  int bulk;     // stage by TMA bulk copies (else by the block's own loads)
+  int* idx;     // (b, m, nsample)
+  int* cnt;     // (b, m)
+};
+
+// The least of a lane's kV words of keys: int32 keys a word each, or two
+// int16 keys a word folded by packed 16-bit minima (three words an
+// instruction) and then the two halves.
+template <bool kI16>
+__device__ __forceinline__ unsigned least_key(const unsigned (&w)[kV]) {
+  unsigned acc = w[0];
+  if constexpr (kI16) {
+#pragma unroll
+    for (int v = 1; v + 1 < kV; v += 2) acc = __vimin3_u16x2(acc, w[v], w[v + 1]);
+    if constexpr (kV % 2 == 0) acc = __vminu2(acc, w[kV - 1]);
+    return min(acc & 0xffffu, acc >> 16);
+  } else {
+#pragma unroll
+    for (int v = 1; v < kV; ++v) acc = min(acc, w[v]);
+    return acc;
+  }
+}
+
+// Sets the key `key` (held once in the warp) to the sentinel `sent`.
+template <bool kI16>
+__device__ __forceinline__ void clear_key(unsigned (&w)[kV], unsigned key, unsigned sent) {
+#pragma unroll
+  for (int v = 0; v < kV; ++v) {
+    if constexpr (kI16) {
+      const unsigned eq = __vcmpeq2(w[v], key * 0x10001u);  // 0xffff in the half that holds it
+      w[v] = (w[v] & ~eq) | (sent * 0x10001u & eq);
+    } else {
+      w[v] = w[v] == key ? sent : w[v];
+    }
+  }
+}
+
+// One body for both entries. A block of warps takes tm / cluster queries of
+// one tile, kQ a warp; the tile's cloud is staged in kChunkPoints-point
+// chunks, whole where it fits (no slot reused) or through a ring of
+// kRingSlots, by bulk copies (one a chunk for the whole cluster, multicast,
+// issued by the blocks in turn) or by the block's own loads. A warp sweeps a
+// chunk a segment at a time: each lane builds kV words of keys a query in
+// registers (column j's key is j where it is in the ball, else n), then every
+// round takes each query's least key over the warp (`__reduce_min_sync`),
+// the next pick in dataset order; the lane holding it clears it and folds its
+// words again. A segment ends when no query has a key below n left, a query
+// at nsample picks (the count is capped: row 2's early stop). The picks are
+// written as found; cnt is their number.
+template <bool kI16>
+__device__ __forceinline__ void sweep(const SweepArgs& a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int chunks = sweep_chunks(a.n);
+  const int slots = sweep_slots(a.n);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + (size_t)slots * kChunkBytes);
+  const int rank = (int)blockIdx.x % a.cluster;
+  const int tile_id = (int)blockIdx.x / a.cluster;
+  const int cloud = tile_id / a.tiles;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int cloud = blockIdx.y;
-  const int q0 = blockIdx.x * kTm;
-  const float* pts = xyz1 + (size_t)cloud * n * 3;
+  const int q0 = (tile_id - cloud * a.tiles) * a.tm + rank * (a.tm / a.cluster) + warp * kQ;
+  const float* pts = a.xyz1 + (size_t)cloud * a.n * 3;
+  const unsigned sent = (unsigned)a.n;
+  const uint16_t mask = (uint16_t)((1u << a.cluster) - 1u);
+  const bool cluster_wide = a.bulk && a.cluster > 1;
 
-  for (int i = threadIdx.x; i < kTm; i += blockDim.x) {
-    const int q = q0 + i;
-    if (q < m) {
-      const size_t at = (size_t)cloud * m + q;
-      qx[i] = xyz2[at * 3 + 0];
-      qy[i] = xyz2[at * 3 + 1];
-      qz[i] = xyz2[at * 3 + 2];
-    }
-    picks[i] = q < m ? 0 : nsample;  // a row past m needs nothing
-    hits[i] = 0;
-    firsts[i] = 0;
+  float qx[kQ], qy[kQ], qz[kQ];
+  int picks[kQ];
+  unsigned first[kQ];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const int qi = q0 + q;
+    const float* p = a.xyz2 + ((size_t)cloud * a.m + (qi < a.m ? qi : 0)) * 3;
+    qx[q] = p[0];
+    qy[q] = p[1];
+    qz[q] = p[2];
+    picks[q] = qi < a.m ? 0 : a.nsample;  // a query past m is done from the start
+    first[q] = 0u;
   }
 
-  // A thread builds column threadIdx.x % kChunk of every (blockDim / kChunk)-th
-  // query row: a warp's 32 lanes share the row, so one ballot counts its hits.
-  const int col = threadIdx.x & (kChunk - 1);
-  const int row_step = blockDim.x / kChunk;
-  for (int base = 0; base < n; base += kChunk) {
-    __syncthreads();  // the last chunk's keys and coordinates are no longer read
-    if (threadIdx.x < kChunk) {
-      const int j = base + threadIdx.x;
-      if (j < n) {
-        cx[threadIdx.x] = pts[3 * j];
-        cy[threadIdx.x] = pts[3 * j + 1];
-        cz[threadIdx.x] = pts[3 * j + 2];
-      }
-    }
+  auto chunk_len = [&](int c) { return min(kChunkPoints, a.n - c * kChunkPoints); };
+  auto slot = [&](int c) { return reinterpret_cast<float*>(smem + (size_t)(c % slots) * kChunkBytes); };
+  auto issue = [&](int c) {  // thread 0 of every block of the tile
+    const uint32_t bytes = (uint32_t)chunk_len(c) * kPointBytes;
+    expect_bytes(bars + c % slots, bytes);
+    if (c % a.cluster == rank) bulk_load(slot(c), pts + (size_t)c * kChunkPoints * 3, bytes, bars + c % slots, mask);
+  };
+  auto load = [&](int c) {  // the block's own loads, then a barrier
+    const float* src = pts + (size_t)c * kChunkPoints * 3;
+    float* dst = slot(c);
+    for (int i = threadIdx.x; i < chunk_len(c) * 3; i += blockDim.x) dst[i] = src[i];
     __syncthreads();
-    for (int i = threadIdx.x / kChunk; i < kTm; i += row_step) {
-      bool in = false;
-      if (picks[i] < nsample && base + col < n)
-        in = dist2(qx[i], qy[i], qz[i], cx[col], cy[col], cz[col]) < r2;
-      fat_keys[i * kChunk + col] = in ? base + col : n;
-      const unsigned ball = __ballot_sync(kFull, in);
-      if (lane == 0 && ball != 0u) atomicAdd(&hits[i], __popc(ball));
+  };
+  auto sync_tile = [&]() {  // every block of the tile is past a chunk
+    if (cluster_wide) {
+      cg::this_cluster().sync();
+    } else {
+      __syncthreads();
     }
-    __syncthreads();
-    for (int i = warp; i < kTm; i += kFatWarps) {
-      int got = picks[i];
-      if (got >= nsample) continue;
-      int* keys = fat_keys + i * kChunk;
-      int* out = idx + ((size_t)cloud * m + q0 + i) * nsample;
-      while (got < nsample) {
-        const int least = min(min(keys[lane], keys[lane + 32]), min(keys[lane + 64], keys[lane + 96]));
-        const int key = __reduce_min_sync(kFull, least);
-        if (key >= n) break;
-        if (lane == 0) {
-          out[got] = key;
-          if (got == 0) firsts[i] = key;
+  };
+
+  if (a.bulk) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < slots; ++s) mbarrier_init(bars + s);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    sync_tile();  // every barrier of the cluster is set before any copy lands on one
+    if (threadIdx.x == 0) {
+      for (int c = 0; c < min(slots, chunks); ++c) issue(c);
+    }
+  } else {
+    for (int c = 0; c < min(slots, chunks); ++c) load(c);
+  }
+
+  constexpr int kSeg = (kI16 ? 64 : 32) * kV;  // a warp's columns a segment
+  for (int c = 0; c < chunks; ++c) {
+    if (a.bulk) mbarrier_wait(bars + c % slots, (c / slots) & 1);  // every warp: nothing in flight at exit
+    bool done = true;
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) done = done && picks[q] >= a.nsample;
+    const float* s = slot(c);
+    const int len = chunk_len(c);
+    const int c0 = c * kChunkPoints;
+    for (int seg = 0; seg < len && !done; seg += kSeg) {
+      unsigned key[kQ][kV];
+#pragma unroll
+      for (int v = 0; v < kV; ++v) {
+        constexpr int kCols = kI16 ? 2 : 1;
+        float x[kCols], y[kCols], z[kCols];
+        bool live[kCols];
+#pragma unroll
+        for (int h = 0; h < kCols; ++h) {
+          const int j = seg + v * 32 * kCols + h * 32 + lane;
+          live[h] = j < len;
+          x[h] = y[h] = z[h] = 0.0f;
+          if (live[h]) {
+            x[h] = s[3 * j];
+            y[h] = s[3 * j + 1];
+            z[h] = s[3 * j + 2];
+          }
         }
-        ++got;
-        if (lane == ((key - base) & 31)) keys[key - base] = n;
-        __syncwarp();
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) {
+          unsigned w = 0u;
+#pragma unroll
+          for (int h = 0; h < kCols; ++h) {
+            const unsigned col = (unsigned)(c0 + seg + v * 32 * kCols + h * 32 + lane);
+            const bool in = live[h] && picks[q] < a.nsample && dist2(qx[q], qy[q], qz[q], x[h], y[h], z[h]) < a.r2;
+            w |= (in ? col : sent) << (16 * h);
+          }
+          key[q][v] = w;
+        }
       }
-      if (lane == 0) picks[i] = got;
+      unsigned least[kQ];
+      bool left = false;
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        least[q] = least_key<kI16>(key[q]);
+        left = left || least[q] < sent;
+      }
+      while (__any_sync(kFull, left)) {
+        left = false;
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) {
+          const unsigned k = __reduce_min_sync(kFull, least[q]);
+          if (k >= sent) continue;  // the warp agrees: k is the same in every lane
+          if (lane == 0) a.idx[((size_t)cloud * a.m + q0 + q) * a.nsample + picks[q]] = (int)k;
+          if (picks[q] == 0) first[q] = k;
+          if (++picks[q] < a.nsample) {
+            clear_key<kI16>(key[q], k, sent);
+            least[q] = least_key<kI16>(key[q]);
+            left = left || least[q] < sent;
+          } else {
+            least[q] = sent;
+            done = true;
+#pragma unroll
+            for (int p = 0; p < kQ; ++p) done = done && picks[p] >= a.nsample;
+          }
+        }
+      }
     }
-    __syncthreads();
-    bool more = false;
-    for (int i = threadIdx.x; i < kTm; i += blockDim.x) more |= picks[i] < nsample;
-    if (!__syncthreads_or(more)) break;  // every query has nsample picks: the rest is capped
+    if (c + slots < chunks) {  // the ring: refill this chunk's slot once the whole tile is past it
+      sync_tile();
+      if (a.bulk) {
+        if (threadIdx.x == 0) issue(c + slots);
+      } else {
+        load(c + slots);
+      }
+    }
   }
-  __syncthreads();
-  for (int i = warp; i < kTm; i += kFatWarps) {
-    const int q = q0 + i;
-    if (q >= m) break;
-    const size_t at = (size_t)cloud * m + q;
-    for (int s = picks[i] + lane; s < nsample; s += 32) idx[at * nsample + s] = firsts[i];
-    if (lane == 0) cnt[at] = min(hits[i], nsample);
+  if (cluster_wide) cg::this_cluster().sync();  // no block leaves before its peers' copies are done
+
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const int qi = q0 + q;
+    if (qi >= a.m) break;
+    const size_t at = (size_t)cloud * a.m + qi;
+    for (int s = picks[q] + lane; s < a.nsample; s += 32) a.idx[at * a.nsample + s] = (int)first[q];
+    if (lane == 0) a.cnt[at] = picks[q];
   }
 }
 
-template <int kTm>
-cudaError_t launch_fat(const float* xyz1, const float* xyz2, int b, int n, int m, float r2,
-                       int nsample, int* idx, int* cnt, cudaStream_t stream) {
-  if (b < 1 || b > 65535 || n < 1 || m < 1 || nsample < 1) return cudaErrorInvalidValue;
-  const size_t smem = (size_t)kTm * kChunk * 4;
-  auto* kernel = &bq_fat_kernel<kTm>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <bool kI16>
+__global__ void __launch_bounds__(kSweepMaxWarps * 32) bq_keys_kernel(SweepArgs a) {
+  sweep<kI16>(a);
+}
+
+__global__ void __launch_bounds__(kSweepMaxWarps * 32) bq_fat_kernel(SweepArgs a) { sweep<false>(a); }
+
+using SweepKernel = void (*)(SweepArgs);
+
+cudaLaunchConfig_t sweep_config(cudaLaunchAttribute* attr, int blocks, int cluster, int warps, size_t smem,
+                                cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3((unsigned)warps * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Checks a sweep launch's shape; sets the kernel's shared memory past 48 KB.
+cudaError_t sweep_prepare(SweepKernel kernel, int b, int n, int m, int nsample, int tm, int cluster,
+                          size_t* smem) {
+  *smem = sweep_shared_bytes(n);
+  if (b < 1 || b > 65535 || n < 1 || m < 1 || nsample < 1 || tm < 1 ||
+      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) || tm % (cluster * kQ) ||
+      tm / (cluster * kQ) > kSweepMaxWarps || *smem > (size_t)kMaxShared ||
+      (long long)b * ((m + tm - 1) / tm) * cluster > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  if (*smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+}
+
+// Bulk copies where every chunk is 16-byte aligned (the array and n % 4 ==
+// 0), else the block's own loads.
+cudaError_t launch_sweep(SweepKernel kernel, const float* xyz1, const float* xyz2, int b, int n, int m,
+                         float r2, int nsample, int tm, int cluster, int* idx, int* cnt, cudaStream_t stream) {
+  size_t smem = 0;
+  cudaError_t err = sweep_prepare(kernel, b, n, m, nsample, tm, cluster, &smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((m + kTm - 1) / kTm), (unsigned)b);
-  kernel<<<grid, kFatWarps * 32, smem, stream>>>(xyz1, xyz2, n, m, r2, nsample, idx, cnt);
+  const int bulk = reinterpret_cast<uintptr_t>(xyz1) % 16 == 0 && n % 4 == 0;
+  const int tiles = (m + tm - 1) / tm;
+  const SweepArgs args{xyz1, xyz2, n, m, r2, nsample, tiles, tm, cluster, bulk, idx, cnt};
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = sweep_config(&attr, b * tiles * cluster, cluster, tm / (cluster * kQ), smem, stream);
+  err = cudaLaunchKernelEx(&cfg, kernel, args);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -434,33 +600,44 @@ extern "C" {
 
 // xyz1 (b, n, 3), xyz2 (b, m, 3) f32 -> idx (b, m, nsample), cnt (b, m) i32:
 // row 2's function by first-k sweeps over int32 keys (i16 = 0) or int16 keys
-// (i16 = 1, n <= 32767). `warps` warps a block, one query a warp, each with
-// a row of n (int32) or ceil(n / 2) (int16) words in shared memory (warps x
-// row <= 232448 bytes). b <= 65535. Returns cudaGetLastError() after the launch.
+// (i16 = 1, n <= 32767), in registers. Blocks of `warps` (1 to 16) warps, 2
+// queries a warp; each block stages its cloud (by TMA bulk copies where
+// xyz1 is 16-byte aligned and n % 4 == 0). b <= 65535. Returns
+// cudaGetLastError() after the launch.
 int pn2_bq_keys(const float* xyz1, const float* xyz2, int b, int n, int m, float r2, int nsample,
                 int i16, int warps, int* idx, int* cnt, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  err = i16 ? launch_keys<true>(xyz1, xyz2, b, n, m, r2, nsample, warps, idx, cnt, (cudaStream_t)stream)
-            : launch_keys<false>(xyz1, xyz2, b, n, m, r2, nsample, warps, idx, cnt, (cudaStream_t)stream);
-  return (int)err;
+  if (i16 && n > 32767) return (int)cudaErrorInvalidValue;
+  const SweepKernel kernel = i16 ? &bq_keys_kernel<true> : &bq_keys_kernel<false>;
+  return (int)launch_sweep(kernel, xyz1, xyz2, b, n, m, r2, nsample, warps * kQ, 1, idx, cnt,
+                           (cudaStream_t)stream);
 }
 
-// The same function, tm = 128 or 256 queries a block sharing 128-column
-// chunks of keys. Same arguments as pn2_bq_keys, with tm in place of i16 and
-// warps.
+// The same function over int32 keys, a tile of tm queries a cluster of
+// `cluster` blocks (1, 2, 4 or 8; tm / (cluster * 2) warps a block, at most
+// 16), each chunk of the cloud fetched once for the tile and, where bulk
+// copies stage it, multicast to every block. Same other arguments as
+// pn2_bq_keys.
 int pn2_bq_fat(const float* xyz1, const float* xyz2, int b, int n, int m, float r2, int nsample,
-               int tm, int* idx, int* cnt, int device, void* stream) {
+               int tm, int cluster, int* idx, int* cnt, int device, void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_sweep(&bq_fat_kernel, xyz1, xyz2, b, n, m, r2, nsample, tm, cluster, idx, cnt,
+                           (cudaStream_t)stream);
+}
+
+// How many clusters of pn2_bq_fat's launch (n points, tm, cluster) the card
+// holds at once (cudaOccupancyMaxActiveClusters), into *out.
+int pn2_bq_fat_active(int n, int tm, int cluster, int device, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (tm == 128) {
-    err = launch_fat<128>(xyz1, xyz2, b, n, m, r2, nsample, idx, cnt, (cudaStream_t)stream);
-  } else if (tm == 256) {
-    err = launch_fat<256>(xyz1, xyz2, b, n, m, r2, nsample, idx, cnt, (cudaStream_t)stream);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return (int)err;
+  size_t smem = 0;
+  err = sweep_prepare(&bq_fat_kernel, 1, n, tm, 1, tm, cluster, &smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = sweep_config(&attr, cluster, cluster, tm / (cluster * kQ), smem, nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(out, &bq_fat_kernel, &cfg);
 }
 
 // win (b, t, 3, w) f32 and permw (b, t, w) i32: each tile's cut window of the
@@ -494,6 +671,8 @@ int pn2_ball_query_precut_pos(const float* win, const int* permw, const float* q
 const char* pn2_bq_keys_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 const char* pn2_bq_fat_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+const char* pn2_bq_fat_active_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 const char* pn2_ball_query_precut_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 

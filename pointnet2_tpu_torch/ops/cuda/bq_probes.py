@@ -1,12 +1,15 @@
 """Wrappers of ``csrc/bq_probes.cu``: the five ball-query design probes.
 
 - ``bq_keys`` replaces ``tools/bq_i16_probe.py:36`` (``_kernel``, call
-  ``:88``): row 2's function by ``nsample`` first-k min sweeps over each
-  query's key row, keys int32 (``i16=False``) or int16 (``True``; N <=
-  ``MAX_N_I16``). Plain version: ``tools.bq_i16_probe.bq_keys_plain``.
+  ``:88``): row 2's function by first-k min sweeps over keys of 32 bits
+  (``i16=False``) or 16 (``True``; N <= ``MAX_N_I16``), in registers a
+  segment at a time over a cloud each block stages (``key_plan``). Plain
+  version: ``tools.bq_i16_probe.bq_keys_plain``.
 - ``bq_fat`` replaces ``tools/bq_fat_probe.py:53`` (``_kernel``, call
-  ``:110``): the same function, ``tm`` = 128 or 256 queries a block sharing
-  128-column chunks of keys. Plain version: ``tools.bq_fat_probe.bq_fat_plain``.
+  ``:110``): the same function over int32 keys, a tile of ``tm`` = 128 or 256
+  queries a thread-block cluster whose blocks split it, each chunk of the
+  cloud fetched once for the tile (``fat_plan``). Plain version:
+  ``tools.bq_fat_probe.bq_fat_plain``.
 - ``bq_precut_cond`` replaces ``tools/bq_cond_probe.py:62`` (row 7's
   ``_ball_query_sliced_kernel`` in ``make_nocond``, and behind
   ``make_dummycond``'s ``lax.cond`` as ``fits``), ``bq_precut_decomp``
@@ -27,27 +30,108 @@ raises on a shape its kernel does not take.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
+from pointnet2_tpu_torch.ops.cuda import build
 from pointnet2_tpu_torch.ops.core import squared_radius
-from pointnet2_tpu_torch.ops.cuda.ballquery import MAX_SHARED_BYTES, num_sms, tiles_plan
+from pointnet2_tpu_torch.ops.cuda.ballquery import num_sms, tiles_plan
 from pointnet2_tpu_torch.ops.cuda.common import FLOAT, INT, PTR, launch, require, require_int32_range, stream_of
 
-MAX_KEY_WARPS = 16
 MAX_N_I16 = 32767  # the largest key, n, fits an int16
-MAX_N_I32 = MAX_SHARED_BYTES // 4  # one warp's row of int32 keys in a block's shared memory
-FAT_TILES = (128, 256)  # csrc/bq_probes.cu's instantiations of the fat kernel
+FAT_TILES = (128, 256)  # the TPU probe's tiles
+CLUSTER_SIZES = (1, 2, 4, 8)  # blocks a tile: up to the portable cluster
+MAX_SWEEP_WARPS = 16
+# csrc/bq_probes.cu's one sweep shape: kq queries a warp, v words of keys a lane.
+SWEEP_KQ, SWEEP_V = 2, 4
+CHUNK_POINTS = 1024  # a staged chunk of 12 KB
+MAX_WHOLE_CHUNKS = 18  # a cloud of up to 18432 points is staged whole
+RING_SLOTS = 4  # past that, through a ring of 4 chunks
 
 
-def key_warps(n: int, i16: bool) -> int:
-    """Warps a block of ``bq_keys``: one query a warp, as many as have room
-    for their key rows (n int32 words, or ceil(n / 2) words of two int16), up
-    to ``MAX_KEY_WARPS``; raises past the kernel's limits."""
-    if n < 1 or n > (MAX_N_I16 if i16 else MAX_N_I32):
-        width, most = ("int16", MAX_N_I16) if i16 else ("int32", MAX_N_I32)
-        raise ValueError(f"bq_keys takes 0 < N <= {most} with {width} keys, got N={n}")
-    row = 4 * (-(-n // 2) if i16 else n)
-    return min(MAX_KEY_WARPS, MAX_SHARED_BYTES // row)
+def staged_whole(n: int) -> bool:
+    """Whether a sweep block stages a cloud of ``n`` points whole (else through the ring)."""
+    return -(-n // CHUNK_POINTS) <= MAX_WHOLE_CHUNKS
+
+
+def sweep_shared_bytes(n: int) -> int:
+    """A sweep block's shared memory: the staged chunks (the whole cloud, or
+    the ring) and an 8-byte mbarrier a chunk slot."""
+    return (-(-n // CHUNK_POINTS) if staged_whole(n) else RING_SLOTS) * (12 * CHUNK_POINTS + 8)
+
+
+def staging(xyz1: torch.Tensor) -> str:
+    """How a sweep block stages the cloud, as the C launch chooses it:
+    ``bulk`` (TMA bulk copies, where every chunk is 16-byte aligned: the
+    array and N % 4 == 0) or ``cooperative`` (the block's own loads)."""
+    return "bulk" if xyz1.data_ptr() % 16 == 0 and xyz1.shape[1] % 4 == 0 else "cooperative"
+
+
+def key_plan(b: int, n: int, m: int, i16: bool, sms: int) -> int:
+    """Warps a block of ``bq_keys``, both widths alike: the fewest (the most
+    blocks) with at most one block an SM, else 16. Raises past the keys'
+    limits."""
+    if n < 1 or (i16 and n > MAX_N_I16):
+        raise ValueError(f"bq_keys takes 0 < N <= {MAX_N_I16} with int16 keys, got N={n}")
+    for warps in (1, 2, 4, 8):
+        if b * -(-m // (warps * SWEEP_KQ)) <= sms:
+            return warps
+    return MAX_SWEEP_WARPS
+
+
+def fat_sizes(tm: int) -> list[int]:
+    """The cluster sizes whose blocks take ``tm`` queries in whole warps of
+    ``SWEEP_KQ``, at most ``MAX_SWEEP_WARPS`` a block."""
+    return [k for k in CLUSTER_SIZES if tm % (k * SWEEP_KQ) == 0 and tm // (k * SWEEP_KQ) <= MAX_SWEEP_WARPS]
+
+
+def fat_waves(b: int, m: int, tm: int, cluster: int, resident: dict[int, int]) -> int:
+    """Waves of ``bq_fat``'s grid at ``cluster`` blocks a tile: its tiles
+    over the clusters of that size the card holds at once (``resident``)."""
+    return -(-b * -(-m // tm) // resident[cluster])
+
+
+def fat_plan(b: int, m: int, tm: int, resident: dict[int, int]) -> int:
+    """Blocks a tile (a cluster) of ``bq_fat``: of ``fat_sizes(tm)``, the
+    fewest waves by the card's answers (``resident``:
+    ``cudaOccupancyMaxActiveClusters`` a size), then the most blocks, which
+    spreads a grid over the most SMs (on the H100, with 4 queries a warp, a
+    tile of 256 at the probe shape took 0.1497 ms on 8 blocks against 0.1673
+    on 4, each in two waves; PERF.md §6)."""
+    return min(fat_sizes(tm), key=lambda k: (fat_waves(b, m, tm, k, resident), -k))
+
+
+@functools.cache
+def fat_resident(device: int, n: int, tm: int, cluster: int) -> int:
+    """The card's answer (``cudaOccupancyMaxActiveClusters``) for the fat
+    kernel's launch on clouds of ``n`` points, once a shape."""
+    lib = build.load("bq_probes")
+    fn = lib.pn2_bq_fat_active
+    fn.argtypes = [INT, INT, INT, INT, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    build.check(lib, "pn2_bq_fat_active_error_string", fn(n, tm, cluster, device, ctypes.byref(out)),
+                "bq_fat occupancy")
+    return out.value
+
+
+def key_route(xyz1: torch.Tensor, m: int, i16: bool) -> tuple[int, str]:
+    """``(warps, staging)`` ``bq_keys`` launches ``xyz1`` with."""
+    b, n, _ = xyz1.shape
+    return key_plan(b, n, m, i16, num_sms(xyz1.device.index)), staging(xyz1)
+
+
+def fat_route(xyz1: torch.Tensor, m: int, tm: int) -> tuple[int, str]:
+    """``(cluster, route)`` ``bq_fat`` launches ``xyz1`` with: a tile's
+    blocks by ``fat_plan`` on the card's answers; the route is
+    ``staging``'s, ``multicast`` where bulk copies feed a cluster."""
+    b, n, _ = xyz1.shape
+    device = xyz1.device.index
+    cluster = fat_plan(b, m, tm, {k: fat_resident(device, n, tm, k) for k in fat_sizes(tm)})
+    how = staging(xyz1)
+    return cluster, "multicast" if how == "bulk" and cluster > 1 else how
 
 
 def _check_exact(what: str, xyz1: torch.Tensor, xyz2: torch.Tensor, nsample: int) -> tuple[int, int, int]:
@@ -69,7 +153,7 @@ def bq_keys(xyz1: torch.Tensor, xyz2: torch.Tensor, radius: float, nsample: int,
     """xyz1 (B, N, 3) dataset, xyz2 (B, M, 3) queries, float32 CUDA -> idx (B,
     M, nsample), cnt (B, M) int32: row 2's, by sweeps over int32 or int16 keys."""
     b, n, m = _check_exact("bq_keys", xyz1, xyz2, nsample)
-    warps = key_warps(n, i16)
+    warps = key_plan(b, n, m, i16, num_sms(xyz1.device.index))
     idx = torch.empty((b, m, nsample), dtype=torch.int32, device=xyz1.device)
     cnt = torch.empty((b, m), dtype=torch.int32, device=xyz1.device)
     device, stream = stream_of(xyz1)
@@ -83,18 +167,19 @@ def bq_keys(xyz1: torch.Tensor, xyz2: torch.Tensor, radius: float, nsample: int,
 
 
 def bq_fat(xyz1: torch.Tensor, xyz2: torch.Tensor, radius: float, nsample: int, tm: int):
-    """The same function as ``bq_keys``, ``tm`` (128 or 256) queries a block
-    sharing chunk-built keys."""
+    """The same function as ``bq_keys`` over int32 keys, ``tm`` (128 or 256)
+    queries a cluster sharing each fetched chunk of the cloud."""
     if tm not in FAT_TILES:
         raise ValueError(f"bq_fat takes tiles of {FAT_TILES} queries, got {tm}")
     b, n, m = _check_exact("bq_fat", xyz1, xyz2, nsample)
+    cluster, _ = fat_route(xyz1, m, tm)
     idx = torch.empty((b, m, nsample), dtype=torch.int32, device=xyz1.device)
     cnt = torch.empty((b, m), dtype=torch.int32, device=xyz1.device)
     device, stream = stream_of(xyz1)
     launch(
         "bq_fat", "bq_probes", "pn2_bq_fat",
-        [PTR, PTR, INT, INT, INT, FLOAT, INT, INT, PTR, PTR, INT, PTR],
-        xyz1.data_ptr(), xyz2.data_ptr(), b, n, m, squared_radius(radius), nsample, tm,
+        [PTR, PTR, INT, INT, INT, FLOAT, INT, INT, INT, PTR, PTR, INT, PTR],
+        xyz1.data_ptr(), xyz2.data_ptr(), b, n, m, squared_radius(radius), nsample, tm, cluster,
         idx.data_ptr(), cnt.data_ptr(), device, stream,
     )
     return idx, cnt

@@ -1,6 +1,6 @@
 """Probe: query tiles of 128 against 256 for the ball query, keys built chunk by chunk.
 
-    python -m pointnet2_tpu_torch.tools.bq_fat_probe [--device cpu]
+    python -m pointnet2_tpu_torch.tools.bq_fat_probe [--device cpu] [--routes]
 
 The counterpart of the JAX repo's ``tools/bq_fat_probe.py``, at its shapes
 and seed (those of ``bq_i16_probe``). Its TPU kernel never holds the
@@ -8,16 +8,25 @@ full-width distances: it builds each 128-column chunk of a (tm, Npad) key
 block in turn, then streams every min sweep through the block chunk by
 chunk, and asks whether fatter tiles (tm = 256, fewer programs) pay. Here
 the kernel is ``csrc/bq_probes.cu``'s ``pn2_bq_fat`` (``ops.cuda.bq_fat``):
-a block takes tm queries; for each 128-column chunk it builds the (tm, 128)
-keys in shared memory and each query extracts the chunk's hits by min
-sweeps, until all tm queries have nsample picks. The tool prints whether
-both tiles give row 2's indices and counts and the oracle's (on the first 2
-clouds), then three interleaved rounds of the JAX tool's columns: shipped
-(row 2, ``ops.cuda.ball_query``), chunked128 and chunked256, by
-``utils.bench.slope_time`` and ``cuda_ms``, with the card's name and power
-limit. On the CPU (``--device cpu``) the plain versions run and no time is
-taken. ``main(argv, shapes=...)`` runs another size. A variant that misses
-its reference makes the tool raise.
+a tile of tm queries is a thread-block cluster whose blocks split its
+queries (``ops.cuda.bq_probes.fat_plan``: of the cluster sizes up to 8,
+the fewest waves by the card's residency answers, then the most blocks);
+the cloud goes by in chunks of 1024 points, each fetched once for the tile
+by one TMA bulk copy multicast to every block of the cluster, and each
+warp builds int32 keys in registers and sweeps them as ``bq_i16_probe``'s
+kernel does, at its one shape (2 queries a warp, 4 words a lane). tm is
+the only variable: a tile of 256 is twice the blocks of a tile of 128. The
+tool prints whether both tiles give row 2's indices and counts and the
+oracle's (on the first 2 clouds), each tile's plan (blocks a tile, chunk
+columns, route, the card's residency answers), then three interleaved
+rounds of the JAX tool's columns: shipped (row 2, ``ops.cuda.ball_query``),
+chunked128 and chunked256, by ``utils.bench.slope_time`` and ``cuda_ms``,
+with the card's name and power limit. ``--routes`` adds a line a tile: the
+device ms (``device_ms``) at every cluster size the plan chooses from,
+each held to row 2. On the CPU (``--device cpu``) the plain versions run
+and no time is taken.
+``main(argv, shapes=...)`` runs another size. A variant that misses its
+reference makes the tool raise.
 
 The plain version writes out the probe's formulation: the cloud padded to
 whole lanes and the queries to whole tiles with 1e30, the keys and counts
@@ -34,10 +43,11 @@ import torch
 import torch.nn.functional as F
 
 from pointnet2_tpu_torch.ops import core, cuda, reference
+from pointnet2_tpu_torch.ops.cuda import bq_probes
 from pointnet2_tpu_torch.tools.bq_i16_probe import (
     LANES, oracle_exact, pad_by_first, padded_cloud, probe_clouds, row2, same, timed_rounds,
 )
-from pointnet2_tpu_torch.utils.bench import card_line, require_device
+from pointnet2_tpu_torch.utils.bench import card_line, device_ms, require_device
 
 TILES = (128, 256)
 SHAPES = dict(b=8, n=8192, m=1024, nsample=32, radius=0.1, oracle_clouds=2, rounds=3)
@@ -82,9 +92,29 @@ def bq_fat(xyz1: torch.Tensor, xyz2: torch.Tensor, radius: float, nsample: int, 
     return cuda.bq_fat(xyz1, xyz2, radius, nsample, tm)
 
 
+def routes_line(tm: int, run, base: tuple, card: str) -> dict:
+    """Device ms of ``run`` at every cluster size of ``bq_probes.fat_sizes(tm)``,
+    each forced by pointing ``bq_probes.fat_plan`` at it and held to ``base``
+    (row 2's pair); one line. The plan is put back after each."""
+    out = {}
+    kept = bq_probes.fat_plan
+    for k in bq_probes.fat_sizes(tm):
+        try:
+            bq_probes.fat_plan = lambda *args, k=k: k
+            if not same(run(), base):
+                raise AssertionError(f"tm={tm} on {k} blocks a tile misses row 2")
+            out[k] = device_ms(run, "bq_fat")
+        finally:
+            bq_probes.fat_plan = kept
+    print(f"routes tm={tm}: " + "; ".join(f"{k} blocks {ms:.5f} ms" for k, ms in out.items()) + f" | {card}",
+          flush=True)
+    return out
+
+
 def main(argv=None, shapes: dict = SHAPES) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu: the plain versions, no times")
+    ap.add_argument("--routes", action="store_true", help="also time every cluster size the plan chooses from")
     args = ap.parse_args(argv)
     device = require_device(args.device)
     b, n, m, ns, r, o = (shapes[k] for k in ("b", "n", "m", "nsample", "radius", "oracle_clouds"))
@@ -106,11 +136,24 @@ def main(argv=None, shapes: dict = SHAPES) -> dict:
         print("times: taken on the card only")
         return summary
     card = card_line()
+    summary["plans"] = {}
+    for tm in TILES:
+        cluster, route = bq_probes.fat_route(xyz1, m, tm)
+        resident = {k: bq_probes.fat_resident(xyz1.device.index, n, tm, k) for k in bq_probes.fat_sizes(tm)}
+        warps = tm // (cluster * bq_probes.SWEEP_KQ)
+        summary["plans"][tm] = {"blocks_a_tile": cluster, "chunk_columns": bq_probes.CHUNK_POINTS, "route": route,
+                                "warps": warps, "resident_clusters": resident}
+        print(f"tm={tm} plan: {cluster} blocks a tile of {warps} warps, chunks of {bq_probes.CHUNK_POINTS} "
+              f"columns, {route}; resident clusters by size {resident}", flush=True)
     columns = {"shipped128": (lambda c: row2(c, xyz2, r, ns)[0], xyz1, lambda: row2(xyz1, xyz2, r, ns))}
     for tm in TILES:
         columns[f"chunked{tm}"] = (lambda c, tm=tm: bq_fat(c, xyz2, r, ns, tm)[0], xyz1,
                                    lambda tm=tm: bq_fat(xyz1, xyz2, r, ns, tm))
     summary.update(rounds=timed_rounds(columns, shapes["rounds"], card), card=card)
+    if args.routes:
+        summary["routes_device_ms"] = {
+            tm: routes_line(tm, lambda tm=tm: bq_fat(xyz1, xyz2, r, ns, tm), full, card) for tm in TILES
+        }
     return summary
 
 

@@ -8,16 +8,22 @@ first 1024 points plus 0.001 as queries, nsample 32, r = 0.1). Its TPU
 kernel builds each query's key row (the column where it is in the ball,
 else N) and extracts the picks by nsample full-width min sweeps, with keys
 of 32 or 16 bits. Here the kernel is ``csrc/bq_probes.cu``'s
-``pn2_bq_keys`` (``ops.cuda.bq_keys``): a warp a query, its key row in
-shared memory, int16 keys two to a word. The tool prints whether both
-widths give row 2's indices and counts (``ops.cuda.ball_query``) and the
-oracle's (``ops.reference.ball_query_np`` on the first 2 clouds), and each
-other's, then three interleaved rounds of int32, int16 and row 2:
-``utils.bench.slope_time`` (the JAX tool's timer) and ``cuda_ms`` beside
-it, with the card's name and power limit. On the CPU (``--device cpu``) the
-plain versions run and no time is taken. ``main(argv, shapes=...)`` runs
-another size (the CPU tests do). A variant that misses its reference makes
-the tool raise.
+``pn2_bq_keys`` (``ops.cuda.bq_keys``): each block stages its cloud in
+shared memory, whole up to 18432 points and else through a ring of
+chunks, by TMA bulk copies where its chunks are 16-byte aligned and else
+by its own loads; a warp takes 2 queries, building each query's keys in
+registers a segment at a time (4 words a lane: 4 columns of int32 keys, or
+8 of int16 two to a word) and taking the picks by warp-wide min sweeps
+over the segment. The width is the only difference: both widths run one
+plan, ``ops.cuda.bq_probes.key_plan``'s warps a block. The tool prints
+whether both widths give row 2's indices and counts (``ops.cuda.ball_query``) and
+the oracle's (``ops.reference.ball_query_np`` on the first 2 clouds), and
+each other's, each width's plan (warps, kq, v) and staging, then three
+interleaved rounds of int32, int16 and row 2: ``utils.bench.slope_time``
+(the JAX tool's timer) and ``cuda_ms`` beside it, with the card's name and
+power limit. On the CPU (``--device cpu``) the plain versions run and no
+time is taken. ``main(argv, shapes=...)`` runs another size (the CPU tests
+do). A variant that misses its reference makes the tool raise.
 
 The plain version writes out the probe's formulation: the cloud padded to
 whole 128-column lanes with 1e30, the (B, M, Npad) distance rows summed
@@ -34,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from pointnet2_tpu_torch.ops import core, cuda, reference
+from pointnet2_tpu_torch.ops.cuda import bq_probes
 from pointnet2_tpu_torch.utils.bench import card_line, cuda_ms, require_device, slope_time
 
 LANES = 128  # the TPU kernel pads N to whole lanes
@@ -158,6 +165,12 @@ def main(argv=None, shapes: dict = SHAPES) -> dict:
         print("times: taken on the card only")
         return summary
     card = card_line()
+    summary["plans"] = {}
+    for width in ("i32", "i16"):
+        warps, how = bq_probes.key_route(xyz1, m, width == "i16")
+        kq, v = bq_probes.SWEEP_KQ, bq_probes.SWEEP_V
+        summary["plans"][width] = {"warps": warps, "kq": kq, "v": v, "staging": how}
+        print(f"{width} plan: {warps} warps a block, kq={kq}, v={v}, staged by {how}", flush=True)
     columns = {
         "i32": (lambda c: bq_keys(c, xyz2, r, ns, False)[0], xyz1, lambda: bq_keys(xyz1, xyz2, r, ns, False)),
         "i16": (lambda c: bq_keys(c, xyz2, r, ns, True)[0], xyz1, lambda: bq_keys(xyz1, xyz2, r, ns, True)),

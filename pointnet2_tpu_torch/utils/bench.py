@@ -70,8 +70,8 @@ KERNEL_SYMBOLS = {
     "fps_packed": "fps_packed_kernel",
     "knn_argmin": "knn_argmin_kernel",
     "knn_tracked": "knn_tracked_kernel",
-    "bq_keys": "bq_keys_kernel",  # <kI16>
-    "bq_fat": "bq_fat_kernel",  # <kTm>
+    "bq_keys": "bq_keys_kernel",  # <kI16, kQ, kV>
+    "bq_fat": "bq_fat_kernel",  # <kQ, kV>
     # Both row-7 probe sites of the one pre-cut kernel (<kWithPos, kSlots>),
     # and its instance with window columns (row 8's probe site).
     "bq_precut_cond": "ball_query_precut_kernel<false,",

@@ -34,6 +34,7 @@ from jax.experimental.pallas import tpu as pltpu
 from pointnet2_tpu.ops import reference
 from pointnet2_tpu.ops.pallas import ballquery as jax_bq
 from pointnet2_tpu_torch.ops.cuda import bq_probes, build
+from pointnet2_tpu_torch.ops.cuda.ballquery import MAX_SHARED_BYTES
 from pointnet2_tpu_torch.tools import bq_cond_probe, bq_fat_probe, bq_i16_probe, bq_sliced_decomp_probe
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -318,12 +319,22 @@ def _c_params(source: str) -> dict:
     return {name: len([p for p in params.split(",") if p.strip()]) for name, params in C_ENTRY.findall(text)}
 
 
+# The card's answers (``cudaOccupancyMaxActiveClusters`` through
+# ``pn2_bq_fat_active``, measured on an NVIDIA H100 80GB HBM3 at 700 W and
+# recorded in PERF.md §6) for the fat kernel by cloud size, tile and blocks
+# a tile. They hold for its registers and shared memory as built then (47
+# registers; 96 KB a block at N = 8192, 48 KB for the ring): a change to
+# either makes this table stale.
+RESIDENT = {8192: {128: {4: 62, 8: 30}, 256: {8: 30}}, 20000: {128: {4: 62, 8: 62}, 256: {8: 30}}}
+
+
 def _stub_launch(monkeypatch) -> list:
     seen = []
     monkeypatch.setattr(bq_probes, "require", lambda *a, **k: None)
     monkeypatch.setattr(bq_probes, "stream_of", lambda t: (0, 0))
     monkeypatch.setattr(bq_probes, "launch", lambda *a: seen.append(a))
     monkeypatch.setattr(bq_probes, "num_sms", lambda device: 132)
+    monkeypatch.setattr(bq_probes, "fat_resident", lambda device, n, tm, k: RESIDENT[n][tm][k])
     return seen
 
 
@@ -346,24 +357,62 @@ def test_bq_wrappers_pass_every_argument_of_their_c_entry(monkeypatch, call):
     assert kernel == call.removesuffix("_i32").removesuffix("_i16") and source == "bq_probes" in build.SOURCES
     assert len(argtypes) == len(passed) == _c_params(source)[symbol]
     assert f"{symbol}_error_string" in (build.CSRC_DIR / f"{source}.cu").read_text()
-    if call.startswith("bq_keys"):
-        assert passed[7] == int(call.endswith("i16")) and passed[8] == (14 if call.endswith("i16") else 7)
+    if call.startswith("bq_keys"):  # i16, then warps a block: 128 blocks of 8 warps
+        assert passed[7] == int(call.endswith("i16")) and passed[8] == 8
+    if call == "bq_fat":  # tm, then blocks a tile: 8 tiles of 8 blocks
+        assert tuple(passed[7:9]) == (256, 8)
     if call.startswith("bq_precut"):
         assert passed[3] == (fits.data_ptr() if call.endswith("cond") else None)
         assert tuple(passed[11:13]) == bq_probes.precut_route(2, 8, 128, 3072, 0)
 
 
 def test_bq_key_rows_fit_a_block_and_int16_keys_hold_n():
-    """A row a warp in 227 KB: 7 warps of int32 keys and 14 of int16 at N =
-    8192 (the probe's shape); int16 keys stop at N = 32767, int32 rows at one
-    warp's 58112 columns."""
-    assert bq_probes.key_warps(8192, False) == 7 and bq_probes.key_warps(8192, True) == 14
-    assert bq_probes.key_warps(1000, False) == bq_probes.key_warps(1000, True) == 16
-    assert bq_probes.key_warps(32767, True) == 3 and bq_probes.key_warps(bq_probes.MAX_N_I32, False) == 1
+    """No key row lives in shared memory any more: a block stages its cloud,
+    whole up to 18 chunks of 1024 points (216 KB), past that through a ring
+    of 4 (48 KB), so any N fits a block and int32 keys take N past the old
+    row's 58112 columns. Both widths take one plan of warps a block (2
+    queries a warp): 16 at the probe shape (256 blocks, two an SM), 4 at B =
+    1 (128 blocks). int16 keys stop at N = 32767, where the key N still fits."""
+    chunk = 12 * 1024 + 8
+    assert bq_probes.sweep_shared_bytes(8192) == 8 * chunk and bq_probes.sweep_shared_bytes(1001) == chunk
+    assert bq_probes.sweep_shared_bytes(18432) == 18 * chunk <= MAX_SHARED_BYTES
+    assert bq_probes.sweep_shared_bytes(18433) == bq_probes.sweep_shared_bytes(10 ** 7) == 4 * chunk
+    for i16 in (False, True):
+        assert bq_probes.key_plan(8, 8192, 1024, i16, 132) == 16
+        assert bq_probes.key_plan(1, 8192, 1024, i16, 132) == 4
+    assert bq_probes.key_plan(4, 32767, 300, True, 132) == bq_probes.key_plan(4, 58113, 300, False, 132)
     with pytest.raises(ValueError, match="N <= 32767 with int16"):
-        bq_probes.key_warps(32768, True)
-    with pytest.raises(ValueError, match="N <= 58112 with int32"):
-        bq_probes.key_warps(58113, False)
+        bq_probes.key_plan(8, 32768, 1024, True, 132)
+
+
+@pytest.mark.parametrize("b, n, m", [(8, 8192, 1024), (1, 8192, 1024), (8, 8192, 300), (2, 20000, 1024)],
+                         ids=["probe", "B=1", "M=300", "ring"])
+@pytest.mark.parametrize("tm", bq_fat_probe.TILES)
+def test_bq_fat_cluster_plan_fits_the_card(b, n, m, tm):
+    """A tile is a cluster of at most 8 blocks splitting its tm queries into
+    whole warps of 2, at most 16 a block, so 4 or 8 blocks at tm = 128 and 8
+    at tm = 256; a block's shared memory at this N fits (the whole cloud, or
+    the ring past 18432 points). The plan takes the fewest waves by the
+    H100's answers, then the most blocks, so wherever one size keeps every
+    tile resident at once, the plan's tiles x blocks stays within what the
+    card holds. At the probe shape no size does: 64 tiles of 4 blocks
+    against 62 resident at tm = 128, 32 of 8 against 30 at tm = 256 (one
+    grid of 256 blocks either way), so two tiles wait a second wave."""
+    resident = RESIDENT[n][tm]
+    k = bq_probes.fat_plan(b, m, tm, resident)
+    tiles = b * -(-m // tm)
+    waves = {s: bq_probes.fat_waves(b, m, tm, s, resident) for s in bq_probes.fat_sizes(tm)}
+    assert bq_probes.fat_sizes(tm) == {128: [4, 8], 256: [8]}[tm]
+    assert k in bq_probes.CLUSTER_SIZES and k <= 8 and tm % (k * 2) == 0 and tm // (k * 2) <= 16
+    chunks = -(-n // 1024)
+    assert bq_probes.sweep_shared_bytes(n) == (chunks if chunks <= 18 else 4) * (12 * 1024 + 8)
+    assert bq_probes.sweep_shared_bytes(n) <= MAX_SHARED_BYTES
+    assert waves[k] == min(waves.values()) and k == max(s for s in waves if waves[s] == waves[k])
+    if min(waves.values()) == 1:
+        assert tiles * k <= k * resident[k]
+    assert k == {(8, 1024): {128: 4, 256: 8}, (1, 1024): {128: 8, 256: 8}, (8, 300): {128: 8, 256: 8},
+                 (2, 1024): {128: 8, 256: 8}}[b, m][tm]
+    assert waves[k] == (2 if (b, m, tm) in ((8, 1024, 128), (8, 1024, 256)) else 1)
 
 
 @pytest.mark.parametrize("case", ["nsample 0", "int16 N", "tile 64", "fits dtype", "window 0"])

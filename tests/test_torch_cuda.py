@@ -1376,33 +1376,55 @@ def test_probe_kernels_equal_their_plain_versions(cuda_device, integer, monkeypa
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (name, k)
 
 
+# (B, N, M, nsample) of the sweep kernels: N = 8192 staged whole by bulk
+# copies; 20000 through the ring; 1001 by the blocks' own loads (12012-byte
+# clouds); M = 300 a short last tile at tm = 256; B = 1.
+BQ_SWEEP_CASES = ((2, 8192, 300, 32), (2, 20000, 300, 40), (3, 1001, 300, 8), (1, 8192, 1024, 1),
+                  (3, 1000, 300, 40))
+
+
 @pytest.mark.parametrize("integer", [False, True], ids=["random", "integer"])
-def test_bq_probe_kernels_equal_their_plain_versions(cuda_device, integer):
+def test_bq_probe_kernels_equal_their_plain_versions(cuda_device, monkeypatch, integer):
     """The four ball-query probe kernels (``ops.cuda.bq_probes``) against the
     probe tools' plain versions, bit for bit: ``bq_keys`` at both widths and
-    ``bq_fat`` at both tiles also against row 2 (N = 1000: an odd int16 word
-    of 500; M = 300: a partial tile; nsample 8 and 40, past a warp's slots);
-    the pre-cut kernel on windows that fit (equal to row 2), on windows that
-    do not (equal to row 7 in place at the same starts), and behind its guard
-    (zeros where the windows do not fit)."""
+    ``bq_fat`` at both tiles (at every cluster size of ``fat_sizes``) also
+    against row 2 and the oracle at ``BQ_SWEEP_CASES`` (each staging route;
+    nsample 1, 8, 32 and 40, past a warp's lanes), the first query of every
+    cloud away from it (an empty ball); the pre-cut kernel on windows that fit (equal to row 2), on
+    windows that do not (equal to row 7 in place at the same starts), and
+    behind its guard (zeros where the windows do not fit)."""
+    from pointnet2_tpu_torch.ops import reference
+    from pointnet2_tpu_torch.ops.cuda import bq_probes
     from pointnet2_tpu_torch.tools import bq_cond_probe, bq_fat_probe, bq_i16_probe
 
     def cloud(seed, b, n):
         x = np.random.RandomState(seed).rand(b, n, 3)
-        return torch.from_numpy((np.round(x * 16) / 16 if integer else x).astype(np.float32)).to(cuda_device)
+        return (np.round(x * 16) / 16 if integer else x).astype(np.float32)
 
-    xyz1, xyz2 = cloud(0, 3, 1000), cloud(1, 3, 300)
-    for ns in (8, 40):
+    routes = set()
+    for b, n, m, ns in BQ_SWEEP_CASES:
+        x1, x2 = cloud(n, b, n), cloud(m + n, b, m)
+        x2[:, 0] = 4.0  # no point within r
+        xyz1, xyz2 = torch.from_numpy(x1).to(cuda_device), torch.from_numpy(x2).to(cuda_device)
         row2 = cuda.ball_query(xyz1, xyz2, 0.15, ns)
+        oracle = tuple(torch.from_numpy(a).to(cuda_device) for a in reference.ball_query_np(x1, x2, 0.15, ns))
+        assert all(torch.equal(r, o) for r, o in zip(row2, oracle)) and not bool(row2[1][:, 0].any())
         for i16 in (False, True):
             got = cuda.bq_keys(xyz1, xyz2, 0.15, ns, i16)
             want = bq_i16_probe.bq_keys_plain(xyz1, xyz2, 0.15, ns, i16)
-            assert all(torch.equal(g, w) and torch.equal(g, r) for g, w, r in zip(got, want, row2)), (ns, i16)
+            assert all(torch.equal(g, w) and torch.equal(g, r) for g, w, r in zip(got, want, row2)), (n, ns, i16)
+            routes.add(("keys", bq_probes.key_route(xyz1, m, i16)[-1], bq_probes.staged_whole(n)))
         for tm in (128, 256):
-            got = cuda.bq_fat(xyz1, xyz2, 0.15, ns, tm)
             want = bq_fat_probe.bq_fat_plain(xyz1, xyz2, 0.15, ns, tm)
-            assert all(torch.equal(g, w) and torch.equal(g, r) for g, w, r in zip(got, want, row2)), (ns, tm)
-    xyz1 = cloud(2, 2, 4096)
+            routes.add(("fat", bq_probes.fat_route(xyz1, m, tm)[-1], bq_probes.staged_whole(n)))
+            for k in bq_probes.fat_sizes(tm):  # every cluster size the plan chooses from
+                with monkeypatch.context() as patch:
+                    patch.setattr(bq_probes, "fat_plan", lambda *args, k=k: k)
+                    got = cuda.bq_fat(xyz1, xyz2, 0.15, ns, tm)
+                assert all(torch.equal(g, w) and torch.equal(g, r) for g, w, r in zip(got, want, row2)), (n, ns, tm, k)
+    for kernel, bulk in (("keys", "bulk"), ("fat", "multicast")):  # each staging route ran, the ring among them
+        assert {(kernel, "cooperative", True), (kernel, bulk, True), (kernel, bulk, False)} <= routes
+    xyz1 = torch.from_numpy(cloud(2, 2, 4096)).to(cuda_device)
     xyz2 = xyz1[:, ::4].contiguous()
     for w, fits in ((1536, True), (512, False)):
         plan = bq_cond_probe.precut_plan(xyz1, xyz2, 0.05, w)
