@@ -63,12 +63,16 @@ non-zero and prints no result):
    1000 with B = 12 (padding warps, the C = 1 route, a cluster of G = 8 with
    four empty groups), N = 8191 (no multiple of C; G = 8 has no route
    there), npoint = 1 and 2, integer coordinates (ties), kNN k = 1, 16 and
-   32 at SA1's grouping (B = 16, 1024 queries, 8192 references). Bounds:
+   32 at SA1's grouping (B = 16, 1024 queries, 8192 references) and k = 32
+   on 20000 references (B = 4: the cloud through the staging ring), the kNN
+   ones also equal to row 3. Bounds:
    row 6's (10 operations a point and step; at the probe shape the device
    ms of each kernel, of row 6, of ``pn2_fps_barrier_chain`` at each
    kernel's route and of the probes' own exchange alone,
    ``pn2_fps_probe_chain``) and row 3's (9
-   operations a pair, ``pn2_knn`` at the same shape beside it). Then the
+   operations a pair, ``pn2_knn`` at the same shape beside it; each kNN row
+   also the device ms of its kernel and of row 3, its plan and its
+   staging). Then the
    four ball-query probe kernels (``ops.cuda.bq_probes``, all in
    ``csrc/bq_probes.cu``), each equal bit for bit to its plain version, at
    the probes' own shapes (B = 8, N = 8192, M = 1024, nsample 32, r = 0.1)
@@ -1340,6 +1344,7 @@ PROBE_KNN = (  # (label, B, queries, references, k, integer coordinates)
     ("SA1 grouping", 16, 1024, 8192, 16, False),
     ("SA1 grouping", 16, 1024, 8192, 32, False),
     ("integer coordinates (ties)", 8, 1000, 1000, 16, True),
+    ("the staging ring", 4, 1024, 20000, 32, False),  # 20 chunks of 1024 references through 4 slots
 )
 PROBE_BQ_EDGE = dict(b=4, n=1001, m=300, nsample=40, radius=0.15)  # integer-grid coordinates (ties)
 PROBE_BQ_RING = dict(b=2, n=20000, m=1024)  # the sweep kernels' ring: 20 chunks of 1024 points, 4 slots
@@ -1782,6 +1787,34 @@ def fps_probe_rows(report: Report, cloud) -> None:
             )
 
 
+def knn_probe_rows(report: Report, cloud) -> None:
+    """``knn_argmin`` and ``knn_tracked`` at ``PROBE_KNN``'s shapes
+    (``cloud(b, n, integer, scale)`` makes them), each equal bit for bit to
+    its plain version and to row 3 (``cuda.knn``); each row gives the device
+    ms (``device_ms``) beside row 3's, the launch plan and how the cloud was
+    staged (the ring at M = 20000)."""
+    for label, b, nq, m, k, integer in PROBE_KNN:
+        refs, queries = cloud(b, m, integer, 8.0), cloud(b, nq, integer, 8.0)
+        row3 = cuda.knn(refs, queries, k)
+        row3_device = device_ms(lambda: cuda.knn(refs, queries, k), "knn")
+        staged = "whole" if cuda_bq_probes.staged_whole(m) else "ring"
+        for name, plain in (("knn_argmin", knn_variant_probe.knn_argmin_plain),
+                            ("knn_tracked", knn_variant_probe.knn_tracked_plain)):
+            fn = getattr(cuda, name)
+            got, want = fn(refs, queries, k), plain(refs, queries, k)
+            report.add(
+                name, b, f"{label} Nq={nq} M={m} k={k}",
+                lambda fn=fn: fn(refs, queries, k), lambda plain=plain: plain(refs, queries, k),
+                *op_bench.work_knn(b, nq, m, k), err=max_abs(got[0], want[0]),
+                match=all(torch.equal(g, w) and torch.equal(g, r) for g, w, r in zip(got, want, row3)),
+                plain_timing=FEW, extra={"pn2_knn_ms": lambda: cuda.knn(refs, queries, k)},
+                info={"plan": dict(zip(("warps", "shared_bytes"), cuda_probes.knn_plan(b, m, nq, k))),
+                      "staging": cuda_bq_probes.staging(refs), "staged": staged,
+                      "device_ms": device_ms(lambda fn=fn: fn(refs, queries, k), name),
+                      "row3_device_ms": row3_device, "case": "probes"},
+            )
+
+
 def probes_phase(seed: int, report: Report) -> dict:
     """Phase 2b: the 14 probe kernels (``ops.cuda.probes``,
     ``ops.cuda.bq_probes``, ``ops.cuda.gather_probes``), each against its
@@ -1799,21 +1832,7 @@ def probes_phase(seed: int, report: Report) -> dict:
         return torch.from_numpy((np.round(x) if integer else x).astype(np.float32)).to(dev)
 
     fps_probe_rows(report, cloud)
-
-    for label, b, nq, m, k, integer in PROBE_KNN:
-        refs, queries = cloud(b, m, integer, 8.0), cloud(b, nq, integer, 8.0)
-        for name, plain in (("knn_argmin", knn_variant_probe.knn_argmin_plain),
-                            ("knn_tracked", knn_variant_probe.knn_tracked_plain)):
-            fn = getattr(cuda, name)
-            got, want = fn(refs, queries, k), plain(refs, queries, k)
-            report.add(
-                name, b, f"{label} Nq={nq} M={m} k={k}",
-                lambda fn=fn: fn(refs, queries, k), lambda plain=plain: plain(refs, queries, k),
-                *op_bench.work_knn(b, nq, m, k), err=max_abs(got[0], want[0]),
-                match=torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), plain_timing=FEW,
-                extra={"pn2_knn_ms": lambda: cuda.knn(refs, queries, k)},
-                info={"warps": cuda_probes.knn_warps(m), "case": "probes"},
-            )
+    knn_probe_rows(report, cloud)
     bq_probe_rows(report)
     torch.cuda.empty_cache()
     gather_probe_rows(report)

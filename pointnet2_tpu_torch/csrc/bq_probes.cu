@@ -51,8 +51,9 @@
 // onto an mbarrier each, all issued at once where the cloud fits, so the
 // warps start on the first chunk while the rest land; a cloud whose chunks
 // are not 16-byte aligned (n % 4 != 0, or an unaligned array) goes by the
-// block's own loads (the launch chooses). No key row is built: a lane holds kV words of keys a
-// query in registers, covering a segment of 32 x kV columns (int32) or 64 x
+// block's own loads (the launch chooses). That staging is probe_stage.cuh's,
+// shared with knn_probes.cu. No key row is built: a lane holds kV words of
+// keys a query in registers, covering a segment of 32 x kV columns (int32) or 64 x
 // kV (int16, two keys a word, the lower column in the low half). Column j's
 // key is j where it is in the ball, else n. A segment's sweep: each lane
 // takes the least of its words (int16: `__vimin3_u16x2`, three words an
@@ -112,6 +113,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "probe_stage.cuh"
 #include "window_bq.cuh"
 
 namespace {
@@ -121,80 +123,15 @@ using pn2_window::dist2;
 using pn2_window::kFull;
 using pn2_window::kMaxSharedWindow;
 using pn2_window::kMaxSlots;
+using pn2_stage::kChunkPoints;
 
 constexpr int kMaxShared = 232448;  // H100: 227 KB of dynamic shared memory a block
 
 // ---- pn2_bq_keys and pn2_bq_fat: key sweeps in registers over a staged cloud ----
 
-constexpr int kPointBytes = 12;
-constexpr int kChunkPoints = 1024;  // a staged chunk: 12 KB, 16-byte aligned where the cloud is
-constexpr int kChunkBytes = kChunkPoints * kPointBytes;
-constexpr int kMaxWholeChunks = 18;  // a cloud of up to 18432 points is staged whole (216 KB)
-constexpr int kRingSlots = 4;        // past that, a ring of 4 chunks (48 KB)
 constexpr int kSweepMaxWarps = 16;
 constexpr int kQ = 2;  // queries a warp
 constexpr int kV = 4;  // words of keys a lane
-
-__host__ __device__ inline int sweep_chunks(int n) { return (n + kChunkPoints - 1) / kChunkPoints; }
-
-__host__ __device__ inline int sweep_slots(int n) {
-  return sweep_chunks(n) <= kMaxWholeChunks ? sweep_chunks(n) : kRingSlots;
-}
-
-// The chunk slots, then an mbarrier a slot.
-__host__ __device__ inline size_t sweep_shared_bytes(int n) {
-  return (size_t)sweep_slots(n) * (kChunkBytes + sizeof(uint64_t));
-}
-
-__device__ __forceinline__ uint32_t shared_address(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbarrier_init(uint64_t* bar) {  // one arrival a phase: thread 0's
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(shared_address(bar)), "r"(1) : "memory");
-}
-
-__device__ __forceinline__ void mbarrier_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = shared_address(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// Thread 0's arrival on its block's `bar`, which is told to expect `bytes`
-// (a peer's multicast may complete some of them first: the phase waits for
-// both).
-__device__ __forceinline__ void expect_bytes(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(shared_address(bar)), "r"(bytes)
-               : "memory");
-}
-
-// One TMA bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
-// aligned) from device memory into this block's shared memory, completing on
-// `bar`; with a `mask` of more than one block, into the same place of every
-// block of the cluster in it, each completing on its own `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar,
-                                          uint16_t mask) {
-  if (mask == 1) {
-    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
-                     shared_address(dst)),
-                 "l"(src), "r"(bytes), "r"(shared_address(bar))
-                 : "memory");
-  } else {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster [%0], [%1], %2, [%3], "
-        "%4;" ::"r"(shared_address(dst)),
-        "l"(src), "r"(bytes), "r"(shared_address(bar)), "h"(mask)
-        : "memory");
-  }
-}
 
 struct SweepArgs {
   const float* xyz1;  // (b, n, 3)
@@ -243,9 +180,9 @@ __device__ __forceinline__ void clear_key(unsigned (&w)[kV], unsigned key, unsig
 }
 
 // One body for both entries. A block of warps takes tm / cluster queries of
-// one tile, kQ a warp; the tile's cloud is staged in kChunkPoints-point
-// chunks, whole where it fits (no slot reused) or through a ring of
-// kRingSlots, by bulk copies (one a chunk for the whole cluster, multicast,
+// one tile, kQ a warp; the tile's cloud is staged (probe_stage.cuh) in
+// kChunkPoints-point chunks, whole where it fits (no slot reused) or
+// through a ring of kRingSlots, by bulk copies (one a chunk for the whole cluster, multicast,
 // issued by the blocks in turn) or by the block's own loads. A warp sweeps a
 // chunk a segment at a time: each lane builds kV words of keys a query in
 // registers (column j's key is j where it is in the ball, else n), then every
@@ -257,18 +194,14 @@ __device__ __forceinline__ void clear_key(unsigned (&w)[kV], unsigned key, unsig
 template <bool kI16>
 __device__ __forceinline__ void sweep(const SweepArgs& a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int chunks = sweep_chunks(a.n);
-  const int slots = sweep_slots(a.n);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + (size_t)slots * kChunkBytes);
   const int rank = (int)blockIdx.x % a.cluster;
   const int tile_id = (int)blockIdx.x / a.cluster;
   const int cloud = tile_id / a.tiles;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int q0 = (tile_id - cloud * a.tiles) * a.tm + rank * (a.tm / a.cluster) + warp * kQ;
-  const float* pts = a.xyz1 + (size_t)cloud * a.n * 3;
+  const pn2_stage::Stage stage(smem, a.xyz1 + (size_t)cloud * a.n * 3, a.n, a.bulk, rank, a.cluster);
   const unsigned sent = (unsigned)a.n;
-  const uint16_t mask = (uint16_t)((1u << a.cluster) - 1u);
   const bool cluster_wide = a.bulk && a.cluster > 1;
 
   float qx[kQ], qy[kQ], qz[kQ];
@@ -285,19 +218,6 @@ __device__ __forceinline__ void sweep(const SweepArgs& a) {
     first[q] = 0u;
   }
 
-  auto chunk_len = [&](int c) { return min(kChunkPoints, a.n - c * kChunkPoints); };
-  auto slot = [&](int c) { return reinterpret_cast<float*>(smem + (size_t)(c % slots) * kChunkBytes); };
-  auto issue = [&](int c) {  // thread 0 of every block of the tile
-    const uint32_t bytes = (uint32_t)chunk_len(c) * kPointBytes;
-    expect_bytes(bars + c % slots, bytes);
-    if (c % a.cluster == rank) bulk_load(slot(c), pts + (size_t)c * kChunkPoints * 3, bytes, bars + c % slots, mask);
-  };
-  auto load = [&](int c) {  // the block's own loads, then a barrier
-    const float* src = pts + (size_t)c * kChunkPoints * 3;
-    float* dst = slot(c);
-    for (int i = threadIdx.x; i < chunk_len(c) * 3; i += blockDim.x) dst[i] = src[i];
-    __syncthreads();
-  };
   auto sync_tile = [&]() {  // every block of the tile is past a chunk
     if (cluster_wide) {
       cg::this_cluster().sync();
@@ -305,28 +225,16 @@ __device__ __forceinline__ void sweep(const SweepArgs& a) {
       __syncthreads();
     }
   };
-
-  if (a.bulk) {
-    if (threadIdx.x == 0) {
-      for (int s = 0; s < slots; ++s) mbarrier_init(bars + s);
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    }
-    sync_tile();  // every barrier of the cluster is set before any copy lands on one
-    if (threadIdx.x == 0) {
-      for (int c = 0; c < min(slots, chunks); ++c) issue(c);
-    }
-  } else {
-    for (int c = 0; c < min(slots, chunks); ++c) load(c);
-  }
+  stage.begin(sync_tile);
 
   constexpr int kSeg = (kI16 ? 64 : 32) * kV;  // a warp's columns a segment
-  for (int c = 0; c < chunks; ++c) {
-    if (a.bulk) mbarrier_wait(bars + c % slots, (c / slots) & 1);  // every warp: nothing in flight at exit
+  for (int c = 0; c < stage.chunks; ++c) {
+    stage.wait(c);  // every warp: nothing in flight at exit
     bool done = true;
 #pragma unroll
     for (int q = 0; q < kQ; ++q) done = done && picks[q] >= a.nsample;
-    const float* s = slot(c);
-    const int len = chunk_len(c);
+    const float* s = stage.slot(c);
+    const int len = stage.len(c);
     const int c0 = c * kChunkPoints;
     for (int seg = 0; seg < len && !done; seg += kSeg) {
       unsigned key[kQ][kV];
@@ -386,14 +294,7 @@ __device__ __forceinline__ void sweep(const SweepArgs& a) {
         }
       }
     }
-    if (c + slots < chunks) {  // the ring: refill this chunk's slot once the whole tile is past it
-      sync_tile();
-      if (a.bulk) {
-        if (threadIdx.x == 0) issue(c + slots);
-      } else {
-        load(c + slots);
-      }
-    }
+    stage.refill(c, sync_tile);
   }
   if (cluster_wide) cg::this_cluster().sync();  // no block leaves before its peers' copies are done
 
@@ -435,7 +336,7 @@ cudaLaunchConfig_t sweep_config(cudaLaunchAttribute* attr, int blocks, int clust
 // Checks a sweep launch's shape; sets the kernel's shared memory past 48 KB.
 cudaError_t sweep_prepare(SweepKernel kernel, int b, int n, int m, int nsample, int tm, int cluster,
                           size_t* smem) {
-  *smem = sweep_shared_bytes(n);
+  *smem = pn2_stage::stage_shared_bytes(n);
   if (b < 1 || b > 65535 || n < 1 || m < 1 || nsample < 1 || tm < 1 ||
       (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) || tm % (cluster * kQ) ||
       tm / (cluster * kQ) > kSweepMaxWarps || *smem > (size_t)kMaxShared ||

@@ -17,14 +17,16 @@
   runs that exchange alone, for timing (``csrc/fps_probes.cu``'s header).
 - ``knn_argmin`` replaces ``tools/knn_variant_probe.py:32``
   (``_knn_kernel_v1``), ``knn_tracked`` ``:95`` (``_knn_kernel_v3``): exact
-  kNN by k whole-row passes. Plain versions:
+  kNN, each query's distances swept in registers a segment at a time over a
+  cloud each block stages (as ``bq_probes``' sweeps do) and merged into a
+  running top-k by v1's passes (a min, then the lowest column holding it) or
+  v3's (one (value, column) reduction); ``knn_plan``. Plain versions:
   ``tools.knn_variant_probe.knn_argmin_plain`` / ``knn_tracked_plain``.
 
 Each takes float32 CUDA tensors only, counts its launches in ``LAUNCHES``
 (``fps_remask``, ``fps_packed``, ``knn_argmin``, ``knn_tracked``) and raises
-on a shape its kernel does not take. The kNN kernels keep a block's
-references and a row of M floats a warp in shared memory: k <= 32 and M <=
-``MAX_M`` = 14528.
+on a shape its kernel does not take. The kNN kernels take k <= 32 (a pick a
+lane) and any M within int32 indexing.
 """
 
 from __future__ import annotations
@@ -37,13 +39,11 @@ import torch
 from pointnet2_tpu_torch.ops.cuda import build
 from pointnet2_tpu_torch.ops.cuda import fps as cuda_fps
 from pointnet2_tpu_torch.ops.cuda.ballquery import MAX_SHARED_BYTES
+from pointnet2_tpu_torch.ops.cuda.bq_probes import sweep_shared_bytes
 from pointnet2_tpu_torch.ops.cuda.common import INT, PTR, launch, require, require_int32_range, stream_of
 
 GROUPS = (2, 4, 8)  # clouds a cluster of the packed kernel (its C entry takes 1 as well)
 MAX_K = 32  # a pick a lane
-MAX_WARPS = 8
-QUERIES_PER_WARP = 4  # a block takes warps x this many queries
-MAX_M = MAX_SHARED_BYTES // 16  # the references and one warp's row: (3 + 1) x M floats
 
 
 def fps_remask(xyz: torch.Tensor, npoint: int, remask: bool) -> torch.Tensor:
@@ -172,13 +172,23 @@ def probe_chain(clusters: int, npoint: int, g: int, route: tuple[int, int, int],
                 "fps probe chain")
 
 
-def knn_warps(m: int) -> int:
-    """Warps a block of the kNN probe kernels: up to ``MAX_WARPS``, as many
-    as have room for their rows beside the references; raises past ``MAX_M``."""
-    warps = min(MAX_WARPS, MAX_SHARED_BYTES // (4 * m) - 3)
-    if warps < 1:
-        raise ValueError(f"the kNN probe kernels take M <= {MAX_M} (a row in shared memory), got M={m}")
-    return warps
+def knn_plan(b: int, m: int, nq: int, k: int) -> tuple[int, int]:
+    """``(warps a block, shared bytes)`` of the kNN probe kernels for ``b``
+    clouds of ``m`` references and ``nq`` queries. The bytes are the staged
+    cloud's (``bq_probes.sweep_shared_bytes``: whole up to 18432 points,
+    else a ring of 4 chunks); the warps, 4 queries each, 16 where those
+    bytes leave room for two blocks an SM at most (M > 6144), else 8. On
+    the H100 16 warps took 0.88 / 0.87 of the time of 8 at SA1 (M = 8192,
+    k = 32) and 1.02 / 1.04 at the probe shape (M = 1024, k = 3), argmin /
+    tracked (PERF.md §6).
+    Raises on k > 32, k > M, B > 65535 or an empty input."""
+    if not 0 < k <= min(m, MAX_K) or not 0 < b <= 65535 or nq == 0:
+        raise ValueError(
+            f"the kNN probe kernels need 0 < k <= min(M, {MAX_K}), 1 <= B <= 65535 and queries, "
+            f"got k={k}, M={m}, B={b}, Nq={nq}"
+        )
+    shared = sweep_shared_bytes(m)
+    return (16 if 3 * shared > MAX_SHARED_BYTES else 8), shared
 
 
 def _knn(kernel: str, symbol: str, xyz1: torch.Tensor, xyz2: torch.Tensor, k: int):
@@ -186,21 +196,16 @@ def _knn(kernel: str, symbol: str, xyz1: torch.Tensor, xyz2: torch.Tensor, k: in
     b, m, _ = xyz1.shape
     require(xyz2, "xyz2", torch.float32, (b, None, 3))
     nq = xyz2.shape[1]
-    if not 0 < k <= min(m, MAX_K) or not 0 < b <= 65535 or nq == 0:
-        raise ValueError(
-            f"{kernel} needs 0 < k <= min(M, {MAX_K}), 1 <= B <= 65535 and queries, got k={k}, M={m}, B={b}, Nq={nq}"
-        )
+    warps, _ = knn_plan(b, m, nq, k)
     require_int32_range(kernel, b, nq, k)
     require_int32_range(kernel, b, m, 3)
-    warps = knn_warps(m)
     dist = torch.empty((b, nq, k), dtype=torch.float32, device=xyz1.device)
     idx = torch.empty((b, nq, k), dtype=torch.int32, device=xyz1.device)
     device, stream = stream_of(xyz1)
     launch(
         kernel, "knn_probes", symbol,
-        [PTR, PTR, INT, INT, INT, INT, INT, INT, PTR, PTR, INT, PTR],
-        xyz1.data_ptr(), xyz2.data_ptr(), b, m, nq, k, warps, warps * QUERIES_PER_WARP,
-        dist.data_ptr(), idx.data_ptr(), device, stream,
+        [PTR, PTR, INT, INT, INT, INT, INT, PTR, PTR, INT, PTR],
+        xyz1.data_ptr(), xyz2.data_ptr(), b, m, nq, k, warps, dist.data_ptr(), idx.data_ptr(), device, stream,
     )
     return dist, idx
 

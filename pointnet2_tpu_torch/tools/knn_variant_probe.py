@@ -1,4 +1,4 @@
-"""Probe: two whole-row formulations of exact kNN against the production kernel.
+"""Probe: two selection-pass formulations of exact kNN against the production kernel.
 
     python -m pointnet2_tpu_torch.tools.knn_variant_probe [--device cpu]
 
@@ -8,13 +8,19 @@ shapes and seed (FP4's 3-NN: 64 clouds, 8192 queries, 1024 references,
 query's whole distance row: v1 a full-width min and argmin per pass, v3 an
 index-tracking (value, index) candidate a lane and one cross-lane pick.
 Here they are ``csrc/knn_probes.cu``'s ``pn2_knn_argmin`` and
-``pn2_knn_tracked`` (``ops.cuda.probes.knn_argmin`` / ``knn_tracked``).
+``pn2_knn_tracked`` (``ops.cuda.probes.knn_argmin`` / ``knn_tracked``),
+which keep each pass's formulation (v1: a min reduction, then one for the
+lowest column holding it; v3: one (value, column) reduction) but build no
+row: each block stages its cloud, each warp sweeps its queries' distances in
+registers a segment at a time and merges each pass into a running top-k.
 The tool prints whether each gives the oracle's indices and distances bit
 for bit (``ops.reference.knn_np`` on the first 2 clouds), then v1, the
 production ``pn2_knn`` (row 3, ``ops.cuda.knn``) and v3 timed by
-``utils.bench.slope_time``, each with its ratio to v1 and the card's name
-and power limit. On the CPU (``--device cpu``) the plain versions run and
-no time is taken. ``main(argv, shapes=...)`` runs another size.
+``utils.bench.slope_time``, each with its ratio to v1, then the three
+kernels' device ms (``utils.bench.device_ms``), v1 / v3 and the launch plan
+(``ops.cuda.probes.knn_plan``), with the card's name and power limit. On
+the CPU (``--device cpu``) the plain versions run and no time is taken.
+``main(argv, shapes=...)`` runs another size.
 
 The plain versions write out the probes' formulations: the whole (B, Nq, M)
 distance row, ``((dx*dx + dy*dy) + dz*dz)`` as the oracle sums it, then k
@@ -32,7 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from pointnet2_tpu_torch.ops import cuda, reference
-from pointnet2_tpu_torch.utils.bench import card_line, require_device, slope_time
+from pointnet2_tpu_torch.ops.cuda import probes as cuda_probes
+from pointnet2_tpu_torch.utils.bench import card_line, device_ms, require_device, slope_time
 
 LANES = 128  # v3's lanes: each pass keeps a candidate for each of 128 columns
 SHAPES = dict(b=64, nq=8192, m=1024, k=3, oracle_clouds=2)
@@ -149,7 +156,13 @@ def main(argv=None, shapes: dict = SHAPES) -> dict:
                   for fn in (knn_argmin, cuda.knn, knn_tracked))
     print(f"B={b} Nq={nq} M={m} k={k}: legacy argmin {t1:.3f} ms | production pn2_knn {t2:.3f} ms ({t1 / t2:.2f}x) | "
           f"index-tracking {t3:.3f} ms ({t1 / t3:.2f}x) | {card}", flush=True)
-    summary.update(times_ms={"v1": t1, "pn2_knn": t2, "v3": t3}, card=card)
+    dev = {name: device_ms(lambda fn=fn: fn(s, t, k), kernel)
+           for name, fn, kernel in (("v1", knn_argmin, "knn_argmin"), ("pn2_knn", cuda.knn, "knn"),
+                                    ("v3", knn_tracked, "knn_tracked"))}
+    plan = dict(zip(("warps", "shared_bytes"), cuda_probes.knn_plan(b, m, nq, k)))
+    print(f"device ms: legacy argmin {dev['v1']:.5f} | production pn2_knn {dev['pn2_knn']:.5f} | index-tracking "
+          f"{dev['v3']:.5f} | v1 / v3 {dev['v1'] / dev['v3']:.3f} | plan {plan} | {card}", flush=True)
+    summary.update(times_ms={"v1": t1, "pn2_knn": t2, "v3": t3}, device_ms=dev, plan=plan, card=card)
     return summary
 
 

@@ -1325,6 +1325,13 @@ def test_device_ms_times_by_events_when_the_profiler_records_no_kernel(cuda_devi
     assert 0.0 < ms < 1e3
 
 
+# (B, Nq, M) of the kNN probe kernels: M = 1000 staged by bulk copies, 1001
+# by the blocks' own loads (12012-byte clouds), 8192 whole, 20000 through
+# the ring; M = 16 takes k = 16 (the list full only at the last column); B
+# = 1; Nq = 700 leaves a short last block.
+KNN_PROBE_CASES = ((3, 700, 1000), (3, 700, 1001), (2, 700, 8192), (2, 700, 20000), (1, 700, 16), (1, 300, 8192))
+
+
 @pytest.mark.parametrize("integer", [False, True], ids=["random", "integer"])
 def test_probe_kernels_equal_their_plain_versions(cuda_device, integer, monkeypatch):
     """The four TPU-probe kernels (``ops.cuda.probes``) against the probe
@@ -1334,9 +1341,10 @@ def test_probe_kernels_equal_their_plain_versions(cuda_device, integer, monkeypa
     of C), npoint = 1 and 2, N = 16384 (clusters of 16), and at N = 8192
     every route ``packed_candidates`` offers (the plan monkeypatched, as
     ``fps_packed_probe --routes`` times them); integer clouds tie across
-    warps, groups and blocks. kNN k up to 32."""
+    warps, groups and blocks. The kNN ones also against row 3 and the
+    oracle, k = 1, 3, 16, 32, at ``KNN_PROBE_CASES``."""
     from pointnet2_tpu_torch.ops import reference
-    from pointnet2_tpu_torch.ops.cuda import probes
+    from pointnet2_tpu_torch.ops.cuda import bq_probes, probes
     from pointnet2_tpu_torch.tools import fps_mask_probe, fps_packed_probe, knn_variant_probe
 
     def cloud(seed, b, n):
@@ -1368,12 +1376,21 @@ def test_probe_kernels_equal_their_plain_versions(cuda_device, integer, monkeypa
                 patch.setattr(probes, "packed_device_plan", lambda *args, r=route: (r[0], *r[1]))
                 got = cuda.fps_packed(xyz, 200, g)
             assert torch.equal(got, want) and torch.equal(got, row6), (g, route)
-    refs, queries = cloud(1, 3, 1000), cloud(2, 3, 700)
-    for k in (1, 3, 16, 32):
-        for name, plain in (("knn_argmin", knn_variant_probe.knn_argmin_plain),
-                            ("knn_tracked", knn_variant_probe.knn_tracked_plain)):
-            got, want = getattr(cuda, name)(refs, queries, k), plain(refs, queries, k)
-            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (name, k)
+    routes = set()
+    for b, nq, m in KNN_PROBE_CASES:
+        refs, queries = cloud(m, b, m), cloud(m + 1, b, nq)
+        routes.add((bq_probes.staging(refs), bq_probes.staged_whole(m)))
+        for k in (1, 3, 16, 32):
+            if k > m:
+                continue
+            row3 = cuda.knn(refs, queries, k)
+            oracle = reference.knn_np(refs.cpu().numpy(), queries.cpu().numpy(), k)
+            assert np.array_equal(row3[0].cpu().numpy(), oracle[0]) and np.array_equal(row3[1].cpu().numpy(), oracle[1])
+            for name, plain in (("knn_argmin", knn_variant_probe.knn_argmin_plain),
+                                ("knn_tracked", knn_variant_probe.knn_tracked_plain)):
+                got, want = getattr(cuda, name)(refs, queries, k), plain(refs, queries, k)
+                assert all(torch.equal(g, w) and torch.equal(g, r) for g, w, r in zip(got, want, row3)), (name, b, nq, m, k)
+    assert routes == {("bulk", True), ("cooperative", True), ("bulk", False)}  # every staging route, the ring among them
 
 
 # (B, N, M, nsample) of the sweep kernels: N = 8192 staged whole by bulk

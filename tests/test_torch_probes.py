@@ -278,15 +278,35 @@ def test_routes_line_times_every_route_and_puts_the_plan_back(monkeypatch):
     assert probes.packed_device_plan is planned
 
 
-def test_knn_probe_limits(monkeypatch):
-    assert probes.knn_warps(1024) == 8  # FP4's 3-NN
-    assert probes.knn_warps(8192) == 4  # SA kNN grouping
-    assert probes.knn_warps(probes.MAX_M) == 1
-    with pytest.raises(ValueError, match="M <= 14528"):
-        probes.knn_warps(probes.MAX_M + 1)
+# (B, M, Nq, k, chunk slots, warps): FP4's 3-NN, SA kNN grouping, the last
+# M that leaves room for three blocks an SM and the first that does not, the
+# old row's limit of 14528 references and one past it, a cloud staged whole
+# to the last of 18 chunks, the ring past that (4 slots, any M), M = k = 16.
+KNN_PLAN_CASES = ((64, 1024, 8192, 3, 1, 8), (16, 8192, 1024, 32, 8, 16), (1, 6144, 8, 3, 6, 8),
+                  (1, 6145, 8, 3, 7, 16), (1, 14528, 8, 32, 15, 16), (1, 14529, 8, 32, 15, 16),
+                  (2, 18432, 8, 32, 18, 16), (4, 20000, 1024, 32, 4, 8), (1, 10**7, 8, 32, 4, 8),
+                  (1, 16, 700, 16, 1, 8))
+
+
+@pytest.mark.parametrize("b, m, nq, k, slots, warps", KNN_PLAN_CASES)
+def test_knn_probe_limits(monkeypatch, b, m, nq, k, slots, warps):
+    """The plan takes any M (the cloud staged whole up to 18 chunks of 1024
+    references, else through a ring of 4), its shared bytes within a block's
+    232448, and 16 warps a block where at most two blocks fit an SM, else 8;
+    it raises on k > 32, k > M, B > 65535 or an empty input, and so does the
+    wrapper before any launch."""
+    assert probes.knn_plan(b, m, nq, k) == (warps, slots * (12 * 1024 + 8))
+    assert slots * (12 * 1024 + 8) <= 232448
+    for bad in ((b, m, nq, 33), (b, k - 1, nq, k), (65536, m, nq, k), (0, m, nq, k), (b, m, 0, k), (b, m, nq, 0)):
+        with pytest.raises(ValueError, match="kNN probe kernels need"):
+            probes.knn_plan(*bad)
     monkeypatch.setattr(probes, "require", lambda *a, **k: None)
-    with pytest.raises(ValueError, match="k <= min"):
-        probes.knn_argmin(torch.rand(1, 64, 3), torch.rand(1, 8, 3), 33)
+    monkeypatch.setattr(probes, "launch", lambda *a: pytest.fail("launched"))
+    for call in (probes.knn_argmin, probes.knn_tracked):
+        with pytest.raises(ValueError, match="k <= min"):
+            call(torch.rand(1, 64, 3), torch.rand(1, 8, 3), 33)
+        with pytest.raises(ValueError, match="k <= min"):
+            call(torch.rand(1, 16, 3), torch.rand(1, 8, 3), 17)
 
 
 @pytest.mark.parametrize("g", [1, 3, 16])
